@@ -1,0 +1,14 @@
+"""datum_tpu_torch — the datum_tpu renderer on PyTorch and CUDA (Hopper).
+
+A second package beside the JAX reference `datum_tpu`, with the same
+module layout: `render/` holds the host side and the frame graph,
+`ops/` the device ops, and every Pallas kernel of the main path becomes
+a hand-written CUDA kernel under `csrc/` (built with nvcc at first use,
+see ops/_kernels.py).  The package imports torch and numpy, never jax;
+from `datum_tpu` it uses only the numpy-only `datum_tpu.math`.
+
+Entry points: `scenes.datumtest_scene` builds the scene,
+`render.frame.render_frame` renders one frame on a given device, and
+`convert.to_torch` moves numpy state (or the JAX package's state) onto
+a device.
+"""

@@ -1,0 +1,175 @@
+// K1: fused visibility raster with attribute/material interpolation.
+//
+// Replaces the Pallas kernel datum_tpu/ops/raster_pallas.py
+// `_raster_shade_kernel` (launched by `raster_shade_pallas`), in its
+// extended form (tangent + material-map planes), without peel and
+// without early-z.
+//
+// What it computes.  For every pixel of a 32 x 128 tile it walks the
+// frame's big-triangle list, then the tile's bin entries, in order.  Per
+// entry: three edge functions e_k = a_k*xn + b_k*yn + c_k from the
+// sign-fixed adjugate rows, the inside test (all e >= 0, s = e0+e1+e2 > 0,
+// valid slot > 0), the depth plane d, and the strict reverse-Z test
+// d > depth && d <= 1.  The last entry that passes wins (ties keep the
+// earlier entry: the test is strict).  After the walk the winner's
+// numerator planes are evaluated once and divided by its s.
+//
+// What bounds it on the H100.  The walk is ~20 f32 operations per
+// (pixel, entry) with coefficients that are uniform across the tile, so
+// it is bound by issue rate, not memory: one frame reads ~E rows of 13
+// floats per tile and writes 22 f32 planes (~190 MB at 1920x1088).
+//
+// What the design does about it.
+//  * One block per tile, 256 threads, 16 pixels per thread (one column,
+//    16 rows).  Entry rows are staged in shared memory in chunks of 64,
+//    so each coefficient load is a broadcast and feeds 16 pixels.
+//  * The per-pixel carry is only (depth, winning triangle id) in
+//    registers, not the 23 planes the TPU kernel carries in VMEM: the
+//    carried planes are, by construction, the winner's values at the
+//    pixel, so evaluating them from the winner's row after the walk is
+//    the same arithmetic on the same inputs (bit-identical), and the
+//    walk does 5x less work per entry.
+//  * The per-triangle 64-float attribute rows are gathered by id in the
+//    epilogue instead of materialising (n_tiles, E, 64) rows.
+//  * Entries are walked sequentially per pixel (never atomics), which
+//    keeps the JAX package's tie order.
+//  * Built with -fmad=false: `a*x + b*y + c` rounds after each operation,
+//    exactly as the plain PyTorch version does, so edge pixels pick the
+//    same winner on the card as on the CPU.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE_H = 32;
+constexpr int TILE_W = 128;
+constexpr int THREADS = 256;
+constexpr int ROWS_PER_THREAD = TILE_H * TILE_W / THREADS;   // 16
+constexpr int CHUNK = 64;          // entries staged per round
+constexpr int WALK_SLOTS = 13;     // row slots the walk reads (0..12)
+constexpr int ROW = 64;            // floats per triangle row
+constexpr int N_PLANES = 22;
+
+__global__ void __launch_bounds__(THREADS)
+raster_shade_kernel(const float* __restrict__ tri_rows,
+                    const int* __restrict__ bins,
+                    const int* __restrict__ counts,
+                    const int* __restrict__ big_ids,
+                    int n_big, int bin_capacity, int tiles_x,
+                    float cx, float cy, int out_h, int out_w,
+                    float* __restrict__ out)
+{
+    __shared__ float s_row[CHUNK][WALK_SLOTS];
+    __shared__ int s_id[CHUNK];
+
+    const int tile = blockIdx.x;
+    const int ty = tile / tiles_x;
+    const int tx = tile - ty * tiles_x;
+    const int col = threadIdx.x % TILE_W;
+    const int row0 = (threadIdx.x / TILE_W) * ROWS_PER_THREAD;
+
+    const float xn = ((float)(tx * TILE_W) + (float)col + 0.5f) * cx - 1.0f;
+    float yn[ROWS_PER_THREAD];
+    float depth[ROWS_PER_THREAD];
+    int win[ROWS_PER_THREAD];
+#pragma unroll
+    for (int p = 0; p < ROWS_PER_THREAD; ++p) {
+        yn[p] = ((float)(ty * TILE_H) + (float)(row0 + p) + 0.5f) * cy - 1.0f;
+        depth[p] = 0.0f;
+        win[p] = -1;
+    }
+
+    const int n_entries = n_big + counts[tile];
+    for (int base = 0; base < n_entries; base += CHUNK) {
+        const int n_here = min(CHUNK, n_entries - base);
+        for (int i = threadIdx.x; i < n_here * WALK_SLOTS; i += THREADS) {
+            const int e = i / WALK_SLOTS;
+            const int k = i - e * WALK_SLOTS;
+            const int g = base + e;
+            const int id = g < n_big ? big_ids[g]
+                                     : bins[(size_t)tile * bin_capacity + (g - n_big)];
+            // invalid entries are zero rows: slot 12 (valid) = 0 never passes
+            s_row[e][k] = id >= 0 ? tri_rows[(size_t)id * ROW + k] : 0.0f;
+            if (k == 0) s_id[e] = id;
+        }
+        __syncthreads();
+        for (int e = 0; e < n_here; ++e) {
+            const float* r = s_row[e];
+            if (!(r[12] > 0.0f)) continue;
+            const float a0 = r[0], b0 = r[1], c0 = r[2];
+            const float a1 = r[3], b1 = r[4], c1 = r[5];
+            const float a2 = r[6], b2 = r[7], c2 = r[8];
+            const float az = r[9], bz = r[10], cz = r[11];
+            const int id = s_id[e];
+            const float ax0 = a0 * xn, ax1 = a1 * xn, ax2 = a2 * xn, axz = az * xn;
+#pragma unroll
+            for (int p = 0; p < ROWS_PER_THREAD; ++p) {
+                const float e0 = (ax0 + b0 * yn[p]) + c0;
+                const float e1 = (ax1 + b1 * yn[p]) + c1;
+                const float e2 = (ax2 + b2 * yn[p]) + c2;
+                const float s = (e0 + e1) + e2;
+                const float d = (axz + bz * yn[p]) + cz;
+                const bool pass = (e0 >= 0.0f) & (e1 >= 0.0f) & (e2 >= 0.0f)
+                                  & (s > 0.0f) & (d > depth[p]) & (d <= 1.0f);
+                depth[p] = pass ? d : depth[p];
+                win[p] = pass ? id : win[p];
+            }
+        }
+        __syncthreads();
+    }
+
+    // epilogue: the winner's planes, ONE perspective divide per pixel
+    const size_t plane = (size_t)out_h * out_w;
+    const int x = tx * TILE_W + col;
+    for (int p = 0; p < ROWS_PER_THREAD; ++p) {
+        const int y = ty * TILE_H + row0 + p;
+        float v[N_PLANES];
+        const int id = win[p];
+        if (id < 0) {
+#pragma unroll
+            for (int j = 0; j < N_PLANES; ++j) v[j] = 0.0f;
+            v[1] = -1.0f;
+        } else {
+            const float* r = tri_rows + (size_t)id * ROW;
+            const float yv = yn[p];
+            auto lin = [&](int o) { return (r[o] * xn + r[o + 1] * yv) + r[o + 2]; };
+            const float s = (lin(0) + lin(3)) + lin(6);
+            const float rcp = 1.0f / (s == 0.0f ? 1.0f : s);
+            v[0] = depth[p];
+            v[1] = (float)id;
+            v[2] = lin(16) * rcp;            // u
+            v[3] = lin(19) * rcp;            // v
+            v[4] = lin(22) * rcp;            // normal xyz
+            v[5] = lin(25) * rcp;
+            v[6] = lin(28) * rcp;
+#pragma unroll
+            for (int j = 0; j < 10; ++j) v[7 + j] = r[34 + j];   // material, mbase, msize
+            v[17] = lin(44) * rcp;           // tangent xyz
+            v[18] = lin(47) * rcp;
+            v[19] = lin(50) * rcp;
+            v[20] = r[53];                   // tangent w
+            v[21] = r[56];                   // absorb
+        }
+        const size_t o = (size_t)y * out_w + x;
+#pragma unroll
+        for (int j = 0; j < N_PLANES; ++j) out[j * plane + o] = v[j];
+    }
+}
+
+}  // namespace
+
+// tri_rows (T, 64) f32; bins (n_tiles, bin_capacity) i32; counts
+// (n_tiles,) i32; big_ids (n_big,) i32; out (22, out_h, out_w) f32 with
+// out_h = tiles_y * 32 and out_w = tiles_x * 128.  cx, cy are 2/width and
+// 2/height of the NDC viewport, rounded to f32 by the caller.
+extern "C" int raster_shade_launch(const float* tri_rows, const int* bins,
+                                   const int* counts, const int* big_ids,
+                                   int n_big, int bin_capacity, int tiles_x,
+                                   int n_tiles, float cx, float cy, int out_h,
+                                   int out_w, float* out, void* stream)
+{
+    raster_shade_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
+        tri_rows, bins, counts, big_ids, n_big, bin_capacity, tiles_x, cx, cy,
+        out_h, out_w, out);
+    return (int)cudaGetLastError();
+}

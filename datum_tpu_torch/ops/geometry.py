@@ -1,0 +1,38 @@
+"""Vertex stage: rigid vertex transform (counterpart of
+datum_tpu/ops/geometry.py::transform_vertices_rigid; skinning waits for
+the slice that enables it)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def transform_vertices_rigid(positions, normals, tangents, vtx_instance,
+                             inst_world, viewproj):
+    """world = M_inst * p; clip = VP * world.
+
+    positions: (V, 3); vtx_instance: (V,) int32; inst_world: (I, 3, 4);
+    viewproj: (4, 4).  Returns clip (V,4), wnormal (V,3), wtangent (V,4),
+    world (V,3)."""
+    V = positions.shape[0]
+    M = inst_world[vtx_instance.long()].reshape(V, 12).T       # (12, V)
+    pT, nT, tT = positions.T, normals.T, tangents.T
+    wx = M[0] * pT[0] + M[1] * pT[1] + M[2] * pT[2] + M[3]
+    wy = M[4] * pT[0] + M[5] * pT[1] + M[6] * pT[2] + M[7]
+    wz = M[8] * pT[0] + M[9] * pT[1] + M[10] * pT[2] + M[11]
+    nx = M[0] * nT[0] + M[1] * nT[1] + M[2] * nT[2]
+    ny = M[4] * nT[0] + M[5] * nT[1] + M[6] * nT[2]
+    nz = M[8] * nT[0] + M[9] * nT[1] + M[10] * nT[2]
+    tx = M[0] * tT[0] + M[1] * tT[1] + M[2] * tT[2]
+    ty = M[4] * tT[0] + M[5] * tT[1] + M[6] * tT[2]
+    tz = M[8] * tT[0] + M[9] * tT[1] + M[10] * tT[2]
+    vp = viewproj
+    clip = torch.stack([vp[0, 0] * wx + vp[0, 1] * wy + vp[0, 2] * wz + vp[0, 3],
+                        vp[1, 0] * wx + vp[1, 1] * wy + vp[1, 2] * wz + vp[1, 3],
+                        vp[2, 0] * wx + vp[2, 1] * wy + vp[2, 2] * wz + vp[2, 3],
+                        vp[3, 0] * wx + vp[3, 1] * wy + vp[3, 2] * wz + vp[3, 3]],
+                       dim=-1)
+    world = torch.stack([wx, wy, wz], dim=-1)
+    wn = torch.stack([nx, ny, nz], dim=-1)
+    wtangent = torch.stack([tx, ty, tz, tT[3]], dim=-1)
+    return clip, wn, wtangent, world

@@ -1,0 +1,198 @@
+"""K1: fused visibility raster + attribute interpolation on the card.
+
+Counterpart of datum_tpu/ops/raster_pallas.py (`raster_shade_pallas`
+with planes_2d=True and the extended tangent/material-map planes; its
+Pallas body `_raster_shade_kernel` becomes csrc/raster_shade.cu).
+
+`raster_shade` builds the per-triangle 64-float attribute rows (the row
+build of `pack_tile_setup_attrs`), then runs the CUDA kernel for CUDA
+tensors (`raster_shade_cuda`) or the plain PyTorch version for CPU
+tensors (`raster_shade_reference`).  The plain version is the contract
+the kernel is held to; nothing on the GPU main path calls it.
+
+Both walk every tile's entries in order — the big list, then the bin —
+keeping per pixel the depth and the id of the last entry that passed
+the strict reverse-Z test, and evaluate the winner's planes once after
+the walk.  The Pallas kernel carries all 23 planes through the walk
+instead; the carried values are the winner's values at the pixel, so
+the two give the same planes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _kernels
+from .common import TILE_H, TILE_W
+from .raster import _untile
+
+ROW = 64              # floats per triangle row
+N_PLANES = 22
+PLANE_NAMES = ("depth", "visf", "u", "v", "nx", "ny", "nz", "cr", "cg", "cb",
+               "em", "met", "rgh", "rfl", "alb", "mbase", "msize", "tanx",
+               "tany", "tanz", "tanw", "absorb")
+# row slot of each plane: (o,) = the numerator plane a*xn + b*yn + c from
+# slots o..o+2, divided by the winner's s after the walk; int = a
+# per-triangle constant slot; depth and visf come from the walk itself
+_PLANE_SLOTS = (None, None, (16,), (19,), (22,), (25,), (28,), 34, 35, 36, 37,
+                38, 39, 40, 41, 42, 43, (44,), (47,), (50,), 53, 56)
+
+
+def tri_attr_rows(setup, tris, uv, normal, tri_material, materials, tangent):
+    """(T, 64) per-triangle rows: [adj*sgn 0-8, zs 9-11, valid 12, id 13
+    (the entry's id, set by the walk), y scissor 14-15 (unused), uv +
+    normal numerator coeffs 16-30, material 34-41, matmap base/size
+    42-43, tangent coeffs 44-52, tangent w 53, absorb 56].
+
+    Interpolated attributes ship as numerator plane coefficients:
+    attr = (X*xn + Y*yn + Z) / s with s = e0+e1+e2."""
+    row16 = setup["row16"]
+    T = row16.shape[0]
+    adj = row16[:, :9].reshape(T, 3, 3)
+
+    def num_coef_batch(vA):
+        """(T, 3, A) vertex attrs -> (T, A*3) numerator coeffs
+        (attr-major): out[t, a, c] = sum_k adj[t, k, c] * vA[t, k, a]."""
+        A = vA.shape[2]
+        prod = vA[:, :, :, None] * adj[:, :, None, :]      # (T, 3, A, 3)
+        return (prod[:, 0] + prod[:, 1] + prod[:, 2]).reshape(T, A * 3)
+
+    t = tris.long()
+    uvn_t = num_coef_batch(torch.cat([uv[t], normal[t]], -1))   # (T, 15)
+    pk = materials.get("packed10")
+    if pk is None:
+        raise ValueError("raster_shade needs materials['packed10'] (the "
+                         "combined material rows RenderContext builds)")
+    rows10 = pk[tri_material.long()]
+    t_v = tangent[t]                                             # (T, 3, 4)
+    zeros = lambda n: torch.zeros((T, n), dtype=row16.dtype, device=row16.device)
+    t_t = torch.cat([num_coef_batch(t_v[..., :3]), t_v[:, 0, 3:4], zeros(2)], -1)
+    return torch.cat([row16, uvn_t, zeros(3), rows10[:, 0:8], rows10[:, 8:10],
+                      t_t, rows10[:, 10:11], zeros(ROW - 57)], -1).contiguous()
+
+
+def _entry_ids(bins, big_ids):
+    """(n_tiles, B+K) entry-id table in walk order (big first)."""
+    return torch.cat([big_ids[None, :].expand(bins.shape[0], big_ids.shape[0]),
+                      bins], dim=1)
+
+
+def _ndc_scale(n: int) -> float:
+    """2/n rounded to f32, as the JAX kernel's weakly-typed constant."""
+    return float(np.float32(2.0 / n))
+
+
+def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height):
+    """Plain PyTorch K1: (22, tiles_y*32, tiles_x*128) f32 planes.  It
+    walks every bin slot: slots past a tile's count hold -1 (`counts`
+    only bounds the kernel's walk)."""
+    dev = rows.device
+    n_tiles = bins.shape[0]
+    ids = _entry_ids(bins, big_ids)
+    tile = torch.arange(n_tiles, device=dev)
+    ty = (tile // tiles_x).to(torch.float32)[:, None, None]
+    tx = (tile % tiles_x).to(torch.float32)[:, None, None]
+    yy = torch.arange(TILE_H, device=dev, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(TILE_W, device=dev, dtype=torch.float32)[None, None, :]
+    yn = (ty * TILE_H + yy + 0.5) * _ndc_scale(height) - 1.0     # (n, 32, 1)
+    xn = (tx * TILE_W + xx + 0.5) * _ndc_scale(width) - 1.0      # (n, 1, 128)
+
+    depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
+    win = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32,
+                     device=dev)
+    # entries beyond a tile's count are -1 in bins: zero rows never pass
+    for k in range(ids.shape[1]):
+        idk = ids[:, k]
+        r = (rows[torch.clamp(idk, min=0).long(), :13]
+             * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
+        e0 = r[:, 0] * xn + r[:, 1] * yn + r[:, 2]
+        e1 = r[:, 3] * xn + r[:, 4] * yn + r[:, 5]
+        e2 = r[:, 6] * xn + r[:, 7] * yn + r[:, 8]
+        s = e0 + e1 + e2
+        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0) & (r[:, 12] > 0)
+        d = r[:, 9] * xn + r[:, 10] * yn + r[:, 11]
+        passed = inside & (d > depth) & (d <= 1.0)
+        depth = torch.where(passed, d, depth)
+        win = torch.where(passed, idk[:, None, None], win)
+
+    has = win >= 0
+    r = rows[torch.clamp(win, min=0).long()]                 # (n, 32, 128, 64)
+
+    def lin(o):
+        return r[..., o] * xn + r[..., o + 1] * yn + r[..., o + 2]
+
+    s = lin(0) + lin(3) + lin(6)
+    rcp = 1.0 / torch.where(s == 0.0, torch.ones_like(s), s)
+    zero = torch.zeros_like(depth)
+    planes = [depth, torch.where(has, win.to(torch.float32), zero - 1.0)]
+    for j in range(2, N_PLANES):
+        slot = _PLANE_SLOTS[j]
+        v = lin(slot[0]) * rcp if isinstance(slot, tuple) else r[..., slot]
+        planes.append(torch.where(has, v, zero))
+    tiles_y = n_tiles // tiles_x
+    return torch.stack([_untile(p, tiles_x, tiles_y) for p in planes])
+
+
+def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
+    """K1 on the card: the same contract as raster_shade_reference."""
+    dev = rows.device
+    n_tiles, cap = bins.shape
+    if dev.type != "cuda":
+        raise ValueError(f"raster_shade_cuda needs CUDA tensors, got {dev}")
+    for name, t, dt, shape in (("rows", rows, torch.float32, (rows.shape[0], ROW)),
+                               ("bins", bins, torch.int32, (n_tiles, cap)),
+                               ("counts", counts, torch.int32, (n_tiles,)),
+                               ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"raster_shade_cuda: {name} must be a contiguous "
+                             f"{dt} {shape} tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if n_tiles % tiles_x:
+        raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
+    out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W
+    out = torch.empty((N_PLANES, out_h, out_w), dtype=torch.float32, device=dev)
+    lib = _kernels.library().lib
+    vp = ctypes.c_void_p
+    code = lib.raster_shade_launch(
+        vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
+        vp(big_ids.data_ptr()), big_ids.shape[0], cap, tiles_x, n_tiles,
+        _ndc_scale(width), _ndc_scale(height), out_h, out_w,
+        vp(out.data_ptr()), vp(_kernels.stream_ptr(dev)))
+    _kernels.check(code, "raster_shade")
+    raster_shade_cuda.launches += 1
+    return out
+
+
+raster_shade_cuda.launches = 0
+
+
+def raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
+                  tri_material, materials, tiles_x, width, height, tangent):
+    """The K1 arguments both versions take, from the frame's tensors."""
+    return dict(rows=tri_attr_rows(setup, tris, uv, normal, tri_material,
+                                   materials, tangent),
+                bins=bins.to(torch.int32).contiguous(),
+                counts=counts.to(torch.int32).contiguous(),
+                big_ids=big_ids.to(torch.int32).contiguous(),
+                tiles_x=tiles_x, width=width, height=height)
+
+
+def raster_shade(setup, bins, big_ids, counts, tris, uv, normal, tri_material,
+                 materials, tiles_x, tiles_y, width, height, *, tangent):
+    """Fused raster + attribute/material interpolation.
+
+    Returns a dict of the 22 (tiles_y*32, tiles_x*128) f32 planes named
+    as raster_shade_pallas(planes_2d=True) with tangent/matmaps names
+    them.  CUDA tensors run the K1 kernel (it raises if it cannot
+    launch); CPU tensors run the plain PyTorch version."""
+    if bins.shape[0] != tiles_x * tiles_y:
+        raise ValueError(f"bins has {bins.shape[0]} rows for "
+                         f"{tiles_x}x{tiles_y} tiles")
+    inp = raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
+                        tri_material, materials, tiles_x, width, height, tangent)
+    fn = raster_shade_cuda if inp["rows"].is_cuda else raster_shade_reference
+    return dict(zip(PLANE_NAMES, fn(**inp).unbind(0)))

@@ -1,0 +1,390 @@
+"""K2: the deferred-shade megakernel on the card.
+
+Counterpart of datum_tpu/ops/shade_pallas.py (`shade_deferred_pallas`;
+its Pallas body `_shade_kernel` becomes csrc/shade.cu).  `shade_deferred`
+builds the params, light, spot and probe tables, rounds the input
+planes to bf16 exactly where the TPU path does (every plane but depth
+and visf, plus ao and the spot factor planes — the rounding is part of
+the contract, not an optimisation), then runs the CUDA kernel for CUDA
+tensors (`shade_deferred_cuda`) or the plain PyTorch version for CPU
+tensors (`shade_deferred_reference`).
+
+Supported: PLANE_NAMES, the sky fill (SKY_NAMES), ao, shadowed spot
+slots (spotsf), SH probes and dense point lights.  The other epilogue
+groups and clustered lights raise NotImplementedError naming the
+ROADMAP slice that brings them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _kernels
+
+PLANE_NAMES = ["depth", "visf", "nx", "ny", "nz", "dr", "dg", "db", "em",
+               "sr", "sg", "sb", "rgh",
+               "esr", "esg", "esb", "eb0", "eb1", "eb2", "sf"]
+SKY_NAMES = ["sky_r", "sky_g", "sky_b"]
+F32_PLANES = ("depth", "visf")
+BF16_NAMES = [n for n in PLANE_NAMES if n not in F32_PLANES]
+
+# epilogue groups of the Pallas kernel that later slices bring
+_LATER = (
+    (("edr", "edg", "edb", "edm"),
+     "box env-probe diffuse override: ROADMAP Queue 1, IBL/skybox environment slice"),
+    (("tr_r", "tr_a", "tr2_a", "tr3_a", "tr4_a"),
+     "lit translucent layers: ROADMAP Queue 1, translucency slice"),
+    (("tr_ox", "tr_oy"),
+     "refraction offsets: ROADMAP Queue 1, translucency slice"),
+    (("fog_r", "fog_t"),
+     "volumetric fog planes: ROADMAP Queue 1, post slice"),
+    (("oit_r", "oit_w", "oit_rev"),
+     "WBOIT resolve: ROADMAP Queue 1, translucency slice"),
+)
+
+INV_PI = 0.3183098861837907
+POINT_CHUNK = 8   # point lights per loop trip (reads past the count clamp)
+
+
+def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
+                 planes_out=False, clusters=None):
+    """Pack the K2 arguments both versions take (see shade_deferred)."""
+    for keys, why in _LATER:
+        if any(k in gplanes for k in keys):
+            raise NotImplementedError(f"shade_deferred: {why}")
+    if clusters is not None:
+        raise NotImplementedError("shade_deferred: clustered point lights: "
+                                  "ROADMAP Queue 1, clustered-lights item")
+    if planes_out:
+        raise NotImplementedError("shade_deferred: planes_out is the lit "
+                                  "translucent layer's: ROADMAP Queue 1, "
+                                  "translucency slice")
+    depth = gplanes["depth"]
+    dev = depth.device
+    H, W = depth.shape
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    ml = sceneset["mainlight"]
+    cam = sceneset["camera"]
+    iv = invview
+    params = torch.zeros(64, **f32)
+    params[0] = 1.0 / proj[0, 0]
+    params[1] = 1.0 / proj[1, 1]
+    params[2] = proj[2, 2]
+    params[3] = proj[2, 3]
+    params[4:16] = iv[:3, :4].reshape(-1)
+    params[16:19] = -ml["direction"]
+    params[19:22] = ml["intensity"]
+    params[22] = ml["cutoff"]
+    params[23] = cam["ambientintensity"]
+    params[24] = cam["exposure"]
+    params[25] = cam["specularintensity"]
+    params[26] = 0.0                      # first row (tile bands: later)
+    params[27:54] = sceneset["_sh"].reshape(-1)
+
+    pl_ = sceneset["pointlights"]
+    L = pl_["position"].shape[0]
+    lights = torch.cat([pl_["position"], pl_["intensity"], pl_["attenuation"],
+                        torch.zeros((L, 6), **f32)], 1).contiguous()
+    sl = sceneset["spotlights"]
+    S = sl["position"].shape[0]
+    spots = torch.cat([sl["position"], sl["intensity"], sl["attenuation"],
+                       sl["direction"], sl["cutoff"][:, None],
+                       torch.zeros((S, 2), **f32)], 1).contiguous()
+    pr = sceneset["probes"]
+    N = pr["position"].shape[0]
+    probes = torch.cat([pr["position"], pr["sh"].reshape(N, 27),
+                        torch.zeros((N, 1), **f32)], 1).contiguous()
+    i32 = lambda v: torch.as_tensor(v, dtype=torch.int32, device=dev).reshape(())
+    counts = torch.stack([torch.clamp(i32(pl_["count"]), max=L),
+                          torch.clamp(i32(sl["count"]), max=S),
+                          i32(0), i32(pr["count"])])
+
+    names = BF16_NAMES + (SKY_NAMES if "sky_r" in gplanes else [])
+    bf16 = lambda x: x.to(torch.bfloat16).contiguous()
+    return dict(
+        f32_planes=torch.stack([gplanes["depth"], gplanes["visf"]]).contiguous(),
+        planes=bf16(torch.stack([gplanes[k] for k in names])),
+        has_sky="sky_r" in gplanes,
+        ao=None if ao is None else bf16(ao),
+        spotsf=None if spotsf is None else bf16(spotsf),
+        params=params, lights=lights, spots=spots, probes=probes,
+        counts=counts)
+
+
+def _dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _normalize3(a):
+    inv = torch.rsqrt(torch.clamp(_dot3(a, a), min=1e-12))
+    return (a[0] * inv, a[1] * inv, a[2] * inv)
+
+
+def _sat(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def _pow5(x):
+    x2 = x * x
+    return x2 * x2 * x
+
+
+def _angles(nrm, eye, lv):
+    hv = _normalize3((lv[0] + eye[0], lv[1] + eye[1], lv[2] + eye[2]))
+    return (torch.clamp(_dot3(nrm, eye), min=0.0),
+            torch.clamp(_dot3(nrm, lv), min=0.0),
+            torch.clamp(_dot3(nrm, hv), min=0.0), _sat(_dot3(lv, hv)))
+
+
+def _disney(ndv, ndl, ldh, alpha):
+    bias = 0.5 * alpha
+    factor = 1.0 + alpha * (1.0 / 1.51 - 1.0)
+    f90 = bias + 2.0 * ldh * ldh * alpha
+    ls = 1.0 + (f90 - 1.0) * _pow5(_sat(1.0 - ndl))
+    vs = 1.0 + (f90 - 1.0) * _pow5(_sat(1.0 - ndv))
+    return ls * vs * factor
+
+
+def _spec_ggx(spec, ndv, ndl, ldh, ndh, alpha):
+    fc = _pow5(_sat(1.0 - ldh))
+    f = tuple(s + (1.0 - s) * fc for s in spec)
+    k = alpha * 0.5
+    gv = ndv * (1 - k) + k
+    gl = ndl * (1 - k) + k
+    vis = 0.25 / (gv * gl + 1e-5)
+    a2 = alpha * alpha
+    d = (ndh * a2 - ndh) * ndh + 1.0
+    dist = a2 / (d * d)
+    return tuple(fi * (vis * dist) for fi in f)
+
+
+def _eval_light(wp, nrm, eye, spec, alpha, row):
+    """One point light; row = (16,) [pos, intensity, attenuation, ...]."""
+    tolight = (row[0] - wp[0], row[1] - wp[1], row[2] - wp[2])
+    d2 = torch.clamp(_dot3(tolight, tolight), min=1e-12)
+    inv_d = torch.rsqrt(d2)
+    dist = d2 * inv_d
+    lv = (tolight[0] * inv_d, tolight[1] * inv_d, tolight[2] * inv_d)
+    ndv, ndl, ndh, ldh = _angles(nrm, eye, lv)
+    fd = _disney(ndv, ndl, ldh, alpha) * INV_PI
+    fr = _spec_ggx(spec, ndv, ndl, ldh, ndh, alpha)
+    att = 1.0 / torch.clamp(row[8] + row[7] * dist + row[6] * d2, min=1e-9)
+    dr2 = d2 / torch.clamp(row[9] * row[9], min=1e-12)
+    fall = _sat(1.0 - dr2 * dr2)
+    w = ndl * att * (fall * fall)
+    dif = tuple(w * fd * row[3 + c] for c in range(3))
+    spc = tuple(w * INV_PI * fr[c] * row[3 + c] for c in range(3))
+    return dif, spc, lv
+
+
+def _sh_basis(x, y, z):
+    return (0.886227, 1.023326 * y, 1.023326 * z, 1.023326 * x,
+            0.858086 * x * y, 0.858086 * y * z,
+            0.247708 * (3 * z * z - 1.0), 0.858086 * z * x,
+            0.429043 * (x * x - y * y))
+
+
+def shade_deferred_reference(f32_planes, planes, has_sky, ao, spotsf, params,
+                             lights, spots, probes, counts):
+    """Plain PyTorch K2: (3, H, W) f32 HDR planes (the kernel's math,
+    operation for operation)."""
+    P = params
+    dev = P.device
+    _, H, W = f32_planes.shape
+    g = dict(zip(BF16_NAMES + (SKY_NAMES if has_sky else []),
+                 planes.to(torch.float32).unbind(0)))
+    depth, visf = f32_planes[0], f32_planes[1]
+    mask = visf >= 0.0
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    yn = (P[26] + yy + 0.5) * float(np.float32(2.0 / H)) - 1.0
+    xn = (xx + 0.5) * float(np.float32(2.0 / W)) - 1.0
+
+    denom = depth + P[2]
+    eps = torch.where(denom < 0, torch.full_like(denom, -1e-7),
+                      torch.full_like(denom, 1e-7))
+    denom = torch.where(torch.abs(denom) < 1e-7, eps, denom)
+    dist = P[3] / denom
+    vx = P[0] * xn * dist
+    vy = P[1] * yn * dist
+    vz = -dist
+    wp = (P[4] * vx + P[5] * vy + P[6] * vz + P[7],
+          P[8] * vx + P[9] * vy + P[10] * vz + P[11],
+          P[12] * vx + P[13] * vy + P[14] * vz + P[15])
+    eye = _normalize3((P[7] - wp[0], P[11] - wp[1], P[15] - wp[2]))
+
+    nrm = _normalize3((g["nx"], g["ny"], g["nz"]))
+    dcol = (g["dr"], g["dg"], g["db"])
+    scol = (g["sr"], g["sg"], g["sb"])
+    rough = g["rgh"]
+    alpha = rough * rough
+    espec = (g["esr"], g["esg"], g["esb"])
+    eb0, eb1, eb2 = g["eb0"], g["eb1"], g["eb2"]
+
+    ambient = P[23]
+    if ao is not None:
+        ambient = ambient * ao.to(torch.float32)
+    ndv_s = _dot3(nrm, eye)
+    fdd = _sat(((ndv_s * (1.02341 * rough - 1.51174))
+                + (-0.511705 * rough + 0.755868)) * rough)
+    ddir = _normalize3(tuple(n + (e - n) * fdd for n, e in zip(nrm, eye)))
+    basis = _sh_basis(*ddir)
+    env = []
+    for c in range(3):
+        acc = basis[0] * P[27 + c]
+        for k in range(1, 9):
+            acc = acc + basis[k] * P[27 + 3 * k + c]
+        env.append(torch.clamp(acc, min=0.0) * INV_PI)
+
+    n_probe = min(int(counts[3]), probes.shape[0])
+    if probes.shape[0] > 0:
+        pb = _sh_basis(*nrm)
+        total_w = torch.ones_like(depth)
+        for pi in range(n_probe):
+            q = probes[pi]
+            dx, dy, dz = q[0] - wp[0], q[1] - wp[1], q[2] - wp[2]
+            pd = torch.sqrt(dx * dx + dy * dy + dz * dz)
+            drr = pd / torch.clamp(q[3], min=1e-6)
+            dr2 = drr * drr
+            att = _sat(1.0 - dr2 * dr2)
+            att = att * att
+            for c in range(3):
+                irr = pb[0] * q[4 + c]
+                for k in range(1, 9):
+                    irr = irr + pb[k] * q[4 + 3 * k + c]
+                env[c] = env[c] + torch.clamp(irr, min=0.0) * att
+            total_w = total_w + att
+        inv_tw = 1.0 / total_w
+        env = [e * inv_tw for e in env]
+
+    dif = [e * eb2 * ambient for e in env]
+    spc = [es * (sc * eb0 + 0.8 * eb1) * ambient * P[25]
+           for es, sc in zip(espec, scol)]
+
+    # sun: shadow-factor plane + bent light vector
+    sf = g["sf"]
+    ldir = (P[16], P[17], P[18])
+    d2e = 2.0 * _dot3(nrm, eye)
+    r_ = tuple(n * d2e + e * -1.0 for n, e in zip(nrm, eye))
+    ldr = _dot3(ldir, r_)
+    bent = tuple(l + (r - l) * rough for l, r in zip(ldir, r_))
+    use_bent = ldr >= P[22]
+    lv = _normalize3(tuple(torch.where(use_bent, b, l.expand_as(b))
+                           for b, l in zip(bent, ldir)))
+    ndv, ndl, ndh, ldh = _angles(nrm, eye, lv)
+    fd = _disney(ndv, ndl, ldh, alpha) * INV_PI
+    fr = _spec_ggx(scol, ndv, ndl, ldh, ndh, alpha)
+    wsun = ndl * sf
+    for c in range(3):
+        dif[c] = dif[c] + wsun * fd * P[19 + c]
+        spc[c] = spc[c] + wsun * INV_PI * fr[c] * P[19 + c]
+
+    # dense point lights in chunks (clamped reads, `on` mask)
+    n_point = int(counts[0])
+    L = lights.shape[0]
+    nchunks = (n_point + POINT_CHUNK - 1) // POINT_CHUNK
+    for idx in range(nchunks * POINT_CHUNK):
+        on = 1.0 if idx < n_point else 0.0
+        d_i, s_i, _ = _eval_light(wp, nrm, eye, scol, alpha,
+                                  lights[min(idx, L - 1)])
+        for c in range(3):
+            dif[c] = dif[c] + on * d_i[c]
+            spc[c] = spc[c] + on * s_i[c]
+
+    # spots: shadowed slots (factor planes), then the unshadowed rest
+    n_spot = int(counts[1])
+    S = spots.shape[0]
+    n_maps = 0 if spotsf is None else spotsf.shape[0]
+    for m in range(n_maps + max(n_spot - n_maps, 0)):
+        row = spots[min(m, S - 1)]
+        shadow = spotsf[m].to(torch.float32) if m < n_maps else 1.0
+        d_i, s_i, lv2 = _eval_light(wp, nrm, eye, scol, alpha, row)
+        cone = _sat((-_dot3((row[10], row[11], row[12]), lv2) - row[13]) * 20.0)
+        on = (1.0 if m < n_spot else 0.0) * cone * shadow
+        for c in range(3):
+            dif[c] = dif[c] + on * d_i[c]
+            spc[c] = spc[c] + on * s_i[c]
+
+    exposure = P[24]
+    em = g["em"]
+    em_term = 128.0 * em * em * em
+    zero = torch.zeros_like(depth)
+    out = []
+    for c, ch in enumerate("rgb"):
+        col = dcol[c] * (dif[c] + em_term) + spc[c]
+        col = torch.where(mask, col * exposure, zero)
+        if has_sky:
+            col = torch.where(mask, col, g[f"sky_{ch}"] * exposure)
+        out.append(col)
+    return torch.stack(out)
+
+
+def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
+                        lights, spots, probes, counts):
+    """K2 on the card: the same contract as shade_deferred_reference."""
+    dev = f32_planes.device
+    if dev.type != "cuda":
+        raise ValueError(f"shade_deferred_cuda needs CUDA tensors, got {dev}")
+    _, H, W = f32_planes.shape
+    nb = len(BF16_NAMES) + (len(SKY_NAMES) if has_sky else 0)
+    n_maps = 0 if spotsf is None else spotsf.shape[0]
+    checks = [("f32_planes", f32_planes, torch.float32, (2, H, W)),
+              ("planes", planes, torch.bfloat16, (nb, H, W)),
+              ("params", params, torch.float32, (64,)),
+              ("lights", lights, torch.float32, (lights.shape[0], 16)),
+              ("spots", spots, torch.float32, (spots.shape[0], 16)),
+              ("probes", probes, torch.float32, (probes.shape[0], 32)),
+              ("counts", counts, torch.int32, (4,))]
+    if ao is not None:
+        checks.append(("ao", ao, torch.bfloat16, (H, W)))
+    if spotsf is not None:
+        checks.append(("spotsf", spotsf, torch.bfloat16, (n_maps, H, W)))
+    for name, t, dt, shape in checks:
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"shade_deferred_cuda: {name} must be a contiguous "
+                             f"{dt} {shape} tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if lights.shape[0] < 1 or spots.shape[0] < 1:
+        raise ValueError("shade_deferred_cuda: light and spot tables need a row")
+    kl = _kernels.library()
+    smem = kl.lib.shade_smem_bytes(lights.shape[0], spots.shape[0],
+                                   probes.shape[0])
+    if smem > 48 * 1024:
+        raise ValueError(f"shade_deferred_cuda: tables need {smem} B of shared "
+                         "memory (> 48 KB)")
+    out = torch.empty((3, H, W), dtype=torch.float32, device=dev)
+    vp = ctypes.c_void_p
+    ptr = lambda t: vp(None if t is None else t.data_ptr())
+    code = kl.lib.shade_launch(
+        ptr(f32_planes), ptr(planes), int(has_sky), ptr(ao), ptr(spotsf), n_maps,
+        ptr(params), ptr(lights), lights.shape[0], ptr(spots), spots.shape[0],
+        ptr(probes), probes.shape[0], ptr(counts), POINT_CHUNK, H, W,
+        float(np.float32(2.0 / W)), float(np.float32(2.0 / H)),
+        ptr(out), vp(_kernels.stream_ptr(dev)))
+    _kernels.check(code, "shade_deferred")
+    shade_deferred_cuda.launches += 1
+    return out
+
+
+shade_deferred_cuda.launches = 0
+
+
+def shade_deferred(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
+                   planes_out=False, clusters=None):
+    """Deferred shade of the opaque layer.
+
+    gplanes: dict of (H, W) f32 planes PLANE_NAMES [+ SKY_NAMES]; ao:
+    optional (H, W) ambient multiplier; spotsf: optional (n_maps, H, W)
+    spot factors; sceneset carries "_sh" (9, 3).  Returns hdr (H, W, 3).
+    CUDA tensors run the K2 kernel (it raises if it cannot launch); CPU
+    tensors run the plain PyTorch version."""
+    inp = shade_inputs(gplanes, sceneset, proj=proj, invview=invview, ao=ao,
+                       spotsf=spotsf, planes_out=planes_out, clusters=clusters)
+    fn = (shade_deferred_cuda if inp["f32_planes"].is_cuda
+          else shade_deferred_reference)
+    return fn(**inp).permute(1, 2, 0)

@@ -1,0 +1,262 @@
+"""RenderContext: persistent pools + device state (counterpart of
+datum_tpu/render/context.py, the host side the opaque slice needs).
+
+The geometry pool, the material and texture tables, the material-map
+mip table (`_rebuild_matmaps`, with the `packed10` per-material rows)
+and the fitted colour-grading polynomial are numpy, as in the JAX
+package; `device_state(device)` returns them as torch tensors on
+`device`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..convert import to_torch
+from ..ops.common import FrameConfig
+
+TEX_SIZE = 256
+MAX_MATERIALS = 256
+MAX_TEXTURES = 64
+# a grading LUT grades through its fitted polynomial when the fit's max
+# error is within this (~2/255)
+LUT_POLY_TOL = 0.008
+
+# fixed texture ids
+TEX_WHITE = 0
+TEX_FLAT_NORMAL = 1
+TEX_UNIT_SURFACE = 2
+
+
+class MeshHandle:
+    __slots__ = ("mesh_id", "vertexcount", "trianglecount", "mincorner", "maxcorner")
+
+    def __init__(self, mesh_id, vertexcount, trianglecount, mincorner, maxcorner):
+        self.mesh_id = mesh_id
+        self.vertexcount = vertexcount
+        self.trianglecount = trianglecount
+        self.mincorner = np.asarray(mincorner, np.float32)
+        self.maxcorner = np.asarray(maxcorner, np.float32)
+
+
+def _to_rgba_u8(image):
+    """Promote any image (float [0,1] or u8; gray/RGB/RGBA) to RGBA u8."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    if img.ndim == 2:
+        img = np.stack([img] * 3 + [np.full_like(img, 255)], -1)
+    if img.shape[2] == 3:
+        img = np.concatenate(
+            [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+    return img
+
+
+def _resample_nearest(img, size):
+    h, w = img.shape[:2]
+    if (h, w) == (size, size):
+        return img
+    yi = (np.arange(size) * h // size).clip(0, h - 1)
+    xi = (np.arange(size) * w // size).clip(0, w - 1)
+    return img[yi][:, xi]
+
+
+class GeometryPool:
+    """Append-only host mirror of the device geometry pool."""
+
+    def __init__(self, max_vertices, max_triangles, max_meshes=1024):
+        self.positions = np.zeros((max_vertices, 3), np.float32)
+        self.texcoords = np.zeros((max_vertices, 2), np.float32)
+        self.normals = np.zeros((max_vertices, 3), np.float32)
+        self.tangents = np.zeros((max_vertices, 4), np.float32)
+        self.bone_idx = np.zeros((max_vertices, 4), np.int32)
+        self.bone_wt = np.zeros((max_vertices, 4), np.float32)
+        self.bone_wt[:, 0] = 1.0          # default: bone 0 (identity)
+        self.morph = np.zeros((max_vertices, 6), np.float32)
+        self.triangles = np.zeros((max_triangles, 3), np.int32)
+        self.mesh_vtx_offset = np.zeros(max_meshes, np.int32)
+        self.mesh_vtx_count = np.zeros(max_meshes, np.int32)
+        self.mesh_tri_offset = np.zeros(max_meshes, np.int32)
+        self.mesh_tri_count = np.zeros(max_meshes, np.int32)
+        self.n_vertices = 0
+        self.n_triangles = 0
+        self.n_meshes = 0
+
+    def add_mesh(self, vertices, indices) -> MeshHandle:
+        """vertices: dict of arrays (position, texcoord, normal, tangent);
+        indices: (K,) or (K/3, 3) mesh-local triangle indices."""
+        pos = np.asarray(vertices["position"], np.float32)
+        uv = np.asarray(vertices.get("texcoord", np.zeros((len(pos), 2))), np.float32)
+        nrm = np.asarray(vertices.get("normal", np.tile([0, 0, 1.0], (len(pos), 1))), np.float32)
+        tan = np.asarray(vertices.get("tangent", np.tile([1.0, 0, 0, 1], (len(pos), 1))), np.float32)
+        tris = np.asarray(indices, np.int32).reshape(-1, 3)
+        nv, nt = len(pos), len(tris)
+        v0, t0 = self.n_vertices, self.n_triangles
+        if v0 + nv > len(self.positions) or t0 + nt > len(self.triangles):
+            raise RuntimeError("geometry pool exhausted")
+        self.positions[v0:v0 + nv] = pos
+        self.texcoords[v0:v0 + nv] = uv
+        self.normals[v0:v0 + nv] = nrm
+        self.tangents[v0:v0 + nv] = tan
+        self.triangles[t0:t0 + nt] = tris + v0     # pool-global vertex ids
+        m = self.n_meshes
+        self.mesh_vtx_offset[m] = v0
+        self.mesh_vtx_count[m] = nv
+        self.mesh_tri_offset[m] = t0
+        self.mesh_tri_count[m] = nt
+        self.n_vertices += nv
+        self.n_triangles += nt
+        self.n_meshes += 1
+        return MeshHandle(m, nv, nt, pos.min(0), pos.max(0))
+
+    def host_arrays(self):
+        """The device geometry arrays, as numpy (attr12 = position, uv,
+        normal, tangent rows: one gather per vertex)."""
+        return dict(
+            positions=self.positions, texcoords=self.texcoords,
+            normals=self.normals, tangents=self.tangents,
+            attr12=np.concatenate([self.positions, self.texcoords,
+                                   self.normals, self.tangents], axis=1),
+            bone_idx=self.bone_idx, bone_wt=self.bone_wt, morph6=self.morph,
+            triangles=self.triangles,
+            mesh_vtx_offset=self.mesh_vtx_offset,
+            mesh_vtx_count=self.mesh_vtx_count,
+            mesh_tri_offset=self.mesh_tri_offset,
+            mesh_tri_count=self.mesh_tri_count,
+        )
+
+
+class RenderContext:
+    """Owns the pools; `device_state(device)` uploads them."""
+
+    def __init__(self, config: FrameConfig | None = None):
+        max_materials, max_textures = MAX_MATERIALS, MAX_TEXTURES
+        self.config = config or FrameConfig()
+        cfg = self.config
+        self.pool = GeometryPool(cfg.max_vertices, cfg.max_triangles)
+
+        self.mat_color = np.zeros((max_materials, 4), np.float32)
+        self.mat_metalness = np.zeros(max_materials, np.float32)
+        self.mat_roughness = np.ones(max_materials, np.float32)
+        self.mat_reflectivity = np.full(max_materials, 0.5, np.float32)
+        self.mat_emissive = np.zeros(max_materials, np.float32)
+        self.mat_absorb = np.zeros(max_materials, np.float32)
+        self.mat_albedomap = np.zeros(max_materials, np.int32)
+        self.mat_surfacemap = np.full(max_materials, TEX_UNIT_SURFACE, np.int32)
+        self.mat_normalmap = np.full(max_materials, TEX_FLAT_NORMAL, np.int32)
+        self.n_materials = 0
+
+        self.textures = np.zeros((max_textures, TEX_SIZE, TEX_SIZE, 4), np.uint8)
+        self.tex_native = {}    # id -> native-size (H, W, 4) u8 (mip source)
+        self.n_textures = 0
+        self.add_texture(np.full((1, 1, 4), 255, np.uint8))            # white
+        self.add_texture(np.tile(np.array([[[128, 128, 255, 255]]], np.uint8),
+                                 (1, 1, 1)))                           # flat normal
+        self.add_texture(np.full((1, 1, 4), 255, np.uint8))            # unit surface
+        self.default_material = self.add_material(color=(0.75, 0.75, 0.75, 1.0),
+                                                  metalness=0.0, roughness=1.0,
+                                                  reflectivity=0.5)
+        self.colorlut_poly = None
+
+    def set_colorlut(self, lut):
+        """3D grading LUT (S, S, S, 3) in [0,1], graded through its fitted
+        degree-4 polynomial (the fit must be within LUT_POLY_TOL)."""
+        from ..ops.composite import fit_lut_poly
+
+        coeffs, err = fit_lut_poly(np.asarray(lut, np.float32))
+        if err > LUT_POLY_TOL:
+            raise NotImplementedError(
+                "the exact trilinear LUT tap is not ported yet (the LUT's "
+                "polynomial fit is off by more than LUT_POLY_TOL): ROADMAP "
+                "Queue 1, post slice")
+        self.colorlut_poly = coeffs
+
+    def add_material(self, color=(1, 1, 1, 1), metalness=0.0, roughness=1.0,
+                     reflectivity=0.5, emissive=0.0, albedomap=TEX_WHITE,
+                     surfacemap=TEX_UNIT_SURFACE, normalmap=TEX_FLAT_NORMAL,
+                     absorb=0.0) -> int:
+        i = self.n_materials
+        self.mat_absorb[i] = absorb
+        self.mat_color[i] = color
+        self.mat_metalness[i] = metalness
+        self.mat_roughness[i] = roughness
+        self.mat_reflectivity[i] = reflectivity
+        self.mat_emissive[i] = emissive
+        self.mat_albedomap[i] = albedomap
+        self.mat_surfacemap[i] = surfacemap
+        self.mat_normalmap[i] = normalmap
+        self.n_materials += 1
+        return i
+
+    def add_texture(self, image: np.ndarray) -> int:
+        """Add an RGBA uint8 image (any size; resampled to TEX_SIZE)."""
+        img = _to_rgba_u8(image)
+        i = self.n_textures
+        self.tex_native[i] = img
+        self.textures[i] = _resample_nearest(img, TEX_SIZE)
+        self.n_textures += 1
+        return i
+
+    def add_mesh(self, vertices, indices) -> MeshHandle:
+        return self.pool.add_mesh(vertices, indices)
+
+    def host_state(self):
+        """The device state as a numpy tree (the layout of the JAX
+        package's RenderContext.device_state)."""
+        state = dict(
+            geometry=self.pool.host_arrays(),
+            materials=dict(
+                color=self.mat_color, metalness=self.mat_metalness,
+                roughness=self.mat_roughness,
+                reflectivity=self.mat_reflectivity,
+                emissive=self.mat_emissive, albedomap=self.mat_albedomap,
+                surfacemap=self.mat_surfacemap, normalmap=self.mat_normalmap,
+            ),
+            textures=self.textures,
+        )
+        self._rebuild_matmaps(state)
+        if self.colorlut_poly is not None:
+            state["colorlut_poly"] = self.colorlut_poly
+        return state
+
+    def device_state(self, device):
+        """The pools as torch tensors on `device`."""
+        return to_torch(self.host_state(), device)
+
+    def _rebuild_matmaps(self, state):
+        """Combined material-map mip table (one 48-byte quad row per texel
+        holds albedo+surface+normal) and the packed per-material rows
+        (color rgb, emissive, metalness, roughness, reflectivity, albedo
+        id, matmap base, matmap size, absorb, 0) the raster reads."""
+        from .texturepool import build_matmap_pool
+
+        nm = self.mat_color.shape[0]
+        triples = [(int(self.mat_albedomap[m]), int(self.mat_surfacemap[m]),
+                    int(self.mat_normalmap[m]))
+                   for m in range(max(self.n_materials, 1))]
+        table, base, size = build_matmap_pool(
+            triples, self.tex_native, max_size=self.config.matmap_max_size)
+        base_full = np.zeros(nm, np.int32)
+        size_full = np.ones(nm, np.int32)
+        base_full[:len(triples)] = base
+        size_full[:len(triples)] = size
+        state["matmaps"] = dict(table=table, base=base_full, size=size_full)
+        packed = np.concatenate([
+            self.mat_color[:, :3],
+            self.mat_emissive[:, None], self.mat_metalness[:, None],
+            self.mat_roughness[:, None], self.mat_reflectivity[:, None],
+            self.mat_albedomap[:, None].astype(np.float32),
+            base_full[:, None].astype(np.float32),
+            size_full[:, None].astype(np.float32),
+            self.mat_absorb[:, None],
+            np.zeros((nm, 1), np.float32)], axis=1)
+        state["materials"] = dict(state["materials"],
+                                  packed10=packed.astype(np.float32))
+
+    def expand_host(self, draws):
+        """Attach the host-precomputed draw expansion (numpy) in place
+        (frame.expand_draws_host)."""
+        from .frame import attach_host_expansion
+
+        return attach_host_expansion(self.pool, draws, self.config.max_vertices,
+                                     self.config.max_triangles)

@@ -1,0 +1,311 @@
+"""The opaque frame (counterpart of datum_tpu/render/frame.py, the
+megakernel branch of `_frame` with the environment, shadows, AO, fog,
+SSR, translucents, particles and decals off).
+
+Passes, in order: host draw expansion (numpy) -> attribute gather and
+rigid transform -> triangle setup and binning into 32x128 tiles -> K1
+fused visibility raster (ops/raster_cuda.py) -> plane assembly at half
+resolution with one batched upsample -> K2 deferred-shade megakernel
+(ops/shade_cuda.py) -> luminance, quarter-res bloom, composite, u8.
+
+PyTorch runs eagerly, so there is no jit: each pass is a plain function
+on tensors, and the frame is one call of `render_frame`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..convert import to_torch
+from ..ops import brdf
+from ..ops import raster as raster_ops
+from ..ops.blur import downsample_pool, resize_up_dense, resize_up_dense_batch
+from ..ops.bloom import bloom as bloom_op
+from ..ops.common import FrameConfig
+from ..ops.composite import composite, to_u8_image
+from ..ops.geometry import transform_vertices_rigid
+from ..ops.raster_cuda import raster_shade
+from ..ops.shade import sample_matmaps
+from ..ops.shade_cuda import shade_deferred
+
+# (rejected when true, what it is and the ROADMAP Queue 1 item that ports it)
+_LATER = (
+    (lambda c: c.enable_shadows, "sun shadows (enable_shadows)", "shadows (K3)"),
+    (lambda c: c.max_spot_shadows > 0, "spot shadow maps (max_spot_shadows)",
+     "shadows (K3)"),
+    (lambda c: c.max_translucent_draws > 0, "translucent draws",
+     "translucency (K4, K1 peel, K2 epilogue)"),
+    (lambda c: c.max_particle_quads > 0, "particles",
+     "translucency (K4, K1 peel, K2 epilogue)"),
+    (lambda c: c.max_decals_active > 0, "decals",
+     "translucency (K4, K1 peel, K2 epilogue)"),
+    (lambda c: c.enable_ssao, "SSAO", "post"),
+    (lambda c: c.enable_fog, "volumetric fog", "post"),
+    (lambda c: c.max_fog_planes > 0, "fog planes", "post"),
+    (lambda c: c.enable_ssr, "SSR", "post"),
+    (lambda c: c.enable_depth_of_field, "depth of field", "post"),
+    (lambda c: c.max_overlay_sprites > 0, "the device sprite pass", "post"),
+    (lambda c: c.enable_skinning, "skinning", "off-main-path device code"),
+    (lambda c: c.enable_foliage, "foliage wind bend", "off-main-path device code"),
+    (lambda c: c.enable_terrain_morph, "terrain geomorph",
+     "off-main-path device code"),
+    (lambda c: c.max_dynamic_vertices > 0, "dynamic vertices (ocean)",
+     "off-main-path device code"),
+    (lambda c: c.use_light_clusters, "clustered point lights",
+     "clustered lights (ops/cluster.py + the K2 cluster loop)"),
+    (lambda c: c.raster_early_z, "the K1 early-z exit (raster_early_z)",
+     "the K1 options in Queue 2"),
+    (lambda c: c.raster_two_phase, "the two-phase raster (raster_two_phase, K6)",
+     "the K6 row of Queue 2"),
+    (lambda c: c.raster_kernel != "v2", "raster_kernel='mxu' (K7)",
+     "the K7 row of Queue 2"),
+    (lambda c: not (c.use_pallas and c.use_shade_kernel
+                    and c.enable_material_maps
+                    and c.texture_filter.startswith("mip")),
+     "the fallback frame (use_pallas, use_shade_kernel, material maps and a "
+     "'mip' texture filter are required)", "off-main-path device code"),
+)
+
+
+def check_config(cfg: FrameConfig):
+    """Raise NotImplementedError for every flag the opaque slice lacks."""
+    for rejected, what, item in _LATER:
+        if rejected(cfg):
+            raise NotImplementedError(
+                f"render_frame: {what} is not ported yet — ROADMAP Queue 1: "
+                f"{item}")
+
+
+def expand_draws_host(pool, draw_mesh, draw_count, max_v, max_t):
+    """Host-side (numpy) draw expansion into vertex/triangle streams at
+    static capacity: the indices depend only on the draw list's mesh ids
+    and the pool's offsets, so the host computes them."""
+    draw_mesh = np.asarray(draw_mesh)
+    D = draw_mesh.shape[0]
+    n = int(draw_count)
+    dv = np.zeros(D, np.int64)
+    dt = np.zeros(D, np.int64)
+    dv[:n] = pool.mesh_vtx_count[draw_mesh[:n]]
+    dt[:n] = pool.mesh_tri_count[draw_mesh[:n]]
+    cv = np.cumsum(dv)
+    ct = np.cumsum(dt)
+    total_v = int(min(cv[-1], max_v))
+    total_t = int(min(ct[-1], max_t))
+
+    vtx_draw = np.full(max_v, D - 1, np.int32)
+    vd = np.repeat(np.arange(D, dtype=np.int32), dv)[:total_v]
+    vtx_draw[:total_v] = vd
+    av = np.arange(max_v, dtype=np.int64)
+    local_v = av[:total_v] - (cv - dv)[vd]
+    src_v = np.zeros(max_v, np.int32)
+    src_v[:total_v] = pool.mesh_vtx_offset[draw_mesh[vd]] + local_v
+    v_valid = av < total_v
+
+    tri_draw = np.full(max_t, D - 1, np.int32)
+    td = np.repeat(np.arange(D, dtype=np.int32), dt)[:total_t]
+    tri_draw[:total_t] = td
+    at = np.arange(max_t, dtype=np.int64)
+    local_t = at[:total_t] - (ct - dt)[td]
+    src_t = pool.mesh_tri_offset[draw_mesh[td]] + local_t
+    t_valid = at < total_t
+
+    tris = np.zeros((max_t, 3), np.int32)
+    startv = (cv - dv)[td].astype(np.int64)
+    tris[:total_t] = (pool.triangles[src_t] + startv[:, None]
+                      - pool.mesh_vtx_offset[draw_mesh[td]][:, None])
+
+    return dict(src_v=src_v, vtx_draw=vtx_draw, v_valid=v_valid,
+                tris=tris, tri_draw=tri_draw, t_valid=t_valid)
+
+
+def attach_host_expansion(pool, draws, max_v, max_t):
+    """expand_draws_host + the per-triangle material, attached in place
+    (called by RenderContext.expand_host)."""
+    draws.update(expand_draws_host(pool, draws["mesh"], draws["count"],
+                                   max_v, max_t))
+    draws["tri_mat"] = np.asarray(draws["material"])[draws["tri_draw"]]
+    return draws
+
+
+def _vertex_stage(cfg: FrameConfig, state, draws, sceneset):
+    """Host-expanded streams + ONE attr12 row gather + rigid transform.
+    Returns (ex, uv, clip, wnormal, wtangent, worldp)."""
+    if "src_v" not in draws:
+        raise ValueError("draws need the host draw expansion "
+                         "(RenderContext.expand_host) before render_frame")
+    geom = state["geometry"]
+    ex = {k: draws[k] for k in ("src_v", "vtx_draw", "v_valid", "tris",
+                                "tri_draw", "t_valid")}
+    rows12 = geom["attr12"][ex["src_v"].long()]
+    positions = rows12[:, 0:3]
+    uv = rows12[:, 3:5]
+    normals = rows12[:, 5:8]
+    tangents = rows12[:, 8:12]
+    viewproj = sceneset["proj"] @ sceneset["view"]
+    clip, wnormal, wtangent, worldp = transform_vertices_rigid(
+        positions, normals, tangents, ex["vtx_draw"], draws["world"], viewproj)
+    return ex, uv, clip, wnormal, wtangent, worldp
+
+
+def _bin_stage(cfg: FrameConfig, ex, clip):
+    """Triangle setup + near-first binning.  Front faces carry det < 0
+    under the Y-flipped projection, so backface culling drops det > 0.
+    Returns (setup, bins, counts, big_ids, bin_overflow)."""
+    w, h = cfg.padded_width, cfg.padded_height
+    tx, ty = cfg.tiles_x, cfg.tiles_y
+    setup = raster_ops.triangle_setup(clip, ex["tris"], w, h, tx, ty,
+                                      cull=-1 if cfg.backface_cull else 0,
+                                      max_span=cfg.bin_max_span)
+    bins, counts, big_ids, bin_overflow = raster_ops.bin_triangles(
+        setup, cfg.max_triangles, tx, ty, cfg.bin_capacity, cfg.big_capacity,
+        max_span=cfg.bin_max_span, return_overflow=True,
+        depth_prio=setup["zbound"])
+    return setup, bins, counts, big_ids, bin_overflow
+
+
+def _raster_stage(cfg: FrameConfig, state, draws, sceneset):
+    """Vertex stage, binning and the K1 raster.  Returns (planes dict,
+    bin_overflow)."""
+    ex, uv, clip, wnormal, wtangent, _ = _vertex_stage(cfg, state, draws,
+                                                       sceneset)
+    setup, bins, counts, big_ids, bin_overflow = _bin_stage(cfg, ex, clip)
+    planes = raster_shade(
+        setup, bins, big_ids, counts, ex["tris"], uv, wnormal, draws["tri_mat"],
+        state["materials"], cfg.tiles_x, cfg.tiles_y, cfg.padded_width,
+        cfg.padded_height, tangent=wtangent)
+    return planes, bin_overflow
+
+
+def _assemble_gplanes(planes, state, w, h):
+    """Material and environment plane assembly for the opaque layer with
+    no environment: half-res material taps, ONE batched 2x upsample of 15
+    channel-first planes, then the full-res gbuffer encode and TBN
+    normal mapping.  Returns the K2 plane dict (sun factor 1: no
+    shadows)."""
+    p = 2
+    uv_h = torch.stack([downsample_pool(planes["u"], p),
+                        downsample_pool(planes["v"], p)], -1)
+    base_h = torch.round(downsample_pool(planes["mbase"], p,
+                                         reduce="first")).to(torch.int32)
+    size_h = torch.round(downsample_pool(planes["msize"], p,
+                                         reduce="first")).to(torch.int32)
+    mm12 = sample_matmaps(state["matmaps"]["table"], base_h, size_h, uv_h,
+                          pool=p)                          # (12, H/2, W/2)
+
+    # no environment: zero specular env; the constant-ambient fallback
+    # rides the SH DC coefficient with eb2 = 1
+    h2, w2 = h // p, w // p
+    f32 = dict(dtype=torch.float32, device=mm12.device)
+    spec_h = torch.zeros((3, h2, w2), **f32)
+    eb_h = torch.tensor([0.0, 0.0, 1.0], **f32)[:, None, None].expand(3, h2, w2)
+    sel = torch.tensor([0, 1, 2, 4, 5, 7, 8, 9, 10], device=mm12.device)
+    half = torch.cat([mm12[sel], spec_h, eb_h], dim=0)   # (15, H/2, W/2)
+    (alb_r, alb_g, alb_b, surf_m, surf_r, surf_rough,
+     nm_x, nm_y, nm_z, es_r, es_g, es_b, eb0, eb1, eb2) = \
+        resize_up_dense_batch(half, h, w).unbind(0)
+
+    # full-res material derivation (gbuffer encode, element-wise)
+    metal = planes["met"] * surf_m
+    refl = planes["rfl"] * surf_r
+    rough = planes["rgh"] * surf_rough
+    albc = (alb_r * planes["cr"], alb_g * planes["cg"], alb_b * planes["cb"])
+    one_m = 1.0 - metal
+    s0 = 0.16 * refl * refl
+    gpl = dict(
+        depth=planes["depth"], visf=planes["visf"], em=planes["em"], rgh=rough,
+        dr=albc[0] * one_m, dg=albc[1] * one_m, db=albc[2] * one_m,
+        sr=s0 + (albc[0] - s0) * metal,
+        sg=s0 + (albc[1] - s0) * metal,
+        sb=s0 + (albc[2] - s0) * metal,
+        esr=es_r, esg=es_g, esb=es_b, eb0=eb0, eb1=eb1, eb2=eb2,
+    )
+    # TBN normal mapping
+    nrm = brdf.normalize(torch.stack([planes["nx"], planes["ny"],
+                                      planes["nz"]], -1))
+    tan = torch.stack([planes["tanx"], planes["tany"], planes["tanz"]], -1)
+    tgt = brdf.normalize(tan - nrm * (tan * nrm).sum(-1, keepdim=True))
+    btg = torch.linalg.cross(nrm, tgt) * planes["tanw"][..., None]
+    sn = brdf.normalize(tgt * nm_x[..., None] * 2.0
+                        + btg * nm_y[..., None] * 2.0
+                        + nrm * nm_z[..., None] * 2.0
+                        - (tgt + btg + nrm))
+    gpl["nx"], gpl["ny"], gpl["nz"] = sn[..., 0], sn[..., 1], sn[..., 2]
+    gpl["sf"] = torch.ones_like(planes["depth"])
+    return gpl
+
+
+def _shade_inputs(cfg: FrameConfig, planes, state, sceneset):
+    """(gplanes, sceneset with "_sh") for K2."""
+    gpl = _assemble_gplanes(planes, state, cfg.padded_width, cfg.padded_height)
+    ss2 = dict(sceneset)
+    # DC-only SH reproducing the constant-ambient fallback:
+    # basis0 * c0 / pi = 0.2  =>  c0 = 0.2 * pi / 0.886227
+    sh0 = torch.zeros((9, 3), dtype=torch.float32, device=planes["depth"].device)
+    sh0[0, :] = 0.70898
+    ss2["_sh"] = sh0
+    return gpl, ss2
+
+
+def _frame(cfg: FrameConfig, state, draws, sceneset):
+    w, h = cfg.padded_width, cfg.padded_height
+    planes, bin_overflow = _raster_stage(cfg, state, draws, sceneset)
+    gpl, ss2 = _shade_inputs(cfg, planes, state, sceneset)
+    hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
+                         invview=sceneset["invview"])
+
+    # scene luminance (log-average)
+    lum_w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=torch.float32,
+                         device=hdr.device)
+    lum = torch.exp(torch.mean(torch.log(
+        1e-4 + hdr[:cfg.height, :cfg.width] @ lum_w)))
+
+    # bloom at quarter res, ONE full-res upsample (`glow`)
+    glow = None
+    if cfg.enable_bloom:
+        bloom_q = bloom_op(hdr, sceneset["camera"]["bloomstrength"],
+                           upsample=False)
+        glow = resize_up_dense(bloom_q, h, w)
+
+    lut_poly = state.get("colorlut_poly") if cfg.enable_color_grading else None
+    if cfg.enable_color_grading and lut_poly is None and "colorlut" in state:
+        raise NotImplementedError("the exact trilinear LUT grade is not "
+                                  "ported yet — ROADMAP Queue 1: post")
+    rgb = composite(hdr, 1.0, lut_poly=lut_poly, glow=glow)
+    image = to_u8_image(rgb[:cfg.height, :cfg.width])
+    vis = torch.round(planes["visf"]).to(torch.int32)
+    return dict(image=image, luminance=lum, depth=planes["depth"], vis=vis,
+                bin_overflow=bin_overflow)
+
+
+def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device):
+    """Render one opaque frame on `device`.
+
+    state: RenderContext.device_state(device) (or any tree of the same
+    layout, e.g. the JAX package's state through convert.to_torch);
+    draws: RenderList.draw_arrays after RenderContext.expand_host;
+    sceneset: render.types.make_sceneset.  draws and sceneset may be
+    numpy trees; they are moved onto `device` here.
+
+    Returns dict(image (height, width, 3) u8, luminance () f32, depth
+    and vis (padded H, W), bin_overflow () i32), all on `device`.  On a
+    CUDA device the raster and the shade run the hand-written kernels
+    (they raise if they cannot launch; nothing falls back).
+
+    Contract on the card: f32 matmuls run in full f32.  The caller sets
+    torch.backends.cuda.matmul.allow_tf32 = False and
+    torch.backends.cudnn.allow_tf32 = False; with TF32 matmuls enabled
+    on a CUDA device this raises, since the plane upsamples are matmuls
+    and the reference is exact f32.
+
+    Flags the slice does not implement raise NotImplementedError naming
+    their ROADMAP item (check_config)."""
+    check_config(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError("render_frame: set torch.backends.cuda.matmul."
+                         "allow_tf32 = False (the frame is f32)")
+    state = to_torch(state, device)
+    draws = to_torch(draws, device)
+    sceneset = to_torch(sceneset, device)
+    return _frame(cfg, state, draws, sceneset)

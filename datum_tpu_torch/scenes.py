@@ -1,0 +1,125 @@
+"""Canonical test scene (counterpart of datum_tpu/scenes.py::datumtest_scene).
+
+The flagship scene: a grid of spheres sweeping roughness x metalness,
+a checkered ground plane, point lights and an unshadowed spot, graded
+through the fitted colour LUT.  Built on the port's own numpy host
+side, so it needs no jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from datum_tpu.math import Transform
+
+from .ops.common import FrameConfig
+from .render import primitives
+from .render.camera import Camera
+from .render.context import RenderContext
+from .render.renderlist import RenderList
+from .render.types import RenderParams
+
+
+def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
+                    n_point_lights=8, skybox=True, skybox_size=64, **cfg_kw):
+    """Build the flagship scene; returns (ctx, camera, params,
+    make_renderlist).  Materials, textures, meshes and the random light
+    placement are the JAX package's, in the same order, so both packages
+    build equal state for the same arguments."""
+    cfg = FrameConfig(width=width, height=height, **cfg_kw)
+    ctx = RenderContext(cfg)
+
+    if skybox:
+        raise NotImplementedError(
+            "datumtest_scene(skybox=True): the IBL/skybox environment is not "
+            "ported yet (ROADMAP Queue 1, IBL/skybox environment slice); "
+            "pass skybox=False")
+
+    verts, idx = primitives.unit_sphere(sphere_detail, sphere_detail // 2)
+    sphere = ctx.add_mesh(verts, idx)
+    pverts, pidx = primitives.plane(16.0, 8.0)
+    ground = ctx.add_mesh(pverts, pidx)
+
+    # checkerboard albedo for the floor
+    checker = np.zeros((64, 64, 4), np.uint8)
+    ii, jj = np.indices((64, 64))
+    c = ((ii // 8) + (jj // 8)) % 2
+    checker[..., :3] = np.where(c[..., None] > 0, 200, 90)
+    checker[..., 3] = 255
+    checker_tex = ctx.add_texture(checker)
+    floor_mat = ctx.add_material(color=(1, 1, 1, 1), metalness=0.0, roughness=0.8,
+                                 albedomap=checker_tex)
+
+    # the glass and water materials and the water patch mesh belong to
+    # the translucent content; they are registered here too so material
+    # ids and pool offsets match the JAX package's scene
+    ctx.add_material(color=(0.35, 0.55, 2.0, 0.42), metalness=0.0,
+                     roughness=0.12, reflectivity=0.9)
+    ctx.add_material(color=(0.12, 0.3, 0.42, 0.10), metalness=0.0,
+                     roughness=0.06, reflectivity=0.9, absorb=0.55)
+    wverts, widx = primitives.plane(3.2, 1.0)
+    ctx.add_mesh(wverts, widx)
+
+    gx, gy = grid
+    sphere_mats = []
+    for j in range(gy):
+        for i in range(gx):
+            rough = max(i / (gx - 1), 0.04)
+            metal = j / (gy - 1)
+            sphere_mats.append(ctx.add_material(
+                color=(0.8, 0.16, 0.12, 1), metalness=metal, roughness=rough,
+                reflectivity=0.5))
+
+    # colour-grading LUT: mild S-curve contrast, warm highlights; smooth,
+    # so set_colorlut grades through its fitted polynomial
+    s_ = 32
+    gax = np.linspace(0.0, 1.0, s_, dtype=np.float32)
+    lb, lg, lr = np.meshgrid(gax, gax, gax, indexing="ij")
+    lum_ = 0.2126 * lr + 0.7152 * lg + 0.0722 * lb
+    con = lambda x: x + 0.12 * x * (1.0 - x) * (2.0 * x - 1.0)
+    hw_ = lum_ ** 2
+    lut = np.stack([
+        con(lr) + 0.035 * hw_ * (1 - con(lr)),
+        con(lg) + 0.010 * hw_ * (1 - con(lg)),
+        con(lb),
+    ], -1)
+    ctx.set_colorlut(lut)
+
+    camera = Camera()
+    camera.set_projection(np.radians(60), width / height)
+    camera.lookat(np.array([0.0, 4.0, 14.0]), np.array([0.0, 2.0, 0.0]),
+                  np.array([0.0, 1.0, 0.0]))
+
+    params = RenderParams(width=width, height=height)
+    params.sundirection = np.array([-0.7, -0.8, -0.2], np.float32)
+    params.sundirection /= np.linalg.norm(params.sundirection)
+    params.sunintensity = np.array([4.0, 3.9, 3.7], np.float32)
+    params.ambientintensity = 0.5
+
+    rng = np.random.RandomState(42)
+    light_pos = rng.uniform([-8, 0.5, -6], [8, 4.0, 6], (n_point_lights, 3))
+    light_col = rng.uniform(0.5, 8.0, (n_point_lights, 3))
+
+    def make_renderlist(t=0.0):
+        rl = RenderList()
+        rl.push_mesh(ground, Transform.identity(), floor_mat)
+        k = 0
+        for j in range(gy):
+            for i in range(gx):
+                x = (i - (gx - 1) / 2) * 2.2
+                y = 1.0 + j * 2.2
+                rl.push_mesh(sphere, Transform.translation([x, y, 0.0]),
+                             sphere_mats[k])
+                k += 1
+        for li in range(n_point_lights):
+            p = light_pos[li].copy()
+            p[0] += np.sin(t + li) * 1.5
+            rl.push_pointlight(p, light_col[li], (1.0, 0.0, 1.0), range_=12.0)
+        # the spot over the sphere wall (unshadowed in this slice)
+        rl.push_spotlight(np.float32([4.0, 8.0, 6.0]),
+                          np.float32([-0.35, -0.75, -0.55]),
+                          np.float32([20.0, 19.0, 17.0]), cutoff=0.6,
+                          attenuation=(0.5, 0.0, 1.0), range_=30.0)
+        return rl
+
+    return ctx, camera, params, make_renderlist

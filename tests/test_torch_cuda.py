@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs an NVIDIA GPU and nvcc and skips without
+one.  On the machine with the card (no jax there, so no conftest):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances are chip_smoke.py's: K1 visf identical on >= 99.9% of
+pixels, depth atol 1e-6, interpolated planes atol/rtol 1e-4,
+per-triangle planes exact; K2 atol 1e-4 / rtol 1e-3 (CUDA's and
+torch's sqrt and division differ by ulps)."""
+
+import numpy as np
+import pytest
+import torch
+
+from datum_tpu_torch.convert import to_torch
+from datum_tpu_torch.ops.raster_cuda import (PLANE_NAMES, raster_inputs,
+                                             raster_shade_cuda,
+                                             raster_shade_reference)
+from datum_tpu_torch.ops.shade_cuda import (shade_deferred_cuda,
+                                            shade_deferred_reference,
+                                            shade_inputs)
+from datum_tpu_torch.render import frame as frame_mod
+from datum_tpu_torch.render.types import make_sceneset
+from datum_tpu_torch.scenes import datumtest_scene
+
+pytestmark = pytest.mark.cuda
+
+SLICE = dict(width=512, height=256, sphere_detail=12, grid=(5, 3),
+             n_point_lights=8, skybox=False, max_vertices=4096,
+             max_triangles=4096, bin_capacity=320, big_capacity=32,
+             bin_max_span=8, use_pallas=True, texture_filter="mip_half",
+             enable_shadows=False)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _frame(card, t=0.4):
+    ctx, camera, params, make_rl = datumtest_scene(**SLICE)
+    rl = make_rl(t)
+    ss = make_sceneset(camera, params, point_lights=rl.point_lights,
+                       spot_lights=rl.spot_lights)
+    draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)
+    ctx.expand_host(draws)
+    return ctx, ctx.device_state(card), draws, ss
+
+
+def _k1_inputs(card):
+    ctx, state, draws, ss = _frame(card)
+    cfg = ctx.config
+    d, s = to_torch(draws, card), to_torch(ss, card)
+    ex, uv, clip, wn, wt, _ = frame_mod._vertex_stage(cfg, state, d, s)
+    setup, bins, counts, big_ids, _ = frame_mod._bin_stage(cfg, ex, clip)
+    inp = raster_inputs(setup, bins, big_ids, counts, ex["tris"], uv, wn,
+                        d["tri_mat"], state["materials"], cfg.tiles_x,
+                        cfg.padded_width, cfg.padded_height, wt)
+    return cfg, state, s, inp
+
+
+def test_k1_kernel_matches_plain(card):
+    _, _, _, inp = _k1_inputs(card)
+    k = dict(zip(PLANE_NAMES, raster_shade_cuda(**inp)))
+    r = dict(zip(PLANE_NAMES, raster_shade_reference(**inp)))
+    torch.cuda.synchronize()
+    same = k["visf"] == r["visf"]
+    assert same.float().mean().item() >= 0.999
+    assert (k["visf"] >= 0).float().mean().item() > 0.2
+    assert (k["depth"] - r["depth"])[same].abs().max().item() <= 1e-6
+    for n in ("u", "v", "nx", "ny", "nz", "tanx", "tany", "tanz"):
+        torch.testing.assert_close(k[n][same], r[n][same], atol=1e-4, rtol=1e-4)
+    for n in ("cr", "cg", "cb", "em", "met", "rgh", "rfl", "alb", "mbase",
+              "msize", "tanw", "absorb"):
+        assert torch.equal(k[n][same], r[n][same]), n
+
+
+def test_k2_kernel_matches_plain(card):
+    cfg, state, s, inp = _k1_inputs(card)
+    planes = dict(zip(PLANE_NAMES, raster_shade_cuda(**inp)))
+    gpl, ss2 = frame_mod._shade_inputs(cfg, planes, state, s)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    h, w = gpl["depth"].shape
+    gpl["sky_r"], gpl["sky_g"], gpl["sky_b"] = (
+        torch.rand((3, h, w), generator=g).to(card).unbind(0))
+    ao = torch.rand((h, w), generator=g).to(card)
+    spotsf = torch.rand((1, h, w), generator=g).to(card)
+    k2 = shade_inputs(gpl, ss2, proj=s["proj"], invview=s["invview"], ao=ao,
+                      spotsf=spotsf)
+    a = shade_deferred_cuda(**k2)
+    b = shade_deferred_reference(**k2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+def test_frame_on_card_matches_cpu_plain(card):
+    ctx, _, draws, ss = _frame(card)
+    before = (raster_shade_cuda.launches, shade_deferred_cuda.launches)
+    gpu = frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
+                                 device=card)
+    after = (raster_shade_cuda.launches, shade_deferred_cuda.launches)
+    assert after == (before[0] + 1, before[1] + 1)
+    cpu = frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
+                                 device="cpu")
+    a = gpu["image"].cpu().float().numpy()
+    b = cpu["image"].float().numpy()
+    assert b.mean() > 10
+    assert np.abs(a - b).mean() <= 0.5
+    assert np.sqrt(((a - b) ** 2).mean()) <= 2.0
+    assert int(gpu["bin_overflow"]) == int(cpu["bin_overflow"]) == 0
+
+
+def test_cuda_wrappers_raise_on_bad_input(card):
+    _, _, _, inp = _k1_inputs(card)
+    bad = dict(inp, bins=inp["bins"].to(torch.int64))
+    with pytest.raises(ValueError):
+        raster_shade_cuda(**bad)

@@ -1,0 +1,151 @@
+"""The port's opaque frame against the JAX package's frame (CPU).
+
+One state — the JAX package's device state, draws and sceneset, mapped
+to numpy — goes through both `datum_tpu.render.frame.render_frame`
+(Pallas kernels in interpret mode) and the port's `render_frame`
+(convert.to_torch, plain PyTorch versions of the kernels on the CPU).
+Tolerances: u8 image mean |d| <= 0.5 levels and RMSE <= 2/255,
+luminance within rel 1e-4, bin_overflow equal.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from datum_tpu.render import frame as jax_frame
+from datum_tpu.render.types import make_sceneset as jax_make_sceneset
+from datum_tpu.scenes import datumtest_scene as jax_datumtest_scene
+
+from datum_tpu_torch.ops import _kernels
+from datum_tpu_torch.ops.raster_cuda import raster_shade_cuda
+from datum_tpu_torch.ops.shade_cuda import shade_deferred_cuda
+from datum_tpu_torch.render.frame import render_frame
+from datum_tpu_torch.render.types import make_sceneset
+from datum_tpu_torch.scenes import datumtest_scene
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "datum_tpu_torch"
+SLICE = dict(width=256, height=128, sphere_detail=8, grid=(4, 3),
+             n_point_lights=8, skybox=False, max_vertices=2048,
+             max_triangles=2048, bin_capacity=128, big_capacity=16,
+             bin_max_span=8, use_pallas=True, enable_material_maps=True,
+             texture_filter="mip_half", enable_shadows=False)
+
+
+def test_slice_frame_matches_jax_frame():
+    ctx, camera, params, make_rl = jax_datumtest_scene(pallas_interpret=True,
+                                                       **SLICE)
+    rl = make_rl(0.3)
+    ss = jax_make_sceneset(camera, params, point_lights=rl.point_lights,
+                           spot_lights=rl.spot_lights)
+    draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)
+    ctx.expand_host(draws)
+    ref = jax.tree.map(np.asarray, jax_frame.render_frame(
+        ctx.config, ctx.device_state(), draws, ss))
+
+    state = jax.tree.map(np.asarray, ctx.device_state())
+    out = render_frame(ctx.config, state, draws, ss, device="cpu")
+    a = ref["image"].astype(np.float32)
+    b = out["image"].numpy().astype(np.float32)
+    assert b.shape == (128, 256, 3) and out["image"].dtype == torch.uint8
+    assert b.mean() > 10, "black frame"
+    assert np.abs(a - b).mean() <= 0.5
+    assert np.sqrt(((a - b) ** 2).mean()) <= 2.0
+    lum_a, lum_b = float(ref["luminance"]), float(out["luminance"])
+    assert abs(lum_b - lum_a) <= 1e-4 * abs(lum_a), (lum_a, lum_b)
+    assert int(ref["bin_overflow"]) == int(out["bin_overflow"])
+    assert (ref["vis"] == out["vis"].numpy()).mean() >= 0.999
+
+
+def _port_frame(t=0.0, **over):
+    ctx, camera, params, make_rl = datumtest_scene(**dict(SLICE, **over))
+    rl = make_rl(t)
+    ss = make_sceneset(camera, params, point_lights=rl.point_lights,
+                       spot_lights=rl.spot_lights)
+    draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)
+    ctx.expand_host(draws)
+    return render_frame(ctx.config, ctx.host_state(), draws, ss, device="cpu")
+
+
+def test_cpu_frame_takes_the_plain_path():
+    k1, k2 = raster_shade_cuda.launches, shade_deferred_cuda.launches
+    out = _port_frame()
+    assert out["image"].float().mean() > 10
+    assert torch.isfinite(out["luminance"])
+    assert (raster_shade_cuda.launches, shade_deferred_cuda.launches) == (k1, k2)
+    assert _kernels._LIBRARY is None, "a CPU frame must not build the kernels"
+
+
+def test_frames_move_with_time():
+    a, b = _port_frame(0.0)["image"], _port_frame(1.5)["image"]
+    assert (a != b).any()
+
+
+def test_port_runs_without_jax():
+    """Import the port, build the scene and render with jax made
+    unimportable, as on the machine with the card."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from datum_tpu_torch.scenes import datumtest_scene\n"
+        "from datum_tpu_torch.render.types import make_sceneset\n"
+        "from datum_tpu_torch.render.frame import render_frame\n"
+        "ctx, cam, params, make_rl = datumtest_scene(width=128, height=64,"
+        " sphere_detail=8, grid=(3, 2), n_point_lights=4, skybox=False,"
+        " max_vertices=1024, max_triangles=1024, bin_capacity=64,"
+        " big_capacity=16, use_pallas=True, texture_filter='mip_half',"
+        " enable_shadows=False)\n"
+        "rl = make_rl(0.0)\n"
+        "ss = make_sceneset(cam, params, point_lights=rl.point_lights,"
+        " spot_lights=rl.spot_lights)\n"
+        "draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)\n"
+        "ctx.expand_host(draws)\n"
+        "out = render_frame(ctx.config, ctx.device_state('cpu'), draws, ss,"
+        " device='cpu')\n"
+        "assert out['image'].shape == (64, 128, 3)\n"
+        "assert float(out['image'].float().mean()) > 10\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None and"
+        " (m.startswith('jax') or (m.startswith('datum_tpu.') and"
+        " not m.startswith('datum_tpu.math')))]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")
+
+
+def _sources(suffix=".py"):
+    """The package's own sources (not what a build left in _build/)."""
+    return sorted(p for p in PKG.rglob(f"*{suffix}")
+                  if "_build" not in p.relative_to(PKG).parts)
+
+
+@pytest.mark.parametrize("pattern", [
+    r"^\s*(import jax|from jax)\b",
+    r"torch\.compile",
+    r"scaled_dot_product_attention",
+    r"^\s*try\s*:",
+], ids=["no-jax", "no-torch-compile", "no-sdpa", "no-try"])
+def test_port_sources_avoid(pattern):
+    rx = re.compile(pattern, re.M)
+    hits = [str(p.relative_to(REPO)) for p in _sources() if rx.search(p.read_text())]
+    assert not hits, hits
+
+
+def test_kernel_sources_note_what_they_replace():
+    for name, pallas in (("raster_shade.cu", "_raster_shade_kernel"),
+                         ("shade.cu", "_shade_kernel")):
+        text = (PKG / "csrc" / name).read_text()
+        assert pallas in text and "Replaces the Pallas kernel" in text
+        assert "extern \"C\" int" in text and "cudaGetLastError" in text
+    assert "-fmad=false" in _kernels.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS

@@ -1,0 +1,150 @@
+"""The port's host side against the JAX package's (CPU, small scene).
+
+The port carries its own numpy host modules (scene, render list,
+sceneset, pools, draw expansion) because the machine with the card has
+no jax; these tests hold them equal, exactly, to the JAX package's for
+the same arguments, and check the configuration contract."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from datum_tpu.ops.common import FrameConfig as JaxFrameConfig
+from datum_tpu.render.types import make_sceneset as jax_make_sceneset
+from datum_tpu.scenes import datumtest_scene as jax_datumtest_scene
+
+from datum_tpu_torch.convert import to_torch
+from datum_tpu_torch.ops.common import FrameConfig
+from datum_tpu_torch.render.frame import check_config
+from datum_tpu_torch.render.types import make_sceneset
+from datum_tpu_torch.scenes import datumtest_scene
+
+SLICE = dict(width=256, height=128, sphere_detail=8, grid=(4, 3),
+             n_point_lights=8, skybox=False, max_vertices=2048,
+             max_triangles=2048, bin_capacity=128, big_capacity=16,
+             bin_max_span=8, use_pallas=True, enable_material_maps=True,
+             texture_filter="mip_half", enable_shadows=False)
+
+
+def assert_tree_equal(a, b, path="root"):
+    """Exact equality of two numpy trees: keys, dtypes, shapes, values."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict), path
+        assert sorted(a) == sorted(b), (path, sorted(a), sorted(b))
+        for k in a:
+            assert_tree_equal(a[k], b[k], f"{path}.{k}")
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype, (path, a.dtype, b.dtype)
+    assert a.shape == b.shape, (path, a.shape, b.shape)
+    np.testing.assert_array_equal(a, b, err_msg=path)
+
+
+def _frame_host(scene_fn, sceneset_fn, t):
+    ctx, camera, params, make_rl = scene_fn(**SLICE)
+    rl = make_rl(t)
+    ss = sceneset_fn(camera, params, point_lights=rl.point_lights,
+                     spot_lights=rl.spot_lights)
+    draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)
+    ctx.expand_host(draws)
+    return ctx, draws, ss
+
+
+@pytest.fixture(scope="module")
+def both():
+    jctx, jdraws, jss = _frame_host(jax_datumtest_scene, jax_make_sceneset, 0.7)
+    tctx, tdraws, tss = _frame_host(datumtest_scene, make_sceneset, 0.7)
+    return jctx, jdraws, jss, tctx, tdraws, tss
+
+
+def test_frameconfig_fields_and_defaults_equal():
+    jf = {f.name: (f.type, f.default) for f in dataclasses.fields(JaxFrameConfig)}
+    tf = {f.name: (f.type, f.default) for f in dataclasses.fields(FrameConfig)}
+    assert jf == tf
+
+
+@pytest.mark.parametrize("size", [(1920, 1088), (1920, 1080), (256, 128),
+                                  (1280, 720)])
+def test_frameconfig_properties_equal(size):
+    w, h = size
+    a, b = JaxFrameConfig(width=w, height=h), FrameConfig(width=w, height=h)
+    for prop in ("padded_width", "padded_height", "tiles_x", "tiles_y",
+                 "n_tiles", "bin_capacity"):
+        assert getattr(a, prop) == getattr(b, prop), prop
+
+
+def test_draws_equal(both):
+    _, jdraws, _, _, tdraws, _ = both
+    assert_tree_equal(jdraws, tdraws)
+
+
+def test_sceneset_equal(both):
+    _, _, jss, _, _, tss = both
+    assert_tree_equal(jss, tss)
+    # probes stay in the tree with count 0
+    assert tss["probes"]["position"].shape == (8, 4)
+    assert int(tss["probes"]["count"]) == 0
+
+
+def test_device_state_equal(both):
+    jctx, _, _, tctx, _, _ = both
+    assert_tree_equal(jax.tree.map(np.asarray, jctx.device_state()),
+                      tctx.host_state())
+
+
+def test_device_state_tensors_keep_dtypes(both):
+    _, _, _, tctx, _, _ = both
+    host = tctx.host_state()
+    dev = tctx.device_state("cpu")
+    for k, v in host["geometry"].items():
+        t = dev["geometry"][k]
+        assert isinstance(t, torch.Tensor)
+        assert t.dtype == torch.from_numpy(np.asarray(v)).dtype, k
+        np.testing.assert_array_equal(t.numpy(), v)
+    assert dev["matmaps"]["table"].dtype == torch.uint8
+
+
+def test_to_torch_keeps_scalars_zero_d():
+    tree = dict(a=np.float32(1.5), b=np.int32(3), c=[np.zeros((2, 3), bool)],
+                d=None)
+    out = to_torch(tree, "cpu")
+    assert out["a"].shape == () and out["a"].dtype == torch.float32
+    assert out["b"].shape == () and out["b"].dtype == torch.int32
+    assert out["c"][0].dtype == torch.bool and out["c"][0].shape == (2, 3)
+    assert out["d"] is None
+
+
+def test_skybox_is_rejected_not_dropped():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        datumtest_scene(**dict(SLICE, skybox=True))
+
+
+def test_slice_config_is_accepted():
+    check_config(FrameConfig(**{k: v for k, v in SLICE.items()
+                                if k not in ("sphere_detail", "grid",
+                                             "n_point_lights", "skybox")}))
+
+
+_BASE = dict(use_pallas=True, texture_filter="mip_half", enable_shadows=False)
+
+
+@pytest.mark.parametrize("override", [
+    dict(enable_shadows=True), dict(max_spot_shadows=1),
+    dict(max_translucent_draws=2), dict(max_particle_quads=512),
+    dict(max_decals_active=2), dict(enable_ssao=True), dict(enable_fog=True),
+    dict(max_fog_planes=1), dict(enable_ssr=True),
+    dict(enable_depth_of_field=True), dict(max_overlay_sprites=4),
+    dict(enable_skinning=True), dict(enable_foliage=True),
+    dict(enable_terrain_morph=True), dict(max_dynamic_vertices=64),
+    dict(use_light_clusters=True), dict(raster_early_z=True),
+    dict(raster_two_phase=True), dict(raster_kernel="mxu"),
+    dict(use_pallas=False), dict(texture_filter="nearest"),
+    dict(use_shade_kernel=False), dict(enable_material_maps=False),
+], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
+def test_unsupported_flags_raise(override):
+    cfg = FrameConfig(**dict(_BASE, **override))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        check_config(cfg)
