@@ -5,7 +5,10 @@ arrays; `jax.tree.map(np.asarray, tree)` turns them into the numpy trees
 this module takes.  `to_torch` maps any such tree — dicts, lists and
 tuples of numpy arrays or numpy scalars — onto torch tensors on one
 device, keeping every dtype (f32 stays f32, i32 stays i32, u8 stays u8,
-bool stays bool).  The port's own host side (render.context,
+bool stays bool).  The one exception is the environment's mip-pair
+table `flatp`: the JAX package bitcasts its f32 rows to u8 for the
+TPU's gathers, and to_torch views such a table as the f32 rows it
+holds, so one JAX state feeds both packages.  The port's own host side (render.context,
 render.types, renderlist.draw_arrays) produces the same numpy trees, so
 one function moves both onto the card.
 """
@@ -22,7 +25,8 @@ def to_torch(tree, device):
     Tensors already in the tree are moved to `device`; other leaves
     (None, strings, Python numbers) pass through unchanged."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: to_torch(_f32_rows(v) if k == "flatp" else v, device)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)
     if isinstance(tree, torch.Tensor):
@@ -32,3 +36,13 @@ def to_torch(tree, device):
         # aliases (or warns about) a read-only numpy buffer
         return torch.from_numpy(np.array(tree)).to(device)
     return tree
+
+
+def _f32_rows(flatp):
+    """(table, bases, sizes) with a u8-bitcast (N, 4W) table viewed as
+    its (N, W) f32 rows (the bytes in memory order, as XLA's bitcast
+    lays them out)."""
+    table = flatp[0]
+    if isinstance(table, np.ndarray) and table.dtype == np.uint8:
+        table = np.ascontiguousarray(table).view(np.float32)
+    return (table, *flatp[1:])

@@ -3,7 +3,8 @@
 The sources under datum_tpu_torch/csrc/ are compiled by `nvcc` into one
 shared library with a plain C interface, at first use, into
 datum_tpu_torch/_build/ (named by a hash of the sources and flags, so
-an edited source rebuilds).  The library is loaded with ctypes;
+an edited source rebuilds).  Each source compiles in its own nvcc
+process, all started together; one more nvcc links the objects.  The library is loaded with ctypes;
 pointers and the CUDA stream are passed as c_void_p.  Nothing here runs
 at import time: the CPU tests import every module.
 
@@ -24,9 +25,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("raster_shade.cu", "shade.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("raster_shade.cu", "shade.cu", "raster_depth.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 class KernelLibrary:
@@ -45,6 +47,9 @@ class KernelLibrary:
         self.lib.shade_launch.argtypes = [p, p, i, p, p, i, p, p, i, p, i, p, i,
                                           p, i, i, i, f, f, p, p]
         self.lib.shade_launch.restype = i
+        self.lib.raster_depth_launch.argtypes = [p, p, p, p, i, i, i, i, f, f,
+                                                 i, p, p]
+        self.lib.raster_depth_launch.restype = i
 
 
 def _nvcc() -> str:
@@ -66,14 +71,27 @@ def _build() -> KernelLibrary:
     if out.exists():
         return KernelLibrary(out, "(cached build)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    log = "\n".join(logs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"nvcc failed ({[p.returncode for p in procs]}):\n"
+                           f"{log}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
+    for o in objs:
+        o.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n"
-                           f"{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
-    return KernelLibrary(out, res.stdout + res.stderr)
+    return KernelLibrary(out, log)
 
 
 _LIBRARY: KernelLibrary | None = None

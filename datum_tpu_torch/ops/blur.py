@@ -1,6 +1,6 @@
-"""Box downsamples, cumsum box-gaussian and static-matrix upsamples
-(counterpart of datum_tpu/ops/blur.py, the subset the opaque slice
-runs).  The numpy matrix builders `_up2_matrix`, `_updense_matrix` and
+"""Box downsamples, cumsum box-gaussian, the shifted-add gaussian and
+static-matrix upsamples (counterpart of datum_tpu/ops/blur.py, the
+subset the port runs).  The numpy matrix builders `_up2_matrix`, `_updense_matrix` and
 `_resample_matrix` are copied verbatim: the weights are the contract,
 and the JAX module cannot be imported where jax is absent.
 
@@ -70,6 +70,32 @@ def gaussian_blur(img, sigma: float):
         ri = r + 1 if i < best_k else r
         out = box_blur_1d(box_blur_1d(out, ri, 1), ri, 0)
     return out
+
+
+def gaussian_kernel(sigma: float, radius: int) -> np.ndarray:
+    x = np.arange(-radius, radius + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def shifted_gaussian_blur(img, sigma: float, radius: int = 3):
+    """Separable gaussian of (H, W) or (H, W, C) as explicit shifted adds
+    (edge-clamped), rows first, taps summed left to right as in the JAX
+    package.  Cancellation-free, unlike the cumsum box chain: the ESM
+    maps it blurs reach e^20."""
+    k = gaussian_kernel(sigma, radius)
+    for axis in (0, 1):
+        n = img.shape[axis]
+        x = torch.cat([img.narrow(axis, 0, 1).repeat_interleave(radius, axis),
+                       img,
+                       img.narrow(axis, n - 1, 1).repeat_interleave(radius, axis)],
+                      dim=axis)
+        acc = None
+        for j in range(2 * radius + 1):
+            term = x.narrow(axis, j, n) * float(k[j])
+            acc = term if acc is None else acc + term
+        img = acc
+    return img
 
 
 def _up2_matrix(n: int) -> np.ndarray:

@@ -143,6 +143,14 @@ def ndc_grid(height: int, width: int, device=None, dtype=torch.float32):
     return torch.meshgrid(ys, xs, indexing="ij")
 
 
+def texel_index(x, n: int):
+    """int32(x) truncated toward zero, then clipped to [0, n-1], as the
+    JAX package's `clip(x.astype(int32), 0, n-1)` texel taps; x is
+    clamped first so that far-off values convert as XLA's saturating
+    convert does."""
+    return torch.clamp(torch.clamp(x, -1.0, float(n)).to(torch.int32), 0, n - 1)
+
+
 def srgb_encode(linear):
     """Piecewise sRGB transfer (final image encode)."""
     linear = torch.clamp(linear, 0.0, 1.0)

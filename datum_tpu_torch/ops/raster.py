@@ -49,7 +49,8 @@ def adjugate3(m):
 
 
 def triangle_setup_comps(comps, shared, width, height, tiles_x, tiles_y,
-                         tri_valid=None, cull=0, max_span=BIN_MAX_SPAN):
+                         tri_valid=None, cull=0, max_span=BIN_MAX_SPAN,
+                         ylim=None):
     """SoA triangle setup core.
 
     comps: dict of (T,) f32 tensors x0,y0,z0,w0,x1,...,w2 (clip coords
@@ -57,8 +58,11 @@ def triangle_setup_comps(comps, shared, width, height, tiles_x, tiles_y,
 
     Returns the setup dict: bbox_soa (tx0,ty0,tx1,ty1), valid (binned)
     and big (T,), row16 (T,16) kernel rows [adj*sgn 0-8, zs 9-11, valid
-    12, id 13 (set per entry), y scissor 14-15 (open: the depth-only
-    shadow raster's)], zbound (T,)."""
+    12, id 13 (set per entry), y scissor 14-15], zbound (T,).
+
+    ylim: optional (ylo, yhi) NDC y scissor per triangle (tensors that
+    broadcast to (T,)), which the depth-only raster applies per pixel as
+    ylo <= yn < yhi; None leaves it open at (-8, 8)."""
     x0, y0, z0, w0 = comps["x0"], comps["y0"], comps["z0"], comps["w0"]
     x1, y1, z1, w1 = comps["x1"], comps["y1"], comps["z1"], comps["w1"]
     x2, y2, z2, w2 = comps["x2"], comps["y2"], comps["z2"], comps["w2"]
@@ -122,14 +126,19 @@ def triangle_setup_comps(comps, shared, width, height, tiles_x, tiles_y,
     zs1 = (a01 * z0 + a11 * z1 + a21 * z2) * idet
     zs2 = (a02 * z0 + a12 * z1 + a22 * z2) * idet
     sgn = torch.sign(det)
+    if ylim is None:
+        ylo, yhi = torch.full_like(det, -8.0), torch.full_like(det, 8.0)
+    else:
+        ylo, yhi = (torch.broadcast_to(torch.as_tensor(v, dtype=det.dtype,
+                                                       device=det.device),
+                                       det.shape) for v in ylim)
     val_f = valid | big   # kernel-visible validity (slot 12)
     row16 = torch.stack([
         a00 * sgn, a01 * sgn, a02 * sgn,
         a10 * sgn, a11 * sgn, a12 * sgn,
         a20 * sgn, a21 * sgn, a22 * sgn,
         zs0, zs1, zs2,
-        val_f.to(det.dtype), torch.zeros_like(det),
-        torch.full_like(det, -8.0), torch.full_like(det, 8.0),
+        val_f.to(det.dtype), torch.zeros_like(det), ylo, yhi,
     ], dim=-1)
 
     # conservative screen-depth upper bound (see the JAX package): the
@@ -144,7 +153,7 @@ def triangle_setup_comps(comps, shared, width, height, tiles_x, tiles_y,
 
 
 def triangle_setup(clip, tris, width, height, tiles_x, tiles_y, tri_valid=None,
-                   cull=0, max_span=BIN_MAX_SPAN):
+                   cull=0, max_span=BIN_MAX_SPAN, ylim=None):
     """Per-triangle raster setup.
 
     clip: (V, 4) clip positions; tris: (T, 3) int32 vertex ids (padding
@@ -161,12 +170,12 @@ def triangle_setup(clip, tris, width, height, tiles_x, tiles_y, tri_valid=None,
               | (tris[:, 0] == tris[:, 2]))
     return triangle_setup_comps(comps, shared, width, height, tiles_x,
                                 tiles_y, tri_valid=tri_valid, cull=cull,
-                                max_span=max_span)
+                                max_span=max_span, ylim=ylim)
 
 
 def bin_triangles(setup, n_tris, tiles_x, tiles_y, bin_capacity, big_capacity,
                   max_span=BIN_MAX_SPAN, return_overflow=False,
-                  depth_prio=None, return_zub=False):
+                  depth_prio=None, return_zub=False, tri_block=None):
     """Per-tile triangle lists via pair expansion + sort.
 
     Returns (bins (n_tiles, bin_capacity) i32 with -1 padding, counts
@@ -175,12 +184,38 @@ def bin_triangles(setup, n_tris, tiles_x, tiles_y, bin_capacity, big_capacity,
 
     depth_prio: optional (T,) reverse-Z depth in [0, 1]; a 4-bit
     near-first depth band then rides the key, so a saturated bin keeps
-    the nearest triangles.  Everything here stays on the device: no
-    host sync."""
+    the nearest triangles.
+
+    tri_block: optional (n_blocks, tiles_per_block) for a stacked atlas
+    (the shadow stacks): block b owns triangle ids [b*T/n, (b+1)*T/n)
+    and tiles [b*tiles_per_block, ...), and each triangle bins only into
+    its own block's tile rows.  The key then packs tri % (T/n_blocks),
+    as in the JAX package (so the depth band gets the same bits), and
+    the block-global id is recovered from the tile at unpack.
+
+    Everything here stays on the device: no host sync."""
     dev = setup["valid"].device
     n_tiles = tiles_x * tiles_y
     tx0, ty0, tx1, ty1 = setup["bbox_soa"]
     T = n_tris
+    T_local = T
+    if tri_block is not None:
+        n_blocks, tiles_per_block = tri_block
+        if T % n_blocks or n_tiles != n_blocks * tiles_per_block \
+                or tiles_per_block % tiles_x:
+            raise ValueError(f"tri_block {tri_block} does not split {T} "
+                             f"triangles and {n_tiles} tiles into whole "
+                             "blocks of tile rows")
+        T_local = T // n_blocks
+        # clamp each triangle's rows to its block: a bbox spilling into
+        # the neighbour band would unpack there (the raster's y scissor
+        # removes those pixels anyway)
+        rows_per_block = tiles_per_block // tiles_x
+        lo = (torch.arange(T, dtype=torch.int32, device=dev) // T_local
+              * rows_per_block)
+        hi = lo + rows_per_block - 1
+        ty0 = torch.minimum(torch.maximum(ty0, lo), hi)
+        ty1 = torch.minimum(torch.maximum(ty1, lo), hi)
     span_w = tx1 - tx0 + 1
     span = span_w * (ty1 - ty0 + 1)
 
@@ -196,7 +231,7 @@ def bin_triangles(setup, n_tris, tiles_x, tiles_y, bin_capacity, big_capacity,
 
     # key = (tile | depth band | tri), the JAX package's bit layout
     tile_bits = max(int(n_tiles).bit_length(), 1)
-    tri_bits = max(int(T - 1).bit_length(), 1)
+    tri_bits = max(int(T_local - 1).bit_length(), 1)
     if depth_prio is None:
         dq_bits = 0
     else:
@@ -211,7 +246,7 @@ def bin_triangles(setup, n_tris, tiles_x, tiles_y, bin_capacity, big_capacity,
             f"{T} tris ({tri_bits}b) + {dq_bits} depth bits > 32")
     shift = dq_bits + tri_bits
 
-    tri_ids = torch.arange(T, dtype=torch.int64, device=dev)[None, :]
+    tri_ids = torch.arange(T, dtype=torch.int64, device=dev)[None, :] % T_local
     key = (tile.to(torch.int64) << shift) | tri_ids
     if depth_prio is not None:
         levels = (1 << dq_bits) - 1
@@ -236,6 +271,10 @@ def bin_triangles(setup, n_tris, tiles_x, tiles_y, bin_capacity, big_capacity,
     entry_ok = ((kk >> shift)
                 == torch.arange(n_tiles, dtype=torch.int64, device=dev)[:, None])
     tri_unpacked = (kk & ((1 << tri_bits) - 1)).to(torch.int32)
+    if tri_block is not None:
+        block = torch.arange(n_tiles, dtype=torch.int32,
+                             device=dev) // tiles_per_block
+        tri_unpacked = tri_unpacked + block[:, None] * T_local
     bins = torch.where(entry_ok, tri_unpacked, torch.full_like(tri_unpacked, -1))
     bin_zub = None
     if return_zub:

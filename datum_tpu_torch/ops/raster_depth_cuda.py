@@ -1,0 +1,124 @@
+"""K3: the depth-only shadow raster on the card.
+
+Counterpart of datum_tpu/ops/raster_pallas.py (`raster_depth_pallas`
+without early-z; its Pallas body `_depth_kernel` becomes
+csrc/raster_depth.cu).  It renders the stacked sun-cascade atlases and
+the stacked parabolic spot maps (ops/shadow.py).
+
+`raster_depth` runs the CUDA kernel for CUDA tensors
+(`raster_depth_cuda`) or the plain PyTorch version for CPU tensors
+(`raster_depth_reference`).  Both walk every tile's entries — the big
+list, then the bin — and keep per pixel the largest depth d that passes
+the inside test, the y scissor and d > depth, d <= 1.  A max under a
+strict test does not depend on the walk order.  Each plane a*xn + b*yn
++ c is evaluated as fma(a, xn, b*yn) + c: that is how XLA compiles the
+JAX kernel's expression (bit-equal to its interpret runs), the kernel
+writes the fma explicitly, and so the kernel is bit-equal to the plain
+version.  The TPU lane packing (DEPTH_PACK, DEPTH_TILES_PER_STEP) moves no
+value and is not carried over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _kernels
+from .common import TILE_H, TILE_W
+from .raster import _untile
+from .raster_cuda import _entry_ids, _ndc_scale
+
+ROW = 16              # floats per triangle row (the setup's row16)
+
+
+def _plane(a, b, c, xn, yn):
+    """fma(a, xn, b*yn) + c: the product a*xn is exact in f64, so adding
+    the f32 b*yn there and rounding once is the fused multiply-add."""
+    return (a.double() * xn.double() + (b * yn).double()).float() + c
+
+
+def raster_depth_reference(rows, bins, counts, big_ids, tiles_x, width, height):
+    """Plain PyTorch K3: (tiles_y*32, tiles_x*128) f32 reverse-Z depth.
+    It walks every bin slot: slots past a tile's count hold -1, whose
+    zero rows never pass."""
+    dev = rows.device
+    n_tiles = bins.shape[0]
+    ids = _entry_ids(bins, big_ids)
+    tile = torch.arange(n_tiles, device=dev)
+    ty = (tile // tiles_x).to(torch.float32)[:, None, None]
+    tx = (tile % tiles_x).to(torch.float32)[:, None, None]
+    yy = torch.arange(TILE_H, device=dev, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(TILE_W, device=dev, dtype=torch.float32)[None, None, :]
+    yn = (ty * TILE_H + yy + 0.5) * _ndc_scale(height) - 1.0     # (n, 32, 1)
+    xn = (tx * TILE_W + xx + 0.5) * _ndc_scale(width) - 1.0      # (n, 1, 128)
+
+    depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
+    for k in range(ids.shape[1]):
+        idk = ids[:, k]
+        r = (rows[torch.clamp(idk, min=0).long()]
+             * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
+        e0 = _plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
+        e1 = _plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
+        e2 = _plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
+        s = e0 + e1 + e2
+        inside = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0) & (r[:, 12] > 0)
+                  & (yn >= r[:, 14]) & (yn < r[:, 15]))
+        d = _plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
+        depth = torch.where(inside & (d > depth) & (d <= 1.0), d, depth)
+    return _untile(depth, tiles_x, n_tiles // tiles_x)
+
+
+def raster_depth_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
+    """K3 on the card: the same contract as raster_depth_reference."""
+    dev = rows.device
+    n_tiles, cap = bins.shape
+    if dev.type != "cuda":
+        raise ValueError(f"raster_depth_cuda needs CUDA tensors, got {dev}")
+    for name, t, dt, shape in (("rows", rows, torch.float32, (rows.shape[0], ROW)),
+                               ("bins", bins, torch.int32, (n_tiles, cap)),
+                               ("counts", counts, torch.int32, (n_tiles,)),
+                               ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"raster_depth_cuda: {name} must be a contiguous "
+                             f"{dt} {shape} tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if n_tiles % tiles_x:
+        raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
+    out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W
+    out = torch.empty((out_h, out_w), dtype=torch.float32, device=dev)
+    vp = ctypes.c_void_p
+    code = _kernels.library().lib.raster_depth_launch(
+        vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
+        vp(big_ids.data_ptr()), big_ids.shape[0], cap, tiles_x, n_tiles,
+        _ndc_scale(width), _ndc_scale(height), out_w, vp(out.data_ptr()),
+        vp(_kernels.stream_ptr(dev)))
+    _kernels.check(code, "raster_depth")
+    raster_depth_cuda.launches += 1
+    return out
+
+
+raster_depth_cuda.launches = 0
+
+
+def depth_inputs(setup, bins, big_ids, counts, tiles_x, width, height):
+    """The K3 arguments both versions take, from a stack's setup and bins."""
+    return dict(rows=setup["row16"].contiguous(),
+                bins=bins.to(torch.int32).contiguous(),
+                counts=counts.to(torch.int32).contiguous(),
+                big_ids=big_ids.to(torch.int32).contiguous(),
+                tiles_x=tiles_x, width=width, height=height)
+
+
+def raster_depth(setup, bins, big_ids, counts, tiles_x, tiles_y, width, height):
+    """Depth-only raster (shadow maps).  Returns (tiles_y*32, tiles_x*128)
+    f32 reverse-Z depth, 0 where nothing covers a texel.  CUDA tensors
+    run the K3 kernel (it raises if it cannot launch); CPU tensors run
+    the plain PyTorch version."""
+    if bins.shape[0] != tiles_x * tiles_y:
+        raise ValueError(f"bins has {bins.shape[0]} rows for "
+                         f"{tiles_x}x{tiles_y} tiles")
+    inp = depth_inputs(setup, bins, big_ids, counts, tiles_x, width, height)
+    fn = raster_depth_cuda if inp["rows"].is_cuda else raster_depth_reference
+    return fn(**inp)

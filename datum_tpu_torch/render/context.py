@@ -1,16 +1,20 @@
 """RenderContext: persistent pools + device state (counterpart of
-datum_tpu/render/context.py, the host side the opaque slice needs).
+datum_tpu/render/context.py, the host side the port needs).
 
 The geometry pool, the material and texture tables, the material-map
-mip table (`_rebuild_matmaps`, with the `packed10` per-material rows)
-and the fitted colour-grading polynomial are numpy, as in the JAX
-package; `device_state(device)` returns them as torch tensors on
+mip table (`_rebuild_matmaps`, with the `packed10` per-material rows),
+the fitted colour-grading polynomial and the skybox environment (its
+mip chain, mip-pair table, SH-9 and the env-BRDF LUT) are numpy, as in
+the JAX package; `device_state(device)` returns them as torch tensors on
 `device`.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
+import torch
 
 from ..convert import to_torch
 from ..ops.common import FrameConfig
@@ -21,6 +25,11 @@ MAX_TEXTURES = 64
 # a grading LUT grades through its fitted polynomial when the fit's max
 # error is within this (~2/255)
 LUT_POLY_TOL = 0.008
+
+# the JAX package's tracked env-BRDF LUT (bake_envbrdf(64, 128)); read
+# only, never written
+_ENVBRDF_LUT = (Path(__file__).resolve().parents[2] / "datum_tpu" / "_cache"
+                / "envbrdf64.npy")
 
 # fixed texture ids
 TEX_WHITE = 0
@@ -157,6 +166,40 @@ class RenderContext:
                                                   metalness=0.0, roughness=1.0,
                                                   reflectivity=0.5)
         self.colorlut_poly = None
+        self.skybox = None
+        self._ibl = None
+        self._envbrdf = None
+
+    def set_skybox(self, skybox):
+        """Attach an EnvMap/SkyBox as the global environment; its
+        mip-pair table and SH-9 are baked here, once."""
+        from ..ops.ibl import sh_project
+        from ..ops.sampling import flatten_cube_mips_pair
+
+        self.skybox = skybox
+        mips = [torch.from_numpy(m) for m in skybox.mips]
+        table, bases, sizes = flatten_cube_mips_pair(mips)
+        self._ibl = dict(
+            mips=tuple(skybox.mips),
+            flatp=(table.numpy(), bases.numpy(), sizes.numpy()),
+            sh=sh_project(mips[0][..., :3]).numpy(),
+            envbrdf=self.envbrdf_lut())
+
+    def add_environment(self, position, halfdim, cubemap, rotation=None,
+                        levels=5):
+        """Local box environment probes are not ported yet."""
+        raise NotImplementedError(
+            "RenderContext.add_environment: box environment probes are not "
+            "ported yet — ROADMAP Queue 1: IBL/skybox environment (box "
+            "probes: ops/envprobe.py and the K2 edm override)")
+
+    def envbrdf_lut(self):
+        """Split-sum env-BRDF LUT (64, 64, 3): the JAX package's tracked
+        bake_envbrdf(64, 128), read only (ops.ibl.bake_envbrdf reproduces
+        it; a test holds the two together)."""
+        if self._envbrdf is None:
+            self._envbrdf = np.load(_ENVBRDF_LUT)
+        return self._envbrdf
 
     def set_colorlut(self, lut):
         """3D grading LUT (S, S, S, 3) in [0,1], graded through its fitted
@@ -215,6 +258,8 @@ class RenderContext:
             textures=self.textures,
         )
         self._rebuild_matmaps(state)
+        if self._ibl is not None:
+            state["ibl"] = self._ibl
         if self.colorlut_poly is not None:
             state["colorlut_poly"] = self.colorlut_poly
         return state

@@ -1,11 +1,14 @@
-"""The opaque frame (counterpart of datum_tpu/render/frame.py, the
-megakernel branch of `_frame` with the environment, shadows, AO, fog,
-SSR, translucents, particles and decals off).
+"""The frame (counterpart of datum_tpu/render/frame.py, the megakernel
+branch of `_frame` with SSAO, fog, SSR, translucents, particles and
+decals off).
 
 Passes, in order: host draw expansion (numpy) -> attribute gather and
-rigid transform -> triangle setup and binning into 32x128 tiles -> K1
-fused visibility raster (ops/raster_cuda.py) -> plane assembly at half
-resolution with one batched upsample -> K2 deferred-shade megakernel
+rigid transform -> sun cascades (K3, ops/raster_depth_cuda.py) and
+their ESM, parabolic spot maps (K3) and their ESM -> triangle setup and
+binning into 32x128 tiles -> K1 fused visibility raster
+(ops/raster_cuda.py) -> plane assembly at half resolution with the
+skybox environment, one batched upsample, the quarter-res sun factor,
+spot factors and sky planes -> K2 deferred-shade megakernel
 (ops/shade_cuda.py) -> luminance, quarter-res bloom, composite, u8.
 
 PyTorch runs eagerly, so there is no jit: each pass is a plain function
@@ -20,20 +23,27 @@ import torch
 from ..convert import to_torch
 from ..ops import brdf
 from ..ops import raster as raster_ops
+from ..ops import shadow as shadow_ops
 from ..ops.blur import downsample_pool, resize_up_dense, resize_up_dense_batch
 from ..ops.bloom import bloom as bloom_op
-from ..ops.common import FrameConfig
+from ..ops.common import FrameConfig, texel_index
 from ..ops.composite import composite, to_u8_image
 from ..ops.geometry import transform_vertices_rigid
+from ..ops.ibl import rotate_sh9
+from ..ops.lighting_pass import _inv_proj, reconstruct_positions, view_ray_grid
 from ..ops.raster_cuda import raster_shade
+from ..ops.sampling import sample_cubemap_lod_pair
 from ..ops.shade import sample_matmaps
 from ..ops.shade_cuda import shade_deferred
 
 # (rejected when true, what it is and the ROADMAP Queue 1 item that ports it)
 _LATER = (
-    (lambda c: c.enable_shadows, "sun shadows (enable_shadows)", "shadows (K3)"),
-    (lambda c: c.max_spot_shadows > 0, "spot shadow maps (max_spot_shadows)",
-     "shadows (K3)"),
+    (lambda c: c.enable_shadows and c.shadow_mode != "esm",
+     "PCF sun shadows (shadow_mode='pcf', the fallback frame's)",
+     "shadows (PCF)"),
+    (lambda c: c.max_spot_shadows > 0 and c.spot_shadow_mode != "parabolic",
+     "perspective spot maps (spot_shadow_mode='perspective')",
+     "shadows (perspective spot maps)"),
     (lambda c: c.max_translucent_draws > 0, "translucent draws",
      "translucency (K4, K1 peel, K2 epilogue)"),
     (lambda c: c.max_particle_quads > 0, "particles",
@@ -69,7 +79,7 @@ _LATER = (
 
 
 def check_config(cfg: FrameConfig):
-    """Raise NotImplementedError for every flag the opaque slice lacks."""
+    """Raise NotImplementedError for every flag the port lacks."""
     for rejected, what, item in _LATER:
         if rejected(cfg):
             raise NotImplementedError(
@@ -164,11 +174,9 @@ def _bin_stage(cfg: FrameConfig, ex, clip):
     return setup, bins, counts, big_ids, bin_overflow
 
 
-def _raster_stage(cfg: FrameConfig, state, draws, sceneset):
-    """Vertex stage, binning and the K1 raster.  Returns (planes dict,
-    bin_overflow)."""
-    ex, uv, clip, wnormal, wtangent, _ = _vertex_stage(cfg, state, draws,
-                                                       sceneset)
+def _raster_stage(cfg: FrameConfig, state, draws, ex, uv, clip, wnormal,
+                  wtangent):
+    """Binning and the K1 raster.  Returns (planes dict, bin_overflow)."""
     setup, bins, counts, big_ids, bin_overflow = _bin_stage(cfg, ex, clip)
     planes = raster_shade(
         setup, bins, big_ids, counts, ex["tris"], uv, wnormal, draws["tri_mat"],
@@ -177,12 +185,83 @@ def _raster_stage(cfg: FrameConfig, state, draws, sceneset):
     return planes, bin_overflow
 
 
-def _assemble_gplanes(planes, state, w, h):
-    """Material and environment plane assembly for the opaque layer with
-    no environment: half-res material taps, ONE batched 2x upsample of 15
-    channel-first planes, then the full-res gbuffer encode and TBN
-    normal mapping.  Returns the K2 plane dict (sun factor 1: no
-    shadows)."""
+def _sun_shadows(cfg: FrameConfig, ex, worldp, sceneset):
+    """Sun cascades (K3) and their ESM: (esm, zmax, zscale) or None."""
+    if not cfg.enable_shadows:
+        return None
+    ml = sceneset["mainlight"]
+    raw = shadow_ops.render_shadow_cascades(
+        worldp, ex["tris"], ml["shadowview"], res=cfg.shadow_res,
+        bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity,
+        far_res=cfg.shadow_far_res)
+    return shadow_ops.build_esm(raw, ml["shadowview"])
+
+
+def _spot_shadows(cfg: FrameConfig, ex, worldp, sceneset):
+    """Parabolic spot maps (K3) and their ESM: (n, R, R) or None."""
+    if cfg.max_spot_shadows <= 0:
+        return None
+    sl = sceneset["spotlights"]
+    maps = shadow_ops.render_spot_maps_parabolic(
+        worldp, ex["tris"], sl["view"], sl["attenuation"][:, 3],
+        cfg.max_spot_shadows, res=cfg.spot_shadow_res,
+        bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity)
+    return shadow_ops.build_spot_esm(maps)
+
+
+def _shadow_stage(cfg: FrameConfig, ex, worldp, sceneset):
+    """dict(sun=_sun_shadows(...), spot=_spot_shadows(...))."""
+    return dict(sun=_sun_shadows(cfg, ex, worldp, sceneset),
+                spot=_spot_shadows(cfg, ex, worldp, sceneset))
+
+
+def _skyrot(sceneset):
+    """World -> env rotation of the global environment lookups."""
+    return sceneset["camera"]["skyrot_inv"]
+
+
+def _env_fields(planes, mm12, ibl, sceneset, w, h):
+    """Half-res environment fields of the skybox, channel-first: the
+    specular env tap along the roughness-bent reflection (3, H/2, W/2),
+    and the quarter-res env-BRDF taps upsampled to half res (3, H/2,
+    W/2)."""
+    p = 2
+    proj, invview = sceneset["proj"], sceneset["invview"]
+    mk = (planes["visf"] >= 0.0).to(torch.float32)
+    # one stacked pool: mask, masked normal, masked roughness
+    pooled5 = downsample_pool(torch.stack(
+        [mk, planes["nx"] * mk, planes["ny"] * mk, planes["nz"] * mk,
+         planes["rgh"] * mk], -1), p)
+    mk_h = torch.clamp(pooled5[..., :1], min=1e-6)
+    nrm_h = brdf.normalize(pooled5[..., 1:4] / mk_h)
+    d_h = downsample_pool(planes["depth"], p, reduce="first")
+    _, wp_h = reconstruct_positions(d_h, proj, invview, w // p, h // p)
+    eye_h = brdf.normalize(invview[:3, 3] - wp_h)
+    rough_h = pooled5[..., 4] / mk_h[..., 0] * mm12[7]
+    r_h = 2.0 * (nrm_h * eye_h).sum(-1, keepdim=True) * nrm_h - eye_h
+    sdir_h = brdf.specular_dominant_direction(nrm_h, r_h, rough_h)
+    spec_h = sample_cubemap_lod_pair(
+        ibl["flatp"], brdf.normalize(sdir_h) @ _skyrot(sceneset).T,
+        rough_h * (len(ibl["mips"]) - 1))[..., :3]
+    # env-BRDF at quarter res: the split-sum field is smooth in
+    # (roughness, NdotV)
+    lut = ibl["envbrdf"]
+    s_ = lut.shape[0]
+    ndv_h = torch.clamp((nrm_h * eye_h).sum(-1), 0.0, 1.0)
+    bi = texel_index(downsample_pool(rough_h, 2) * s_, s_)
+    bj = texel_index(downsample_pool(ndv_h, 2) * s_, s_)
+    eb_q = lut.reshape(-1, lut.shape[-1])[(bi * s_ + bj).long()]
+    eb_h = resize_up_dense(eb_q, h // p, w // p)
+    return spec_h.permute(2, 0, 1), eb_h.permute(2, 0, 1)
+
+
+def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows):
+    """Material, environment and sun-shadow plane assembly for the opaque
+    layer: half-res material and environment taps, ONE batched 2x
+    upsample of 15 channel-first planes, the full-res gbuffer encode and
+    TBN normal mapping, and the quarter-res sun factor upsampled.
+    Returns the K2 plane dict."""
+    w, h = cfg.padded_width, cfg.padded_height
     p = 2
     uv_h = torch.stack([downsample_pool(planes["u"], p),
                         downsample_pool(planes["v"], p)], -1)
@@ -193,12 +272,16 @@ def _assemble_gplanes(planes, state, w, h):
     mm12 = sample_matmaps(state["matmaps"]["table"], base_h, size_h, uv_h,
                           pool=p)                          # (12, H/2, W/2)
 
-    # no environment: zero specular env; the constant-ambient fallback
-    # rides the SH DC coefficient with eb2 = 1
-    h2, w2 = h // p, w // p
-    f32 = dict(dtype=torch.float32, device=mm12.device)
-    spec_h = torch.zeros((3, h2, w2), **f32)
-    eb_h = torch.tensor([0.0, 0.0, 1.0], **f32)[:, None, None].expand(3, h2, w2)
+    ibl = state.get("ibl")
+    if ibl is not None:
+        spec_h, eb_h = _env_fields(planes, mm12, ibl, sceneset, w, h)
+    else:
+        # no environment: zero specular env; the constant-ambient
+        # fallback rides the SH DC coefficient with eb2 = 1
+        h2, w2 = h // p, w // p
+        f32 = dict(dtype=torch.float32, device=mm12.device)
+        spec_h = torch.zeros((3, h2, w2), **f32)
+        eb_h = torch.tensor([0.0, 0.0, 1.0], **f32)[:, None, None].expand(3, h2, w2)
     sel = torch.tensor([0, 1, 2, 4, 5, 7, 8, 9, 10], device=mm12.device)
     half = torch.cat([mm12[sel], spec_h, eb_h], dim=0)   # (15, H/2, W/2)
     (alb_r, alb_g, alb_b, surf_m, surf_r, surf_rough,
@@ -231,30 +314,80 @@ def _assemble_gplanes(planes, state, w, h):
                         + nrm * nm_z[..., None] * 2.0
                         - (tgt + btg + nrm))
     gpl["nx"], gpl["ny"], gpl["nz"] = sn[..., 0], sn[..., 1], sn[..., 2]
-    gpl["sf"] = torch.ones_like(planes["depth"])
+
+    # sun shadow factor: quarter-res ESM taps, upsampled
+    if shadows["sun"] is not None:
+        sfq = shadow_ops.sun_shadow_factor_quarter(
+            planes["depth"], (planes["nx"], planes["ny"], planes["nz"]),
+            shadows["sun"], sceneset, proj=sceneset["proj"],
+            invview=sceneset["invview"], slice_blend=cfg.shadow_slice_blend)
+        gpl["sf"] = resize_up_dense(sfq, h, w)
+    else:
+        gpl["sf"] = torch.ones_like(planes["depth"])
     return gpl
 
 
-def _shade_inputs(cfg: FrameConfig, planes, state, sceneset):
-    """(gplanes, sceneset with "_sh") for K2."""
-    gpl = _assemble_gplanes(planes, state, cfg.padded_width, cfg.padded_height)
-    ss2 = dict(sceneset)
-    # DC-only SH reproducing the constant-ambient fallback:
-    # basis0 * c0 / pi = 0.2  =>  c0 = 0.2 * pi / 0.886227
-    sh0 = torch.zeros((9, 3), dtype=torch.float32, device=planes["depth"].device)
-    sh0[0, :] = 0.70898
-    ss2["_sh"] = sh0
-    return gpl, ss2
+def _sky_planes(ibl, sceneset, w, h):
+    """The skybox behind the geometry: view rays tapped at quarter res
+    (mip skyboxlod, at least 0) and upsampled 4x.  (3, H, W)."""
+    proj, invview = sceneset["proj"], sceneset["invview"]
+    rx, ry = view_ray_grid(_inv_proj(proj), w, h)
+    rays = torch.stack([rx, ry, -torch.ones_like(rx)], -1) @ invview[:3, :3].T
+    rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+    lod = torch.clamp(sceneset["camera"]["skyboxlod"], min=0.0)
+    rays_q = downsample_pool(rays, 4) @ _skyrot(sceneset).T
+    sky_q = sample_cubemap_lod_pair(ibl["flatp"], rays_q,
+                                    lod.expand(rays_q.shape[:-1]))[..., :3]
+    return resize_up_dense_batch(sky_q.permute(2, 0, 1), h, w)
 
 
-def _frame(cfg: FrameConfig, state, draws, sceneset):
+def _sky_sh_spots(cfg: FrameConfig, gpl, planes, state, sceneset, spot):
+    """The rest of K2's inputs: the sky planes (into gpl), the sceneset
+    with "_sh", and the spot factor planes.  Returns (ss2, spotsf or
+    None)."""
     w, h = cfg.padded_width, cfg.padded_height
-    planes, bin_overflow = _raster_stage(cfg, state, draws, sceneset)
-    gpl, ss2 = _shade_inputs(cfg, planes, state, sceneset)
-    hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
-                         invview=sceneset["invview"])
+    ss2 = dict(sceneset)
+    ibl = state.get("ibl")
+    if ibl is not None:
+        # SH-9 rotated by the skybox orientation, so that K2 evaluates it
+        # with world normals
+        ss2["_sh"] = rotate_sh9(ibl["sh"], _skyrot(sceneset))
+        gpl["sky_r"], gpl["sky_g"], gpl["sky_b"] = \
+            _sky_planes(ibl, sceneset, w, h).unbind(0)
+    else:
+        # DC-only SH reproducing the constant-ambient fallback:
+        # basis0 * c0 / pi = 0.2  =>  c0 = 0.2 * pi / 0.886227
+        sh0 = torch.zeros((9, 3), dtype=torch.float32,
+                          device=planes["depth"].device)
+        sh0[0, :] = 0.70898
+        ss2["_sh"] = sh0
 
-    # scene luminance (log-average)
+    # spot shadow factors: quarter-res ESM taps, upsampled
+    spotsf = None
+    if spot is not None:
+        sl = sceneset["spotlights"]
+        spotsf = torch.stack([resize_up_dense(
+            shadow_ops.spot_factor_quarter_parabolic(
+                planes["depth"], spot[i], sl["view"][i],
+                sl["attenuation"][i, 3], proj=sceneset["proj"],
+                invview=sceneset["invview"]), h, w)
+            for i in range(cfg.max_spot_shadows)])
+    return ss2, spotsf
+
+
+def _shade_inputs(cfg: FrameConfig, planes, state, sceneset, shadows):
+    """(gplanes, sceneset with "_sh", spotsf or None) for K2.  shadows:
+    _shadow_stage's dict."""
+    gpl = _assemble_gplanes(cfg, planes, state, sceneset, shadows)
+    ss2, spotsf = _sky_sh_spots(cfg, gpl, planes, state, sceneset,
+                                shadows["spot"])
+    return gpl, ss2, spotsf
+
+
+def _post(cfg: FrameConfig, state, sceneset, hdr):
+    """Log-average luminance, quarter-res bloom and the graded composite:
+    (u8 image (height, width, 3), luminance)."""
+    w, h = cfg.padded_width, cfg.padded_height
     lum_w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=torch.float32,
                          device=hdr.device)
     lum = torch.exp(torch.mean(torch.log(
@@ -272,14 +405,26 @@ def _frame(cfg: FrameConfig, state, draws, sceneset):
         raise NotImplementedError("the exact trilinear LUT grade is not "
                                   "ported yet — ROADMAP Queue 1: post")
     rgb = composite(hdr, 1.0, lut_poly=lut_poly, glow=glow)
-    image = to_u8_image(rgb[:cfg.height, :cfg.width])
+    return to_u8_image(rgb[:cfg.height, :cfg.width]), lum
+
+
+def _frame(cfg: FrameConfig, state, draws, sceneset):
+    ex, uv, clip, wnormal, wtangent, worldp = _vertex_stage(cfg, state, draws,
+                                                            sceneset)
+    shadows = _shadow_stage(cfg, ex, worldp, sceneset)
+    planes, bin_overflow = _raster_stage(cfg, state, draws, ex, uv, clip,
+                                         wnormal, wtangent)
+    gpl, ss2, spotsf = _shade_inputs(cfg, planes, state, sceneset, shadows)
+    hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
+                         invview=sceneset["invview"], spotsf=spotsf)
+    image, lum = _post(cfg, state, sceneset, hdr)
     vis = torch.round(planes["visf"]).to(torch.int32)
     return dict(image=image, luminance=lum, depth=planes["depth"], vis=vis,
                 bin_overflow=bin_overflow)
 
 
 def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device):
-    """Render one opaque frame on `device`.
+    """Render one frame on `device`.
 
     state: RenderContext.device_state(device) (or any tree of the same
     layout, e.g. the JAX package's state through convert.to_torch);
@@ -288,9 +433,10 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device):
     numpy trees; they are moved onto `device` here.
 
     Returns dict(image (height, width, 3) u8, luminance () f32, depth
-    and vis (padded H, W), bin_overflow () i32), all on `device`.  On a
-    CUDA device the raster and the shade run the hand-written kernels
-    (they raise if they cannot launch; nothing falls back).
+    and vis (padded H, W), bin_overflow () i32 of the main bins), all on
+    `device`.  On a CUDA device the rasters (K1, K3) and the shade (K2)
+    run the hand-written kernels (they raise if they cannot launch;
+    nothing falls back).
 
     Contract on the card: f32 matmuls run in full f32.  The caller sets
     torch.backends.cuda.matmul.allow_tf32 = False and

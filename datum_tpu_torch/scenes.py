@@ -1,7 +1,8 @@
 """Canonical test scene (counterpart of datum_tpu/scenes.py::datumtest_scene).
 
 The flagship scene: a grid of spheres sweeping roughness x metalness,
-a checkered ground plane, point lights and an unshadowed spot, graded
+a checkered ground plane, point lights and a spot (shadowed when the
+config asks for spot maps), lit by a procedural skybox and graded
 through the fitted colour LUT.  Built on the port's own numpy host
 side, so it needs no jax.
 """
@@ -30,10 +31,8 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
     ctx = RenderContext(cfg)
 
     if skybox:
-        raise NotImplementedError(
-            "datumtest_scene(skybox=True): the IBL/skybox environment is not "
-            "ported yet (ROADMAP Queue 1, IBL/skybox environment slice); "
-            "pass skybox=False")
+        from .render.skybox import SkyBox
+        ctx.set_skybox(SkyBox(size=skybox_size, convolve_samples=16))
 
     verts, idx = primitives.unit_sphere(sphere_detail, sphere_detail // 2)
     sphere = ctx.add_mesh(verts, idx)
@@ -115,7 +114,7 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
             p = light_pos[li].copy()
             p[0] += np.sin(t + li) * 1.5
             rl.push_pointlight(p, light_col[li], (1.0, 0.0, 1.0), range_=12.0)
-        # the spot over the sphere wall (unshadowed in this slice)
+        # the spot over the sphere wall
         rl.push_spotlight(np.float32([4.0, 8.0, 6.0]),
                           np.float32([-0.35, -0.75, -0.55]),
                           np.float32([20.0, 19.0, 17.0]), cutoff=0.6,

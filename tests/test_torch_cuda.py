@@ -7,7 +7,8 @@ one.  On the machine with the card (no jax there, so no conftest):
 Tolerances are chip_smoke.py's: K1 visf identical on >= 99.9% of
 pixels, depth atol 1e-6, interpolated planes atol/rtol 1e-4,
 per-triangle planes exact; K2 atol 1e-4 / rtol 1e-3 (CUDA's and
-torch's sqrt and division differ by ulps)."""
+torch's sqrt and division differ by ulps); K3 bit-identical on >=
+99.99% of texels, max abs error 1e-6."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,10 @@ from datum_tpu_torch.convert import to_torch
 from datum_tpu_torch.ops.raster_cuda import (PLANE_NAMES, raster_inputs,
                                              raster_shade_cuda,
                                              raster_shade_reference)
+from datum_tpu_torch.ops import shadow as shadow_ops
+from datum_tpu_torch.ops.raster_depth_cuda import (depth_inputs,
+                                                   raster_depth_cuda,
+                                                   raster_depth_reference)
 from datum_tpu_torch.ops.shade_cuda import (shade_deferred_cuda,
                                             shade_deferred_reference,
                                             shade_inputs)
@@ -31,6 +36,9 @@ SLICE = dict(width=512, height=256, sphere_detail=12, grid=(5, 3),
              max_triangles=4096, bin_capacity=320, big_capacity=32,
              bin_max_span=8, use_pallas=True, texture_filter="mip_half",
              enable_shadows=False)
+SHADOWED = dict(SLICE, skybox=True, skybox_size=32, enable_shadows=True,
+                shadow_res=512, shadow_far_res=256, shadow_slice_blend=0.25,
+                max_spot_shadows=1, spot_shadow_res=256)
 
 
 @pytest.fixture
@@ -42,8 +50,8 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _frame(card, t=0.4):
-    ctx, camera, params, make_rl = datumtest_scene(**SLICE)
+def _frame(card, t=0.4, scene=SLICE):
+    ctx, camera, params, make_rl = datumtest_scene(**scene)
     rl = make_rl(t)
     ss = make_sceneset(camera, params, point_lights=rl.point_lights,
                        spot_lights=rl.spot_lights)
@@ -83,7 +91,8 @@ def test_k1_kernel_matches_plain(card):
 def test_k2_kernel_matches_plain(card):
     cfg, state, s, inp = _k1_inputs(card)
     planes = dict(zip(PLANE_NAMES, raster_shade_cuda(**inp)))
-    gpl, ss2 = frame_mod._shade_inputs(cfg, planes, state, s)
+    gpl, ss2, _ = frame_mod._shade_inputs(cfg, planes, state, s,
+                                          dict(sun=None, spot=None))
     g = torch.Generator(device="cpu").manual_seed(3)
     h, w = gpl["depth"].shape
     gpl["sky_r"], gpl["sky_g"], gpl["sky_b"] = (
@@ -121,3 +130,68 @@ def test_cuda_wrappers_raise_on_bad_input(card):
     bad = dict(inp, bins=inp["bins"].to(torch.int64))
     with pytest.raises(ValueError):
         raster_shade_cuda(**bad)
+
+
+def _k3_inputs(card, stack):
+    """K3 arguments of one of the shadowed frame's stacks on the card."""
+    ctx, state, draws, ss = _frame(card, scene=SHADOWED)
+    cfg = ctx.config
+    d, s = to_torch(draws, card), to_torch(ss, card)
+    ex, _, _, _, _, worldp = frame_mod._vertex_stage(cfg, state, d, s)
+    if stack == "spot":
+        sl = s["spotlights"]
+        st = shadow_ops.spot_stack_parabolic(
+            worldp, ex["tris"], sl["view"], sl["attenuation"][:, 3], 1,
+            res=cfg.spot_shadow_res)
+    else:
+        st = shadow_ops.cascade_stacks(
+            worldp, ex["tris"], s["mainlight"]["shadowview"], res=cfg.shadow_res,
+            far_res=cfg.shadow_far_res)[stack == "far"]
+    bins, counts, big = shadow_ops.bin_stack(st, cfg.shadow_bin_capacity,
+                                             cfg.big_capacity)
+    return depth_inputs(st["setup"], bins, big, counts, st["tiles_x"],
+                        st["res"], st["height"])
+
+
+@pytest.mark.parametrize("stack", ["near", "far", "spot"])
+def test_k3_kernel_matches_plain(card, stack):
+    inp = _k3_inputs(card, stack)
+    before = raster_depth_cuda.launches
+    k = raster_depth_cuda(**inp)
+    r = raster_depth_reference(**inp)
+    torch.cuda.synchronize()
+    assert raster_depth_cuda.launches == before + 1
+    assert (r > 0).float().mean().item() > 0.05
+    assert (k == r).float().mean().item() >= 0.9999
+    assert (k - r).abs().max().item() <= 1e-6
+
+
+def test_k3_wrapper_refuses_cpu_tensors_and_bad_shapes(card):
+    inp = _k3_inputs(card, "spot")
+    for bad in (dict(inp, bins=inp["bins"].to(torch.int64)),
+                dict(inp, rows=inp["rows"][:, :15].contiguous()),
+                dict(inp, counts=inp["counts"][:-1].contiguous()),
+                dict(inp, bins=inp["bins"].t()),
+                {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                 for k, v in inp.items()}):
+        with pytest.raises(ValueError):
+            raster_depth_cuda(**bad)
+
+
+def test_shadowed_frame_on_card_matches_cpu_plain(card):
+    ctx, _, draws, ss = _frame(card, scene=SHADOWED)
+    before = (raster_shade_cuda.launches, shade_deferred_cuda.launches,
+              raster_depth_cuda.launches)
+    gpu = frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
+                                 device=card)
+    after = (raster_shade_cuda.launches, shade_deferred_cuda.launches,
+             raster_depth_cuda.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 3)
+    cpu = frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
+                                 device="cpu")
+    a = gpu["image"].cpu().float().numpy()
+    b = cpu["image"].float().numpy()
+    assert b.mean() > 10
+    assert np.abs(a - b).mean() <= 0.5
+    assert np.sqrt(((a - b) ** 2).mean()) <= 2.0
+    assert int(gpu["bin_overflow"]) == int(cpu["bin_overflow"]) == 0

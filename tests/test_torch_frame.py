@@ -1,11 +1,12 @@
-"""The port's opaque frame against the JAX package's frame (CPU).
+"""The port's frame against the JAX package's frame (CPU).
 
 One state — the JAX package's device state, draws and sceneset, mapped
 to numpy — goes through both `datum_tpu.render.frame.render_frame`
 (Pallas kernels in interpret mode) and the port's `render_frame`
-(convert.to_torch, plain PyTorch versions of the kernels on the CPU).
-Tolerances: u8 image mean |d| <= 0.5 levels and RMSE <= 2/255,
-luminance within rel 1e-4, bin_overflow equal.
+(convert.to_torch, plain PyTorch versions of the kernels on the CPU),
+for the opaque slice and for the shadowed, sky-lit frame.  Tolerances:
+u8 image mean |d| <= 0.5 levels and RMSE <= 2/255, luminance within rel
+1e-4, bin_overflow equal, vis equal on >= 99.9% of pixels.
 """
 
 import os
@@ -14,6 +15,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import datum_tpu.ops.raster_pallas as jrp
 import jax
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from datum_tpu.scenes import datumtest_scene as jax_datumtest_scene
 
 from datum_tpu_torch.ops import _kernels
 from datum_tpu_torch.ops.raster_cuda import raster_shade_cuda
+from datum_tpu_torch.ops.raster_depth_cuda import raster_depth_cuda
 from datum_tpu_torch.ops.shade_cuda import shade_deferred_cuda
 from datum_tpu_torch.render.frame import render_frame
 from datum_tpu_torch.render.types import make_sceneset
@@ -37,11 +40,21 @@ SLICE = dict(width=256, height=128, sphere_detail=8, grid=(4, 3),
              max_triangles=2048, bin_capacity=128, big_capacity=16,
              bin_max_span=8, use_pallas=True, enable_material_maps=True,
              texture_filter="mip_half", enable_shadows=False)
+# the shadowed, sky-lit frame: sun cascades (near at 256, far at 128,
+# slice blend), one parabolic spot map and the procedural skybox.  The
+# shadow bins must not overflow here: the kept triangles of a saturated
+# bin follow the sort key, whose bbox and depth band move with the ulps
+# that XLA's fused setup gives the jitted JAX frame.
+SHADOWED = dict(SLICE, skybox=True, skybox_size=32, enable_shadows=True,
+                shadow_mode="esm", shadow_res=256, shadow_far_res=128,
+                shadow_slice_blend=0.25, shadow_bin_capacity=1024,
+                max_spot_shadows=1, spot_shadow_mode="parabolic",
+                spot_shadow_res=128)
 
 
-def test_slice_frame_matches_jax_frame():
+def _check_against_jax(scene_kw):
     ctx, camera, params, make_rl = jax_datumtest_scene(pallas_interpret=True,
-                                                       **SLICE)
+                                                       **scene_kw)
     rl = make_rl(0.3)
     ss = jax_make_sceneset(camera, params, point_lights=rl.point_lights,
                            spot_lights=rl.spot_lights)
@@ -64,6 +77,18 @@ def test_slice_frame_matches_jax_frame():
     assert (ref["vis"] == out["vis"].numpy()).mean() >= 0.999
 
 
+def test_slice_frame_matches_jax_frame():
+    _check_against_jax(SLICE)
+
+
+def test_shadowed_skylit_frame_matches_jax_frame(monkeypatch):
+    """The JAX depth raster runs one tile per grid step here: the tiles a
+    grid step walks (DEPTH_TILES_PER_STEP) are TPU layout and move no
+    value, but interpret mode compiles ~15x longer at 16."""
+    monkeypatch.setattr(jrp, "DEPTH_TILES_PER_STEP", 1)
+    _check_against_jax(SHADOWED)
+
+
 def _port_frame(t=0.0, **over):
     ctx, camera, params, make_rl = datumtest_scene(**dict(SLICE, **over))
     rl = make_rl(t)
@@ -83,15 +108,52 @@ def test_cpu_frame_takes_the_plain_path():
     assert _kernels._LIBRARY is None, "a CPU frame must not build the kernels"
 
 
+def test_cpu_shadowed_frame_takes_the_plain_path():
+    before = (raster_shade_cuda.launches, shade_deferred_cuda.launches,
+              raster_depth_cuda.launches)
+    out = _port_frame(**SHADOWED)
+    assert out["image"].float().mean() > 10
+    assert torch.isfinite(out["luminance"]) and int(out["bin_overflow"]) == 0
+    assert (raster_shade_cuda.launches, shade_deferred_cuda.launches,
+            raster_depth_cuda.launches) == before
+    assert _kernels._LIBRARY is None, "a CPU frame must not build the kernels"
+
+
+def test_shadows_and_sky_change_the_frame():
+    """Each of the sun cascades, the spot map and the skybox moves some
+    pixels by 2 levels or more: none is dropped silently."""
+    full = _port_frame(**SHADOWED)["image"].float()
+    for off in (dict(enable_shadows=False), dict(max_spot_shadows=0),
+                dict(skybox=False)):
+        other = _port_frame(**dict(SHADOWED, **off))["image"].float()
+        assert ((full - other).abs() >= 2).sum() >= 5, off
+
+
 def test_frames_move_with_time():
     a, b = _port_frame(0.0)["image"], _port_frame(1.5)["image"]
     assert (a != b).any()
 
 
+_NO_JAX = (
+    "loaded = [m for m, v in sys.modules.items() if v is not None and"
+    " (m.startswith('jax') or (m.startswith('datum_tpu.') and"
+    " not m.startswith('datum_tpu.math')))]\n"
+    "assert not loaded, loaded\n"
+    "print('ok')\n")
+
+
+def _run_without_jax(code):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code + _NO_JAX], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_port_runs_without_jax():
     """Import the port, build the scene and render with jax made
     unimportable, as on the machine with the card."""
-    code = (
+    _run_without_jax(
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "from datum_tpu_torch.scenes import datumtest_scene\n"
@@ -110,17 +172,33 @@ def test_port_runs_without_jax():
         "out = render_frame(ctx.config, ctx.device_state('cpu'), draws, ss,"
         " device='cpu')\n"
         "assert out['image'].shape == (64, 128, 3)\n"
-        "assert float(out['image'].float().mean()) > 10\n"
-        "loaded = [m for m, v in sys.modules.items() if v is not None and"
-        " (m.startswith('jax') or (m.startswith('datum_tpu.') and"
-        " not m.startswith('datum_tpu.math')))]\n"
-        "assert not loaded, loaded\n"
-        "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-2000:]
-    assert res.stdout.strip().endswith("ok")
+        "assert float(out['image'].float().mean()) > 10\n")
+
+
+def test_shadowed_skylit_port_runs_without_jax():
+    """The shadowed, sky-lit frame (skybox bake, cascades, spot map,
+    environment) with jax made unimportable."""
+    _run_without_jax(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from datum_tpu_torch.scenes import datumtest_scene\n"
+        "from datum_tpu_torch.render.types import make_sceneset\n"
+        "from datum_tpu_torch.render.frame import render_frame\n"
+        "ctx, cam, params, make_rl = datumtest_scene(width=128, height=64,"
+        " sphere_detail=8, grid=(3, 2), n_point_lights=4, skybox=True,"
+        " skybox_size=16, max_vertices=1024, max_triangles=1024,"
+        " bin_capacity=64, big_capacity=16, use_pallas=True,"
+        " texture_filter='mip_half', shadow_res=256, shadow_far_res=128,"
+        " shadow_slice_blend=0.25, max_spot_shadows=1, spot_shadow_res=128)\n"
+        "rl = make_rl(0.0)\n"
+        "ss = make_sceneset(cam, params, point_lights=rl.point_lights,"
+        " spot_lights=rl.spot_lights)\n"
+        "draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)\n"
+        "ctx.expand_host(draws)\n"
+        "out = render_frame(ctx.config, ctx.device_state('cpu'), draws, ss,"
+        " device='cpu')\n"
+        "assert out['image'].shape == (64, 128, 3)\n"
+        "assert float(out['image'].float().mean()) > 10\n")
 
 
 def _sources(suffix=".py"):
@@ -143,9 +221,11 @@ def test_port_sources_avoid(pattern):
 
 def test_kernel_sources_note_what_they_replace():
     for name, pallas in (("raster_shade.cu", "_raster_shade_kernel"),
-                         ("shade.cu", "_shade_kernel")):
+                         ("shade.cu", "_shade_kernel"),
+                         ("raster_depth.cu", "_depth_kernel")):
         text = (PKG / "csrc" / name).read_text()
         assert pallas in text and "Replaces the Pallas kernel" in text
         assert "extern \"C\" int" in text and "cudaGetLastError" in text
+    assert set(_kernels.SOURCES) == {p.name for p in (PKG / "csrc").glob("*.cu")}
     assert "-fmad=false" in _kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS

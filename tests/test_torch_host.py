@@ -44,7 +44,8 @@ def assert_tree_equal(a, b, path="root"):
 
 
 def _frame_host(scene_fn, sceneset_fn, t):
-    ctx, camera, params, make_rl = scene_fn(**SLICE)
+    ctx, camera, params, make_rl = scene_fn(**dict(SLICE, skybox=True,
+                                                   skybox_size=16))
     rl = make_rl(t)
     ss = sceneset_fn(camera, params, point_lights=rl.point_lights,
                      spot_lights=rl.spot_lights)
@@ -90,9 +91,23 @@ def test_sceneset_equal(both):
 
 
 def test_device_state_equal(both):
+    """Pools, materials and matmaps exactly; the skybox environment
+    ("ibl": the port keeps the mips, the mip-pair table as plain f32
+    rows, SH-9 and the env-BRDF LUT) to rtol 1e-4 / atol 1e-5, since both
+    packages bake it (the LUT exactly: both read the tracked one)."""
     jctx, _, _, tctx, _, _ = both
-    assert_tree_equal(jax.tree.map(np.asarray, jctx.device_state()),
-                      tctx.host_state())
+    jstate = jax.tree.map(np.asarray, jctx.device_state())
+    tstate = tctx.host_state()
+    jibl, tibl = jstate.pop("ibl"), tstate.pop("ibl")
+    assert_tree_equal(jstate, tstate)
+    assert sorted(tibl) == ["envbrdf", "flatp", "mips", "sh"]
+    np.testing.assert_array_equal(jibl["envbrdf"], tibl["envbrdf"])
+    jflatp = to_torch(dict(flatp=jibl["flatp"]), "cpu")["flatp"]
+    for a, b in [*zip(jibl["mips"], tibl["mips"]), (jibl["sh"], tibl["sh"]),
+                 *zip(jflatp, tibl["flatp"])]:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
 
 
 def test_device_state_tensors_keep_dtypes(both):
@@ -118,8 +133,12 @@ def test_to_torch_keeps_scalars_zero_d():
 
 
 def test_skybox_is_rejected_not_dropped():
+    """The skybox is ported; box environment probes are not, and
+    add_environment raises naming ROADMAP instead of dropping them."""
+    ctx = datumtest_scene(**SLICE)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        datumtest_scene(**dict(SLICE, skybox=True))
+        ctx.add_environment([0, 1, 0], [2, 2, 2],
+                            np.ones((6, 8, 8, 3), np.float32))
 
 
 def test_slice_config_is_accepted():
@@ -132,7 +151,8 @@ _BASE = dict(use_pallas=True, texture_filter="mip_half", enable_shadows=False)
 
 
 @pytest.mark.parametrize("override", [
-    dict(enable_shadows=True), dict(max_spot_shadows=1),
+    dict(enable_shadows=True, shadow_mode="pcf"),
+    dict(max_spot_shadows=1, spot_shadow_mode="perspective"),
     dict(max_translucent_draws=2), dict(max_particle_quads=512),
     dict(max_decals_active=2), dict(enable_ssao=True), dict(enable_fog=True),
     dict(max_fog_planes=1), dict(enable_ssr=True),
