@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Renders the shadowed, sky-lit datumtest frame at 1920x1088 (the bench
-scene, capacities and shadow settings: 4 sun cascades as a 1024 near
-and a 512 far atlas with ESM and slice blend, one parabolic spot map,
-the procedural skybox and its IBL environment; no SSAO, fog, SSR,
-translucents, particles, decals or DoF) through
+Renders the translucent datumtest frame at 1920x1088 (the bench scene,
+capacities and shadow settings: 4 sun cascades as a 1024 near and a 512
+far atlas with ESM and slice blend, one parabolic spot map, the
+procedural skybox and its IBL environment; and the bench's forward
+content: the lit glass sphere and water patch shaded at half resolution,
+the 256-particle cloud, two decals; no SSAO, fog, SSR or DoF) through
 datum_tpu_torch.render.frame.render_frame, after building the port's
 CUDA kernels from datum_tpu_torch/csrc with nvcc.  Phases, one line
 each; any failure raises and exits non-zero:
@@ -16,21 +17,31 @@ each; any failure raises and exits non-zero:
    power limit; turn TF32 off;
 2. build the kernels (timed, first use);
 3. build the scene through the port's datumtest_scene; the main
-   bin_overflow must be 0; print each shadow stack's overflow;
+   bin_overflow must be 0; print each shadow stack's, the lit layer's
+   and the forward (WBOIT) stream's overflow;
 4. each kernel against its plain PyTorch version on that frame's real
-   inputs, with the stated tolerances (K3 on all three shadow stacks);
-5. render 3 frames; check the image, the luminance and that K1, K2 and
-   K3 (3 stacks) launched in every frame; check a small shadowed,
-   sky-lit frame against the plain path on the CPU;
-6. time ms/frame (CUDA events, median) of this frame and of the opaque
-   frame, the frame's stages, and each kernel vs its plain version;
+   inputs, with the stated tolerances: K3 on all three shadow stacks,
+   K1 on the opaque and the lit layer, K2, its epilogue with refraction
+   active, K4 on the merged stream; then, at translucent_lit_layers=2,
+   K1 with peel_depth and K4 with a peeled residual;
+5. drive each path the port renders with the kernel counts set to 0
+   just before and read just after: the opaque frame and the shadowed,
+   sky-lit frame once each, the translucent frame 3 times; check the
+   image, the luminance and the launches of every frame; check a small
+   translucent frame against the plain path on the CPU;
+6. time ms/frame (CUDA events, median) of the three frames, the
+   translucent frame's device time and launches under torch.profiler,
+   its stages, and each kernel vs its plain version;
+   compute each kernel's bound from this run's inputs;
 7. print the kernels' JSON line, then the device JSON line last.
 
-Needs one card, torch with CUDA and nvcc; imports no jax.
+Needs one card, torch with CUDA and nvcc; imports no jax and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -39,24 +50,48 @@ import sys
 import time
 
 W, H = 1920, 1088
-SCENE = dict(sphere_detail=24, n_point_lights=8, skybox=True, skybox_size=64,
-             max_vertices=1 << 15, max_triangles=1 << 15, bin_capacity=160,
-             big_capacity=64, bin_max_span=8, use_pallas=True,
-             enable_material_maps=True, texture_filter="mip_half",
-             enable_shadows=True, shadow_mode="esm", shadow_res=1024,
-             shadow_far_res=512, shadow_slice_blend=0.25,
-             shadow_bin_capacity=128, max_spot_shadows=1,
-             spot_shadow_mode="parabolic", spot_shadow_res=256)
-# the opaque frame (no skybox, no shadows), timed for comparison
-OPAQUE = dict(SCENE, skybox=False, enable_shadows=False, max_spot_shadows=0)
+# the shadowed, sky-lit frame (the bench scene without its forward content)
+SHADOWED = dict(sphere_detail=24, n_point_lights=8, skybox=True, skybox_size=64,
+                max_vertices=1 << 15, max_triangles=1 << 15, bin_capacity=160,
+                big_capacity=64, bin_max_span=8, use_pallas=True,
+                enable_material_maps=True, texture_filter="mip_half",
+                enable_shadows=True, shadow_mode="esm", shadow_res=1024,
+                shadow_far_res=512, shadow_slice_blend=0.25,
+                shadow_bin_capacity=128, max_spot_shadows=1,
+                spot_shadow_mode="parabolic", spot_shadow_res=256)
+# the translucent frame: the bench's forward content at the default
+# forward bin capacities (64 + 16)
+SCENE = dict(SHADOWED, max_translucent_draws=2, max_translucent_tris=2048,
+             translucent_lit=True, translucent_lit_layers=1,
+             translucent_lit_scale=2, max_particle_quads=512,
+             max_decals_active=2, decal_textures=False)
+# the opaque frame (no skybox, no shadows, no forward content)
+OPAQUE = dict(SHADOWED, skybox=False, enable_shadows=False, max_spot_shadows=0)
 SMALL = dict(SCENE, sphere_detail=8, grid=(4, 3), max_vertices=2048,
              max_triangles=2048, bin_capacity=128, big_capacity=16,
              skybox_size=32, shadow_res=256, shadow_far_res=128,
-             shadow_bin_capacity=1024, spot_shadow_res=128)
+             shadow_bin_capacity=1024, spot_shadow_res=128,
+             forward_bin_capacity=256)
 K1_INTERP = ("u", "v", "nx", "ny", "nz", "tanx", "tany", "tanz")
 K1_EXACT = ("cr", "cg", "cb", "em", "met", "rgh", "rfl", "alb", "mbase",
             "msize", "tanw", "absorb")
 STACKS = ("near cascades", "far cascades", "spot")
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations per (pixel, walked entry) and per pixel, counted from
+# the kernels' source (an fma counts 2): a plane fma(a, xn, b*yn) + c is
+# 4; K1 and K3 walk 4 planes + s; K4 also takes the barycentrics, 4 (6
+# where soft) interpolations of 5, the soft falloff, the weight and the
+# 5 accumulators; K1's epilogue evaluates ~22 planes and a divide; K2
+# spends ~200 a pixel on the surface, IBL and SH terms and ~60 a light;
+# the epilogue ~40 on the ladder picks, the blend and the resolve
+OPS_WALK_DEPTH = 18
+OPS_WALK_BLEND = 80
+OPS_K1_PIXEL = 110
+OPS_K2_PIXEL, OPS_K2_LIGHT = 200, 60
+OPS_EPILOGUE_PIXEL = 40
 
 
 def phase(n, msg):
@@ -70,9 +105,7 @@ def frame_inputs(ctx, camera, params, make_rl, t):
     rl = make_rl(t)
     sceneset = make_sceneset(camera, params, point_lights=rl.point_lights,
                              spot_lights=rl.spot_lights)
-    draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)
-    ctx.expand_host(draws)
-    return draws, sceneset
+    return ctx.frame_draws(rl, camera), sceneset
 
 
 def shadow_stacks(cfg, ex, worldp, s):
@@ -86,6 +119,17 @@ def shadow_stacks(cfg, ex, worldp, s):
         + [shadow_ops.spot_stack_parabolic(
             worldp, ex["tris"], sl["view"], sl["attenuation"][:, 3],
             cfg.max_spot_shadows, res=cfg.spot_shadow_res)])
+
+
+def lit_bins(cfg, ts, **kw):
+    """The lit layer's setup and bins: (setup, tx, w_t, h_t, bins...)."""
+    from datum_tpu_torch.ops import raster as raster_ops
+    from datum_tpu_torch.render import frame as F
+
+    setup, tx, ty, w_t, h_t = F.lit_setup(cfg, ts)
+    return (setup, tx, w_t, h_t) + tuple(raster_ops.bin_triangles(
+        setup, cfg.max_translucent_tris, tx, ty, cfg.forward_bin_capacity,
+        cfg.forward_big_capacity, **kw))
 
 
 def cuda_ms(fn, reps):
@@ -122,20 +166,47 @@ def frame_ms(render, inputs, n=7):
     return statistics.median(times)
 
 
+def profile_frames(render, inputs):
+    """(device ms, kernel launches) per frame over a torch.profiler window
+    of len(inputs) frames: the summed time of the kernels the card ran
+    (torch's and the port's) and the count of kernel launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for draws, ss in inputs:
+            render(draws, ss)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA)
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                "cuLaunchKernel", "cuLaunchKernelEx"))
+    return device_us / 1e3 / len(inputs), launches / len(inputs)
+
+
 def stage_ms(cfg, state, draws, ss, dev, reps=5):
-    """Wall ms of each stage of the frame with a device sync after each
-    (median of reps): the frame's own stage functions, in its order."""
+    """Wall ms of each stage of the translucent frame with a device sync
+    after each (median of reps): the frame's own stage functions, in its
+    order."""
     import torch
 
     from datum_tpu_torch.convert import to_torch
-    from datum_tpu_torch.ops.shade_cuda import shade_deferred
+    from datum_tpu_torch.ops.shade_cuda import (
+        epilogue_inputs, shade_deferred_cuda, shade_epilogue_cuda, shade_inputs)
     from datum_tpu_torch.render import frame as F
 
     names = ("upload draws + sceneset", "vertex stage",
              "sun cascades (K3) + ESM", "spot map (K3) + ESM",
              "setup + binning + K1", "plane assembly (matmaps, env, sun factor)",
-             "sky planes + SH + spot factor", "K2 (tables + bf16 + kernel)",
-             "luminance + bloom + composite")
+             "decals", "sky planes + SH + spot factor",
+             "lit layer (vertices, setup, bins, K1, assembly, K2, upsample)",
+             "WBOIT stream (setup, bins, K4)", "K2 (tables + bf16 + kernel)",
+             "K2 epilogue (bf16 + kernel)", "luminance + bloom + composite")
+    w, h = cfg.padded_width, cfg.padded_height
     runs = []
     for _ in range(reps):
         t = [time.perf_counter()]
@@ -154,17 +225,127 @@ def stage_ms(cfg, state, draws, ss, dev, reps=5):
         mark()
         planes, _ = F._raster_stage(cfg, state, d, ex, uv, clip, wn, wt)
         mark()
-        gpl = F._assemble_gplanes(cfg, planes, state, s, dict(sun=sun, spot=spot))
+        shadows = dict(sun=sun, spot=spot)
+        gpl, mask = F._assemble_gplanes(cfg, planes, state, s, shadows, w, h)
+        mark()
+        gpl = F._decals(cfg, gpl, mask, planes["depth"], state, d, s)
         mark()
         ss2, spotsf = F._sky_sh_spots(cfg, gpl, planes, state, s, spot)
         mark()
-        hdr = shade_deferred(gpl, ss2, proj=s["proj"], invview=s["invview"],
-                             spotsf=spotsf)
+        ts = F.translucent_stream(state, d, s)
+        lit_peel = F._lit_layers(cfg, state, ts, s, ss2, shadows,
+                                 planes["depth"], gpl)
+        mark()
+        F._oit_planes(cfg, state, d, s, ts, lit_peel, planes["depth"], gpl)
+        mark()
+        bg = shade_deferred_cuda(**shade_inputs(gpl, ss2, proj=s["proj"],
+                                                invview=s["invview"],
+                                                spotsf=spotsf))
+        mark()
+        hdr = shade_epilogue_cuda(bg, **epilogue_inputs(gpl)).permute(1, 2, 0)
         mark()
         F._post(cfg, state, s, hdr)
         mark()
         runs.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
     return {n: statistics.median(r[i] for r in runs) for i, n in enumerate(names)}
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _walked(inp):
+    """Valid entries a raster kernel walks, summed over tiles: the valid
+    big-list entries for every tile plus each tile's bin count."""
+    n_tiles = inp["bins"].shape[0]
+    return (int((inp["big_ids"] >= 0).sum()) * n_tiles
+            + int(inp["counts"].sum()))
+
+
+def bound(nbytes, nops):
+    """(ms, "bytes" | "operations"): the larger of the two least times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_k1(kp, rp, what):
+    """K1 vs plain: visf identical on >= 99.9%, depth atol 1e-6,
+    interpolated planes atol/rtol 1e-4, per-triangle planes exact.
+    Returns (visf agreement, max abs err over all planes)."""
+    import torch
+
+    from datum_tpu_torch.ops.raster_cuda import PLANE_NAMES
+
+    kp, rp = dict(zip(PLANE_NAMES, kp)), dict(zip(PLANE_NAMES, rp))
+    same = kp["visf"] == rp["visf"]
+    vis_agree = same.float().mean().item()
+    depth_err = (kp["depth"] - rp["depth"])[same].abs().max().item()
+    interp_err = max((kp[n] - rp[n])[same].abs().max().item() for n in K1_INTERP)
+    exact_bad = sum(int((kp[n] != rp[n])[same].sum()) for n in K1_EXACT)
+    for n in K1_INTERP:
+        if not torch.allclose(kp[n][same], rp[n][same], atol=1e-4, rtol=1e-4):
+            raise RuntimeError(f"K1 ({what}) plane {n} differs beyond atol/rtol 1e-4")
+    if vis_agree < 0.999 or depth_err > 1e-6 or exact_bad:
+        raise RuntimeError(f"K1 ({what}) vs plain: visf agreement {vis_agree}, "
+                           f"depth err {depth_err}, {exact_bad} per-triangle "
+                           "values differ")
+    covered = (kp["visf"] >= 0).float().mean().item()
+    bit_same = sum(int((kp[n] == rp[n]).sum()) for n in PLANE_NAMES) / (
+        len(PLANE_NAMES) * kp["visf"].numel())
+    phase(4, f"K1 vs plain, {what} ({tuple(kp['visf'].shape)}): visf identical on "
+             f"{vis_agree:.6f} of pixels (covered {covered:.3f}), all planes "
+             f"bit-identical on {bit_same:.6f}, depth max err {depth_err:.3g} "
+             f"(atol 1e-6), interpolated max err {interp_err:.3g} (atol/rtol "
+             f"1e-4), per-triangle planes exact")
+    k1_err = max((kp[n] - rp[n])[same].abs().max().item() for n in PLANE_NAMES)
+    return vis_agree, k1_err
+
+
+def check_same(k, r, what, extra=""):
+    """Bit-identical on >= 99.99% of values, atol/rtol 1e-5 on the rest
+    (K4 and the epilogue write the plain version's operations)."""
+    import torch
+
+    same = (k == r).float().mean().item()
+    err = (k - r).abs().max().item()
+    if (not torch.isfinite(k).all() or same < 0.9999
+            or not torch.allclose(k, r, atol=1e-5, rtol=1e-5)):
+        raise RuntimeError(f"{what} vs plain: bit-identical on {same}, max abs "
+                           f"err {err}")
+    phase(4, f"{what} vs plain: bit-identical on {same:.6f} of values, max abs "
+             f"err {err:.3g} (>= 0.9999 identical, atol/rtol 1e-5){extra}")
+    return err
+
+
+def drive(render, inputs, kernels, expect):
+    """Render each (draws, ss) with every kernel count set to 0 just
+    before and read just after; check the image and that every frame
+    launched each kernel at least expect[name] times.  Returns (per-frame
+    launches, totals, the last image, luminance)."""
+    import torch
+
+    for k in kernels.values():
+        k.launches = 0
+    per_frame = []
+    for draws, ss in inputs:
+        before = {n: k.launches for n, k in kernels.items()}
+        out = render(draws, ss)
+        torch.cuda.synchronize()
+        per_frame.append({n: k.launches - before[n] for n, k in kernels.items()})
+        img, lum = out["image"], out["luminance"]
+        if tuple(img.shape) != (H, W, 3) or img.dtype != torch.uint8:
+            raise RuntimeError(f"image {tuple(img.shape)} {img.dtype}")
+        mean = img.float().mean().item()
+        if not mean > 10 or not torch.isfinite(lum) or int(out["bin_overflow"]):
+            raise RuntimeError(f"frame: image mean {mean}, luminance "
+                               f"{lum.item()}, bin_overflow "
+                               f"{int(out['bin_overflow'])}")
+    totals = {n: k.launches for n, k in kernels.items()}
+    if any(f[n] < m for f in per_frame for n, m in expect.items()):
+        raise RuntimeError(f"a frame ran without its kernels: {per_frame}, "
+                           f"expected at least {expect}")
+    return per_frame, totals, img, lum
 
 
 def main():
@@ -192,15 +373,23 @@ def main():
     from datum_tpu_torch.convert import to_torch
     from datum_tpu_torch.ops import _kernels
     from datum_tpu_torch.ops import shadow as shadow_ops
+    from datum_tpu_torch.ops.blur import resize_matmul
+    from datum_tpu_torch.ops.raster_blend_cuda import (
+        blend_inputs, raster_blend_cuda, raster_blend_reference)
     from datum_tpu_torch.ops.raster_cuda import (
         PLANE_NAMES, raster_inputs, raster_shade_cuda, raster_shade_reference)
     from datum_tpu_torch.ops.raster_depth_cuda import (
         depth_inputs, raster_depth_cuda, raster_depth_reference)
     from datum_tpu_torch.ops.shade_cuda import (
-        shade_deferred_cuda, shade_deferred_reference, shade_inputs)
-    from datum_tpu_torch.render import frame as frame_mod
+        epilogue_inputs, shade_deferred_cuda, shade_deferred_reference,
+        shade_epilogue_cuda, shade_epilogue_reference, shade_inputs)
+    from datum_tpu_torch.render import frame as F
     from datum_tpu_torch.scenes import datumtest_scene
-    kernels = (raster_shade_cuda, shade_deferred_cuda, raster_depth_cuda)
+    kernels = dict(raster_shade=raster_shade_cuda,
+                   shade_deferred=shade_deferred_cuda,
+                   raster_depth=raster_depth_cuda,
+                   raster_blend=raster_blend_cuda,
+                   shade_epilogue=shade_epilogue_cuda)
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -216,30 +405,41 @@ def main():
     ctx, camera, params, make_rl = datumtest_scene(width=W, height=H, **SCENE)
     cfg = ctx.config
     state = ctx.device_state(dev)
-    overflows, stack_overflows = [], []
+    overflows, stack_overflows, lit_overflows, fwd_overflows = [], [], [], []
     for t in (0.0, 0.1, 0.2):
         draws, ss = frame_inputs(ctx, camera, params, make_rl, t)
         n_tris = int(draws["t_valid"].sum())
+        n_ttris = int(draws["translucent"]["t_valid"].sum())
         d_t, s_t = to_torch(draws, dev), to_torch(ss, dev)
-        ex, _, clip, _, _, wp = frame_mod._vertex_stage(cfg, state, d_t, s_t)
-        overflows.append(int(frame_mod._bin_stage(cfg, ex, clip)[-1]))
+        ex, _, clip, _, _, wp = F._vertex_stage(cfg, state, d_t, s_t)
+        overflows.append(int(F._bin_stage(cfg, ex, clip)[-1]))
         stack_overflows.append([int(shadow_ops.bin_stack(
             st, cfg.shadow_bin_capacity, cfg.big_capacity,
             return_overflow=True)[3]) for st in shadow_stacks(cfg, ex, wp, s_t)])
+        ts = F.translucent_stream(state, d_t, s_t)
+        lit_overflows.append(int(lit_bins(cfg, ts, return_overflow=True)[-1]))
+        st = F.oit_stream(cfg, state, d_t, s_t, ts, None)
+        fwd_overflows.append(int(F.oit_bins(cfg, st, return_overflow=True)[3]))
     if any(overflows):
         raise RuntimeError(f"bin overflow {overflows}: raise bin_capacity")
-    phase(3, f"scene {W}x{H}, {n_tris} triangles drawn, {cfg.n_tiles} tiles, "
-             f"bins {cfg.bin_capacity}+{cfg.big_capacity}, bin_overflow "
-             f"{overflows}; skybox {ctx.skybox.size}^2 x 6 with "
-             f"{len(state['ibl']['mips'])} mips ({time.perf_counter() - t0:.1f} s)")
+    w_t, h_t = F.lit_viewport(cfg)
+    phase(3, f"scene {W}x{H}, {n_tris} opaque + {n_ttris} translucent triangles "
+             f"drawn, {int(draws['forward']['quad_count'])} particle quads, "
+             f"{int(draws['decals']['count'])} decals, {cfg.n_tiles} tiles, bins "
+             f"{cfg.bin_capacity}+{cfg.big_capacity}, bin_overflow {overflows}; "
+             f"skybox {ctx.skybox.size}^2 x 6 with {len(state['ibl']['mips'])} "
+             f"mips ({time.perf_counter() - t0:.1f} s)")
     phase(3, f"shadow stack overflow per frame ({', '.join(STACKS)}; shadow "
              f"bins {cfg.shadow_bin_capacity}+{cfg.big_capacity}): "
              f"{stack_overflows}")
+    phase(3, f"lit layer ({w_t}x{h_t}) overflow {lit_overflows}, forward WBOIT "
+             f"stream overflow {fwd_overflows} (forward bins "
+             f"{cfg.forward_bin_capacity}+{cfg.forward_big_capacity} a stream)")
 
     # ---- 4. kernels vs their plain versions on the frame's inputs
     draws, ss = frame_inputs(ctx, camera, params, make_rl, 0.3)
     d_t, s_t = to_torch(draws, dev), to_torch(ss, dev)
-    ex, uv, clip, wn, wt, wp = frame_mod._vertex_stage(cfg, state, d_t, s_t)
+    ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, state, d_t, s_t)
     k3_in, k3_errs = [], []
     for name, st in zip(STACKS, shadow_stacks(cfg, ex, wp, s_t)):
         bins, counts, big = shadow_ops.bin_stack(st, cfg.shadow_bin_capacity,
@@ -261,34 +461,29 @@ def main():
         k3_in.append(inp)
         k3_errs.append(err)
 
-    setup, bins, counts, big_ids, _ = frame_mod._bin_stage(cfg, ex, clip)
+    setup, bins, counts, big_ids, _ = F._bin_stage(cfg, ex, clip)
     k1_in = raster_inputs(setup, bins, big_ids, counts, ex["tris"], uv, wn,
                           d_t["tri_mat"], state["materials"], cfg.tiles_x,
                           cfg.padded_width, cfg.padded_height, wt)
     pk = raster_shade_cuda(**k1_in)
     pr = raster_shade_reference(**k1_in)
     torch.cuda.synchronize()
-    kp, rp = dict(zip(PLANE_NAMES, pk)), dict(zip(PLANE_NAMES, pr))
-    same = kp["visf"] == rp["visf"]
-    vis_agree = same.float().mean().item()
-    depth_err = (kp["depth"] - rp["depth"])[same].abs().max().item()
-    interp_err = max((kp[n] - rp[n])[same].abs().max().item() for n in K1_INTERP)
-    exact_bad = sum(int((kp[n] != rp[n])[same].sum()) for n in K1_EXACT)
-    k1_err = max((kp[n] - rp[n])[same].abs().max().item() for n in PLANE_NAMES)
-    for n in K1_INTERP:
-        if not torch.allclose(kp[n][same], rp[n][same], atol=1e-4, rtol=1e-4):
-            raise RuntimeError(f"K1 plane {n} differs beyond atol/rtol 1e-4")
-    if vis_agree < 0.999 or depth_err > 1e-6 or exact_bad:
-        raise RuntimeError(f"K1 vs plain: visf agreement {vis_agree}, depth "
-                           f"err {depth_err}, {exact_bad} per-triangle values differ")
-    covered = (kp["visf"] >= 0).float().mean().item()
-    phase(4, f"K1 vs plain: visf identical on {vis_agree:.6f} of pixels "
-             f"(covered {covered:.3f}), depth max err {depth_err:.3g} "
-             f"(atol 1e-6), interpolated max err {interp_err:.3g} (atol/rtol "
-             f"1e-4), per-triangle planes exact")
+    _, k1_err = check_k1(pk, pr, "opaque layer")
+    kp = dict(zip(PLANE_NAMES, pk))
 
-    shadows = frame_mod._shadow_stage(cfg, ex, wp, s_t)
-    gpl, ss2, spotsf = frame_mod._shade_inputs(cfg, kp, state, s_t, shadows)
+    ts = F.translucent_stream(state, d_t, s_t)
+    lsetup, ltx, lw, lh, lbins, lcounts, lbig = lit_bins(cfg, ts)
+    lit_in = raster_inputs(lsetup, lbins, lbig, lcounts, ts["d"]["tris"], ts["uv"],
+                           ts["wn"], ts["d"]["tri_mat"], state["materials"], ltx,
+                           lw, lh, ts["wt"], alpha_in_alb=True)
+    lk = raster_shade_cuda(**lit_in)
+    lr = raster_shade_reference(**lit_in)
+    torch.cuda.synchronize()
+    _, k1_lit_err = check_k1(lk, lr, "lit layer, alpha_in_alb")
+    k1_err = max(k1_err, k1_lit_err)
+
+    shadows = F._shadow_stage(cfg, ex, wp, s_t)
+    gpl, ss2, spotsf = F._shade_inputs(cfg, kp, state, d_t, s_t, shadows)
     if "sky_r" not in gpl or spotsf is None:
         raise RuntimeError("K2 inputs lack the sky planes or the spot factors")
     k2_in = shade_inputs(gpl, ss2, proj=s_t["proj"], invview=s_t["invview"],
@@ -302,106 +497,197 @@ def main():
         raise RuntimeError(f"K2 vs plain: max abs err {k2_err} beyond "
                            "atol 1e-4 / rtol 1e-3")
     sf, spf = gpl["sf"], spotsf[0]
-    phase(4, f"K2 vs plain (sky, IBL, sun + spot shadow planes): hdr max abs "
-             f"err {k2_err:.3g} (atol 1e-4, rtol 1e-3), max |hdr| "
+    phase(4, f"K2 vs plain (sky, IBL, sun + spot shadow planes, decals): hdr "
+             f"max abs err {k2_err:.3g} (atol 1e-4, rtol 1e-3), max |hdr| "
              f"{hr.abs().max().item():.3g}; sun factor < 0.5 on "
              f"{(sf < 0.5).float().mean().item():.3f}, spot factor < 0.5 on "
              f"{(spf < 0.5).float().mean().item():.3f} of pixels")
 
-    # ---- 5. the main path: 3 frames through render_frame
+    # K4 on the merged stream (particles; no residual at one lit layer)
+    st = F.oit_stream(cfg, state, d_t, s_t, ts, None)
+    obins, ocounts, obig = F.oit_bins(cfg, st)
+    k4_in = blend_inputs(st["setup"], obins, obig, ocounts, st["tris"], st["uv"],
+                         st["color"], kp["depth"], cfg.tiles_x, cfg.padded_width,
+                         cfg.padded_height, "per_tri", None, st["soft_flag"],
+                         st["peel_flag"])
+    bk = raster_blend_cuda(**k4_in)
+    br = raster_blend_reference(**k4_in)
+    torch.cuda.synchronize()
+    k4_err = check_same(bk, br, "K4, merged stream", f"; particles cover "
+                        f"{(br[3] > 0).float().mean().item():.4f} of pixels")
+
+    # the epilogue on the frame's planes: the lit layer, refraction, WBOIT
+    F._translucent_stage(cfg, state, d_t, s_t, ss2, shadows, kp["depth"], gpl)
+    epi_in = epilogue_inputs(gpl)
+    n_refr = int((epi_in["refr"][0] != 0).sum())
+    if n_refr == 0:
+        raise RuntimeError("the epilogue check has no refracted pixel")
+    epi_bg = shade_deferred_cuda(**shade_inputs(gpl, ss2, proj=s_t["proj"],
+                                                invview=s_t["invview"],
+                                                spotsf=spotsf))
+    ek = shade_epilogue_cuda(epi_bg, **epi_in)
+    er = shade_epilogue_reference(epi_bg, **epi_in)
+    torch.cuda.synchronize()
+    epi_err = check_same(ek, er, "K2 epilogue (tr, refraction, WBOIT)",
+                         f"; tr_ox != 0 on {n_refr} pixels, tr_a > 0 on "
+                         f"{int((epi_in['tr'][3] > 0).sum())}")
+
+    # two lit layers: K1 with peel_depth, K4 with a peeled residual
+    cfg2 = dataclasses.replace(cfg, translucent_lit_layers=2)
+    peel_in = dict(lit_in, peel=lr[0].contiguous())
+    pk2 = raster_shade_cuda(**peel_in)
+    pr2 = raster_shade_reference(**peel_in)
+    torch.cuda.synchronize()
+    _, k1_peel_err = check_k1(pk2, pr2, "lit layer 2, peel_depth")
+    k1_err = max(k1_err, k1_peel_err)
+    lit_peel = resize_matmul(pr2[0], H, W, nearest=True)
+    st2 = F.oit_stream(cfg2, state, d_t, s_t, ts, lit_peel)
+    n_peeled = int(((st2["peel_flag"] > 0) & st2["valid"]).sum())
+    if n_peeled == 0:
+        raise RuntimeError("the 2-layer stream has no peel-flagged triangle")
+    b2 = F.oit_bins(cfg2, st2)
+    k4p_in = blend_inputs(st2["setup"], b2[0], b2[2], b2[1], st2["tris"], st2["uv"],
+                          st2["color"], kp["depth"], cfg.tiles_x, cfg.padded_width,
+                          cfg.padded_height, "per_tri", lit_peel, st2["soft_flag"],
+                          st2["peel_flag"])
+    bk2 = raster_blend_cuda(**k4p_in)
+    br2 = raster_blend_reference(**k4p_in)
+    torch.cuda.synchronize()
+    k4_err = max(k4_err, check_same(
+        bk2, br2, "K4, 2 lit layers (peeled residual)",
+        f"; {n_peeled} peel-flagged translucent triangles, residual + "
+        f"particles cover {(br2[3] > 0).float().mean().item():.4f} of pixels"))
+
+    # ---- 5. the paths, each driven with the counts set to 0 just before
+    octx, ocam, oparams, omake = datumtest_scene(width=W, height=H, **OPAQUE)
+    ostate = octx.device_state(dev)
+    o_inputs = [frame_inputs(octx, ocam, oparams, omake, t) for t in (0.0, 0.1)]
+    sctx, scam, sparams, smake = datumtest_scene(width=W, height=H, **SHADOWED)
+    sstate = sctx.device_state(dev)
+    s_inputs = [frame_inputs(sctx, scam, sparams, smake, t) for t in (0.0, 0.1)]
     inputs = [frame_inputs(ctx, camera, params, make_rl, t)
               for t in (0.0, 0.1, 0.2)]
-    for k in kernels:
-        k.launches = 0
-    per_frame = []
-    for draws, ss in inputs:
-        before = [k.launches for k in kernels]
-        out = frame_mod.render_frame(cfg, state, draws, ss, device=dev)
-        torch.cuda.synchronize()
-        per_frame.append(tuple(k.launches - b for k, b in zip(kernels, before)))
-        img, lum = out["image"], out["luminance"]
-        if tuple(img.shape) != (H, W, 3) or img.dtype != torch.uint8:
-            raise RuntimeError(f"image {tuple(img.shape)} {img.dtype}")
-        mean = img.float().mean().item()
-        if not mean > 10 or not torch.isfinite(lum) or int(out["bin_overflow"]):
-            raise RuntimeError(f"frame: image mean {mean}, luminance "
-                               f"{lum.item()}, bin_overflow "
-                               f"{int(out['bin_overflow'])}")
-    launches = dict(raster_shade=raster_shade_cuda.launches,
-                    shade_deferred=shade_deferred_cuda.launches,
-                    raster_depth=raster_depth_cuda.launches)
-    if any(k1 < 1 or k2 < 1 or k3 < 3 for k1, k2, k3 in per_frame):
-        raise RuntimeError(f"a frame ran without its kernels: {per_frame}")
-    phase(5, f"3 frames {W}x{H}: image {tuple(img.shape)} u8 mean {mean:.2f}, "
-             f"luminance {lum.item():.6g}, bin_overflow 0, launches per frame "
-             f"(K1, K2, K3) {per_frame}")
+    render_o = lambda d, s: F.render_frame(octx.config, ostate, d, s, device=dev)
+    render_s = lambda d, s: F.render_frame(sctx.config, sstate, d, s, device=dev)
+    render_t = lambda d, s: F.render_frame(cfg, state, d, s, device=dev)
+    pf, _, _, _ = drive(render_o, o_inputs[:1], kernels,
+                        dict(raster_shade=1, shade_deferred=1))
+    phase(5, f"opaque frame: launches {pf}")
+    pf, _, _, _ = drive(render_s, s_inputs[:1], kernels,
+                        dict(raster_shade=1, shade_deferred=1, raster_depth=3))
+    phase(5, f"shadowed, sky-lit frame: launches {pf}")
+    pf, launches, img, lum = drive(
+        render_t, inputs, kernels,
+        dict(raster_shade=2, shade_deferred=2, shade_epilogue=1, raster_depth=3,
+             raster_blend=1))
+    phase(5, f"3 translucent frames {W}x{H}: image {tuple(img.shape)} u8 mean "
+             f"{img.float().mean().item():.2f}, luminance {lum.item():.6g}, "
+             f"bin_overflow 0, launches per frame {pf}")
 
-    # the same small shadowed, sky-lit frame on the card (kernels) and on
-    # the CPU (plain)
-    sctx, scam, sparams, smake = datumtest_scene(width=256, height=128, **SMALL)
-    sdraws, sss = frame_inputs(sctx, scam, sparams, smake, 0.3)
-    imgs = [frame_mod.render_frame(sctx.config, sctx.host_state(), sdraws, sss,
-                                   device=d)["image"].cpu().float()
+    # the same small translucent frame on the card (kernels) and on the
+    # CPU (plain)
+    mctx, mcam, mparams, mmake = datumtest_scene(width=256, height=128, **SMALL)
+    mdraws, mss = frame_inputs(mctx, mcam, mparams, mmake, 0.3)
+    imgs = [F.render_frame(mctx.config, mctx.host_state(), mdraws, mss,
+                           device=d)["image"].cpu().float()
             for d in (dev, "cpu")]
     d_img = (imgs[0] - imgs[1]).abs()
     rmse = ((imgs[0] - imgs[1]) ** 2).mean().sqrt().item() / 255.0
     if d_img.mean().item() > 0.5 or rmse > 2 / 255 or imgs[1].mean() <= 10:
         raise RuntimeError(f"small frame GPU vs CPU plain: mean |d| "
                            f"{d_img.mean().item()}, RMSE {rmse}")
-    phase(5, f"256x128 shadowed, sky-lit frame, card vs CPU plain path: mean "
-             f"|d| {d_img.mean().item():.4f} levels, RMSE {rmse * 255:.4f} "
-             f"levels")
+    phase(5, f"256x128 translucent frame (glass, water, particles, decals), "
+             f"card vs CPU plain path: mean |d| {d_img.mean().item():.4f} "
+             f"levels, RMSE {rmse * 255:.4f} levels")
 
     # ---- 6. timing (informational: this PR claims no speed)
-    ms_frame = frame_ms(lambda d, s: frame_mod.render_frame(
-        cfg, state, d, s, device=dev), inputs)
-    octx, ocam, oparams, omake = datumtest_scene(width=W, height=H, **OPAQUE)
-    ostate = octx.device_state(dev)
-    o_inputs = [frame_inputs(octx, ocam, oparams, omake, t) for t in (0.0, 0.1)]
-    ms_opaque = frame_ms(lambda d, s: frame_mod.render_frame(
-        octx.config, ostate, d, s, device=dev), o_inputs)
+    ms_frame = frame_ms(render_t, inputs)
+    ms_shadowed = frame_ms(render_s, s_inputs, n=5)
+    ms_opaque = frame_ms(render_o, o_inputs, n=5)
     stages = stage_ms(cfg, state, *inputs[0], dev)
+    prof_ms, prof_launches = profile_frames(render_t, inputs)
     t_k1 = cuda_ms(lambda: raster_shade_cuda(**k1_in), 20)
     t_k1p = cuda_ms(lambda: raster_shade_reference(**k1_in), 3)
+    t_k1l = cuda_ms(lambda: raster_shade_cuda(**lit_in), 20)
+    t_k1lp = cuda_ms(lambda: raster_shade_reference(**lit_in), 3)
     t_k2 = cuda_ms(lambda: shade_deferred_cuda(**k2_in), 20)
     t_k2p = cuda_ms(lambda: shade_deferred_reference(**k2_in), 3)
     t_k3 = [cuda_ms(lambda i=i: raster_depth_cuda(**i), 20) for i in k3_in]
     t_k3p = [cuda_ms(lambda i=i: raster_depth_reference(**i), 3) for i in k3_in]
-    phase(6, f"{ms_frame:.3f} ms/frame shadowed + sky-lit, {ms_opaque:.3f} "
-             f"ms/frame opaque (median of 7, CUDA events, {W}x{H}) on {card}")
-    phase(6, "stages (ms, wall, synced, median of 5): " + "; ".join(
-        f"{n} {v:.3f}" for n, v in stages.items()))
-    phase(6, f"K1 {t_k1:.3f} ms vs plain {t_k1p:.3f} ms; K2 {t_k2:.3f} ms vs "
-             f"plain {t_k2p:.3f} ms; K3 " + ", ".join(
+    t_k4 = cuda_ms(lambda: raster_blend_cuda(**k4_in), 20)
+    t_k4p = cuda_ms(lambda: raster_blend_reference(**k4_in), 3)
+    t_k4r = cuda_ms(lambda: raster_blend_cuda(**k4p_in), 20)
+    t_k4rp = cuda_ms(lambda: raster_blend_reference(**k4p_in), 3)
+    t_ep = cuda_ms(lambda: shade_epilogue_cuda(epi_bg, **epi_in), 20)
+    t_epp = cuda_ms(lambda: shade_epilogue_reference(epi_bg, **epi_in), 3)
+    phase(6, f"{ms_frame:.3f} ms/frame translucent (median of 7), "
+             f"{ms_shadowed:.3f} ms/frame shadowed + sky-lit, {ms_opaque:.3f} "
+             f"ms/frame opaque (median of 5; CUDA events, {W}x{H}) on {card}")
+    phase(6, f"translucent frame under torch.profiler (3 frames): "
+             f"{prof_ms:.3f} ms of device time and {prof_launches:.0f} kernel "
+             f"launches per frame; busy {prof_ms / ms_frame:.3f} of the "
+             f"{ms_frame:.3f} ms frame")
+    phase(6, "translucent frame stages (ms, wall, synced, median of 5): "
+          + "; ".join(f"{n} {v:.3f}" for n, v in stages.items()))
+    phase(6, f"K1 {t_k1:.3f} ms vs plain {t_k1p:.3f} ms (opaque layer), "
+             f"{t_k1l:.3f} vs {t_k1lp:.3f} ms (lit layer {lw}x{lh}); K2 "
+             f"{t_k2:.3f} ms vs plain {t_k2p:.3f} ms; K2 epilogue {t_ep:.3f} ms "
+             f"vs plain {t_epp:.3f} ms; K4 {t_k4:.3f} ms vs plain {t_k4p:.3f} ms "
+             f"(merged stream), {t_k4r:.3f} vs {t_k4rp:.3f} ms (2 lit layers, "
+             f"peeled residual); K3 " + ", ".join(
                  f"{n} {a:.3f} ms vs plain {b:.3f} ms"
                  for n, a, b in zip(STACKS, t_k3, t_k3p))
           + f" ({W}x{H}) on {card}")
 
+    # bounds from this run's inputs (timed calls above)
+    px = W * H
+    k1_bound = bound(_nbytes(*(k1_in[k] for k in ("rows", "bins", "counts",
+                                                  "big_ids")))
+                     + 22 * px * 4,
+                     _walked(k1_in) * 4096 * OPS_WALK_DEPTH + px * OPS_K1_PIXEL)
+    n_lights = int(k2_in["counts"][0]) + int(k2_in["counts"][1])
+    k2_bound = bound(_nbytes(k2_in["f32_planes"], k2_in["planes"],
+                             k2_in["spotsf"]) + 3 * px * 4,
+                     px * (OPS_K2_PIXEL + OPS_K2_LIGHT * n_lights))
+    k3_bound = bound(sum(_nbytes(i["rows"], i["bins"], i["counts"], i["big_ids"])
+                         + 4 * i["bins"].shape[0] * 4096 for i in k3_in),
+                     sum(_walked(i) * 4096 * OPS_WALK_DEPTH for i in k3_in))
+    k4_bound = bound(_nbytes(*(k4_in[k] for k in ("rows", "bins", "counts",
+                                                  "big_ids", "opaque_depth")))
+                     + 5 * px * 4, _walked(k4_in) * 4096 * OPS_WALK_BLEND)
+    ep_bound = bound(_nbytes(epi_bg, *epi_in.values()) + 3 * px * 4,
+                     px * OPS_EPILOGUE_PIXEL)
+    phase(6, "bounds (ms, by): " + "; ".join(
+        f"{n} {b[0]:.4f} {b[1]}" for n, b in (
+            ("K1", k1_bound), ("K2", k2_bound), ("K3 (3 stacks)", k3_bound),
+            ("K4", k4_bound), ("epilogue", ep_bound))))
+
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
-                    and (m == "jax" or m.startswith("jax.")
-                         or (m.startswith("datum_tpu.")
-                             and not m.startswith("datum_tpu.math"))))
+                    and m.split(".")[0] in ("jax", "datum_tpu"))
     if loaded:
         raise RuntimeError(f"chip_smoke imported the JAX side: {loaded[:5]}")
 
-    # ---- 7. result lines
+    # ---- 7. result lines (library_ms: no single PyTorch call computes
+    # any of these kernels' functions)
+    def row(name, source, replaces, err, ms, plain_ms, b):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches[name], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                    library_ms=None)
+
     print(json.dumps({"kernels": [
-        dict(name="raster_shade", route="cuda",
-             source="datum_tpu_torch/csrc/raster_shade.cu",
-             replaces="datum_tpu/ops/raster_pallas.py:343",
-             launches=launches["raster_shade"], max_abs_err=k1_err,
-             ms=t_k1, plain_ms=t_k1p),
-        dict(name="shade_deferred", route="cuda",
-             source="datum_tpu_torch/csrc/shade.cu",
-             replaces="datum_tpu/ops/shade_pallas.py:161",
-             launches=launches["shade_deferred"], max_abs_err=k2_err,
-             ms=t_k2, plain_ms=t_k2p),
+        row("raster_shade", "datum_tpu_torch/csrc/raster_shade.cu",
+            "datum_tpu/ops/raster_pallas.py:343", k1_err, t_k1, t_k1p, k1_bound),
+        row("shade_deferred", "datum_tpu_torch/csrc/shade.cu",
+            "datum_tpu/ops/shade_pallas.py:161", k2_err, t_k2, t_k2p, k2_bound),
         # the three stacks of one frame together
-        dict(name="raster_depth", route="cuda",
-             source="datum_tpu_torch/csrc/raster_depth.cu",
-             replaces="datum_tpu/ops/raster_pallas.py:730",
-             launches=launches["raster_depth"], max_abs_err=max(k3_errs),
-             ms=sum(t_k3), plain_ms=sum(t_k3p)),
+        row("raster_depth", "datum_tpu_torch/csrc/raster_depth.cu",
+            "datum_tpu/ops/raster_pallas.py:730", max(k3_errs), sum(t_k3),
+            sum(t_k3p), k3_bound),
+        row("raster_blend", "datum_tpu_torch/csrc/raster_blend.cu",
+            "datum_tpu/ops/raster_pallas.py:877", k4_err, t_k4, t_k4p, k4_bound),
+        row("shade_epilogue", "datum_tpu_torch/csrc/shade_epilogue.cu",
+            "datum_tpu/ops/shade_pallas.py:414", epi_err, t_ep, t_epp, ep_bound),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,8 +4,9 @@ A second package beside the JAX reference `datum_tpu`, with the same
 module layout: `render/` holds the host side and the frame graph,
 `ops/` the device ops, and every Pallas kernel of the main path becomes
 a hand-written CUDA kernel under `csrc/` (built with nvcc at first use,
-see ops/_kernels.py).  The package imports torch and numpy, never jax;
-from `datum_tpu` it uses only the numpy-only `datum_tpu.math`.
+see ops/_kernels.py).  The package imports torch and numpy, never jax
+and nothing of `datum_tpu`: it keeps its own copies of the numpy host
+math (`math/`) and of the env-BRDF LUT (`data/envbrdf64.npy`).
 
 Entry points: `scenes.datumtest_scene` builds the scene,
 `render.frame.render_frame` renders one frame on a given device, and

@@ -2,17 +2,20 @@
 //
 // Replaces the Pallas kernel datum_tpu/ops/raster_pallas.py
 // `_raster_shade_kernel` (launched by `raster_shade_pallas`), in its
-// extended form (tangent + material-map planes), without peel and
-// without early-z.
+// extended form (tangent + material-map planes), with the optional peel
+// plane of the lit translucent layers, without early-z.  (alpha_in_alb
+// is host work: the row builder puts the material alpha in slot 41.)
 //
 // What it computes.  For every pixel of a 32 x 128 tile it walks the
 // frame's big-triangle list, then the tile's bin entries, in order.  Per
 // entry: three edge functions e_k = a_k*xn + b_k*yn + c_k from the
 // sign-fixed adjugate rows, the inside test (all e >= 0, s = e0+e1+e2 > 0,
 // valid slot > 0), the depth plane d, and the strict reverse-Z test
-// d > depth && d <= 1.  The last entry that passes wins (ties keep the
-// earlier entry: the test is strict).  After the walk the winner's
-// numerator planes are evaluated once and divided by its s.
+// d > depth && d <= 1 (and d < peel when a peel plane is given: the
+// fragment must lie strictly behind the previous lit layer).  The last
+// entry that passes wins (ties keep the earlier entry: the test is
+// strict).  After the walk the winner's numerator planes are evaluated
+// once and divided by its s.
 //
 // What bounds it on the H100.  The walk is ~20 f32 operations per
 // (pixel, entry) with coefficients that are uniform across the tile, so
@@ -33,9 +36,13 @@
 //    epilogue instead of materialising (n_tiles, E, 64) rows.
 //  * Entries are walked sequentially per pixel (never atomics), which
 //    keeps the JAX package's tie order.
-//  * Built with -fmad=false: `a*x + b*y + c` rounds after each operation,
-//    exactly as the plain PyTorch version does, so edge pixels pick the
-//    same winner on the card as on the CPU.
+//  * Rounding.  The JAX kernel writes each plane as a*xn + b*yn + c and
+//    XLA contracts that into fma(a, xn, b*yn) + c.  K1 evaluates every
+//    plane (edges, depth, numerator planes) exactly so, with an explicit
+//    __fmaf_rn, as K3 does; the file is built with -fmad=false, so nvcc
+//    contracts nothing else, and the plain PyTorch version computes the
+//    same fused products, so edge pixels pick the same winner on the card
+//    as on the CPU.
 
 #include <cuda_runtime.h>
 
@@ -50,11 +57,17 @@ constexpr int WALK_SLOTS = 13;     // row slots the walk reads (0..12)
 constexpr int ROW = 64;            // floats per triangle row
 constexpr int N_PLANES = 22;
 
+// a*xn + b*yn + c as XLA compiles it: fma(a, xn, b*yn) + c
+__device__ __forceinline__ float plane(float a, float b, float c, float xn, float yn) {
+    return __fmaf_rn(a, xn, b * yn) + c;
+}
+
 __global__ void __launch_bounds__(THREADS)
 raster_shade_kernel(const float* __restrict__ tri_rows,
                     const int* __restrict__ bins,
                     const int* __restrict__ counts,
                     const int* __restrict__ big_ids,
+                    const float* __restrict__ peel,     // (out_h, out_w) or null
                     int n_big, int bin_capacity, int tiles_x,
                     float cx, float cy, int out_h, int out_w,
                     float* __restrict__ out)
@@ -69,13 +82,17 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
     const int row0 = (threadIdx.x / TILE_W) * ROWS_PER_THREAD;
 
     const float xn = ((float)(tx * TILE_W) + (float)col + 0.5f) * cx - 1.0f;
+    const int x = tx * TILE_W + col;
     float yn[ROWS_PER_THREAD];
     float depth[ROWS_PER_THREAD];
+    float pl[ROWS_PER_THREAD];         // peel depth (2 = no peel: d <= 1 < 2)
     int win[ROWS_PER_THREAD];
 #pragma unroll
     for (int p = 0; p < ROWS_PER_THREAD; ++p) {
+        const int y = ty * TILE_H + row0 + p;
         yn[p] = ((float)(ty * TILE_H) + (float)(row0 + p) + 0.5f) * cy - 1.0f;
         depth[p] = 0.0f;
+        pl[p] = peel != nullptr ? peel[(size_t)y * out_w + x] : 2.0f;
         win[p] = -1;
     }
 
@@ -101,16 +118,16 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
             const float a2 = r[6], b2 = r[7], c2 = r[8];
             const float az = r[9], bz = r[10], cz = r[11];
             const int id = s_id[e];
-            const float ax0 = a0 * xn, ax1 = a1 * xn, ax2 = a2 * xn, axz = az * xn;
 #pragma unroll
             for (int p = 0; p < ROWS_PER_THREAD; ++p) {
-                const float e0 = (ax0 + b0 * yn[p]) + c0;
-                const float e1 = (ax1 + b1 * yn[p]) + c1;
-                const float e2 = (ax2 + b2 * yn[p]) + c2;
+                const float e0 = plane(a0, b0, c0, xn, yn[p]);
+                const float e1 = plane(a1, b1, c1, xn, yn[p]);
+                const float e2 = plane(a2, b2, c2, xn, yn[p]);
                 const float s = (e0 + e1) + e2;
-                const float d = (axz + bz * yn[p]) + cz;
+                const float d = plane(az, bz, cz, xn, yn[p]);
                 const bool pass = (e0 >= 0.0f) & (e1 >= 0.0f) & (e2 >= 0.0f)
-                                  & (s > 0.0f) & (d > depth[p]) & (d <= 1.0f);
+                                  & (s > 0.0f) & (d > depth[p]) & (d <= 1.0f)
+                                  & (d < pl[p]);
                 depth[p] = pass ? d : depth[p];
                 win[p] = pass ? id : win[p];
             }
@@ -119,8 +136,7 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
     }
 
     // epilogue: the winner's planes, ONE perspective divide per pixel
-    const size_t plane = (size_t)out_h * out_w;
-    const int x = tx * TILE_W + col;
+    const size_t plane_size = (size_t)out_h * out_w;
     for (int p = 0; p < ROWS_PER_THREAD; ++p) {
         const int y = ty * TILE_H + row0 + p;
         float v[N_PLANES];
@@ -132,7 +148,7 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
         } else {
             const float* r = tri_rows + (size_t)id * ROW;
             const float yv = yn[p];
-            auto lin = [&](int o) { return (r[o] * xn + r[o + 1] * yv) + r[o + 2]; };
+            auto lin = [&](int o) { return plane(r[o], r[o + 1], r[o + 2], xn, yv); };
             const float s = (lin(0) + lin(3)) + lin(6);
             const float rcp = 1.0f / (s == 0.0f ? 1.0f : s);
             v[0] = depth[p];
@@ -152,24 +168,26 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
         }
         const size_t o = (size_t)y * out_w + x;
 #pragma unroll
-        for (int j = 0; j < N_PLANES; ++j) out[j * plane + o] = v[j];
+        for (int j = 0; j < N_PLANES; ++j) out[j * plane_size + o] = v[j];
     }
 }
 
 }  // namespace
 
 // tri_rows (T, 64) f32; bins (n_tiles, bin_capacity) i32; counts
-// (n_tiles,) i32; big_ids (n_big,) i32; out (22, out_h, out_w) f32 with
-// out_h = tiles_y * 32 and out_w = tiles_x * 128.  cx, cy are 2/width and
-// 2/height of the NDC viewport, rounded to f32 by the caller.
+// (n_tiles,) i32; big_ids (n_big,) i32; peel (out_h, out_w) f32 or null;
+// out (22, out_h, out_w) f32 with out_h = tiles_y * 32 and out_w =
+// tiles_x * 128.  cx, cy are 2/width and 2/height of the NDC viewport,
+// rounded to f32 by the caller.
 extern "C" int raster_shade_launch(const float* tri_rows, const int* bins,
                                    const int* counts, const int* big_ids,
+                                   const float* peel,
                                    int n_big, int bin_capacity, int tiles_x,
                                    int n_tiles, float cx, float cy, int out_h,
                                    int out_w, float* out, void* stream)
 {
     raster_shade_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        tri_rows, bins, counts, big_ids, n_big, bin_capacity, tiles_x, cx, cy,
+        tri_rows, bins, counts, big_ids, peel, n_big, bin_capacity, tiles_x, cx, cy,
         out_h, out_w, out);
     return (int)cudaGetLastError();
 }

@@ -125,7 +125,7 @@ enum { NX, NY, NZ, DR, DG, DB, EM, SR, SG, SB, RGH, ESR, ESG, ESB, EB0, EB1, EB2
 __global__ void __launch_bounds__(BX * BY)
 shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth, visf
              const __nv_bfloat16* __restrict__ planes,      // (n_bf16, H, W)
-             int has_sky,
+             int has_sky, int n_trk,
              const __nv_bfloat16* __restrict__ ao,          // (H, W) or null
              const __nv_bfloat16* __restrict__ spotsf,      // (n_maps, H, W) or null
              int n_maps,
@@ -308,12 +308,22 @@ shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth,
     const float d3[3] = {dcol.x, dcol.y, dcol.z};
     const float da[3] = {dif.x, dif.y, dif.z};
     const float sa[3] = {spc.x, spc.y, spc.z};
+    float col[3];
     for (int c = 0; c < 3; ++c) {
-        float col = d3[c] * (da[c] + em_term) + sa[c];
-        col = mask ? col * exposure : 0.0f;
-        if (has_sky) col = mask ? col : bf(planes, (SKY_R + c) * plane + o) * exposure;
-        out[c * plane + o] = col;
+        col[c] = d3[c] * (da[c] + em_term) + sa[c];
+        col[c] = mask ? col[c] * exposure : 0.0f;
+        if (has_sky) col[c] = mask ? col[c] : bf(planes, (SKY_R + c) * plane + o) * exposure;
     }
+    // deeper lit translucent layers (tr2, tr3, tr4 as r, g, b, a planes
+    // after the sky), blended under the nearest one, deepest first
+    const int trk0 = has_sky ? SKY_B + 1 : SKY_R;
+    for (int k = n_trk - 1; k >= 0; --k) {
+        const int b = trk0 + 4 * k;
+        const float a = bf(planes, (size_t)(b + 3) * plane + o);
+        for (int c = 0; c < 3; ++c)
+            col[c] = col[c] * (1.0f - a) + bf(planes, (size_t)(b + c) * plane + o) * a;
+    }
+    for (int c = 0; c < 3; ++c) out[c * plane + o] = col[c];
 }
 
 }  // namespace
@@ -326,7 +336,7 @@ extern "C" int shade_smem_bytes(int n_lights_rows, int n_spot_rows, int n_probe_
 }
 
 extern "C" int shade_launch(const float* f32_planes, const void* planes, int has_sky,
-                            const void* ao, const void* spotsf, int n_maps,
+                            int n_trk, const void* ao, const void* spotsf, int n_maps,
                             const float* params, const float* lights, int n_lights_rows,
                             const float* spots, int n_spot_rows, const float* probes,
                             int n_probe_rows, const int* counts, int point_chunk,
@@ -336,7 +346,7 @@ extern "C" int shade_launch(const float* f32_planes, const void* planes, int has
     const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY);
     const int smem = shade_smem_bytes(n_lights_rows, n_spot_rows, n_probe_rows);
     shade_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-        f32_planes, (const __nv_bfloat16*)planes, has_sky, (const __nv_bfloat16*)ao,
+        f32_planes, (const __nv_bfloat16*)planes, has_sky, n_trk, (const __nv_bfloat16*)ao,
         (const __nv_bfloat16*)spotsf, n_maps, params, lights, n_lights_rows, spots,
         n_spot_rows, probes, n_probe_rows, counts, point_chunk, H, W, cx, cy, out);
     return (int)cudaGetLastError();

@@ -25,7 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("raster_shade.cu", "shade.cu", "raster_depth.cu")
+SOURCES = ("raster_shade.cu", "shade.cu", "raster_depth.cu", "raster_blend.cu",
+           "shade_epilogue.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -39,17 +40,22 @@ class KernelLibrary:
         self.build_log = build_log
         self.lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.raster_shade_launch.argtypes = [p, p, p, p, i, i, i, i, f, f,
+        self.lib.raster_shade_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, f,
                                                  i, i, p, p]
         self.lib.raster_shade_launch.restype = i
         self.lib.shade_smem_bytes.argtypes = [i, i, i]
         self.lib.shade_smem_bytes.restype = i
-        self.lib.shade_launch.argtypes = [p, p, i, p, p, i, p, p, i, p, i, p, i,
-                                          p, i, i, i, f, f, p, p]
+        self.lib.shade_launch.argtypes = [p, p, i, i, p, p, i, p, p, i, p, i, p,
+                                          i, p, i, i, i, f, f, p, p]
         self.lib.shade_launch.restype = i
         self.lib.raster_depth_launch.argtypes = [p, p, p, p, i, i, i, i, f, f,
                                                  i, p, p]
         self.lib.raster_depth_launch.restype = i
+        self.lib.raster_blend_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                                 f, f, i, p, p]
+        self.lib.raster_blend_launch.restype = i
+        self.lib.shade_epilogue_launch.argtypes = [p, p, p, p, i, i, p, p]
+        self.lib.shade_epilogue_launch.restype = i
 
 
 def _nvcc() -> str:
@@ -109,6 +115,17 @@ def check(code: int, what: str):
     """Raise on a non-zero cudaGetLastError() returned by a launch."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {code})")
+
+
+def check_tensors(what: str, device, checks):
+    """Raise ValueError unless every (name, tensor, dtype, shape) of
+    checks is a contiguous tensor of that dtype and shape on device."""
+    for name, t, dt, shape in checks:
+        if t.device != device or t.dtype != dt or tuple(t.shape) != tuple(shape) \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
+                             f"{tuple(shape)} tensor on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def stream_ptr(device) -> int:

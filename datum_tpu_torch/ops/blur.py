@@ -143,6 +143,10 @@ def _resample_matrix(n_in: int, n_out: int, nearest: bool = False):
     return m
 
 
+def _nearest_matrix(n_in: int, n_out: int):
+    return _resample_matrix(n_in, n_out, nearest=True)
+
+
 @functools.lru_cache(maxsize=64)
 def _matrix(build, n_in, n_out, transpose, device, dtype):
     """A static resample matrix as a tensor, built once per shape and
@@ -177,3 +181,19 @@ def resize_up_dense_batch(stack, out_h, out_w):
     mx = _matrix(_resample_matrix, w, out_w, False, stack.device, stack.dtype)
     out = torch.matmul(my, stack)                           # (N, O, w)
     return torch.matmul(out, mx)                            # (N, O, W)
+
+
+def resize_matmul(img, out_h, out_w, nearest: bool = False):
+    """Dense (h, w) or (h, w, c) -> (out_h, out_w[, c]) resample as two
+    static-matrix products (bilinear, or nearest with one-hot rows); any
+    up or down ratio per axis."""
+    h, w = img.shape[:2]
+    if (h, w) == (out_h, out_w):
+        return img
+    build = _nearest_matrix if nearest else _resample_matrix
+    my = _matrix(build, h, out_h, True, img.device, img.dtype)
+    mx = _matrix(build, w, out_w, False, img.device, img.dtype)
+    if img.ndim == 2:
+        return (my @ img) @ mx
+    out = torch.einsum("Oh,hwc->Owc", my, img)
+    return torch.einsum("Owc,wW->OWc", out, mx)

@@ -143,6 +143,14 @@ def ndc_grid(height: int, width: int, device=None, dtype=torch.float32):
     return torch.meshgrid(ys, xs, indexing="ij")
 
 
+def fma(a, b, c):
+    """a*b + c rounded once to f32, as a fused multiply-add (the plain
+    versions' form of the fmas the kernels write with __fmaf_rn and XLA
+    contracts on the CPU): the f32 product is exact in f64, so the sum
+    there rounds once."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def texel_index(x, n: int):
     """int32(x) truncated toward zero, then clipped to [0, n-1], as the
     JAX package's `clip(x.astype(int32), 0, n-1)` texel taps; x is

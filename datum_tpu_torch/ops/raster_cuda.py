@@ -1,8 +1,9 @@
 """K1: fused visibility raster + attribute interpolation on the card.
 
 Counterpart of datum_tpu/ops/raster_pallas.py (`raster_shade_pallas`
-with planes_2d=True and the extended tangent/material-map planes; its
-Pallas body `_raster_shade_kernel` becomes csrc/raster_shade.cu).
+with planes_2d=True and the extended tangent/material-map planes,
+alpha_in_alb and peel_depth, without early-z; its Pallas body
+`_raster_shade_kernel` becomes csrc/raster_shade.cu).
 
 `raster_shade` builds the per-triangle 64-float attribute rows (the row
 build of `pack_tile_setup_attrs`), then runs the CUDA kernel for CUDA
@@ -15,7 +16,14 @@ keeping per pixel the depth and the id of the last entry that passed
 the strict reverse-Z test, and evaluate the winner's planes once after
 the walk.  The Pallas kernel carries all 23 planes through the walk
 instead; the carried values are the winner's values at the pixel, so
-the two give the same planes.
+the two give the same planes.  Every plane a*xn + b*yn + c (edges,
+depth, numerator planes) is evaluated as fma(a, xn, b*yn) + c, as XLA
+compiles the JAX kernel's expression (see `_plane`).
+
+The lit translucent layer (render/frame.py) passes alpha_in_alb (the
+material alpha rides the albedo-id slot 41) and, from its second layer
+on, peel_depth: a fragment then passes only if it is strictly farther
+than the previous layer's depth (d < peel).
 """
 
 from __future__ import annotations
@@ -26,8 +34,8 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .common import TILE_H, TILE_W
-from .raster import _untile
+from .common import TILE_H, TILE_W, fma
+from .raster import _untile, tile_image
 
 ROW = 64              # floats per triangle row
 N_PLANES = 22
@@ -41,11 +49,19 @@ _PLANE_SLOTS = (None, None, (16,), (19,), (22,), (25,), (28,), 34, 35, 36, 37,
                 38, 39, 40, 41, 42, 43, (44,), (47,), (50,), 53, 56)
 
 
-def tri_attr_rows(setup, tris, uv, normal, tri_material, materials, tangent):
+def _plane(a, b, c, xn, yn):
+    """a*xn + b*yn + c as XLA compiles it: fma(a, xn, b*yn) + c."""
+    return fma(a, xn, b * yn) + c
+
+
+def tri_attr_rows(setup, tris, uv, normal, tri_material, materials, tangent,
+                  alpha_in_alb=False):
     """(T, 64) per-triangle rows: [adj*sgn 0-8, zs 9-11, valid 12, id 13
     (the entry's id, set by the walk), y scissor 14-15 (unused), uv +
     normal numerator coeffs 16-30, material 34-41, matmap base/size
-    42-43, tangent coeffs 44-52, tangent w 53, absorb 56].
+    42-43, tangent coeffs 44-52, tangent w 53, absorb 56].  With
+    alpha_in_alb, slot 41 (albedo id, which the mip path never reads)
+    holds the material alpha instead.
 
     Interpolated attributes ship as numerator plane coefficients:
     attr = (X*xn + Y*yn + Z) / s with s = e0+e1+e2."""
@@ -67,6 +83,10 @@ def tri_attr_rows(setup, tris, uv, normal, tri_material, materials, tangent):
         raise ValueError("raster_shade needs materials['packed10'] (the "
                          "combined material rows RenderContext builds)")
     rows10 = pk[tri_material.long()]
+    if alpha_in_alb:
+        rows10 = torch.cat([rows10[:, :7],
+                            materials["color"][tri_material.long(), 3:4],
+                            rows10[:, 8:]], -1)
     t_v = tangent[t]                                             # (T, 3, 4)
     zeros = lambda n: torch.zeros((T, n), dtype=row16.dtype, device=row16.device)
     t_t = torch.cat([num_coef_batch(t_v[..., :3]), t_v[:, 0, 3:4], zeros(2)], -1)
@@ -85,10 +105,12 @@ def _ndc_scale(n: int) -> float:
     return float(np.float32(2.0 / n))
 
 
-def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height):
+def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height,
+                           peel=None):
     """Plain PyTorch K1: (22, tiles_y*32, tiles_x*128) f32 planes.  It
     walks every bin slot: slots past a tile's count hold -1 (`counts`
-    only bounds the kernel's walk)."""
+    only bounds the kernel's walk).  peel: optional (tiles_y*32,
+    tiles_x*128) f32 depth; only fragments with d < peel pass."""
     dev = rows.device
     n_tiles = bins.shape[0]
     ids = _entry_ids(bins, big_ids)
@@ -103,18 +125,22 @@ def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height):
     depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
     win = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32,
                      device=dev)
+    peel_t = None if peel is None else tile_image(peel, tiles_x,
+                                                  n_tiles // tiles_x)
     # entries beyond a tile's count are -1 in bins: zero rows never pass
     for k in range(ids.shape[1]):
         idk = ids[:, k]
         r = (rows[torch.clamp(idk, min=0).long(), :13]
              * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
-        e0 = r[:, 0] * xn + r[:, 1] * yn + r[:, 2]
-        e1 = r[:, 3] * xn + r[:, 4] * yn + r[:, 5]
-        e2 = r[:, 6] * xn + r[:, 7] * yn + r[:, 8]
+        e0 = _plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
+        e1 = _plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
+        e2 = _plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
         s = e0 + e1 + e2
         inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0) & (r[:, 12] > 0)
-        d = r[:, 9] * xn + r[:, 10] * yn + r[:, 11]
+        d = _plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
         passed = inside & (d > depth) & (d <= 1.0)
+        if peel_t is not None:
+            passed = passed & (d < peel_t)
         depth = torch.where(passed, d, depth)
         win = torch.where(passed, idk[:, None, None], win)
 
@@ -122,7 +148,7 @@ def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height):
     r = rows[torch.clamp(win, min=0).long()]                 # (n, 32, 128, 64)
 
     def lin(o):
-        return r[..., o] * xn + r[..., o + 1] * yn + r[..., o + 2]
+        return _plane(r[..., o], r[..., o + 1], r[..., o + 2], xn, yn)
 
     s = lin(0) + lin(3) + lin(6)
     rcp = 1.0 / torch.where(s == 0.0, torch.ones_like(s), s)
@@ -136,30 +162,30 @@ def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height):
     return torch.stack([_untile(p, tiles_x, tiles_y) for p in planes])
 
 
-def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
+def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
+                      peel=None):
     """K1 on the card: the same contract as raster_shade_reference."""
     dev = rows.device
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
         raise ValueError(f"raster_shade_cuda needs CUDA tensors, got {dev}")
-    for name, t, dt, shape in (("rows", rows, torch.float32, (rows.shape[0], ROW)),
-                               ("bins", bins, torch.int32, (n_tiles, cap)),
-                               ("counts", counts, torch.int32, (n_tiles,)),
-                               ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"raster_shade_cuda: {name} must be a contiguous "
-                             f"{dt} {shape} tensor on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
     if n_tiles % tiles_x:
         raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
     out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W
+    checks = [("rows", rows, torch.float32, (rows.shape[0], ROW)),
+              ("bins", bins, torch.int32, (n_tiles, cap)),
+              ("counts", counts, torch.int32, (n_tiles,)),
+              ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))]
+    if peel is not None:
+        checks.append(("peel", peel, torch.float32, (out_h, out_w)))
+    _kernels.check_tensors("raster_shade_cuda", dev, checks)
     out = torch.empty((N_PLANES, out_h, out_w), dtype=torch.float32, device=dev)
     lib = _kernels.library().lib
     vp = ctypes.c_void_p
     code = lib.raster_shade_launch(
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
-        vp(big_ids.data_ptr()), big_ids.shape[0], cap, tiles_x, n_tiles,
+        vp(big_ids.data_ptr()), vp(None if peel is None else peel.data_ptr()),
+        big_ids.shape[0], cap, tiles_x, n_tiles,
         _ndc_scale(width), _ndc_scale(height), out_h, out_w,
         vp(out.data_ptr()), vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "raster_shade")
@@ -171,28 +197,34 @@ raster_shade_cuda.launches = 0
 
 
 def raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
-                  tri_material, materials, tiles_x, width, height, tangent):
+                  tri_material, materials, tiles_x, width, height, tangent,
+                  alpha_in_alb=False, peel_depth=None):
     """The K1 arguments both versions take, from the frame's tensors."""
     return dict(rows=tri_attr_rows(setup, tris, uv, normal, tri_material,
-                                   materials, tangent),
+                                   materials, tangent, alpha_in_alb),
                 bins=bins.to(torch.int32).contiguous(),
                 counts=counts.to(torch.int32).contiguous(),
                 big_ids=big_ids.to(torch.int32).contiguous(),
-                tiles_x=tiles_x, width=width, height=height)
+                tiles_x=tiles_x, width=width, height=height,
+                peel=None if peel_depth is None else peel_depth.contiguous())
 
 
 def raster_shade(setup, bins, big_ids, counts, tris, uv, normal, tri_material,
-                 materials, tiles_x, tiles_y, width, height, *, tangent):
+                 materials, tiles_x, tiles_y, width, height, *, tangent,
+                 alpha_in_alb=False, peel_depth=None):
     """Fused raster + attribute/material interpolation.
 
     Returns a dict of the 22 (tiles_y*32, tiles_x*128) f32 planes named
     as raster_shade_pallas(planes_2d=True) with tangent/matmaps names
-    them.  CUDA tensors run the K1 kernel (it raises if it cannot
-    launch); CPU tensors run the plain PyTorch version."""
+    them.  alpha_in_alb puts the material alpha in the "alb" plane;
+    peel_depth (tiles_y*32, tiles_x*128) keeps only fragments strictly
+    farther than it.  CUDA tensors run the K1 kernel (it raises if it
+    cannot launch); CPU tensors run the plain PyTorch version."""
     if bins.shape[0] != tiles_x * tiles_y:
         raise ValueError(f"bins has {bins.shape[0]} rows for "
                          f"{tiles_x}x{tiles_y} tiles")
     inp = raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
-                        tri_material, materials, tiles_x, width, height, tangent)
+                        tri_material, materials, tiles_x, width, height, tangent,
+                        alpha_in_alb, peel_depth)
     fn = raster_shade_cuda if inp["rows"].is_cuda else raster_shade_reference
     return dict(zip(PLANE_NAMES, fn(**inp).unbind(0)))

@@ -27,15 +27,9 @@ import torch
 from . import _kernels
 from .common import TILE_H, TILE_W
 from .raster import _untile
-from .raster_cuda import _entry_ids, _ndc_scale
+from .raster_cuda import _entry_ids, _ndc_scale, _plane
 
 ROW = 16              # floats per triangle row (the setup's row16)
-
-
-def _plane(a, b, c, xn, yn):
-    """fma(a, xn, b*yn) + c: the product a*xn is exact in f64, so adding
-    the f32 b*yn there and rounding once is the fused multiply-add."""
-    return (a.double() * xn.double() + (b * yn).double()).float() + c
 
 
 def raster_depth_reference(rows, bins, counts, big_ids, tiles_x, width, height):
@@ -75,15 +69,11 @@ def raster_depth_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
         raise ValueError(f"raster_depth_cuda needs CUDA tensors, got {dev}")
-    for name, t, dt, shape in (("rows", rows, torch.float32, (rows.shape[0], ROW)),
-                               ("bins", bins, torch.int32, (n_tiles, cap)),
-                               ("counts", counts, torch.int32, (n_tiles,)),
-                               ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"raster_depth_cuda: {name} must be a contiguous "
-                             f"{dt} {shape} tensor on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+    _kernels.check_tensors("raster_depth_cuda", dev, (
+        ("rows", rows, torch.float32, (rows.shape[0], ROW)),
+        ("bins", bins, torch.int32, (n_tiles, cap)),
+        ("counts", counts, torch.int32, (n_tiles,)),
+        ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))))
     if n_tiles % tiles_x:
         raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
     out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W

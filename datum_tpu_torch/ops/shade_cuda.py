@@ -1,18 +1,26 @@
 """K2: the deferred-shade megakernel on the card.
 
 Counterpart of datum_tpu/ops/shade_pallas.py (`shade_deferred_pallas`;
-its Pallas body `_shade_kernel` becomes csrc/shade.cu).  `shade_deferred`
+its Pallas body `_shade_kernel` becomes csrc/shade.cu, and its epilogue
+of the translucent groups csrc/shade_epilogue.cu).  `shade_deferred`
 builds the params, light, spot and probe tables, rounds the input
 planes to bf16 exactly where the TPU path does (every plane but depth
 and visf, plus ao and the spot factor planes — the rounding is part of
-the contract, not an optimisation), then runs the CUDA kernel for CUDA
-tensors (`shade_deferred_cuda`) or the plain PyTorch version for CPU
-tensors (`shade_deferred_reference`).
+the contract, not an optimisation), then runs the CUDA kernels for CUDA
+tensors (`shade_deferred_cuda`, then `shade_epilogue_cuda`) or their
+plain PyTorch versions for CPU tensors (`shade_deferred_reference`,
+`shade_epilogue_reference`).
 
 Supported: PLANE_NAMES, the sky fill (SKY_NAMES), ao, shadowed spot
-slots (spotsf), SH probes and dense point lights.  The other epilogue
-groups and clustered lights raise NotImplementedError naming the
-ROADMAP slice that brings them.
+slots (spotsf), SH probes, dense point lights, the lit translucent
+layers (TR_NAMES and the deeper tr2..tr4), the refraction offsets
+(REFR_NAMES), the WBOIT resolve (OIT_NAMES) and planes_out.  K2 shades
+and blends the deeper layers; what reads neighbouring pixels (the
+refraction of the nearest layer), that layer's blend and the WBOIT
+resolve run in the epilogue kernel, which launches only when one of
+those groups is given.  Fog, the box env-probe override and clustered
+lights raise NotImplementedError naming the ROADMAP slice that brings
+them.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from .common import fma
 
 PLANE_NAMES = ["depth", "visf", "nx", "ny", "nz", "dr", "dg", "db", "em",
                "sr", "sg", "sb", "rgh",
@@ -30,19 +39,25 @@ PLANE_NAMES = ["depth", "visf", "nx", "ny", "nz", "dr", "dg", "db", "em",
 SKY_NAMES = ["sky_r", "sky_g", "sky_b"]
 F32_PLANES = ("depth", "visf")
 BF16_NAMES = [n for n in PLANE_NAMES if n not in F32_PLANES]
+TR_NAMES = ["tr_r", "tr_g", "tr_b", "tr_a"]     # nearest lit translucent layer
+MAX_TR_LAYERS = 4
+
+
+def trk_names(k):
+    """The planes of the k-th nearest lit layer (k = 2..MAX_TR_LAYERS)."""
+    return [f"tr{k}_r", f"tr{k}_g", f"tr{k}_b", f"tr{k}_a"]
+
+
+REFR_NAMES = ["tr_ox", "tr_oy"]                 # refraction offsets (px)
+OIT_NAMES = ["oit_r", "oit_g", "oit_b", "oit_w", "oit_rev"]
+SHADE_ROWS = 16     # the TPU kernel's row band: vertical refraction wraps in it
 
 # epilogue groups of the Pallas kernel that later slices bring
 _LATER = (
     (("edr", "edg", "edb", "edm"),
      "box env-probe diffuse override: ROADMAP Queue 1, IBL/skybox environment slice"),
-    (("tr_r", "tr_a", "tr2_a", "tr3_a", "tr4_a"),
-     "lit translucent layers: ROADMAP Queue 1, translucency slice"),
-    (("tr_ox", "tr_oy"),
-     "refraction offsets: ROADMAP Queue 1, translucency slice"),
-    (("fog_r", "fog_t"),
+    (("fog_r", "fog_g", "fog_b", "fog_t"),
      "volumetric fog planes: ROADMAP Queue 1, post slice"),
-    (("oit_r", "oit_w", "oit_rev"),
-     "WBOIT resolve: ROADMAP Queue 1, translucency slice"),
 )
 
 INV_PI = 0.3183098861837907
@@ -50,7 +65,7 @@ POINT_CHUNK = 8   # point lights per loop trip (reads past the count clamp)
 
 
 def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
-                 planes_out=False, clusters=None):
+                 clusters=None):
     """Pack the K2 arguments both versions take (see shade_deferred)."""
     for keys, why in _LATER:
         if any(k in gplanes for k in keys):
@@ -58,10 +73,6 @@ def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
     if clusters is not None:
         raise NotImplementedError("shade_deferred: clustered point lights: "
                                   "ROADMAP Queue 1, clustered-lights item")
-    if planes_out:
-        raise NotImplementedError("shade_deferred: planes_out is the lit "
-                                  "translucent layer's: ROADMAP Queue 1, "
-                                  "translucency slice")
     depth = gplanes["depth"]
     dev = depth.device
     H, W = depth.shape
@@ -103,16 +114,36 @@ def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
                           torch.clamp(i32(sl["count"]), max=S),
                           i32(0), i32(pr["count"])])
 
-    names = BF16_NAMES + (SKY_NAMES if "sky_r" in gplanes else [])
-    bf16 = lambda x: x.to(torch.bfloat16).contiguous()
+    trk = [trk_names(k) for k in range(2, MAX_TR_LAYERS + 1)
+           if f"tr{k}_r" in gplanes]
+    names = (BF16_NAMES + (SKY_NAMES if "sky_r" in gplanes else [])
+             + [n for grp in trk for n in grp])
     return dict(
         f32_planes=torch.stack([gplanes["depth"], gplanes["visf"]]).contiguous(),
-        planes=bf16(torch.stack([gplanes[k] for k in names])),
-        has_sky="sky_r" in gplanes,
-        ao=None if ao is None else bf16(ao),
-        spotsf=None if spotsf is None else bf16(spotsf),
+        planes=_bf16(torch.stack([gplanes[k] for k in names])),
+        has_sky="sky_r" in gplanes, n_trk=len(trk),
+        ao=None if ao is None else _bf16(ao),
+        spotsf=None if spotsf is None else _bf16(spotsf),
         params=params, lights=lights, spots=spots, probes=probes,
         counts=counts)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).contiguous()
+
+
+def epilogue_inputs(gplanes):
+    """The epilogue's arguments (tr, refr, oit: (4|2|5, H, W) bf16 stacks
+    or None), rounded to bf16 as the TPU path rounds them; None when
+    gplanes carries none of the three groups (the epilogue then does not
+    run).  refr is used only with tr, as in the TPU kernel."""
+    groups = [_bf16(torch.stack([gplanes[k] for k in grp]))
+              if grp[0] in gplanes else None
+              for grp in (TR_NAMES, REFR_NAMES, OIT_NAMES)]
+    if groups[0] is None:
+        groups[1] = None
+    return None if groups == [None] * 3 else dict(zip(("tr", "refr", "oit"),
+                                                      groups))
 
 
 def _dot3(a, b):
@@ -189,14 +220,16 @@ def _sh_basis(x, y, z):
 
 
 def shade_deferred_reference(f32_planes, planes, has_sky, ao, spotsf, params,
-                             lights, spots, probes, counts):
+                             lights, spots, probes, counts, n_trk=0):
     """Plain PyTorch K2: (3, H, W) f32 HDR planes (the kernel's math,
     operation for operation)."""
     P = params
     dev = P.device
     _, H, W = f32_planes.shape
+    nb = len(BF16_NAMES) + (len(SKY_NAMES) if has_sky else 0)
     g = dict(zip(BF16_NAMES + (SKY_NAMES if has_sky else []),
-                 planes.to(torch.float32).unbind(0)))
+                 planes[:nb].to(torch.float32).unbind(0)))
+    trk = planes[nb:].to(torch.float32).reshape(n_trk, 4, H, W)
     depth, visf = f32_planes[0], f32_planes[1]
     mask = visf >= 0.0
     yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
@@ -320,17 +353,73 @@ def shade_deferred_reference(f32_planes, planes, has_sky, ao, spotsf, params,
         if has_sky:
             col = torch.where(mask, col, g[f"sky_{ch}"] * exposure)
         out.append(col)
+    # the deeper lit translucent layers, deepest first
+    for k in range(n_trk - 1, -1, -1):
+        a = trk[k, 3]
+        out = [b * (1.0 - a) + trk[k, c] * a for c, b in enumerate(out)]
     return torch.stack(out)
 
 
+def _pick(off, steps):
+    """The ladder step nearest off per pixel (ties keep the earlier step)."""
+    best = torch.full_like(off, 1e9)
+    pick = torch.zeros_like(off)
+    for s in steps:
+        d = torch.abs(off - s)
+        pick = torch.where(d < best, torch.full_like(off, float(s)), pick)
+        best = torch.minimum(best, d)
+    return pick
+
+
+def _shift(planes, off, axis, steps):
+    """planes (3, H, W) shifted per pixel by the step nearest off: pixel i
+    reads i + step along axis, wrapping over the row (axis 2) or inside
+    its SHADE_ROWS band (axis 1)."""
+    _, H, W = planes.shape
+    pick = _pick(off, steps)
+    out = torch.zeros_like(planes)
+    for s in steps:
+        if axis == 2:
+            rolled = torch.roll(planes, -s, dims=2)
+        else:
+            rolled = torch.roll(planes.reshape(3, H // SHADE_ROWS, SHADE_ROWS, W),
+                                -s, dims=2).reshape(3, H, W)
+        out = torch.where(pick == s, rolled, out)
+    return out
+
+
+def shade_epilogue_reference(bg, tr=None, refr=None, oit=None):
+    """Plain PyTorch epilogue: (3, H, W) f32 from K2's lit background bg
+    (3, H, W): refraction x then y (band-local), the nearest lit layer's
+    blend and the WBOIT resolve, as the TPU kernel's epilogue."""
+    col = bg
+    if tr is not None:
+        t = tr.to(torch.float32)
+        a = t[3]
+        b = col
+        if refr is not None:
+            r = refr.to(torch.float32)
+            b = _shift(b, r[0], 2, (-8, -3, 0, 3, 8))
+            b = _shift(b, r[1], 1, (-4, -2, 0, 2, 4))
+            b = torch.where(a > 0.0, b, col)
+        col = b * (1.0 - a) + t[:3] * a
+    if oit is not None:
+        q = oit.to(torch.float32)
+        inv_w = 1.0 / torch.clamp(q[3], min=1e-5)
+        oit_alpha = 1.0 - q[4]
+        # one fma, as XLA contracts the TPU kernel's resolve
+        col = fma(q[:3] * inv_w, oit_alpha, col * q[4])
+    return col
+
+
 def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
-                        lights, spots, probes, counts):
+                        lights, spots, probes, counts, n_trk=0):
     """K2 on the card: the same contract as shade_deferred_reference."""
     dev = f32_planes.device
     if dev.type != "cuda":
         raise ValueError(f"shade_deferred_cuda needs CUDA tensors, got {dev}")
     _, H, W = f32_planes.shape
-    nb = len(BF16_NAMES) + (len(SKY_NAMES) if has_sky else 0)
+    nb = len(BF16_NAMES) + (len(SKY_NAMES) if has_sky else 0) + 4 * n_trk
     n_maps = 0 if spotsf is None else spotsf.shape[0]
     checks = [("f32_planes", f32_planes, torch.float32, (2, H, W)),
               ("planes", planes, torch.bfloat16, (nb, H, W)),
@@ -343,12 +432,7 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
         checks.append(("ao", ao, torch.bfloat16, (H, W)))
     if spotsf is not None:
         checks.append(("spotsf", spotsf, torch.bfloat16, (n_maps, H, W)))
-    for name, t, dt, shape in checks:
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"shade_deferred_cuda: {name} must be a contiguous "
-                             f"{dt} {shape} tensor on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+    _kernels.check_tensors("shade_deferred_cuda", dev, checks)
     if lights.shape[0] < 1 or spots.shape[0] < 1:
         raise ValueError("shade_deferred_cuda: light and spot tables need a row")
     kl = _kernels.library()
@@ -361,7 +445,7 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
     vp = ctypes.c_void_p
     ptr = lambda t: vp(None if t is None else t.data_ptr())
     code = kl.lib.shade_launch(
-        ptr(f32_planes), ptr(planes), int(has_sky), ptr(ao), ptr(spotsf), n_maps,
+        ptr(f32_planes), ptr(planes), int(has_sky), n_trk, ptr(ao), ptr(spotsf), n_maps,
         ptr(params), ptr(lights), lights.shape[0], ptr(spots), spots.shape[0],
         ptr(probes), probes.shape[0], ptr(counts), POINT_CHUNK, H, W,
         float(np.float32(2.0 / W)), float(np.float32(2.0 / H)),
@@ -374,17 +458,55 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
 shade_deferred_cuda.launches = 0
 
 
+def shade_epilogue_cuda(bg, tr=None, refr=None, oit=None):
+    """The K2 epilogue on the card: the same contract as
+    shade_epilogue_reference."""
+    dev = bg.device
+    if dev.type != "cuda":
+        raise ValueError(f"shade_epilogue_cuda needs CUDA tensors, got {dev}")
+    _, H, W = bg.shape
+    if H % SHADE_ROWS:
+        raise ValueError(f"shade_epilogue_cuda: height {H} is not a multiple "
+                         f"of {SHADE_ROWS}")
+    checks = [("bg", bg, torch.float32, (3, H, W))]
+    for name, t, n in (("tr", tr, 4), ("refr", refr, 2), ("oit", oit, 5)):
+        if t is not None:
+            checks.append((name, t, torch.bfloat16, (n, H, W)))
+    _kernels.check_tensors("shade_epilogue_cuda", dev, checks)
+    out = torch.empty((3, H, W), dtype=torch.float32, device=dev)
+    vp = ctypes.c_void_p
+    ptr = lambda t: vp(None if t is None else t.data_ptr())
+    code = _kernels.library().lib.shade_epilogue_launch(
+        ptr(bg), ptr(tr), ptr(refr), ptr(oit), H, W, ptr(out),
+        vp(_kernels.stream_ptr(dev)))
+    _kernels.check(code, "shade_epilogue")
+    shade_epilogue_cuda.launches += 1
+    return out
+
+
+shade_epilogue_cuda.launches = 0
+
+
 def shade_deferred(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
                    planes_out=False, clusters=None):
-    """Deferred shade of the opaque layer.
+    """Deferred shade of one layer.
 
-    gplanes: dict of (H, W) f32 planes PLANE_NAMES [+ SKY_NAMES]; ao:
-    optional (H, W) ambient multiplier; spotsf: optional (n_maps, H, W)
-    spot factors; sceneset carries "_sh" (9, 3).  Returns hdr (H, W, 3).
-    CUDA tensors run the K2 kernel (it raises if it cannot launch); CPU
-    tensors run the plain PyTorch version."""
+    gplanes: dict of (H, W) f32 planes PLANE_NAMES [+ SKY_NAMES, TR_NAMES,
+    trk_names(2..4), REFR_NAMES, OIT_NAMES]; ao: optional (H, W) ambient
+    multiplier; spotsf: optional (n_maps, H, W) spot factors; sceneset
+    carries "_sh" (9, 3).  Returns hdr (H, W, 3), or its three (H, W)
+    planes with planes_out.  CUDA tensors run the K2 kernel and, with a
+    tr/refr/oit group, the epilogue kernel (each raises if it cannot
+    launch); CPU tensors run the plain PyTorch versions."""
     inp = shade_inputs(gplanes, sceneset, proj=proj, invview=invview, ao=ao,
-                       spotsf=spotsf, planes_out=planes_out, clusters=clusters)
-    fn = (shade_deferred_cuda if inp["f32_planes"].is_cuda
-          else shade_deferred_reference)
-    return fn(**inp).permute(1, 2, 0)
+                       spotsf=spotsf, clusters=clusters)
+    epi = epilogue_inputs(gplanes)
+    if inp["f32_planes"].is_cuda:
+        out = shade_deferred_cuda(**inp)
+        if epi is not None:
+            out = shade_epilogue_cuda(out, **epi)
+    else:
+        out = shade_deferred_reference(**inp)
+        if epi is not None:
+            out = shade_epilogue_reference(out, **epi)
+    return tuple(out.unbind(0)) if planes_out else out.permute(1, 2, 0)

@@ -1,13 +1,12 @@
 """Host camera (counterpart of datum_tpu/render/camera.py, trimmed to
-what the opaque slice calls): Y-flipped reverse-Z projection and the
-look-at view."""
+what the port calls): Y-flipped reverse-Z projection, the look-at view
+and the frame vectors the particle billboards face."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from datum_tpu.math import Transform
-from datum_tpu.math.matrix import perspective_proj
+from ..math import Transform, perspective_proj, quat_rotate
 
 
 class Camera:
@@ -24,6 +23,15 @@ class Camera:
 
     def set_projection(self, fov, aspect, znear=0.1, zfar=1000.0):
         self.fov, self.aspect, self.znear, self.zfar = fov, aspect, znear, zfar
+
+    def right(self):
+        return quat_rotate(self.rotation, np.array([1.0, 0, 0], np.float32))
+
+    def up(self):
+        return quat_rotate(self.rotation, np.array([0.0, 1, 0], np.float32))
+
+    def forward(self):
+        return quat_rotate(self.rotation, np.array([0.0, 0, -1], np.float32))
 
     def transform(self) -> Transform:
         return Transform.lookat(self.position, self.rotation)

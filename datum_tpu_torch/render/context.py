@@ -26,10 +26,9 @@ MAX_TEXTURES = 64
 # error is within this (~2/255)
 LUT_POLY_TOL = 0.008
 
-# the JAX package's tracked env-BRDF LUT (bake_envbrdf(64, 128)); read
-# only, never written
-_ENVBRDF_LUT = (Path(__file__).resolve().parents[2] / "datum_tpu" / "_cache"
-                / "envbrdf64.npy")
+# the port's tracked env-BRDF LUT: a byte-for-byte copy of the JAX
+# package's bake_envbrdf(64, 128) file; read only, never written
+_ENVBRDF_LUT = Path(__file__).resolve().parents[1] / "data" / "envbrdf64.npy"
 
 # fixed texture ids
 TEX_WHITE = 0
@@ -194,9 +193,9 @@ class RenderContext:
             "probes: ops/envprobe.py and the K2 edm override)")
 
     def envbrdf_lut(self):
-        """Split-sum env-BRDF LUT (64, 64, 3): the JAX package's tracked
+        """Split-sum env-BRDF LUT (64, 64, 3): the port's tracked copy of
         bake_envbrdf(64, 128), read only (ops.ibl.bake_envbrdf reproduces
-        it; a test holds the two together)."""
+        it to 1e-5; tests hold the copy equal to the JAX package's file)."""
         if self._envbrdf is None:
             self._envbrdf = np.load(_ENVBRDF_LUT)
         return self._envbrdf
@@ -300,8 +299,28 @@ class RenderContext:
 
     def expand_host(self, draws):
         """Attach the host-precomputed draw expansion (numpy) in place
-        (frame.expand_draws_host)."""
+        (frame.expand_draws_host), to draws["translucent"] too when the
+        draws carry it."""
         from .frame import attach_host_expansion
 
-        return attach_host_expansion(self.pool, draws, self.config.max_vertices,
-                                     self.config.max_triangles)
+        cfg = self.config
+        return attach_host_expansion(self.pool, draws, cfg.max_vertices,
+                                     cfg.max_triangles, cfg.max_translucent_tris)
+
+    def frame_draws(self, renderlist, camera):
+        """The draws tree of one frame, as the JAX package's
+        RenderContext.render builds it: the draw arrays plus, for the
+        capacities the config carries, the particle billboards
+        ("forward"), the translucent draws and the decals; then the host
+        expansion."""
+        cfg = self.config
+        draws = renderlist.draw_arrays(cfg.max_instances, self.default_material)
+        if cfg.max_particle_quads > 0:
+            draws["forward"] = renderlist.forward_arrays(cfg.max_particle_quads,
+                                                         camera)
+        if cfg.max_translucent_draws > 0:
+            draws["translucent"] = renderlist.translucent_arrays(
+                cfg.max_translucent_draws, self.default_material)
+        if cfg.max_decals_active > 0:
+            draws["decals"] = renderlist.decal_arrays(cfg.max_decals_active)
+        return self.expand_host(draws)

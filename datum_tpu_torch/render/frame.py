@@ -1,6 +1,5 @@
 """The frame (counterpart of datum_tpu/render/frame.py, the megakernel
-branch of `_frame` with SSAO, fog, SSR, translucents, particles and
-decals off).
+branch of `_frame` with SSAO, fog and SSR off).
 
 Passes, in order: host draw expansion (numpy) -> attribute gather and
 rigid transform -> sun cascades (K3, ops/raster_depth_cuda.py) and
@@ -8,8 +7,13 @@ their ESM, parabolic spot maps (K3) and their ESM -> triangle setup and
 binning into 32x128 tiles -> K1 fused visibility raster
 (ops/raster_cuda.py) -> plane assembly at half resolution with the
 skybox environment, one batched upsample, the quarter-res sun factor,
-spot factors and sky planes -> K2 deferred-shade megakernel
-(ops/shade_cuda.py) -> luminance, quarter-res bloom, composite, u8.
+then the decals (ops/decal.py), the spot factors and sky planes -> the
+lit translucent layers (K1 with alpha_in_alb and peel, plane assembly
+and K2 on a 1/translucent_lit_scale viewport, upsampled) -> one merged
+weighted-blend OIT stream of the residual translucents and the particle
+billboards (K4, ops/raster_blend_cuda.py) -> K2 deferred-shade
+megakernel and its translucent/OIT epilogue (ops/shade_cuda.py) ->
+luminance, quarter-res bloom, composite, u8.
 
 PyTorch runs eagerly, so there is no jit: each pass is a plain function
 on tensors, and the frame is one call of `render_frame`.
@@ -24,17 +28,21 @@ from ..convert import to_torch
 from ..ops import brdf
 from ..ops import raster as raster_ops
 from ..ops import shadow as shadow_ops
-from ..ops.blur import downsample_pool, resize_up_dense, resize_up_dense_batch
+from ..ops.blur import (downsample_pool, resize_matmul, resize_up_dense,
+                        resize_up_dense_batch)
 from ..ops.bloom import bloom as bloom_op
-from ..ops.common import FrameConfig, texel_index
+from ..ops.common import TILE_H, TILE_W, FrameConfig, round_up, texel_index
 from ..ops.composite import composite, to_u8_image
+from ..ops.decal import apply_decals_planes
 from ..ops.geometry import transform_vertices_rigid
 from ..ops.ibl import rotate_sh9
 from ..ops.lighting_pass import _inv_proj, reconstruct_positions, view_ray_grid
+from ..ops.raster_blend_cuda import raster_blend
 from ..ops.raster_cuda import raster_shade
 from ..ops.sampling import sample_cubemap_lod_pair
 from ..ops.shade import sample_matmaps
-from ..ops.shade_cuda import shade_deferred
+from ..ops.shade_cuda import MAX_TR_LAYERS, shade_deferred
+from .renderlist import RenderList
 
 # (rejected when true, what it is and the ROADMAP Queue 1 item that ports it)
 _LATER = (
@@ -44,12 +52,6 @@ _LATER = (
     (lambda c: c.max_spot_shadows > 0 and c.spot_shadow_mode != "parabolic",
      "perspective spot maps (spot_shadow_mode='perspective')",
      "shadows (perspective spot maps)"),
-    (lambda c: c.max_translucent_draws > 0, "translucent draws",
-     "translucency (K4, K1 peel, K2 epilogue)"),
-    (lambda c: c.max_particle_quads > 0, "particles",
-     "translucency (K4, K1 peel, K2 epilogue)"),
-    (lambda c: c.max_decals_active > 0, "decals",
-     "translucency (K4, K1 peel, K2 epilogue)"),
     (lambda c: c.enable_ssao, "SSAO", "post"),
     (lambda c: c.enable_fog, "volumetric fog", "post"),
     (lambda c: c.max_fog_planes > 0, "fog planes", "post"),
@@ -129,12 +131,16 @@ def expand_draws_host(pool, draw_mesh, draw_count, max_v, max_t):
                 tris=tris, tri_draw=tri_draw, t_valid=t_valid)
 
 
-def attach_host_expansion(pool, draws, max_v, max_t):
+def attach_host_expansion(pool, draws, max_v, max_t, max_translucent_t):
     """expand_draws_host + the per-triangle material, attached in place
-    (called by RenderContext.expand_host)."""
-    draws.update(expand_draws_host(pool, draws["mesh"], draws["count"],
-                                   max_v, max_t))
-    draws["tri_mat"] = np.asarray(draws["material"])[draws["tri_draw"]]
+    (called by RenderContext.expand_host), for the opaque draws and, when
+    present, the translucent ones (draws["translucent"], expanded at
+    max_translucent_t triangles as the JAX frame expands them on the
+    device)."""
+    for d, mt in ((draws, max_t), (draws.get("translucent"), max_translucent_t)):
+        if d is not None:
+            d.update(expand_draws_host(pool, d["mesh"], d["count"], max_v, mt))
+            d["tri_mat"] = np.asarray(d["material"])[d["tri_draw"]]
     return draws
 
 
@@ -144,18 +150,23 @@ def _vertex_stage(cfg: FrameConfig, state, draws, sceneset):
     if "src_v" not in draws:
         raise ValueError("draws need the host draw expansion "
                          "(RenderContext.expand_host) before render_frame")
-    geom = state["geometry"]
     ex = {k: draws[k] for k in ("src_v", "vtx_draw", "v_valid", "tris",
                                 "tri_draw", "t_valid")}
-    rows12 = geom["attr12"][ex["src_v"].long()]
-    positions = rows12[:, 0:3]
-    uv = rows12[:, 3:5]
-    normals = rows12[:, 5:8]
-    tangents = rows12[:, 8:12]
+    uv, clip, wnormal, wtangent, worldp = _stream_vertices(state, draws,
+                                                           sceneset)
+    return ex, uv, clip, wnormal, wtangent, worldp
+
+
+def _stream_vertices(state, d, sceneset):
+    """ONE attr12 row gather + rigid transform of a host-expanded draw
+    stream d (the opaque draws or draws["translucent"]).  Returns (uv,
+    clip, wnormal, wtangent, worldp)."""
+    rows12 = state["geometry"]["attr12"][d["src_v"].long()]
     viewproj = sceneset["proj"] @ sceneset["view"]
     clip, wnormal, wtangent, worldp = transform_vertices_rigid(
-        positions, normals, tangents, ex["vtx_draw"], draws["world"], viewproj)
-    return ex, uv, clip, wnormal, wtangent, worldp
+        rows12[:, 0:3], rows12[:, 5:8], rows12[:, 8:12], d["vtx_draw"],
+        d["world"], viewproj)
+    return rows12[:, 3:5], clip, wnormal, wtangent, worldp
 
 
 def _bin_stage(cfg: FrameConfig, ex, clip):
@@ -255,13 +266,13 @@ def _env_fields(planes, mm12, ibl, sceneset, w, h):
     return spec_h.permute(2, 0, 1), eb_h.permute(2, 0, 1)
 
 
-def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows):
-    """Material, environment and sun-shadow plane assembly for the opaque
-    layer: half-res material and environment taps, ONE batched 2x
-    upsample of 15 channel-first planes, the full-res gbuffer encode and
-    TBN normal mapping, and the quarter-res sun factor upsampled.
-    Returns the K2 plane dict."""
-    w, h = cfg.padded_width, cfg.padded_height
+def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows, w, h):
+    """Material, environment and sun-shadow plane assembly for ONE layer
+    of K1 output (the opaque layer, or a lit translucent layer on its
+    w x h viewport): half-res material and environment taps, ONE batched
+    2x upsample of 15 channel-first planes, the full-res gbuffer encode
+    and TBN normal mapping, and the quarter-res sun factor upsampled.
+    Returns (the K2 plane dict, the (h, w) coverage mask)."""
     p = 2
     uv_h = torch.stack([downsample_pool(planes["u"], p),
                         downsample_pool(planes["v"], p)], -1)
@@ -324,7 +335,7 @@ def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows):
         gpl["sf"] = resize_up_dense(sfq, h, w)
     else:
         gpl["sf"] = torch.ones_like(planes["depth"])
-    return gpl
+    return gpl, planes["visf"] >= 0.0
 
 
 def _sky_planes(ibl, sceneset, w, h):
@@ -375,13 +386,232 @@ def _sky_sh_spots(cfg: FrameConfig, gpl, planes, state, sceneset, spot):
     return ss2, spotsf
 
 
-def _shade_inputs(cfg: FrameConfig, planes, state, sceneset, shadows):
-    """(gplanes, sceneset with "_sh", spotsf or None) for K2.  shadows:
-    _shadow_stage's dict."""
-    gpl = _assemble_gplanes(cfg, planes, state, sceneset, shadows)
+def _decals(cfg: FrameConfig, gpl, mask, depth, state, draws, sceneset):
+    """The decals blended over the opaque layer's K2 planes, on the world
+    positions of its depth (a new dict; gpl itself when there are
+    none)."""
+    if cfg.max_decals_active <= 0:
+        return gpl
+    w, h = cfg.padded_width, cfg.padded_height
+    _, wpos = reconstruct_positions(depth, sceneset["proj"], sceneset["invview"],
+                                    w, h)
+    return apply_decals_planes(
+        gpl, wpos.unbind(-1), draws["decals"], mask,
+        textures=state["textures"] if cfg.decal_textures else None)
+
+
+def _shade_inputs(cfg: FrameConfig, planes, state, draws, sceneset, shadows):
+    """(gplanes, sceneset with "_sh", spotsf or None) for K2 of the opaque
+    layer, decals blended in.  shadows: _shadow_stage's dict."""
+    w, h = cfg.padded_width, cfg.padded_height
+    gpl, mask = _assemble_gplanes(cfg, planes, state, sceneset, shadows, w, h)
+    gpl = _decals(cfg, gpl, mask, planes["depth"], state, draws, sceneset)
     ss2, spotsf = _sky_sh_spots(cfg, gpl, planes, state, sceneset,
                                 shadows["spot"])
     return gpl, ss2, spotsf
+
+
+def lit_viewport(cfg: FrameConfig):
+    """(w_t, h_t) of the lit translucent layers: the frame at
+    1/translucent_lit_scale, padded to whole tiles; it spans the full NDC
+    range."""
+    s = cfg.translucent_lit_scale
+    if s <= 1:
+        return cfg.padded_width, cfg.padded_height
+    return (round_up(cfg.padded_width // s, TILE_W),
+            round_up(cfg.padded_height // s, TILE_H))
+
+
+def translucent_stream(state, draws, sceneset):
+    """The host-expanded translucent draws' vertex stream: dict(d (the
+    draws["translucent"] tree), uv, clip, wn, wt)."""
+    d = draws["translucent"]
+    uv, clip, wn, wt, _ = _stream_vertices(state, d, sceneset)
+    return dict(d=d, uv=uv, clip=clip, wn=wn, wt=wt)
+
+
+def lit_setup(cfg: FrameConfig, ts):
+    """Two-sided triangle setup of the translucent stream ts on the lit
+    viewport: (setup, tiles_x, tiles_y, w_t, h_t)."""
+    w_t, h_t = lit_viewport(cfg)
+    tx, ty = w_t // TILE_W, h_t // TILE_H
+    setup = raster_ops.triangle_setup(ts["clip"], ts["d"]["tris"], w_t, h_t,
+                                      tx, ty, cull=0,
+                                      tri_valid=ts["d"]["t_valid"])
+    return setup, tx, ty, w_t, h_t
+
+
+def _view_dist(proj, d):
+    """View distance of a reverse-Z depth plane."""
+    dn = d + proj[2, 2]
+    return proj[2, 3] / torch.where(torch.abs(dn) < 1e-7,
+                                    torch.full_like(dn, 1e-7), dn)
+
+
+def _lit_layers(cfg: FrameConfig, state, ts, sceneset, ss2, shadows, depth, gpl):
+    """The lit translucent layers, nearest first: each a K1 raster of the
+    translucent stream (material alpha in "alb"; from the second layer on
+    peeled strictly behind the previous one), its plane assembly and K2
+    with planes_out on the lit viewport, the absorb/column alpha, and a
+    premultiplied upsample into gpl's tr (tr2..tr4) planes; layer 0 also
+    gives the refraction offsets tr_ox, tr_oy.  Returns the last layer's
+    depth at full resolution when there are 2 or more layers (the WBOIT
+    residual peels against it), else None."""
+    w, h = cfg.padded_width, cfg.padded_height
+    scaled = cfg.translucent_lit_scale > 1
+    proj = sceneset["proj"]
+    tsetup, tx, ty, w_t, h_t = lit_setup(cfg, ts)
+    depth_t = resize_matmul(depth, h_t, w_t, nearest=True) if scaled else depth
+    tbins, tcounts, tbig = raster_ops.bin_triangles(
+        tsetup, cfg.max_translucent_tris, tx, ty, cfg.forward_bin_capacity,
+        cfg.forward_big_capacity)
+    d = ts["d"]
+    n_layers = min(max(1, int(cfg.translucent_lit_layers)), MAX_TR_LAYERS)
+    peel = None
+    for layer in range(n_layers):
+        planes_t = raster_shade(
+            tsetup, tbins, tbig, tcounts, d["tris"], ts["uv"], ts["wn"],
+            d["tri_mat"], state["materials"], tx, ty, w_t, h_t,
+            tangent=ts["wt"], alpha_in_alb=True, peel_depth=peel)
+        peel = planes_t["depth"]          # the next layer peels against it
+        # only fragments nearer than the opaque surface
+        planes_t = dict(planes_t, visf=torch.where(
+            planes_t["depth"] > depth_t, planes_t["visf"],
+            torch.full_like(depth_t, -1.0)))
+        gpl_t, mask_t = _assemble_gplanes(cfg, planes_t, state, sceneset,
+                                          shadows, w_t, h_t)
+        tr = shade_deferred(gpl_t, ss2, proj=proj, invview=sceneset["invview"],
+                            planes_out=True)
+        # depth-aware transmission: absorb > 0 materials blend by the
+        # water column between the surface and the opaque floor
+        a_mat = torch.clamp(planes_t["alb"], 0.0, 1.0)
+        absorb = planes_t["absorb"]
+        column = torch.clamp(_view_dist(proj, depth_t)
+                             - _view_dist(proj, planes_t["depth"]), min=0.0)
+        a_depth = 1.0 - (1.0 - a_mat) * torch.exp(-absorb * column)
+        alpha_t = torch.where(absorb > 0, a_depth, a_mat) * mask_t.to(torch.float32)
+        pfx = "tr" if layer == 0 else f"tr{layer + 1}"
+        if scaled:
+            # premultiplied upsample, then unpremultiply, so that the
+            # bilinear border mixes in no unshaded black
+            st4 = resize_matmul(torch.stack([tr[0] * alpha_t, tr[1] * alpha_t,
+                                             tr[2] * alpha_t, alpha_t], -1), h, w)
+            a_up = st4[..., 3]
+            un = 1.0 / torch.clamp(a_up, min=1e-4)
+            for c, ch in enumerate("rgb"):
+                gpl[f"{pfx}_{ch}"] = st4[..., c] * un
+            gpl[f"{pfx}_a"] = a_up
+        else:
+            gpl[f"{pfx}_r"], gpl[f"{pfx}_g"], gpl[f"{pfx}_b"] = tr
+            gpl[f"{pfx}_a"] = alpha_t
+        if layer == 0:
+            # refraction offsets (pixels): view-space normal xy scaled by
+            # the surface distance, on absorbing surfaces only
+            v_ = sceneset["view"]
+            nvx = v_[0, 0] * gpl_t["nx"] + v_[0, 1] * gpl_t["ny"] + v_[0, 2] * gpl_t["nz"]
+            nvy = v_[1, 0] * gpl_t["nx"] + v_[1, 1] * gpl_t["ny"] + v_[1, 2] * gpl_t["nz"]
+            refr_k = 90.0 / torch.clamp(_view_dist(proj, planes_t["depth"]), min=1.0)
+            on_refr = (absorb > 0) & mask_t
+            zero = torch.zeros_like(nvx)
+            tr_ox = torch.where(on_refr, torch.clamp(nvx * refr_k, -9.0, 9.0), zero)
+            # vertical shifts wrap inside K2's 16-row bands: keep to +-4 px
+            tr_oy = torch.where(on_refr, torch.clamp(nvy * refr_k, -4.0, 4.0), zero)
+            if scaled:
+                oxy = resize_matmul(torch.stack([tr_ox, tr_oy], -1), h, w)
+                gpl["tr_ox"], gpl["tr_oy"] = oxy[..., 0], oxy[..., 1]
+            else:
+                gpl["tr_ox"], gpl["tr_oy"] = tr_ox, tr_oy
+    if n_layers < 2:
+        return None
+    return resize_matmul(peel, h, w, nearest=True) if scaled else peel
+
+
+def oit_stream(cfg: FrameConfig, state, draws, sceneset, ts, lit_peel):
+    """The merged weighted-blend OIT stream: the translucent triangles
+    (all of them without lit layers; with 2 or more lit layers, the
+    residual behind the last one, peel flag 1) and the particle
+    billboards (soft flag 1).  Returns dict(setup, tris, uv, color,
+    valid, soft_flag, peel_flag, nstreams) or None when there is no
+    stream."""
+    w, h = cfg.padded_width, cfg.padded_height
+    parts = []           # (clip, uv, color, tris, valid, soft, peel)
+    want_tr = cfg.max_translucent_draws > 0 and (
+        not cfg.translucent_lit or lit_peel is not None)
+    if want_tr:
+        d = ts["d"]
+        nt = d["tris"].shape[0]
+        color = state["materials"]["color"][d["material"][d["vtx_draw"].long()].long()]
+        flag = torch.zeros(nt, device=color.device)
+        parts.append((ts["clip"], ts["uv"], color, d["tris"], d["t_valid"], flag,
+                      flag + (1.0 if lit_peel is not None else 0.0)))
+    if cfg.max_particle_quads > 0:
+        fwd = draws["forward"]
+        viewproj = sceneset["proj"] @ sceneset["view"]
+        fclip = fwd["positions"] @ viewproj[:, :3].T + viewproj[:, 3]
+        ftris = torch.from_numpy(RenderList.quad_triangles(
+            cfg.max_particle_quads)).to(fclip.device)
+        nf = ftris.shape[0]
+        valid = torch.arange(nf, device=fclip.device) < fwd["quad_count"] * 2
+        flag = torch.zeros(nf, device=fclip.device)
+        parts.append((fclip, fwd["uv"], fwd["color"], ftris, valid, flag + 1.0,
+                      flag))
+    if not parts:
+        return None
+    vbase, tris = 0, []
+    for p in parts:
+        tris.append(p[3] + vbase)
+        vbase += p[0].shape[0]
+    clip, uv, color, _, valid, soft, peel = (torch.cat(x) for x in zip(*parts))
+    tris = torch.cat(tris)
+    setup = raster_ops.triangle_setup(clip, tris, w, h, cfg.tiles_x,
+                                      cfg.tiles_y, tri_valid=valid)
+    return dict(setup=setup, tris=tris, uv=uv, color=color, valid=valid,
+                soft_flag=soft, peel_flag=peel, nstreams=len(parts))
+
+
+def oit_bins(cfg: FrameConfig, st, **kw):
+    """The merged stream's bins, at the forward capacities times its
+    number of streams."""
+    return raster_ops.bin_triangles(
+        st["setup"], st["tris"].shape[0], cfg.tiles_x, cfg.tiles_y,
+        cfg.forward_bin_capacity * st["nstreams"],
+        cfg.forward_big_capacity * st["nstreams"], **kw)
+
+
+def _oit_planes(cfg: FrameConfig, state, draws, sceneset, ts, lit_peel, depth,
+                gpl):
+    """K4 over the merged stream against the opaque depth, into gpl's
+    oit_r/g/b (exposed), oit_w and oit_rev planes."""
+    st = oit_stream(cfg, state, draws, sceneset, ts, lit_peel)
+    if st is None:
+        zero = torch.zeros_like(depth)
+        acc5 = (zero, zero, zero, zero, zero + 1.0)
+    else:
+        bins, counts, big = oit_bins(cfg, st)
+        acc5 = raster_blend(st["setup"], bins, big, counts, st["tris"], st["uv"],
+                            st["color"], depth, cfg.tiles_x, cfg.tiles_y,
+                            cfg.padded_width, cfg.padded_height, soft="per_tri",
+                            peel_depth=lit_peel, soft_flag=st["soft_flag"],
+                            peel_flag=st["peel_flag"])
+    # exposure on the colour sums only: the resolve is rgb / weight
+    exposure = sceneset["camera"]["exposure"]
+    gpl["oit_r"], gpl["oit_g"], gpl["oit_b"] = (a * exposure for a in acc5[:3])
+    gpl["oit_w"], gpl["oit_rev"] = acc5[3], acc5[4]
+
+
+def _translucent_stage(cfg: FrameConfig, state, draws, sceneset, ss2, shadows,
+                       depth, gpl):
+    """The lit translucent layers and the merged WBOIT stream, as planes
+    of gpl for K2's epilogue (nothing without translucents or
+    particles)."""
+    ts = lit_peel = None
+    if cfg.max_translucent_draws > 0:
+        ts = translucent_stream(state, draws, sceneset)
+        if cfg.translucent_lit:
+            lit_peel = _lit_layers(cfg, state, ts, sceneset, ss2, shadows, depth,
+                                   gpl)
+    if cfg.max_translucent_draws > 0 or cfg.max_particle_quads > 0:
+        _oit_planes(cfg, state, draws, sceneset, ts, lit_peel, depth, gpl)
 
 
 def _post(cfg: FrameConfig, state, sceneset, hdr):
@@ -414,7 +644,10 @@ def _frame(cfg: FrameConfig, state, draws, sceneset):
     shadows = _shadow_stage(cfg, ex, worldp, sceneset)
     planes, bin_overflow = _raster_stage(cfg, state, draws, ex, uv, clip,
                                          wnormal, wtangent)
-    gpl, ss2, spotsf = _shade_inputs(cfg, planes, state, sceneset, shadows)
+    gpl, ss2, spotsf = _shade_inputs(cfg, planes, state, draws, sceneset,
+                                     shadows)
+    _translucent_stage(cfg, state, draws, sceneset, ss2, shadows,
+                       planes["depth"], gpl)
     hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
                          invview=sceneset["invview"], spotsf=spotsf)
     image, lum = _post(cfg, state, sceneset, hdr)
@@ -428,15 +661,16 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device):
 
     state: RenderContext.device_state(device) (or any tree of the same
     layout, e.g. the JAX package's state through convert.to_torch);
-    draws: RenderList.draw_arrays after RenderContext.expand_host;
-    sceneset: render.types.make_sceneset.  draws and sceneset may be
-    numpy trees; they are moved onto `device` here.
+    draws: RenderContext.frame_draws (the draw arrays with, for the
+    config's capacities, "forward", "translucent" and "decals", after
+    the host expansion); sceneset: render.types.make_sceneset.  draws
+    and sceneset may be numpy trees; they are moved onto `device` here.
 
     Returns dict(image (height, width, 3) u8, luminance () f32, depth
     and vis (padded H, W), bin_overflow () i32 of the main bins), all on
-    `device`.  On a CUDA device the rasters (K1, K3) and the shade (K2)
-    run the hand-written kernels (they raise if they cannot launch;
-    nothing falls back).
+    `device`.  On a CUDA device the rasters (K1, K3, K4) and the shade
+    (K2 and its epilogue) run the hand-written kernels (they raise if
+    they cannot launch; nothing falls back).
 
     Contract on the card: f32 matmuls run in full f32.  The caller sets
     torch.backends.cuda.matmul.allow_tf32 = False and

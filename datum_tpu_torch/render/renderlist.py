@@ -1,12 +1,18 @@
 """RenderList: the per-frame draw-building facade (counterpart of
-datum_tpu/render/renderlist.py, trimmed to the opaque slice: meshes,
-point lights, spot lights and the draw arrays)."""
+datum_tpu/render/renderlist.py, trimmed to what the port renders:
+meshes, translucent meshes, point and spot lights, decals, particle
+billboards, and their fixed-capacity arrays)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from datum_tpu.math import Transform
+from ..math import Transform, quat_to_matrix
+
+# forward_arrays builds the billboards in numpy up to this many quads of
+# one particle system; above it the JAX package switches to a native
+# helper (equal results), which the port has not ported
+MAX_NUMPY_BILLBOARDS = 4096
 
 
 class RenderList:
@@ -14,10 +20,32 @@ class RenderList:
         self.draws = []          # dict(mesh, transform(3,4), material)
         self.point_lights = []
         self.spot_lights = []
+        self.translucents = []
+        self.decals = []
+        self.particles = []      # forward OIT billboard systems
 
     def push_mesh(self, mesh, transform, material):
         self.draws.append(dict(mesh=mesh.mesh_id, transform=_to_affine(transform),
                                material=material))
+
+    def push_translucent(self, mesh, transform, material):
+        """Translucent mesh (material alpha < 1): the lit glass/water
+        layers and the weighted-blend OIT residual."""
+        self.translucents.append(dict(mesh=mesh.mesh_id,
+                                      transform=_to_affine(transform),
+                                      material=material))
+
+    def translucent_arrays(self, max_draws, default_material):
+        mesh = np.zeros(max_draws, np.int32)
+        world = np.zeros((max_draws, 3, 4), np.float32)
+        world[:, :, :3] = np.eye(3)
+        material = np.full(max_draws, default_material, np.int32)
+        n = min(len(self.translucents), max_draws)
+        for i, d in enumerate(self.translucents[:n]):
+            mesh[i] = d["mesh"]
+            world[i] = d["transform"]
+            material[i] = d["material"]
+        return dict(mesh=mesh, world=world, material=material, count=np.int32(n))
 
     def push_pointlight(self, position, intensity, attenuation=(1.0, 0.0, 0.0, 0.0),
                         range_=None):
@@ -43,6 +71,98 @@ class RenderList:
                                      direction=d,
                                      intensity=np.asarray(intensity, np.float32),
                                      attenuation=att, cutoff=float(cutoff)))
+
+    def push_decal(self, transform, halfdim, color=(1, 1, 1, 1), metalness=0.0,
+                   roughness=1.0, reflectivity=0.5, emissive=0.0,
+                   albedomap=-1, normalmap=-1):
+        """Oriented-box decal; albedomap/normalmap are texture-pool ids
+        (-1 flat)."""
+        self.decals.append(dict(
+            position=np.asarray(transform.translation_vec(), np.float32),
+            inv_rot=quat_to_matrix(transform.rotation_quat()).T.astype(np.float32),
+            halfdim=np.asarray(halfdim, np.float32),
+            color=np.asarray(color, np.float32),
+            metalness=metalness, roughness=roughness,
+            reflectivity=reflectivity, emissive=emissive,
+            albedomap=albedomap, normalmap=normalmap))
+
+    def decal_arrays(self, max_decals):
+        out = dict(
+            position=np.zeros((max_decals, 3), np.float32),
+            inv_rot=np.tile(np.eye(3, dtype=np.float32), (max_decals, 1, 1)),
+            halfdim=np.ones((max_decals, 3), np.float32),
+            color=np.zeros((max_decals, 4), np.float32),
+            metalness=np.zeros(max_decals, np.float32),
+            roughness=np.ones(max_decals, np.float32),
+            reflectivity=np.full(max_decals, 0.5, np.float32),
+            emissive=np.zeros(max_decals, np.float32),
+            albedomap=np.full(max_decals, -1, np.int32),
+            normalmap=np.full(max_decals, -1, np.int32),
+            count=np.int32(min(len(self.decals), max_decals)),
+        )
+        for i, d in enumerate(self.decals[:max_decals]):
+            for k in ("position", "inv_rot", "halfdim", "color", "metalness",
+                      "roughness", "reflectivity", "emissive", "albedomap",
+                      "normalmap"):
+                out[k][i] = d[k]
+        return out
+
+    def push_particles(self, instance, emissive=0.0):
+        """Queue a live particle system (position, size, rotation, color,
+        alive arrays) for the forward OIT pass."""
+        self.particles.append(dict(instance=instance, emissive=emissive))
+
+    def forward_arrays(self, max_quads, camera):
+        """Camera-facing billboard quads of all queued particles: dict(
+        positions (4Q, 3), uv (4Q, 2), color (4Q, 4), quad_count), the
+        vertex stream of the weighted-blend OIT raster."""
+        positions = np.zeros((max_quads * 4, 3), np.float32)
+        uv = np.zeros((max_quads * 4, 2), np.float32)
+        color = np.zeros((max_quads * 4, 4), np.float32)
+        right = camera.right()
+        up = camera.up()
+        q = 0
+        for entry in self.particles:
+            inst = entry["instance"]
+            alive = np.nonzero(inst.alive)[0]
+            n = min(len(alive), max_quads - q)
+            if n <= 0:
+                continue
+            if n > MAX_NUMPY_BILLBOARDS:
+                raise NotImplementedError(
+                    f"forward_arrays: {n} billboards of one system (> "
+                    f"{MAX_NUMPY_BILLBOARDS}) need the native billboard "
+                    "helper, which is not ported yet — ROADMAP Queue 1: "
+                    "off-main-path device code")
+            idx = alive[:n]
+            col = inst.color[idx]
+            base = q * 4
+            p = inst.position[idx]
+            sz = inst.size[idx]
+            rot = inst.rotation[idx]
+            c, s = np.cos(rot)[:, None], np.sin(rot)[:, None]
+            r = right[None, :] * c + up[None, :] * s
+            u = up[None, :] * c - right[None, :] * s
+            rx = r * sz[:, 0:1]
+            uy = u * sz[:, 1:2]
+            corners = np.stack(
+                [p - rx - uy, p + rx - uy, p + rx + uy, p - rx + uy],
+                axis=1)                                  # (n, 4, 3)
+            positions[base:base + 4 * n] = corners.reshape(-1, 3)
+            uv[base:base + 4 * n] = np.tile([[0, 0], [1, 0], [1, 1], [0, 1]],
+                                            (n, 1)).astype(np.float32)
+            color[base:base + 4 * n] = np.repeat(col, 4, axis=0)
+            q += n
+        return dict(positions=positions, uv=uv, color=color,
+                    quad_count=np.int32(q))
+
+    @staticmethod
+    def quad_triangles(max_quads):
+        """Static index pattern: quad i -> verts [4i..4i+3], 2 triangles."""
+        base = np.arange(max_quads, dtype=np.int32)[:, None] * 4
+        t = np.concatenate([base + np.array([[0, 1, 2]], np.int32),
+                            base + np.array([[0, 2, 3]], np.int32)], axis=1)
+        return t.reshape(-1, 3)
 
     def draw_arrays(self, max_draws, default_material):
         """Fixed-capacity draw arrays (the JAX package's draw_arrays

@@ -7,8 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from datum_tpu.math import Transform
-from datum_tpu.math.matrix import orthographic_proj
+from ..math import Transform, orthographic_proj
 
 SPLIT_LAMBDA = 0.925
 SPLIT_FAR = 150.0

@@ -19,7 +19,7 @@ N_PROBES = 8      # SH probe table rows the sceneset carries
 
 def _spot_view(light):
     """World -> light-space rigid view for one spot (forward = -z)."""
-    from datum_tpu.math import Transform
+    from ..math import Transform
 
     pos = np.asarray(light["position"], np.float32)
     d = np.asarray(light["direction"], np.float32)
@@ -33,7 +33,7 @@ def _spot_view(light):
 
 def _spot_shadowview(light):
     """Perspective shadow matrix for one spot light."""
-    from datum_tpu.math.matrix import perspective_proj
+    from ..math import perspective_proj
 
     view = _spot_view(light)
     half = np.arccos(np.clip(light["cutoff"], -0.999, 0.999))
@@ -45,7 +45,7 @@ def _spot_shadowview(light):
 
 def _skyrot_inv(params):
     """Inverse rotation of params.skyboxorientation (quat w,x,y,z)."""
-    from datum_tpu.math.quaternion import quat_to_matrix
+    from ..math import quat_to_matrix
 
     q = np.asarray(getattr(params, "skyboxorientation",
                            [1.0, 0.0, 0.0, 0.0]), np.float32)

@@ -3,15 +3,17 @@
 The flagship scene: a grid of spheres sweeping roughness x metalness,
 a checkered ground plane, point lights and a spot (shadowed when the
 config asks for spot maps), lit by a procedural skybox and graded
-through the fitted colour LUT.  Built on the port's own numpy host
-side, so it needs no jax.
+through the fitted colour LUT; with the config's forward capacities,
+also a glass sphere, a shallow water pool, two floor decals and a
+256-particle cloud.  Built on the port's own numpy host side, so it
+needs no jax.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from datum_tpu.math import Transform
+from .math import Transform
 
 from .ops.common import FrameConfig
 from .render import primitives
@@ -19,6 +21,19 @@ from .render.camera import Camera
 from .render.context import RenderContext
 from .render.renderlist import RenderList
 from .render.types import RenderParams
+
+
+class _ParticleCloud:
+    """Minimal live-particle state for the scene's OIT pass (the arrays
+    RenderList.forward_arrays reads)."""
+
+    def __init__(self, positions, size=0.22, color=(1.0, 0.8, 0.45, 0.35)):
+        n = len(positions)
+        self.position = np.ascontiguousarray(positions, np.float32)
+        self.size = np.full((n, 2), size, np.float32)
+        self.rotation = np.zeros(n, np.float32)
+        self.color = np.tile(np.asarray(color, np.float32), (n, 1))
+        self.alive = np.ones(n, bool)
 
 
 def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
@@ -49,15 +64,18 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
     floor_mat = ctx.add_material(color=(1, 1, 1, 1), metalness=0.0, roughness=0.8,
                                  albedomap=checker_tex)
 
-    # the glass and water materials and the water patch mesh belong to
-    # the translucent content; they are registered here too so material
-    # ids and pool offsets match the JAX package's scene
-    ctx.add_material(color=(0.35, 0.55, 2.0, 0.42), metalness=0.0,
-                     roughness=0.12, reflectivity=0.9)
-    ctx.add_material(color=(0.12, 0.3, 0.42, 0.10), metalness=0.0,
-                     roughness=0.06, reflectivity=0.9, absorb=0.55)
+    # forward content (a glass sphere, a shallow water pool, two floor
+    # decals, a particle cloud): registered always, so that material ids
+    # and pool offsets match the JAX package's scene, and drawn when the
+    # config carries the capacity
+    glass_mat = ctx.add_material(color=(0.35, 0.55, 2.0, 0.42),
+                                 metalness=0.0, roughness=0.12,
+                                 reflectivity=0.9)
+    water_mat = ctx.add_material(color=(0.12, 0.3, 0.42, 0.10),
+                                 metalness=0.0, roughness=0.06,
+                                 reflectivity=0.9, absorb=0.55)
     wverts, widx = primitives.plane(3.2, 1.0)
-    ctx.add_mesh(wverts, widx)
+    water_patch = ctx.add_mesh(wverts, widx)
 
     gx, gy = grid
     sphere_mats = []
@@ -98,6 +116,10 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
     rng = np.random.RandomState(42)
     light_pos = rng.uniform([-8, 0.5, -6], [8, 4.0, 6], (n_point_lights, 3))
     light_col = rng.uniform(0.5, 8.0, (n_point_lights, 3))
+    n_particles = 256
+    part_base = rng.uniform([-6, 0.5, -3], [6, 5.0, 3],
+                            (n_particles, 3)).astype(np.float32)
+    part_phase = rng.uniform(0, 2 * np.pi, n_particles).astype(np.float32)
 
     def make_renderlist(t=0.0):
         rl = RenderList()
@@ -119,6 +141,27 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
                           np.float32([-0.35, -0.75, -0.55]),
                           np.float32([20.0, 19.0, 17.0]), cutoff=0.6,
                           attenuation=(0.5, 0.0, 1.0), range_=30.0)
+        if cfg.max_translucent_draws > 0:
+            # glass sphere front-right; shallow water pool front-left
+            # (absorb > 0: depth-aware transmission and refraction)
+            rl.push_translucent(sphere, Transform.translation([4.2, 1.1, 5.0]),
+                                glass_mat)
+            rl.push_translucent(water_patch,
+                                Transform.translation([-4.5, 0.35, 5.0]),
+                                water_mat)
+        if cfg.max_decals_active > 0:
+            rl.push_decal(Transform.translation([-1.5, 0.0, 6.0]),
+                          [1.4, 0.8, 1.4], color=(0.75, 0.1, 0.05, 0.85),
+                          roughness=0.35)
+            rl.push_decal(Transform.translation([1.8, 0.0, 7.0]),
+                          [1.0, 0.8, 1.0], color=(0.05, 0.05, 0.06, 0.9),
+                          roughness=0.9)
+        if cfg.max_particle_quads > 0:
+            pos = part_base + np.stack(
+                [np.sin(t * 0.7 + part_phase) * 0.8,
+                 np.cos(t * 0.4 + part_phase) * 0.4 + 0.2,
+                 np.cos(t * 0.6 + part_phase) * 0.8], -1).astype(np.float32)
+            rl.push_particles(_ParticleCloud(pos), emissive=0.4)
         return rl
 
     return ctx, camera, params, make_renderlist

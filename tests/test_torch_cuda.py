@@ -8,7 +8,8 @@ Tolerances are chip_smoke.py's: K1 visf identical on >= 99.9% of
 pixels, depth atol 1e-6, interpolated planes atol/rtol 1e-4,
 per-triangle planes exact; K2 atol 1e-4 / rtol 1e-3 (CUDA's and
 torch's sqrt and division differ by ulps); K3 bit-identical on >=
-99.99% of texels, max abs error 1e-6."""
+99.99% of texels, max abs error 1e-6; K4 and the K2 epilogue
+bit-identical on >= 99.99% of values, atol/rtol 1e-5 on the rest."""
 
 import numpy as np
 import pytest
@@ -19,11 +20,17 @@ from datum_tpu_torch.ops.raster_cuda import (PLANE_NAMES, raster_inputs,
                                              raster_shade_cuda,
                                              raster_shade_reference)
 from datum_tpu_torch.ops import shadow as shadow_ops
+from datum_tpu_torch.ops import raster as raster_ops
+from datum_tpu_torch.ops.raster_blend_cuda import (blend_inputs,
+                                                   raster_blend_cuda,
+                                                   raster_blend_reference)
 from datum_tpu_torch.ops.raster_depth_cuda import (depth_inputs,
                                                    raster_depth_cuda,
                                                    raster_depth_reference)
 from datum_tpu_torch.ops.shade_cuda import (shade_deferred_cuda,
                                             shade_deferred_reference,
+                                            shade_epilogue_cuda,
+                                            shade_epilogue_reference,
                                             shade_inputs)
 from datum_tpu_torch.render import frame as frame_mod
 from datum_tpu_torch.render.types import make_sceneset
@@ -39,6 +46,13 @@ SLICE = dict(width=512, height=256, sphere_detail=12, grid=(5, 3),
 SHADOWED = dict(SLICE, skybox=True, skybox_size=32, enable_shadows=True,
                 shadow_res=512, shadow_far_res=256, shadow_slice_blend=0.25,
                 max_spot_shadows=1, spot_shadow_res=256)
+# the translucent frame: glass sphere, water patch, particles, decals;
+# forward bins deep enough that nothing overflows
+TRANSLUCENT = dict(SHADOWED, max_translucent_draws=2, max_translucent_tris=2048,
+                   translucent_lit=True, translucent_lit_layers=2,
+                   translucent_lit_scale=2, max_particle_quads=512,
+                   max_decals_active=2, decal_textures=False,
+                   forward_bin_capacity=512, forward_big_capacity=32)
 
 
 @pytest.fixture
@@ -55,9 +69,7 @@ def _frame(card, t=0.4, scene=SLICE):
     rl = make_rl(t)
     ss = make_sceneset(camera, params, point_lights=rl.point_lights,
                        spot_lights=rl.spot_lights)
-    draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)
-    ctx.expand_host(draws)
-    return ctx, ctx.device_state(card), draws, ss
+    return ctx, ctx.device_state(card), ctx.frame_draws(rl, camera), ss
 
 
 def _k1_inputs(card):
@@ -69,11 +81,11 @@ def _k1_inputs(card):
     inp = raster_inputs(setup, bins, big_ids, counts, ex["tris"], uv, wn,
                         d["tri_mat"], state["materials"], cfg.tiles_x,
                         cfg.padded_width, cfg.padded_height, wt)
-    return cfg, state, s, inp
+    return cfg, state, d, s, inp
 
 
 def test_k1_kernel_matches_plain(card):
-    _, _, _, inp = _k1_inputs(card)
+    *_, inp = _k1_inputs(card)
     k = dict(zip(PLANE_NAMES, raster_shade_cuda(**inp)))
     r = dict(zip(PLANE_NAMES, raster_shade_reference(**inp)))
     torch.cuda.synchronize()
@@ -89,9 +101,9 @@ def test_k1_kernel_matches_plain(card):
 
 
 def test_k2_kernel_matches_plain(card):
-    cfg, state, s, inp = _k1_inputs(card)
+    cfg, state, d, s, inp = _k1_inputs(card)
     planes = dict(zip(PLANE_NAMES, raster_shade_cuda(**inp)))
-    gpl, ss2, _ = frame_mod._shade_inputs(cfg, planes, state, s,
+    gpl, ss2, _ = frame_mod._shade_inputs(cfg, planes, state, d, s,
                                           dict(sun=None, spot=None))
     g = torch.Generator(device="cpu").manual_seed(3)
     h, w = gpl["depth"].shape
@@ -126,7 +138,7 @@ def test_frame_on_card_matches_cpu_plain(card):
 
 
 def test_cuda_wrappers_raise_on_bad_input(card):
-    _, _, _, inp = _k1_inputs(card)
+    *_, inp = _k1_inputs(card)
     bad = dict(inp, bins=inp["bins"].to(torch.int64))
     with pytest.raises(ValueError):
         raster_shade_cuda(**bad)
@@ -187,6 +199,137 @@ def test_shadowed_frame_on_card_matches_cpu_plain(card):
     after = (raster_shade_cuda.launches, shade_deferred_cuda.launches,
              raster_depth_cuda.launches)
     assert after == (before[0] + 1, before[1] + 1, before[2] + 3)
+    cpu = frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
+                                 device="cpu")
+    a = gpu["image"].cpu().float().numpy()
+    b = cpu["image"].float().numpy()
+    assert b.mean() > 10
+    assert np.abs(a - b).mean() <= 0.5
+    assert np.sqrt(((a - b) ** 2).mean()) <= 2.0
+    assert int(gpu["bin_overflow"]) == int(cpu["bin_overflow"]) == 0
+
+
+def _translucent(card):
+    """(cfg, state, draws, sceneset, translucent stream) of the
+    translucent frame on the card."""
+    ctx, state, draws, ss = _frame(card, scene=TRANSLUCENT)
+    d, s = to_torch(draws, card), to_torch(ss, card)
+    return ctx.config, state, d, s, frame_mod.translucent_stream(state, d, s)
+
+
+def _assert_same(k, r, what):
+    """Bit-identical on >= 99.99% of values, atol/rtol 1e-5 on the rest."""
+    assert torch.isfinite(k).all(), what
+    assert (k == r).float().mean().item() >= 0.9999, what
+    torch.testing.assert_close(k, r, atol=1e-5, rtol=1e-5)
+
+
+def test_k1_lit_layer_with_peel_matches_plain(card):
+    """K1 on the lit layer: alpha_in_alb, then peeled behind layer 1."""
+    cfg, state, d, s, ts = _translucent(card)
+    setup, tx, ty, w_t, h_t = frame_mod.lit_setup(cfg, ts)
+    bins, counts, big = raster_ops.bin_triangles(
+        setup, cfg.max_translucent_tris, tx, ty, cfg.forward_bin_capacity,
+        cfg.forward_big_capacity)
+    peel = None
+    for layer in range(2):
+        inp = raster_inputs(setup, bins, big, counts, ts["d"]["tris"], ts["uv"],
+                            ts["wn"], ts["d"]["tri_mat"], state["materials"], tx,
+                            w_t, h_t, ts["wt"], alpha_in_alb=True, peel_depth=peel)
+        k = dict(zip(PLANE_NAMES, raster_shade_cuda(**inp)))
+        r = dict(zip(PLANE_NAMES, raster_shade_reference(**inp)))
+        torch.cuda.synchronize()
+        assert (k["visf"] >= 0).any(), layer
+        same = k["visf"] == r["visf"]
+        assert same.float().mean().item() >= 0.999, layer
+        assert torch.equal(k["depth"][same], r["depth"][same]), layer
+        assert torch.equal(k["alb"][same], r["alb"][same]), layer
+        peel = r["depth"]
+
+
+def test_k4_kernel_matches_plain(card):
+    """K4 on the merged stream: particles (soft) and the translucent
+    residual peeled behind the second lit layer."""
+    cfg, state, d, s, ts = _translucent(card)
+    peel = torch.rand((cfg.padded_height, cfg.padded_width), device=card) * 0.5
+    st = frame_mod.oit_stream(cfg, state, d, s, ts, peel)
+    assert st["nstreams"] == 2 and st["peel_flag"].sum() > 0
+    bins, counts, big, overflow = frame_mod.oit_bins(cfg, st, return_overflow=True)
+    assert int(overflow) == 0
+    opaque = torch.rand_like(peel) * 0.05
+    inp = blend_inputs(st["setup"], bins, big, counts, st["tris"], st["uv"],
+                       st["color"], opaque, cfg.tiles_x, cfg.padded_width,
+                       cfg.padded_height, "per_tri", peel, st["soft_flag"],
+                       st["peel_flag"])
+    before = raster_blend_cuda.launches
+    k = raster_blend_cuda(**inp)
+    r = raster_blend_reference(**inp)
+    torch.cuda.synchronize()
+    assert raster_blend_cuda.launches == before + 1
+    assert (r[3] > 0).float().mean().item() > 0.01
+    _assert_same(k, r, "K4")
+    for soft in (True, False):
+        _assert_same(raster_blend_cuda(**dict(inp, soft=soft)),
+                     raster_blend_reference(**dict(inp, soft=soft)), soft)
+
+
+def _epilogue_inputs(card, h=64, w=256):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    rnd = lambda *shape: torch.rand(shape, generator=g)
+    cover = torch.zeros((h, w))
+    cover[8:56, 32:224] = 1.0
+    tr = torch.cat([rnd(3, h, w) * 2, (rnd(1, h, w) * 0.8 + 0.1) * cover])
+    refr = torch.stack([(rnd(h, w) * 18 - 9) * cover, (rnd(h, w) * 8 - 4) * cover])
+    oit = torch.cat([rnd(3, h, w) * 3, rnd(1, h, w) * 2, rnd(1, h, w) * 0.8 + 0.2])
+    bf = lambda x: x.to(torch.bfloat16).to(card).contiguous()
+    return dict(bg=(rnd(3, h, w) * 4).to(card), tr=bf(tr), refr=bf(refr),
+                oit=bf(oit))
+
+
+def test_epilogue_kernel_matches_plain(card):
+    inp = _epilogue_inputs(card)
+    before = shade_epilogue_cuda.launches
+    for drop in ((), ("refr",), ("tr", "refr"), ("oit",)):
+        kw = {k: (None if k in drop else v) for k, v in inp.items()}
+        _assert_same(shade_epilogue_cuda(**kw), shade_epilogue_reference(**kw),
+                     drop)
+    assert shade_epilogue_cuda.launches == before + 4
+
+
+def test_k4_and_epilogue_wrappers_refuse_cpu_tensors_and_bad_shapes(card):
+    cfg, state, d, s, ts = _translucent(card)
+    st = frame_mod.oit_stream(cfg, state, d, s, ts, None)
+    bins, counts, big = frame_mod.oit_bins(cfg, st)
+    inp = blend_inputs(st["setup"], bins, big, counts, st["tris"], st["uv"],
+                       st["color"], torch.zeros((cfg.padded_height, cfg.padded_width),
+                                                device=card),
+                       cfg.tiles_x, cfg.padded_width, cfg.padded_height, "per_tri",
+                       None, st["soft_flag"], st["peel_flag"])
+    for bad in (dict(inp, bins=inp["bins"].to(torch.int64)),
+                dict(inp, rows=inp["rows"][:, :35].contiguous()),
+                dict(inp, opaque_depth=inp["opaque_depth"][:-1]),
+                dict(inp, peel=inp["opaque_depth"].t()),
+                {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                 for k, v in inp.items()}):
+        with pytest.raises(ValueError):
+            raster_blend_cuda(**bad)
+    e = _epilogue_inputs(card)
+    for bad in (dict(e, tr=e["tr"].float()), dict(e, oit=e["oit"][:4]),
+                dict(e, bg=e["bg"][:, :48]),
+                {k: v.cpu() for k, v in e.items()}):
+        with pytest.raises(ValueError):
+            shade_epilogue_cuda(**bad)
+
+
+def test_translucent_frame_on_card_matches_cpu_plain(card):
+    ctx, _, draws, ss = _frame(card, scene=TRANSLUCENT)
+    kernels = (raster_shade_cuda, shade_deferred_cuda, raster_depth_cuda,
+               raster_blend_cuda, shade_epilogue_cuda)
+    before = [k.launches for k in kernels]
+    gpu = frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
+                                 device=card)
+    # K1 and K2 on the opaque and the two lit layers, K3 on 3 stacks
+    assert [k.launches - b for k, b in zip(kernels, before)] == [3, 3, 3, 1, 1]
     cpu = frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
                                  device="cpu")
     a = gpu["image"].cpu().float().numpy()

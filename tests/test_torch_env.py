@@ -5,6 +5,8 @@ through convert.to_torch) go through both packages.  Each test states
 its tolerance: rtol 1e-4 for the bakes and taps (float sums taken in
 another order), exact where the operation only moves values."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,9 +121,19 @@ def test_sample_cubemap_lod_pair_matches(cube):
     _close(uvj, uvt.numpy(), rtol=1e-6)
 
 
+def test_envbrdf_lut_is_a_copy_of_the_jax_file():
+    """The port's tracked LUT is the JAX package's bake_envbrdf(64, 128)
+    file byte for byte (K2's CPU parity rests on the two LUTs being
+    equal), and the port reads its own copy, not the JAX package's."""
+    jax_lut = Path(jibl.__file__).resolve().parents[1] / "_cache" / "envbrdf64.npy"
+    assert _ENVBRDF_LUT.parent.name == "data"
+    assert "datum_tpu_torch" in _ENVBRDF_LUT.parts
+    assert _ENVBRDF_LUT.read_bytes() == jax_lut.read_bytes()
+
+
 def test_bake_envbrdf_matches_the_tracked_lut():
-    """The port's numpy bake against datum_tpu/_cache/envbrdf64.npy (the
-    JAX package's bake_envbrdf(64, 128)): atol 1e-5."""
+    """The port's numpy bake against its tracked LUT (a copy of the JAX
+    package's bake_envbrdf(64, 128) file): atol 1e-5."""
     lut = np.load(_ENVBRDF_LUT)
     assert lut.shape == (64, 64, 3)
     np.testing.assert_allclose(tibl.bake_envbrdf(64, 128), lut, rtol=0, atol=1e-5)
@@ -129,8 +141,8 @@ def test_bake_envbrdf_matches_the_tracked_lut():
 
 def test_context_environment_state():
     """set_skybox bakes the mip chain, mip-pair table, SH-9 and the LUT
-    into device_state()['ibl'] (read only from the JAX package's
-    checkout)."""
+    into device_state()['ibl'] (the LUT read only from the port's
+    tracked copy)."""
     ctx = RenderContext()
     ctx.set_skybox(SkyBox(size=16, convolve_samples=4))
     ibl = ctx.device_state("cpu")["ibl"]
@@ -170,9 +182,11 @@ def test_assemble_gplanes_environment_matches(jax_scene):
     a, _ = jframe._assemble_gplanes(cfg, jpl, jst, jax.tree.map(jnp.asarray, ss),
                                     jst["ibl"], None, cfg.padded_width,
                                     cfg.padded_height)
-    b = tframe._assemble_gplanes(cfg, planes, tstate, tss,
-                                 dict(sun=None, spot=None))
+    b, mask = tframe._assemble_gplanes(cfg, planes, tstate, tss,
+                                       dict(sun=None, spot=None),
+                                       cfg.padded_width, cfg.padded_height)
     assert sorted(a) == sorted(b)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(planes["visf"]) >= 0)
     for k in sorted(b):
         x, y = np.asarray(a[k]), b[k].numpy()
         ok = np.abs(x - y) <= 1e-4

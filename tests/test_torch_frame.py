@@ -4,7 +4,8 @@ One state — the JAX package's device state, draws and sceneset, mapped
 to numpy — goes through both `datum_tpu.render.frame.render_frame`
 (Pallas kernels in interpret mode) and the port's `render_frame`
 (convert.to_torch, plain PyTorch versions of the kernels on the CPU),
-for the opaque slice and for the shadowed, sky-lit frame.  Tolerances:
+for the opaque slice, the shadowed, sky-lit frame and the translucent
+frame (1 and 2 lit layers).  Tolerances:
 u8 image mean |d| <= 0.5 levels and RMSE <= 2/255, luminance within rel
 1e-4, bin_overflow equal, vis equal on >= 99.9% of pixels.
 """
@@ -26,10 +27,11 @@ from datum_tpu.render.types import make_sceneset as jax_make_sceneset
 from datum_tpu.scenes import datumtest_scene as jax_datumtest_scene
 
 from datum_tpu_torch.ops import _kernels
+from datum_tpu_torch.ops.raster_blend_cuda import raster_blend_cuda
 from datum_tpu_torch.ops.raster_cuda import raster_shade_cuda
 from datum_tpu_torch.ops.raster_depth_cuda import raster_depth_cuda
-from datum_tpu_torch.ops.shade_cuda import shade_deferred_cuda
-from datum_tpu_torch.render.frame import render_frame
+from datum_tpu_torch.ops.shade_cuda import shade_deferred_cuda, shade_epilogue_cuda
+from datum_tpu_torch.render.frame import attach_host_expansion, render_frame
 from datum_tpu_torch.render.types import make_sceneset
 from datum_tpu_torch.scenes import datumtest_scene
 
@@ -50,21 +52,44 @@ SHADOWED = dict(SLICE, skybox=True, skybox_size=32, enable_shadows=True,
                 shadow_slice_blend=0.25, shadow_bin_capacity=1024,
                 max_spot_shadows=1, spot_shadow_mode="parabolic",
                 spot_shadow_res=128)
+# the translucent frame: the glass sphere and the water patch on a lit
+# layer at half resolution, the 256-particle cloud and two decals.  The
+# forward bins must not overflow here (as the shadow bins above).
+TRANSLUCENT = dict(SLICE, max_translucent_draws=2, max_translucent_tris=2048,
+                   translucent_lit=True, translucent_lit_layers=1,
+                   translucent_lit_scale=2, max_particle_quads=512,
+                   max_decals_active=2, decal_textures=False,
+                   forward_bin_capacity=256, forward_big_capacity=16)
 
 
 def _check_against_jax(scene_kw):
     ctx, camera, params, make_rl = jax_datumtest_scene(pallas_interpret=True,
                                                        **scene_kw)
+    cfg = ctx.config
     rl = make_rl(0.3)
     ss = jax_make_sceneset(camera, params, point_lights=rl.point_lights,
                            spot_lights=rl.spot_lights)
-    draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)
+    # the draws tree as the JAX package's RenderContext.render builds it
+    draws = rl.draw_arrays(cfg.max_instances, ctx.default_material)
     ctx.expand_host(draws)
+    if cfg.max_particle_quads > 0:
+        draws["forward"] = rl.forward_arrays(cfg.max_particle_quads, camera)
+    if cfg.max_translucent_draws > 0:
+        draws["translucent"] = rl.translucent_arrays(cfg.max_translucent_draws,
+                                                     ctx.default_material)
+    if cfg.max_decals_active > 0:
+        draws["decals"] = rl.decal_arrays(cfg.max_decals_active)
     ref = jax.tree.map(np.asarray, jax_frame.render_frame(
-        ctx.config, ctx.device_state(), draws, ss))
+        cfg, ctx.device_state(), draws, ss))
 
+    # the port expands the translucent draws on the host as well
+    pdraws = dict(draws)
+    if "translucent" in draws:
+        pdraws["translucent"] = dict(draws["translucent"])
+    attach_host_expansion(ctx.pool, pdraws, cfg.max_vertices, cfg.max_triangles,
+                          cfg.max_translucent_tris)
     state = jax.tree.map(np.asarray, ctx.device_state())
-    out = render_frame(ctx.config, state, draws, ss, device="cpu")
+    out = render_frame(cfg, state, pdraws, ss, device="cpu")
     a = ref["image"].astype(np.float32)
     b = out["image"].numpy().astype(np.float32)
     assert b.shape == (128, 256, 3) and out["image"].dtype == torch.uint8
@@ -89,14 +114,32 @@ def test_shadowed_skylit_frame_matches_jax_frame(monkeypatch):
     _check_against_jax(SHADOWED)
 
 
+def test_translucent_frame_matches_jax_frame():
+    """Glass sphere, water patch (absorption and refraction), particles
+    and decals, lit layer at half resolution."""
+    _check_against_jax(TRANSLUCENT)
+
+
+def test_translucent_two_lit_layers_matches_jax_frame():
+    """translucent_lit_layers=2: the glass sphere's back face is the
+    second peeled layer (K1 peel_depth, the tr2 planes), and the WBOIT
+    residual is peeled behind it."""
+    _check_against_jax(dict(TRANSLUCENT, translucent_lit_layers=2))
+
+
+def test_translucent_unlit_matches_jax_frame():
+    """translucent_lit=False: no lit layer; every translucent triangle
+    goes into the merged WBOIT stream beside the particles, unpeeled."""
+    _check_against_jax(dict(TRANSLUCENT, translucent_lit=False))
+
+
 def _port_frame(t=0.0, **over):
     ctx, camera, params, make_rl = datumtest_scene(**dict(SLICE, **over))
     rl = make_rl(t)
     ss = make_sceneset(camera, params, point_lights=rl.point_lights,
                        spot_lights=rl.spot_lights)
-    draws = rl.draw_arrays(ctx.config.max_instances, ctx.default_material)
-    ctx.expand_host(draws)
-    return render_frame(ctx.config, ctx.host_state(), draws, ss, device="cpu")
+    return render_frame(ctx.config, ctx.host_state(),
+                        ctx.frame_draws(rl, camera), ss, device="cpu")
 
 
 def test_cpu_frame_takes_the_plain_path():
@@ -119,6 +162,28 @@ def test_cpu_shadowed_frame_takes_the_plain_path():
     assert _kernels._LIBRARY is None, "a CPU frame must not build the kernels"
 
 
+def test_cpu_translucent_frame_takes_the_plain_path():
+    kernels = (raster_shade_cuda, shade_deferred_cuda, raster_depth_cuda,
+               raster_blend_cuda, shade_epilogue_cuda)
+    before = [k.launches for k in kernels]
+    out = _port_frame(**TRANSLUCENT)
+    assert out["image"].float().mean() > 10
+    assert torch.isfinite(out["luminance"]) and int(out["bin_overflow"]) == 0
+    assert [k.launches for k in kernels] == before
+    assert _kernels._LIBRARY is None, "a CPU frame must not build the kernels"
+
+
+def test_translucents_particles_and_decals_change_the_frame():
+    """Each of the lit glass/water layer, the particle cloud and the
+    decals moves some pixels by 2 levels or more: none is dropped
+    silently."""
+    full = _port_frame(**TRANSLUCENT)["image"].float()
+    for off in (dict(max_translucent_draws=0), dict(max_particle_quads=0),
+                dict(max_decals_active=0)):
+        other = _port_frame(**dict(TRANSLUCENT, **off))["image"].float()
+        assert ((full - other).abs() >= 2).sum() >= 5, off
+
+
 def test_shadows_and_sky_change_the_frame():
     """Each of the sun cascades, the spot map and the skybox moves some
     pixels by 2 levels or more: none is dropped silently."""
@@ -136,13 +201,17 @@ def test_frames_move_with_time():
 
 _NO_JAX = (
     "loaded = [m for m, v in sys.modules.items() if v is not None and"
-    " (m.startswith('jax') or (m.startswith('datum_tpu.') and"
-    " not m.startswith('datum_tpu.math')))]\n"
+    " (m.startswith('jax') or m == 'datum_tpu' or"
+    " m.startswith('datum_tpu.'))]\n"
     "assert not loaded, loaded\n"
     "print('ok')\n")
 
 
 def _run_without_jax(code):
+    """Run code in a fresh interpreter with jax and the JAX package made
+    unimportable, then check that neither was loaded."""
+    code = ("import sys\nsys.modules['jax'] = None\n"
+            "sys.modules['datum_tpu'] = None\n" + code)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code + _NO_JAX], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -151,11 +220,9 @@ def _run_without_jax(code):
 
 
 def test_port_runs_without_jax():
-    """Import the port, build the scene and render with jax made
-    unimportable, as on the machine with the card."""
+    """Import the port, build the scene and render with jax and the JAX
+    package made unimportable, as on the machine with the card."""
     _run_without_jax(
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
         "from datum_tpu_torch.scenes import datumtest_scene\n"
         "from datum_tpu_torch.render.types import make_sceneset\n"
         "from datum_tpu_torch.render.frame import render_frame\n"
@@ -177,10 +244,8 @@ def test_port_runs_without_jax():
 
 def test_shadowed_skylit_port_runs_without_jax():
     """The shadowed, sky-lit frame (skybox bake, cascades, spot map,
-    environment) with jax made unimportable."""
+    environment) with jax and the JAX package made unimportable."""
     _run_without_jax(
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
         "from datum_tpu_torch.scenes import datumtest_scene\n"
         "from datum_tpu_torch.render.types import make_sceneset\n"
         "from datum_tpu_torch.render.frame import render_frame\n"
@@ -197,6 +262,32 @@ def test_shadowed_skylit_port_runs_without_jax():
         "ctx.expand_host(draws)\n"
         "out = render_frame(ctx.config, ctx.device_state('cpu'), draws, ss,"
         " device='cpu')\n"
+        "assert out['image'].shape == (64, 128, 3)\n"
+        "assert float(out['image'].float().mean()) > 10\n")
+
+
+def test_translucent_port_runs_without_jax():
+    """The translucent frame (lit glass/water layers, particles, decals)
+    with jax and the JAX package made unimportable: the port uses its own
+    host math and its own env-BRDF LUT."""
+    _run_without_jax(
+        "from datum_tpu_torch.scenes import datumtest_scene\n"
+        "from datum_tpu_torch.render.types import make_sceneset\n"
+        "from datum_tpu_torch.render.frame import render_frame\n"
+        "ctx, cam, params, make_rl = datumtest_scene(width=128, height=64,"
+        " sphere_detail=8, grid=(3, 2), n_point_lights=4, skybox=True,"
+        " skybox_size=16, max_vertices=1024, max_triangles=1024,"
+        " bin_capacity=64, big_capacity=16, use_pallas=True,"
+        " texture_filter='mip_half', enable_shadows=False,"
+        " max_translucent_draws=2, max_translucent_tris=1024,"
+        " translucent_lit_layers=2, translucent_lit_scale=2,"
+        " max_particle_quads=512, max_decals_active=2, decal_textures=False,"
+        " forward_bin_capacity=256)\n"
+        "rl = make_rl(0.0)\n"
+        "ss = make_sceneset(cam, params, point_lights=rl.point_lights,"
+        " spot_lights=rl.spot_lights)\n"
+        "out = render_frame(ctx.config, ctx.device_state('cpu'),"
+        " ctx.frame_draws(rl, cam), ss, device='cpu')\n"
         "assert out['image'].shape == (64, 128, 3)\n"
         "assert float(out['image'].float().mean()) > 10\n")
 
@@ -222,9 +313,12 @@ def test_port_sources_avoid(pattern):
 def test_kernel_sources_note_what_they_replace():
     for name, pallas in (("raster_shade.cu", "_raster_shade_kernel"),
                          ("shade.cu", "_shade_kernel"),
-                         ("raster_depth.cu", "_depth_kernel")):
+                         ("raster_depth.cu", "_depth_kernel"),
+                         ("raster_blend.cu", "_blend_kernel"),
+                         ("shade_epilogue.cu", "_shade_kernel")):
         text = (PKG / "csrc" / name).read_text()
-        assert pallas in text and "Replaces the Pallas kernel" in text
+        assert pallas in text
+        assert re.search(r"Replaces the (epilogue of the )?Pallas kernel", text)
         assert "extern \"C\" int" in text and "cudaGetLastError" in text
     assert set(_kernels.SOURCES) == {p.name for p in (PKG / "csrc").glob("*.cu")}
     assert "-fmad=false" in _kernels.NVCC_FLAGS

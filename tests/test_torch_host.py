@@ -12,10 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from datum_tpu import math as jmath
+from datum_tpu.math import matrix as jmatrix
+from datum_tpu.math import quaternion as jquat
 from datum_tpu.ops.common import FrameConfig as JaxFrameConfig
 from datum_tpu.render.types import make_sceneset as jax_make_sceneset
 from datum_tpu.scenes import datumtest_scene as jax_datumtest_scene
 
+from datum_tpu_torch import math as tmath
 from datum_tpu_torch.convert import to_torch
 from datum_tpu_torch.ops.common import FrameConfig
 from datum_tpu_torch.render.frame import check_config
@@ -59,6 +63,38 @@ def both():
     jctx, jdraws, jss = _frame_host(jax_datumtest_scene, jax_make_sceneset, 0.7)
     tctx, tdraws, tss = _frame_host(datumtest_scene, make_sceneset, 0.7)
     return jctx, jdraws, jss, tctx, tdraws, tss
+
+
+def test_math_copy_matches():
+    """The port's copy of the host math (datum_tpu_torch/math) gives
+    exactly the JAX package's values: projections, quaternion rotation
+    and matrix, and the transforms the scene and the camera build."""
+    rng = np.random.RandomState(1)
+    np.testing.assert_array_equal(
+        tmath.perspective_proj(np.radians(60), 16 / 9, 0.1),
+        jmatrix.perspective_proj(np.radians(60), 16 / 9, 0.1))
+    np.testing.assert_array_equal(
+        tmath.perspective_proj(1.1, 1.0, 0.5, 40.0),
+        jmatrix.perspective_proj(1.1, 1.0, 0.5, 40.0))
+    np.testing.assert_array_equal(
+        tmath.orthographic_proj(-3, 4, -2, 5, 0.5, 80),
+        jmatrix.orthographic_proj(-3, 4, -2, 5, 0.5, 80))
+    for _ in range(5):
+        q = rng.randn(4).astype(np.float32)
+        q /= np.linalg.norm(q)
+        v = rng.randn(7, 3).astype(np.float32)
+        np.testing.assert_array_equal(tmath.quat_to_matrix(q), jquat.quat_to_matrix(q))
+        np.testing.assert_array_equal(tmath.quat_rotate(q, v), jquat.quat_rotate(q, v))
+        pos, tgt = rng.randn(3) * 5, rng.randn(3)
+        for a, b in ((tmath.Transform.lookat(pos, tgt, [0, 1, 0]),
+                      jmath.Transform.lookat(pos, tgt, [0, 1, 0])),
+                     (tmath.Transform.translation(pos)
+                      * tmath.Transform.rotation([0, 1, 0], 0.7),
+                      jmath.Transform.translation(pos)
+                      * jmath.Transform.rotation([0, 1, 0], 0.7))):
+            np.testing.assert_array_equal(a.matrix(), b.matrix())
+            np.testing.assert_array_equal(a.inverse().matrix(),
+                                          b.inverse().matrix())
 
 
 def test_frameconfig_fields_and_defaults_equal():
@@ -150,11 +186,25 @@ def test_slice_config_is_accepted():
 _BASE = dict(use_pallas=True, texture_filter="mip_half", enable_shadows=False)
 
 
+def test_translucent_config_is_accepted():
+    """The translucent frame's capacities (lit glass/water layers,
+    particles, decals) pass check_config; post on top of it still
+    raises (test_unsupported_flags_raise)."""
+    for layers in (1, 2):
+        check_config(FrameConfig(**dict(
+            _BASE, max_translucent_draws=2, max_translucent_tris=2048,
+            translucent_lit=True, translucent_lit_layers=layers,
+            translucent_lit_scale=2, max_particle_quads=512,
+            max_decals_active=2, decal_textures=False)))
+
+
 @pytest.mark.parametrize("override", [
     dict(enable_shadows=True, shadow_mode="pcf"),
     dict(max_spot_shadows=1, spot_shadow_mode="perspective"),
-    dict(max_translucent_draws=2), dict(max_particle_quads=512),
-    dict(max_decals_active=2), dict(enable_ssao=True), dict(enable_fog=True),
+    dict(max_translucent_draws=2, enable_ssao=True),
+    dict(max_particle_quads=512, enable_fog=True),
+    dict(max_decals_active=2, enable_ssr=True), dict(enable_ssao=True),
+    dict(enable_fog=True),
     dict(max_fog_planes=1), dict(enable_ssr=True),
     dict(enable_depth_of_field=True), dict(max_overlay_sprites=4),
     dict(enable_skinning=True), dict(enable_foliage=True),

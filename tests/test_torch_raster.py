@@ -126,10 +126,11 @@ def _k1_inputs(seed):
 
 
 def test_k1_plain_matches_pallas():
-    """raster_shade_reference vs raster_shade_pallas (interpret): visf
-    identical on >= 99.9% of pixels; where it agrees, depth to atol 1e-6,
-    interpolated planes (uv, normal, tangent) to atol/rtol 1e-4 and the
-    per-triangle planes exactly."""
+    """raster_shade_reference vs raster_shade_pallas (interpret): every
+    plane bit-identical on every pixel.  Both evaluate each plane
+    a*xn + b*yn + c as fma(a, xn, b*yn) + c (XLA's contraction of the
+    Pallas expression on the CPU), so visibility, depth and the
+    interpolated planes round alike."""
     clip, tris, uv, nrm, tan, tri_mat, state = _k1_inputs(4)
     mats = state["materials"]
     js, ts = _setups(clip, tris, cull=0, max_span=4)
@@ -151,19 +152,11 @@ def test_k1_plain_matches_pallas():
     jp = {k: np.asarray(v) for k, v in jp.items()}
     tp = {k: v.numpy() for k, v in tp.items()}
     assert sorted(jp) == sorted(tp) == sorted(PLANE_NAMES)
-    same = jp["visf"] == tp["visf"]
-    assert same.mean() >= 0.999, same.mean()
     covered = (tp["visf"] >= 0).mean()
     assert covered > 0.3, covered
     assert len(np.unique(tp["visf"])) > 20          # many overlapping winners
-    np.testing.assert_allclose(jp["depth"][same], tp["depth"][same], atol=1e-6,
-                               rtol=0)
-    for n in ("u", "v", "nx", "ny", "nz", "tanx", "tany", "tanz"):
-        np.testing.assert_allclose(jp[n][same], tp[n][same], atol=1e-4,
-                                   rtol=1e-4, err_msg=n)
-    for n in ("cr", "cg", "cb", "em", "met", "rgh", "rfl", "alb", "mbase",
-              "msize", "tanw", "absorb"):
-        np.testing.assert_array_equal(jp[n][same], tp[n][same], err_msg=n)
+    for n in PLANE_NAMES:
+        np.testing.assert_array_equal(jp[n], tp[n], err_msg=n)
 
 
 @pytest.mark.parametrize("max_span", [16, 1])

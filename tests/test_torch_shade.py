@@ -162,23 +162,48 @@ def test_k2_sky_fills_uncovered_pixels():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(tr_r=1, tr_g=1, tr_b=1, tr_a=1), dict(tr_ox=1, tr_oy=1),
-    dict(fog_r=1, fog_g=1, fog_b=1, fog_t=1),
-    dict(oit_r=1, oit_g=1, oit_b=1, oit_w=1, oit_rev=1),
-    dict(edr=1, edg=1, edb=1, edm=1), dict(clusters=1), dict(planes_out=1),
-], ids=lambda d: sorted(d)[0])
+    dict(fog_r=1, fog_g=1, fog_b=1, fog_t=1), dict(fog_t=1),
+    dict(edr=1, edg=1, edb=1, edm=1), dict(edm=1), dict(clusters=1),
+], ids=lambda d: "-".join(sorted(d)))
 def test_k2_later_groups_raise(extra):
+    """Fog, the box env-probe override and clustered lights raise, each
+    naming its ROADMAP item, even when only one plane of a group is
+    given."""
     ss, g = _torch_tree(_scene()), _torch_tree(_gplanes(sky=False))
     kw = {}
     if "clusters" in extra:
         kw["clusters"] = (torch.zeros(4, 2, 8, dtype=torch.int32),
                           torch.zeros(4, 2, dtype=torch.int32))
-    elif "planes_out" in extra:
-        kw["planes_out"] = True
     else:
         g.update({k: torch.zeros(H, W) for k in extra})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"], **kw)
+
+
+@pytest.mark.parametrize("extra", [
+    dict(tr_r=1, tr_g=1, tr_b=1, tr_a=1),
+    dict(tr_r=1, tr_g=1, tr_b=1, tr_a=1, tr_ox=1, tr_oy=1),
+    dict(oit_r=1, oit_g=1, oit_b=1, oit_w=1, oit_rev=1), dict(planes_out=1),
+], ids=["tr", "tr-refr", "oit", "planes_out"])
+def test_k2_translucent_groups_run(extra):
+    """The lit-layer, refraction and WBOIT groups and planes_out are
+    ported: K2 plus its epilogue give (H, W, 3), or three (H, W)
+    planes; a zero tr_a and an empty WBOIT (rev 1, no weight) leave the
+    shade unchanged (exactly)."""
+    ss, g = _torch_tree(_scene()), _torch_tree(_gplanes(sky=False))
+    base = shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
+    planes_out = "planes_out" in extra
+    if not planes_out:
+        g.update({k: torch.zeros(H, W) for k in extra})
+        if "oit_rev" in g:
+            g["oit_rev"] = torch.ones(H, W)
+    out = shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"],
+                         planes_out=planes_out)
+    if planes_out:
+        assert len(out) == 3 and all(p.shape == (H, W) for p in out)
+        out = torch.stack(out, -1)
+    assert out.shape == (H, W, 3)
+    assert torch.equal(out, base)
 
 
 def test_k2_rounds_planes_to_bf16_except_depth_and_visf():
