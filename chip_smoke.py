@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Renders the translucent datumtest frame at 1920x1088 (the bench scene,
-capacities and shadow settings: 4 sun cascades as a 1024 near and a 512
-far atlas with ESM and slice blend, one parabolic spot map, the
-procedural skybox and its IBL environment; and the bench's forward
-content: the lit glass sphere and water patch shaded at half resolution,
-the 256-particle cloud, two decals; no SSAO, fog, SSR or DoF) through
-datum_tpu_torch.render.frame.render_frame, after building the port's
-CUDA kernels from datum_tpu_torch/csrc with nvcc.  Phases, one line
-each; any failure raises and exits non-zero:
+Renders the bench frame at 1920x1088 (the config of bench.py: the
+datumtest scene with 4 sun cascades as a 1024 near and a 512 far atlas
+with ESM and slice blend, one parabolic spot map, the procedural skybox
+and its IBL environment, the lit glass sphere and water patch shaded at
+half resolution, the 256-particle cloud, two decals, SSAO, the froxel fog
+with its taps at 1/8 resolution and the binned SSR) through
+datum_tpu_torch.render.frame.render_frame, with the one-phase raster
+(K1) and with the two-phase raster (K6), and once with depth of field,
+after building the port's CUDA kernels from datum_tpu_torch/csrc with
+nvcc.  Phases, one line each; any failure raises and exits non-zero:
 
 1. require a CUDA device; print its name and nvidia-smi's name and
    power limit; turn TF32 off;
@@ -19,20 +20,26 @@ each; any failure raises and exits non-zero:
 3. build the scene through the port's datumtest_scene; the main
    bin_overflow must be 0; print each shadow stack's, the lit layer's
    and the forward (WBOIT) stream's overflow;
-4. each kernel against its plain PyTorch version on that frame's real
-   inputs, with the stated tolerances: K3 on all three shadow stacks,
-   K1 on the opaque and the lit layer, K2, its epilogue with refraction
-   active, K4 on the merged stream; then, at translucent_lit_layers=2,
-   K1 with peel_depth and K4 with a peeled residual;
+4. each kernel against its plain PyTorch version on the bench frame's
+   real inputs, with the stated tolerances: K3 on all three shadow
+   stacks, K1 on the opaque and the lit layer, K2 (with SSAO's ao), its
+   epilogue with refraction active, the epilogue with the fog group, K4
+   on the merged stream; K6 against its plain version and against K1 on
+   the opaque and the lit layer (bit-identical); then, at
+   translucent_lit_layers=2, K1 and K6 with peel_depth and K4 with a
+   peeled residual;
 5. drive each path the port renders with the kernel counts set to 0
-   just before and read just after: the opaque frame and the shadowed,
-   sky-lit frame once each, the translucent frame 3 times; check the
-   image, the luminance and the launches of every frame; check a small
-   translucent frame against the plain path on the CPU;
-6. time ms/frame (CUDA events, median) of the three frames, the
-   translucent frame's device time and launches under torch.profiler,
-   its stages, and each kernel vs its plain version;
-   compute each kernel's bound from this run's inputs;
+   just before and read just after: the opaque frame, the shadowed,
+   sky-lit frame and the translucent frame of the earlier slices, the
+   bench frame 3 times (K1), twice with raster_two_phase (K6, no K1) and
+   once with DoF; check the image, the luminance, bin_overflow 0 and the
+   launches of every frame; check a small bench frame against the plain
+   path on the CPU;
+6. time ms/frame (CUDA events, median) of the frames (the bench frame
+   with K1 and with K6 in turns), the bench frame's device time and
+   launches under torch.profiler, its stages (the post
+   stages among them), and each kernel vs its plain version; compute
+   each kernel's bound from this run's inputs;
 7. print the kernels' JSON line, then the device JSON line last.
 
 Needs one card, torch with CUDA and nvcc; imports no jax and nothing of
@@ -61,10 +68,18 @@ SHADOWED = dict(sphere_detail=24, n_point_lights=8, skybox=True, skybox_size=64,
                 spot_shadow_mode="parabolic", spot_shadow_res=256)
 # the translucent frame: the bench's forward content at the default
 # forward bin capacities (64 + 16)
-SCENE = dict(SHADOWED, max_translucent_draws=2, max_translucent_tris=2048,
-             translucent_lit=True, translucent_lit_layers=1,
-             translucent_lit_scale=2, max_particle_quads=512,
-             max_decals_active=2, decal_textures=False)
+TRANSLUCENT = dict(SHADOWED, max_translucent_draws=2, max_translucent_tris=2048,
+                   translucent_lit=True, translucent_lit_layers=1,
+                   translucent_lit_scale=2, max_particle_quads=512,
+                   max_decals_active=2, decal_textures=False)
+# the bench frame (bench.py:88-115): the translucent frame with SSAO, the
+# froxel fog (taps at 1/8 resolution) and the binned SSR.  The scene's
+# fog density is 0, as the bench renders it: the volume and its taps run
+# in full and leave the colour as it is
+SCENE = dict(TRANSLUCENT, shadow_factor_scale=4, enable_ssao=True, enable_fog=True,
+             enable_ssr=True, fog_sample_scale=8)
+# a fog density for the checks that must see the fog move values
+FOG_DENSITY = (0.6, 0.65, 0.7, 0.04)
 # the opaque frame (no skybox, no shadows, no forward content)
 OPAQUE = dict(SHADOWED, skybox=False, enable_shadows=False, max_spot_shadows=0)
 SMALL = dict(SCENE, sphere_detail=8, grid=(4, 3), max_vertices=2048,
@@ -189,9 +204,10 @@ def profile_frames(render, inputs):
 
 
 def stage_ms(cfg, state, draws, ss, dev, reps=5):
-    """Wall ms of each stage of the translucent frame with a device sync
-    after each (median of reps): the frame's own stage functions, in its
-    order."""
+    """Wall ms of each stage of the bench frame with a device sync after
+    each (median of reps): the frame's own stage functions, in its order;
+    then the DoF fields on the same frame (not a stage of the bench
+    frame, which renders without DoF)."""
     import torch
 
     from datum_tpu_torch.convert import to_torch
@@ -202,11 +218,14 @@ def stage_ms(cfg, state, draws, ss, dev, reps=5):
     names = ("upload draws + sceneset", "vertex stage",
              "sun cascades (K3) + ESM", "spot map (K3) + ESM",
              "setup + binning + K1", "plane assembly (matmaps, env, sun factor)",
-             "decals", "sky planes + SH + spot factor",
+             "decals", "SSAO (subsample, HBAO, blur, upsample)",
+             "sky planes + SH + spot factor", "fog volume + taps + upsample",
              "lit layer (vertices, setup, bins, K1, assembly, K2, upsample)",
              "WBOIT stream (setup, bins, K4)", "K2 (tables + bf16 + kernel)",
-             "K2 epilogue (bf16 + kernel)", "luminance + bloom + composite")
+             "K2 epilogue (bf16 + kernel)", "SSR (quarter-res pools + march)",
+             "luminance + bloom + composite", "DoF fields (not in the frame)")
     w, h = cfg.padded_width, cfg.padded_height
+    no_ssr = dataclasses.replace(cfg, enable_ssr=False)
     runs = []
     for _ in range(reps):
         t = [time.perf_counter()]
@@ -230,7 +249,11 @@ def stage_ms(cfg, state, draws, ss, dev, reps=5):
         mark()
         gpl = F._decals(cfg, gpl, mask, planes["depth"], state, d, s)
         mark()
+        ao, _ = F._ssao(cfg, planes, s, None)
+        mark()
         ss2, spotsf = F._sky_sh_spots(cfg, gpl, planes, state, s, spot)
+        mark()
+        F._fog(cfg, planes["depth"], s, shadows, gpl)
         mark()
         ts = F.translucent_stream(state, d, s)
         lit_peel = F._lit_layers(cfg, state, ts, s, ss2, shadows,
@@ -239,12 +262,16 @@ def stage_ms(cfg, state, draws, ss, dev, reps=5):
         F._oit_planes(cfg, state, d, s, ts, lit_peel, planes["depth"], gpl)
         mark()
         bg = shade_deferred_cuda(**shade_inputs(gpl, ss2, proj=s["proj"],
-                                                invview=s["invview"],
+                                                invview=s["invview"], ao=ao,
                                                 spotsf=spotsf))
         mark()
         hdr = shade_epilogue_cuda(bg, **epilogue_inputs(gpl)).permute(1, 2, 0)
         mark()
-        F._post(cfg, state, s, hdr)
+        F._ssr(cfg, state, s, hdr, planes["depth"], gpl)
+        mark()
+        F._post(no_ssr, state, s, hdr, planes["depth"], gpl)
+        mark()
+        F.dof_fields(hdr, planes["depth"], s["proj"], s["camera"])
         mark()
         runs.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
     return {n: statistics.median(r[i] for r in runs) for i, n in enumerate(names)}
@@ -318,11 +345,29 @@ def check_same(k, r, what, extra=""):
     return err
 
 
-def drive(render, inputs, kernels, expect):
+def check_k6(k6, plain, k1, what):
+    """K6 vs its plain version and vs K1 on the same inputs: all 22
+    planes bit-identical on every pixel.  Returns the max abs error vs
+    the plain version."""
+    import torch
+
+    err = (k6 - plain).abs().max().item()
+    for other, name in ((plain, "its plain version"), (k1, "K1")):
+        if not torch.equal(k6, other):
+            same = (k6 == other).float().mean().item()
+            raise RuntimeError(f"K6 ({what}) vs {name}: bit-identical on {same}")
+    covered = (k6[1] >= 0).float().mean().item()
+    phase(4, f"K6 ({what}, {tuple(k6.shape[1:])}): all 22 planes bit-identical to "
+             f"its plain version and to K1 on every pixel (covered {covered:.3f})")
+    return err
+
+
+def drive(render, inputs, kernels, expect, forbid=()):
     """Render each (draws, ss) with every kernel count set to 0 just
     before and read just after; check the image and that every frame
-    launched each kernel at least expect[name] times.  Returns (per-frame
-    launches, totals, the last image, luminance)."""
+    launched each kernel at least expect[name] times and the kernels of
+    forbid never.  Returns (per-frame launches, totals, the last image,
+    luminance)."""
     import torch
 
     for k in kernels.values():
@@ -345,6 +390,8 @@ def drive(render, inputs, kernels, expect):
     if any(f[n] < m for f in per_frame for n, m in expect.items()):
         raise RuntimeError(f"a frame ran without its kernels: {per_frame}, "
                            f"expected at least {expect}")
+    if any(f[n] for f in per_frame for n in forbid):
+        raise RuntimeError(f"a frame launched {forbid}: {per_frame}")
     return per_frame, totals, img, lum
 
 
@@ -372,12 +419,14 @@ def main():
 
     from datum_tpu_torch.convert import to_torch
     from datum_tpu_torch.ops import _kernels
+    from datum_tpu_torch.ops import fog as fog_ops
     from datum_tpu_torch.ops import shadow as shadow_ops
     from datum_tpu_torch.ops.blur import resize_matmul
     from datum_tpu_torch.ops.raster_blend_cuda import (
         blend_inputs, raster_blend_cuda, raster_blend_reference)
     from datum_tpu_torch.ops.raster_cuda import (
-        PLANE_NAMES, raster_inputs, raster_shade_cuda, raster_shade_reference)
+        PLANE_NAMES, raster_inputs, raster_shade_2p_cuda, raster_shade_2p_reference,
+        raster_shade_cuda, raster_shade_reference)
     from datum_tpu_torch.ops.raster_depth_cuda import (
         depth_inputs, raster_depth_cuda, raster_depth_reference)
     from datum_tpu_torch.ops.shade_cuda import (
@@ -386,6 +435,7 @@ def main():
     from datum_tpu_torch.render import frame as F
     from datum_tpu_torch.scenes import datumtest_scene
     kernels = dict(raster_shade=raster_shade_cuda,
+                   raster_shade_2p=raster_shade_2p_cuda,
                    shade_deferred=shade_deferred_cuda,
                    raster_depth=raster_depth_cuda,
                    raster_blend=raster_blend_cuda,
@@ -400,7 +450,7 @@ def main():
         if "registers" in line or "spill" in line or "error" in line:
             print("  nvcc:", line.strip(), flush=True)
 
-    # ---- 3. scene at full width
+    # ---- 3. the bench scene at full width
     t0 = time.perf_counter()
     ctx, camera, params, make_rl = datumtest_scene(width=W, height=H, **SCENE)
     cfg = ctx.config
@@ -423,12 +473,13 @@ def main():
     if any(overflows):
         raise RuntimeError(f"bin overflow {overflows}: raise bin_capacity")
     w_t, h_t = F.lit_viewport(cfg)
-    phase(3, f"scene {W}x{H}, {n_tris} opaque + {n_ttris} translucent triangles "
-             f"drawn, {int(draws['forward']['quad_count'])} particle quads, "
+    phase(3, f"bench scene {W}x{H}, {n_tris} opaque + {n_ttris} translucent "
+             f"triangles drawn, {int(draws['forward']['quad_count'])} particle quads, "
              f"{int(draws['decals']['count'])} decals, {cfg.n_tiles} tiles, bins "
              f"{cfg.bin_capacity}+{cfg.big_capacity}, bin_overflow {overflows}; "
              f"skybox {ctx.skybox.size}^2 x 6 with {len(state['ibl']['mips'])} "
-             f"mips ({time.perf_counter() - t0:.1f} s)")
+             f"mips; SSAO at {cfg.ssao_scale}, fog taps at 1/{cfg.fog_sample_scale}, "
+             f"binned SSR ({time.perf_counter() - t0:.1f} s)")
     phase(3, f"shadow stack overflow per frame ({', '.join(STACKS)}; shadow "
              f"bins {cfg.shadow_bin_capacity}+{cfg.big_capacity}): "
              f"{stack_overflows}")
@@ -436,7 +487,7 @@ def main():
              f"stream overflow {fwd_overflows} (forward bins "
              f"{cfg.forward_bin_capacity}+{cfg.forward_big_capacity} a stream)")
 
-    # ---- 4. kernels vs their plain versions on the frame's inputs
+    # ---- 4. kernels vs their plain versions on the bench frame's inputs
     draws, ss = frame_inputs(ctx, camera, params, make_rl, 0.3)
     d_t, s_t = to_torch(draws, dev), to_torch(ss, dev)
     ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, state, d_t, s_t)
@@ -470,6 +521,8 @@ def main():
     torch.cuda.synchronize()
     _, k1_err = check_k1(pk, pr, "opaque layer")
     kp = dict(zip(PLANE_NAMES, pk))
+    k6_err = check_k6(raster_shade_2p_cuda(**k1_in), raster_shade_2p_reference(**k1_in),
+                      pk, "opaque layer")
 
     ts = F.translucent_stream(state, d_t, s_t)
     lsetup, ltx, lw, lh, lbins, lcounts, lbig = lit_bins(cfg, ts)
@@ -481,13 +534,17 @@ def main():
     torch.cuda.synchronize()
     _, k1_lit_err = check_k1(lk, lr, "lit layer, alpha_in_alb")
     k1_err = max(k1_err, k1_lit_err)
+    k6_err = max(k6_err, check_k6(raster_shade_2p_cuda(**lit_in),
+                                  raster_shade_2p_reference(**lit_in), lk,
+                                  "lit layer, alpha_in_alb"))
 
     shadows = F._shadow_stage(cfg, ex, wp, s_t)
-    gpl, ss2, spotsf = F._shade_inputs(cfg, kp, state, d_t, s_t, shadows)
-    if "sky_r" not in gpl or spotsf is None:
-        raise RuntimeError("K2 inputs lack the sky planes or the spot factors")
+    gpl, ss2, spotsf, ao, _ = F._shade_inputs(cfg, kp, state, d_t, s_t, shadows)
+    if "sky_r" not in gpl or spotsf is None or ao is None or "fog_t" not in gpl:
+        raise RuntimeError("K2 inputs lack the sky planes, the spot factors, "
+                           "SSAO's ao or the fog planes")
     k2_in = shade_inputs(gpl, ss2, proj=s_t["proj"], invview=s_t["invview"],
-                         spotsf=spotsf)
+                         ao=ao, spotsf=spotsf)
     hk = shade_deferred_cuda(**k2_in)
     hr = shade_deferred_reference(**k2_in)
     torch.cuda.synchronize()
@@ -497,11 +554,12 @@ def main():
         raise RuntimeError(f"K2 vs plain: max abs err {k2_err} beyond "
                            "atol 1e-4 / rtol 1e-3")
     sf, spf = gpl["sf"], spotsf[0]
-    phase(4, f"K2 vs plain (sky, IBL, sun + spot shadow planes, decals): hdr "
+    phase(4, f"K2 vs plain (sky, IBL, SSAO, sun + spot shadow planes, decals): hdr "
              f"max abs err {k2_err:.3g} (atol 1e-4, rtol 1e-3), max |hdr| "
              f"{hr.abs().max().item():.3g}; sun factor < 0.5 on "
              f"{(sf < 0.5).float().mean().item():.3f}, spot factor < 0.5 on "
-             f"{(spf < 0.5).float().mean().item():.3f} of pixels")
+             f"{(spf < 0.5).float().mean().item():.3f}, ao < 0.9 on "
+             f"{(ao < 0.9).float().mean().item():.3f} of pixels")
 
     # K4 on the merged stream (particles; no residual at one lit layer)
     st = F.oit_stream(cfg, state, d_t, s_t, ts, None)
@@ -516,23 +574,39 @@ def main():
     k4_err = check_same(bk, br, "K4, merged stream", f"; particles cover "
                         f"{(br[3] > 0).float().mean().item():.4f} of pixels")
 
-    # the epilogue on the frame's planes: the lit layer, refraction, WBOIT
+    # the epilogue on the bench frame's planes: the lit layer, refraction,
+    # fog (the bench's density 0) and WBOIT
     F._translucent_stage(cfg, state, d_t, s_t, ss2, shadows, kp["depth"], gpl)
     epi_in = epilogue_inputs(gpl)
     n_refr = int((epi_in["refr"][0] != 0).sum())
-    if n_refr == 0:
-        raise RuntimeError("the epilogue check has no refracted pixel")
-    epi_bg = shade_deferred_cuda(**shade_inputs(gpl, ss2, proj=s_t["proj"],
-                                                invview=s_t["invview"],
-                                                spotsf=spotsf))
+    if n_refr == 0 or epi_in["fog"] is None:
+        raise RuntimeError("the epilogue check has no refracted pixel or no fog")
+    epi_bg = shade_deferred_cuda(**k2_in)
     ek = shade_epilogue_cuda(epi_bg, **epi_in)
     er = shade_epilogue_reference(epi_bg, **epi_in)
     torch.cuda.synchronize()
-    epi_err = check_same(ek, er, "K2 epilogue (tr, refraction, WBOIT)",
+    epi_err = check_same(ek, er, "K2 epilogue (tr, refraction, fog, WBOIT)",
                          f"; tr_ox != 0 on {n_refr} pixels, tr_a > 0 on "
                          f"{int((epi_in['tr'][3] > 0).sum())}")
+    # the fog group where it moves values: the volume at a fog density,
+    # with and without the refraction (the resolve's two fma forms)
+    s_fog = dict(s_t, camera=dict(s_t["camera"], fogdensity=torch.tensor(
+        FOG_DENSITY, device=dev)))
+    gpl_fog = dict(gpl)
+    F._fog(cfg, kp["depth"], s_fog, shadows, gpl_fog)
+    fog_in = epilogue_inputs(gpl_fog)
+    fog_t = fog_in["fog"][3].float()
+    for name, kw in (("tr, refraction, fog, WBOIT", fog_in),
+                     ("fog, WBOIT", dict(fog=fog_in["fog"], oit=fog_in["oit"]))):
+        fk = shade_epilogue_cuda(epi_bg, **kw)
+        fr = shade_epilogue_reference(epi_bg, **kw)
+        torch.cuda.synchronize()
+        epi_err = max(epi_err, check_same(
+            fk, fr, f"K2 epilogue at fog density {FOG_DENSITY} ({name})",
+            f"; fog_t < 0.99 on {(fog_t < 0.99).float().mean().item():.3f} of "
+            f"pixels, min fog_t {fog_t.min().item():.3f}"))
 
-    # two lit layers: K1 with peel_depth, K4 with a peeled residual
+    # two lit layers: K1 and K6 with peel_depth, K4 with a peeled residual
     cfg2 = dataclasses.replace(cfg, translucent_lit_layers=2)
     peel_in = dict(lit_in, peel=lr[0].contiguous())
     pk2 = raster_shade_cuda(**peel_in)
@@ -540,6 +614,9 @@ def main():
     torch.cuda.synchronize()
     _, k1_peel_err = check_k1(pk2, pr2, "lit layer 2, peel_depth")
     k1_err = max(k1_err, k1_peel_err)
+    k6_err = max(k6_err, check_k6(raster_shade_2p_cuda(**peel_in),
+                                  raster_shade_2p_reference(**peel_in), pk2,
+                                  "lit layer 2, peel_depth"))
     lit_peel = resize_matmul(pr2[0], H, W, nearest=True)
     st2 = F.oit_stream(cfg2, state, d_t, s_t, ts, lit_peel)
     n_peeled = int(((st2["peel_flag"] > 0) & st2["valid"]).sum())
@@ -565,76 +642,124 @@ def main():
     sctx, scam, sparams, smake = datumtest_scene(width=W, height=H, **SHADOWED)
     sstate = sctx.device_state(dev)
     s_inputs = [frame_inputs(sctx, scam, sparams, smake, t) for t in (0.0, 0.1)]
+    # the translucent frame of the earlier slice: the bench frame's scene
+    # and state without SSAO, fog and SSR
+    tcfg = dataclasses.replace(cfg, enable_ssao=False, enable_fog=False,
+                               enable_ssr=False)
     inputs = [frame_inputs(ctx, camera, params, make_rl, t)
               for t in (0.0, 0.1, 0.2)]
+    cfg6 = dataclasses.replace(cfg, raster_two_phase=True)
+    cfg_dof = dataclasses.replace(cfg, enable_depth_of_field=True)
+    focus = (camera.focalwidth, camera.focaldistance)
+    camera.set_depth_of_field(4.0, 14.0)          # bench.py:116-117
+    dof_inputs = [frame_inputs(ctx, camera, params, make_rl, t) for t in (0.0, 0.1)]
+    camera.set_depth_of_field(*focus)
     render_o = lambda d, s: F.render_frame(octx.config, ostate, d, s, device=dev)
     render_s = lambda d, s: F.render_frame(sctx.config, sstate, d, s, device=dev)
-    render_t = lambda d, s: F.render_frame(cfg, state, d, s, device=dev)
+    render_t = lambda d, s: F.render_frame(tcfg, state, d, s, device=dev)
+    render_b = lambda d, s: F.render_frame(cfg, state, d, s, device=dev)
+    render_6 = lambda d, s: F.render_frame(cfg6, state, d, s, device=dev)
+    render_d = lambda d, s: F.render_frame(cfg_dof, state, d, s, device=dev)
     pf, _, _, _ = drive(render_o, o_inputs[:1], kernels,
                         dict(raster_shade=1, shade_deferred=1))
     phase(5, f"opaque frame: launches {pf}")
     pf, _, _, _ = drive(render_s, s_inputs[:1], kernels,
                         dict(raster_shade=1, shade_deferred=1, raster_depth=3))
     phase(5, f"shadowed, sky-lit frame: launches {pf}")
-    pf, launches, img, lum = drive(
-        render_t, inputs, kernels,
-        dict(raster_shade=2, shade_deferred=2, shade_epilogue=1, raster_depth=3,
-             raster_blend=1))
-    phase(5, f"3 translucent frames {W}x{H}: image {tuple(img.shape)} u8 mean "
+    pf, _, _, _ = drive(render_t, inputs[:1], kernels,
+                        dict(raster_shade=2, shade_deferred=2, shade_epilogue=1,
+                             raster_depth=3, raster_blend=1))
+    phase(5, f"translucent frame (no SSAO, fog, SSR): launches {pf}")
+    bench_expect = dict(raster_shade=2, shade_deferred=2, shade_epilogue=1,
+                        raster_depth=3, raster_blend=1)
+    pf, launches, img, lum = drive(render_b, inputs, kernels, bench_expect,
+                                   forbid=("raster_shade_2p",))
+    phase(5, f"3 bench frames {W}x{H} (K1): image {tuple(img.shape)} u8 mean "
              f"{img.float().mean().item():.2f}, luminance {lum.item():.6g}, "
              f"bin_overflow 0, launches per frame {pf}")
+    pf, launches6, _, _ = drive(
+        render_6, inputs[:2], kernels,
+        dict(bench_expect, raster_shade=0, raster_shade_2p=2),
+        forbid=("raster_shade",))
+    phase(5, f"2 bench frames with raster_two_phase (K6): launches per frame {pf}")
+    img_k1 = render_b(*inputs[0])["image"]
+    img_k6 = render_6(*inputs[0])["image"]
+    if not torch.equal(img_k1, img_k6):
+        raise RuntimeError("the bench frame with K6 differs from the frame with K1")
+    phase(5, "bench frame t=0: the K6 image equals the K1 image (u8, every pixel)")
+    pf, _, imgd, _ = drive(render_d, dof_inputs[:1], kernels, bench_expect,
+                           forbid=("raster_shade_2p",))
+    moved = (imgd.float() - img_k1.float()).abs().mean().item()
+    if moved < 0.5:
+        raise RuntimeError(f"the DoF frame barely differs from the bench frame: {moved}")
+    phase(5, f"bench frame with DoF (focus 14, width 4): launches {pf}, mean |d| "
+             f"{moved:.2f} levels from the frame without DoF")
 
-    # the same small translucent frame on the card (kernels) and on the
-    # CPU (plain)
+    # the same small bench frame (with a fog density) on the card (kernels)
+    # and on the CPU (plain), with K1 and with K6
     mctx, mcam, mparams, mmake = datumtest_scene(width=256, height=128, **SMALL)
+    mparams.fogdensity = FOG_DENSITY
     mdraws, mss = frame_inputs(mctx, mcam, mparams, mmake, 0.3)
-    imgs = [F.render_frame(mctx.config, mctx.host_state(), mdraws, mss,
-                           device=d)["image"].cpu().float()
-            for d in (dev, "cpu")]
-    d_img = (imgs[0] - imgs[1]).abs()
-    rmse = ((imgs[0] - imgs[1]) ** 2).mean().sqrt().item() / 255.0
-    if d_img.mean().item() > 0.5 or rmse > 2 / 255 or imgs[1].mean() <= 10:
-        raise RuntimeError(f"small frame GPU vs CPU plain: mean |d| "
-                           f"{d_img.mean().item()}, RMSE {rmse}")
-    phase(5, f"256x128 translucent frame (glass, water, particles, decals), "
-             f"card vs CPU plain path: mean |d| {d_img.mean().item():.4f} "
-             f"levels, RMSE {rmse * 255:.4f} levels")
+    for two_phase in (False, True):
+        mcfg = dataclasses.replace(mctx.config, raster_two_phase=two_phase)
+        imgs = [F.render_frame(mcfg, mctx.host_state(), mdraws, mss,
+                               device=d)["image"].cpu().float()
+                for d in (dev, "cpu")]
+        d_img = (imgs[0] - imgs[1]).abs()
+        rmse = ((imgs[0] - imgs[1]) ** 2).mean().sqrt().item() / 255.0
+        if d_img.mean().item() > 0.5 or rmse > 2 / 255 or imgs[1].mean() <= 10:
+            raise RuntimeError(f"small frame GPU vs CPU plain: mean |d| "
+                               f"{d_img.mean().item()}, RMSE {rmse}")
+        phase(5, f"256x128 bench frame ({'K6' if two_phase else 'K1'}; glass, "
+                 f"water, particles, decals, SSAO, fog at density "
+                 f"{FOG_DENSITY}, SSR), card vs CPU plain path: mean |d| "
+                 f"{d_img.mean().item():.4f} levels, RMSE {rmse * 255:.4f} levels")
 
     # ---- 6. timing (informational: this PR claims no speed)
-    ms_frame = frame_ms(render_t, inputs)
+    # K1 and K6 frames in turns (K1, K6, K6, K1): one call's order
+    # effects fall on both
+    ms_k1_runs, ms_k6_runs = [frame_ms(render_b, inputs)], []
+    ms_k6_runs += [frame_ms(render_6, inputs), frame_ms(render_6, inputs)]
+    ms_k1_runs.append(frame_ms(render_b, inputs))
+    ms_frame, ms_k6 = statistics.mean(ms_k1_runs), statistics.mean(ms_k6_runs)
+    ms_dof = frame_ms(render_d, dof_inputs, n=5)
+    ms_trans = frame_ms(render_t, inputs, n=5)
     ms_shadowed = frame_ms(render_s, s_inputs, n=5)
     ms_opaque = frame_ms(render_o, o_inputs, n=5)
     stages = stage_ms(cfg, state, *inputs[0], dev)
-    prof_ms, prof_launches = profile_frames(render_t, inputs)
+    prof_ms, prof_launches = profile_frames(render_b, inputs)
     t_k1 = cuda_ms(lambda: raster_shade_cuda(**k1_in), 20)
-    t_k1p = cuda_ms(lambda: raster_shade_reference(**k1_in), 3)
+    t_k6 = cuda_ms(lambda: raster_shade_2p_cuda(**k1_in), 20)
+    t_k1p = cuda_ms(lambda: raster_shade_reference(**k1_in), 1)
+    t_k6p = cuda_ms(lambda: raster_shade_2p_reference(**k1_in), 1)
     t_k1l = cuda_ms(lambda: raster_shade_cuda(**lit_in), 20)
-    t_k1lp = cuda_ms(lambda: raster_shade_reference(**lit_in), 3)
+    t_k6l = cuda_ms(lambda: raster_shade_2p_cuda(**lit_in), 20)
     t_k2 = cuda_ms(lambda: shade_deferred_cuda(**k2_in), 20)
-    t_k2p = cuda_ms(lambda: shade_deferred_reference(**k2_in), 3)
+    t_k2p = cuda_ms(lambda: shade_deferred_reference(**k2_in), 1)
     t_k3 = [cuda_ms(lambda i=i: raster_depth_cuda(**i), 20) for i in k3_in]
-    t_k3p = [cuda_ms(lambda i=i: raster_depth_reference(**i), 3) for i in k3_in]
+    t_k3p = [cuda_ms(lambda i=i: raster_depth_reference(**i), 1) for i in k3_in]
     t_k4 = cuda_ms(lambda: raster_blend_cuda(**k4_in), 20)
-    t_k4p = cuda_ms(lambda: raster_blend_reference(**k4_in), 3)
-    t_k4r = cuda_ms(lambda: raster_blend_cuda(**k4p_in), 20)
-    t_k4rp = cuda_ms(lambda: raster_blend_reference(**k4p_in), 3)
+    t_k4p = cuda_ms(lambda: raster_blend_reference(**k4_in), 1)
     t_ep = cuda_ms(lambda: shade_epilogue_cuda(epi_bg, **epi_in), 20)
-    t_epp = cuda_ms(lambda: shade_epilogue_reference(epi_bg, **epi_in), 3)
-    phase(6, f"{ms_frame:.3f} ms/frame translucent (median of 7), "
-             f"{ms_shadowed:.3f} ms/frame shadowed + sky-lit, {ms_opaque:.3f} "
-             f"ms/frame opaque (median of 5; CUDA events, {W}x{H}) on {card}")
-    phase(6, f"translucent frame under torch.profiler (3 frames): "
+    t_epp = cuda_ms(lambda: shade_epilogue_reference(epi_bg, **epi_in), 1)
+    phase(6, f"{ms_frame:.3f} ms/frame bench (K1), {ms_k6:.3f} ms/frame bench with "
+             f"K6 (each the mean of 2 medians of 7, timed K1, K6, K6, K1: "
+             f"{', '.join(f'{t:.3f}' for t in (ms_k1_runs[0], *ms_k6_runs, ms_k1_runs[1]))}"
+             f"), {ms_dof:.3f} ms/frame bench with DoF, "
+             f"{ms_trans:.3f} translucent, {ms_shadowed:.3f} shadowed + sky-lit, "
+             f"{ms_opaque:.3f} opaque (median of 5; CUDA events, {W}x{H}) on {card}")
+    phase(6, f"bench frame under torch.profiler (3 frames): "
              f"{prof_ms:.3f} ms of device time and {prof_launches:.0f} kernel "
              f"launches per frame; busy {prof_ms / ms_frame:.3f} of the "
              f"{ms_frame:.3f} ms frame")
-    phase(6, "translucent frame stages (ms, wall, synced, median of 5): "
+    phase(6, "bench frame stages (ms, wall, synced, median of 5): "
           + "; ".join(f"{n} {v:.3f}" for n, v in stages.items()))
-    phase(6, f"K1 {t_k1:.3f} ms vs plain {t_k1p:.3f} ms (opaque layer), "
-             f"{t_k1l:.3f} vs {t_k1lp:.3f} ms (lit layer {lw}x{lh}); K2 "
-             f"{t_k2:.3f} ms vs plain {t_k2p:.3f} ms; K2 epilogue {t_ep:.3f} ms "
-             f"vs plain {t_epp:.3f} ms; K4 {t_k4:.3f} ms vs plain {t_k4p:.3f} ms "
-             f"(merged stream), {t_k4r:.3f} vs {t_k4rp:.3f} ms (2 lit layers, "
-             f"peeled residual); K3 " + ", ".join(
+    phase(6, f"K1 {t_k1:.3f} ms, K6 {t_k6:.3f} ms vs plain {t_k1p:.3f} / "
+             f"{t_k6p:.3f} ms (opaque layer, the same inputs); lit layer "
+             f"{lw}x{lh}: K1 {t_k1l:.3f} ms, K6 {t_k6l:.3f} ms; K2 "
+             f"{t_k2:.3f} ms vs plain {t_k2p:.3f} ms; K2 epilogue (tr, refraction, "
+             f"fog, WBOIT) {t_ep:.3f} ms vs plain {t_epp:.3f} ms; K4 {t_k4:.3f} ms "
+             f"vs plain {t_k4p:.3f} ms (merged stream); K3 " + ", ".join(
                  f"{n} {a:.3f} ms vs plain {b:.3f} ms"
                  for n, a, b in zip(STACKS, t_k3, t_k3p))
           + f" ({W}x{H}) on {card}")
@@ -646,7 +771,7 @@ def main():
                      + 22 * px * 4,
                      _walked(k1_in) * 4096 * OPS_WALK_DEPTH + px * OPS_K1_PIXEL)
     n_lights = int(k2_in["counts"][0]) + int(k2_in["counts"][1])
-    k2_bound = bound(_nbytes(k2_in["f32_planes"], k2_in["planes"],
+    k2_bound = bound(_nbytes(k2_in["f32_planes"], k2_in["planes"], k2_in["ao"],
                              k2_in["spotsf"]) + 3 * px * 4,
                      px * (OPS_K2_PIXEL + OPS_K2_LIGHT * n_lights))
     k3_bound = bound(sum(_nbytes(i["rows"], i["bins"], i["counts"], i["big_ids"])
@@ -659,7 +784,7 @@ def main():
                      px * OPS_EPILOGUE_PIXEL)
     phase(6, "bounds (ms, by): " + "; ".join(
         f"{n} {b[0]:.4f} {b[1]}" for n, b in (
-            ("K1", k1_bound), ("K2", k2_bound), ("K3 (3 stacks)", k3_bound),
+            ("K1 and K6", k1_bound), ("K2", k2_bound), ("K3 (3 stacks)", k3_bound),
             ("K4", k4_bound), ("epilogue", ep_bound))))
 
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -668,16 +793,20 @@ def main():
         raise RuntimeError(f"chip_smoke imported the JAX side: {loaded[:5]}")
 
     # ---- 7. result lines (library_ms: no single PyTorch call computes
-    # any of these kernels' functions)
-    def row(name, source, replaces, err, ms, plain_ms, b):
+    # any of these kernels' functions).  launches: each kernel's count in
+    # the bench frame's run (K6: in the two-phase bench frame's run)
+    def row(name, source, replaces, err, ms, plain_ms, b, n=None):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches[name], max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                    launches=launches[name] if n is None else n, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
                     library_ms=None)
 
     print(json.dumps({"kernels": [
         row("raster_shade", "datum_tpu_torch/csrc/raster_shade.cu",
             "datum_tpu/ops/raster_pallas.py:343", k1_err, t_k1, t_k1p, k1_bound),
+        row("raster_shade_2p", "datum_tpu_torch/csrc/raster_shade_2p.cu",
+            "datum_tpu/ops/raster_pallas.py:454", k6_err, t_k6, t_k6p, k1_bound,
+            n=launches6["raster_shade_2p"]),
         row("shade_deferred", "datum_tpu_torch/csrc/shade.cu",
             "datum_tpu/ops/shade_pallas.py:161", k2_err, t_k2, t_k2p, k2_bound),
         # the three stacks of one frame together

@@ -1,9 +1,10 @@
-// K2 epilogue: refraction, the nearest lit translucent layer and the
-// WBOIT resolve.
+// K2 epilogue: refraction, the nearest lit translucent layer, the
+// volumetric fog and the WBOIT resolve.
 //
 // Replaces the epilogue of the Pallas kernel datum_tpu/ops/shade_pallas.py
-// `_shade_kernel` (its tr / tr_ox, tr_oy / oit_* groups, shade_pallas.py
-// :414-469), which runs there in the same pass as the lighting.  Here the
+// `_shade_kernel` (its tr / tr_ox, tr_oy / fog_* / oit_* groups,
+// shade_pallas.py:414-469), which runs there in the same pass as the
+// lighting.  Here the
 // K2 kernel (csrc/shade.cu) first writes the lit background: lighting,
 // sky fill, and the deeper lit layers tr2..tr4.  This kernel then, per
 // pixel:
@@ -16,16 +17,21 @@
 //    wrap(y + sy), whose x step is picked from tr_ox at (x, y2).  Only
 //    where tr_a > 0; elsewhere the unshifted colour stays;
 //  * the nearest lit layer: col = bg * (1 - tr_a) + tr * tr_a;
+//  * the fog (with the fog_r, fog_g, fog_b, fog_t planes): col * fog_t +
+//    fog_rgb, as one fma(col, fog_t, fog_rgb), the form XLA's contraction
+//    gives the TPU kernel's expression;
 //  * the WBOIT resolve: col * rev + oit * (1 / max(w, 1e-5)) * (1 - rev),
-//    as one fma(oit * inv_w, 1 - rev, col * rev), the form XLA's
-//    contraction gives the TPU kernel's expression.
+//    as one fma, in the form XLA's contraction gives the TPU kernel's
+//    expression: fma(oit * inv_w, 1 - rev, col * rev) when the call
+//    refracts (the refraction group is given), else fma(col, rev, oit *
+//    inv_w * (1 - rev)).
 // Nearest-step ties keep the earlier (more negative) step, as the TPU
 // kernel's strict `<` does.  pltpu.roll(p, (-s) % n) is jnp.roll: it
 // reads p[i + s], which is what the index arithmetic below does.
 //
 // What bounds it on the H100.  Per pixel it reads 3 f32 background
-// values (one of them at the refracted position), up to 11 bf16 planes,
-// and writes 3 f32 values: ~46 B/pixel, ~96 MB a 1920x1088 frame, ~29 us
+// values (one of them at the refracted position), up to 15 bf16 planes,
+// and writes 3 f32 values: ~54 B/pixel, ~113 MB a 1920x1088 frame, ~34 us
 // at 3.35 TB/s.  A few dozen operations per pixel: memory-bound.
 //
 // What the design does about it.  One thread per pixel over a 2-D grid
@@ -33,8 +39,8 @@
 // refracted reads land within +-8 columns and +-4 rows (the same band)
 // of the warp's own and are served from L1/L2.  No shared memory: a
 // 16 x 1920 band of three f32 planes (368 KB) would not fit in a block.
-// Built with -fmad=false like K2, with the one fma written out, so it
-// rounds as the plain version does.
+// Built with -fmad=false like K2, with the fog's and the resolve's fmas
+// written out, so it rounds as the plain version does.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -66,6 +72,7 @@ __global__ void __launch_bounds__(BX * BY)
 shade_epilogue_kernel(const float* __restrict__ bg,               // (3, H, W)
                       const __nv_bfloat16* __restrict__ tr,       // (4, H, W) or null
                       const __nv_bfloat16* __restrict__ refr,     // (2, H, W) or null
+                      const __nv_bfloat16* __restrict__ fog,      // (4, H, W) or null
                       const __nv_bfloat16* __restrict__ oit,      // (5, H, W) or null
                       int H, int W, float* __restrict__ out)      // (3, H, W)
 {
@@ -93,29 +100,38 @@ shade_epilogue_kernel(const float* __restrict__ bg,               // (3, H, W)
         for (int c = 0; c < 3; ++c)
             col[c] = b[c] * (1.0f - a) + bf(tr, c * plane + o) * a;
     }
+    if (fog != nullptr) {
+        const float fog_t = bf(fog, 3 * plane + o);
+        for (int c = 0; c < 3; ++c)
+            col[c] = __fmaf_rn(col[c], fog_t, bf(fog, c * plane + o));
+    }
     if (oit != nullptr) {
         const float rev = bf(oit, 4 * plane + o);
         const float inv_w = 1.0f / fmaxf(bf(oit, 3 * plane + o), 1e-5f);
         const float oit_alpha = 1.0f - rev;
+        const bool refracted = tr != nullptr && refr != nullptr;   // per call, not per pixel
         for (int c = 0; c < 3; ++c)
-            col[c] = __fmaf_rn(bf(oit, c * plane + o) * inv_w, oit_alpha, col[c] * rev);
+            col[c] = refracted
+                ? __fmaf_rn(bf(oit, c * plane + o) * inv_w, oit_alpha, col[c] * rev)
+                : __fmaf_rn(col[c], rev, bf(oit, c * plane + o) * inv_w * oit_alpha);
     }
     for (int c = 0; c < 3; ++c) out[c * plane + o] = col[c];
 }
 
 }  // namespace
 
-// bg (3, H, W) f32 (K2's output); tr (4, H, W), refr (2, H, W) and oit
-// (5, H, W) bf16, each or null (refr is read only with tr); H a multiple
-// of 16; out (3, H, W) f32, not aliasing bg (refraction reads neighbours).
+// bg (3, H, W) f32 (K2's output); tr (4, H, W), refr (2, H, W), fog
+// (4, H, W) and oit (5, H, W) bf16, each or null (refr is read only with
+// tr); H a multiple of 16; out (3, H, W) f32, not aliasing bg (refraction
+// reads neighbours).
 extern "C" int shade_epilogue_launch(const float* bg, const void* tr, const void* refr,
-                                     const void* oit, int H, int W, float* out,
-                                     void* stream)
+                                     const void* fog, const void* oit, int H, int W,
+                                     float* out, void* stream)
 {
     const dim3 block(BX, BY);
     const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY);
     shade_epilogue_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         bg, (const __nv_bfloat16*)tr, (const __nv_bfloat16*)refr,
-        (const __nv_bfloat16*)oit, H, W, out);
+        (const __nv_bfloat16*)fog, (const __nv_bfloat16*)oit, H, W, out);
     return (int)cudaGetLastError();
 }

@@ -25,8 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("raster_shade.cu", "shade.cu", "raster_depth.cu", "raster_blend.cu",
-           "shade_epilogue.cu")
+SOURCES = ("raster_shade.cu", "raster_shade_2p.cu", "shade.cu", "raster_depth.cu",
+           "raster_blend.cu", "shade_epilogue.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -43,6 +43,11 @@ class KernelLibrary:
         self.lib.raster_shade_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, f,
                                                  i, i, p, p]
         self.lib.raster_shade_launch.restype = i
+        self.lib.raster_shade_2p_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, f,
+                                                    i, i, p, p]
+        self.lib.raster_shade_2p_launch.restype = i
+        self.lib.raster_shade_2p_smem_bytes.argtypes = [i, i]
+        self.lib.raster_shade_2p_smem_bytes.restype = i
         self.lib.shade_smem_bytes.argtypes = [i, i, i]
         self.lib.shade_smem_bytes.restype = i
         self.lib.shade_launch.argtypes = [p, p, i, i, p, p, i, p, p, i, p, i, p,
@@ -54,7 +59,7 @@ class KernelLibrary:
         self.lib.raster_blend_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                                  f, f, i, p, p]
         self.lib.raster_blend_launch.restype = i
-        self.lib.shade_epilogue_launch.argtypes = [p, p, p, p, i, i, p, p]
+        self.lib.shade_epilogue_launch.argtypes = [p, p, p, p, p, i, i, p, p]
         self.lib.shade_epilogue_launch.restype = i
 
 

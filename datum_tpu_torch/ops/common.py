@@ -8,6 +8,7 @@ the flags its slice does not implement at the top of `render_frame`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -146,9 +147,44 @@ def ndc_grid(height: int, width: int, device=None, dtype=torch.float32):
 def fma(a, b, c):
     """a*b + c rounded once to f32, as a fused multiply-add (the plain
     versions' form of the fmas the kernels write with __fmaf_rn and XLA
-    contracts on the CPU): the f32 product is exact in f64, so the sum
-    there rounds once."""
-    return (a.double() * b.double() + c.double()).float()
+    contracts on the CPU).  The f32 product is exact in f64, but the f64
+    sum rounds too: where it lands exactly halfway between two f32 values
+    while the exact sum does not (an addend below half an f64 ulp, e.g. a
+    ~1e-22 plane coefficient beside a product that is an f32 tie), a
+    second rounding to f32 would break the tie to even.  Those rare sums
+    are moved one f64 ulp toward the exact value (its TwoSum error) before
+    they round, so that every result in the normal f32 range is the single
+    rounding of the exact a*b + c."""
+    s = a.double() * b.double() + c.double()
+    f = s.float()
+    # halfway between two f32 values: the 29 mantissa bits f32 drops
+    # are 1 followed by zeros
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if not bool(tie.any()):
+        return f
+    idx = tie.nonzero(as_tuple=True)
+    a, b, c = (t[idx].double() for t in torch.broadcast_tensors(a, b, c))
+    p = a * b
+    st = p + c
+    bb = st - p
+    err = (p - (st - bb)) + (c - bb)             # st + err == p + c exactly
+    inf = torch.full_like(st, float("inf"))
+    st = torch.where(err != 0, torch.nextafter(st, torch.where(err > 0, inf, -inf)), st)
+    f[idx] = st.float()
+    return f
+
+
+@functools.lru_cache(maxsize=32)
+def shifted_taps(offsets, h: int, w: int, device):
+    """For static (dy, dx) pixel offsets (a tuple of pairs): ((S, 2)
+    int64 offsets, (S, h, w) bool mask of the pixels whose shifted tap
+    lies inside the h x w image).  Built once per shape and device (the
+    eager passes would rebuild them every frame); callers only read
+    them."""
+    o = torch.tensor(offsets, dtype=torch.int64, device=device)
+    yi = torch.arange(h, device=device)[None, :, None] + o[:, 0, None, None]
+    xi = torch.arange(w, device=device)[None, None, :] + o[:, 1, None, None]
+    return o, (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
 
 
 def texel_index(x, n: int):

@@ -1,7 +1,8 @@
 """Tonemap + color grade + final composite (counterpart of
 datum_tpu/ops/composite.py).  Plain element-wise torch: the numerics
-follow the reference post chain (uncharted2 filmic with 2x pre-exposure
-and white point 11.2, polynomial-fitted 3D-LUT grade, sRGB encode)."""
+follow the reference post chain (SSR add, DoF mix, bloom add, uncharted2
+filmic with 2x pre-exposure and white point 11.2, the 3D-LUT grade —
+exact trilinear or its polynomial fit — and the sRGB encode)."""
 
 from __future__ import annotations
 
@@ -28,6 +29,30 @@ _WHITE = _filmic_white()
 def tonemap(color):
     """Default tonemap (reference: camera.inc tonemap)."""
     return filmic_uncharted2(2.0 * color) * (1.0 / _WHITE)
+
+
+def color_grade(lut, color):
+    """Exact 3D-LUT grade with trilinear sampling.  lut (S, S, S, 3)
+    indexed [b, g, r]; color (..., 3) in [0, 1]."""
+    s = lut.shape[0]
+    c = torch.clamp(color, 0.0, 1.0) * (s - 1)
+    c0 = torch.floor(c).to(torch.int64)
+    c1 = torch.clamp(c0 + 1, max=s - 1)
+    f = c - c0
+    r0, g0, b0 = c0.unbind(-1)
+    r1, g1, b1 = c1.unbind(-1)
+    fr, fg, fb = f[..., 0:1], f[..., 1:2], f[..., 2:3]
+
+    def L(b, g, r):
+        return lut[b, g, r]
+
+    c00 = L(b0, g0, r0) * (1 - fr) + L(b0, g0, r1) * fr
+    c01 = L(b0, g1, r0) * (1 - fr) + L(b0, g1, r1) * fr
+    c10 = L(b1, g0, r0) * (1 - fr) + L(b1, g0, r1) * fr
+    c11 = L(b1, g1, r0) * (1 - fr) + L(b1, g1, r1) * fr
+    c0_ = c00 * (1 - fg) + c01 * fg
+    c1_ = c10 * (1 - fg) + c11 * fg
+    return c0_ * (1 - fb) + c1_ * fb
 
 
 def _poly_terms(degree):
@@ -79,19 +104,31 @@ def color_grade_poly(coeffs, color):
     return torch.clamp(torch.stack(out, -1), 0.0, 1.0)
 
 
-def composite(hdr, exposure, *, lut_poly=None, glow=None):
-    """HDR color + the pre-combined quarter-res glow (bloom), tonemap,
-    optional polynomial grade -> sRGB display RGB in [0, 1].
+def composite(hdr, exposure, *, bloom=None, bloom_strength=0.0, ssr=None,
+              dof_blur=None, dof_amount=None, lut=None, lut_poly=None,
+              glow=None):
+    """Combine HDR color and the effects, tonemap, grade -> sRGB display
+    RGB in [0, 1], in the reference composite pass's order: SSR add
+    (ssr (H, W, 4): rgb * a), DoF mix, bloom add, exposure, tonemap, LUT
+    grade (the polynomial when given, else the exact trilinear lut).
 
-    The slice's combine order of the reference composite pass with SSR
-    and DoF off, where bloom rides `glow` (the JAX composite's other
-    inputs belong to the post slice)."""
+    glow: the pre-combined additive term (SSR * weight + bloom summed at
+    quarter resolution, one shared upsample), valid only with DoF off,
+    where the two adds commute."""
     color = hdr
     if glow is not None:
         color = color + glow
+    if ssr is not None:
+        color = color + ssr[..., :3] * ssr[..., 3:4]
+    if dof_blur is not None and dof_amount is not None:
+        color = color + (dof_blur - color) * dof_amount[..., None]
+    if bloom is not None:
+        color = color + bloom * bloom_strength
     color = tonemap(color * exposure)
     if lut_poly is not None:
         color = color_grade_poly(lut_poly, color)
+    elif lut is not None:
+        color = color_grade(lut, color)
     return srgb_encode(color)
 
 

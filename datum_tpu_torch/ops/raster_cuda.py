@@ -1,15 +1,21 @@
-"""K1: fused visibility raster + attribute interpolation on the card.
+"""K1 and K6: the fused visibility raster + attribute interpolation on
+the card, in one phase (K1) or two (K6).
 
 Counterpart of datum_tpu/ops/raster_pallas.py (`raster_shade_pallas`
 with planes_2d=True and the extended tangent/material-map planes,
-alpha_in_alb and peel_depth, without early-z; its Pallas body
-`_raster_shade_kernel` becomes csrc/raster_shade.cu).
+alpha_in_alb and peel_depth, without early-z; its Pallas bodies
+`_raster_shade_kernel` and, with two_phase=True,
+`_raster_shade_kernel_2p` become csrc/raster_shade.cu and
+csrc/raster_shade_2p.cu).
 
 `raster_shade` builds the per-triangle 64-float attribute rows (the row
 build of `pack_tile_setup_attrs`), then runs the CUDA kernel for CUDA
-tensors (`raster_shade_cuda`) or the plain PyTorch version for CPU
-tensors (`raster_shade_reference`).  The plain version is the contract
-the kernel is held to; nothing on the GPU main path calls it.
+tensors (`raster_shade_cuda`, `raster_shade_2p_cuda`) or the plain
+PyTorch version for CPU tensors (`raster_shade_reference`,
+`raster_shade_2p_reference`).  The plain versions are the contract the
+kernels are held to; nothing on the GPU main path calls them.  K6 gives
+K1's planes bit for bit: its second phase evaluates, from the winning
+slot's row, the same arithmetic K1's epilogue does.
 
 Both walk every tile's entries in order — the big list, then the bin —
 keeping per pixel the depth and the id of the last entry that passed
@@ -146,29 +152,96 @@ def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height,
 
     has = win >= 0
     r = rows[torch.clamp(win, min=0).long()]                 # (n, 32, 128, 64)
+    planes = _winner_planes(r, depth, has, win.to(torch.float32), xn, yn)
+    tiles_y = n_tiles // tiles_x
+    return torch.stack([_untile(p, tiles_x, tiles_y) for p in planes])
 
+
+def _winner_planes(r, depth, has, visf, xn, yn):
+    """The 22 planes from each pixel's winning row r (..., 64): the
+    numerator planes divided by the winner's s, one divide a pixel (K1's
+    epilogue and K6's second phase)."""
     def lin(o):
         return _plane(r[..., o], r[..., o + 1], r[..., o + 2], xn, yn)
 
     s = lin(0) + lin(3) + lin(6)
     rcp = 1.0 / torch.where(s == 0.0, torch.ones_like(s), s)
     zero = torch.zeros_like(depth)
-    planes = [depth, torch.where(has, win.to(torch.float32), zero - 1.0)]
+    planes = [depth, torch.where(has, visf, zero - 1.0)]
     for j in range(2, N_PLANES):
         slot = _PLANE_SLOTS[j]
         v = lin(slot[0]) * rcp if isinstance(slot, tuple) else r[..., slot]
         planes.append(torch.where(has, v, zero))
+    return planes
+
+
+def raster_shade_2p_reference(rows, bins, counts, big_ids, tiles_x, width,
+                              height, peel=None):
+    """Plain PyTorch K6, in its two phases: the walk carries (depth, the
+    winning slot — the entry's index in walk order); each tile flags the
+    slots that won a pixel and compacts them (a prefix sum), stages the
+    won rows, and every pixel evaluates its planes from its slot's staged
+    row.  The same contract and planes as raster_shade_reference."""
+    dev = rows.device
+    n_tiles = bins.shape[0]
+    ids = _entry_ids(bins, big_ids)
+    E = ids.shape[1]
+    tile = torch.arange(n_tiles, device=dev)
+    ty = (tile // tiles_x).to(torch.float32)[:, None, None]
+    tx = (tile % tiles_x).to(torch.float32)[:, None, None]
+    yy = torch.arange(TILE_H, device=dev, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(TILE_W, device=dev, dtype=torch.float32)[None, None, :]
+    yn = (ty * TILE_H + yy + 0.5) * _ndc_scale(height) - 1.0
+    xn = (tx * TILE_W + xx + 0.5) * _ndc_scale(width) - 1.0
+
+    # ---- phase 1: depth + winning slot
+    depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
+    slot = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int64, device=dev)
+    peel_t = None if peel is None else tile_image(peel, tiles_x, n_tiles // tiles_x)
+    for k in range(E):
+        idk = ids[:, k]
+        r = (rows[torch.clamp(idk, min=0).long(), :13]
+             * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
+        e0 = _plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
+        e1 = _plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
+        e2 = _plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
+        s = e0 + e1 + e2
+        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0) & (r[:, 12] > 0)
+        d = _plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
+        passed = inside & (d > depth) & (d <= 1.0)
+        if peel_t is not None:
+            passed = passed & (d < peel_t)
+        depth = torch.where(passed, d, depth)
+        slot = torch.where(passed, torch.full_like(slot, k), slot)
+
+    # ---- between the phases: flag the won slots and compact them
+    has = slot >= 0
+    flat = slot.reshape(n_tiles, -1)
+    won = torch.zeros((n_tiles, E + 1), dtype=torch.int64, device=dev)
+    won.scatter_(1, torch.where(flat >= 0, flat, E), 1)      # column E: no winner
+    won = won[:, :E]
+    pos = torch.cumsum(won, 1) - 1                           # compacted index
+    n_won = int(won.sum(1).max()) if n_tiles else 0
+    staged = torch.zeros((n_tiles, max(n_won, 1), ROW), dtype=rows.dtype, device=dev)
+    t_idx, e_idx = torch.nonzero(won, as_tuple=True)
+    staged[t_idx, pos[t_idx, e_idx]] = rows[ids[t_idx, e_idx].long()]
+
+    # ---- phase 2: each pixel's planes from its slot's staged row
+    k = torch.gather(pos, 1, torch.clamp(flat, min=0)).reshape(slot.shape)
+    r = staged[tile[:, None, None], torch.clamp(k, min=0)]   # (n, 32, 128, 64)
+    visf = torch.gather(ids, 1, torch.clamp(flat, min=0)).reshape(slot.shape)
+    planes = _winner_planes(r, depth, has, visf.to(torch.float32), xn, yn)
     tiles_y = n_tiles // tiles_x
     return torch.stack([_untile(p, tiles_x, tiles_y) for p in planes])
 
 
-def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
-                      peel=None):
-    """K1 on the card: the same contract as raster_shade_reference."""
+def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height,
+                   peel, extra_checks=()):
+    """Check the K1/K6 arguments, allocate the planes and launch fn."""
     dev = rows.device
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
-        raise ValueError(f"raster_shade_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{what}_cuda needs CUDA tensors, got {dev}")
     if n_tiles % tiles_x:
         raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
     out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W
@@ -178,22 +251,52 @@ def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
               ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))]
     if peel is not None:
         checks.append(("peel", peel, torch.float32, (out_h, out_w)))
-    _kernels.check_tensors("raster_shade_cuda", dev, checks)
+    _kernels.check_tensors(f"{what}_cuda", dev, checks)
     out = torch.empty((N_PLANES, out_h, out_w), dtype=torch.float32, device=dev)
-    lib = _kernels.library().lib
     vp = ctypes.c_void_p
-    code = lib.raster_shade_launch(
+    code = fn(
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
         vp(big_ids.data_ptr()), vp(None if peel is None else peel.data_ptr()),
         big_ids.shape[0], cap, tiles_x, n_tiles,
         _ndc_scale(width), _ndc_scale(height), out_h, out_w,
         vp(out.data_ptr()), vp(_kernels.stream_ptr(dev)))
-    _kernels.check(code, "raster_shade")
+    _kernels.check(code, what)
+    return out
+
+
+def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
+                      peel=None):
+    """K1 on the card: the same contract as raster_shade_reference."""
+    out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_launch(*a),
+                         "raster_shade", rows, bins, counts, big_ids, tiles_x,
+                         width, height, peel)
     raster_shade_cuda.launches += 1
     return out
 
 
 raster_shade_cuda.launches = 0
+
+# K6's shared memory above its ~20 KB of static staging: 8 bytes per entry
+# of n_big + bin_capacity (csrc/raster_shade_2p.cu), within the 227 KB a
+# block may opt in to
+MAX_2P_DYN_SMEM = 200 * 1024
+
+
+def raster_shade_2p_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
+                         peel=None):
+    """K6 on the card: the same contract as raster_shade_2p_reference."""
+    n_entries = big_ids.shape[0] + bins.shape[1]
+    if 8 * n_entries > MAX_2P_DYN_SMEM:
+        raise ValueError(f"raster_shade_2p_cuda: {n_entries} entries a tile need "
+                         f"{8 * n_entries} B of shared memory (> {MAX_2P_DYN_SMEM})")
+    out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_2p_launch(*a),
+                         "raster_shade_2p", rows, bins, counts, big_ids, tiles_x,
+                         width, height, peel)
+    raster_shade_2p_cuda.launches += 1
+    return out
+
+
+raster_shade_2p_cuda.launches = 0
 
 
 def raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
@@ -211,20 +314,24 @@ def raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
 
 def raster_shade(setup, bins, big_ids, counts, tris, uv, normal, tri_material,
                  materials, tiles_x, tiles_y, width, height, *, tangent,
-                 alpha_in_alb=False, peel_depth=None):
+                 alpha_in_alb=False, peel_depth=None, two_phase=False):
     """Fused raster + attribute/material interpolation.
 
     Returns a dict of the 22 (tiles_y*32, tiles_x*128) f32 planes named
     as raster_shade_pallas(planes_2d=True) with tangent/matmaps names
     them.  alpha_in_alb puts the material alpha in the "alb" plane;
     peel_depth (tiles_y*32, tiles_x*128) keeps only fragments strictly
-    farther than it.  CUDA tensors run the K1 kernel (it raises if it
-    cannot launch); CPU tensors run the plain PyTorch version."""
+    farther than it.  two_phase runs K6 instead of K1 (the same planes).
+    CUDA tensors run the kernel (it raises if it cannot launch); CPU
+    tensors run its plain PyTorch version."""
     if bins.shape[0] != tiles_x * tiles_y:
         raise ValueError(f"bins has {bins.shape[0]} rows for "
                          f"{tiles_x}x{tiles_y} tiles")
     inp = raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
                         tri_material, materials, tiles_x, width, height, tangent,
                         alpha_in_alb, peel_depth)
-    fn = raster_shade_cuda if inp["rows"].is_cuda else raster_shade_reference
+    if inp["rows"].is_cuda:
+        fn = raster_shade_2p_cuda if two_phase else raster_shade_cuda
+    else:
+        fn = raster_shade_2p_reference if two_phase else raster_shade_reference
     return dict(zip(PLANE_NAMES, fn(**inp).unbind(0)))

@@ -79,13 +79,13 @@ def sample_cubemap(cube, d):
 
 
 def quad_pack(img):
-    """(H, W, C) -> (H*W, 4C) rows [t(y,x), t(y,x+1), t(y+1,x), t(y+1,x+1)]
-    with edge clamp."""
-    h, w, c = img.shape
-    xr = torch.cat([img[:, 1:], img[:, -1:]], dim=1)
-    yd = torch.cat([img[1:], img[-1:]], dim=0)
-    xyd = torch.cat([yd[:, 1:], yd[:, -1:]], dim=1)
-    return torch.cat([img, xr, yd, xyd], dim=-1).reshape(h * w, 4 * c)
+    """(..., H, W, C) -> (..., H*W, 4C) rows [t(y,x), t(y,x+1), t(y+1,x),
+    t(y+1,x+1)] with edge clamp (within each image of a leading batch)."""
+    h, w, c = img.shape[-3:]
+    xr = torch.cat([img[..., 1:, :], img[..., -1:, :]], dim=-2)
+    yd = torch.cat([img[..., 1:, :, :], img[..., -1:, :, :]], dim=-3)
+    xyd = torch.cat([yd[..., 1:, :], yd[..., -1:, :]], dim=-2)
+    return torch.cat([img, xr, yd, xyd], dim=-1).reshape(*img.shape[:-3], h * w, 4 * c)
 
 
 def flatten_cube_mips_pair(cube_mips):

@@ -14,13 +14,13 @@ plain PyTorch versions for CPU tensors (`shade_deferred_reference`,
 Supported: PLANE_NAMES, the sky fill (SKY_NAMES), ao, shadowed spot
 slots (spotsf), SH probes, dense point lights, the lit translucent
 layers (TR_NAMES and the deeper tr2..tr4), the refraction offsets
-(REFR_NAMES), the WBOIT resolve (OIT_NAMES) and planes_out.  K2 shades
-and blends the deeper layers; what reads neighbouring pixels (the
-refraction of the nearest layer), that layer's blend and the WBOIT
-resolve run in the epilogue kernel, which launches only when one of
-those groups is given.  Fog, the box env-probe override and clustered
-lights raise NotImplementedError naming the ROADMAP slice that brings
-them.
+(REFR_NAMES), the volumetric fog (FOG_NAMES), the WBOIT resolve
+(OIT_NAMES) and planes_out.  K2 shades and blends the deeper layers;
+what reads neighbouring pixels (the refraction of the nearest layer),
+that layer's blend, the fog and the WBOIT resolve run in the epilogue
+kernel, which launches only when one of those groups is given.  The box
+env-probe override and clustered lights raise NotImplementedError naming
+the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ def trk_names(k):
 
 
 REFR_NAMES = ["tr_ox", "tr_oy"]                 # refraction offsets (px)
+FOG_NAMES = ["fog_r", "fog_g", "fog_b", "fog_t"]     # in-scatter, transmittance
 OIT_NAMES = ["oit_r", "oit_g", "oit_b", "oit_w", "oit_rev"]
 SHADE_ROWS = 16     # the TPU kernel's row band: vertical refraction wraps in it
 
@@ -56,8 +57,6 @@ SHADE_ROWS = 16     # the TPU kernel's row band: vertical refraction wraps in it
 _LATER = (
     (("edr", "edg", "edb", "edm"),
      "box env-probe diffuse override: ROADMAP Queue 1, IBL/skybox environment slice"),
-    (("fog_r", "fog_g", "fog_b", "fog_t"),
-     "volumetric fog planes: ROADMAP Queue 1, post slice"),
 )
 
 INV_PI = 0.3183098861837907
@@ -133,16 +132,22 @@ def _bf16(x):
 
 
 def epilogue_inputs(gplanes):
-    """The epilogue's arguments (tr, refr, oit: (4|2|5, H, W) bf16 stacks
-    or None), rounded to bf16 as the TPU path rounds them; None when
-    gplanes carries none of the three groups (the epilogue then does not
-    run).  refr is used only with tr, as in the TPU kernel."""
-    groups = [_bf16(torch.stack([gplanes[k] for k in grp]))
-              if grp[0] in gplanes else None
-              for grp in (TR_NAMES, REFR_NAMES, OIT_NAMES)]
+    """The epilogue's arguments (tr, refr, fog, oit: (4|2|4|5, H, W) bf16
+    stacks or None), rounded to bf16 as the TPU path rounds them; None
+    when gplanes carries none of the groups (the epilogue then does not
+    run).  refr is used only with tr, as in the TPU kernel.  A group is
+    given whole or not at all."""
+    groups = []
+    for grp in (TR_NAMES, REFR_NAMES, FOG_NAMES, OIT_NAMES):
+        given = [k in gplanes for k in grp]
+        if any(given) and not all(given):
+            raise ValueError(f"shade_deferred: the planes {grp} come as a group, "
+                             f"got {[k for k in grp if k in gplanes]}")
+        groups.append(_bf16(torch.stack([gplanes[k] for k in grp]))
+                      if all(given) else None)
     if groups[0] is None:
         groups[1] = None
-    return None if groups == [None] * 3 else dict(zip(("tr", "refr", "oit"),
+    return None if groups == [None] * 4 else dict(zip(("tr", "refr", "fog", "oit"),
                                                       groups))
 
 
@@ -388,10 +393,10 @@ def _shift(planes, off, axis, steps):
     return out
 
 
-def shade_epilogue_reference(bg, tr=None, refr=None, oit=None):
+def shade_epilogue_reference(bg, tr=None, refr=None, fog=None, oit=None):
     """Plain PyTorch epilogue: (3, H, W) f32 from K2's lit background bg
     (3, H, W): refraction x then y (band-local), the nearest lit layer's
-    blend and the WBOIT resolve, as the TPU kernel's epilogue."""
+    blend, the fog and the WBOIT resolve, as the TPU kernel's epilogue."""
     col = bg
     if tr is not None:
         t = tr.to(torch.float32)
@@ -403,12 +408,21 @@ def shade_epilogue_reference(bg, tr=None, refr=None, oit=None):
             b = _shift(b, r[1], 1, (-4, -2, 0, 2, 4))
             b = torch.where(a > 0.0, b, col)
         col = b * (1.0 - a) + t[:3] * a
+    if fog is not None:
+        f = fog.to(torch.float32)
+        # one fma, as XLA contracts the TPU kernel's col * fog_t + fog_rgb
+        col = fma(col, f[3], f[:3])
     if oit is not None:
         q = oit.to(torch.float32)
         inv_w = 1.0 / torch.clamp(q[3], min=1e-5)
         oit_alpha = 1.0 - q[4]
-        # one fma, as XLA contracts the TPU kernel's resolve
-        col = fma(q[:3] * inv_w, oit_alpha, col * q[4])
+        # one fma, as XLA contracts the TPU kernel's resolve col * rev +
+        # oit * inv_w * (1 - rev): after the refraction's selects it
+        # fuses the second product, otherwise the first
+        if tr is not None and refr is not None:
+            col = fma(q[:3] * inv_w, oit_alpha, col * q[4])
+        else:
+            col = fma(col, q[4], q[:3] * inv_w * oit_alpha)
     return col
 
 
@@ -458,7 +472,7 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
 shade_deferred_cuda.launches = 0
 
 
-def shade_epilogue_cuda(bg, tr=None, refr=None, oit=None):
+def shade_epilogue_cuda(bg, tr=None, refr=None, fog=None, oit=None):
     """The K2 epilogue on the card: the same contract as
     shade_epilogue_reference."""
     dev = bg.device
@@ -469,7 +483,8 @@ def shade_epilogue_cuda(bg, tr=None, refr=None, oit=None):
         raise ValueError(f"shade_epilogue_cuda: height {H} is not a multiple "
                          f"of {SHADE_ROWS}")
     checks = [("bg", bg, torch.float32, (3, H, W))]
-    for name, t, n in (("tr", tr, 4), ("refr", refr, 2), ("oit", oit, 5)):
+    for name, t, n in (("tr", tr, 4), ("refr", refr, 2), ("fog", fog, 4),
+                       ("oit", oit, 5)):
         if t is not None:
             checks.append((name, t, torch.bfloat16, (n, H, W)))
     _kernels.check_tensors("shade_epilogue_cuda", dev, checks)
@@ -477,7 +492,7 @@ def shade_epilogue_cuda(bg, tr=None, refr=None, oit=None):
     vp = ctypes.c_void_p
     ptr = lambda t: vp(None if t is None else t.data_ptr())
     code = _kernels.library().lib.shade_epilogue_launch(
-        ptr(bg), ptr(tr), ptr(refr), ptr(oit), H, W, ptr(out),
+        ptr(bg), ptr(tr), ptr(refr), ptr(fog), ptr(oit), H, W, ptr(out),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "shade_epilogue")
     shade_epilogue_cuda.launches += 1
@@ -492,12 +507,13 @@ def shade_deferred(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
     """Deferred shade of one layer.
 
     gplanes: dict of (H, W) f32 planes PLANE_NAMES [+ SKY_NAMES, TR_NAMES,
-    trk_names(2..4), REFR_NAMES, OIT_NAMES]; ao: optional (H, W) ambient
-    multiplier; spotsf: optional (n_maps, H, W) spot factors; sceneset
-    carries "_sh" (9, 3).  Returns hdr (H, W, 3), or its three (H, W)
-    planes with planes_out.  CUDA tensors run the K2 kernel and, with a
-    tr/refr/oit group, the epilogue kernel (each raises if it cannot
-    launch); CPU tensors run the plain PyTorch versions."""
+    trk_names(2..4), REFR_NAMES, FOG_NAMES, OIT_NAMES]; ao: optional
+    (H, W) ambient multiplier; spotsf: optional (n_maps, H, W) spot
+    factors; sceneset carries "_sh" (9, 3).  Returns hdr (H, W, 3), or
+    its three (H, W) planes with planes_out.  CUDA tensors run the K2
+    kernel and, with a tr/refr/fog/oit group, the epilogue kernel (each
+    raises if it cannot launch); CPU tensors run the plain PyTorch
+    versions."""
     inp = shade_inputs(gplanes, sceneset, proj=proj, invview=invview, ao=ao,
                        spotsf=spotsf, clusters=clusters)
     epi = epilogue_inputs(gplanes)

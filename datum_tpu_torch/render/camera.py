@@ -1,6 +1,7 @@
 """Host camera (counterpart of datum_tpu/render/camera.py, trimmed to
-what the port calls): Y-flipped reverse-Z projection, the look-at view
-and the frame vectors the particle billboards face."""
+what the port calls): Y-flipped reverse-Z projection, the look-at view,
+the frame vectors the particle billboards face and the depth-of-field
+focus."""
 
 from __future__ import annotations
 
@@ -23,6 +24,11 @@ class Camera:
 
     def set_projection(self, fov, aspect, znear=0.1, zfar=1000.0):
         self.fov, self.aspect, self.znear, self.zfar = fov, aspect, znear, zfar
+
+    def set_depth_of_field(self, focalwidth, focaldistance):
+        """The DoF blur ramps to full over focalwidth around focaldistance
+        (view distances)."""
+        self.focalwidth, self.focaldistance = focalwidth, focaldistance
 
     def right(self):
         return quat_rotate(self.rotation, np.array([1.0, 0, 0], np.float32))

@@ -23,7 +23,7 @@ TEX_SIZE = 256
 MAX_MATERIALS = 256
 MAX_TEXTURES = 64
 # a grading LUT grades through its fitted polynomial when the fit's max
-# error is within this (~2/255)
+# error is within this (~2/255), else through the exact trilinear tap
 LUT_POLY_TOL = 0.008
 
 # the port's tracked env-BRDF LUT: a byte-for-byte copy of the JAX
@@ -135,11 +135,14 @@ class GeometryPool:
 
 
 class RenderContext:
-    """Owns the pools; `device_state(device)` uploads them."""
+    """Owns the pools; `device_state(device)` uploads them, and `render`
+    draws one frame on the context's device (the card unless the caller
+    names another)."""
 
-    def __init__(self, config: FrameConfig | None = None):
+    def __init__(self, config: FrameConfig | None = None, device="cuda"):
         max_materials, max_textures = MAX_MATERIALS, MAX_TEXTURES
         self.config = config or FrameConfig()
+        self.device = torch.device(device)
         cfg = self.config
         self.pool = GeometryPool(cfg.max_vertices, cfg.max_triangles)
 
@@ -164,14 +167,18 @@ class RenderContext:
         self.default_material = self.add_material(color=(0.75, 0.75, 0.75, 1.0),
                                                   metalness=0.0, roughness=1.0,
                                                   reflectivity=0.5)
+        self.colorlut = None
         self.colorlut_poly = None
         self.skybox = None
+        self._ao_prev = None
+        self._state = None         # render()'s device state, until a pool changes
         self._ibl = None
         self._envbrdf = None
 
     def set_skybox(self, skybox):
         """Attach an EnvMap/SkyBox as the global environment; its
         mip-pair table and SH-9 are baked here, once."""
+        self._state = None
         from ..ops.ibl import sh_project
         from ..ops.sampling import flatten_cube_mips_pair
 
@@ -200,23 +207,26 @@ class RenderContext:
             self._envbrdf = np.load(_ENVBRDF_LUT)
         return self._envbrdf
 
-    def set_colorlut(self, lut):
-        """3D grading LUT (S, S, S, 3) in [0,1], graded through its fitted
-        degree-4 polynomial (the fit must be within LUT_POLY_TOL)."""
+    def set_colorlut(self, lut, poly_tol=LUT_POLY_TOL):
+        """3D grading LUT (S, S, S, 3) in [0, 1].  The frame grades through
+        its fitted degree-4 polynomial when the fit's max error is within
+        poly_tol, else through the exact trilinear tap (poly_tol=0 forces
+        the exact tap)."""
+        self._state = None
         from ..ops.composite import fit_lut_poly
 
-        coeffs, err = fit_lut_poly(np.asarray(lut, np.float32))
-        if err > LUT_POLY_TOL:
-            raise NotImplementedError(
-                "the exact trilinear LUT tap is not ported yet (the LUT's "
-                "polynomial fit is off by more than LUT_POLY_TOL): ROADMAP "
-                "Queue 1, post slice")
-        self.colorlut_poly = coeffs
+        self.colorlut = np.asarray(lut, np.float32)
+        self.colorlut_poly = None
+        if poly_tol > 0:
+            coeffs, err = fit_lut_poly(self.colorlut)
+            if err <= poly_tol:
+                self.colorlut_poly = coeffs
 
     def add_material(self, color=(1, 1, 1, 1), metalness=0.0, roughness=1.0,
                      reflectivity=0.5, emissive=0.0, albedomap=TEX_WHITE,
                      surfacemap=TEX_UNIT_SURFACE, normalmap=TEX_FLAT_NORMAL,
                      absorb=0.0) -> int:
+        self._state = None
         i = self.n_materials
         self.mat_absorb[i] = absorb
         self.mat_color[i] = color
@@ -232,6 +242,7 @@ class RenderContext:
 
     def add_texture(self, image: np.ndarray) -> int:
         """Add an RGBA uint8 image (any size; resampled to TEX_SIZE)."""
+        self._state = None
         img = _to_rgba_u8(image)
         i = self.n_textures
         self.tex_native[i] = img
@@ -240,6 +251,7 @@ class RenderContext:
         return i
 
     def add_mesh(self, vertices, indices) -> MeshHandle:
+        self._state = None
         return self.pool.add_mesh(vertices, indices)
 
     def host_state(self):
@@ -261,6 +273,8 @@ class RenderContext:
             state["ibl"] = self._ibl
         if self.colorlut_poly is not None:
             state["colorlut_poly"] = self.colorlut_poly
+        elif self.colorlut is not None:
+            state["colorlut"] = self.colorlut
         return state
 
     def device_state(self, device):
@@ -324,3 +338,39 @@ class RenderContext:
         if cfg.max_decals_active > 0:
             draws["decals"] = renderlist.decal_arrays(cfg.max_decals_active)
         return self.expand_host(draws)
+
+    def render(self, camera, renderlist, params, sceneset=None):
+        """Render one frame on self.device; returns a numpy uint8 (height,
+        width, 3) image (the JAX package's RenderContext.render, trimmed
+        to what the port renders: fog planes, sprites and dynamic vertices
+        raise in render_frame's check_config).  With ssao_temporal, the frame's AO
+        feeds the next frame's temporal reprojection; the history resets
+        when the resolution changes.  Sets self.luminance and
+        self.bin_overflow."""
+        from . import frame as frame_mod
+        from .types import make_sceneset
+
+        cfg = self.config
+        if float(getattr(params, "scale", 1.0) or 1.0) != 1.0:
+            raise NotImplementedError("RenderContext.render: params.scale != 1 "
+                                      "(the scaled-fbo blit) is not ported yet — "
+                                      "ROADMAP Queue 1: post")
+        if sceneset is None:
+            sceneset = make_sceneset(camera, params,
+                                     point_lights=renderlist.point_lights,
+                                     spot_lights=renderlist.spot_lights)
+        draws = self.frame_draws(renderlist, camera)
+        prev = None
+        if cfg.ssao_temporal and cfg.enable_ssao and self._ao_prev is not None:
+            prev = {k: v for k, v in self._ao_prev.items() if k != "_cfg"}
+            if self._ao_prev["_cfg"] != (cfg.width, cfg.height):
+                prev = None                # resolution changed mid-run
+        if self._state is None:
+            self._state = self.device_state(self.device)
+        out = frame_mod.render_frame(cfg, self._state, draws,
+                                     sceneset, device=self.device, prev=prev)
+        if cfg.ssao_temporal and "ao_prev" in out:
+            self._ao_prev = dict(out["ao_prev"], _cfg=(cfg.width, cfg.height))
+        self.luminance = float(out["luminance"])
+        self.bin_overflow = int(out["bin_overflow"])
+        return out["image"].cpu().numpy()

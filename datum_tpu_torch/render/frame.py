@@ -1,19 +1,22 @@
 """The frame (counterpart of datum_tpu/render/frame.py, the megakernel
-branch of `_frame` with SSAO, fog and SSR off).
+branch of `_frame`).
 
 Passes, in order: host draw expansion (numpy) -> attribute gather and
 rigid transform -> sun cascades (K3, ops/raster_depth_cuda.py) and
 their ESM, parabolic spot maps (K3) and their ESM -> triangle setup and
-binning into 32x128 tiles -> K1 fused visibility raster
-(ops/raster_cuda.py) -> plane assembly at half resolution with the
-skybox environment, one batched upsample, the quarter-res sun factor,
-then the decals (ops/decal.py), the spot factors and sky planes -> the
-lit translucent layers (K1 with alpha_in_alb and peel, plane assembly
-and K2 on a 1/translucent_lit_scale viewport, upsampled) -> one merged
-weighted-blend OIT stream of the residual translucents and the particle
-billboards (K4, ops/raster_blend_cuda.py) -> K2 deferred-shade
-megakernel and its translucent/OIT epilogue (ops/shade_cuda.py) ->
-luminance, quarter-res bloom, composite, u8.
+binning into 32x128 tiles -> K1 fused visibility raster, or K6 with
+raster_two_phase (ops/raster_cuda.py) -> plane assembly at half
+resolution with the skybox environment, one batched upsample, the
+quarter-res sun factor, then the decals (ops/decal.py), SSAO
+(ops/ssao.py, with its temporal history), the spot factors, sky planes
+and the froxel fog planes (ops/fog.py) -> the lit translucent layers (K1
+or K6 with alpha_in_alb and peel, plane assembly and K2 on a
+1/translucent_lit_scale viewport, upsampled) -> one merged weighted-blend
+OIT stream of the residual translucents and the particle billboards (K4,
+ops/raster_blend_cuda.py) -> K2 deferred-shade megakernel and its
+translucent/fog/OIT epilogue (ops/shade_cuda.py) -> luminance, binned SSR
+at quarter resolution (ops/ssr2.py), bloom, depth of field, composite
+with the colour grade, u8.
 
 PyTorch runs eagerly, so there is no jit: each pass is a plain function
 on tensors, and the frame is one call of `render_frame`.
@@ -26,10 +29,11 @@ import torch
 
 from ..convert import to_torch
 from ..ops import brdf
+from ..ops import fog as fog_ops
 from ..ops import raster as raster_ops
 from ..ops import shadow as shadow_ops
-from ..ops.blur import (downsample_pool, resize_matmul, resize_up_dense,
-                        resize_up_dense_batch)
+from ..ops.blur import (downsample2, downsample_pool, gaussian_blur, resize_matmul,
+                        resize_up_dense, resize_up_dense_batch)
 from ..ops.bloom import bloom as bloom_op
 from ..ops.common import TILE_H, TILE_W, FrameConfig, round_up, texel_index
 from ..ops.composite import composite, to_u8_image
@@ -42,6 +46,8 @@ from ..ops.raster_cuda import raster_shade
 from ..ops.sampling import sample_cubemap_lod_pair
 from ..ops.shade import sample_matmaps
 from ..ops.shade_cuda import MAX_TR_LAYERS, shade_deferred
+from ..ops.ssao import hbao, make_hbao_params
+from ..ops.ssr2 import ssr_binned
 from .renderlist import RenderList
 
 # (rejected when true, what it is and the ROADMAP Queue 1 item that ports it)
@@ -52,12 +58,11 @@ _LATER = (
     (lambda c: c.max_spot_shadows > 0 and c.spot_shadow_mode != "parabolic",
      "perspective spot maps (spot_shadow_mode='perspective')",
      "shadows (perspective spot maps)"),
-    (lambda c: c.enable_ssao, "SSAO", "post"),
-    (lambda c: c.enable_fog, "volumetric fog", "post"),
-    (lambda c: c.max_fog_planes > 0, "fog planes", "post"),
-    (lambda c: c.enable_ssr, "SSR", "post"),
-    (lambda c: c.enable_depth_of_field, "depth of field", "post"),
-    (lambda c: c.max_overlay_sprites > 0, "the device sprite pass", "post"),
+    (lambda c: c.max_fog_planes > 0, "fog planes", "post (fog planes)"),
+    (lambda c: c.enable_ssr and c.ssr_mode != "binned",
+     "the DDA SSR (ssr_mode='dda', ops/ssr.py)", "post (DDA SSR)"),
+    (lambda c: c.max_overlay_sprites > 0, "the device sprite pass",
+     "post (sprites)"),
     (lambda c: c.enable_skinning, "skinning", "off-main-path device code"),
     (lambda c: c.enable_foliage, "foliage wind bend", "off-main-path device code"),
     (lambda c: c.enable_terrain_morph, "terrain geomorph",
@@ -68,8 +73,6 @@ _LATER = (
      "clustered lights (ops/cluster.py + the K2 cluster loop)"),
     (lambda c: c.raster_early_z, "the K1 early-z exit (raster_early_z)",
      "the K1 options in Queue 2"),
-    (lambda c: c.raster_two_phase, "the two-phase raster (raster_two_phase, K6)",
-     "the K6 row of Queue 2"),
     (lambda c: c.raster_kernel != "v2", "raster_kernel='mxu' (K7)",
      "the K7 row of Queue 2"),
     (lambda c: not (c.use_pallas and c.use_shade_kernel
@@ -187,12 +190,13 @@ def _bin_stage(cfg: FrameConfig, ex, clip):
 
 def _raster_stage(cfg: FrameConfig, state, draws, ex, uv, clip, wnormal,
                   wtangent):
-    """Binning and the K1 raster.  Returns (planes dict, bin_overflow)."""
+    """Binning and the K1 raster (K6 with raster_two_phase).  Returns
+    (planes dict, bin_overflow)."""
     setup, bins, counts, big_ids, bin_overflow = _bin_stage(cfg, ex, clip)
     planes = raster_shade(
         setup, bins, big_ids, counts, ex["tris"], uv, wnormal, draws["tri_mat"],
         state["materials"], cfg.tiles_x, cfg.tiles_y, cfg.padded_width,
-        cfg.padded_height, tangent=wtangent)
+        cfg.padded_height, tangent=wtangent, two_phase=cfg.raster_two_phase)
     return planes, bin_overflow
 
 
@@ -400,15 +404,56 @@ def _decals(cfg: FrameConfig, gpl, mask, depth, state, draws, sceneset):
         textures=state["textures"] if cfg.decal_textures else None)
 
 
-def _shade_inputs(cfg: FrameConfig, planes, state, draws, sceneset, shadows):
-    """(gplanes, sceneset with "_sh", spotsf or None) for K2 of the opaque
-    layer, decals blended in.  shadows: _shadow_stage's dict."""
+def _ssao(cfg: FrameConfig, planes, sceneset, prev):
+    """HBAO at ssao_scale of the frame on the raster's depth and normals
+    (one stacked 4-channel subsample), with the temporal pass when prev
+    (the previous frame's ao_prev) is given.  Returns (the full-res
+    ambient factor for K2 or None, the (h, w, 2) AO state or None)."""
+    if not (cfg.enable_ssao and cfg.ssao_scale > 0):
+        return None, None
+    w, h = cfg.padded_width, cfg.padded_height
+    dec = max(int(round(1.0 / cfg.ssao_scale)), 1)
+    sub4 = downsample_pool(torch.stack([planes["depth"], planes["nx"], planes["ny"],
+                                        planes["nz"]], -1), dec, reduce="first")
+    nn = brdf.normalize(sub4[..., 1:4]) * 0.5 + 0.5
+    ao = hbao(sub4[..., 0], nn, sceneset["proj"], sceneset["view"],
+              params=make_hbao_params(),
+              prev_ao=None if prev is None else prev["ao"],
+              prevview=None if prev is None else prev["view"],
+              invview=sceneset["invview"])
+    strength = sceneset["camera"]["ssaostrength"]
+    return 1.0 + (resize_up_dense(ao[..., 0], h, w) - 1.0) * strength, ao
+
+
+def _fog(cfg: FrameConfig, depth, sceneset, shadows, gpl):
+    """The froxel fog volume (shadowed by the sun ESM when there is one)
+    and its four full-res planes, into gpl's fog_r/g/b/t."""
+    if not cfg.enable_fog:
+        return
+    proj = sceneset["proj"]
+    fogvol = fog_ops.build_fog_volume(sceneset, proj=proj,
+                                      invview=sceneset["invview"],
+                                      shadow=shadows["sun"],
+                                      depth_range=cfg.fog_depth_range)
+    gpl["fog_r"], gpl["fog_g"], gpl["fog_b"], gpl["fog_t"] = fog_ops.fog_planes(
+        depth, fogvol, proj, depth_range=cfg.fog_depth_range,
+        sample_scale=cfg.fog_sample_scale)
+
+
+def _shade_inputs(cfg: FrameConfig, planes, state, draws, sceneset, shadows,
+                  prev=None):
+    """(gplanes, sceneset with "_sh", spotsf or None, ao or None, AO state
+    or None) for K2 of the opaque layer: decals blended in, SSAO, the sky
+    and the fog planes.  shadows: _shadow_stage's dict; prev: the
+    previous frame's ao_prev or None."""
     w, h = cfg.padded_width, cfg.padded_height
     gpl, mask = _assemble_gplanes(cfg, planes, state, sceneset, shadows, w, h)
     gpl = _decals(cfg, gpl, mask, planes["depth"], state, draws, sceneset)
+    ao, ao_state = _ssao(cfg, planes, sceneset, prev)
     ss2, spotsf = _sky_sh_spots(cfg, gpl, planes, state, sceneset,
                                 shadows["spot"])
-    return gpl, ss2, spotsf
+    _fog(cfg, planes["depth"], sceneset, shadows, gpl)
+    return gpl, ss2, spotsf, ao, ao_state
 
 
 def lit_viewport(cfg: FrameConfig):
@@ -472,7 +517,8 @@ def _lit_layers(cfg: FrameConfig, state, ts, sceneset, ss2, shadows, depth, gpl)
         planes_t = raster_shade(
             tsetup, tbins, tbig, tcounts, d["tris"], ts["uv"], ts["wn"],
             d["tri_mat"], state["materials"], tx, ty, w_t, h_t,
-            tangent=ts["wt"], alpha_in_alb=True, peel_depth=peel)
+            tangent=ts["wt"], alpha_in_alb=True, peel_depth=peel,
+            two_phase=cfg.raster_two_phase)
         peel = planes_t["depth"]          # the next layer peels against it
         # only fragments nearer than the opaque surface
         planes_t = dict(planes_t, visf=torch.where(
@@ -614,49 +660,103 @@ def _translucent_stage(cfg: FrameConfig, state, draws, sceneset, ss2, shadows,
         _oit_planes(cfg, state, draws, sceneset, ts, lit_peel, depth, gpl)
 
 
-def _post(cfg: FrameConfig, state, sceneset, hdr):
-    """Log-average luminance, quarter-res bloom and the graded composite:
-    (u8 image (height, width, 3), luminance)."""
+def _ssr(cfg: FrameConfig, state, sceneset, hdr, depth, gpl):
+    """Binned SSR at quarter resolution on the final hdr, fed by the
+    minimal gbuffer of the opaque layer's K2 planes (decals in): (hq, wq,
+    4) with ssrstrength on rgb only (the composite adds rgb * a), or
+    None."""
+    if not cfg.enable_ssr:
+        return None
+    q = 4
+    nenc = torch.stack([gpl["nx"], gpl["ny"], gpl["nz"]], -1) * 0.5 + 0.5
+    spec = torch.stack([gpl["sr"], gpl["sg"], gpl["sb"]], -1)
+    mask = (gpl["visf"] >= 0.0).to(torch.float32)
+    ibl = state.get("ibl")
+    ssr_q = ssr_binned(
+        downsample_pool(hdr, q), downsample_pool(depth, q, reduce="first"),
+        downsample_pool(nenc, q, reduce="first"), downsample_pool(spec, q),
+        downsample_pool(gpl["rgh"], q, reduce="first"),
+        downsample_pool(mask, q) > 0.5, sceneset["proj"], sceneset["view"],
+        envbrdf_lut=None if ibl is None else ibl["envbrdf"])
+    return torch.cat([ssr_q[..., :3] * sceneset["camera"]["ssrstrength"],
+                      ssr_q[..., 3:]], -1)
+
+
+def dof_fields(hdr, depth, proj, camera):
+    """Depth of field: (the half-res gaussian blur of hdr upsampled to
+    full res, the per-pixel blur amount from the view distance's offset
+    to camera["focaldistance"] over camera["focalwidth"])."""
+    h, w = depth.shape
+    blurred = resize_up_dense(gaussian_blur(downsample2(hdr), 3.0), h, w)
+    dist = proj[2, 3] / (depth + proj[2, 2])
+    amount = torch.clamp(torch.abs(dist - camera["focaldistance"])
+                         / torch.clamp(camera["focalwidth"], min=1e-3), 0.0, 1.0)
+    return blurred, amount
+
+
+def _post(cfg: FrameConfig, state, sceneset, hdr, depth, gpl):
+    """Log-average luminance, SSR, bloom, depth of field and the graded
+    composite: (u8 image (height, width, 3), luminance).  With DoF off the
+    quarter-res bloom and SSR add into one term (`glow`) that is upsampled
+    once; with DoF on the DoF mix falls between the SSR and the bloom
+    adds, so each is upsampled on its own."""
     w, h = cfg.padded_width, cfg.padded_height
+    cam = sceneset["camera"]
     lum_w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=torch.float32,
                          device=hdr.device)
     lum = torch.exp(torch.mean(torch.log(
         1e-4 + hdr[:cfg.height, :cfg.width] @ lum_w)))
 
-    # bloom at quarter res, ONE full-res upsample (`glow`)
-    glow = None
+    ssr_q = _ssr(cfg, state, sceneset, hdr, depth, gpl)
+    ssr_img = bloom_img = glow = dof_blur = dof_amount = None
+    if ssr_q is not None and cfg.enable_depth_of_field:
+        ssr_img, ssr_q = resize_up_dense(ssr_q, h, w), None
     if cfg.enable_bloom:
-        bloom_q = bloom_op(hdr, sceneset["camera"]["bloomstrength"],
-                           upsample=False)
-        glow = resize_up_dense(bloom_q, h, w)
+        if cfg.enable_depth_of_field:
+            bloom_img = bloom_op(hdr, cam["bloomstrength"])
+        else:
+            bloom_q = bloom_op(hdr, cam["bloomstrength"], upsample=False)
+            if ssr_q is not None:
+                bloom_q = bloom_q + ssr_q[..., :3] * ssr_q[..., 3:4]
+                ssr_q = None
+            glow = resize_up_dense(bloom_q, h, w)
+    if ssr_q is not None:                 # SSR alone (bloom off, DoF off)
+        glow = resize_up_dense(ssr_q[..., :3] * ssr_q[..., 3:4], h, w)
+    if cfg.enable_depth_of_field:
+        dof_blur, dof_amount = dof_fields(hdr, depth, sceneset["proj"], cam)
 
-    lut_poly = state.get("colorlut_poly") if cfg.enable_color_grading else None
-    if cfg.enable_color_grading and lut_poly is None and "colorlut" in state:
-        raise NotImplementedError("the exact trilinear LUT grade is not "
-                                  "ported yet — ROADMAP Queue 1: post")
-    rgb = composite(hdr, 1.0, lut_poly=lut_poly, glow=glow)
+    grading = cfg.enable_color_grading
+    rgb = composite(hdr, 1.0, bloom=bloom_img, bloom_strength=1.0, ssr=ssr_img,
+                    dof_blur=dof_blur, dof_amount=dof_amount,
+                    lut=state.get("colorlut") if grading else None,
+                    lut_poly=state.get("colorlut_poly") if grading else None,
+                    glow=glow)
     return to_u8_image(rgb[:cfg.height, :cfg.width]), lum
 
 
-def _frame(cfg: FrameConfig, state, draws, sceneset):
+def _frame(cfg: FrameConfig, state, draws, sceneset, prev=None):
     ex, uv, clip, wnormal, wtangent, worldp = _vertex_stage(cfg, state, draws,
                                                             sceneset)
     shadows = _shadow_stage(cfg, ex, worldp, sceneset)
     planes, bin_overflow = _raster_stage(cfg, state, draws, ex, uv, clip,
                                          wnormal, wtangent)
-    gpl, ss2, spotsf = _shade_inputs(cfg, planes, state, draws, sceneset,
-                                     shadows)
+    gpl, ss2, spotsf, ao, ao_state = _shade_inputs(cfg, planes, state, draws,
+                                                   sceneset, shadows, prev)
     _translucent_stage(cfg, state, draws, sceneset, ss2, shadows,
                        planes["depth"], gpl)
     hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
-                         invview=sceneset["invview"], spotsf=spotsf)
-    image, lum = _post(cfg, state, sceneset, hdr)
+                         invview=sceneset["invview"], ao=ao, spotsf=spotsf)
+    image, lum = _post(cfg, state, sceneset, hdr, planes["depth"], gpl)
     vis = torch.round(planes["visf"]).to(torch.int32)
-    return dict(image=image, luminance=lum, depth=planes["depth"], vis=vis,
-                bin_overflow=bin_overflow)
+    out = dict(image=image, luminance=lum, depth=planes["depth"], vis=vis,
+               bin_overflow=bin_overflow)
+    if ao_state is not None:
+        # the temporal AO history: the next frame's `prev`
+        out["ao_prev"] = dict(ao=ao_state, view=sceneset["view"])
+    return out
 
 
-def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device):
+def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None):
     """Render one frame on `device`.
 
     state: RenderContext.device_state(device) (or any tree of the same
@@ -665,12 +765,15 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device):
     config's capacities, "forward", "translucent" and "decals", after
     the host expansion); sceneset: render.types.make_sceneset.  draws
     and sceneset may be numpy trees; they are moved onto `device` here.
+    prev: the previous frame's out["ao_prev"] (SSAO's temporal
+    reprojection), or None.
 
     Returns dict(image (height, width, 3) u8, luminance () f32, depth
-    and vis (padded H, W), bin_overflow () i32 of the main bins), all on
-    `device`.  On a CUDA device the rasters (K1, K3, K4) and the shade
-    (K2 and its epilogue) run the hand-written kernels (they raise if
-    they cannot launch; nothing falls back).
+    and vis (padded H, W), bin_overflow () i32 of the main bins, and with
+    SSAO ao_prev: dict(ao (h, w, 2), view)), all on `device`.  On a CUDA
+    device the rasters (K1 or K6, K3, K4) and the shade (K2 and its
+    epilogue) run the hand-written kernels (they raise if they cannot
+    launch; nothing falls back).
 
     Contract on the card: f32 matmuls run in full f32.  The caller sets
     torch.backends.cuda.matmul.allow_tf32 = False and
@@ -678,7 +781,7 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device):
     on a CUDA device this raises, since the plane upsamples are matmuls
     and the reference is exact f32.
 
-    Flags the slice does not implement raise NotImplementedError naming
+    Flags the port does not implement raise NotImplementedError naming
     their ROADMAP item (check_config)."""
     check_config(cfg)
     device = torch.device(device)
@@ -688,4 +791,6 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device):
     state = to_torch(state, device)
     draws = to_torch(draws, device)
     sceneset = to_torch(sceneset, device)
-    return _frame(cfg, state, draws, sceneset)
+    if prev is not None:
+        prev = to_torch(prev, device)
+    return _frame(cfg, state, draws, sceneset, prev)

@@ -37,13 +37,15 @@ class _ParticleCloud:
 
 
 def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
-                    n_point_lights=8, skybox=True, skybox_size=64, **cfg_kw):
+                    n_point_lights=8, skybox=True, skybox_size=64, device="cuda",
+                    **cfg_kw):
     """Build the flagship scene; returns (ctx, camera, params,
     make_renderlist).  Materials, textures, meshes and the random light
     placement are the JAX package's, in the same order, so both packages
-    build equal state for the same arguments."""
+    build equal state for the same arguments.  device: where ctx.render
+    draws (render_frame takes its own)."""
     cfg = FrameConfig(width=width, height=height, **cfg_kw)
-    ctx = RenderContext(cfg)
+    ctx = RenderContext(cfg, device=device)
 
     if skybox:
         from .render.skybox import SkyBox

@@ -6,10 +6,12 @@ one.  On the machine with the card (no jax there, so no conftest):
 
 Tolerances are chip_smoke.py's: K1 visf identical on >= 99.9% of
 pixels, depth atol 1e-6, interpolated planes atol/rtol 1e-4,
-per-triangle planes exact; K2 atol 1e-4 / rtol 1e-3 (CUDA's and
+per-triangle planes exact; K6 bit-identical to its plain version and
+to K1 on every plane and pixel; K2 atol 1e-4 / rtol 1e-3 (CUDA's and
 torch's sqrt and division differ by ulps); K3 bit-identical on >=
-99.99% of texels, max abs error 1e-6; K4 and the K2 epilogue
-bit-identical on >= 99.99% of values, atol/rtol 1e-5 on the rest."""
+99.99% of texels, max abs error 1e-6; K4 and the K2 epilogue (with its
+fog group) bit-identical on >= 99.99% of values, atol/rtol 1e-5 on the
+rest."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ import torch
 
 from datum_tpu_torch.convert import to_torch
 from datum_tpu_torch.ops.raster_cuda import (PLANE_NAMES, raster_inputs,
+                                             raster_shade_2p_cuda,
+                                             raster_shade_2p_reference,
                                              raster_shade_cuda,
                                              raster_shade_reference)
 from datum_tpu_torch.ops import shadow as shadow_ops
@@ -53,6 +57,11 @@ TRANSLUCENT = dict(SHADOWED, max_translucent_draws=2, max_translucent_tris=2048,
                    translucent_lit_scale=2, max_particle_quads=512,
                    max_decals_active=2, decal_textures=False,
                    forward_bin_capacity=512, forward_big_capacity=32)
+# the bench frame: the translucent frame (one lit layer) with SSAO, fog
+# (at a density: the scene's is 0) and SSR
+BENCH = dict(TRANSLUCENT, translucent_lit_layers=1, enable_ssao=True,
+             enable_fog=True, enable_ssr=True, fog_sample_scale=8)
+FOG_DENSITY = (0.6, 0.65, 0.7, 0.04)
 
 
 @pytest.fixture
@@ -103,8 +112,8 @@ def test_k1_kernel_matches_plain(card):
 def test_k2_kernel_matches_plain(card):
     cfg, state, d, s, inp = _k1_inputs(card)
     planes = dict(zip(PLANE_NAMES, raster_shade_cuda(**inp)))
-    gpl, ss2, _ = frame_mod._shade_inputs(cfg, planes, state, d, s,
-                                          dict(sun=None, spot=None))
+    gpl, ss2, *_ = frame_mod._shade_inputs(cfg, planes, state, d, s,
+                                           dict(sun=None, spot=None))
     g = torch.Generator(device="cpu").manual_seed(3)
     h, w = gpl["depth"].shape
     gpl["sky_r"], gpl["sky_g"], gpl["sky_b"] = (
@@ -135,6 +144,33 @@ def test_frame_on_card_matches_cpu_plain(card):
     assert np.abs(a - b).mean() <= 0.5
     assert np.sqrt(((a - b) ** 2).mean()) <= 2.0
     assert int(gpu["bin_overflow"]) == int(cpu["bin_overflow"]) == 0
+
+
+def test_k6_kernel_matches_plain_and_k1(card):
+    """K6 on the opaque layer: every plane bit-identical to its plain
+    version and to K1."""
+    *_, inp = _k1_inputs(card)
+    before = raster_shade_2p_cuda.launches
+    k6 = raster_shade_2p_cuda(**inp)
+    torch.cuda.synchronize()
+    assert raster_shade_2p_cuda.launches == before + 1
+    assert (k6[1] >= 0).float().mean().item() > 0.2
+    assert torch.equal(k6, raster_shade_2p_reference(**inp))
+    assert torch.equal(k6, raster_shade_cuda(**inp))
+
+
+def test_k6_wrapper_refuses_bad_input(card):
+    *_, inp = _k1_inputs(card)
+    before = raster_shade_2p_cuda.launches
+    for bad in (dict(inp, bins=inp["bins"].to(torch.int64)),
+                dict(inp, rows=inp["rows"][:, :60].contiguous()),
+                dict(inp, bins=inp["bins"].t()),
+                dict(inp, peel=torch.zeros((8, 8), device=card)),
+                {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                 for k, v in inp.items()}):
+        with pytest.raises(ValueError):
+            raster_shade_2p_cuda(**bad)
+    assert raster_shade_2p_cuda.launches == before
 
 
 def test_cuda_wrappers_raise_on_bad_input(card):
@@ -225,7 +261,8 @@ def _assert_same(k, r, what):
 
 
 def test_k1_lit_layer_with_peel_matches_plain(card):
-    """K1 on the lit layer: alpha_in_alb, then peeled behind layer 1."""
+    """K1 on the lit layer: alpha_in_alb, then peeled behind layer 1; K6
+    bit-identical to its plain version and to K1 on both layers."""
     cfg, state, d, s, ts = _translucent(card)
     setup, tx, ty, w_t, h_t = frame_mod.lit_setup(cfg, ts)
     bins, counts, big = raster_ops.bin_triangles(
@@ -244,6 +281,9 @@ def test_k1_lit_layer_with_peel_matches_plain(card):
         assert same.float().mean().item() >= 0.999, layer
         assert torch.equal(k["depth"][same], r["depth"][same]), layer
         assert torch.equal(k["alb"][same], r["alb"][same]), layer
+        k6 = raster_shade_2p_cuda(**inp)
+        assert torch.equal(k6, raster_shade_2p_reference(**inp)), layer
+        assert torch.equal(k6, torch.stack([k[n] for n in PLANE_NAMES])), layer
         peel = r["depth"]
 
 
@@ -281,19 +321,24 @@ def _epilogue_inputs(card, h=64, w=256):
     tr = torch.cat([rnd(3, h, w) * 2, (rnd(1, h, w) * 0.8 + 0.1) * cover])
     refr = torch.stack([(rnd(h, w) * 18 - 9) * cover, (rnd(h, w) * 8 - 4) * cover])
     oit = torch.cat([rnd(3, h, w) * 3, rnd(1, h, w) * 2, rnd(1, h, w) * 0.8 + 0.2])
+    fog = torch.cat([rnd(3, h, w) * 0.4, rnd(1, h, w) * 0.7 + 0.3])
     bf = lambda x: x.to(torch.bfloat16).to(card).contiguous()
     return dict(bg=(rnd(3, h, w) * 4).to(card), tr=bf(tr), refr=bf(refr),
-                oit=bf(oit))
+                fog=bf(fog), oit=bf(oit))
 
 
 def test_epilogue_kernel_matches_plain(card):
+    """Every group combination the frames give, the fog group among them
+    (with and without refraction: the resolve's two fma forms)."""
     inp = _epilogue_inputs(card)
     before = shade_epilogue_cuda.launches
-    for drop in ((), ("refr",), ("tr", "refr"), ("oit",)):
+    drops = ((), ("refr",), ("tr", "refr"), ("oit",), ("fog",), ("refr", "fog"),
+             ("tr", "refr", "oit"), ("tr", "refr", "fog"))
+    for drop in drops:
         kw = {k: (None if k in drop else v) for k, v in inp.items()}
         _assert_same(shade_epilogue_cuda(**kw), shade_epilogue_reference(**kw),
                      drop)
-    assert shade_epilogue_cuda.launches == before + 4
+    assert shade_epilogue_cuda.launches == before + len(drops)
 
 
 def test_k4_and_epilogue_wrappers_refuse_cpu_tensors_and_bad_shapes(card):
@@ -315,7 +360,7 @@ def test_k4_and_epilogue_wrappers_refuse_cpu_tensors_and_bad_shapes(card):
             raster_blend_cuda(**bad)
     e = _epilogue_inputs(card)
     for bad in (dict(e, tr=e["tr"].float()), dict(e, oit=e["oit"][:4]),
-                dict(e, bg=e["bg"][:, :48]),
+                dict(e, bg=e["bg"][:, :48]), dict(e, fog=e["fog"][:3]),
                 {k: v.cpu() for k, v in e.items()}):
         with pytest.raises(ValueError):
             shade_epilogue_cuda(**bad)
@@ -338,3 +383,34 @@ def test_translucent_frame_on_card_matches_cpu_plain(card):
     assert np.abs(a - b).mean() <= 0.5
     assert np.sqrt(((a - b) ** 2).mean()) <= 2.0
     assert int(gpu["bin_overflow"]) == int(cpu["bin_overflow"]) == 0
+
+
+@pytest.mark.parametrize("two_phase", [False, True], ids=["K1", "K6"])
+def test_bench_frame_on_card_matches_cpu_plain(card, two_phase):
+    """The bench frame (SSAO, fog at a density, SSR) on the card against
+    the plain path on the CPU, with K1 and with K6: the kernels launch as
+    the frame needs them (K1 or K6 on the opaque and the lit layer)."""
+    ctx, camera, params, make_rl = datumtest_scene(**dict(BENCH,
+                                                          raster_two_phase=two_phase))
+    params.fogdensity = np.float32(FOG_DENSITY)
+    rl = make_rl(0.4)
+    ss = make_sceneset(camera, params, point_lights=rl.point_lights,
+                       spot_lights=rl.spot_lights)
+    draws = ctx.frame_draws(rl, camera)
+    kernels = (raster_shade_cuda, raster_shade_2p_cuda, shade_deferred_cuda,
+               raster_depth_cuda, raster_blend_cuda, shade_epilogue_cuda)
+    before = [k.launches for k in kernels]
+    gpu = frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
+                                 device=card)
+    raster = [0, 2] if two_phase else [2, 0]
+    assert [k.launches - b for k, b in zip(kernels, before)] == raster + [2, 3, 1, 1]
+    cpu = frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
+                                 device="cpu")
+    a = gpu["image"].cpu().float().numpy()
+    b = cpu["image"].float().numpy()
+    assert b.mean() > 10
+    assert np.abs(a - b).mean() <= 0.5
+    assert np.sqrt(((a - b) ** 2).mean()) <= 2.0
+    assert int(gpu["bin_overflow"]) == int(cpu["bin_overflow"]) == 0
+    torch.testing.assert_close(gpu["ao_prev"]["ao"].cpu(), cpu["ao_prev"]["ao"],
+                               atol=1e-3, rtol=0)

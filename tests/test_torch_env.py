@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_frame import one_torch_thread  # noqa: F401 (autouse)
+
 from datum_tpu.ops import ibl as jibl
 from datum_tpu.ops import sampling as jsamp
 from datum_tpu.ops import skybox_gen as jsky

@@ -5,7 +5,8 @@ to numpy — goes through both `datum_tpu.render.frame.render_frame`
 (Pallas kernels in interpret mode) and the port's `render_frame`
 (convert.to_torch, plain PyTorch versions of the kernels on the CPU),
 for the opaque slice, the shadowed, sky-lit frame and the translucent
-frame (1 and 2 lit layers).  Tolerances:
+frame (1 and 2 lit layers); tests/test_torch_bench_frame.py holds the
+bench frame with the same check.  Tolerances:
 u8 image mean |d| <= 0.5 levels and RMSE <= 2/255, luminance within rel
 1e-4, bin_overflow equal, vis equal on >= 99.9% of pixels.
 """
@@ -62,10 +63,27 @@ TRANSLUCENT = dict(SLICE, max_translucent_draws=2, max_translucent_tris=2048,
                    forward_bin_capacity=256, forward_big_capacity=16)
 
 
-def _check_against_jax(scene_kw):
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread while a test runs (the port's other test
+    modules import this fixture): the port's plain versions issue thousands
+    of small ops, and with several test workers each op's thread team
+    waits on descheduled threads (the bench tests took ~10x longer with
+    two workers than alone; ~2x with one thread).  Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _check_against_jax(scene_kw, fog_density=None):
     ctx, camera, params, make_rl = jax_datumtest_scene(pallas_interpret=True,
                                                        **scene_kw)
     cfg = ctx.config
+    if fog_density is not None:
+        params.fogdensity = fog_density
+    if cfg.enable_depth_of_field:
+        camera.set_depth_of_field(4.0, 14.0)       # focus on the sphere wall
     rl = make_rl(0.3)
     ss = jax_make_sceneset(camera, params, point_lights=rl.point_lights,
                            spot_lights=rl.spot_lights)
@@ -312,6 +330,7 @@ def test_port_sources_avoid(pattern):
 
 def test_kernel_sources_note_what_they_replace():
     for name, pallas in (("raster_shade.cu", "_raster_shade_kernel"),
+                         ("raster_shade_2p.cu", "_raster_shade_kernel_2p"),
                          ("shade.cu", "_shade_kernel"),
                          ("raster_depth.cu", "_depth_kernel"),
                          ("raster_blend.cu", "_blend_kernel"),

@@ -188,8 +188,7 @@ _BASE = dict(use_pallas=True, texture_filter="mip_half", enable_shadows=False)
 
 def test_translucent_config_is_accepted():
     """The translucent frame's capacities (lit glass/water layers,
-    particles, decals) pass check_config; post on top of it still
-    raises (test_unsupported_flags_raise)."""
+    particles, decals) pass check_config."""
     for layers in (1, 2):
         check_config(FrameConfig(**dict(
             _BASE, max_translucent_draws=2, max_translucent_tris=2048,
@@ -198,23 +197,49 @@ def test_translucent_config_is_accepted():
             max_decals_active=2, decal_textures=False)))
 
 
+_IDS = lambda d: "-".join(f"{k}={v}" for k, v in d.items())
+
+
 @pytest.mark.parametrize("override", [
     dict(enable_shadows=True, shadow_mode="pcf"),
     dict(max_spot_shadows=1, spot_shadow_mode="perspective"),
-    dict(max_translucent_draws=2, enable_ssao=True),
-    dict(max_particle_quads=512, enable_fog=True),
-    dict(max_decals_active=2, enable_ssr=True), dict(enable_ssao=True),
-    dict(enable_fog=True),
-    dict(max_fog_planes=1), dict(enable_ssr=True),
-    dict(enable_depth_of_field=True), dict(max_overlay_sprites=4),
+    dict(max_fog_planes=1), dict(enable_ssr=True, ssr_mode="dda"),
+    dict(max_overlay_sprites=4),
     dict(enable_skinning=True), dict(enable_foliage=True),
     dict(enable_terrain_morph=True), dict(max_dynamic_vertices=64),
     dict(use_light_clusters=True), dict(raster_early_z=True),
-    dict(raster_two_phase=True), dict(raster_kernel="mxu"),
+    dict(raster_kernel="mxu"),
     dict(use_pallas=False), dict(texture_filter="nearest"),
     dict(use_shade_kernel=False), dict(enable_material_maps=False),
-], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
+], ids=_IDS)
 def test_unsupported_flags_raise(override):
     cfg = FrameConfig(**dict(_BASE, **override))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         check_config(cfg)
+
+
+@pytest.mark.parametrize("override", [
+    dict(max_translucent_draws=2, enable_ssao=True),
+    dict(max_particle_quads=512, enable_fog=True),
+    dict(max_decals_active=2, enable_ssr=True), dict(enable_ssao=True),
+    dict(enable_fog=True), dict(enable_ssr=True),
+    dict(enable_depth_of_field=True), dict(raster_two_phase=True),
+], ids=_IDS)
+def test_post_flags_accepted(override):
+    """SSAO, the froxel fog, the binned SSR, depth of field and the
+    two-phase raster (K6) are ported: check_config passes them."""
+    check_config(FrameConfig(**dict(_BASE, **override)))
+
+
+def test_bench_config_is_accepted():
+    """The bench frame's config (bench.py), also with DoF and with the
+    two-phase raster."""
+    bench = dict(_BASE, enable_shadows=True, shadow_mode="esm", shadow_far_res=512,
+                 shadow_slice_blend=0.25, bin_capacity=160, big_capacity=64,
+                 bin_max_span=8, shadow_factor_scale=4, enable_ssao=True,
+                 enable_fog=True, enable_ssr=True, max_spot_shadows=1,
+                 max_particle_quads=512, max_translucent_draws=2,
+                 max_translucent_tris=2048, max_decals_active=2,
+                 decal_textures=False, translucent_lit_scale=2, fog_sample_scale=8)
+    for extra in ({}, dict(enable_depth_of_field=True), dict(raster_two_phase=True)):
+        check_config(FrameConfig(width=1920, height=1088, **dict(bench, **extra)))

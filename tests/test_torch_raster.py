@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_frame import one_torch_thread  # noqa: F401 (autouse)
+
 from datum_tpu.math.matrix import perspective_proj
 from datum_tpu.ops import raster as jr
 from datum_tpu.ops.raster_pallas import raster_shade_pallas

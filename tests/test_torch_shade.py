@@ -163,10 +163,28 @@ def test_k2_sky_fills_uncovered_pixels():
 
 @pytest.mark.parametrize("extra", [
     dict(fog_r=1, fog_g=1, fog_b=1, fog_t=1), dict(fog_t=1),
+], ids=lambda d: "-".join(sorted(d)))
+def test_k2_fog_group(extra):
+    """The fog group is ported: given whole, K2 plus its epilogue runs,
+    and no in-scatter with transmittance 1 leaves the shade unchanged
+    (exactly); a part of the group is refused."""
+    ss, g = _torch_tree(_scene()), _torch_tree(_gplanes(sky=False))
+    base = shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
+    g.update({k: torch.zeros(H, W) for k in extra})
+    if len(extra) < 4:
+        with pytest.raises(ValueError, match="group"):
+            shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
+        return
+    g["fog_t"] = torch.ones(H, W)
+    out = shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
+    assert torch.equal(out, base)
+
+
+@pytest.mark.parametrize("extra", [
     dict(edr=1, edg=1, edb=1, edm=1), dict(edm=1), dict(clusters=1),
 ], ids=lambda d: "-".join(sorted(d)))
 def test_k2_later_groups_raise(extra):
-    """Fog, the box env-probe override and clustered lights raise, each
+    """The box env-probe override and clustered lights raise, each
     naming its ROADMAP item, even when only one plane of a group is
     given."""
     ss, g = _torch_tree(_scene()), _torch_tree(_gplanes(sky=False))

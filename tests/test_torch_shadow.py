@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_frame import one_torch_thread  # noqa: F401 (autouse)
+
 from datum_tpu.ops import blur as jblur
 from datum_tpu.ops import lighting_pass as jlp
 from datum_tpu.ops import raster as jr

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_frame import one_torch_thread  # noqa: F401 (autouse)
+
 import test_torch_shade as shade_t
 from datum_tpu.ops import blur as jblur
 from datum_tpu.ops import decal as jdecal
