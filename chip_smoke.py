@@ -3,16 +3,21 @@
 
     python3 chip_smoke.py
 
-Renders the bench frame at 1920x1088 (the config of bench.py: the
-datumtest scene with 4 sun cascades as a 1024 near and a 512 far atlas
-with ESM and slice blend, one parabolic spot map, the procedural skybox
-and its IBL environment, the lit glass sphere and water patch shaded at
-half resolution, the 256-particle cloud, two decals, SSAO, the froxel fog
-with its taps at 1/8 resolution and the binned SSR) through
-datum_tpu_torch.render.frame.render_frame, with the one-phase raster
-(K1) and with the two-phase raster (K6), and once with depth of field,
-after building the port's CUDA kernels from datum_tpu_torch/csrc with
-nvcc.  Phases, one line each; any failure raises and exits non-zero:
+Renders the bench frame and the dense stress frame at 1920x1088
+through datum_tpu_torch.render.frame.render_frame, after building the
+port's CUDA kernels from datum_tpu_torch/csrc with nvcc.  The bench
+frame is bench.py's config (the datumtest scene with 4 sun cascades as a
+1024 near and a 512 far atlas with ESM and slice blend, one parabolic
+spot map, the procedural skybox and its IBL environment, the lit glass
+sphere and water patch shaded at half resolution, the 256-particle
+cloud, two decals, SSAO, the froxel fog with its taps at 1/8 resolution
+and the binned SSR), with the one-phase raster (K1), with the two-phase
+raster (K6) and once with depth of field.  The stress frame is
+profiling/bench_stress.py::run_dense's config (stress_scene: a
+geomorphed 256^2-cell terrain, 8x4 spheres at detail 48, 128 clustered
+point lights, 4 ESM cascades at 1024, bins 1024 + 128), rendered with
+the early-z exit off and on.  Phases, one line each; any failure raises
+and exits non-zero:
 
 1. require a CUDA device; print its name and nvidia-smi's name and
    power limit; turn TF32 off;
@@ -40,7 +45,15 @@ nvcc.  Phases, one line each; any failure raises and exits non-zero:
    launches under torch.profiler, its stages (the post
    stages among them), and each kernel vs its plain version; compute
    each kernel's bound from this run's inputs;
-7. print the kernels' JSON line, then the device JSON line last.
+3s-6s. the stress frame: its scene (triangles, bin entries, overflows);
+   K1, K6 and K3 with early-z against themselves without it and their
+   plain versions, clustered K2 against its plain version and clustered
+   frames against dense ones (also the 128-light bench scene); the
+   frame driven 3 times with early-z off and 3 times on, with its
+   launches checked; its ms/frame, stages, kernels, the gather
+   microbenchmark's one PyTorch call and the bounds;
+7. print the kernels' JSON line, then the device JSON line last, after
+   the script's wall time.
 
 Needs one card, torch with CUDA and nvcc; imports no jax and nothing of
 the JAX package.
@@ -91,6 +104,22 @@ K1_INTERP = ("u", "v", "nx", "ny", "nz", "tanx", "tany", "tanz")
 K1_EXACT = ("cr", "cg", "cb", "em", "met", "rgh", "rfl", "alb", "mbase",
             "msize", "tanw", "absorb")
 STACKS = ("near cascades", "far cascades", "spot")
+# the dense stress frame (profiling/bench_stress.py::run_dense at its
+# default DATUM_STRESS_CAP=1024): stress_scene's 256^2-cell geomorphed
+# terrain and 8x4 spheres at detail 48, 128 point lights clustered at 64
+# a tile, the 4 ESM sun cascades at 1024 in one stack (shadow_far_res
+# None), the 32^2 skybox; bins 1024 + 128, span 8, mip_half
+STRESS = dict(terrain_n=256, sphere_detail=48, grid=(8, 4), n_point_lights=128,
+              use_pallas=True, shadow_factor_scale=4, enable_material_maps=True,
+              texture_filter="mip_half", bin_max_span=8, bin_capacity=1024,
+              big_capacity=128)
+# the bench scene with 128 point lights, clustered at 64 a tile
+# (bench_stress.py::run with use_light_clusters=True, tile_light_capacity=64)
+LIGHTS128 = dict(sphere_detail=24, n_point_lights=128, max_vertices=1 << 15,
+                 max_triangles=1 << 15, bin_capacity=160, big_capacity=64,
+                 bin_max_span=8, use_pallas=True, shadow_factor_scale=4,
+                 enable_material_maps=True, texture_filter="mip_half",
+                 use_light_clusters=True, tile_light_capacity=64)
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -107,6 +136,14 @@ OPS_WALK_BLEND = 80
 OPS_K1_PIXEL = 110
 OPS_K2_PIXEL, OPS_K2_LIGHT = 200, 60
 OPS_EPILOGUE_PIXEL = 40
+# the unported TPU kernels, counted from datum_tpu/ops/raster_pallas.py:
+# K5 (`_raster_kernel`) does K3's walk plus the reciprocal of s, two
+# barycentrics and four selects per (pixel, entry), ~25; K7 (`_v3_kernel`)
+# evaluates 6 planes of 24 coefficient rows per entry as one matmul
+# (24 x 6 multiply-adds, 288), the one-hot attribute matmul (32, 64) and
+# ~20 element-wise, ~372.  Their bytes: the per-triangle rows (16 floats;
+# K7 24 + 32) read once, the bins, and 4 (K7 15) f32 output planes
+OPS_WALK_K5, OPS_WALK_K7 = 25, 372
 
 
 def phase(n, msg):
@@ -204,10 +241,11 @@ def profile_frames(render, inputs):
 
 
 def stage_ms(cfg, state, draws, ss, dev, reps=5):
-    """Wall ms of each stage of the bench frame with a device sync after
-    each (median of reps): the frame's own stage functions, in its order;
-    then the DoF fields on the same frame (not a stage of the bench
-    frame, which renders without DoF)."""
+    """Wall ms of each stage of a frame (the bench or the stress frame)
+    with a device sync after each (median of reps): the frame's own
+    stage functions, in its order (a pass the config does not run costs
+    only its sync); then the DoF fields on the same frame (not a stage of
+    either frame, which render without DoF)."""
     import torch
 
     from datum_tpu_torch.convert import to_torch
@@ -221,7 +259,8 @@ def stage_ms(cfg, state, draws, ss, dev, reps=5):
              "decals", "SSAO (subsample, HBAO, blur, upsample)",
              "sky planes + SH + spot factor", "fog volume + taps + upsample",
              "lit layer (vertices, setup, bins, K1, assembly, K2, upsample)",
-             "WBOIT stream (setup, bins, K4)", "K2 (tables + bf16 + kernel)",
+             "WBOIT stream (setup, bins, K4)", "light clusters (depth bounds, bins)",
+             "K2 (tables + bf16 + kernel)",
              "K2 epilogue (bf16 + kernel)", "SSR (quarter-res pools + march)",
              "luminance + bloom + composite", "DoF fields (not in the frame)")
     w, h = cfg.padded_width, cfg.padded_height
@@ -255,17 +294,23 @@ def stage_ms(cfg, state, draws, ss, dev, reps=5):
         mark()
         F._fog(cfg, planes["depth"], s, shadows, gpl)
         mark()
-        ts = F.translucent_stream(state, d, s)
-        lit_peel = F._lit_layers(cfg, state, ts, s, ss2, shadows,
-                                 planes["depth"], gpl)
+        ts = lit_peel = None
+        if cfg.max_translucent_draws > 0:
+            ts = F.translucent_stream(state, d, s)
+            lit_peel = F._lit_layers(cfg, state, ts, s, ss2, shadows,
+                                     planes["depth"], gpl)
         mark()
-        F._oit_planes(cfg, state, d, s, ts, lit_peel, planes["depth"], gpl)
+        if cfg.max_translucent_draws > 0 or cfg.max_particle_quads > 0:
+            F._oit_planes(cfg, state, d, s, ts, lit_peel, planes["depth"], gpl)
+        mark()
+        clusters = F.light_clusters(cfg, planes["depth"], s)
         mark()
         bg = shade_deferred_cuda(**shade_inputs(gpl, ss2, proj=s["proj"],
                                                 invview=s["invview"], ao=ao,
-                                                spotsf=spotsf))
+                                                spotsf=spotsf, clusters=clusters))
         mark()
-        hdr = shade_epilogue_cuda(bg, **epilogue_inputs(gpl)).permute(1, 2, 0)
+        epi = epilogue_inputs(gpl)
+        hdr = (bg if epi is None else shade_epilogue_cuda(bg, **epi)).permute(1, 2, 0)
         mark()
         F._ssr(cfg, state, s, hdr, planes["depth"], gpl)
         mark()
@@ -362,12 +407,12 @@ def check_k6(k6, plain, k1, what):
     return err
 
 
-def drive(render, inputs, kernels, expect, forbid=()):
+def drive(render, inputs, kernels, expect, forbid=(), overflow_limit=0):
     """Render each (draws, ss) with every kernel count set to 0 just
-    before and read just after; check the image and that every frame
-    launched each kernel at least expect[name] times and the kernels of
-    forbid never.  Returns (per-frame launches, totals, the last image,
-    luminance)."""
+    before and read just after; check the image, bin_overflow (at most
+    overflow_limit; None: no limit) and that every frame launched each
+    kernel at least expect[name] times and the kernels of forbid never.
+    Returns (per-frame launches, totals, the last image, luminance)."""
     import torch
 
     for k in kernels.values():
@@ -382,7 +427,8 @@ def drive(render, inputs, kernels, expect, forbid=()):
         if tuple(img.shape) != (H, W, 3) or img.dtype != torch.uint8:
             raise RuntimeError(f"image {tuple(img.shape)} {img.dtype}")
         mean = img.float().mean().item()
-        if not mean > 10 or not torch.isfinite(lum) or int(out["bin_overflow"]):
+        over = overflow_limit is not None and int(out["bin_overflow"]) > overflow_limit
+        if not mean > 10 or not torch.isfinite(lum) or over:
             raise RuntimeError(f"frame: image mean {mean}, luminance "
                                f"{lum.item()}, bin_overflow "
                                f"{int(out['bin_overflow'])}")
@@ -395,8 +441,301 @@ def drive(render, inputs, kernels, expect, forbid=()):
     return per_frame, totals, img, lum
 
 
+def _walked_early_z(inp, depth, szb=None):
+    """Valid entries a raster kernel with early-z walks at the least on
+    this data, in entries a tile summed over tiles: each thread (16 rows
+    of one column) stops at the first slot whose bound (szb, default
+    inp["szb"]) its final min depth reaches; a tile counts the mean over
+    its 256 threads.  The kernels stop on the running min, so they walk
+    at least this much."""
+    from datum_tpu_torch.ops.raster import tile_image
+    from datum_tpu_torch.ops.raster_cuda import _entry_ids
+
+    n_tiles, tx = inp["bins"].shape[0], inp["tiles_x"]
+    ids = _entry_ids(inp["bins"], inp["big_ids"])
+    szb = inp["szb"] if szb is None else szb
+    tmin = tile_image(depth, tx, n_tiles // tx).reshape(n_tiles, 2, 16, -1).amin(2)
+    tmin = tmin.reshape(n_tiles, -1)                               # (n, 256)
+    walked = ((ids >= 0)[:, None, :] & (szb[:, None, :] > tmin[:, :, None])).sum()
+    return walked.item() / tmin.shape[1]
+
+
+def image_diff(a, b):
+    """(mean, max) |a - b| of two u8 images, in levels."""
+    d = (a.float() - b.float()).abs()
+    return d.mean().item(), d.max().item()
+
+
+def require_equal(k, other, what):
+    """Raise unless k and other are equal on every value."""
+    import torch
+
+    if not torch.equal(k, other):
+        same = (k == other).float().mean().item()
+        raise RuntimeError(f"{what}: bit-identical on {same} of values only")
+
+
+def stress_phases(dev, card, kernels):
+    """Phases 3s-6s: the dense stress frame (STRESS) and the 128-light
+    bench scene (LIGHTS128).  Returns the numbers the kernels' JSON line
+    reports for them."""
+    import torch
+
+    from datum_tpu_torch.convert import to_torch
+    from datum_tpu_torch.ops import shadow as shadow_ops
+    from datum_tpu_torch.ops.raster_cuda import (
+        PLANE_NAMES, early_z_bounds, raster_inputs, raster_shade_2p_cuda,
+        raster_shade_2p_reference, raster_shade_cuda, raster_shade_reference)
+    from datum_tpu_torch.ops.raster_depth_cuda import (
+        depth_inputs, raster_depth_cuda, raster_depth_reference)
+    from datum_tpu_torch.ops.shade_cuda import (
+        shade_deferred_cuda, shade_deferred_reference, shade_inputs)
+    from datum_tpu_torch.render import frame as F
+    from datum_tpu_torch.scenes import datumtest_scene, stress_scene
+
+    # ---- 3s. the stress scene
+    t0 = time.perf_counter()
+    ctx, camera, params, make_rl = stress_scene(width=W, height=H, **STRESS)
+    cfg = ctx.config
+    cfg_ez = dataclasses.replace(cfg, raster_early_z=True)
+    state = ctx.device_state(dev)
+    inputs = [frame_inputs(ctx, camera, params, make_rl, t) for t in (0.0, 0.1, 0.2)]
+    scene = []
+    for draws, ss in inputs:
+        d_t, s_t = to_torch(draws, dev), to_torch(ss, dev)
+        ex, _, clip, _, _, wp = F._vertex_stage(cfg, state, d_t, s_t)
+        _, _, counts, big, ovf = F._bin_stage(cfg, ex, clip)
+        (stack,) = shadow_ops.cascade_stacks(
+            wp, ex["tris"], s_t["mainlight"]["shadowview"], res=cfg.shadow_res,
+            far_res=cfg.shadow_far_res)
+        sovf = shadow_ops.bin_stack(stack, cfg.shadow_bin_capacity, cfg.big_capacity,
+                                    return_overflow=True)[3]
+        scene.append((int(draws["t_valid"].sum()), int((big >= 0).sum()),
+                      counts.float().mean().item(), int(counts.max()), int(ovf),
+                      int(sovf)))
+    phase("3s", f"stress scene {W}x{H} ({time.perf_counter() - t0:.1f} s): per frame "
+                "(triangles drawn, big entries, bin entries a tile mean / max, "
+                f"bin_overflow, shadow stack overflow): {scene}; bins "
+                f"{cfg.bin_capacity}+{cfg.big_capacity} = "
+                f"{cfg.bin_capacity + cfg.big_capacity} entries a tile, "
+                f"{cfg.n_tiles} tiles; one {cfg.shadow_res}x{4 * cfg.shadow_res} "
+                f"cascade stack, shadow bins {cfg.shadow_bin_capacity}+"
+                f"{cfg.big_capacity}; {int(inputs[0][1]['pointlights']['count'])} "
+                f"point lights, {cfg.tile_light_capacity} a tile")
+
+    # ---- 4s. kernels on the stress frame's inputs
+    draws, ss = frame_inputs(ctx, camera, params, make_rl, 0.3)
+    d_t, s_t = to_torch(draws, dev), to_torch(ss, dev)
+    ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, state, d_t, s_t)
+    setup, bins, counts, big, _ = F._bin_stage(cfg, ex, clip)
+    k1_in = raster_inputs(setup, bins, big, counts, ex["tris"], uv, wn, d_t["tri_mat"],
+                          state["materials"], cfg.tiles_x, cfg.padded_width,
+                          cfg.padded_height, wt)
+    k1z_in = dict(k1_in, szb=early_z_bounds(k1_in["rows"], bins, big, cfg.tiles_x,
+                                            cfg.padded_width, cfg.padded_height))
+    pk = raster_shade_cuda(**k1_in)
+    pz = raster_shade_cuda(**k1z_in)
+    pr = raster_shade_reference(**k1_in)
+    torch.cuda.synchronize()
+    require_equal(pz, pk, "K1 with early-z vs without (stress opaque layer)")
+    _, k1_err = check_k1(pz, pr, "stress opaque layer, early-z")
+    phase("4s", f"K1 with early-z vs without: all 22 planes bit-identical on every "
+                f"pixel; vs plain: {(pz == pr).float().mean().item():.6f} of values "
+                "bit-identical")
+    k6 = raster_shade_2p_cuda(**k1_in)
+    k6z = raster_shade_2p_cuda(**k1z_in)
+    torch.cuda.synchronize()
+    require_equal(k6z, k6, "K6 with early-z vs without (stress opaque layer)")
+    k6_err = check_k6(k6z, raster_shade_2p_reference(**k1_in), pk,
+                      "stress opaque layer, early-z")
+    phase("4s", "K6 with early-z vs without: all 22 planes bit-identical on every pixel")
+
+    (stack,) = shadow_ops.cascade_stacks(wp, ex["tris"], s_t["mainlight"]["shadowview"],
+                                         res=cfg.shadow_res, far_res=cfg.shadow_far_res)
+    sbins, scounts, sbig = shadow_ops.bin_stack(stack, cfg.shadow_bin_capacity,
+                                                cfg.big_capacity)
+    k3_in = depth_inputs(stack["setup"], sbins, sbig, scounts, stack["tiles_x"],
+                         stack["res"], stack["height"])
+    k3z_in = depth_inputs(stack["setup"], sbins, sbig, scounts, stack["tiles_x"],
+                          stack["res"], stack["height"], early_z=True)
+    dk = raster_depth_cuda(**k3_in)
+    dz = raster_depth_cuda(**k3z_in)
+    dr = raster_depth_reference(**k3_in)
+    torch.cuda.synchronize()
+    require_equal(dz, dk, "K3 with early-z vs without (4-cascade stack)")
+    require_equal(dz, dr, "K3 with early-z vs plain (4-cascade stack)")
+    k3_err = (dz - dr).abs().max().item()
+    phase("4s", f"K3 on the 4-cascade stack ({stack['res']}x{stack['height']}, covered "
+                f"{(dr > 0).float().mean().item():.3f}): with early-z bit-identical to "
+                "itself without it and to its plain version on every texel")
+
+    kp = dict(zip(PLANE_NAMES, pk))
+    shadows = F._shadow_stage(cfg, ex, wp, s_t)
+    gpl, ss2, spotsf, ao, _ = F._shade_inputs(cfg, kp, state, d_t, s_t, shadows)
+    clusters = F.light_clusters(cfg, kp["depth"], s_t)
+    k2c_in = shade_inputs(gpl, ss2, proj=s_t["proj"], invview=s_t["invview"], ao=ao,
+                          spotsf=spotsf, clusters=clusters)
+    k2d_in = shade_inputs(gpl, ss2, proj=s_t["proj"], invview=s_t["invview"], ao=ao,
+                          spotsf=spotsf)
+    hc = shade_deferred_cuda(**k2c_in)
+    hr = shade_deferred_reference(**k2c_in)
+    torch.cuda.synchronize()
+    k2c_err = (hc - hr).abs().max().item()
+    if not torch.isfinite(hc).all() or not torch.allclose(hc, hr, atol=1e-4, rtol=1e-3):
+        raise RuntimeError(f"clustered K2 vs plain: max abs err {k2c_err} beyond "
+                           "atol 1e-4 / rtol 1e-3")
+    tile_counts = clusters[1][::2]                     # one row of each band pair
+    lights_walked = int(clusters[1].sum()) * 16 * 128  # per pixel of each cell
+    phase("4s", f"clustered K2 vs plain: bit-identical on "
+                f"{(hc == hr).float().mean().item():.6f} of values, max abs err "
+                f"{k2c_err:.3g} (atol 1e-4, rtol 1e-3); lights a tile: mean "
+                f"{tile_counts.float().mean().item():.2f}, max {int(tile_counts.max())}, "
+                f"{int((tile_counts >= cfg.tile_light_capacity).sum())} of "
+                f"{tile_counts.numel()} tiles at {cfg.tile_light_capacity}")
+
+    # clustered vs dense frames: with lists that hold every light (no
+    # list truncates) the clustered loop must match the dense one; at the
+    # config's capacity a saturated tile drops lights, as in the JAX
+    # package, and that difference is printed, not held
+    def versus_dense(c, st_, inp, what):
+        n_lights = int(inp[1]["pointlights"]["count"])
+        imgs = [F.render_frame(dataclasses.replace(c, **kw), st_, *inp, device=dev)["image"]
+                for kw in (dict(use_light_clusters=False),
+                           dict(tile_light_capacity=n_lights), {})]
+        full = image_diff(imgs[1], imgs[0])
+        if full[0] >= 0.5 or full[1] > 2:
+            raise RuntimeError(f"{what}, clustered (lists of {n_lights}) vs dense K2: "
+                               f"mean |d| {full[0]}, max {full[1]} levels")
+        cap = image_diff(imgs[2], imgs[0])
+        phase("4s", f"{what}, clustered vs dense K2: lists of {n_lights} (none "
+                    f"truncates) mean |d| {full[0]:.4f}, max {full[1]:.0f} levels "
+                    f"(limits 0.5, 2); at {c.tile_light_capacity} a tile (saturated "
+                    f"tiles drop lights, as in the JAX package) mean |d| {cap[0]:.4f}, "
+                    f"max {cap[1]:.0f}")
+
+    versus_dense(cfg, state, (draws, ss), "stress frame")
+    lctx, lcam, lparams, lmake = datumtest_scene(width=W, height=H, **LIGHTS128)
+    lstate = lctx.device_state(dev)
+    linputs = [frame_inputs(lctx, lcam, lparams, lmake, 0.3)]
+    lcfg = lctx.config
+    versus_dense(lcfg, lstate, linputs[0], "128-light bench scene")
+
+    # ---- 5s. drive the stress frame, early-z off then on, and the 128-light
+    # bench scene (no bin_overflow limit: the stress bins' overflow is
+    # printed, not held)
+    render_0 = lambda d, s: F.render_frame(cfg, state, d, s, device=dev)
+    render_z = lambda d, s: F.render_frame(cfg_ez, state, d, s, device=dev)
+    render_l = lambda d, s: F.render_frame(lcfg, lstate, d, s, device=dev)
+    expect = dict(raster_shade=1, shade_deferred=1, raster_depth=1)
+    pf0, _, _, _ = drive(render_0, inputs, kernels, expect, forbid=("raster_shade_2p",),
+                         overflow_limit=None)
+    pfz, _, img, lum = drive(render_z, inputs, kernels, expect,
+                                      forbid=("raster_shade_2p",), overflow_limit=None)
+    phase("5s", f"3 stress frames {W}x{H}, early-z off: launches per frame {pf0}")
+    phase("5s", f"3 stress frames, early-z on: launches per frame {pfz}; image "
+                f"mean {img.float().mean().item():.2f}, luminance {lum.item():.6g}")
+    if not torch.equal(render_0(*inputs[0])["image"], render_z(*inputs[0])["image"]):
+        raise RuntimeError("the stress frame with early-z differs from the frame without")
+    phase("5s", "stress frame t=0: the early-z image equals the image without (u8, "
+                "every pixel)")
+    pfl, _, _, _ = drive(render_l, linputs, kernels, expect)
+    phase("5s", f"128-light bench scene (clusters): launches {pfl}")
+
+    # ---- 6s. timing (informational: this PR claims no speed)
+    ms_off, ms_on = [frame_ms(render_0, inputs, n=5)], []
+    ms_on += [frame_ms(render_z, inputs, n=5), frame_ms(render_z, inputs, n=5)]
+    ms_off.append(frame_ms(render_0, inputs, n=5))
+    prof_ms, prof_launches = profile_frames(render_0, inputs)
+    stages = stage_ms(cfg, state, *inputs[0], dev)
+    t = dict(k1=cuda_ms(lambda: raster_shade_cuda(**k1_in), 20),
+             k1z=cuda_ms(lambda: raster_shade_cuda(**k1z_in), 20),
+             k1p=cuda_ms(lambda: raster_shade_reference(**k1_in), 1),
+             k6=cuda_ms(lambda: raster_shade_2p_cuda(**k1_in), 20),
+             k6z=cuda_ms(lambda: raster_shade_2p_cuda(**k1z_in), 20),
+             k3=cuda_ms(lambda: raster_depth_cuda(**k3_in), 20),
+             k3z=cuda_ms(lambda: raster_depth_cuda(**k3z_in), 20),
+             k3p=cuda_ms(lambda: raster_depth_reference(**k3_in), 1),
+             k2c=cuda_ms(lambda: shade_deferred_cuda(**k2c_in), 20),
+             k2d=cuda_ms(lambda: shade_deferred_cuda(**k2d_in), 20),
+             k2cp=cuda_ms(lambda: shade_deferred_reference(**k2c_in), 1))
+    # the gather microbenchmark's shapes (profiling/prof_gather.py:159-170):
+    # a 16K x 16 f32 table, 512K rows gathered; the one PyTorch call
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tab = torch.rand((16384, 16), device=dev, generator=gen)
+    idx = torch.randint(0, 16384, (524288,), device=dev, generator=gen)
+    t["gather"] = cuda_ms(lambda: tab[idx], 50)
+    phase("6s", f"stress frame: {statistics.mean(ms_off):.3f} ms/frame early-z off, "
+                f"{statistics.mean(ms_on):.3f} early-z on (each the mean of 2 medians "
+                f"of 5, timed off, on, on, off: "
+                f"{', '.join(f'{v:.3f}' for v in (ms_off[0], *ms_on, ms_off[1]))}; "
+                f"CUDA events, {W}x{H}) on {card}")
+    phase("6s", f"stress frame under torch.profiler (3 frames, early-z off): "
+                f"{prof_ms:.3f} ms of device time and {prof_launches:.0f} kernel "
+                f"launches per frame; busy {prof_ms / statistics.mean(ms_off):.3f}")
+    phase("6s", "stress frame stages (ms, wall, synced, median of 5): "
+          + "; ".join(f"{n} {v:.3f}" for n, v in stages.items()))
+    phase("6s", f"stress inputs: K1 {t['k1']:.3f} ms, with early-z {t['k1z']:.3f} ms, "
+                f"plain {t['k1p']:.3f} ms; K6 {t['k6']:.3f} ms, with early-z "
+                f"{t['k6z']:.3f} ms; K3 (4-cascade stack) {t['k3']:.3f} ms, with "
+                f"early-z {t['k3z']:.3f} ms, plain {t['k3p']:.3f} ms; K2 clustered "
+                f"{t['k2c']:.3f} ms, dense {t['k2d']:.3f} ms (128 lights), clustered "
+                f"plain {t['k2cp']:.3f} ms; gather tab[idx] (16384x16 f32, 524288 rows) "
+                f"{t['gather']:.4f} ms on {card}")
+
+    px = cfg.padded_width * cfg.padded_height
+    k1_bytes = (_nbytes(*(k1_in[k] for k in ("rows", "bins", "counts", "big_ids")))
+                + 22 * px * 4)
+    b = dict(
+        k1=bound(k1_bytes, _walked(k1_in) * 4096 * OPS_WALK_DEPTH + px * OPS_K1_PIXEL),
+        k1z=bound(k1_bytes + _nbytes(k1z_in["szb"]),
+                  _walked_early_z(k1z_in, pk[0]) * 4096 * OPS_WALK_DEPTH
+                  + px * OPS_K1_PIXEL),
+        k3=bound(_nbytes(k3_in["rows"], k3_in["bins"], k3_in["counts"], k3_in["big_ids"])
+                 + 4 * k3_in["bins"].shape[0] * 4096,
+                 _walked(k3_in) * 4096 * OPS_WALK_DEPTH),
+        k3z=bound(_nbytes(k3z_in["rows"], k3z_in["bins"], k3z_in["counts"],
+                          k3z_in["big_ids"], k3z_in["szb"])
+                  + 4 * k3z_in["bins"].shape[0] * 4096,
+                  _walked_early_z(k3z_in, dr) * 4096 * OPS_WALK_DEPTH),
+        k2c=bound(_nbytes(k2c_in["f32_planes"], k2c_in["planes"], k2c_in["ao"],
+                          k2c_in["cl_lists"], k2c_in["cl_counts"]) + 3 * px * 4,
+                  px * OPS_K2_PIXEL + lights_walked * OPS_K2_LIGHT),
+        k2d=bound(_nbytes(k2d_in["f32_planes"], k2d_in["planes"], k2d_in["ao"])
+                  + 3 * px * 4,
+                  px * (OPS_K2_PIXEL + OPS_K2_LIGHT * int(k2d_in["counts"][0]))),
+        gather=bound(_nbytes(tab, idx) + idx.numel() * 16 * 4, 0))
+    phase("6s", "stress bounds (ms, by): " + "; ".join(
+        f"{n} {v[0]:.4f} {v[1]}" for n, v in b.items()))
+
+    def vertex_bounds(inp, setup):
+        # each entry's largest vertex depth (the TPU kernels' bound, not a
+        # bound for zero-area triangles): (own, suffix max)
+        from datum_tpu_torch.ops.raster_cuda import _entry_ids
+
+        ids = _entry_ids(inp["bins"], inp["big_ids"]).long()
+        zb = torch.where(ids >= 0, setup["zbound"][ids.clamp(min=0)],
+                         torch.zeros((), device=ids.device))
+        return zb, torch.flip(torch.cummax(torch.flip(zb, [1]), 1).values, [1])
+
+    walks = []
+    for name, inp, zin, depth, st_setup in (("K1", k1_in, k1z_in, pk[0], setup),
+                                            ("K3", k3_in, k3z_in, dr, stack["setup"])):
+        own, suffix = vertex_bounds(inp, st_setup)
+        walks.append(f"{name} {_walked(inp)}, {_walked_early_z(zin, depth):.0f}, "
+                     f"{_walked_early_z(zin, depth, suffix):.0f}, "
+                     f"{_walked_early_z(zin, depth, own):.0f}")
+    phase("6s", "entries walked, summed over tiles (the full walk; with each "
+                "thread's exit at its final min depth by the port's bound; by the "
+                "TPU's vertex bound; by the vertex bound if the bins were sorted by "
+                "it, nearest first): " + "; ".join(walks))
+    return dict(t=t, b=b, launches=pfz[0], errs=dict(k1=k1_err, k6=k6_err, k3=k3_err,
+                                                     k2c=k2c_err))
+
+
 def main():
     import torch
+
+    t_start = time.perf_counter()
 
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -786,6 +1125,17 @@ def main():
         f"{n} {b[0]:.4f} {b[1]}" for n, b in (
             ("K1 and K6", k1_bound), ("K2", k2_bound), ("K3 (3 stacks)", k3_bound),
             ("K4", k4_bound), ("epilogue", ep_bound))))
+    bins_bytes = _nbytes(*(k1_in[k] for k in ("bins", "counts", "big_ids")))
+    n_tris = k1_in["rows"].shape[0]
+    k5_bound = bound(bins_bytes + n_tris * 16 * 4 + 4 * px * 4,
+                     _walked(k1_in) * 4096 * OPS_WALK_K5)
+    k7_bound = bound(bins_bytes + n_tris * 56 * 4 + 15 * px * 4,
+                     _walked(k1_in) * 4096 * OPS_WALK_K7)
+    phase(6, f"bounds of the TPU kernels not ported (not run), at the bench frame's "
+             f"K1 inputs: K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), K7 "
+             f"{k7_bound[0]:.4f} ms ({k7_bound[1]}, f32)")
+
+    st = stress_phases(dev, card, kernels)
 
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in ("jax", "datum_tpu"))
@@ -794,25 +1144,39 @@ def main():
 
     # ---- 7. result lines (library_ms: no single PyTorch call computes
     # any of these kernels' functions).  launches: each kernel's count in
-    # the bench frame's run (K6: in the two-phase bench frame's run)
-    def row(name, source, replaces, err, ms, plain_ms, b, n=None):
+    # the bench frame's run (K6: in the two-phase bench frame's run);
+    # stress_launches: per stress frame with early-z; the stress_* and
+    # early_z_* fields time the kernel on the stress frame's inputs
+    t, sb = st["t"], st["b"]
+
+    def row(name, source, replaces, err, ms, plain_ms, b, n=None, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches[name] if n is None else n, max_abs_err=err,
                     ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                    library_ms=None)
+                    library_ms=None, stress_launches=st["launches"][name], **extra)
 
+    print(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         row("raster_shade", "datum_tpu_torch/csrc/raster_shade.cu",
-            "datum_tpu/ops/raster_pallas.py:343", k1_err, t_k1, t_k1p, k1_bound),
+            "datum_tpu/ops/raster_pallas.py:343", max(k1_err, st["errs"]["k1"]), t_k1,
+            t_k1p, k1_bound, stress_ms=t["k1"], stress_plain_ms=t["k1p"],
+            stress_bound_ms=sb["k1"][0], early_z_ms=t["k1z"],
+            early_z_bound_ms=sb["k1z"][0]),
         row("raster_shade_2p", "datum_tpu_torch/csrc/raster_shade_2p.cu",
-            "datum_tpu/ops/raster_pallas.py:454", k6_err, t_k6, t_k6p, k1_bound,
-            n=launches6["raster_shade_2p"]),
+            "datum_tpu/ops/raster_pallas.py:454", max(k6_err, st["errs"]["k6"]), t_k6,
+            t_k6p, k1_bound, n=launches6["raster_shade_2p"], stress_ms=t["k6"],
+            early_z_ms=t["k6z"]),
         row("shade_deferred", "datum_tpu_torch/csrc/shade.cu",
-            "datum_tpu/ops/shade_pallas.py:161", k2_err, t_k2, t_k2p, k2_bound),
+            "datum_tpu/ops/shade_pallas.py:161", k2_err, t_k2, t_k2p, k2_bound,
+            clustered_ms=t["k2c"], clustered_plain_ms=t["k2cp"],
+            clustered_bound_ms=sb["k2c"][0], clustered_max_abs_err=st["errs"]["k2c"],
+            dense128_ms=t["k2d"], dense128_bound_ms=sb["k2d"][0]),
         # the three stacks of one frame together
         row("raster_depth", "datum_tpu_torch/csrc/raster_depth.cu",
-            "datum_tpu/ops/raster_pallas.py:730", max(k3_errs), sum(t_k3),
-            sum(t_k3p), k3_bound),
+            "datum_tpu/ops/raster_pallas.py:730", max(*k3_errs, st["errs"]["k3"]),
+            sum(t_k3), sum(t_k3p), k3_bound, stress_ms=t["k3"],
+            stress_plain_ms=t["k3p"], stress_bound_ms=sb["k3"][0],
+            early_z_ms=t["k3z"], early_z_bound_ms=sb["k3z"][0]),
         row("raster_blend", "datum_tpu_torch/csrc/raster_blend.cu",
             "datum_tpu/ops/raster_pallas.py:877", k4_err, t_k4, t_k4p, k4_bound),
         row("shade_epilogue", "datum_tpu_torch/csrc/shade_epilogue.cu",

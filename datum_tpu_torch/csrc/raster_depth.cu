@@ -1,9 +1,9 @@
 // K3: depth-only raster with a per-triangle y scissor (shadow maps).
 //
 // Replaces the Pallas kernel datum_tpu/ops/raster_pallas.py
-// `_depth_kernel` (launched by `raster_depth_pallas`), without its
-// early-z exit.  It renders the stacked sun-cascade atlases and the
-// stacked parabolic spot maps.
+// `_depth_kernel` (launched by `raster_depth_pallas`), with its
+// optional early-z exit.  It renders the stacked sun-cascade atlases and
+// the stacked parabolic spot maps.
 //
 // What it computes.  For every pixel of a 32 x 128 tile, depth starts at
 // 0 and the walk goes through the frame's big-triangle list, then the
@@ -29,6 +29,12 @@
 //    in registers.
 //  * Invalid entries (id -1: unused big-list slots) are zero rows and
 //    are skipped uniformly by the whole block.
+//  * Early-z (szb given: per tile and walk slot, the suffix max of the
+//    entries' depth upper bounds, from the binning's depth bands): as in
+//    K1 (raster_shade.cu), a thread stops at the first slot whose bound
+//    its min depth reaches (no later entry can pass the strict d > depth
+//    test, so the map is the same bit for bit), the block when all its
+//    threads have (__syncthreads_and).
 //  * The TPU kernel's lane packing (8 triangles per 128-lane row, 16
 //    tiles per grid step) moves no value and is not carried over.
 //  * Rounding.  The JAX kernel writes each plane as a*xn + b*yn + c,
@@ -55,11 +61,13 @@ raster_depth_kernel(const float* __restrict__ rows,
                     const int* __restrict__ bins,
                     const int* __restrict__ counts,
                     const int* __restrict__ big_ids,
+                    const float* __restrict__ szb,      // (n_tiles, n_big + bin_capacity) or null
                     int n_big, int bin_capacity, int tiles_x,
                     float cx, float cy, int out_w,
                     float* __restrict__ out)
 {
     __shared__ float s_row[CHUNK][ROW];
+    __shared__ float s_zb[CHUNK];
 
     const int tile = blockIdx.x;
     const int ty = tile / tiles_x;
@@ -77,6 +85,9 @@ raster_depth_kernel(const float* __restrict__ rows,
     }
 
     const int n_entries = n_big + counts[tile];
+    const float* zb = szb != nullptr ? szb + (size_t)tile * (n_big + bin_capacity) : nullptr;
+    float tmin = 0.0f;                 // min of this thread's depths (early-z)
+    bool done = false;                 // this thread's walk has ended (early-z)
     for (int base = 0; base < n_entries; base += CHUNK) {
         const int n_here = min(CHUNK, n_entries - base);
         for (int i = threadIdx.x; i < n_here * ROW; i += THREADS) {
@@ -87,9 +98,11 @@ raster_depth_kernel(const float* __restrict__ rows,
                                      : bins[(size_t)tile * bin_capacity + (g - n_big)];
             // invalid entries are zero rows: slot 12 (valid) = 0 never passes
             s_row[e][k] = id >= 0 ? rows[(size_t)id * ROW + k] : 0.0f;
+            if (k == 0) s_zb[e] = zb != nullptr ? zb[g] : 2.0f;   // 2: never reached
         }
         __syncthreads();
-        for (int e = 0; e < n_here; ++e) {
+        for (int e = 0; e < n_here && !done; ++e) {
+            if (tmin >= s_zb[e]) { done = true; break; }
             const float* r = s_row[e];
             if (!(r[12] > 0.0f)) continue;
             const float a0 = r[0], b0 = r[1], c0 = r[2];
@@ -110,7 +123,12 @@ raster_depth_kernel(const float* __restrict__ rows,
                 depth[p] = pass ? d : depth[p];
             }
         }
-        __syncthreads();
+        if (zb != nullptr) {           // depths only grow: refresh the min
+            tmin = depth[0];
+#pragma unroll
+            for (int p = 1; p < ROWS_PER_THREAD; ++p) tmin = fminf(tmin, depth[p]);
+        }
+        if (__syncthreads_and(done)) break;
     }
 
     const int x = tx * TILE_W + col;
@@ -124,17 +142,18 @@ raster_depth_kernel(const float* __restrict__ rows,
 }  // namespace
 
 // rows (T, 16) f32 (the setup's row16); bins (n_tiles, bin_capacity) i32;
-// counts (n_tiles,) i32; big_ids (n_big,) i32; out (out_h, out_w) f32
+// counts (n_tiles,) i32; big_ids (n_big,) i32; szb (n_tiles, n_big +
+// bin_capacity) f32 early-z bounds or null; out (out_h, out_w) f32
 // with out_h = tiles_y * 32 and out_w = tiles_x * 128.  cx, cy are
 // 2/width and 2/height of the NDC viewport, rounded to f32 by the caller.
 extern "C" int raster_depth_launch(const float* rows, const int* bins,
                                    const int* counts, const int* big_ids,
-                                   int n_big, int bin_capacity, int tiles_x,
-                                   int n_tiles, float cx, float cy, int out_w,
-                                   float* out, void* stream)
+                                   const float* szb, int n_big, int bin_capacity,
+                                   int tiles_x, int n_tiles, float cx, float cy,
+                                   int out_w, float* out, void* stream)
 {
     raster_depth_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        rows, bins, counts, big_ids, n_big, bin_capacity, tiles_x, cx, cy,
+        rows, bins, counts, big_ids, szb, n_big, bin_capacity, tiles_x, cx, cy,
         out_w, out);
     return (int)cudaGetLastError();
 }

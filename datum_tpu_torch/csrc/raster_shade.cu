@@ -3,8 +3,9 @@
 // Replaces the Pallas kernel datum_tpu/ops/raster_pallas.py
 // `_raster_shade_kernel` (launched by `raster_shade_pallas`), in its
 // extended form (tangent + material-map planes), with the optional peel
-// plane of the lit translucent layers, without early-z.  (alpha_in_alb
-// is host work: the row builder puts the material alpha in slot 41.)
+// plane of the lit translucent layers and the optional early-z exit.
+// (alpha_in_alb is host work: the row builder puts the material alpha in
+// slot 41.)
 //
 // What it computes.  For every pixel of a 32 x 128 tile it walks the
 // frame's big-triangle list, then the tile's bin entries, in order.  Per
@@ -36,6 +37,16 @@
 //    epilogue instead of materialising (n_tiles, E, 64) rows.
 //  * Entries are walked sequentially per pixel (never atomics), which
 //    keeps the JAX package's tie order.
+//  * Early-z (szb given: per tile and walk slot, the suffix max of the
+//    entries' depth upper bounds).  The TPU kernel skips a group once
+//    the tile's min depth reaches its bound, by a lax.cond per group.
+//    Here each thread keeps the min of its 16 depths, refreshed once a
+//    chunk, and stops walking at the first slot whose bound it reaches:
+//    every later entry is bounded by that suffix max, and the test
+//    d > depth is strict, so none of them could pass (the planes are bit
+//    for bit those of the full walk).  The chunk loop ends when every
+//    thread of the block has stopped (__syncthreads_and), so no thread
+//    leaves a barrier behind.
 //  * Rounding.  The JAX kernel writes each plane as a*xn + b*yn + c and
 //    XLA contracts that into fma(a, xn, b*yn) + c.  K1 evaluates every
 //    plane (edges, depth, numerator planes) exactly so, with an explicit
@@ -68,12 +79,14 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
                     const int* __restrict__ counts,
                     const int* __restrict__ big_ids,
                     const float* __restrict__ peel,     // (out_h, out_w) or null
+                    const float* __restrict__ szb,      // (n_tiles, n_big + bin_capacity) or null
                     int n_big, int bin_capacity, int tiles_x,
                     float cx, float cy, int out_h, int out_w,
                     float* __restrict__ out)
 {
     __shared__ float s_row[CHUNK][WALK_SLOTS];
     __shared__ int s_id[CHUNK];
+    __shared__ float s_zb[CHUNK];
 
     const int tile = blockIdx.x;
     const int ty = tile / tiles_x;
@@ -97,6 +110,9 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
     }
 
     const int n_entries = n_big + counts[tile];
+    const float* zb = szb != nullptr ? szb + (size_t)tile * (n_big + bin_capacity) : nullptr;
+    float tmin = 0.0f;                 // min of this thread's depths (early-z)
+    bool done = false;                 // this thread's walk has ended (early-z)
     for (int base = 0; base < n_entries; base += CHUNK) {
         const int n_here = min(CHUNK, n_entries - base);
         for (int i = threadIdx.x; i < n_here * WALK_SLOTS; i += THREADS) {
@@ -107,10 +123,14 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
                                      : bins[(size_t)tile * bin_capacity + (g - n_big)];
             // invalid entries are zero rows: slot 12 (valid) = 0 never passes
             s_row[e][k] = id >= 0 ? tri_rows[(size_t)id * ROW + k] : 0.0f;
-            if (k == 0) s_id[e] = id;
+            if (k == 0) {
+                s_id[e] = id;
+                s_zb[e] = zb != nullptr ? zb[g] : 2.0f;   // 2: never reached
+            }
         }
         __syncthreads();
-        for (int e = 0; e < n_here; ++e) {
+        for (int e = 0; e < n_here && !done; ++e) {
+            if (tmin >= s_zb[e]) { done = true; break; }
             const float* r = s_row[e];
             if (!(r[12] > 0.0f)) continue;
             const float a0 = r[0], b0 = r[1], c0 = r[2];
@@ -132,7 +152,12 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
                 win[p] = pass ? id : win[p];
             }
         }
-        __syncthreads();
+        if (zb != nullptr) {           // depths only grow: refresh the min
+            tmin = depth[0];
+#pragma unroll
+            for (int p = 1; p < ROWS_PER_THREAD; ++p) tmin = fminf(tmin, depth[p]);
+        }
+        if (__syncthreads_and(done)) break;
     }
 
     // epilogue: the winner's planes, ONE perspective divide per pixel
@@ -176,18 +201,19 @@ raster_shade_kernel(const float* __restrict__ tri_rows,
 
 // tri_rows (T, 64) f32; bins (n_tiles, bin_capacity) i32; counts
 // (n_tiles,) i32; big_ids (n_big,) i32; peel (out_h, out_w) f32 or null;
+// szb (n_tiles, n_big + bin_capacity) f32 early-z bounds or null;
 // out (22, out_h, out_w) f32 with out_h = tiles_y * 32 and out_w =
 // tiles_x * 128.  cx, cy are 2/width and 2/height of the NDC viewport,
 // rounded to f32 by the caller.
 extern "C" int raster_shade_launch(const float* tri_rows, const int* bins,
                                    const int* counts, const int* big_ids,
-                                   const float* peel,
+                                   const float* peel, const float* szb,
                                    int n_big, int bin_capacity, int tiles_x,
                                    int n_tiles, float cx, float cy, int out_h,
                                    int out_w, float* out, void* stream)
 {
     raster_shade_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        tri_rows, bins, counts, big_ids, peel, n_big, bin_capacity, tiles_x, cx, cy,
-        out_h, out_w, out);
+        tri_rows, bins, counts, big_ids, peel, szb, n_big, bin_capacity, tiles_x, cx,
+        cy, out_h, out_w, out);
     return (int)cudaGetLastError();
 }

@@ -4,10 +4,10 @@
 // Replaces the Pallas kernel datum_tpu/ops/raster_pallas.py
 // `_raster_shade_kernel_2p` (launched by `raster_shade_pallas` with
 // two_phase=True), in its extended form (tangent + material-map planes),
-// with the optional peel plane of the lit translucent layers, without
-// early-z.  (alpha_in_alb is host work: the row builder puts the material
-// alpha in slot 41.)  It writes the same 22 planes as K1
-// (csrc/raster_shade.cu), bit for bit.
+// with the optional peel plane of the lit translucent layers and the
+// optional early-z exit of its first phase.  (alpha_in_alb is host work:
+// the row builder puts the material alpha in slot 41.)  It writes the
+// same 22 planes as K1 (csrc/raster_shade.cu), bit for bit.
 //
 // What it computes.  Phase 1 is K1's walk: for every pixel of a 32 x 128
 // tile it walks the frame's big-triangle list, then the tile's bin
@@ -43,6 +43,9 @@
 //  * The flags and the compaction live in dynamic shared memory (8 bytes
 //    per entry of n_big + bin_capacity); above 48 KB in all the launch
 //    opts in with cudaFuncAttributeMaxDynamicSharedMemorySize.
+//  * Early-z (szb given): phase 1 ends as K1's walk does (see
+//    raster_shade.cu): a thread stops at the first slot whose suffix
+//    bound its min depth reaches, the block when all its threads have.
 //  * Rounding: every plane a*xn + b*yn + c is fma(a, xn, b*yn) + c with
 //    an explicit __fmaf_rn, the file is built with -fmad=false, as K1.
 
@@ -77,11 +80,13 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
                        const int* __restrict__ counts,
                        const int* __restrict__ big_ids,
                        const float* __restrict__ peel,     // (out_h, out_w) or null
+                       const float* __restrict__ szb,      // (n_tiles, n_big + bin_capacity) or null
                        int n_big, int bin_capacity, int tiles_x,
                        float cx, float cy, int out_h, int out_w,
                        float* __restrict__ out)
 {
     __shared__ float s_row[CHUNK][WALK_SLOTS];
+    __shared__ float s_zb[CHUNK];
     __shared__ float s_won[WON_CHUNK][ROW];
     __shared__ int s_warp[WARPS];
     __shared__ int s_total;
@@ -114,6 +119,9 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
     for (int i = threadIdx.x; i < n_entries; i += THREADS) s_pos[i] = 0;
 
     // ---- phase 1: depth + winning slot
+    const float* zb = szb != nullptr ? szb + (size_t)tile * (n_big + bin_capacity) : nullptr;
+    float tmin = 0.0f;                 // min of this thread's depths (early-z)
+    bool done = false;                 // this thread's walk has ended (early-z)
     for (int base = 0; base < n_entries; base += CHUNK) {
         const int n_here = min(CHUNK, n_entries - base);
         for (int i = threadIdx.x; i < n_here * WALK_SLOTS; i += THREADS) {
@@ -122,9 +130,11 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
             const int id = entry_id(big_ids, bins, tile, bin_capacity, n_big, base + e);
             // invalid entries are zero rows: slot 12 (valid) = 0 never passes
             s_row[e][k] = id >= 0 ? tri_rows[(size_t)id * ROW + k] : 0.0f;
+            if (k == 0) s_zb[e] = zb != nullptr ? zb[base + e] : 2.0f;   // 2: never reached
         }
         __syncthreads();
-        for (int e = 0; e < n_here; ++e) {
+        for (int e = 0; e < n_here && !done; ++e) {
+            if (tmin >= s_zb[e]) { done = true; break; }
             const float* r = s_row[e];
             if (!(r[12] > 0.0f)) continue;
             const float a0 = r[0], b0 = r[1], c0 = r[2];
@@ -146,7 +156,12 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
                 slot[p] = pass ? k : slot[p];
             }
         }
-        __syncthreads();
+        if (zb != nullptr) {           // depths only grow: refresh the min
+            tmin = depth[0];
+#pragma unroll
+            for (int p = 1; p < ROWS_PER_THREAD; ++p) tmin = fminf(tmin, depth[p]);
+        }
+        if (__syncthreads_and(done)) break;
     }
 
     // ---- between the phases: flag the won slots, compact them
@@ -251,12 +266,13 @@ extern "C" int raster_shade_2p_smem_bytes(int n_big, int bin_capacity)
 
 // tri_rows (T, 64) f32; bins (n_tiles, bin_capacity) i32; counts
 // (n_tiles,) i32; big_ids (n_big,) i32; peel (out_h, out_w) f32 or null;
+// szb (n_tiles, n_big + bin_capacity) f32 early-z bounds or null;
 // out (22, out_h, out_w) f32 with out_h = tiles_y * 32 and out_w =
 // tiles_x * 128.  cx, cy are 2/width and 2/height of the NDC viewport,
 // rounded to f32 by the caller.
 extern "C" int raster_shade_2p_launch(const float* tri_rows, const int* bins,
                                       const int* counts, const int* big_ids,
-                                      const float* peel,
+                                      const float* peel, const float* szb,
                                       int n_big, int bin_capacity, int tiles_x,
                                       int n_tiles, float cx, float cy, int out_h,
                                       int out_w, float* out, void* stream)
@@ -266,7 +282,7 @@ extern "C" int raster_shade_2p_launch(const float* tri_rows, const int* bins,
         raster_shade_2p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
     if (err != cudaSuccess) return (int)err;
     raster_shade_2p_kernel<<<n_tiles, THREADS, dyn, (cudaStream_t)stream>>>(
-        tri_rows, bins, counts, big_ids, peel, n_big, bin_capacity, tiles_x, cx, cy,
-        out_h, out_w, out);
+        tri_rows, bins, counts, big_ids, peel, szb, n_big, bin_capacity, tiles_x, cx,
+        cy, out_h, out_w, out);
     return (int)cudaGetLastError();
 }

@@ -4,19 +4,22 @@
 // `_shade_kernel` (launched by `shade_deferred_pallas`) for the planes
 // PLANE_NAMES (+ the optional sky fill): world position from reverse-Z
 // depth, SH-9 ambient with the SH probe blend, split-sum env specular,
-// the sun with its shadow-factor plane and bent light vector, dense point
-// lights in chunks of `point_chunk`, shadowed spot slots with factor
-// planes then the unshadowed remainder, emissive, and the sky fill of
-// uncovered pixels.  The translucent, refraction, fog and WBOIT
-// epilogue groups, the box env-probe override and clustered lights are
-// rejected by the Python wrapper.
+// the sun with its shadow-factor plane and bent light vector, the point
+// lights (dense, in chunks of `point_chunk`; or clustered: the list of
+// the pixel's 16-row band and 128-column sub-tile), shadowed spot slots
+// with factor planes then the unshadowed remainder, emissive, and the
+// sky fill of uncovered pixels.  The nearest lit layer's blend, its
+// refraction, the fog and the WBOIT resolve are the epilogue kernel's
+// (shade_epilogue.cu); the box env-probe override is rejected by the
+// Python wrapper.
 //
 // What bounds it on the H100.  Per pixel it reads 2 f32 + 18..21 bf16
 // planes (+ ao and factor planes) and writes 3 f32 planes: ~56 B/pixel,
 // ~120 MB a 1920x1088 frame, ~40 us at 3.35 TB/s.  The arithmetic is
 // ~150 f32 operations per light with several divides and square roots,
 // so with 8 point lights plus the sun and a spot the kernel is bound by
-// issue rate, not by memory.
+// issue rate, not by memory; with clusters a pixel pays only for the
+// lights of its sub-tile's list.
 //
 // What the design does about it.
 //  * One thread per pixel over a 2-D grid: loads and stores of a warp
@@ -27,6 +30,12 @@
 //    broadcast.  Only the rows below the live counts are staged.
 //  * The TPU kernel's clamped table reads and `on` masks are kept, so a
 //    padded row never turns into NaN * 0.
+//  * Clustered lights (the TPU kernel's per-sub-tile loop): a block of
+//    32 x 8 pixels lies inside one 16-row band and one 128-column
+//    sub-tile, so it stages that cell's list (ascending light ids) in
+//    shared memory once and every thread walks it in list order, adding
+//    each light with no mask, as the TPU kernel does.  Ids are clamped
+//    to the staged rows (below the live count).
 //  * Built with -fmad=false like K1, so the arithmetic rounds as the
 //    plain PyTorch version's does.
 
@@ -134,7 +143,9 @@ shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth,
              const float* __restrict__ spots, int n_spot_rows,
              const float* __restrict__ probes, int n_probe_rows,
              const int* __restrict__ counts, int point_chunk,
-             int H, int W, float cx, float cy,
+             const int* __restrict__ cl_lists,  // (H/16, W/128, cl_cap) or null
+             const int* __restrict__ cl_counts, // (H/16, W/128)
+             int cl_cap, int H, int W, float cx, float cy,
              float* __restrict__ out)                       // (3, H, W)
 {
     extern __shared__ float smem[];
@@ -142,13 +153,16 @@ shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth,
     float* L = P + PARAMS;                             // n_lights_rows * LROW
     float* S = L + n_lights_rows * LROW;               // n_spot_rows * LROW
     float* Q = S + n_spot_rows * LROW;                 // n_probe_rows * PROW
+    int* CL = (int*)(Q + n_probe_rows * PROW);         // cl_cap
 
+    const bool clustered = cl_lists != nullptr;
     const int n_point = counts[0];
     const int n_spot = counts[1];
     const int n_probe = min(counts[3], n_probe_rows);
     const int nchunks = (n_point + point_chunk - 1) / point_chunk;
-    // rows the loops can touch (reads past a table are clamped to its last row)
-    const int l_rows = min(n_lights_rows, max(nchunks * point_chunk, 1));
+    // rows the loops can touch (dense reads past a table are clamped to
+    // its last row; cluster ids to the live rows)
+    const int l_rows = min(n_lights_rows, max(clustered ? n_point : nchunks * point_chunk, 1));
     const int s_rows = min(n_spot_rows, max(max(n_spot, n_maps), 1));
 
     const int tid = threadIdx.y * BX + threadIdx.x;
@@ -165,6 +179,10 @@ shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth,
             S[(n_spot_rows - 1) * LROW + i] = spots[(n_spot_rows - 1) * LROW + i];
     }
     for (int i = tid; i < n_probe * PROW; i += nth) Q[i] = probes[i];
+    // the block's cell: one 16-row band and one 128-column sub-tile
+    const int cell = ((blockIdx.y * BY) / 16) * (W / 128) + (blockIdx.x * BX) / 128;
+    const int cl_n = clustered ? min(cl_counts[cell], cl_cap) : 0;
+    for (int i = tid; i < cl_n; i += nth) CL[i] = cl_lists[(size_t)cell * cl_cap + i];
     __syncthreads();
 
     const int x = blockIdx.x * BX + threadIdx.x;
@@ -277,8 +295,15 @@ shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth,
                spc.z + wsun * INV_PI * fr.z * P[21]};
     }
 
-    // ---- point lights, dense chunks (clamped reads + on mask)
-    for (int c = 0; c < nchunks; ++c) {
+    // ---- point lights: the cell's list (clustered), in list order
+    for (int j = 0; j < cl_n; ++j) {
+        const int li = min(max(CL[j], 0), l_rows - 1);
+        const Light l = eval_light(wp, nrm, eye, scol, alpha, L + li * LROW);
+        dif = {dif.x + l.dif.x, dif.y + l.dif.y, dif.z + l.dif.z};
+        spc = {spc.x + l.spc.x, spc.y + l.spc.y, spc.z + l.spc.z};
+    }
+    // ---- or every light, dense chunks (clamped reads + on mask)
+    for (int c = 0; c < (clustered ? 0 : nchunks); ++c) {
         for (int j = 0; j < point_chunk; ++j) {
             const int idx = c * point_chunk + j;
             const int ridx = min(idx, n_lights_rows - 1);
@@ -328,11 +353,13 @@ shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth,
 
 }  // namespace
 
-// Dynamic shared memory the launch needs for its tables.
-extern "C" int shade_smem_bytes(int n_lights_rows, int n_spot_rows, int n_probe_rows)
+// Dynamic shared memory the launch needs for its tables (cl_cap: the
+// light lists' capacity, 0 without clusters).
+extern "C" int shade_smem_bytes(int n_lights_rows, int n_spot_rows, int n_probe_rows,
+                                int cl_cap)
 {
     return (PARAMS + (n_lights_rows + n_spot_rows) * LROW + n_probe_rows * PROW)
-           * (int)sizeof(float);
+           * (int)sizeof(float) + cl_cap * (int)sizeof(int);
 }
 
 extern "C" int shade_launch(const float* f32_planes, const void* planes, int has_sky,
@@ -340,14 +367,16 @@ extern "C" int shade_launch(const float* f32_planes, const void* planes, int has
                             const float* params, const float* lights, int n_lights_rows,
                             const float* spots, int n_spot_rows, const float* probes,
                             int n_probe_rows, const int* counts, int point_chunk,
+                            const int* cl_lists, const int* cl_counts, int cl_cap,
                             int H, int W, float cx, float cy, float* out, void* stream)
 {
     const dim3 block(BX, BY);
     const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY);
-    const int smem = shade_smem_bytes(n_lights_rows, n_spot_rows, n_probe_rows);
+    const int smem = shade_smem_bytes(n_lights_rows, n_spot_rows, n_probe_rows, cl_cap);
     shade_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
         f32_planes, (const __nv_bfloat16*)planes, has_sky, n_trk, (const __nv_bfloat16*)ao,
         (const __nv_bfloat16*)spotsf, n_maps, params, lights, n_lights_rows, spots,
-        n_spot_rows, probes, n_probe_rows, counts, point_chunk, H, W, cx, cy, out);
+        n_spot_rows, probes, n_probe_rows, counts, point_chunk, cl_lists, cl_counts,
+        cl_cap, H, W, cx, cy, out);
     return (int)cudaGetLastError();
 }

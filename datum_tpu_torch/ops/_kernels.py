@@ -40,20 +40,20 @@ class KernelLibrary:
         self.build_log = build_log
         self.lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.raster_shade_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, f,
+        self.lib.raster_shade_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f,
                                                  i, i, p, p]
         self.lib.raster_shade_launch.restype = i
-        self.lib.raster_shade_2p_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, f,
-                                                    i, i, p, p]
+        self.lib.raster_shade_2p_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, f,
+                                                    f, i, i, p, p]
         self.lib.raster_shade_2p_launch.restype = i
         self.lib.raster_shade_2p_smem_bytes.argtypes = [i, i]
         self.lib.raster_shade_2p_smem_bytes.restype = i
-        self.lib.shade_smem_bytes.argtypes = [i, i, i]
+        self.lib.shade_smem_bytes.argtypes = [i, i, i, i]
         self.lib.shade_smem_bytes.restype = i
         self.lib.shade_launch.argtypes = [p, p, i, i, p, p, i, p, p, i, p, i, p,
-                                          i, p, i, i, i, f, f, p, p]
+                                          i, p, i, p, p, i, i, i, f, f, p, p]
         self.lib.shade_launch.restype = i
-        self.lib.raster_depth_launch.argtypes = [p, p, p, p, i, i, i, i, f, f,
+        self.lib.raster_depth_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, f,
                                                  i, p, p]
         self.lib.raster_depth_launch.restype = i
         self.lib.raster_blend_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,

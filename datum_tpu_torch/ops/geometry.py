@@ -1,10 +1,40 @@
-"""Vertex stage: rigid vertex transform (counterpart of
-datum_tpu/ops/geometry.py::transform_vertices_rigid; skinning waits for
-the slice that enables it)."""
+"""Vertex stage: rigid vertex transform and the terrain geomorph
+(counterpart of datum_tpu/ops/geometry.py::transform_vertices_rigid and
+terrain_morph; skinning waits for the slice that enables it)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def terrain_morph(positions, normals, morph6, vtx_draw, world, morph_range,
+                  campos):
+    """Terrain LOD geomorph: each vertex moves toward its baked
+    coarse-grid target by alpha = smoothstep(morphbeg, morphend, the
+    horizontal (x, z) distance to the camera in the draw's local space).
+
+    morph6: (V, 6) local position and normal deltas to the target;
+    vtx_draw: (V,) draw of each vertex; world: (D, 3, 4) rigid affines;
+    morph_range: (D, 2) [morphbeg, morphend], end <= 0 leaves the draw
+    unmorphed; campos: (3,) world camera position.  Returns (positions,
+    unit normals)."""
+    R = world[:, :, :3]
+    t = world[:, :, 3]
+    cam_local = torch.einsum("dji,dj->di", R, campos[None, :] - t)   # R^T (c - t)
+    vd = vtx_draw.long()
+    cl = cam_local[vd]
+    beg = morph_range[vd, 0]
+    end = morph_range[vd, 1]
+    dx = positions[:, 0] - cl[:, 0]
+    dz = positions[:, 2] - cl[:, 2]
+    d = torch.sqrt(dx * dx + dz * dz)
+    tt = torch.clamp((d - beg) / torch.clamp(end - beg, min=1e-6), 0.0, 1.0)
+    alpha = tt * tt * (3.0 - 2.0 * tt)
+    alpha = torch.where(end > 0, alpha, torch.zeros_like(alpha))[:, None]
+    positions = positions + morph6[:, :3] * alpha
+    nrm = normals + morph6[:, 3:6] * alpha
+    nrm = nrm / torch.clamp(torch.linalg.norm(nrm, dim=-1, keepdim=True), min=1e-9)
+    return positions, nrm
 
 
 def transform_vertices_rigid(positions, normals, tangents, vtx_instance,

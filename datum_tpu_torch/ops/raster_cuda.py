@@ -3,7 +3,7 @@ the card, in one phase (K1) or two (K6).
 
 Counterpart of datum_tpu/ops/raster_pallas.py (`raster_shade_pallas`
 with planes_2d=True and the extended tangent/material-map planes,
-alpha_in_alb and peel_depth, without early-z; its Pallas bodies
+alpha_in_alb, peel_depth and early_z; its Pallas bodies
 `_raster_shade_kernel` and, with two_phase=True,
 `_raster_shade_kernel_2p` become csrc/raster_shade.cu and
 csrc/raster_shade_2p.cu).
@@ -30,6 +30,14 @@ The lit translucent layer (render/frame.py) passes alpha_in_alb (the
 material alpha rides the albedo-id slot 41) and, from its second layer
 on, peel_depth: a fragment then passes only if it is strictly farther
 than the previous layer's depth (d < peel).
+
+Early-z (raster_early_z): the kernels also take `szb` (early_z_bounds),
+per tile and walk slot an upper bound on the depth of every fragment of
+that slot and the slots after it.  A walk may stop once a pixel's depth
+reaches the bound of everything left: the depth test is strict (d >
+depth), so no remaining entry can win and the planes are the same bit
+for bit.  The plain versions walk every entry; they are the contract
+with and without the exit.
 """
 
 from __future__ import annotations
@@ -111,12 +119,46 @@ def _ndc_scale(n: int) -> float:
     return float(np.float32(2.0 / n))
 
 
+def early_z_bounds(rows, bins, big_ids, tiles_x, width, height):
+    """The kernels' early-z bounds `szb`: (n_tiles, B+K) f32, per tile and
+    walk slot the max, over that slot and every later one, of the
+    entry's depth plane a*xn + b*yn + c (row slots 9-11) over the tile's
+    pixel centres, plus a rounding margin; 0 for empty slots and invalid
+    rows (slot 12), which never pass.  A plane is affine, so its max over
+    the tile is at a corner pixel; it is taken in f64 at the kernels' f32
+    corner coordinates, and the margin 1e-6 * (|a| + |b| + |c|) exceeds
+    the ~3 ulps by which the kernels' f32 plane can exceed the exact one.
+    So once a pixel's depth reaches szb[t, k], no entry from slot k on can
+    pass the strict test d > depth: the walk may end there.  Unlike the
+    TPU's bound (the triangle's largest vertex z/w), this holds for
+    zero-area triangles too, whose planes are rounding noise."""
+    n_tiles = bins.shape[0]
+    ids = _entry_ids(bins, big_ids).long()
+    r = rows[torch.clamp(ids, min=0), 9:13]                    # (n, E, 4)
+    az, bz, cz = (r[..., j].double() for j in range(3))
+    tile = torch.arange(n_tiles, device=rows.device)
+
+    def ndc(origin, pix, scale):
+        # the kernels' pixel-centre coordinate, in f32: (origin + pix + 0.5) * scale - 1
+        return (((origin.to(torch.float32) + pix) + 0.5) * scale - 1.0).double()[:, None]
+
+    xs = [ndc((tile % tiles_x) * TILE_W, c, _ndc_scale(width)) for c in (0, TILE_W - 1)]
+    ys = [ndc((tile // tiles_x) * TILE_H, c, _ndc_scale(height)) for c in (0, TILE_H - 1)]
+    dmax = torch.stack([az * x + bz * y + cz for x in xs for y in ys]).amax(0)
+    bound = torch.clamp(dmax + 1e-6 * (az.abs() + bz.abs() + cz.abs()), max=1.0)
+    bound = torch.where((ids >= 0) & (r[..., 3] > 0), bound, torch.zeros_like(bound))
+    # the max over later slots (NaN planes give NaN bounds, never reached)
+    return torch.flip(torch.cummax(torch.flip(bound, [1]), 1).values, [1]).float().contiguous()
+
+
 def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height,
-                           peel=None):
+                           peel=None, szb=None):
     """Plain PyTorch K1: (22, tiles_y*32, tiles_x*128) f32 planes.  It
     walks every bin slot: slots past a tile's count hold -1 (`counts`
     only bounds the kernel's walk).  peel: optional (tiles_y*32,
-    tiles_x*128) f32 depth; only fragments with d < peel pass."""
+    tiles_x*128) f32 depth; only fragments with d < peel pass.  szb (the
+    early-z bounds) is not read: the full walk gives the planes the
+    kernel's early exit gives."""
     dev = rows.device
     n_tiles = bins.shape[0]
     ids = _entry_ids(bins, big_ids)
@@ -176,12 +218,13 @@ def _winner_planes(r, depth, has, visf, xn, yn):
 
 
 def raster_shade_2p_reference(rows, bins, counts, big_ids, tiles_x, width,
-                              height, peel=None):
+                              height, peel=None, szb=None):
     """Plain PyTorch K6, in its two phases: the walk carries (depth, the
     winning slot — the entry's index in walk order); each tile flags the
     slots that won a pixel and compacts them (a prefix sum), stages the
     won rows, and every pixel evaluates its planes from its slot's staged
-    row.  The same contract and planes as raster_shade_reference."""
+    row.  The same contract and planes as raster_shade_reference (szb is
+    not read)."""
     dev = rows.device
     n_tiles = bins.shape[0]
     ids = _entry_ids(bins, big_ids)
@@ -236,7 +279,7 @@ def raster_shade_2p_reference(rows, bins, counts, big_ids, tiles_x, width,
 
 
 def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height,
-                   peel, extra_checks=()):
+                   peel, szb):
     """Check the K1/K6 arguments, allocate the planes and launch fn."""
     dev = rows.device
     n_tiles, cap = bins.shape
@@ -251,12 +294,15 @@ def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height
               ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))]
     if peel is not None:
         checks.append(("peel", peel, torch.float32, (out_h, out_w)))
+    if szb is not None:
+        checks.append(("szb", szb, torch.float32, (n_tiles, big_ids.shape[0] + cap)))
     _kernels.check_tensors(f"{what}_cuda", dev, checks)
     out = torch.empty((N_PLANES, out_h, out_w), dtype=torch.float32, device=dev)
     vp = ctypes.c_void_p
     code = fn(
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
         vp(big_ids.data_ptr()), vp(None if peel is None else peel.data_ptr()),
+        vp(None if szb is None else szb.data_ptr()),
         big_ids.shape[0], cap, tiles_x, n_tiles,
         _ndc_scale(width), _ndc_scale(height), out_h, out_w,
         vp(out.data_ptr()), vp(_kernels.stream_ptr(dev)))
@@ -265,11 +311,12 @@ def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height
 
 
 def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
-                      peel=None):
-    """K1 on the card: the same contract as raster_shade_reference."""
+                      peel=None, szb=None):
+    """K1 on the card: the same contract as raster_shade_reference; with
+    szb each thread ends its walk early (see the module docstring)."""
     out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_launch(*a),
                          "raster_shade", rows, bins, counts, big_ids, tiles_x,
-                         width, height, peel)
+                         width, height, peel, szb)
     raster_shade_cuda.launches += 1
     return out
 
@@ -283,15 +330,16 @@ MAX_2P_DYN_SMEM = 200 * 1024
 
 
 def raster_shade_2p_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
-                         peel=None):
-    """K6 on the card: the same contract as raster_shade_2p_reference."""
+                         peel=None, szb=None):
+    """K6 on the card: the same contract as raster_shade_2p_reference;
+    with szb its first phase ends early."""
     n_entries = big_ids.shape[0] + bins.shape[1]
     if 8 * n_entries > MAX_2P_DYN_SMEM:
         raise ValueError(f"raster_shade_2p_cuda: {n_entries} entries a tile need "
                          f"{8 * n_entries} B of shared memory (> {MAX_2P_DYN_SMEM})")
     out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_2p_launch(*a),
                          "raster_shade_2p", rows, bins, counts, big_ids, tiles_x,
-                         width, height, peel)
+                         width, height, peel, szb)
     raster_shade_2p_cuda.launches += 1
     return out
 
@@ -301,20 +349,25 @@ raster_shade_2p_cuda.launches = 0
 
 def raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
                   tri_material, materials, tiles_x, width, height, tangent,
-                  alpha_in_alb=False, peel_depth=None):
-    """The K1 arguments both versions take, from the frame's tensors."""
-    return dict(rows=tri_attr_rows(setup, tris, uv, normal, tri_material,
-                                   materials, tangent, alpha_in_alb),
+                  alpha_in_alb=False, peel_depth=None, early_z=False):
+    """The K1 arguments both versions take, from the frame's tensors
+    (szb, the early-z bounds, with early_z)."""
+    rows = tri_attr_rows(setup, tris, uv, normal, tri_material, materials, tangent,
+                         alpha_in_alb)
+    return dict(rows=rows,
                 bins=bins.to(torch.int32).contiguous(),
                 counts=counts.to(torch.int32).contiguous(),
                 big_ids=big_ids.to(torch.int32).contiguous(),
                 tiles_x=tiles_x, width=width, height=height,
-                peel=None if peel_depth is None else peel_depth.contiguous())
+                peel=None if peel_depth is None else peel_depth.contiguous(),
+                szb=(early_z_bounds(rows, bins, big_ids, tiles_x, width, height)
+                     if early_z else None))
 
 
 def raster_shade(setup, bins, big_ids, counts, tris, uv, normal, tri_material,
                  materials, tiles_x, tiles_y, width, height, *, tangent,
-                 alpha_in_alb=False, peel_depth=None, two_phase=False):
+                 alpha_in_alb=False, peel_depth=None, two_phase=False,
+                 early_z=False):
     """Fused raster + attribute/material interpolation.
 
     Returns a dict of the 22 (tiles_y*32, tiles_x*128) f32 planes named
@@ -322,14 +375,15 @@ def raster_shade(setup, bins, big_ids, counts, tris, uv, normal, tri_material,
     them.  alpha_in_alb puts the material alpha in the "alb" plane;
     peel_depth (tiles_y*32, tiles_x*128) keeps only fragments strictly
     farther than it.  two_phase runs K6 instead of K1 (the same planes).
-    CUDA tensors run the kernel (it raises if it cannot launch); CPU
-    tensors run its plain PyTorch version."""
+    early_z lets the kernel end its walk early (the same planes).  CUDA tensors
+    run the kernel (it raises if it cannot launch); CPU tensors run its
+    plain PyTorch version."""
     if bins.shape[0] != tiles_x * tiles_y:
         raise ValueError(f"bins has {bins.shape[0]} rows for "
                          f"{tiles_x}x{tiles_y} tiles")
     inp = raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
                         tri_material, materials, tiles_x, width, height, tangent,
-                        alpha_in_alb, peel_depth)
+                        alpha_in_alb, peel_depth, early_z)
     if inp["rows"].is_cuda:
         fn = raster_shade_2p_cuda if two_phase else raster_shade_cuda
     else:

@@ -1,7 +1,7 @@
 """K3: the depth-only shadow raster on the card.
 
-Counterpart of datum_tpu/ops/raster_pallas.py (`raster_depth_pallas`
-without early-z; its Pallas body `_depth_kernel` becomes
+Counterpart of datum_tpu/ops/raster_pallas.py (`raster_depth_pallas`,
+with early_z; its Pallas body `_depth_kernel` becomes
 csrc/raster_depth.cu).  It renders the stacked sun-cascade atlases and
 the stacked parabolic spot maps (ops/shadow.py).
 
@@ -15,7 +15,9 @@ strict test does not depend on the walk order.  Each plane a*xn + b*yn
 JAX kernel's expression (bit-equal to its interpret runs), the kernel
 writes the fma explicitly, and so the kernel is bit-equal to the plain
 version.  The TPU lane packing (DEPTH_PACK, DEPTH_TILES_PER_STEP) moves no
-value and is not carried over.
+value and is not carried over.  With early_z the kernel takes the
+early-z bounds `szb` (ops/raster_cuda.early_z_bounds) and ends its walk
+early (the same depths); the plain version walks every entry.
 """
 
 from __future__ import annotations
@@ -27,15 +29,16 @@ import torch
 from . import _kernels
 from .common import TILE_H, TILE_W
 from .raster import _untile
-from .raster_cuda import _entry_ids, _ndc_scale, _plane
+from .raster_cuda import _entry_ids, _ndc_scale, _plane, early_z_bounds
 
 ROW = 16              # floats per triangle row (the setup's row16)
 
 
-def raster_depth_reference(rows, bins, counts, big_ids, tiles_x, width, height):
+def raster_depth_reference(rows, bins, counts, big_ids, tiles_x, width, height,
+                           szb=None):
     """Plain PyTorch K3: (tiles_y*32, tiles_x*128) f32 reverse-Z depth.
     It walks every bin slot: slots past a tile's count hold -1, whose
-    zero rows never pass."""
+    zero rows never pass.  szb (the early-z bounds) is not read."""
     dev = rows.device
     n_tiles = bins.shape[0]
     ids = _entry_ids(bins, big_ids)
@@ -63,17 +66,21 @@ def raster_depth_reference(rows, bins, counts, big_ids, tiles_x, width, height):
     return _untile(depth, tiles_x, n_tiles // tiles_x)
 
 
-def raster_depth_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
-    """K3 on the card: the same contract as raster_depth_reference."""
+def raster_depth_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
+                      szb=None):
+    """K3 on the card: the same contract as raster_depth_reference; with
+    szb (n_tiles, n_big + capacity) it ends its walk early."""
     dev = rows.device
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
         raise ValueError(f"raster_depth_cuda needs CUDA tensors, got {dev}")
-    _kernels.check_tensors("raster_depth_cuda", dev, (
-        ("rows", rows, torch.float32, (rows.shape[0], ROW)),
-        ("bins", bins, torch.int32, (n_tiles, cap)),
-        ("counts", counts, torch.int32, (n_tiles,)),
-        ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))))
+    checks = [("rows", rows, torch.float32, (rows.shape[0], ROW)),
+              ("bins", bins, torch.int32, (n_tiles, cap)),
+              ("counts", counts, torch.int32, (n_tiles,)),
+              ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))]
+    if szb is not None:
+        checks.append(("szb", szb, torch.float32, (n_tiles, big_ids.shape[0] + cap)))
+    _kernels.check_tensors("raster_depth_cuda", dev, checks)
     if n_tiles % tiles_x:
         raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
     out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W
@@ -81,7 +88,8 @@ def raster_depth_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
     vp = ctypes.c_void_p
     code = _kernels.library().lib.raster_depth_launch(
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
-        vp(big_ids.data_ptr()), big_ids.shape[0], cap, tiles_x, n_tiles,
+        vp(big_ids.data_ptr()), vp(None if szb is None else szb.data_ptr()),
+        big_ids.shape[0], cap, tiles_x, n_tiles,
         _ndc_scale(width), _ndc_scale(height), out_w, vp(out.data_ptr()),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "raster_depth")
@@ -92,23 +100,31 @@ def raster_depth_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
 raster_depth_cuda.launches = 0
 
 
-def depth_inputs(setup, bins, big_ids, counts, tiles_x, width, height):
-    """The K3 arguments both versions take, from a stack's setup and bins."""
-    return dict(rows=setup["row16"].contiguous(),
+def depth_inputs(setup, bins, big_ids, counts, tiles_x, width, height,
+                 early_z=False):
+    """The K3 arguments both versions take, from a stack's setup and bins
+    (szb, the early-z bounds, with early_z)."""
+    rows = setup["row16"].contiguous()
+    return dict(rows=rows,
                 bins=bins.to(torch.int32).contiguous(),
                 counts=counts.to(torch.int32).contiguous(),
                 big_ids=big_ids.to(torch.int32).contiguous(),
-                tiles_x=tiles_x, width=width, height=height)
+                tiles_x=tiles_x, width=width, height=height,
+                szb=(early_z_bounds(rows, bins, big_ids, tiles_x, width, height)
+                     if early_z else None))
 
 
-def raster_depth(setup, bins, big_ids, counts, tiles_x, tiles_y, width, height):
+def raster_depth(setup, bins, big_ids, counts, tiles_x, tiles_y, width, height,
+                 early_z=False):
     """Depth-only raster (shadow maps).  Returns (tiles_y*32, tiles_x*128)
-    f32 reverse-Z depth, 0 where nothing covers a texel.  CUDA tensors
-    run the K3 kernel (it raises if it cannot launch); CPU tensors run
-    the plain PyTorch version."""
+    f32 reverse-Z depth, 0 where nothing covers a texel.  early_z lets the
+    kernel end its walk early (the same map).  CUDA tensors run the K3
+    kernel (it raises if it cannot launch); CPU tensors run the plain
+    PyTorch version."""
     if bins.shape[0] != tiles_x * tiles_y:
         raise ValueError(f"bins has {bins.shape[0]} rows for "
                          f"{tiles_x}x{tiles_y} tiles")
-    inp = depth_inputs(setup, bins, big_ids, counts, tiles_x, width, height)
+    inp = depth_inputs(setup, bins, big_ids, counts, tiles_x, width, height,
+                       early_z)
     fn = raster_depth_cuda if inp["rows"].is_cuda else raster_depth_reference
     return fn(**inp)

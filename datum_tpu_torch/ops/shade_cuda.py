@@ -12,15 +12,16 @@ plain PyTorch versions for CPU tensors (`shade_deferred_reference`,
 `shade_epilogue_reference`).
 
 Supported: PLANE_NAMES, the sky fill (SKY_NAMES), ao, shadowed spot
-slots (spotsf), SH probes, dense point lights, the lit translucent
-layers (TR_NAMES and the deeper tr2..tr4), the refraction offsets
-(REFR_NAMES), the volumetric fog (FOG_NAMES), the WBOIT resolve
+slots (spotsf), SH probes, dense point lights or the clustered lights'
+per-sub-tile lists (`clusters=`, from ops/cluster.py), the lit
+translucent layers (TR_NAMES and the deeper tr2..tr4), the refraction
+offsets (REFR_NAMES), the volumetric fog (FOG_NAMES), the WBOIT resolve
 (OIT_NAMES) and planes_out.  K2 shades and blends the deeper layers;
 what reads neighbouring pixels (the refraction of the nearest layer),
 that layer's blend, the fog and the WBOIT resolve run in the epilogue
 kernel, which launches only when one of those groups is given.  The box
-env-probe override and clustered lights raise NotImplementedError naming
-the ROADMAP slice that brings them.
+env-probe override raises NotImplementedError naming the ROADMAP slice
+that brings it.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ REFR_NAMES = ["tr_ox", "tr_oy"]                 # refraction offsets (px)
 FOG_NAMES = ["fog_r", "fog_g", "fog_b", "fog_t"]     # in-scatter, transmittance
 OIT_NAMES = ["oit_r", "oit_g", "oit_b", "oit_w", "oit_rev"]
 SHADE_ROWS = 16     # the TPU kernel's row band: vertical refraction wraps in it
+SUBTILE_W = 128     # columns of a sub-tile: each walks its own light list
 
 # epilogue groups of the Pallas kernel that later slices bring
 _LATER = (
@@ -69,13 +71,20 @@ def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
     for keys, why in _LATER:
         if any(k in gplanes for k in keys):
             raise NotImplementedError(f"shade_deferred: {why}")
-    if clusters is not None:
-        raise NotImplementedError("shade_deferred: clustered point lights: "
-                                  "ROADMAP Queue 1, clustered-lights item")
     depth = gplanes["depth"]
     dev = depth.device
     H, W = depth.shape
     f32 = dict(dtype=torch.float32, device=dev)
+    cl_lists = cl_counts = None
+    if clusters is not None:
+        cl_lists, cl_counts = clusters
+        nb, ns = cl_lists.shape[:2]
+        if (nb * SHADE_ROWS, ns * SUBTILE_W) != (H, W) or tuple(cl_counts.shape) != (nb, ns):
+            raise ValueError(f"shade_deferred: clusters of {nb} bands x {ns} "
+                             f"sub-tiles do not cover {H}x{W} in {SHADE_ROWS}-row "
+                             f"bands of {SUBTILE_W}-column sub-tiles")
+        cl_lists = cl_lists.to(torch.int32).contiguous()
+        cl_counts = cl_counts.to(torch.int32).contiguous()
 
     ml = sceneset["mainlight"]
     cam = sceneset["camera"]
@@ -124,7 +133,7 @@ def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
         ao=None if ao is None else _bf16(ao),
         spotsf=None if spotsf is None else _bf16(spotsf),
         params=params, lights=lights, spots=spots, probes=probes,
-        counts=counts)
+        counts=counts, cl_lists=cl_lists, cl_counts=cl_counts)
 
 
 def _bf16(x):
@@ -224,10 +233,26 @@ def _sh_basis(x, y, z):
             0.429043 * (x * x - y * y))
 
 
+def _cluster_lights(lights, n_point, cl_lists, cl_counts):
+    """Per pixel, list slot j of its (band, sub-tile): yields (the (H, W)
+    light rows as 16 planes, the (H, W) mask j < count).  Ids are
+    clamped to the live rows, as the kernel stages them."""
+    l_rows = min(lights.shape[0], max(n_point, 1))
+    up = lambda t: t.repeat_interleave(SHADE_ROWS, 0).repeat_interleave(SUBTILE_W, 1)
+    count = up(cl_counts)
+    for j in range(int(cl_counts.max()) if cl_counts.numel() else 0):
+        lid = torch.clamp(up(cl_lists[:, :, j]), 0, l_rows - 1).long()
+        yield lights[lid].unbind(-1), j < count
+
+
 def shade_deferred_reference(f32_planes, planes, has_sky, ao, spotsf, params,
-                             lights, spots, probes, counts, n_trk=0):
+                             lights, spots, probes, counts, n_trk=0,
+                             cl_lists=None, cl_counts=None):
     """Plain PyTorch K2: (3, H, W) f32 HDR planes (the kernel's math,
-    operation for operation)."""
+    operation for operation).  With cl_lists (H/16, W/128, cap) and
+    cl_counts (H/16, W/128), each pixel adds the point lights of its
+    16-row band's and 128-column sub-tile's list, slots j < count in list
+    order, instead of every light."""
     P = params
     dev = P.device
     _, H, W = f32_planes.shape
@@ -321,17 +346,25 @@ def shade_deferred_reference(f32_planes, planes, has_sky, ao, spotsf, params,
         dif[c] = dif[c] + wsun * fd * P[19 + c]
         spc[c] = spc[c] + wsun * INV_PI * fr[c] * P[19 + c]
 
-    # dense point lights in chunks (clamped reads, `on` mask)
     n_point = int(counts[0])
     L = lights.shape[0]
-    nchunks = (n_point + POINT_CHUNK - 1) // POINT_CHUNK
-    for idx in range(nchunks * POINT_CHUNK):
-        on = 1.0 if idx < n_point else 0.0
-        d_i, s_i, _ = _eval_light(wp, nrm, eye, scol, alpha,
-                                  lights[min(idx, L - 1)])
-        for c in range(3):
-            dif[c] = dif[c] + on * d_i[c]
-            spc[c] = spc[c] + on * s_i[c]
+    if cl_lists is not None:
+        # clustered: the pixel's band and sub-tile list, j < count
+        for row, on in _cluster_lights(lights, n_point, cl_lists, cl_counts):
+            d_i, s_i, _ = _eval_light(wp, nrm, eye, scol, alpha, row)
+            for c in range(3):
+                dif[c] = torch.where(on, dif[c] + d_i[c], dif[c])
+                spc[c] = torch.where(on, spc[c] + s_i[c], spc[c])
+    else:
+        # dense point lights in chunks (clamped reads, `on` mask)
+        nchunks = (n_point + POINT_CHUNK - 1) // POINT_CHUNK
+        for idx in range(nchunks * POINT_CHUNK):
+            on = 1.0 if idx < n_point else 0.0
+            d_i, s_i, _ = _eval_light(wp, nrm, eye, scol, alpha,
+                                      lights[min(idx, L - 1)])
+            for c in range(3):
+                dif[c] = dif[c] + on * d_i[c]
+                spc[c] = spc[c] + on * s_i[c]
 
     # spots: shadowed slots (factor planes), then the unshadowed rest
     n_spot = int(counts[1])
@@ -427,7 +460,8 @@ def shade_epilogue_reference(bg, tr=None, refr=None, fog=None, oit=None):
 
 
 def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
-                        lights, spots, probes, counts, n_trk=0):
+                        lights, spots, probes, counts, n_trk=0, cl_lists=None,
+                        cl_counts=None):
     """K2 on the card: the same contract as shade_deferred_reference."""
     dev = f32_planes.device
     if dev.type != "cuda":
@@ -446,12 +480,20 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
         checks.append(("ao", ao, torch.bfloat16, (H, W)))
     if spotsf is not None:
         checks.append(("spotsf", spotsf, torch.bfloat16, (n_maps, H, W)))
+    cap = 0
+    if cl_lists is not None:
+        if H % SHADE_ROWS or W % SUBTILE_W:
+            raise ValueError(f"shade_deferred_cuda: clusters need {SHADE_ROWS}-row "
+                             f"bands and {SUBTILE_W}-column sub-tiles, got {H}x{W}")
+        nbands, nsub, cap = H // SHADE_ROWS, W // SUBTILE_W, cl_lists.shape[-1]
+        checks += [("cl_lists", cl_lists, torch.int32, (nbands, nsub, cap)),
+                   ("cl_counts", cl_counts, torch.int32, (nbands, nsub))]
     _kernels.check_tensors("shade_deferred_cuda", dev, checks)
     if lights.shape[0] < 1 or spots.shape[0] < 1:
         raise ValueError("shade_deferred_cuda: light and spot tables need a row")
     kl = _kernels.library()
     smem = kl.lib.shade_smem_bytes(lights.shape[0], spots.shape[0],
-                                   probes.shape[0])
+                                   probes.shape[0], cap)
     if smem > 48 * 1024:
         raise ValueError(f"shade_deferred_cuda: tables need {smem} B of shared "
                          "memory (> 48 KB)")
@@ -461,9 +503,9 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
     code = kl.lib.shade_launch(
         ptr(f32_planes), ptr(planes), int(has_sky), n_trk, ptr(ao), ptr(spotsf), n_maps,
         ptr(params), ptr(lights), lights.shape[0], ptr(spots), spots.shape[0],
-        ptr(probes), probes.shape[0], ptr(counts), POINT_CHUNK, H, W,
-        float(np.float32(2.0 / W)), float(np.float32(2.0 / H)),
-        ptr(out), vp(_kernels.stream_ptr(dev)))
+        ptr(probes), probes.shape[0], ptr(counts), POINT_CHUNK, ptr(cl_lists),
+        ptr(cl_counts), cap, H, W, float(np.float32(2.0 / W)),
+        float(np.float32(2.0 / H)), ptr(out), vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "shade_deferred")
     shade_deferred_cuda.launches += 1
     return out

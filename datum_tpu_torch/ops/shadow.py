@@ -107,21 +107,23 @@ def bin_stack(stack, bin_capacity, big_capacity, return_overflow=False):
         tri_block=stack["tri_block"])
 
 
-def raster_stack(stack, bin_capacity, big_capacity):
-    """Bin and K3-raster one stack: (n_maps, res, res) reverse-Z depth."""
+def raster_stack(stack, bin_capacity, big_capacity, early_z=False):
+    """Bin and K3-raster one stack: (n_maps, res, res) reverse-Z depth.
+    early_z: K3's early exit."""
     bins, counts, big_ids = bin_stack(stack, bin_capacity, big_capacity)
     depth = raster_depth(stack["setup"], bins, big_ids, counts,
                          stack["tiles_x"], stack["tiles_y"], stack["res"],
-                         stack["height"])
+                         stack["height"], early_z=early_z)
     return depth.reshape(stack["n_maps"], stack["res"], stack["res"])
 
 
 def render_shadow_cascades(world_pos, tris, shadowview, *, res=1024,
-                           bin_capacity=128, big_capacity=32, far_res=None):
+                           bin_capacity=128, big_capacity=32, far_res=None,
+                           early_z=False):
     """Depth-only cascades: (S, res, res) reverse-Z depth, or with
     far_res a list of per-slice maps [(res, res)] * NEAR_SLICES +
     [(far_res, far_res)] * the rest (build_esm takes either)."""
-    maps = [raster_stack(st, bin_capacity, big_capacity)
+    maps = [raster_stack(st, bin_capacity, big_capacity, early_z)
             for st in cascade_stacks(world_pos, tris, shadowview, res=res,
                                      far_res=far_res)]
     if len(maps) == 1:
@@ -302,11 +304,11 @@ def spot_stack_parabolic(world_pos, tris, spotview_rigid, spot_far, n_maps, *,
 
 def render_spot_maps_parabolic(world_pos, tris, spotview_rigid, spot_far,
                                n_maps, *, res=256, bin_capacity=128,
-                               big_capacity=32):
+                               big_capacity=32, early_z=False):
     """Parabolic spot depth maps (n_maps, res, res), one K3 launch."""
     stack = spot_stack_parabolic(world_pos, tris, spotview_rigid, spot_far,
                                  n_maps, res=res)
-    return raster_stack(stack, bin_capacity, big_capacity)
+    return raster_stack(stack, bin_capacity, big_capacity, early_z)
 
 
 def spot_factor_quarter_parabolic(depth, spot_esm, view_rigid, far, *,

@@ -91,8 +91,10 @@ class GeometryPool:
         self.n_meshes = 0
 
     def add_mesh(self, vertices, indices) -> MeshHandle:
-        """vertices: dict of arrays (position, texcoord, normal, tangent);
-        indices: (K,) or (K/3, 3) mesh-local triangle indices."""
+        """vertices: dict of arrays (position, texcoord, normal, tangent,
+        and for a terrain its geomorph targets morph_position and
+        morph_normal, stored as deltas for the vertex stage); indices:
+        (K,) or (K/3, 3) mesh-local triangle indices."""
         pos = np.asarray(vertices["position"], np.float32)
         uv = np.asarray(vertices.get("texcoord", np.zeros((len(pos), 2))), np.float32)
         nrm = np.asarray(vertices.get("normal", np.tile([0, 0, 1.0], (len(pos), 1))), np.float32)
@@ -106,6 +108,12 @@ class GeometryPool:
         self.texcoords[v0:v0 + nv] = uv
         self.normals[v0:v0 + nv] = nrm
         self.tangents[v0:v0 + nv] = tan
+        if "morph_position" in vertices:
+            self.morph[v0:v0 + nv, :3] = (
+                np.asarray(vertices["morph_position"], np.float32) - pos)
+            if "morph_normal" in vertices:
+                self.morph[v0:v0 + nv, 3:6] = (
+                    np.asarray(vertices["morph_normal"], np.float32) - nrm)
         self.triangles[t0:t0 + nt] = tris + v0     # pool-global vertex ids
         m = self.n_meshes
         self.mesh_vtx_offset[m] = v0

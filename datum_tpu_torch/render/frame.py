@@ -1,22 +1,24 @@
 """The frame (counterpart of datum_tpu/render/frame.py, the megakernel
 branch of `_frame`).
 
-Passes, in order: host draw expansion (numpy) -> attribute gather and
-rigid transform -> sun cascades (K3, ops/raster_depth_cuda.py) and
-their ESM, parabolic spot maps (K3) and their ESM -> triangle setup and
-binning into 32x128 tiles -> K1 fused visibility raster, or K6 with
-raster_two_phase (ops/raster_cuda.py) -> plane assembly at half
-resolution with the skybox environment, one batched upsample, the
-quarter-res sun factor, then the decals (ops/decal.py), SSAO
-(ops/ssao.py, with its temporal history), the spot factors, sky planes
-and the froxel fog planes (ops/fog.py) -> the lit translucent layers (K1
-or K6 with alpha_in_alb and peel, plane assembly and K2 on a
+Passes, in order: host draw expansion (numpy) -> attribute gather, the
+terrain geomorph and rigid transform -> sun cascades (K3,
+ops/raster_depth_cuda.py) and their ESM, parabolic spot maps (K3) and
+their ESM -> triangle setup and binning into 32x128 tiles -> K1 fused
+visibility raster, or K6 with raster_two_phase (ops/raster_cuda.py;
+with raster_early_z K1, K6 and K3 end their walks early) -> plane
+assembly at half resolution with the skybox environment, one batched
+upsample, the quarter-res sun factor, then the decals (ops/decal.py),
+SSAO (ops/ssao.py, with its temporal history), the spot factors, sky
+planes and the froxel fog planes (ops/fog.py) -> the lit translucent
+layers (K1 or K6 with alpha_in_alb and peel, plane assembly and K2 on a
 1/translucent_lit_scale viewport, upsampled) -> one merged weighted-blend
 OIT stream of the residual translucents and the particle billboards (K4,
-ops/raster_blend_cuda.py) -> K2 deferred-shade megakernel and its
-translucent/fog/OIT epilogue (ops/shade_cuda.py) -> luminance, binned SSR
-at quarter resolution (ops/ssr2.py), bloom, depth of field, composite
-with the colour grade, u8.
+ops/raster_blend_cuda.py) -> the clustered lights' per-tile lists
+(ops/cluster.py, use_light_clusters) -> K2 deferred-shade megakernel and
+its translucent/fog/OIT epilogue (ops/shade_cuda.py) -> luminance,
+binned SSR at quarter resolution (ops/ssr2.py), bloom, depth of field,
+composite with the colour grade, u8.
 
 PyTorch runs eagerly, so there is no jit: each pass is a plain function
 on tensors, and the frame is one call of `render_frame`.
@@ -35,17 +37,18 @@ from ..ops import shadow as shadow_ops
 from ..ops.blur import (downsample2, downsample_pool, gaussian_blur, resize_matmul,
                         resize_up_dense, resize_up_dense_batch)
 from ..ops.bloom import bloom as bloom_op
+from ..ops.cluster import bin_lights, tile_depth_bounds
 from ..ops.common import TILE_H, TILE_W, FrameConfig, round_up, texel_index
 from ..ops.composite import composite, to_u8_image
 from ..ops.decal import apply_decals_planes
-from ..ops.geometry import transform_vertices_rigid
+from ..ops.geometry import terrain_morph, transform_vertices_rigid
 from ..ops.ibl import rotate_sh9
 from ..ops.lighting_pass import _inv_proj, reconstruct_positions, view_ray_grid
 from ..ops.raster_blend_cuda import raster_blend
 from ..ops.raster_cuda import raster_shade
 from ..ops.sampling import sample_cubemap_lod_pair
 from ..ops.shade import sample_matmaps
-from ..ops.shade_cuda import MAX_TR_LAYERS, shade_deferred
+from ..ops.shade_cuda import MAX_TR_LAYERS, SHADE_ROWS, shade_deferred
 from ..ops.ssao import hbao, make_hbao_params
 from ..ops.ssr2 import ssr_binned
 from .renderlist import RenderList
@@ -65,14 +68,8 @@ _LATER = (
      "post (sprites)"),
     (lambda c: c.enable_skinning, "skinning", "off-main-path device code"),
     (lambda c: c.enable_foliage, "foliage wind bend", "off-main-path device code"),
-    (lambda c: c.enable_terrain_morph, "terrain geomorph",
-     "off-main-path device code"),
     (lambda c: c.max_dynamic_vertices > 0, "dynamic vertices (ocean)",
      "off-main-path device code"),
-    (lambda c: c.use_light_clusters, "clustered point lights",
-     "clustered lights (ops/cluster.py + the K2 cluster loop)"),
-    (lambda c: c.raster_early_z, "the K1 early-z exit (raster_early_z)",
-     "the K1 options in Queue 2"),
     (lambda c: c.raster_kernel != "v2", "raster_kernel='mxu' (K7)",
      "the K7 row of Queue 2"),
     (lambda c: not (c.use_pallas and c.use_shade_kernel
@@ -148,27 +145,35 @@ def attach_host_expansion(pool, draws, max_v, max_t, max_translucent_t):
 
 
 def _vertex_stage(cfg: FrameConfig, state, draws, sceneset):
-    """Host-expanded streams + ONE attr12 row gather + rigid transform.
-    Returns (ex, uv, clip, wnormal, wtangent, worldp)."""
+    """Host-expanded streams + ONE attr12 row gather + the terrain
+    geomorph (enable_terrain_morph) + rigid transform.  Returns (ex, uv,
+    clip, wnormal, wtangent, worldp)."""
     if "src_v" not in draws:
         raise ValueError("draws need the host draw expansion "
                          "(RenderContext.expand_host) before render_frame")
     ex = {k: draws[k] for k in ("src_v", "vtx_draw", "v_valid", "tris",
                                 "tri_draw", "t_valid")}
-    uv, clip, wnormal, wtangent, worldp = _stream_vertices(state, draws,
-                                                           sceneset)
+    uv, clip, wnormal, wtangent, worldp = _stream_vertices(
+        state, draws, sceneset, morph=cfg.enable_terrain_morph)
     return ex, uv, clip, wnormal, wtangent, worldp
 
 
-def _stream_vertices(state, d, sceneset):
+def _stream_vertices(state, d, sceneset, morph=False):
     """ONE attr12 row gather + rigid transform of a host-expanded draw
-    stream d (the opaque draws or draws["translucent"]).  Returns (uv,
-    clip, wnormal, wtangent, worldp)."""
-    rows12 = state["geometry"]["attr12"][d["src_v"].long()]
+    stream d (the opaque draws or draws["translucent"]); with morph, the
+    terrain geomorph of d's morph_range draws first.  Returns (uv, clip,
+    wnormal, wtangent, worldp)."""
+    geom = state["geometry"]
+    src = d["src_v"].long()
+    rows12 = geom["attr12"][src]
+    positions, normals = rows12[:, 0:3], rows12[:, 5:8]
+    if morph:
+        positions, normals = terrain_morph(
+            positions, normals, geom["morph6"][src], d["vtx_draw"], d["world"],
+            d["morph_range"], sceneset["invview"][:3, 3])
     viewproj = sceneset["proj"] @ sceneset["view"]
     clip, wnormal, wtangent, worldp = transform_vertices_rigid(
-        rows12[:, 0:3], rows12[:, 5:8], rows12[:, 8:12], d["vtx_draw"],
-        d["world"], viewproj)
+        positions, normals, rows12[:, 8:12], d["vtx_draw"], d["world"], viewproj)
     return rows12[:, 3:5], clip, wnormal, wtangent, worldp
 
 
@@ -190,13 +195,15 @@ def _bin_stage(cfg: FrameConfig, ex, clip):
 
 def _raster_stage(cfg: FrameConfig, state, draws, ex, uv, clip, wnormal,
                   wtangent):
-    """Binning and the K1 raster (K6 with raster_two_phase).  Returns
-    (planes dict, bin_overflow)."""
+    """Binning and the K1 raster (K6 with raster_two_phase; with
+    raster_early_z, its early exit).  Returns (planes dict,
+    bin_overflow)."""
     setup, bins, counts, big_ids, bin_overflow = _bin_stage(cfg, ex, clip)
     planes = raster_shade(
         setup, bins, big_ids, counts, ex["tris"], uv, wnormal, draws["tri_mat"],
         state["materials"], cfg.tiles_x, cfg.tiles_y, cfg.padded_width,
-        cfg.padded_height, tangent=wtangent, two_phase=cfg.raster_two_phase)
+        cfg.padded_height, tangent=wtangent, two_phase=cfg.raster_two_phase,
+        early_z=cfg.raster_early_z)
     return planes, bin_overflow
 
 
@@ -208,7 +215,7 @@ def _sun_shadows(cfg: FrameConfig, ex, worldp, sceneset):
     raw = shadow_ops.render_shadow_cascades(
         worldp, ex["tris"], ml["shadowview"], res=cfg.shadow_res,
         bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity,
-        far_res=cfg.shadow_far_res)
+        far_res=cfg.shadow_far_res, early_z=cfg.raster_early_z)
     return shadow_ops.build_esm(raw, ml["shadowview"])
 
 
@@ -220,7 +227,8 @@ def _spot_shadows(cfg: FrameConfig, ex, worldp, sceneset):
     maps = shadow_ops.render_spot_maps_parabolic(
         worldp, ex["tris"], sl["view"], sl["attenuation"][:, 3],
         cfg.max_spot_shadows, res=cfg.spot_shadow_res,
-        bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity)
+        bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity,
+        early_z=cfg.raster_early_z)
     return shadow_ops.build_spot_esm(maps)
 
 
@@ -518,7 +526,7 @@ def _lit_layers(cfg: FrameConfig, state, ts, sceneset, ss2, shadows, depth, gpl)
             tsetup, tbins, tbig, tcounts, d["tris"], ts["uv"], ts["wn"],
             d["tri_mat"], state["materials"], tx, ty, w_t, h_t,
             tangent=ts["wt"], alpha_in_alb=True, peel_depth=peel,
-            two_phase=cfg.raster_two_phase)
+            two_phase=cfg.raster_two_phase, early_z=cfg.raster_early_z)
         peel = planes_t["depth"]          # the next layer peels against it
         # only fragments nearer than the opaque surface
         planes_t = dict(planes_t, visf=torch.where(
@@ -660,6 +668,26 @@ def _translucent_stage(cfg: FrameConfig, state, draws, sceneset, ss2, shadows,
         _oit_planes(cfg, state, draws, sceneset, ts, lit_peel, depth, gpl)
 
 
+def light_clusters(cfg: FrameConfig, depth, sceneset):
+    """K2's clusters (use_light_clusters), or None: each tile's point
+    lights culled against its frustum and its depth interval
+    (tile_light_capacity a tile), and each 32-row tile row's lists
+    repeated for its two 16-row shade bands: ((H/16, tiles_x, cap) ids,
+    (H/16, tiles_x) counts)."""
+    if not cfg.use_light_clusters:
+        return None
+    pl_ = sceneset["pointlights"]
+    tx, ty, cap = cfg.tiles_x, cfg.tiles_y, cfg.tile_light_capacity
+    proj = sceneset["proj"]
+    lists, counts = bin_lights(
+        pl_["position"], pl_["attenuation"][:, 3], pl_["count"], sceneset["view"],
+        proj, tx, ty, cfg.padded_width, cfg.padded_height, cap,
+        tile_zrange=tile_depth_bounds(depth, proj))
+    rows = TILE_H // SHADE_ROWS
+    return (lists.reshape(ty, tx, -1).repeat_interleave(rows, 0),
+            counts.reshape(ty, tx).repeat_interleave(rows, 0))
+
+
 def _ssr(cfg: FrameConfig, state, sceneset, hdr, depth, gpl):
     """Binned SSR at quarter resolution on the final hdr, fed by the
     minimal gbuffer of the opaque layer's K2 planes (decals in): (hq, wq,
@@ -745,7 +773,8 @@ def _frame(cfg: FrameConfig, state, draws, sceneset, prev=None):
     _translucent_stage(cfg, state, draws, sceneset, ss2, shadows,
                        planes["depth"], gpl)
     hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
-                         invview=sceneset["invview"], ao=ao, spotsf=spotsf)
+                         invview=sceneset["invview"], ao=ao, spotsf=spotsf,
+                         clusters=light_clusters(cfg, planes["depth"], sceneset))
     image, lum = _post(cfg, state, sceneset, hdr, planes["depth"], gpl)
     vis = torch.round(planes["visf"]).to(torch.int32)
     out = dict(image=image, luminance=lum, depth=planes["depth"], vis=vis,

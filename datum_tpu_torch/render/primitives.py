@@ -1,6 +1,7 @@
 """Procedural built-in meshes (counterpart of
-datum_tpu/render/primitives.py, trimmed to the slice's sphere and
-plane).  Vertices carry {position, texcoord, normal, tangent(xyz,w)}."""
+datum_tpu/render/primitives.py, trimmed to the sphere, the plane and
+the stress scene's terrain).  Vertices carry {position, texcoord,
+normal, tangent(xyz,w)}."""
 
 from __future__ import annotations
 
@@ -41,3 +42,40 @@ def plane(size=1.0, reps=1.0):
     nrm = [[0, 1, 0]] * 4
     tan = [[1, 0, 0, 1]] * 4
     return _mesh(pos, uv, nrm, tan, [0, 2, 1, 0, 3, 2])
+
+
+def terrain(size=32.0, n=128, height=2.0, seed=7, reps=8.0, morph_grid=0):
+    """Dense displaced ground grid: n x n quads (2*n^2 triangles) with
+    fBm Perlin heights, normals from central differences; morph_grid > 0
+    adds the geomorph targets (morph_position, morph_normal; see
+    render/terrain.py)."""
+    from ..math.perlin import PerlinEngine
+    from .terrain import grid_morph_targets
+
+    eng = PerlinEngine(seed)
+    xs = np.linspace(-size, size, n + 1, dtype=np.float32)
+    zs = np.linspace(-size, size, n + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, zs, indexing="xy")
+    h = eng.fbm3(gx * (4.0 / size), np.zeros_like(gx),
+                 gz * (4.0 / size), octaves=4) * height
+    step = 2.0 * size / n
+    dx = np.gradient(h, step, axis=1)
+    dz = np.gradient(h, step, axis=0)
+    nrm = np.stack([-dx, np.ones_like(h), -dz], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+
+    pos = np.stack([gx, h, gz], -1).reshape(-1, 3)
+    uv = np.stack([(gx + size) / (2 * size) * reps,
+                   (gz + size) / (2 * size) * reps], -1).reshape(-1, 2)
+    tan = np.concatenate([np.tile(np.float32([1, 0, 0]), (pos.shape[0], 1)),
+                          np.ones((pos.shape[0], 1), np.float32)], -1)
+    r = np.arange(n, dtype=np.int32)
+    a = (r[:, None] * (n + 1) + r[None, :]).ravel()   # row-major cell origin
+    b = a + n + 1
+    idx = np.stack([a, b, a + 1, a + 1, b, b + 1], -1).reshape(-1)
+    verts, tris = _mesh(pos, uv, nrm.reshape(-1, 3), tan, idx)
+    if morph_grid > 0:
+        mp, mn = grid_morph_targets(np.stack([gx, h, gz], -1), nrm, morph_grid)
+        verts["morph_position"] = mp
+        verts["morph_normal"] = mn
+    return verts, tris

@@ -1,7 +1,7 @@
 """RenderList: the per-frame draw-building facade (counterpart of
 datum_tpu/render/renderlist.py, trimmed to what the port renders:
-meshes, translucent meshes, point and spot lights, decals, particle
-billboards, and their fixed-capacity arrays)."""
+meshes, terrain with geomorph, translucent meshes, point and spot lights,
+decals, particle billboards, and their fixed-capacity arrays)."""
 
 from __future__ import annotations
 
@@ -27,6 +27,15 @@ class RenderList:
     def push_mesh(self, mesh, transform, material):
         self.draws.append(dict(mesh=mesh.mesh_id, transform=_to_affine(transform),
                                material=material))
+
+    def push_terrain(self, mesh, transform, material, morph=(24.0, 48.0)):
+        """Terrain draw with LOD geomorph: the mesh carries baked morph
+        targets (primitives.terrain(morph_grid=...)); morph = (morphbeg,
+        morphend) camera distances.  Needs
+        FrameConfig.enable_terrain_morph."""
+        self.draws.append(dict(mesh=mesh.mesh_id, transform=_to_affine(transform),
+                               material=material,
+                               morph=np.asarray(morph, np.float32)))
 
     def push_translucent(self, mesh, transform, material):
         """Translucent mesh (material alpha < 1): the lit glass/water
@@ -166,21 +175,25 @@ class RenderList:
 
     def draw_arrays(self, max_draws, default_material):
         """Fixed-capacity draw arrays (the JAX package's draw_arrays
-        without skinning palettes, which the slice rejects)."""
+        without skinning palettes, which the port rejects); morph_range
+        (morphbeg, morphend) is (0, 0), off, except on terrain draws."""
         mesh = np.zeros(max_draws, np.int32)
         world = np.zeros((max_draws, 3, 4), np.float32)
         world[:, :, :3] = np.eye(3)
         material = np.full(max_draws, default_material, np.int32)
+        morph_range = np.zeros((max_draws, 2), np.float32)   # end <= 0: off
         n = min(len(self.draws), max_draws)
         for i, d in enumerate(self.draws[:n]):
             mesh[i] = d["mesh"]
             world[i] = d["transform"]
             material[i] = d["material"]
+            if "morph" in d:
+                morph_range[i] = d["morph"]
         return dict(mesh=mesh, world=world, material=material, count=np.int32(n),
                     wind=np.zeros((max_draws, 4), np.float32),
                     bendscale=np.zeros((max_draws, 3), np.float32),
                     detailbendscale=np.zeros((max_draws, 3), np.float32),
-                    morph_range=np.zeros((max_draws, 2), np.float32))
+                    morph_range=morph_range)
 
 
 def _to_affine(transform):

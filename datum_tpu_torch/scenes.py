@@ -1,12 +1,14 @@
-"""Canonical test scene (counterpart of datum_tpu/scenes.py::datumtest_scene).
+"""Canonical test scenes (counterpart of datum_tpu/scenes.py:
+datumtest_scene and stress_scene).
 
 The flagship scene: a grid of spheres sweeping roughness x metalness,
 a checkered ground plane, point lights and a spot (shadowed when the
 config asks for spot maps), lit by a procedural skybox and graded
 through the fitted colour LUT; with the config's forward capacities,
 also a glass sphere, a shallow water pool, two floor decals and a
-256-particle cloud.  Built on the port's own numpy host side, so it
-needs no jax.
+256-particle cloud.  The stress scene: a dense geomorphed terrain, a
+sphere wall and 128 clustered point lights.  Built on the port's own
+numpy host side, so they need no jax.
 """
 
 from __future__ import annotations
@@ -164,6 +166,90 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
                  np.cos(t * 0.4 + part_phase) * 0.4 + 0.2,
                  np.cos(t * 0.6 + part_phase) * 0.8], -1).astype(np.float32)
             rl.push_particles(_ParticleCloud(pos), emissive=0.4)
+        return rl
+
+    return ctx, camera, params, make_renderlist
+
+
+def stress_scene(width=1920, height=1080, *, terrain_n=192, sphere_detail=36,
+                 grid=(8, 4), n_point_lights=128, skybox=True, skybox_size=32,
+                 device="cuda", **cfg_kw):
+    """The dense-mesh, many-light stress scene (the JAX package's
+    stress_scene): a Perlin terrain of 2*terrain_n^2 triangles with LOD
+    geomorph and a wall of grid spheres at sphere_detail, lit by
+    n_point_lights clustered point lights (64 a tile) and the sun.
+    Defaults of the config: 1<<18 vertices and triangles, clusters,
+    terrain morph.  Returns (ctx, camera, params, make_renderlist) like
+    datumtest_scene, with equal state for the same arguments."""
+    cfg_kw.setdefault("max_vertices", 1 << 18)
+    cfg_kw.setdefault("max_triangles", 1 << 18)
+    cfg_kw.setdefault("use_light_clusters", True)
+    cfg_kw.setdefault("tile_light_capacity", 64)
+    cfg_kw.setdefault("enable_terrain_morph", True)
+    cfg = FrameConfig(width=width, height=height, **cfg_kw)
+    ctx = RenderContext(cfg, device=device)
+
+    if skybox:
+        from .render.skybox import SkyBox
+        ctx.set_skybox(SkyBox(size=skybox_size, convolve_samples=16))
+
+    tverts, tidx = primitives.terrain(
+        size=28.0, n=terrain_n, height=2.2,
+        morph_grid=(4 if cfg.enable_terrain_morph else 0))
+    ground = ctx.add_mesh(tverts, tidx)
+    rock = np.zeros((64, 64, 4), np.uint8)
+    ri, rj = np.indices((64, 64))
+    c = ((ri // 4) + (rj // 4)) % 2
+    rock[..., :3] = np.where(c[..., None] > 0, 150, 110)
+    rock[..., 3] = 255
+    ground_mat = ctx.add_material(color=(1, 1, 1, 1), roughness=0.85,
+                                  albedomap=ctx.add_texture(rock))
+
+    verts, idx = primitives.unit_sphere(sphere_detail, sphere_detail // 2)
+    sphere = ctx.add_mesh(verts, idx)
+    gx, gy = grid
+    mats = []
+    for j in range(gy):
+        for i in range(gx):
+            mats.append(ctx.add_material(
+                color=(0.75, 0.2 + 0.5 * (i % 3) / 2, 0.15, 1),
+                metalness=j / max(gy - 1, 1),
+                roughness=max(i / max(gx - 1, 1), 0.05),
+                reflectivity=0.5))
+
+    camera = Camera()
+    camera.set_projection(np.radians(60), width / height)
+    camera.lookat(np.array([0.0, 6.0, 20.0]), np.array([0.0, 2.5, 0.0]),
+                  np.array([0.0, 1.0, 0.0]))
+    params = RenderParams(width=width, height=height)
+    params.sundirection = np.array([-0.6, -0.75, -0.3], np.float32)
+    params.sundirection /= np.linalg.norm(params.sundirection)
+    params.sunintensity = np.array([3.5, 3.4, 3.2], np.float32)
+    params.ambientintensity = 0.45
+
+    rng = np.random.RandomState(11)
+    light_pos = rng.uniform([-14, 0.8, -10], [14, 6.0, 12],
+                            (n_point_lights, 3)).astype(np.float32)
+    light_col = rng.uniform(0.5, 6.0, (n_point_lights, 3)).astype(np.float32)
+
+    def make_renderlist(t=0.0):
+        rl = RenderList()
+        if cfg.enable_terrain_morph:
+            rl.push_terrain(ground, Transform.identity(), ground_mat, morph=(18.0, 34.0))
+        else:
+            rl.push_mesh(ground, Transform.identity(), ground_mat)
+        k = 0
+        for j in range(gy):
+            for i in range(gx):
+                x = (i - (gx - 1) / 2) * 3.0
+                y = 2.0 + j * 2.6
+                rl.push_mesh(sphere, Transform.translation([x, y, 0.0]), mats[k])
+                k += 1
+        for li in range(n_point_lights):
+            p = light_pos[li].copy()
+            p[0] += np.sin(t * 0.9 + li * 0.61) * 1.2
+            p[2] += np.cos(t * 0.7 + li * 0.37) * 1.2
+            rl.push_pointlight(p, light_col[li], (1.0, 0.0, 1.0), range_=7.0)
         return rl
 
     return ctx, camera, params, make_renderlist

@@ -206,9 +206,7 @@ _IDS = lambda d: "-".join(f"{k}={v}" for k, v in d.items())
     dict(max_fog_planes=1), dict(enable_ssr=True, ssr_mode="dda"),
     dict(max_overlay_sprites=4),
     dict(enable_skinning=True), dict(enable_foliage=True),
-    dict(enable_terrain_morph=True), dict(max_dynamic_vertices=64),
-    dict(use_light_clusters=True), dict(raster_early_z=True),
-    dict(raster_kernel="mxu"),
+    dict(max_dynamic_vertices=64), dict(raster_kernel="mxu"),
     dict(use_pallas=False), dict(texture_filter="nearest"),
     dict(use_shade_kernel=False), dict(enable_material_maps=False),
 ], ids=_IDS)
@@ -224,10 +222,13 @@ def test_unsupported_flags_raise(override):
     dict(max_decals_active=2, enable_ssr=True), dict(enable_ssao=True),
     dict(enable_fog=True), dict(enable_ssr=True),
     dict(enable_depth_of_field=True), dict(raster_two_phase=True),
+    dict(enable_terrain_morph=True), dict(use_light_clusters=True),
+    dict(raster_early_z=True),
 ], ids=_IDS)
 def test_post_flags_accepted(override):
-    """SSAO, the froxel fog, the binned SSR, depth of field and the
-    two-phase raster (K6) are ported: check_config passes them."""
+    """SSAO, the froxel fog, the binned SSR, depth of field, the
+    two-phase raster (K6), the terrain geomorph, clustered lights and the
+    early-z exit are ported: check_config passes them."""
     check_config(FrameConfig(**dict(_BASE, **override)))
 
 

@@ -181,21 +181,31 @@ def test_k2_fog_group(extra):
 
 
 @pytest.mark.parametrize("extra", [
-    dict(edr=1, edg=1, edb=1, edm=1), dict(edm=1), dict(clusters=1),
+    dict(edr=1, edg=1, edb=1, edm=1), dict(edm=1),
 ], ids=lambda d: "-".join(sorted(d)))
 def test_k2_later_groups_raise(extra):
-    """The box env-probe override and clustered lights raise, each
-    naming its ROADMAP item, even when only one plane of a group is
-    given."""
+    """The box env-probe override raises naming its ROADMAP item, even
+    when only one plane of the group is given."""
     ss, g = _torch_tree(_scene()), _torch_tree(_gplanes(sky=False))
-    kw = {}
-    if "clusters" in extra:
-        kw["clusters"] = (torch.zeros(4, 2, 8, dtype=torch.int32),
-                          torch.zeros(4, 2, dtype=torch.int32))
-    else:
-        g.update({k: torch.zeros(H, W) for k in extra})
+    g.update({k: torch.zeros(H, W) for k in extra})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"], **kw)
+        shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
+
+
+@pytest.mark.parametrize("count", [0, 3], ids=["clusters-empty", "clusters"])
+def test_k2_clusters_run(count):
+    """Clustered lights are ported: every cell's list holding the first
+    `count` lights shades as the dense loop over `count` lights (no light
+    culled: the same sums in the same order)."""
+    ss, g = _torch_tree(_scene()), _torch_tree(_gplanes(sky=False))
+    lists = torch.full((H // 16, W // 128, 8), -1, dtype=torch.int32)
+    lists[..., :count] = torch.arange(count, dtype=torch.int32)
+    counts = torch.full((H // 16, W // 128), count, dtype=torch.int32)
+    out = shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"],
+                         clusters=(lists, counts))
+    ss["pointlights"]["count"] = torch.tensor(count, dtype=torch.int32)
+    dense = shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
+    assert torch.equal(out, dense)
 
 
 @pytest.mark.parametrize("extra", [
