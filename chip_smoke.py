@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Renders the bench frame and the dense stress frame at 1920x1088
-through datum_tpu_torch.render.frame.render_frame, after building the
-port's CUDA kernels from datum_tpu_torch/csrc with nvcc.  The bench
+Renders the bench frame, the dense stress frame and the deferred
+(non-megakernel) frames at 1920x1088 through
+datum_tpu_torch.render.frame.render_frame, after building the port's
+CUDA kernels from datum_tpu_torch/csrc with nvcc.  The bench
 frame is bench.py's config (the datumtest scene with 4 sun cascades as a
 1024 near and a 512 far atlas with ESM and slice blend, one parabolic
 spot map, the procedural skybox and its IBL environment, the lit glass
@@ -52,6 +53,18 @@ and exits non-zero:
    frame driven 3 times with early-z off and 3 times on, with its
    launches checked; its ms/frame, stages, kernels, the gather
    microbenchmark's one PyTorch call and the bounds;
+4d-6d. the deferred frame (FrameConfig's default path): K5 and K7
+   against their plain versions on the bench frame's inputs (bit-equal,
+   vis identical) and K7's vis against K1's; the full-width K5 frame (the
+   bench config with the bilinear filter: K5 1, K4 2, K3 once per stack,
+   K1/K2/K6/K7 0) and K7 frame (raster_kernel='mxu', material maps off:
+   K7 1, K1/K2/K5 0) driven 3 times each, and entry()'s 1280x704
+   use_pallas=False frame, where no kernel launches; the 256x128
+   deferred frames (entry()'s config with ESM and with PCF, the K5 and
+   the K7 frame) on the card against the CPU plain path; the stress
+   golden config against tests/golden/stress.png (decoded with zlib;
+   RMSE printed); ms/frame, a profiler window, stages, K5's and K7's ms
+   and bounds;
 7. print the kernels' JSON line, then the device JSON line last, after
    the script's wall time.
 
@@ -136,14 +149,39 @@ OPS_WALK_BLEND = 80
 OPS_K1_PIXEL = 110
 OPS_K2_PIXEL, OPS_K2_LIGHT = 200, 60
 OPS_EPILOGUE_PIXEL = 40
-# the unported TPU kernels, counted from datum_tpu/ops/raster_pallas.py:
-# K5 (`_raster_kernel`) does K3's walk plus the reciprocal of s, two
-# barycentrics and four selects per (pixel, entry), ~25; K7 (`_v3_kernel`)
-# evaluates 6 planes of 24 coefficient rows per entry as one matmul
-# (24 x 6 multiply-adds, 288), the one-hot attribute matmul (32, 64) and
-# ~20 element-wise, ~372.  Their bytes: the per-triangle rows (16 floats;
-# K7 24 + 32) read once, the bins, and 4 (K7 15) f32 output planes
-OPS_WALK_K5, OPS_WALK_K7 = 25, 372
+# K5 walks K3's 4 planes + s a (pixel, entry), 18, and spends ~16 a
+# pixel on the winner's barycentrics; K7 evaluates 6 planes (e0..e2, d
+# and the two scissor planes yn - ylo, hi - yn) + s, 26, and ~40 a pixel
+# on the barycentrics and 5 interpolations.  The TPU kernel's padded
+# product (24 coefficient rows x 128 entries x 6*2048 columns a chunk and
+# 16-row half tile) is a layout, reported beside K7's bound, not in it
+OPS_WALK_K5, OPS_K5_PIXEL = 18, 16
+OPS_WALK_K7, OPS_K7_PIXEL = 26, 40
+# entry()'s frame (__graft_entry__.py: the datumtest scene at 1280x704,
+# FrameConfig's defaults: use_pallas=False, the nearest filter, ESM sun
+# cascades at 1024, material maps; bins 128 + 32)
+ENTRY = dict(sphere_detail=16, n_point_lights=4, max_vertices=1 << 15,
+             max_triangles=1 << 15, bin_capacity=128, big_capacity=32)
+ENTRY_SIZE = (1280, 704)
+# the 256x128 deferred frames held against the CPU plain path: entry()'s
+# config with ESM and with PCF, the K5 frame (bilinear filter, material
+# maps, translucents, particles, decals, SSAO, fog, a perspective spot
+# map, SSR) and the K7 frame; bins that do not overflow
+DEFERRED_SMALL = dict(sphere_detail=8, grid=(4, 3), n_point_lights=4,
+                      max_vertices=4096, max_triangles=4096, bin_capacity=128,
+                      big_capacity=32, shadow_res=256, shadow_bin_capacity=320)
+K5_SMALL = dict(DEFERRED_SMALL, use_pallas=True, texture_filter="bilinear",
+                max_translucent_draws=2, max_translucent_tris=2048,
+                max_particle_quads=512, max_decals_active=2, enable_ssao=True,
+                enable_fog=True, enable_ssr=True, max_spot_shadows=1,
+                spot_shadow_mode="perspective", spot_shadow_res=128,
+                forward_bin_capacity=256, forward_big_capacity=16)
+K7_SMALL = dict(DEFERRED_SMALL, use_pallas=True, raster_kernel="mxu",
+                enable_material_maps=False, enable_shadows=False)
+# datum_tpu/tools/stress_golden.py's CONFIG, rendered for tests/golden/stress.png
+STRESS_GOLDEN = dict(width=320, height=160, terrain_n=96, sphere_detail=20,
+                     grid=(6, 3), n_point_lights=64, skybox_size=16,
+                     max_vertices=1 << 16, max_triangles=1 << 16, big_capacity=32)
 
 
 def phase(n, msg):
@@ -312,9 +350,9 @@ def stage_ms(cfg, state, draws, ss, dev, reps=5):
         epi = epilogue_inputs(gpl)
         hdr = (bg if epi is None else shade_epilogue_cuda(bg, **epi)).permute(1, 2, 0)
         mark()
-        F._ssr(cfg, state, s, hdr, planes["depth"], gpl)
+        F._ssr(cfg, state, s, hdr, planes["depth"], F._ssr_inputs_planes(gpl))
         mark()
-        F._post(no_ssr, state, s, hdr, planes["depth"], gpl)
+        F._post(no_ssr, state, s, hdr, planes["depth"], F._ssr_inputs_planes(gpl))
         mark()
         F.dof_fields(hdr, planes["depth"], s["proj"], s["camera"])
         mark()
@@ -407,14 +445,16 @@ def check_k6(k6, plain, k1, what):
     return err
 
 
-def drive(render, inputs, kernels, expect, forbid=(), overflow_limit=0):
+def drive(render, inputs, kernels, expect, forbid=(), overflow_limit=0, size=None):
     """Render each (draws, ss) with every kernel count set to 0 just
-    before and read just after; check the image, bin_overflow (at most
-    overflow_limit; None: no limit) and that every frame launched each
-    kernel at least expect[name] times and the kernels of forbid never.
-    Returns (per-frame launches, totals, the last image, luminance)."""
+    before and read just after; check the image ((width, height) size),
+    bin_overflow (at most overflow_limit; None: no limit) and that every
+    frame launched each kernel at least expect[name] times and the
+    kernels of forbid never.  Returns (per-frame launches, totals, the
+    last image, luminance)."""
     import torch
 
+    size = size or (W, H)
     for k in kernels.values():
         k.launches = 0
     per_frame = []
@@ -424,7 +464,7 @@ def drive(render, inputs, kernels, expect, forbid=(), overflow_limit=0):
         torch.cuda.synchronize()
         per_frame.append({n: k.launches - before[n] for n, k in kernels.items()})
         img, lum = out["image"], out["luminance"]
-        if tuple(img.shape) != (H, W, 3) or img.dtype != torch.uint8:
+        if tuple(img.shape) != (size[1], size[0], 3) or img.dtype != torch.uint8:
             raise RuntimeError(f"image {tuple(img.shape)} {img.dtype}")
         mean = img.float().mean().item()
         over = overflow_limit is not None and int(out["bin_overflow"]) > overflow_limit
@@ -730,6 +770,311 @@ def stress_phases(dev, card, kernels):
                 "it, nearest first): " + "; ".join(walks))
     return dict(t=t, b=b, launches=pfz[0], errs=dict(k1=k1_err, k6=k6_err, k3=k3_err,
                                                      k2c=k2c_err))
+
+
+def read_png_rgb(path):
+    """An 8-bit RGB PNG (no interlace) as a (h, w, 3) uint8 numpy array,
+    decoded with zlib: the card's machine has no PIL."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path} is not a PNG")
+    pos, idat, w, h = 8, b"", None, None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
+            if (depth, ctype, interlace) != (8, 2, 0):
+                raise RuntimeError(f"{path}: not 8-bit RGB without interlace")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    out = np.zeros((h, 3 * w), np.int32)
+    for y in range(h):
+        f, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        up = out[y - 1] if y else np.zeros(3 * w, np.int32)
+        if f in (0, 2):
+            out[y] = (line + (up if f == 2 else 0)) & 255
+            continue
+        row = np.zeros(3 * w + 3, np.int32)         # 3 zero bytes to the left
+        upl = np.concatenate([np.zeros(3, np.int32), up])
+        for x in range(3 * w):
+            a, b, c = row[x], upl[x + 3], upl[x]
+            if f == 1:
+                pred = a
+            elif f == 3:
+                pred = (a + b) // 2
+            else:                                  # Paeth
+                p_ = a + b - c
+                pa, pb, pc = abs(p_ - a), abs(p_ - b), abs(p_ - c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            row[x + 3] = (line[x] + pred) & 255
+        out[y] = row[3:]
+    return out.reshape(h, w, 3).astype(np.uint8)
+
+
+def deferred_stage_ms(cfg, state, draws, ss, dev, reps=5):
+    """Wall ms of each stage of a deferred frame with a device sync after
+    each (median of reps), in the frame's order."""
+    import torch
+
+    from datum_tpu_torch.convert import to_torch
+    from datum_tpu_torch.ops import fog as fog_ops
+    from datum_tpu_torch.ops import lighting_pass
+    from datum_tpu_torch.ops import shadow as shadow_ops
+    from datum_tpu_torch.render import frame as F
+
+    names = ("upload draws + sceneset", "vertex stage", "sun cascades + ESM",
+             "setup + binning + raster + gbuffer resolve", "decals", "SSAO",
+             "spot maps", "shade_deferred (XLA lighting)", "sky fill", "fog",
+             "WBOIT passes (translucents, particles)", "SSR + bloom + composite")
+    runs = []
+    for _ in range(reps):
+        t = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+
+        d, s = to_torch(draws, dev), to_torch(ss, dev)
+        mark()
+        ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, state, d, s)
+        mark()
+        sun = F._sun_shadows(cfg, ex, wp, s)
+        mark()
+        depth, _, gb, _ = F._deferred_raster(cfg, state, d, ex, uv, clip, wn, wt)
+        mark()
+        if cfg.max_decals_active > 0:
+            _, wpos = lighting_pass.reconstruct_positions(
+                depth, s["proj"], s["invview"], cfg.padded_width, cfg.padded_height)
+            gb = F.apply_decals(gb, wpos, d["decals"], textures=state.get("textures"))
+        mark()
+        ssao, _ = F._deferred_ssao(cfg, depth, gb, s, None)
+        mark()
+        spotmaps = None
+        if cfg.max_spot_shadows > 0:
+            spotmaps = shadow_ops.render_spot_maps(
+                wp, ex["tris"], s["spotlights"]["shadowview"], cfg.max_spot_shadows,
+                res=cfg.spot_shadow_res, bin_capacity=cfg.shadow_bin_capacity,
+                big_capacity=cfg.big_capacity, use_kernel=cfg.use_pallas)
+        mark()
+        hdr = lighting_pass.shade_deferred(
+            gb, depth, s, proj=s["proj"], invview=s["invview"], shadowmaps=sun,
+            ibl=state.get("ibl"), ssao=ssao, spotmaps=spotmaps,
+            shadow_factor_scale=cfg.shadow_factor_scale,
+            shadow_slice_blend=cfg.shadow_slice_blend)
+        mark()
+        if state.get("ibl") is not None:
+            hdr = F._sky_fill(state["ibl"], s, hdr, gb["mask"], cfg.padded_width,
+                              cfg.padded_height)
+        mark()
+        if cfg.enable_fog:
+            vol = fog_ops.build_fog_volume(s, proj=s["proj"], invview=s["invview"],
+                                           shadow=sun, depth_range=cfg.fog_depth_range)
+            hdr = fog_ops.apply_fog(hdr, depth, vol, s["proj"],
+                                    depth_range=cfg.fog_depth_range,
+                                    sample_scale=cfg.fog_sample_scale)
+        mark()
+        hdr = F._deferred_forward(cfg, state, d, s, hdr, depth)
+        mark()
+        F._post(cfg, state, s, hdr, depth, F._ssr_inputs_gbuffer(gb))
+        mark()
+        runs.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+    return {n: statistics.median(r[i] for r in runs) for i, n in enumerate(names)}
+
+
+def deferred_phases(dev, card, kernels, bench):
+    """Phases 4d-6d: the deferred frame of FrameConfig's default path.  K5
+    and K7 against their plain versions on the bench frame's inputs; the
+    full-width K5 frame (the bench config with the bilinear filter) and
+    K7 frame (raster_kernel='mxu', material maps off) and entry()'s
+    1280x704 use_pallas=False frame, driven with their launches checked;
+    the 256x128 deferred frames on the card against the CPU plain path;
+    the stress golden through the port; timings and bounds.  bench: the
+    bench frame's (cfg, state, inputs, setup, bins, counts, big_ids, ex,
+    uv, wn, d_t, k1 planes).  Returns the numbers of K5's and K7's JSON
+    rows."""
+    import torch
+
+    from datum_tpu_torch.ops.raster_mxu_cuda import (
+        PLANE_NAMES as MXU_NAMES, raster_mxu_cuda, raster_mxu_inputs,
+        raster_mxu_reference)
+    from datum_tpu_torch.ops.raster_v1_cuda import (
+        raster_v1_cuda, raster_v1_inputs, raster_v1_reference)
+    from datum_tpu_torch.render import frame as F
+    from datum_tpu_torch.render.types import make_sceneset
+    from datum_tpu_torch.scenes import datumtest_scene, stress_scene
+
+    cfg, state, inputs, setup, bins, counts, big_ids, ex, uv, wn, d_t, kp = bench
+    tx, w, h = cfg.tiles_x, cfg.padded_width, cfg.padded_height
+
+    # ---- 4d. K5 and K7 against their plain versions
+    def versus_plain(k, r, names, what):
+        vis_same = torch.equal(k[1], r[1])
+        same = (k == r).float().mean().item()
+        err = (k - r).abs().max().item()
+        if not vis_same or not torch.equal(k, r):
+            raise RuntimeError(f"{what} vs plain: vis identical {vis_same}, "
+                               f"bit-identical on {same}, max abs err {err}")
+        phase("4d", f"{what} vs plain ({tuple(k.shape[1:])}, covered "
+                    f"{(k[1] >= 0).float().mean().item():.3f}): vis identical on every "
+                    f"pixel, all {len(names)} planes bit-identical on {same:.6f} of "
+                    f"values, max abs err {err:.3g} (tolerance: bit-identical)")
+        return err
+
+    k5_in = raster_v1_inputs(setup, bins, big_ids, counts, tx, w, h)
+    k5 = raster_v1_cuda(**k5_in)
+    k5r = raster_v1_reference(**k5_in)
+    torch.cuda.synchronize()
+    k5_err = versus_plain(k5, k5r, ("depth", "visf", "l0", "l1"),
+                          "K5, bench frame (bilinear filter)")
+    k7_in = raster_mxu_inputs(setup, bins, big_ids, counts, ex["tris"], uv, wn,
+                              d_t["tri_mat"], state["materials"], tx, w, h)
+    k7 = raster_mxu_cuda(**k7_in)
+    k7r = raster_mxu_reference(**k7_in)
+    torch.cuda.synchronize()
+    k7_err = versus_plain(k7, k7r, MXU_NAMES, "K7, bench frame (mxu, material maps off)")
+    k1v = kp["visf"]
+    phase("4d", f"K7 vs K1 on the same inputs: vis identical on "
+                f"{(k7[1] == k1v).float().mean().item():.6f} of pixels, K5 vs K1 on "
+                f"{(k5[1] == k1v).float().mean().item():.6f} (K7 evaluates its planes in "
+                "the product's summation order, fma(b, yn, a*xn) + c, and takes no valid "
+                "flag: edge pixels may pick apart)")
+
+    # ---- 5d. drive the K5, K7 and entry() frames
+    cfg5 = dataclasses.replace(cfg, texture_filter="bilinear")
+    cfg7 = dataclasses.replace(cfg, raster_kernel="mxu", enable_material_maps=False,
+                               texture_filter="nearest")
+    render5 = lambda d, s: F.render_frame(cfg5, state, d, s, device=dev)
+    render7 = lambda d, s: F.render_frame(cfg7, state, d, s, device=dev)
+    kernels = dict(kernels, raster_v1=raster_v1_cuda, raster_mxu=raster_mxu_cuda)
+    n_stacks = 2 if cfg.shadow_far_res else 1
+    no_shade = ("raster_shade", "raster_shade_2p", "shade_deferred", "shade_epilogue")
+    pf5, _, img5, lum5 = drive(render5, inputs, kernels,
+                               dict(raster_v1=1, raster_blend=2, raster_depth=n_stacks + 1),
+                               forbid=no_shade + ("raster_mxu",))
+    if any(f["raster_v1"] != 1 or f["raster_blend"] != 2
+           or f["raster_depth"] != n_stacks + 1 for f in pf5):
+        raise RuntimeError(f"K5 frame launches {pf5}")
+    phase("5d", f"3 K5 frames {W}x{H} (the bench config, bilinear filter, deferred "
+                f"branch): launches per frame {pf5} (K5 1, K4 2, K3 {n_stacks} sun "
+                f"stacks + 1 perspective spot map, K1/K2/K6/K7 0); image mean "
+                f"{img5.float().mean().item():.2f}, luminance {lum5.item():.6g}")
+    pf7, _, img7, lum7 = drive(render7, inputs, kernels, dict(raster_mxu=1),
+                               forbid=no_shade + ("raster_v1",))
+    if any(f["raster_mxu"] != 1 for f in pf7):
+        raise RuntimeError(f"K7 frame launches {pf7}")
+    phase("5d", f"3 K7 frames {W}x{H} (raster_kernel='mxu', material maps off, "
+                f"nearest): launches per frame {pf7}; image mean "
+                f"{img7.float().mean().item():.2f}, luminance {lum7.item():.6g}")
+    ew, eh = ENTRY_SIZE
+    ectx, ecam, eparams, emake = datumtest_scene(width=ew, height=eh, **ENTRY)
+    estate = ectx.device_state(dev)
+    ecfg = ectx.config
+    e_inputs = [frame_inputs(ectx, ecam, eparams, emake, t) for t in (0.0, 0.1, 0.2)]
+    render_e = lambda d, s: F.render_frame(ecfg, estate, d, s, device=dev)
+    pfe, _, imge, lume = drive(render_e, e_inputs, kernels, {}, forbid=tuple(kernels),
+                               overflow_limit=None, size=ENTRY_SIZE)
+    e_ovf = int(render_e(*e_inputs[0])["bin_overflow"])
+    phase("5d", f"entry() frame {ew}x{eh} (use_pallas=False: the scan raster, the XLA "
+                f"lighting and blend as PyTorch ops on the card): launches per frame "
+                f"{pfe} (no kernel of the port); image mean "
+                f"{imge.float().mean().item():.2f}, luminance {lume.item():.6g}, "
+                f"bin_overflow {e_ovf} (bins {ecfg.bin_capacity}+{ecfg.big_capacity}, "
+                "as entry() sets them: printed, not held)")
+
+    # ---- 5d. the 256x128 deferred frames on the card against the CPU plain path
+    for name, kw in (("entry() config, ESM", DEFERRED_SMALL),
+                     ("entry() config, PCF", dict(DEFERRED_SMALL, shadow_mode="pcf")),
+                     ("K5 frame", K5_SMALL), ("K7 frame (256x64)",
+                                              dict(K7_SMALL, height=64))):
+        mctx, mcam, mparams, mmake = datumtest_scene(
+            **dict(dict(width=256, height=128), **kw))
+        if mctx.config.enable_fog:
+            mparams.fogdensity = FOG_DENSITY
+        md, ms = frame_inputs(mctx, mcam, mparams, mmake, 0.3)
+        outs = [F.render_frame(mctx.config, mctx.host_state(), md, ms, device=d)
+                for d in (dev, "cpu")]
+        ia, ib = (o["image"].cpu().float() for o in outs)
+        dimg = (ia - ib).abs()
+        rmse = ((ia - ib) ** 2).mean().sqrt().item()
+        vis = (outs[0]["vis"].cpu() == outs[1]["vis"]).float().mean().item()
+        if dimg.mean().item() > 0.5 or rmse > 2.0 or ib.mean() <= 10 or vis < 0.999:
+            raise RuntimeError(f"{name} card vs CPU plain: mean |d| "
+                               f"{dimg.mean().item()}, RMSE {rmse} levels, vis {vis}")
+        phase("5d", f"256x128 {name}, card vs CPU plain path: mean |d| "
+                    f"{dimg.mean().item():.4f} levels, RMSE {rmse:.4f} levels (limits "
+                    f"0.5, 2), max {dimg.max().item():.0f}, vis identical on {vis:.6f}")
+
+    # ---- 5d. the stress golden through the port
+    gold = torch.from_numpy(read_png_rgb(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+        "stress.png"))).float()
+    gctx, gcam, gparams, gmake = stress_scene(**STRESS_GOLDEN)
+    grl = gmake(0.0)
+    gss = make_sceneset(gcam, gparams, point_lights=grl.point_lights)
+    gout = F.render_frame(gctx.config, gctx.device_state(dev),
+                          gctx.frame_draws(grl, gcam), gss, device=dev)
+    gimg = gout["image"].cpu().float()
+    g_rmse = (((gimg - gold) / 255.0) ** 2).mean().sqrt().item()
+    phase("5d", f"stress golden config (tools/stress_golden.py, 320x160, "
+                f"use_pallas=False) on the card vs tests/golden/stress.png: RMSE "
+                f"{g_rmse:.5f} (the gate's 2/255 = {2 / 255:.5f}: printed, not held — "
+                f"collapsed terrain cells, ROADMAP Queue 3), mean |d| "
+                f"{(gimg - gold).abs().mean().item():.4f} levels, bin_overflow "
+                f"{int(gout['bin_overflow'])}")
+
+    # ---- 6d. timing (informational: this PR claims no speed)
+    ms5 = frame_ms(render5, inputs, n=5)
+    ms7 = frame_ms(render7, inputs, n=5)
+    mse = frame_ms(render_e, e_inputs, n=5)
+    prof5 = profile_frames(render5, inputs)
+    profe = profile_frames(render_e, e_inputs)
+    st5 = deferred_stage_ms(cfg5, state, *inputs[0], dev)
+    ste = deferred_stage_ms(ecfg, estate, *e_inputs[0], dev)
+    phase("6d", f"{ms5:.3f} ms/frame K5 frame, {ms7:.3f} ms/frame K7 frame ({W}x{H}), "
+                f"{mse:.3f} ms/frame entry() frame ({ew}x{eh}) (median of 5, CUDA "
+                f"events) on {card}")
+    phase("6d", f"under torch.profiler (3 frames): K5 frame {prof5[0]:.3f} ms of device "
+                f"time and {prof5[1]:.0f} launches per frame, busy {prof5[0] / ms5:.3f}; "
+                f"entry() frame {profe[0]:.3f} ms and {profe[1]:.0f} launches per frame, "
+                f"busy {profe[0] / mse:.3f}")
+    for name, stg in (("K5 frame", st5), ("entry() frame", ste)):
+        phase("6d", f"{name} stages (ms, wall, synced, median of 5): "
+              + "; ".join(f"{n} {v:.3f}" for n, v in stg.items()))
+    t = dict(k5=cuda_ms(lambda: raster_v1_cuda(**k5_in), 20),
+             k5p=cuda_ms(lambda: raster_v1_reference(**k5_in), 1),
+             k7=cuda_ms(lambda: raster_mxu_cuda(**k7_in), 20),
+             k7p=cuda_ms(lambda: raster_mxu_reference(**k7_in), 1))
+    px = w * h
+    walked = _walked(k5_in)
+    b5 = bound(_nbytes(*(k5_in[k] for k in ("rows", "bins", "counts", "big_ids")))
+               + 4 * px * 4, walked * 4096 * OPS_WALK_K5 + px * OPS_K5_PIXEL)
+    b7 = bound(_nbytes(*(k7_in[k] for k in ("rows", "bins", "counts", "big_ids")))
+               + 15 * px * 4, walked * 4096 * OPS_WALK_K7 + px * OPS_K7_PIXEL)
+    # the TPU kernel's padded product: every tile walks ceil((B + count) /
+    # 128) chunks of 128 entries, each two 16-row halves of (24 x 128)^T x
+    # (24 x 6*2048) multiply-adds
+    chunks = int(((k7_in["big_ids"].shape[0] + k7_in["counts"] + 127) // 128).sum())
+    tpu_ops = chunks * 2 * 2 * 24 * 128 * 6 * 2048
+    b7_tpu = tpu_ops / FP32_OPS_PER_S * 1e3
+    phase("6d", f"K5 {t['k5']:.3f} ms vs plain {t['k5p']:.3f} ms, bound {b5[0]:.4f} ms "
+                f"({b5[1]}); K7 {t['k7']:.3f} ms vs plain {t['k7p']:.3f} ms, bound "
+                f"{b7[0]:.4f} ms ({b7[1]}; operations counted as {walked} entries "
+                f"walked x 4096 pixels x 6 "
+                f"planes); the TPU's padded 24 x (6*2048) product would count "
+                f"{tpu_ops:.4g} f32 operations, {b7_tpu:.4f} ms ({chunks} chunks, not the "
+                f"work); bench inputs {W}x{H}, library call: none, on {card}")
+    launches = dict(raster_v1=pf5[0]["raster_v1"], raster_mxu=pf7[0]["raster_mxu"])
+    return dict(t=t, b5=b5, b7=b7, b7_tpu=b7_tpu, launches=launches,
+                errs=dict(k5=k5_err, k7=k7_err), ms=dict(k5=ms5, k7=ms7, entry=mse),
+                golden_rmse=g_rmse)
 
 
 def main():
@@ -1125,17 +1470,9 @@ def main():
         f"{n} {b[0]:.4f} {b[1]}" for n, b in (
             ("K1 and K6", k1_bound), ("K2", k2_bound), ("K3 (3 stacks)", k3_bound),
             ("K4", k4_bound), ("epilogue", ep_bound))))
-    bins_bytes = _nbytes(*(k1_in[k] for k in ("bins", "counts", "big_ids")))
-    n_tris = k1_in["rows"].shape[0]
-    k5_bound = bound(bins_bytes + n_tris * 16 * 4 + 4 * px * 4,
-                     _walked(k1_in) * 4096 * OPS_WALK_K5)
-    k7_bound = bound(bins_bytes + n_tris * 56 * 4 + 15 * px * 4,
-                     _walked(k1_in) * 4096 * OPS_WALK_K7)
-    phase(6, f"bounds of the TPU kernels not ported (not run), at the bench frame's "
-             f"K1 inputs: K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), K7 "
-             f"{k7_bound[0]:.4f} ms ({k7_bound[1]}, f32)")
-
     st = stress_phases(dev, card, kernels)
+    dp = deferred_phases(dev, card, kernels, (cfg, state, inputs, setup, bins, counts,
+                                              big_ids, ex, uv, wn, d_t, kp))
 
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in ("jax", "datum_tpu"))
@@ -1181,6 +1518,18 @@ def main():
             "datum_tpu/ops/raster_pallas.py:877", k4_err, t_k4, t_k4p, k4_bound),
         row("shade_epilogue", "datum_tpu_torch/csrc/shade_epilogue.cu",
             "datum_tpu/ops/shade_pallas.py:414", epi_err, t_ep, t_epp, ep_bound),
+        # launches: per K5 (K7) frame of the deferred branch
+        dict(name="raster_v1", route="cuda", source="datum_tpu_torch/csrc/raster_v1.cu",
+             replaces="datum_tpu/ops/raster_pallas.py:58",
+             launches=dp["launches"]["raster_v1"], max_abs_err=dp["errs"]["k5"],
+             ms=dp["t"]["k5"], plain_ms=dp["t"]["k5p"], bound_ms=dp["b5"][0],
+             bound_by=dp["b5"][1], library_ms=None, frame_ms=dp["ms"]["k5"]),
+        dict(name="raster_mxu", route="cuda", source="datum_tpu_torch/csrc/raster_mxu.cu",
+             replaces="datum_tpu/ops/raster_pallas.py:1098",
+             launches=dp["launches"]["raster_mxu"], max_abs_err=dp["errs"]["k7"],
+             ms=dp["t"]["k7"], plain_ms=dp["t"]["k7p"], bound_ms=dp["b7"][0],
+             bound_by=dp["b7"][1], library_ms=None, tpu_product_bound_ms=dp["b7_tpu"],
+             frame_ms=dp["ms"]["k7"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

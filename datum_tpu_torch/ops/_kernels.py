@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster_shade.cu", "raster_shade_2p.cu", "shade.cu", "raster_depth.cu",
-           "raster_blend.cu", "shade_epilogue.cu")
+           "raster_blend.cu", "shade_epilogue.cu", "raster_v1.cu", "raster_mxu.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -61,6 +61,10 @@ class KernelLibrary:
         self.lib.raster_blend_launch.restype = i
         self.lib.shade_epilogue_launch.argtypes = [p, p, p, p, p, i, i, p, p]
         self.lib.shade_epilogue_launch.restype = i
+        self.lib.raster_v1_launch.argtypes = [p, p, p, p, i, i, i, i, f, f, i, p, p]
+        self.lib.raster_v1_launch.restype = i
+        self.lib.raster_mxu_launch.argtypes = [p, p, p, p, i, i, i, i, f, f, i, p, p]
+        self.lib.raster_mxu_launch.restype = i
 
 
 def _nvcc() -> str:

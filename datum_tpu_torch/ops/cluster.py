@@ -1,6 +1,7 @@
 """Clustered light binning: per-tile light lists (counterpart of
 datum_tpu/ops/cluster.py: tile_frustum_planes, tile_depth_bounds,
-bin_lights).
+bin_lights, and the deferred path's tile-major light loop
+clustered_point_lights).
 
 A dense (tiles x lights) sphere-against-tile-frustum test, refined by
 each tile's own depth interval, then a per-tile compaction into a
@@ -13,7 +14,9 @@ from __future__ import annotations
 
 import torch
 
+from . import brdf
 from .common import TILE_H, TILE_W
+from .raster import _untile, tile_image
 
 
 def tile_frustum_planes(view, proj, tiles_x, tiles_y, width, height):
@@ -91,3 +94,29 @@ def bin_lights(light_pos, light_range, count, view, proj, tiles_x, tiles_y,
     lists = torch.where(torch.gather(hit, 1, order), order, torch.full_like(order, -1))
     counts = torch.clamp(hit.sum(1), max=capacity)
     return lists.to(torch.int32), counts.to(torch.int32)
+
+
+def clustered_point_lights(worldpos, normal, eyevec, material, pl, lists, tiles_x,
+                           tiles_y):
+    """The point lights of the deferred (XLA) lighting, tile-major: each
+    tile walks its own list (bin_lights), one list slot a step over all
+    tiles at once.  worldpos, normal, eyevec (H, W, 3) and material's
+    specular (H, W, 3) and alpha (H, W); pl: the sceneset's point
+    lights.  Returns (diffuse, specular) (H, W, 3)."""
+    wp = tile_image(worldpos, tiles_x, tiles_y)
+    nr = tile_image(normal, tiles_x, tiles_y)
+    ey = tile_image(eyevec, tiles_x, tiles_y)
+    mat_t = dict(specular=tile_image(material["specular"], tiles_x, tiles_y),
+                 alpha=tile_image(material["alpha"], tiles_x, tiles_y))
+    dif = torch.zeros_like(wp)
+    spec = torch.zeros_like(wp)
+    for k in range(lists.shape[1]):
+        lid = lists[:, k]
+        li = torch.clamp(lid, min=0).long()
+        d, s = brdf.point_light(wp, nr, ey, mat_t, pl["position"][li][:, None, None, :],
+                                pl["intensity"][li][:, None, None, :],
+                                pl["attenuation"][li][:, None, None, :])
+        w = (lid >= 0).to(torch.float32)[:, None, None, None]
+        dif = dif + d * w
+        spec = spec + s * w
+    return _untile(dif, tiles_x, tiles_y), _untile(spec, tiles_x, tiles_y)

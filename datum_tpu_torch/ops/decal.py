@@ -1,5 +1,6 @@
-"""Deferred decals over the shade planes (counterpart of
-datum_tpu/ops/decal.py `apply_decals_planes`).
+"""Deferred decals (counterpart of datum_tpu/ops/decal.py): over the
+shade planes (`apply_decals_planes`, the megakernel path) and over the
+gbuffer (`apply_decals`, the deferred XLA path).
 
 Each decal is an oriented box carrying an albedo, material and
 optional texture overrides; it blends, densely and in draw order, into
@@ -12,7 +13,59 @@ from __future__ import annotations
 
 import torch
 
+from . import brdf
 from .blur import downsample_pool, resize_up_dense
+
+
+def apply_decals(gbuffer, worldpos, decals, textures=None):
+    """Blend the decals into the gbuffer's diffuse, specular and normal
+    (H, W, 4) planes, densely and in draw order.  worldpos (H, W, 3);
+    decals: RenderList.decal_arrays as tensors; textures: optional (N,
+    S, S, 4) u8 pool of the decals' albedo and normal maps (nearest taps
+    at full resolution; -1 = flat).  Returns a new gbuffer dict."""
+    diffuse, specular, normal = gbuffer["diffuse"], gbuffer["specular"], gbuffer["normal"]
+    maskf = gbuffer["mask"].to(torch.float32)
+    has_tex = textures is not None and "albedomap" in decals
+    for i in range(decals["position"].shape[0]):
+        rot = decals["inv_rot"][i]
+        hd = decals["halfdim"][i]
+        local = (worldpos - decals["position"][i]) @ rot.T
+        inside = torch.all(torch.abs(local) <= hd, dim=-1)
+        active = (i < decals["count"]).to(torch.float32)
+        a = decals["color"][i, 3] * inside.to(torch.float32) * active * maskf
+        zfade = torch.clamp(1.5 - 1.5 * torch.abs(local[..., 2])
+                            / torch.clamp(hd[2], min=1e-6), 0.0, 1.0)
+        base_rgb = decals["color"][i, :3].expand(diffuse[..., :3].shape)
+        if has_tex:
+            uvd = local[..., :2] / torch.clamp(hd[:2], min=1e-6) * 0.5 + 0.5
+            s = textures.shape[1]
+            px = torch.clamp((uvd * s).to(torch.int32), 0, s - 1).long()
+            aid = decals["albedomap"][i]
+            tex = (textures[torch.clamp(aid, min=0).long(), px[..., 1], px[..., 0]]
+                   .to(torch.float32) / 255.0)
+            use = (aid >= 0).to(torch.float32)
+            base_rgb = base_rgb * (1 - use) + base_rgb * tex[..., :3] * use
+            a = a * (1 - use + tex[..., 3] * use)
+            nid = decals["normalmap"][i]
+            ntex = (textures[torch.clamp(nid, min=0).long(), px[..., 1], px[..., 0]]
+                    .to(torch.float32) / 127.5 - 1.0)
+            # the decal's tangent frame: the rows of its world->decal rotation
+            nworld = ntex[..., 0:1] * rot[0] + ntex[..., 1:2] * rot[1] + ntex[..., 2:3] * rot[2]
+            usen = (((nid >= 0) & inside).to(torch.float32) * active)[..., None] \
+                * decals["color"][i, 3] * zfade[..., None] * (1 - use + tex[..., 3:4] * use)
+            # blend the decoded normal, renormalise, re-encode
+            blended = (normal[..., :3] * 2.0 - 1.0) * (1 - usen) + nworld * usen
+            blended = blended / torch.clamp(torch.linalg.norm(blended, dim=-1, keepdim=True),
+                                            min=1e-6)
+            normal = torch.cat([blended * 0.5 + 0.5, normal[..., 3:]], -1)
+        a = (a * zfade)[..., None]
+        m = brdf.make_material(base_rgb, decals["emissive"][i], decals["metalness"][i],
+                               decals["reflectivity"][i], decals["roughness"][i])
+        diffuse = torch.cat([diffuse[..., :3] * (1 - a) + m["diffuse"] * a,
+                             diffuse[..., 3:] * (1 - a) + decals["emissive"][i] * a], -1)
+        specular = torch.cat([specular[..., :3] * (1 - a) + m["specular"] * a,
+                              specular[..., 3:] * (1 - a) + decals["roughness"][i] * a], -1)
+    return dict(gbuffer, diffuse=diffuse, specular=specular, normal=normal)
 
 
 def apply_decals_planes(gpl, worldp, decals, mask, textures=None,

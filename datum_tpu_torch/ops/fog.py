@@ -7,8 +7,9 @@ grid) and an ambient term is accumulated front to back along z (cumsum);
 the screen taps read the volume at reduced resolution through one
 quad-packed table (two row gathers and a z lerp per pixel) and are
 upsampled to four full-resolution planes, which K2's epilogue applies as
-col * fog_t + fog_rgb.  The XLA apply (`apply_fog`) and the analytic fog
-planes (`apply_fog_planes`, FrameConfig.max_fog_planes) are not ported.
+col * fog_t + fog_rgb; the deferred (XLA) path applies the same taps to
+its hdr image (`apply_fog`).  The analytic fog planes
+(`apply_fog_planes`, FrameConfig.max_fog_planes) are not ported.
 """
 
 from __future__ import annotations
@@ -144,3 +145,14 @@ def fog_planes(depth, fogvol, proj, *, depth_range=FOG_DEPTH_RANGE,
                           exponent=exponent, sample_scale=sample_scale)
     return [resize_up_dense(fog_q[..., c], h, w) if q > 1 else fog_q[..., c]
             for c in range(4)]
+
+
+def apply_fog(hdr, depth, fogvol, proj, *, depth_range=FOG_DEPTH_RANGE,
+              exponent=FOG_DEPTH_EXPONENT, sample_scale=4):
+    """The fog volume over the hdr image (H, W, 3): color * transmittance
+    + in-scatter, from the reduced-resolution taps upsampled."""
+    h, w = depth.shape
+    fog_q, q = fog_sample(depth, fogvol, proj, depth_range=depth_range,
+                          exponent=exponent, sample_scale=sample_scale)
+    fog = resize_up_dense(fog_q, h, w) if q > 1 else fog_q
+    return hdr * fog[..., 3:4] + fog[..., :3]

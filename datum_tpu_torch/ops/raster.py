@@ -1,4 +1,5 @@
-"""Triangle setup and tile binning (counterpart of datum_tpu/ops/raster.py).
+"""Triangle setup, tile binning and the scan raster (counterpart of
+datum_tpu/ops/raster.py).
 
 2D-homogeneous (Olano-Greer) edge functions, as in the JAX package:
 
@@ -11,13 +12,17 @@ sort keys pack (tile | depth band | triangle) and are unique, so any
 correct sort reproduces the JAX bins exactly; the port builds them as
 int64, which also covers the key widths where the JAX package switches
 to uint32.
+
+The scan raster (`raster`, `resolve_barycentrics`, `rasterize`) is the
+JAX package's XLA raster, what `use_pallas=False` runs: plain PyTorch on
+every device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import TILE_H, TILE_W
+from .common import TILE_H, TILE_W, fma
 
 BIN_MAX_SPAN = 16  # max tiles a binned triangle may cover; larger -> big list
 
@@ -148,8 +153,14 @@ def triangle_setup_comps(comps, shared, width, height, tiles_x, tiles_y,
     zbound = torch.where(w_ok & torch.isfinite(zb), torch.clamp(zb, 0.0, 1.0),
                          one)
 
+    # the AoS adjugate, determinant and corner depths the scan raster,
+    # the deferred resolve, K7's rows and the XLA WBOIT read
+    adj = torch.stack([torch.stack([a00, a01, a02], -1),
+                       torch.stack([a10, a11, a12], -1),
+                       torch.stack([a20, a21, a22], -1)], dim=-2)     # (T, 3, 3)
+    zc = torch.stack([z0, z1, z2], -1)
     return dict(row16=row16, zbound=zbound, bbox_soa=(tx0, ty0, tx1, ty1),
-                valid=binned, big=big)
+                valid=binned, big=big, adj=adj, det=det, zc=zc)
 
 
 def triangle_setup(clip, tris, width, height, tiles_x, tiles_y, tri_valid=None,
@@ -302,12 +313,102 @@ def bin_triangles(setup, n_tris, tiles_x, tiles_y, bin_capacity, big_capacity,
     return ret
 
 
+def depth_plane_coefs(setup):
+    """(T, 3) depth-plane coefficients sum_i adj[i, :] * (z_i / det), as
+    the scan raster, K7's rows and the XLA WBOIT compute them: each
+    product rounded, then summed in row order ((r0 + r1) + r2) — not
+    row16's zs, which multiplies by 1/det after the sum."""
+    ez = setup["adj"] * (setup["zc"] / setup["det"][:, None])[:, :, None]
+    return (ez[:, 0] + ez[:, 1]) + ez[:, 2]
+
+
+def _tile_ndc(tile_idx, tiles_x, width, height):
+    """NDC (xn, yn) of the pixel centres of the tiles tile_idx (n,):
+    each (n, TILE_H, TILE_W), as the scan raster computes them,
+    (p + 0.5) / size * 2 - 1."""
+    dev = tile_idx.device
+    ty = (tile_idx // tiles_x)[:, None, None]
+    tx = (tile_idx % tiles_x)[:, None, None]
+    py = ty * TILE_H + torch.arange(TILE_H, dtype=torch.float32, device=dev)[None, :, None]
+    px = tx * TILE_W + torch.arange(TILE_W, dtype=torch.float32, device=dev)[None, None, :]
+    yn = (py + 0.5) / height * 2.0 - 1.0
+    xn = (px + 0.5) / width * 2.0 - 1.0
+    n = tile_idx.shape[0]
+    return xn.expand(n, TILE_H, TILE_W), yn.expand(n, TILE_H, TILE_W)
+
+
+def raster(setup, bins, big_ids, tiles_x, tiles_y, width, height):
+    """The scan raster: depth (Hp, Wp) f32 (reverse-Z, cleared to 0) and
+    vis (Hp, Wp) int32 triangle id (-1 = background) over all tiles.
+
+    What `use_pallas=False` means: it is the JAX package's XLA raster
+    and runs as plain PyTorch on every device, the card included — the
+    reference's own algorithm for that flag, not a fallback.  One step a
+    walk slot, K + B steps of whole-frame element-wise ops: the tile's
+    bins first, then the big list (not K5's order).  Either winding is
+    inside, with the interpolated w (e0 + e1 + e2) * det > 0; no valid
+    flag (the bins hold only valid triangles); no y scissor (the JAX
+    setup carries no "ylim" key, so the stacked shadow atlases raster
+    without their band scissor here).  Planes are fma(a, xn, b*yn) + c,
+    as XLA contracts a*xn + b*yn + c."""
+    dev = bins.device
+    adj, det = setup["adj"], setup["det"]
+    zs = depth_plane_coefs(setup)
+    n_tiles = tiles_x * tiles_y
+    xn, yn = _tile_ndc(torch.arange(n_tiles, device=dev), tiles_x, width, height)
+    depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
+    vis = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32, device=dev)
+    ids = torch.cat([bins, big_ids[None, :].expand(n_tiles, big_ids.shape[0])], 1)
+    for k in range(ids.shape[1]):
+        tri = ids[:, k]
+        t = torch.clamp(tri, min=0).long()
+        a = adj[t][:, :, :, None, None]                # (n, 3, 3, 1, 1)
+        e0 = fma(a[:, 0, 0], xn, a[:, 0, 1] * yn) + a[:, 0, 2]
+        e1 = fma(a[:, 1, 0], xn, a[:, 1, 1] * yn) + a[:, 1, 2]
+        e2 = fma(a[:, 2, 0], xn, a[:, 2, 1] * yn) + a[:, 2, 2]
+        inside = (((e0 >= 0) & (e1 >= 0) & (e2 >= 0))
+                  | ((e0 <= 0) & (e1 <= 0) & (e2 <= 0)))
+        inside = inside & ((e0 + e1 + e2) * det[t][:, None, None] > 0)
+        z = zs[t][:, :, None, None]
+        d = fma(z[:, 0], xn, z[:, 1] * yn) + z[:, 2]
+        passed = inside & (tri >= 0)[:, None, None] & (d > depth) & (d <= 1.0)
+        depth = torch.where(passed, d, depth)
+        vis = torch.where(passed, t.to(torch.int32)[:, None, None], vis)
+    return _untile(depth, tiles_x, tiles_y), _untile(vis, tiles_x, tiles_y)
+
+
+def resolve_barycentrics(vis, setup, width, height):
+    """Per-pixel perspective-correct barycentrics of the winning triangle:
+    (lam (H, W, 3) summing to 1 on covered pixels, mask (H, W))."""
+    h, w = vis.shape
+    dev = vis.device
+    ys = ((torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5)
+          / height * 2.0 - 1.0)
+    xs = ((torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5)
+          / width * 2.0 - 1.0)
+    mask = vis >= 0
+    a = setup["adj"][torch.clamp(vis, min=0).long()]          # (H, W, 3, 3)
+    e = fma(a[..., 0], xs[..., None], a[..., 1] * ys[..., None]) + a[..., 2]
+    s = (e[..., 0:1] + e[..., 1:2]) + e[..., 2:3]
+    lam = e / torch.where(torch.abs(s) < 1e-20, torch.ones_like(s), s)
+    return lam, mask
+
+
+def rasterize(clip, tris, *, width, height, tiles_x, tiles_y, bin_capacity=256,
+              big_capacity=64):
+    """End to end: clip-space triangles -> (depth, vis id, setup)."""
+    setup = triangle_setup(clip, tris, width, height, tiles_x, tiles_y)
+    bins, counts, big_ids = bin_triangles(setup, tris.shape[0], tiles_x, tiles_y,
+                                          bin_capacity, big_capacity)
+    depth, vis = raster(setup, bins, big_ids, tiles_x, tiles_y, width, height)
+    return depth, vis, setup
+
+
 def _untile(tiled, tiles_x, tiles_y):
-    """(n_tiles, TH, TW) -> (tiles_y*TH, tiles_x*TW)."""
-    n, th, tw = tiled.shape
-    return (tiled.reshape(tiles_y, tiles_x, th, tw)
-            .permute(0, 2, 1, 3)
-            .reshape(tiles_y * th, tiles_x * tw))
+    """(n_tiles, TH, TW, ...) -> (tiles_y*TH, tiles_x*TW, ...)."""
+    th, tw, rest = tiled.shape[1], tiled.shape[2], tiled.shape[3:]
+    return (tiled.reshape(tiles_y, tiles_x, th, tw, *rest).transpose(1, 2)
+            .reshape(tiles_y * th, tiles_x * tw, *rest))
 
 
 def tile_image(img, tiles_x, tiles_y):

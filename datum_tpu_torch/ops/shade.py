@@ -1,13 +1,27 @@
-"""Material-map sampling (counterpart of
-datum_tpu/ops/shade.py::sample_matmaps, channel-first form).
+"""Deferred material resolve: visibility buffer or raster planes ->
+gbuffer (counterpart of datum_tpu/ops/shade.py).
 
-The integer bit math — `>>` for the mip size, `&` for the REPEAT wrap
-and the exact `(4*(S^2 - s^2))//3` mip offset — runs on int32 tensors,
-as in the JAX package."""
+`resolve_gbuffer` gathers each pixel's winning triangle's vertex
+attributes, interpolates them with the barycentrics (its own, or K5's
+`lam`), samples the legacy 256^2 texture pool (or the v2 material-map
+table for the 'mip' filters) and encodes the gbuffer: diffuse+emissive,
+specular+roughness, normal*0.5+0.5 and the coverage mask.
+`gbuffer_from_planes` does the same from the fused rasters' (K1, K7)
+interpolated planes, where only the texture tap is left.
+`sample_matmaps` is the one-gather material-map tap, channel-first.
+
+The integer bit math of sample_matmaps — `>>` for the mip size, `&` for
+the REPEAT wrap and the exact `(4*(S^2 - s^2))//3` mip offset — runs on
+int32 tensors, as in the JAX package."""
 
 from __future__ import annotations
 
 import torch
+
+from . import brdf
+from .blur import downsample_pool, resize_up_dense
+from .raster import resolve_barycentrics
+from .sampling import sample_bilinear
 
 
 def _bdiff(a, axis):
@@ -62,3 +76,141 @@ def sample_matmaps(table, base, size, uv, pool=1):
     bot = t10 + (t11 - t10) * fx
     out = top + (bot - top) * fy
     return out.T.reshape(12, hh, ww)
+
+
+def _matmap_taps(table, base, size, uv, pool=1):
+    """sample_matmaps as (albedo, surface, normal map) each (..., 4)."""
+    out = sample_matmaps(table, base, size, uv, pool=pool).permute(1, 2, 0)
+    return out[..., 0:4], out[..., 4:8], out[..., 8:12]
+
+
+def _tbn_normal(nrm, tan3, tan_w, nmap_rgb):
+    """The shaded normal from the interpolated TBN frame and a normal-map
+    texel: one recipe for every gbuffer encode."""
+    tgt = brdf.normalize(tan3 - nrm * (tan3 * nrm).sum(-1, keepdim=True))
+    btg = torch.linalg.cross(nrm, tgt) * tan_w[..., None]
+    tn = nmap_rgb * 2.0 - 1.0
+    return brdf.normalize(tgt * tn[..., 0:1] + btg * tn[..., 1:2] + nrm * tn[..., 2:3])
+
+
+def _encode_gbuffer(albedo_rgb, emissive, metalness, reflectivity, roughness,
+                    shaded_n, mask):
+    """The diffuse/specular/normal gbuffer planes, zero on the
+    background."""
+    m = brdf.make_material(albedo_rgb, emissive, metalness, reflectivity, roughness)
+    roughness = torch.as_tensor(roughness).expand(emissive.shape)
+    diffuse = torch.cat([m["diffuse"], emissive[..., None]], -1)
+    specular = torch.cat([m["specular"], roughness[..., None]], -1)
+    normal_out = torch.cat([shaded_n * 0.5 + 0.5,
+                            torch.zeros_like(emissive)[..., None]], -1)
+    bg = (~mask)[..., None]
+    zero = torch.zeros_like(diffuse)
+    return dict(diffuse=torch.where(bg, zero, diffuse),
+                specular=torch.where(bg, zero, specular),
+                normal=torch.where(bg, zero, normal_out), mask=mask)
+
+
+def resolve_gbuffer(vis, setup, tris, tri_instance, attrs, instances, materials,
+                    textures, width, height, material_maps=True, lam=None,
+                    matmaps=None):
+    """vis (H, W) int32 triangle ids (-1 background); attrs dict(uv (V, 2),
+    normal (V, 3), tangent (V, 4)); instances dict(material (I,));
+    materials dict(color (M, 4), metalness/roughness/reflectivity/
+    emissive (M,), albedomap/surfacemap/normalmap (M,)); textures (N, S,
+    S, 4) u8, the legacy pool, tapped bilinearly.  lam: (H, W, 3)
+    barycentrics (K5's), else resolve_barycentrics computes them.
+    matmaps: dict(table, base, size) takes the albedo, surface and normal
+    maps from the v2 material-map table instead (the 'mip' filters).
+    Returns dict(diffuse, specular, normal (H, W, 4), mask (H, W))."""
+    if lam is None:
+        lam, mask = resolve_barycentrics(vis, setup, width, height)
+    else:
+        mask = vis >= 0
+    t = torch.clamp(vis, min=0).long()
+    vid = tris.long()[t]                                        # (H, W, 3)
+    a9 = torch.cat([attrs["uv"], attrs["normal"], attrs["tangent"]], -1)
+    interp9 = (a9[vid] * lam[..., None]).sum(-2)
+    uv = interp9[..., 0:2]
+    tan, tan_w = interp9[..., 5:8], interp9[..., 8]
+    mat = instances["material"].long()[tri_instance.long()[t]]     # (H, W)
+    nrm = brdf.normalize(interp9[..., 2:5])
+    if matmaps is not None:
+        albedo_tex, surface_tex, normal_tex = _matmap_taps(
+            matmaps["table"], matmaps["base"][mat], matmaps["size"][mat], uv)
+    else:
+        albedo_tex = sample_bilinear(textures, materials["albedomap"][mat], uv)
+    if material_maps:
+        if matmaps is None:
+            surface_tex = sample_bilinear(textures, materials["surfacemap"][mat], uv)
+            normal_tex = sample_bilinear(textures, materials["normalmap"][mat], uv)
+        shaded_n = _tbn_normal(nrm, tan, tan_w, normal_tex[..., :3])
+        surf_m, surf_r, surf_rough = (surface_tex[..., 0], surface_tex[..., 1],
+                                      surface_tex[..., 3])
+    else:
+        shaded_n = nrm
+        surf_m = surf_r = surf_rough = 1.0
+    color = materials["color"][mat]
+    return _encode_gbuffer(albedo_tex[..., :3] * color[..., :3],
+                           materials["emissive"][mat],
+                           materials["metalness"][mat] * surf_m,
+                           materials["reflectivity"][mat] * surf_r,
+                           materials["roughness"][mat] * surf_rough, shaded_n, mask)
+
+
+def gbuffer_from_planes(planes, textures, texture_filter="nearest", matmaps=None):
+    """The gbuffer from a fused raster's interpolated planes (dict(vis,
+    uv (H, W, 2), normal, color (H, W, 3), emissive, metalness,
+    roughness, reflectivity, albedo_id), plus tangent (H, W, 4),
+    matmap_base and matmap_size for the 'mip' filters): only the texture
+    tap is left.  texture_filter: 'none' (white), 'nearest',
+    'nearest_half' / 'nearest_quarter' (nearest taps at 1/2 or 1/4
+    resolution, upsampled), 'bilinear' (the legacy pool), or 'mip' /
+    'mip_half' (the v2 table, at full or half resolution)."""
+    mask = planes["vis"] >= 0
+    nrm = brdf.normalize(planes["normal"])
+    uv = planes["uv"]
+
+    if texture_filter in ("mip", "mip_half"):
+        h, w = uv.shape[:2]
+        if texture_filter == "mip_half":
+            p = 2
+            packed = sample_matmaps(
+                matmaps["table"], downsample_pool(planes["matmap_base"], p, reduce="first"),
+                downsample_pool(planes["matmap_size"], p, reduce="first"),
+                downsample_pool(uv, p), pool=p).permute(1, 2, 0)
+            packed = resize_up_dense(packed, h, w)
+            alb, srf, nmap = packed[..., 0:4], packed[..., 4:8], packed[..., 8:12]
+        else:
+            alb, srf, nmap = _matmap_taps(matmaps["table"], planes["matmap_base"],
+                                          planes["matmap_size"], uv)
+        tan = planes["tangent"]
+        shaded_n = _tbn_normal(nrm, tan[..., :3], tan[..., 3], nmap[..., :3])
+        return _encode_gbuffer(alb[..., :3] * planes["color"], planes["emissive"],
+                               planes["metalness"] * srf[..., 0],
+                               planes["reflectivity"] * srf[..., 1],
+                               planes["roughness"] * srf[..., 3], shaded_n, mask)
+
+    s = textures.shape[1]
+
+    def nearest_tap(uv_, ids_):
+        tx = torch.remainder((uv_[..., 0] * s).to(torch.int32), s)
+        ty = torch.remainder((uv_[..., 1] * s).to(torch.int32), s)
+        flat = textures.reshape(-1, textures.shape[-1])
+        return flat[(ids_ * (s * s) + ty * s + tx).long()].to(torch.float32) / 255.0
+
+    if texture_filter == "none":
+        albedo = torch.ones(planes["color"].shape[:2] + (4,), dtype=torch.float32,
+                            device=uv.device)
+    elif texture_filter in ("nearest_half", "nearest_quarter"):
+        p = 2 if texture_filter == "nearest_half" else 4
+        h, w = uv.shape[:2]
+        a_h = nearest_tap(downsample_pool(uv, p),
+                          downsample_pool(planes["albedo_id"], p, reduce="first"))
+        albedo = resize_up_dense(a_h, h, w)
+    elif texture_filter == "nearest":
+        albedo = nearest_tap(uv, planes["albedo_id"])
+    else:
+        albedo = sample_bilinear(textures, planes["albedo_id"], uv)
+    return _encode_gbuffer(albedo[..., :3] * planes["color"], planes["emissive"],
+                           planes["metalness"], planes["reflectivity"],
+                           planes["roughness"], nrm, mask)

@@ -1,20 +1,27 @@
-"""Sun cascades and parabolic spot maps with ESM factors (counterpart of
-datum_tpu/ops/shadow.py, the functions the megakernel path calls).
+"""Sun cascades and spot maps with their shadow factors (counterpart of
+datum_tpu/ops/shadow.py).
 
-The depth maps are stacked atlases rastered by K3
-(ops/raster_depth_cuda.py): every slice (or spot) is a band of one
-virtual framebuffer, its triangles carry the band as a y scissor, and
-one binning and one raster launch cover the stack.  The factors are
-exponential shadow maps tapped at quarter resolution.
+The depth maps are stacked atlases: every slice (or spot) is a band of
+one virtual framebuffer, its triangles carry the band as a y scissor,
+and one binning and one raster launch cover the stack.  With
+`use_kernel` (the frame's `use_pallas`) K3 (ops/raster_depth_cuda.py)
+rasters it; without, the scan raster (ops/raster.py::raster) does, as
+the JAX package's XLA path does — and like it, without the band
+scissor, which the scan raster does not read.
 
-Not ported (ROADMAP Queue 1, shadows): PCF (`shadow_factor`,
-`shadow_mode="pcf"`), perspective spot maps (`render_spot_maps`,
-`spot_factor_quarter`), the pair-row cascade blend (`build_esm_pair`,
-`esm_pair`) and the general second projection (`affine_next=False`).
+The factors: exponential shadow maps tapped at quarter resolution (the
+megakernel path), the 12-tap Poisson PCF of the sun cascades with the
+split blend weights, and the single-tap perspective spot test (the
+deferred path).
+
+Not ported: the pair-row cascade blend (`build_esm_pair`, `esm_pair`),
+the general second projection (`affine_next=False`) and the slow
+per-slice `shadow_factor_esm` (no frame path calls it).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import raster as raster_ops
@@ -29,6 +36,12 @@ ESM_BLUR_SIGMA, SPOT_ESM_BLUR_SIGMA = 1.5, 1.0
 STACK_SPAN = 4        # max tiles a binned shadow-stack triangle covers
 NEAR_SLICES = 2       # cascades at full res when the rest use far_res
 SCALE = 4             # the factors' reduced resolution (quarter res)
+
+# the PCF's 12-tap unit-disk pattern (golden-angle spiral)
+_GOLDEN = np.pi * (3 - np.sqrt(5))
+_R = np.sqrt((np.arange(12) + 0.5) / 12)
+_A = np.arange(12) * _GOLDEN
+POISSON = np.stack([_R * np.cos(_A), _R * np.sin(_A)], -1).astype(np.float32)
 
 
 def _corners(world_pos, tris):
@@ -107,23 +120,28 @@ def bin_stack(stack, bin_capacity, big_capacity, return_overflow=False):
         tri_block=stack["tri_block"])
 
 
-def raster_stack(stack, bin_capacity, big_capacity, early_z=False):
-    """Bin and K3-raster one stack: (n_maps, res, res) reverse-Z depth.
-    early_z: K3's early exit."""
+def raster_stack(stack, bin_capacity, big_capacity, early_z=False, use_kernel=True):
+    """Bin and raster one stack: (n_maps, res, res) reverse-Z depth.  K3
+    with use_kernel (early_z: its early exit), else the scan raster."""
     bins, counts, big_ids = bin_stack(stack, bin_capacity, big_capacity)
-    depth = raster_depth(stack["setup"], bins, big_ids, counts,
-                         stack["tiles_x"], stack["tiles_y"], stack["res"],
-                         stack["height"], early_z=early_z)
+    if use_kernel:
+        depth = raster_depth(stack["setup"], bins, big_ids, counts,
+                             stack["tiles_x"], stack["tiles_y"], stack["res"],
+                             stack["height"], early_z=early_z)
+    else:
+        depth, _ = raster_ops.raster(stack["setup"], bins, big_ids, stack["tiles_x"],
+                                     stack["tiles_y"], stack["res"], stack["height"])
     return depth.reshape(stack["n_maps"], stack["res"], stack["res"])
 
 
 def render_shadow_cascades(world_pos, tris, shadowview, *, res=1024,
                            bin_capacity=128, big_capacity=32, far_res=None,
-                           early_z=False):
+                           early_z=False, use_kernel=True):
     """Depth-only cascades: (S, res, res) reverse-Z depth, or with
     far_res a list of per-slice maps [(res, res)] * NEAR_SLICES +
-    [(far_res, far_res)] * the rest (build_esm takes either)."""
-    maps = [raster_stack(st, bin_capacity, big_capacity, early_z)
+    [(far_res, far_res)] * the rest (build_esm takes either).  K3 rasters
+    them with use_kernel, the scan raster without."""
+    maps = [raster_stack(st, bin_capacity, big_capacity, early_z, use_kernel)
             for st in cascade_stacks(world_pos, tris, shadowview, res=res,
                                      far_res=far_res)]
     if len(maps) == 1:
@@ -334,3 +352,101 @@ def spot_factor_quarter_parabolic(depth, spot_esm, view_rigid, far, *,
     lit = torch.clamp(tap * torch.exp(torch.clamp(SPOT_ESM_C * ref, 0.0, 30.0)),
                       0.0, 1.0)
     return torch.where(inside, lit, torch.ones_like(lit))
+
+
+def render_spot_maps(world_pos, tris, spotview, n_maps, *, res=256, bin_capacity=128,
+                     big_capacity=32, early_z=True, use_kernel=True):
+    """Perspective depth maps of the first n_maps spot lights: the
+    cascade stack of their shadowviews (n_maps, res, res), res at least
+    one tile wide."""
+    return render_shadow_cascades(world_pos, tris, spotview[:n_maps],
+                                  res=max(res, TILE_W), bin_capacity=bin_capacity,
+                                  big_capacity=big_capacity, early_z=early_z,
+                                  use_kernel=use_kernel)
+
+
+def _spot_project(worldpos, shadowview, res):
+    """Perspective projection into a spot map: (texel x, texel y, ref
+    depth, inside)."""
+    hp = worldpos @ shadowview[:3, :3].T + shadowview[:3, 3]
+    ww = worldpos @ shadowview[3, :3] + shadowview[3, 3]
+    ws = torch.where(torch.abs(ww) < 1e-8, torch.full_like(ww, 1e-8), ww)
+    u = hp[..., 0] / ws * 0.5 + 0.5
+    v = hp[..., 1] / ws * 0.5 + 0.5
+    ref = hp[..., 2] / ws
+    inside = ((u > 0) & (u < 1) & (v > 0) & (v < 1) & (ref > 0) & (ref < 1)
+              & (ww > 0))
+    return texel_index(u * res, res), texel_index(v * res, res), ref, inside
+
+
+def spot_shadow_factor(worldpos, spotmap, shadowview, bias=2e-3):
+    """Single-tap perspective shadow test of one spot: worldpos (H, W,
+    3), spotmap (R, R) reverse-Z, shadowview (4, 4).  1 outside the
+    map."""
+    xi, yi, ref, inside = _spot_project(worldpos, shadowview, spotmap.shape[0])
+    lit = (spotmap[yi, xi] <= ref + bias).to(torch.float32)
+    return torch.where(inside, lit, torch.ones_like(lit))
+
+
+def spot_factor_quarter(depth, spot_esm, shadowview, *, proj, invview):
+    """Quarter-res perspective factor of one spot from its ESM map."""
+    res = spot_esm.shape[0]
+    dq = downsample_pool(depth, SCALE, reduce="first")
+    h4, w4 = dq.shape
+    _, wpos = reconstruct_positions(dq, proj, invview, w4, h4)
+    xi, yi, ref, inside = _spot_project(wpos, shadowview, res)
+    tap = spot_esm.reshape(-1)[yi * res + xi]
+    lit = torch.clamp(tap * torch.exp(torch.clamp(SPOT_ESM_C * ref, 0.0, 30.0)),
+                      0.0, 1.0)
+    return torch.where(inside, lit, torch.ones_like(lit))
+
+
+def shadow_split_weights(splits, nslices, depth_dist):
+    """Per-cascade blend weights (..., 4), summing to at most 1: each
+    slice hands over to the next over the last quarter of its range
+    (smoothstep)."""
+    s = splits[:3]
+    t = torch.clamp((depth_dist[..., None] - 0.75 * s) / (s - 0.75 * s), 0.0, 1.0)
+    t = t * t * (3 - 2 * t)
+    a = torch.cat([t, torch.zeros_like(t[..., :1])], -1)
+    b = torch.cat([torch.ones_like(t[..., :1]), t], -1)
+    w = (1 - a) * b
+    on = torch.arange(4, device=w.device) < nslices
+    return torch.where(on, w, torch.zeros_like(w))
+
+
+def shadow_factor(worldpos, shadowmaps, splits, shadowview, view_dist, normal=None,
+                  spread=1.5):
+    """12-tap Poisson PCF factor in [0, 1] of the sun: worldpos (H, W,
+    3); shadowmaps (S, R, R) reverse-Z; view_dist (H, W) the positive
+    view distance the split weights read; normal (H, W, 3) offsets the
+    receiver against acne.  The bias is slope-scaled per cascade from its
+    texel footprint."""
+    nslices, res, _ = shadowmaps.shape
+    weights = shadow_split_weights(splits, nslices, view_dist)
+    total_w = torch.zeros(worldpos.shape[:-1], dtype=torch.float32,
+                          device=worldpos.device)
+    lit_acc = torch.zeros_like(total_w)
+    texel = spread / res
+    for s in range(nslices):
+        m = shadowview[s]
+        wtexel = 2.0 / (res * torch.linalg.norm(m[0, :3]))
+        bias = 2.0 * wtexel * torch.linalg.norm(m[2, :3]) + 1e-5
+        pos = worldpos if normal is None else worldpos + normal * (1.5 * wtexel)
+        clip = pos @ m[:3, :3].T + m[:3, 3]
+        u = clip[..., 0] * 0.5 + 0.5
+        v = clip[..., 1] * 0.5 + 0.5
+        ref = clip[..., 2]
+        inside = (u > 0) & (u < 1) & (v > 0) & (v < 1) & (ref > 0) & (ref < 1)
+        lit = torch.zeros_like(total_w)
+        for k in range(POISSON.shape[0]):
+            su = texel_index((u + float(POISSON[k, 0] * texel)) * res, res)
+            sv = texel_index((v + float(POISSON[k, 1] * texel)) * res, res)
+            # reverse-Z: an occluder nearer to the light stores more
+            lit = lit + (shadowmaps[s, sv, su] <= ref + bias).to(torch.float32)
+        lit = lit / POISSON.shape[0]
+        w_s = weights[..., s] * inside.to(torch.float32)
+        lit_acc = lit_acc + w_s * lit
+        total_w = total_w + w_s
+    return torch.where(total_w > 1e-6, lit_acc / torch.clamp(total_w, min=1e-6),
+                       torch.ones_like(total_w))

@@ -184,18 +184,23 @@ class RenderContext:
         self._envbrdf = None
 
     def set_skybox(self, skybox):
-        """Attach an EnvMap/SkyBox as the global environment; its
-        mip-pair table and SH-9 are baked here, once."""
+        """Attach an EnvMap/SkyBox as the global environment; its flat,
+        quad-packed and mip-pair tables and SH-9 are baked here, once
+        (the megakernel path reads the mip-pair table, the deferred path
+        the flat and quad ones)."""
         self._state = None
         from ..ops.ibl import sh_project
-        from ..ops.sampling import flatten_cube_mips_pair
+        from ..ops.sampling import (flatten_cube_mips, flatten_cube_mips_pair,
+                                    flatten_cube_mips_quad)
 
         self.skybox = skybox
         mips = [torch.from_numpy(m) for m in skybox.mips]
-        table, bases, sizes = flatten_cube_mips_pair(mips)
+        as_np = lambda tables: tuple(t.numpy() for t in tables)
         self._ibl = dict(
             mips=tuple(skybox.mips),
-            flatp=(table.numpy(), bases.numpy(), sizes.numpy()),
+            flat=as_np(flatten_cube_mips(mips)),
+            flatq=as_np(flatten_cube_mips_quad(mips)),
+            flatp=as_np(flatten_cube_mips_pair(mips)),
             sh=sh_project(mips[0][..., :3]).numpy(),
             envbrdf=self.envbrdf_lut())
 

@@ -1,24 +1,39 @@
-"""The frame (counterpart of datum_tpu/render/frame.py, the megakernel
-branch of `_frame`).
+"""The frame (counterpart of datum_tpu/render/frame.py `_frame`).
 
-Passes, in order: host draw expansion (numpy) -> attribute gather, the
-terrain geomorph and rigid transform -> sun cascades (K3,
-ops/raster_depth_cuda.py) and their ESM, parabolic spot maps (K3) and
-their ESM -> triangle setup and binning into 32x128 tiles -> K1 fused
-visibility raster, or K6 with raster_two_phase (ops/raster_cuda.py;
-with raster_early_z K1, K6 and K3 end their walks early) -> plane
-assembly at half resolution with the skybox environment, one batched
-upsample, the quarter-res sun factor, then the decals (ops/decal.py),
-SSAO (ops/ssao.py, with its temporal history), the spot factors, sky
-planes and the froxel fog planes (ops/fog.py) -> the lit translucent
-layers (K1 or K6 with alpha_in_alb and peel, plane assembly and K2 on a
-1/translucent_lit_scale viewport, upsampled) -> one merged weighted-blend
-OIT stream of the residual translucents and the particle billboards (K4,
-ops/raster_blend_cuda.py) -> the clustered lights' per-tile lists
-(ops/cluster.py, use_light_clusters) -> K2 deferred-shade megakernel and
-its translucent/fog/OIT epilogue (ops/shade_cuda.py) -> luminance,
-binned SSR at quarter resolution (ops/ssr2.py), bloom, depth of field,
+The megakernel branch (`use_shade_kernel` with `use_pallas`, a 'mip'
+texture filter and ESM sun shadows), in order: host draw expansion
+(numpy) -> attribute gather, the terrain geomorph and rigid transform ->
+sun cascades (K3, ops/raster_depth_cuda.py) and their ESM, parabolic or
+perspective spot maps (K3) and their ESM -> triangle setup and binning
+into 32x128 tiles -> K1 fused visibility raster, or K6 with
+raster_two_phase (ops/raster_cuda.py; with raster_early_z K1, K6 and K3
+end their walks early) -> plane assembly at half resolution with the
+skybox environment, one batched upsample, the quarter-res sun factor,
+then the decals (ops/decal.py), SSAO (ops/ssao.py, with its temporal
+history), the spot factors, sky planes and the froxel fog planes
+(ops/fog.py) -> the lit translucent layers (K1 or K6 with alpha_in_alb
+and peel, plane assembly and K2 on a 1/translucent_lit_scale viewport,
+upsampled) -> one merged weighted-blend OIT stream of the residual
+translucents and the particle billboards (K4, ops/raster_blend_cuda.py)
+-> the clustered lights' per-tile lists (ops/cluster.py,
+use_light_clusters) -> K2 deferred-shade megakernel and its
+translucent/fog/OIT epilogue (ops/shade_cuda.py) -> luminance, binned
+SSR at quarter resolution (ops/ssr2.py), bloom, depth of field,
 composite with the colour grade, u8.
+
+Every other config takes the deferred branch (FrameConfig's defaults
+among them): sun cascades (ESM or PCF) and perspective spot maps, K3
+with `use_pallas`, else the scan raster -> the visibility raster: K1
+(no material maps) or K7 (`raster_kernel="mxu"`, ops/raster_mxu_cuda.py)
+with `gbuffer_from_planes`, or K5 (ops/raster_v1_cuda.py) or the scan
+raster (ops/raster.py::raster, without `use_pallas`) with
+`resolve_gbuffer` -> gbuffer decals, SSAO -> the XLA lighting
+(ops/lighting_pass.py::shade_deferred) -> sky fill, fog apply -> two
+separate weighted-blend passes, translucents then particles (K4 with
+`use_pallas`, else ops/blend.py::raster_blend) -> the same post.
+Without `use_pallas` the rasters and the blend are plain PyTorch on the
+card too: that is the reference's own algorithm for the flag, not a
+fallback.
 
 PyTorch runs eagerly, so there is no jit: each pass is a plain function
 on tensors, and the frame is one call of `render_frame`.
@@ -30,8 +45,10 @@ import numpy as np
 import torch
 
 from ..convert import to_torch
+from ..ops import blend as blend_ops
 from ..ops import brdf
 from ..ops import fog as fog_ops
+from ..ops import lighting_pass
 from ..ops import raster as raster_ops
 from ..ops import shadow as shadow_ops
 from ..ops.blur import (downsample2, downsample_pool, gaussian_blur, resize_matmul,
@@ -40,14 +57,17 @@ from ..ops.bloom import bloom as bloom_op
 from ..ops.cluster import bin_lights, tile_depth_bounds
 from ..ops.common import TILE_H, TILE_W, FrameConfig, round_up, texel_index
 from ..ops.composite import composite, to_u8_image
-from ..ops.decal import apply_decals_planes
+from ..ops.decal import apply_decals, apply_decals_planes
 from ..ops.geometry import terrain_morph, transform_vertices_rigid
 from ..ops.ibl import rotate_sh9
 from ..ops.lighting_pass import _inv_proj, reconstruct_positions, view_ray_grid
 from ..ops.raster_blend_cuda import raster_blend
 from ..ops.raster_cuda import raster_shade
-from ..ops.sampling import sample_cubemap_lod_pair
-from ..ops.shade import sample_matmaps
+from ..ops.raster_mxu_cuda import raster_shade_mxu
+from ..ops.raster_v1_cuda import raster_v1
+from ..ops.sampling import (sample_cubemap, sample_cubemap_lod_flat,
+                            sample_cubemap_lod_pair, sample_cubemap_lod_quad)
+from ..ops.shade import gbuffer_from_planes, resolve_gbuffer, sample_matmaps
 from ..ops.shade_cuda import MAX_TR_LAYERS, SHADE_ROWS, shade_deferred
 from ..ops.ssao import hbao, make_hbao_params
 from ..ops.ssr2 import ssr_binned
@@ -55,12 +75,6 @@ from .renderlist import RenderList
 
 # (rejected when true, what it is and the ROADMAP Queue 1 item that ports it)
 _LATER = (
-    (lambda c: c.enable_shadows and c.shadow_mode != "esm",
-     "PCF sun shadows (shadow_mode='pcf', the fallback frame's)",
-     "shadows (PCF)"),
-    (lambda c: c.max_spot_shadows > 0 and c.spot_shadow_mode != "parabolic",
-     "perspective spot maps (spot_shadow_mode='perspective')",
-     "shadows (perspective spot maps)"),
     (lambda c: c.max_fog_planes > 0, "fog planes", "post (fog planes)"),
     (lambda c: c.enable_ssr and c.ssr_mode != "binned",
      "the DDA SSR (ssr_mode='dda', ops/ssr.py)", "post (DDA SSR)"),
@@ -70,13 +84,6 @@ _LATER = (
     (lambda c: c.enable_foliage, "foliage wind bend", "off-main-path device code"),
     (lambda c: c.max_dynamic_vertices > 0, "dynamic vertices (ocean)",
      "off-main-path device code"),
-    (lambda c: c.raster_kernel != "v2", "raster_kernel='mxu' (K7)",
-     "the K7 row of Queue 2"),
-    (lambda c: not (c.use_pallas and c.use_shade_kernel
-                    and c.enable_material_maps
-                    and c.texture_filter.startswith("mip")),
-     "the fallback frame (use_pallas, use_shade_kernel, material maps and a "
-     "'mip' texture filter are required)", "off-main-path device code"),
 )
 
 
@@ -208,27 +215,36 @@ def _raster_stage(cfg: FrameConfig, state, draws, ex, uv, clip, wnormal,
 
 
 def _sun_shadows(cfg: FrameConfig, ex, worldp, sceneset):
-    """Sun cascades (K3) and their ESM: (esm, zmax, zscale) or None."""
+    """Sun cascades: with shadow_mode 'esm' their ESM (esm, zmax, zscale),
+    with 'pcf' the raw (S, R, R) maps; None without shadows.  K3 rasters
+    them with use_pallas, the scan raster without."""
     if not cfg.enable_shadows:
         return None
     ml = sceneset["mainlight"]
+    esm = cfg.shadow_mode == "esm"
     raw = shadow_ops.render_shadow_cascades(
         worldp, ex["tris"], ml["shadowview"], res=cfg.shadow_res,
         bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity,
-        far_res=cfg.shadow_far_res, early_z=cfg.raster_early_z)
-    return shadow_ops.build_esm(raw, ml["shadowview"])
+        far_res=cfg.shadow_far_res if esm else None, early_z=cfg.raster_early_z,
+        use_kernel=cfg.use_pallas)
+    return shadow_ops.build_esm(raw, ml["shadowview"]) if esm else raw
 
 
 def _spot_shadows(cfg: FrameConfig, ex, worldp, sceneset):
-    """Parabolic spot maps (K3) and their ESM: (n, R, R) or None."""
+    """The megakernel path's spot maps (K3), parabolic or perspective
+    (spot_shadow_mode), and their ESM: (n, R, R) or None."""
     if cfg.max_spot_shadows <= 0:
         return None
     sl = sceneset["spotlights"]
-    maps = shadow_ops.render_spot_maps_parabolic(
-        worldp, ex["tris"], sl["view"], sl["attenuation"][:, 3],
-        cfg.max_spot_shadows, res=cfg.spot_shadow_res,
-        bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity,
-        early_z=cfg.raster_early_z)
+    kw = dict(res=cfg.spot_shadow_res, bin_capacity=cfg.shadow_bin_capacity,
+              big_capacity=cfg.big_capacity, early_z=cfg.raster_early_z)
+    if cfg.spot_shadow_mode == "parabolic":
+        maps = shadow_ops.render_spot_maps_parabolic(
+            worldp, ex["tris"], sl["view"], sl["attenuation"][:, 3],
+            cfg.max_spot_shadows, **kw)
+    else:
+        maps = shadow_ops.render_spot_maps(worldp, ex["tris"], sl["shadowview"],
+                                           cfg.max_spot_shadows, **kw)
     return shadow_ops.build_spot_esm(maps)
 
 
@@ -389,12 +405,16 @@ def _sky_sh_spots(cfg: FrameConfig, gpl, planes, state, sceneset, spot):
     spotsf = None
     if spot is not None:
         sl = sceneset["spotlights"]
-        spotsf = torch.stack([resize_up_dense(
-            shadow_ops.spot_factor_quarter_parabolic(
-                planes["depth"], spot[i], sl["view"][i],
-                sl["attenuation"][i, 3], proj=sceneset["proj"],
-                invview=sceneset["invview"]), h, w)
-            for i in range(cfg.max_spot_shadows)])
+        pv = dict(proj=sceneset["proj"], invview=sceneset["invview"])
+        if cfg.spot_shadow_mode == "parabolic":
+            fq = [shadow_ops.spot_factor_quarter_parabolic(
+                planes["depth"], spot[i], sl["view"][i], sl["attenuation"][i, 3], **pv)
+                for i in range(cfg.max_spot_shadows)]
+        else:
+            fq = [shadow_ops.spot_factor_quarter(planes["depth"], spot[i],
+                                                 sl["shadowview"][i], **pv)
+                  for i in range(cfg.max_spot_shadows)]
+        spotsf = torch.stack([resize_up_dense(f, h, w) for f in fq])
     return ss2, spotsf
 
 
@@ -688,22 +708,34 @@ def light_clusters(cfg: FrameConfig, depth, sceneset):
             counts.reshape(ty, tx).repeat_interleave(rows, 0))
 
 
-def _ssr(cfg: FrameConfig, state, sceneset, hdr, depth, gpl):
-    """Binned SSR at quarter resolution on the final hdr, fed by the
-    minimal gbuffer of the opaque layer's K2 planes (decals in): (hq, wq,
-    4) with ssrstrength on rgb only (the composite adds rgb * a), or
-    None."""
+def _ssr_inputs_planes(gpl):
+    """The SSR's gbuffer inputs from the megakernel's K2 planes (decals
+    in): (encoded normal (H, W, 3), specular (H, W, 3), roughness,
+    coverage (H, W) f32)."""
+    nenc = torch.stack([gpl["nx"], gpl["ny"], gpl["nz"]], -1) * 0.5 + 0.5
+    spec = torch.stack([gpl["sr"], gpl["sg"], gpl["sb"]], -1)
+    return nenc, spec, gpl["rgh"], (gpl["visf"] >= 0.0).to(torch.float32)
+
+
+def _ssr_inputs_gbuffer(gbuffer):
+    """The SSR's inputs from the deferred path's gbuffer."""
+    return (gbuffer["normal"][..., :3], gbuffer["specular"][..., :3],
+            gbuffer["specular"][..., 3], gbuffer["mask"].to(torch.float32))
+
+
+def _ssr(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
+    """Binned SSR at quarter resolution on the final hdr, fed by ssr_in
+    (_ssr_inputs_planes or _ssr_inputs_gbuffer): (hq, wq, 4) with
+    ssrstrength on rgb only (the composite adds rgb * a), or None."""
     if not cfg.enable_ssr:
         return None
     q = 4
-    nenc = torch.stack([gpl["nx"], gpl["ny"], gpl["nz"]], -1) * 0.5 + 0.5
-    spec = torch.stack([gpl["sr"], gpl["sg"], gpl["sb"]], -1)
-    mask = (gpl["visf"] >= 0.0).to(torch.float32)
+    nenc, spec, rough, mask = ssr_in
     ibl = state.get("ibl")
     ssr_q = ssr_binned(
         downsample_pool(hdr, q), downsample_pool(depth, q, reduce="first"),
         downsample_pool(nenc, q, reduce="first"), downsample_pool(spec, q),
-        downsample_pool(gpl["rgh"], q, reduce="first"),
+        downsample_pool(rough, q, reduce="first"),
         downsample_pool(mask, q) > 0.5, sceneset["proj"], sceneset["view"],
         envbrdf_lut=None if ibl is None else ibl["envbrdf"])
     return torch.cat([ssr_q[..., :3] * sceneset["camera"]["ssrstrength"],
@@ -722,7 +754,7 @@ def dof_fields(hdr, depth, proj, camera):
     return blurred, amount
 
 
-def _post(cfg: FrameConfig, state, sceneset, hdr, depth, gpl):
+def _post(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
     """Log-average luminance, SSR, bloom, depth of field and the graded
     composite: (u8 image (height, width, 3), luminance).  With DoF off the
     quarter-res bloom and SSR add into one term (`glow`) that is upsampled
@@ -735,7 +767,7 @@ def _post(cfg: FrameConfig, state, sceneset, hdr, depth, gpl):
     lum = torch.exp(torch.mean(torch.log(
         1e-4 + hdr[:cfg.height, :cfg.width] @ lum_w)))
 
-    ssr_q = _ssr(cfg, state, sceneset, hdr, depth, gpl)
+    ssr_q = _ssr(cfg, state, sceneset, hdr, depth, ssr_in)
     ssr_img = bloom_img = glow = dof_blur = dof_amount = None
     if ssr_q is not None and cfg.enable_depth_of_field:
         ssr_img, ssr_q = resize_up_dense(ssr_q, h, w), None
@@ -762,9 +794,23 @@ def _post(cfg: FrameConfig, state, sceneset, hdr, depth, gpl):
     return to_u8_image(rgb[:cfg.height, :cfg.width]), lum
 
 
-def _frame(cfg: FrameConfig, state, draws, sceneset, prev=None):
-    ex, uv, clip, wnormal, wtangent, worldp = _vertex_stage(cfg, state, draws,
-                                                            sceneset)
+def use_shade_kernel(cfg: FrameConfig, state):
+    """Whether the frame takes the megakernel branch: use_shade_kernel
+    with use_pallas, a 'mip' filter and the v2 raster, an environment
+    with SH-9 and the quad-packed table (or none), and ESM sun shadows."""
+    ibl = state.get("ibl")
+    fused_mip = (cfg.use_pallas and cfg.texture_filter.startswith("mip")
+                 and cfg.raster_kernel != "mxu")
+    return (cfg.use_shade_kernel and fused_mip
+            and (ibl is None or ("sh" in ibl and "flatq" in ibl
+                                 and ibl.get("envprobes") is None))
+            and (not cfg.enable_shadows or cfg.shadow_mode == "esm"))
+
+
+def _megakernel_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
+    """The megakernel branch: (hdr, depth, vis, bin_overflow, ao_state,
+    SSR inputs)."""
+    ex, uv, clip, wnormal, wtangent, worldp = vtx
     shadows = _shadow_stage(cfg, ex, worldp, sceneset)
     planes, bin_overflow = _raster_stage(cfg, state, draws, ex, uv, clip,
                                          wnormal, wtangent)
@@ -775,9 +821,204 @@ def _frame(cfg: FrameConfig, state, draws, sceneset, prev=None):
     hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
                          invview=sceneset["invview"], ao=ao, spotsf=spotsf,
                          clusters=light_clusters(cfg, planes["depth"], sceneset))
-    image, lum = _post(cfg, state, sceneset, hdr, planes["depth"], gpl)
     vis = torch.round(planes["visf"]).to(torch.int32)
-    out = dict(image=image, luminance=lum, depth=planes["depth"], vis=vis,
+    return (hdr, planes["depth"], vis, bin_overflow, ao_state,
+            _ssr_inputs_planes(gpl))
+
+
+def _k1_planes(p):
+    """K1's 2-D planes as raster_shade_pallas's (planes_2d=False) dict."""
+    rnd = lambda x: torch.round(x).to(torch.int32)
+    st = lambda *k: torch.stack([p[n] for n in k], -1)
+    return dict(depth=p["depth"], vis=rnd(p["visf"]), uv=st("u", "v"),
+                normal=st("nx", "ny", "nz"), color=st("cr", "cg", "cb"),
+                emissive=p["em"], metalness=p["met"], roughness=p["rgh"],
+                reflectivity=p["rfl"], albedo_id=rnd(p["alb"]),
+                matmap_base=rnd(p["mbase"]), matmap_size=rnd(p["msize"]),
+                tangent=st("tanx", "tany", "tanz", "tanw"), absorb=p["absorb"])
+
+
+def _deferred_raster(cfg: FrameConfig, state, draws, ex, uv, clip, wnormal, wtangent):
+    """The deferred branch's visibility raster and material resolve:
+    (depth, vis, gbuffer, bin_overflow).  With use_pallas and no material
+    maps (or a 'mip' filter), the fused raster: K7 for
+    raster_kernel='mxu', else K1 (its tangent and matmap planes read
+    only by the 'mip' filters), then gbuffer_from_planes; otherwise K5
+    (use_pallas) or the scan raster, then resolve_gbuffer."""
+    w, h = cfg.padded_width, cfg.padded_height
+    tx, ty = cfg.tiles_x, cfg.tiles_y
+    setup, bins, counts, big_ids, bin_overflow = _bin_stage(cfg, ex, clip)
+    mip = cfg.texture_filter.startswith("mip")
+    if cfg.use_pallas and (not cfg.enable_material_maps
+                           or (mip and cfg.raster_kernel != "mxu")):
+        if cfg.raster_kernel == "mxu":
+            planes = raster_shade_mxu(setup, bins, big_ids, counts, ex["tris"], uv,
+                                      wnormal, draws["tri_mat"], state["materials"],
+                                      tx, ty, w, h)
+        else:
+            planes = _k1_planes(raster_shade(
+                setup, bins, big_ids, counts, ex["tris"], uv, wnormal,
+                draws["tri_mat"], state["materials"], tx, ty, w, h, tangent=wtangent,
+                early_z=cfg.raster_early_z))
+        gbuffer = gbuffer_from_planes(planes, state["textures"],
+                                      texture_filter=cfg.texture_filter,
+                                      matmaps=state.get("matmaps"))
+        return planes["depth"], planes["vis"], gbuffer, bin_overflow
+    if cfg.use_pallas:
+        depth, vis, l0, l1 = raster_v1(setup, bins, big_ids, counts, tx, ty, w, h)
+        lam = torch.stack([l0, l1, 1.0 - l0 - l1], -1)
+    else:
+        depth, vis = raster_ops.raster(setup, bins, big_ids, tx, ty, w, h)
+        lam = None
+    gbuffer = resolve_gbuffer(
+        vis, setup, ex["tris"], ex["tri_draw"], dict(uv=uv, normal=wnormal, tangent=wtangent),
+        dict(material=draws["material"]), state["materials"], state["textures"], w, h,
+        material_maps=cfg.enable_material_maps, lam=lam,
+        matmaps=state.get("matmaps") if mip else None)
+    return depth, vis, gbuffer, bin_overflow
+
+
+def _deferred_ssao(cfg: FrameConfig, depth, gbuffer, sceneset, prev):
+    """HBAO on the gbuffer's encoded normals: (full-res ambient factor or
+    None, AO state or None)."""
+    if not (cfg.enable_ssao and cfg.ssao_scale > 0):
+        return None, None
+    w, h = cfg.padded_width, cfg.padded_height
+    dec = max(int(round(1.0 / cfg.ssao_scale)), 1)
+    ao = hbao(downsample_pool(depth, dec, reduce="first"),
+              downsample_pool(gbuffer["normal"][..., :3], dec, reduce="first"),
+              sceneset["proj"], sceneset["view"], params=make_hbao_params(),
+              prev_ao=None if prev is None else prev["ao"],
+              prevview=None if prev is None else prev["view"],
+              invview=sceneset["invview"])
+    strength = sceneset["camera"]["ssaostrength"]
+    return 1.0 + (resize_up_dense(ao[..., 0], h, w) - 1.0) * strength, ao
+
+
+def _sky_fill(ibl, sceneset, hdr, mask, w, h):
+    """The skybox behind the geometry along the view rays (mip
+    skyboxlod, at least 0): quarter-res quad taps upsampled when the
+    environment has the quad table, else full-res flat or mip-0 taps."""
+    proj, invview = sceneset["proj"], sceneset["invview"]
+    rx, ry = view_ray_grid(_inv_proj(proj), w, h)
+    rays = torch.stack([rx, ry, -torch.ones_like(rx)], -1) @ invview[:3, :3].T
+    rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+    rays = rays @ _skyrot(sceneset).T
+    lod = torch.clamp(sceneset["camera"]["skyboxlod"], min=0.0)
+    if "flatq" in ibl:
+        rays_h = downsample_pool(rays, 4)
+        sky = resize_up_dense(sample_cubemap_lod_quad(
+            ibl["flatq"], rays_h, lod.expand(rays_h.shape[:-1]))[..., :3], h, w)
+    elif "flat" in ibl:
+        sky = sample_cubemap_lod_flat(ibl["flat"], rays, lod.expand(rays.shape[:-1]))[..., :3]
+    else:
+        sky = sample_cubemap(ibl["mips"][0], rays)[..., :3]
+    return torch.where(mask[..., None], hdr, sky * sceneset["camera"]["exposure"])
+
+
+def _wboit(cfg: FrameConfig, setup, bins, big, counts, tris, uv, color, depth, soft):
+    """One weighted-blend pass: (accum (H, W, 4), revealage (H, W)), by
+    K4 with use_pallas, else by the XLA raster_blend."""
+    w, h, tx, ty = cfg.padded_width, cfg.padded_height, cfg.tiles_x, cfg.tiles_y
+    if cfg.use_pallas:
+        ar, ag, ab, aw, rev = raster_blend(setup, bins, big, counts, tris, uv, color,
+                                           depth, tx, ty, w, h, soft=soft)
+        return torch.stack([ar, ag, ab, aw], -1), rev
+    return blend_ops.raster_blend(setup, bins, big, uv, color, tris, depth, tx, ty,
+                                  w, h, soft=soft)
+
+
+def _deferred_forward(cfg: FrameConfig, state, draws, sceneset, hdr, depth):
+    """The two separate weighted-blend OIT passes over hdr: the
+    translucent draws (hard alpha), then the particle billboards (soft
+    alpha), each resolved on its own."""
+    w, h, tx, ty = cfg.padded_width, cfg.padded_height, cfg.tiles_x, cfg.tiles_y
+    exposure = sceneset["camera"]["exposure"]
+    if cfg.max_translucent_draws > 0:
+        ts = translucent_stream(state, draws, sceneset)
+        d = ts["d"]
+        color = state["materials"]["color"][d["material"][d["vtx_draw"].long()].long()]
+        setup = raster_ops.triangle_setup(ts["clip"], d["tris"], w, h, tx, ty,
+                                          tri_valid=d["t_valid"])
+        bins, counts, big = raster_ops.bin_triangles(
+            setup, cfg.max_translucent_tris, tx, ty, cfg.forward_bin_capacity,
+            cfg.forward_big_capacity)
+        acc, rev = _wboit(cfg, setup, bins, big, counts, d["tris"], ts["uv"], color,
+                          depth, soft=False)
+        hdr = blend_ops.resolve_oit(hdr, acc, rev, exposure=exposure)
+    if cfg.max_particle_quads > 0:
+        fwd = draws["forward"]
+        viewproj = sceneset["proj"] @ sceneset["view"]
+        fclip = fwd["positions"] @ viewproj[:, :3].T + viewproj[:, 3]
+        ftris = torch.from_numpy(RenderList.quad_triangles(
+            cfg.max_particle_quads)).to(fclip.device)
+        valid = torch.arange(ftris.shape[0], device=fclip.device) < fwd["quad_count"] * 2
+        setup = raster_ops.triangle_setup(fclip, ftris, w, h, tx, ty, tri_valid=valid)
+        bins, counts, big = raster_ops.bin_triangles(
+            setup, ftris.shape[0], tx, ty, cfg.forward_bin_capacity,
+            cfg.forward_big_capacity)
+        acc, rev = _wboit(cfg, setup, bins, big, counts, ftris, fwd["uv"], fwd["color"],
+                          depth, soft=True)
+        hdr = blend_ops.resolve_oit(hdr, acc, rev, exposure=exposure)
+    return hdr
+
+
+def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
+    """Every branch of `_frame` off the megakernel: (hdr, depth, vis,
+    bin_overflow, ao_state, SSR inputs)."""
+    ex, uv, clip, wnormal, wtangent, worldp = vtx
+    w, h, tx, ty = cfg.padded_width, cfg.padded_height, cfg.tiles_x, cfg.tiles_y
+    proj, invview = sceneset["proj"], sceneset["invview"]
+    sun = _sun_shadows(cfg, ex, worldp, sceneset)
+    depth, vis, gbuffer, bin_overflow = _deferred_raster(cfg, state, draws, ex, uv, clip,
+                                                         wnormal, wtangent)
+    cluster = None
+    if cfg.use_light_clusters:
+        pl_ = sceneset["pointlights"]
+        lists, counts = bin_lights(pl_["position"], pl_["attenuation"][:, 3],
+                                   pl_["count"], sceneset["view"], proj, tx, ty, w, h,
+                                   cfg.tile_light_capacity)
+        cluster = (lists, counts, tx, ty)
+    if cfg.max_decals_active > 0:
+        _, wpos = reconstruct_positions(depth, proj, invview, w, h)
+        gbuffer = apply_decals(gbuffer, wpos, draws["decals"],
+                               textures=state.get("textures"))
+    ssao, ao_state = _deferred_ssao(cfg, depth, gbuffer, sceneset, prev)
+    spotmaps = None
+    if cfg.max_spot_shadows > 0:
+        # perspective maps whatever spot_shadow_mode says, with the early
+        # exit on as the reference's default
+        spotmaps = shadow_ops.render_spot_maps(
+            worldp, ex["tris"], sceneset["spotlights"]["shadowview"],
+            cfg.max_spot_shadows, res=cfg.spot_shadow_res,
+            bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity,
+            use_kernel=cfg.use_pallas)
+    ibl = state.get("ibl")
+    hdr = lighting_pass.shade_deferred(
+        gbuffer, depth, sceneset, proj=proj, invview=invview, shadowmaps=sun, ibl=ibl,
+        cluster=cluster, ssao=ssao, spotmaps=spotmaps,
+        shadow_factor_scale=cfg.shadow_factor_scale,
+        shadow_slice_blend=cfg.shadow_slice_blend)
+    if ibl is not None:
+        hdr = _sky_fill(ibl, sceneset, hdr, gbuffer["mask"], w, h)
+    if cfg.enable_fog:
+        fogvol = fog_ops.build_fog_volume(
+            sceneset, proj=proj, invview=invview,
+            shadow=sun if cfg.enable_shadows and cfg.shadow_mode == "esm" else None,
+            depth_range=cfg.fog_depth_range)
+        hdr = fog_ops.apply_fog(hdr, depth, fogvol, proj, depth_range=cfg.fog_depth_range,
+                                sample_scale=cfg.fog_sample_scale)
+    hdr = _deferred_forward(cfg, state, draws, sceneset, hdr, depth)
+    return hdr, depth, vis, bin_overflow, ao_state, _ssr_inputs_gbuffer(gbuffer)
+
+
+def _frame(cfg: FrameConfig, state, draws, sceneset, prev=None):
+    vtx = _vertex_stage(cfg, state, draws, sceneset)
+    branch = _megakernel_frame if use_shade_kernel(cfg, state) else _deferred_frame
+    hdr, depth, vis, bin_overflow, ao_state, ssr_in = branch(cfg, state, draws,
+                                                             sceneset, prev, vtx)
+    image, lum = _post(cfg, state, sceneset, hdr, depth, ssr_in)
+    out = dict(image=image, luminance=lum, depth=depth, vis=vis,
                bin_overflow=bin_overflow)
     if ao_state is not None:
         # the temporal AO history: the next frame's `prev`
@@ -800,9 +1041,11 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     Returns dict(image (height, width, 3) u8, luminance () f32, depth
     and vis (padded H, W), bin_overflow () i32 of the main bins, and with
     SSAO ao_prev: dict(ao (h, w, 2), view)), all on `device`.  On a CUDA
-    device the rasters (K1 or K6, K3, K4) and the shade (K2 and its
-    epilogue) run the hand-written kernels (they raise if they cannot
-    launch; nothing falls back).
+    device the rasters (K1 or K6, K3, K4, K5, K7) and the shade (K2 and
+    its epilogue) run the hand-written kernels (they raise if they cannot
+    launch; nothing falls back).  Without use_pallas the deferred branch
+    runs the scan raster and the XLA blend as plain PyTorch on the
+    device, as the reference does for that flag.
 
     Contract on the card: f32 matmuls run in full f32.  The caller sets
     torch.backends.cuda.matmul.allow_tf32 = False and

@@ -12,7 +12,11 @@ torch's sqrt and division differ by ulps); K3 bit-identical on >=
 99.99% of texels, max abs error 1e-6; K4 and the K2 epilogue (with its
 fog group) bit-identical on >= 99.99% of values, atol/rtol 1e-5 on the
 rest.  Clustered K2 is held as K2; K1, K6 and K3 with the early-z exit
-bit-identical to themselves without it and to their plain versions."""
+bit-identical to themselves without it and to their plain versions.
+K5 and K7 bit-identical to their plain versions on every plane, on the
+small inputs of tests/test_torch_raster_v1.py, and K5, K7 and the
+deferred frames (use_pallas=False, K5, K7) on the card against the CPU
+plain path."""
 
 import dataclasses
 
@@ -39,6 +43,11 @@ from datum_tpu_torch.ops.shade_cuda import (shade_deferred_cuda,
                                             shade_epilogue_cuda,
                                             shade_epilogue_reference,
                                             shade_inputs)
+from datum_tpu_torch.math.matrix import perspective_proj
+from datum_tpu_torch.ops.raster_mxu_cuda import (raster_mxu_cuda, raster_mxu_inputs,
+                                                 raster_mxu_reference)
+from datum_tpu_torch.ops.raster_v1_cuda import (raster_v1_cuda, raster_v1_inputs,
+                                                raster_v1_reference)
 from datum_tpu_torch.render import frame as frame_mod
 from datum_tpu_torch.render.types import make_sceneset
 from datum_tpu_torch.scenes import datumtest_scene, stress_scene
@@ -526,3 +535,123 @@ def test_stress_frame_on_card_matches_cpu_plain(card):
     assert np.abs(a - b).mean() <= 0.5
     assert np.sqrt(((a - b) ** 2).mean()) <= 2.0
     assert int(gpu["bin_overflow"]) == int(cpu["bin_overflow"]) == 0
+
+
+def _mesh(seed, n_v, n_t, w, h, spread=2.0, n_behind=3):
+    """tests/test_torch_raster_v1.py's perspective mesh: overlapping
+    triangles, with eye-plane crossings (the big list)."""
+    rng = np.random.RandomState(seed)
+    proj = perspective_proj(np.radians(70), w / h, 0.1)
+    pts = rng.randn(n_v, 3).astype(np.float32) * spread
+    pts[:, 2] -= 6
+    pts[:n_behind, 2] = 3.0
+    hp = np.concatenate([pts, np.ones((n_v, 1), np.float32)], 1)
+    clip = (hp @ proj.T).astype(np.float32)
+    tris = rng.randint(0, n_v, (n_t, 3)).astype(np.int32)
+    tris[:n_behind, 0] = np.arange(n_behind)
+    return clip, tris, rng
+
+
+@pytest.mark.parametrize("scissor", [False, True], ids=["open", "ylim"])
+def test_k5_kernel_matches_plain(card, scissor):
+    w, h, tx, ty = 256, 128, 2, 4
+    clip, tris, _ = _mesh(4, 80, 140, w, h)
+    ylim = None
+    if scissor:
+        lo = np.where(np.arange(tris.shape[0]) % 2 == 0, -1.0, -0.3).astype(np.float32)
+        ylim = (torch.from_numpy(lo).to(card), torch.from_numpy(lo + 0.9).to(card))
+    setup = raster_ops.triangle_setup(torch.from_numpy(clip).to(card),
+                                      torch.from_numpy(tris).to(card), w, h, tx, ty,
+                                      max_span=4, ylim=ylim)
+    bins, counts, big = raster_ops.bin_triangles(setup, tris.shape[0], tx, ty, 64, 8,
+                                                 max_span=4)
+    inp = raster_v1_inputs(setup, bins, big, counts, tx, w, h)
+    k = raster_v1_cuda(**inp)
+    r = raster_v1_reference(**inp)
+    torch.cuda.synchronize()
+    assert (k[1] >= 0).float().mean().item() > 0.2
+    assert torch.equal(k, r)
+
+
+def test_k7_kernel_matches_plain(card):
+    """256x32, over 128 entries a tile, duplicated triangles (ties)."""
+    w, h, tx, ty = 256, 32, 2, 1
+    clip, tris, rng = _mesh(9, 400, 300, w, h, spread=1.2)
+    tris[250:300] = tris[0:250:5]
+    n_v, n_t, nm = clip.shape[0], tris.shape[0], 6
+    uv = torch.from_numpy(rng.rand(n_v, 2).astype(np.float32)).to(card)
+    nrm = torch.from_numpy(rng.randn(n_v, 3).astype(np.float32)).to(card)
+    mats = {k: torch.from_numpy(v).to(card) for k, v in dict(
+        color=rng.rand(nm, 4).astype(np.float32),
+        emissive=rng.rand(nm).astype(np.float32),
+        metalness=rng.rand(nm).astype(np.float32),
+        roughness=rng.rand(nm).astype(np.float32),
+        reflectivity=rng.rand(nm).astype(np.float32),
+        albedomap=rng.randint(0, 5, nm).astype(np.int32)).items()}
+    tri_mat = torch.from_numpy(rng.randint(0, nm, n_t).astype(np.int32)).to(card)
+    t_tris = torch.from_numpy(tris).to(card)
+    setup = raster_ops.triangle_setup(torch.from_numpy(clip).to(card), t_tris, w, h,
+                                      tx, ty, max_span=2)
+    bins, counts, big = raster_ops.bin_triangles(setup, n_t, tx, ty, 256, 8, max_span=2)
+    assert int(counts.min()) + 8 > 128
+    inp = raster_mxu_inputs(setup, bins, big, counts, t_tris, uv, nrm, tri_mat, mats,
+                            tx, w, h)
+    k = raster_mxu_cuda(**inp)
+    r = raster_mxu_reference(**inp)
+    torch.cuda.synchronize()
+    assert (k[1] >= 0).float().mean().item() > 0.3
+    assert torch.equal(k, r)
+
+
+def test_k5_k7_wrappers_refuse_bad_input(card):
+    w, h, tx, ty = 256, 128, 2, 4
+    clip, tris, _ = _mesh(5, 60, 90, w, h)
+    setup = raster_ops.triangle_setup(torch.from_numpy(clip).to(card),
+                                      torch.from_numpy(tris).to(card), w, h, tx, ty)
+    bins, counts, big = raster_ops.bin_triangles(setup, tris.shape[0], tx, ty, 32, 8)
+    inp = raster_v1_inputs(setup, bins, big, counts, tx, w, h)
+    before = raster_v1_cuda.launches
+    with pytest.raises(ValueError):
+        raster_v1_cuda(**dict(inp, bins=inp["bins"].to(torch.int64)))
+    with pytest.raises(ValueError):
+        raster_v1_cuda(**{k: (v.cpu() if torch.is_tensor(v) else v)
+                          for k, v in inp.items()})
+    assert raster_v1_cuda.launches == before
+
+
+# the deferred frames: entry()'s config (use_pallas=False, nearest, ESM),
+# the K5 frame (bilinear, material maps, translucents, particles, decals,
+# SSAO, fog, a perspective spot map, SSR) and the K7 frame
+DEFERRED = dict(width=256, height=128, sphere_detail=8, grid=(4, 3), n_point_lights=4,
+                max_vertices=4096, max_triangles=4096, bin_capacity=512,
+                big_capacity=32, shadow_res=256, shadow_bin_capacity=1024)
+K5_FRAME = dict(DEFERRED, use_pallas=True, texture_filter="bilinear",
+                max_translucent_draws=2, max_translucent_tris=2048,
+                max_particle_quads=512, max_decals_active=2, enable_ssao=True,
+                enable_fog=True, enable_ssr=True, max_spot_shadows=1,
+                spot_shadow_mode="perspective", spot_shadow_res=128,
+                forward_bin_capacity=256, forward_big_capacity=16)
+K7_FRAME = dict(DEFERRED, height=64, use_pallas=True, raster_kernel="mxu",
+                enable_material_maps=False, enable_shadows=False)
+
+
+@pytest.mark.parametrize("scene", [DEFERRED, dict(DEFERRED, shadow_mode="pcf"),
+                                   K5_FRAME, K7_FRAME],
+                         ids=["entry", "pcf", "K5", "K7"])
+def test_deferred_frame_on_card_matches_cpu_plain(card, scene):
+    ctx, state, draws, ss = _frame(card, scene=scene)
+    cfg = ctx.config
+    if cfg.enable_fog:
+        ss["camera"]["fogdensity"] = np.float32(FOG_DENSITY)
+    n = raster_v1_cuda.launches, raster_mxu_cuda.launches
+    a = frame_mod.render_frame(cfg, state, draws, ss, device=card)
+    torch.cuda.synchronize()
+    n = raster_v1_cuda.launches - n[0], raster_mxu_cuda.launches - n[1]
+    assert n == (int(scene is K5_FRAME), int(scene is K7_FRAME))
+    b = frame_mod.render_frame(cfg, ctx.host_state(), draws, ss, device="cpu")
+    ia = a["image"].cpu().numpy().astype(np.float32)
+    ib = b["image"].numpy().astype(np.float32)
+    assert ib.mean() > 10
+    assert np.abs(ia - ib).mean() <= 0.5
+    assert np.sqrt(((ia - ib) ** 2).mean()) <= 2.0
+    assert (a["vis"].cpu() == b["vis"]).float().mean().item() >= 0.999

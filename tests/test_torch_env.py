@@ -142,16 +142,18 @@ def test_bake_envbrdf_matches_the_tracked_lut():
 
 
 def test_context_environment_state():
-    """set_skybox bakes the mip chain, mip-pair table, SH-9 and the LUT
-    into device_state()['ibl'] (the LUT read only from the port's
-    tracked copy)."""
+    """set_skybox bakes the mip chain, the flat, quad-packed and mip-pair
+    tables, SH-9 and the LUT into device_state()['ibl'] (the LUT read
+    only from the port's tracked copy)."""
     ctx = RenderContext()
     ctx.set_skybox(SkyBox(size=16, convolve_samples=4))
     ibl = ctx.device_state("cpu")["ibl"]
-    assert sorted(ibl) == ["envbrdf", "flatp", "mips", "sh"]
+    assert sorted(ibl) == ["envbrdf", "flat", "flatp", "flatq", "mips", "sh"]
     assert [m.shape for m in ibl["mips"]] == [(6, 16, 16, 3), (6, 8, 8, 3),
                                              (6, 4, 4, 3)]
-    assert ibl["flatp"][0].shape == (6 * (256 + 64 + 16), 24)
+    n = 6 * (256 + 64 + 16)
+    assert ibl["flatp"][0].shape == (n, 24)
+    assert ibl["flat"][0].shape == (n, 3) and ibl["flatq"][0].shape == (n, 12)
     assert ibl["sh"].shape == (9, 3) and ibl["envbrdf"].shape == (64, 64, 3)
     np.testing.assert_array_equal(ibl["envbrdf"].numpy(), np.load(_ENVBRDF_LUT))
 

@@ -128,19 +128,20 @@ def test_sceneset_equal(both):
 
 def test_device_state_equal(both):
     """Pools, materials and matmaps exactly; the skybox environment
-    ("ibl": the port keeps the mips, the mip-pair table as plain f32
-    rows, SH-9 and the env-BRDF LUT) to rtol 1e-4 / atol 1e-5, since both
-    packages bake it (the LUT exactly: both read the tracked one)."""
+    ("ibl": the port keeps the mips, the flat, quad-packed and mip-pair
+    tables as plain f32 rows, SH-9 and the env-BRDF LUT) to rtol 1e-4 /
+    atol 1e-5, since both packages bake it (the LUT exactly: both read
+    the tracked one)."""
     jctx, _, _, tctx, _, _ = both
     jstate = jax.tree.map(np.asarray, jctx.device_state())
     tstate = tctx.host_state()
     jibl, tibl = jstate.pop("ibl"), tstate.pop("ibl")
     assert_tree_equal(jstate, tstate)
-    assert sorted(tibl) == ["envbrdf", "flatp", "mips", "sh"]
+    assert sorted(tibl) == ["envbrdf", "flat", "flatp", "flatq", "mips", "sh"]
     np.testing.assert_array_equal(jibl["envbrdf"], tibl["envbrdf"])
-    jflatp = to_torch(dict(flatp=jibl["flatp"]), "cpu")["flatp"]
+    jtab = to_torch({k: jibl[k] for k in ("flat", "flatp", "flatq")}, "cpu")
     for a, b in [*zip(jibl["mips"], tibl["mips"]), (jibl["sh"], tibl["sh"]),
-                 *zip(jflatp, tibl["flatp"])]:
+                 *(ab for k in jtab for ab in zip(jtab[k], tibl[k]))]:
         a, b = np.asarray(a), np.asarray(b)
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
@@ -201,14 +202,10 @@ _IDS = lambda d: "-".join(f"{k}={v}" for k, v in d.items())
 
 
 @pytest.mark.parametrize("override", [
-    dict(enable_shadows=True, shadow_mode="pcf"),
-    dict(max_spot_shadows=1, spot_shadow_mode="perspective"),
     dict(max_fog_planes=1), dict(enable_ssr=True, ssr_mode="dda"),
     dict(max_overlay_sprites=4),
     dict(enable_skinning=True), dict(enable_foliage=True),
-    dict(max_dynamic_vertices=64), dict(raster_kernel="mxu"),
-    dict(use_pallas=False), dict(texture_filter="nearest"),
-    dict(use_shade_kernel=False), dict(enable_material_maps=False),
+    dict(max_dynamic_vertices=64),
 ], ids=_IDS)
 def test_unsupported_flags_raise(override):
     cfg = FrameConfig(**dict(_BASE, **override))
@@ -224,11 +221,18 @@ def test_unsupported_flags_raise(override):
     dict(enable_depth_of_field=True), dict(raster_two_phase=True),
     dict(enable_terrain_morph=True), dict(use_light_clusters=True),
     dict(raster_early_z=True),
+    dict(enable_shadows=True, shadow_mode="pcf"),
+    dict(max_spot_shadows=1, spot_shadow_mode="perspective"),
+    dict(raster_kernel="mxu"), dict(use_pallas=False), dict(texture_filter="nearest"),
+    dict(use_shade_kernel=False), dict(enable_material_maps=False),
 ], ids=_IDS)
 def test_post_flags_accepted(override):
     """SSAO, the froxel fog, the binned SSR, depth of field, the
     two-phase raster (K6), the terrain geomorph, clustered lights and the
-    early-z exit are ported: check_config passes them."""
+    early-z exit are ported, and so is the deferred branch of the frame
+    (PCF, perspective spot maps, K7, the scan raster, the legacy texture
+    filters, the XLA lighting, no material maps): check_config passes
+    them."""
     check_config(FrameConfig(**dict(_BASE, **override)))
 
 
