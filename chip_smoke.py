@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Renders the bench frame, the dense stress frame and the deferred
-(non-megakernel) frames at 1920x1088 through
+Renders the bench frame, the dense stress frame, the deferred
+(non-megakernel) frames and the local-environment frames at 1920x1088
+through
 datum_tpu_torch.render.frame.render_frame, after building the port's
 CUDA kernels from datum_tpu_torch/csrc with nvcc.  The bench
 frame is bench.py's config (the datumtest scene with 4 sun cascades as a
@@ -65,8 +66,21 @@ and exits non-zero:
    golden config against tests/golden/stress.png (decoded with zlib;
    RMSE printed); ms/frame, a profiler window, stages, K5's and K7's ms
    and bounds;
-7. print the kernels' JSON line, then the device JSON line last, after
-   the script's wall time.
+4e-6e. the local-environment frame: the bench scene with a box
+   environment probe (ctx.add_environment), 4 SH probes and a fog plane;
+   K2 with the edm group against its plain version (edm coverage
+   printed, nonzero) and the gather kernel against tab[idx] on
+   profiling/prof_gather.py's shapes (bit-identical); the megakernel
+   probe frame (every K2 launch carries the edm group), the deferred K5
+   probe frame (bilinear: the probes in the XLA lighting, K2 0), the
+   probe frame with the DDA SSR and RenderContext.render at params.scale
+   0.5 (1920x1080 out) driven 3 times each with their launches checked;
+   256x128 probe frames (megakernel, K5, DDA) on the card against the
+   CPU plain path; ms/frame, a profiler window, the stages of the probe
+   fields, the fog planes and the SSRs, K2 with and without the group,
+   the gather against tab[idx], and their bounds;
+7. print the kernels' JSON line (9 rows), then the device JSON line
+   last, after the script's wall time.
 
 Needs one card, torch with CUDA and nvcc; imports no jax and nothing of
 the JAX package.
@@ -76,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -178,6 +193,19 @@ K5_SMALL = dict(DEFERRED_SMALL, use_pallas=True, texture_filter="bilinear",
                 forward_bin_capacity=256, forward_big_capacity=16)
 K7_SMALL = dict(DEFERRED_SMALL, use_pallas=True, raster_kernel="mxu",
                 enable_material_maps=False, enable_shadows=False)
+# the local-environment frame: the bench frame's scene with a box
+# environment probe around the sphere grid (its cubemap the procedural sky
+# at 64^2 under a second sun, prefiltered at 5 levels), 4 SH probes of
+# that cubemap and tests/test_kitchen_sink.py's fog plane
+LOCAL_ENV = dict(SCENE, max_fog_planes=1)
+# RenderContext.render at params.scale 0.5 renders a 1920x1080 viewport
+SCALED_H = 1080
+# K2 spends ~75 FP32 operations a (pixel, SH probe): the distance, the
+# falloff and 3 x 9 SH terms
+OPS_K2_PROBE = 75
+# the gather microbenchmark's shapes (profiling/prof_gather.py:159-170):
+# 524,288 rows of a 16384 x 16 f32 table
+GATHER_ROWS, GATHER_TABLE = 524288, (16384, 16)
 # datum_tpu/tools/stress_golden.py's CONFIG, rendered for tests/golden/stress.png
 STRESS_GOLDEN = dict(width=320, height=160, terrain_n=96, sphere_detail=20,
                      grid=(6, 3), n_point_lights=64, skybox_size=16,
@@ -194,7 +222,7 @@ def frame_inputs(ctx, camera, params, make_rl, t):
 
     rl = make_rl(t)
     sceneset = make_sceneset(camera, params, point_lights=rl.point_lights,
-                             spot_lights=rl.spot_lights)
+                             spot_lights=rl.spot_lights, probes=rl.probes)
     return ctx.frame_draws(rl, camera), sceneset
 
 
@@ -1077,6 +1105,238 @@ def deferred_phases(dev, card, kernels, bench):
                 golden_rmse=g_rmse)
 
 
+def wall_ms(fn, reps=5):
+    """Median wall ms of fn() synced before and after, over reps calls
+    after one warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def env_phases(dev, card, kernels, bench_expect):
+    """Phases 4e-6e: the local-environment frame (LOCAL_ENV, the box probe
+    through ctx.add_environment) and the gather kernel.  K2 with the edm
+    group against its plain version on the frame's inputs, the gather
+    against tab[idx]; the megakernel probe frame, the deferred K5 probe
+    frame, the bench frame with the DDA SSR and RenderContext.render at
+    params.scale 0.5 driven with their launches checked; a 256x128 probe
+    frame on the card against the CPU plain path; timings, stages and
+    bounds.  Returns the numbers of K2's envd fields and the gather's
+    JSON row."""
+    import torch
+
+    from datum_tpu_torch.convert import to_torch
+    from datum_tpu_torch.ops.gather_cuda import gather_rows, gather_rows_cuda, \
+        gather_rows_reference
+    from datum_tpu_torch.ops.raster_mxu_cuda import raster_mxu_cuda
+    from datum_tpu_torch.ops.raster_v1_cuda import raster_v1_cuda
+    from datum_tpu_torch.ops.shade_cuda import (
+        ENVD_NAMES, shade_deferred_cuda, shade_deferred_reference, shade_inputs)
+    from datum_tpu_torch.render import frame as F
+    from datum_tpu_torch.scenes import datumtest_scene
+
+    kernels = dict(kernels, raster_v1=raster_v1_cuda, raster_mxu=raster_mxu_cuda)
+    # ---- 4e. K2 with the edm group and the gather against their plain versions
+    t0 = time.perf_counter()
+    ctx, camera, params, make_rl = datumtest_scene(width=W, height=H, local_env=True,
+                                                   **LOCAL_ENV)
+    cfg = ctx.config
+    state = ctx.device_state(dev)
+    envs = state["ibl"]["envprobes"]
+    inputs = [frame_inputs(ctx, camera, params, make_rl, t) for t in (0.0, 0.1, 0.2)]
+    draws, ss = frame_inputs(ctx, camera, params, make_rl, 0.3)
+    phase("4e", f"local-environment scene {W}x{H} ({time.perf_counter() - t0:.1f} s): "
+                f"{int(envs['count'])} box probe(s), cubemap {envs['mips'][0].shape[2]}^2 "
+                f"x 6 with {len(envs['mips'])} mips, {int(ss['probes']['count'])} SH "
+                f"probes, {int(draws['fogplanes']['count'])} fog plane(s)")
+    d_t, s_t = to_torch(draws, dev), to_torch(ss, dev)
+    ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, state, d_t, s_t)
+    planes, _ = F._raster_stage(cfg, state, d_t, ex, uv, clip, wn, wt)
+    shadows = F._shadow_stage(cfg, ex, wp, s_t)
+    gpl, ss2, spotsf, ao, _ = F._shade_inputs(cfg, planes, state, d_t, s_t, shadows)
+    kw = dict(proj=s_t["proj"], invview=s_t["invview"], ao=ao, spotsf=spotsf)
+    k2e_in = shade_inputs(gpl, ss2, **kw)
+    k2n_in = shade_inputs({k: v for k, v in gpl.items() if k not in ENVD_NAMES}, ss2, **kw)
+    if not k2e_in["envd"] or int(k2e_in["counts"][3]) != 4:
+        raise RuntimeError("K2's inputs lack the edm group or the 4 SH probes")
+    edm = k2e_in["planes"][-1].float()       # bf16, as K2 reads it
+    cover = (edm > 0.5).float().mean().item()
+    halves = int((edm == 0.5).sum())
+    hk = shade_deferred_cuda(**k2e_in)
+    hr = shade_deferred_reference(**k2e_in)
+    torch.cuda.synchronize()
+    k2e_err = (hk - hr).abs().max().item()
+    if (cover == 0 or not torch.isfinite(hk).all()
+            or not torch.allclose(hk, hr, atol=1e-4, rtol=1e-3)):
+        raise RuntimeError(f"K2 with edm vs plain: coverage {cover}, max abs err "
+                           f"{k2e_err} (atol 1e-4 / rtol 1e-3)")
+    moved = (hr - shade_deferred_reference(**k2n_in)).abs().amax(0) > 0
+    phase("4e", f"K2 with the edm group vs plain ({W}x{H}, 4 SH probes): edm > 0.5 on "
+                f"{cover:.4f} of pixels ({halves} exactly 0.5 in bf16: SH-9 kept), the "
+                f"group moves {moved.float().mean().item():.4f} of pixels; hdr max abs "
+                f"err {k2e_err:.3g} (atol 1e-4, rtol 1e-3)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tab = torch.rand(GATHER_TABLE, device=dev, generator=gen)
+    idx = torch.randint(0, GATHER_TABLE[0], (GATHER_ROWS,), device=dev,
+                        generator=gen).to(torch.int32)
+    gk = gather_rows_cuda(tab, idx, check_bounds=True)
+    gr = gather_rows_reference(tab, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(gk, gr) or not torch.equal(gk, tab[idx]):
+        raise RuntimeError("the gather kernel differs from tab[idx]")
+    gather_err = (gk - gr).abs().max().item()
+    phase("4e", f"gather_rows vs tab[idx] ({GATHER_TABLE[0]}x{GATHER_TABLE[1]} f32 table, "
+                f"{GATHER_ROWS} int32 indices, bounds checked): bit-identical on every "
+                f"value (max abs err {gather_err})")
+
+    # ---- 5e. the paths, each driven with the counts set to 0 just before
+    cfg5 = dataclasses.replace(cfg, texture_filter="bilinear")
+    cfg_dda = dataclasses.replace(cfg, ssr_mode="dda")
+    render_e = lambda d, s: F.render_frame(cfg, state, d, s, device=dev)
+    render_5 = lambda d, s: F.render_frame(cfg5, state, d, s, device=dev)
+    render_dda = lambda d, s: F.render_frame(cfg_dda, state, d, s, device=dev)
+    n_stacks = 2 if cfg.shadow_far_res else 1
+    other = ("raster_shade_2p", "raster_v1", "raster_mxu", "gather_rows")
+    pfe, _, img, lum = drive(render_e, inputs, kernels,
+                             dict(bench_expect, shade_deferred_envd=1), forbid=other)
+    if any(f["shade_deferred_envd"] != f["shade_deferred"] for f in pfe):
+        raise RuntimeError(f"a K2 launch of the probe frame lacked the edm group: {pfe}")
+    launches = dict(shade_deferred_envd=pfe[0]["shade_deferred_envd"])
+    phase("5e", f"3 megakernel probe frames {W}x{H} (box probe, 4 SH probes, fog plane): "
+                f"launches per frame {pfe} (every K2 launch, the opaque layer's and the "
+                f"lit layer's, carries the edm group); image mean "
+                f"{img.float().mean().item():.2f}, luminance {lum.item():.6g}, bin_overflow 0")
+    no_shade = ("raster_shade", "raster_shade_2p", "shade_deferred", "shade_epilogue",
+                "shade_deferred_envd", "raster_mxu", "gather_rows")
+    pf5, _, img5, lum5 = drive(render_5, inputs, kernels,
+                               dict(raster_v1=1, raster_blend=2, raster_depth=n_stacks + 1),
+                               forbid=no_shade)
+    if any(f["raster_v1"] != 1 for f in pf5):
+        raise RuntimeError(f"deferred probe frame launches {pf5}")
+    phase("5e", f"3 deferred K5 probe frames {W}x{H} (bilinear: env_probe_lookup in the "
+                f"XLA lighting): launches per frame {pf5}; image mean "
+                f"{img5.float().mean().item():.2f}, luminance {lum5.item():.6g}")
+    pfd, _, imgd, _ = drive(render_dda, inputs, kernels,
+                            dict(bench_expect, shade_deferred_envd=1), forbid=other)
+    moved = (imgd.float() - img.float()).abs().mean().item()
+    if moved <= 0.0:
+        raise RuntimeError("the DDA SSR frame equals the binned SSR frame")
+    phase("5e", f"3 probe frames with ssr_mode='dda': launches per frame {pfd}; mean |d| "
+                f"{moved:.3f} levels from the binned-SSR frame")
+    # the frame renders at half the viewport on tiles of the same size, so
+    # a tile holds ~4x the triangles: bins 4x the bench's (at 160 the
+    # main bins drop ~3,100 entries a frame, as the JAX package's would)
+    sctx, scam, sparams, smake = datumtest_scene(
+        width=W, height=SCALED_H, local_env=True,
+        **dict(LOCAL_ENV, bin_capacity=4 * LOCAL_ENV["bin_capacity"]))
+    sparams.scale = 0.5
+    for k in kernels.values():
+        k.launches = 0
+    pfs = []
+    for t in (0.0, 0.1, 0.2):
+        before = {n: k.launches for n, k in kernels.items()}
+        simg = sctx.render(scam, smake(t), sparams)
+        pfs.append({n: k.launches - before[n] for n, k in kernels.items()})
+        if (simg.shape != (SCALED_H, W, 3) or not simg.mean() > 10 or sctx.bin_overflow
+                or not math.isfinite(sctx.luminance)):
+            raise RuntimeError(f"scaled render: image {simg.shape} mean {simg.mean()}, "
+                               f"bin_overflow {sctx.bin_overflow}, luminance "
+                               f"{sctx.luminance}")
+    if any(f[n] < m for f in pfs for n, m in dict(bench_expect,
+                                                    shade_deferred_envd=1).items()):
+        raise RuntimeError(f"a scaled render ran without its kernels: {pfs}")
+    phase("5e", f"3 RenderContext.render calls at params.scale 0.5 (frame "
+                f"{sctx.config.width // 2}x{sctx.config.height // 2}, bins "
+                f"{sctx.config.bin_capacity}, blitted to {W}x{SCALED_H}): image {simg.shape} u8 mean {simg.mean():.2f}, luminance "
+                f"{sctx.luminance:.6g}, bin_overflow 0, launches per frame {pfs}")
+    mctx, mcam, mparams, mmake = datumtest_scene(width=256, height=128, local_env=True,
+                                                 **dict(SMALL, max_fog_planes=1))
+    mparams.fogdensity = FOG_DENSITY
+    md, mss = frame_inputs(mctx, mcam, mparams, mmake, 0.3)
+    for name, mcfg in (("megakernel", mctx.config),
+                       ("deferred K5", dataclasses.replace(mctx.config,
+                                                           texture_filter="bilinear")),
+                       ("DDA SSR", dataclasses.replace(mctx.config, ssr_mode="dda"))):
+        imgs = [F.render_frame(mcfg, mctx.host_state(), md, mss, device=d)["image"]
+                .cpu().float() for d in (dev, "cpu")]
+        dimg = (imgs[0] - imgs[1]).abs()
+        rmse = ((imgs[0] - imgs[1]) ** 2).mean().sqrt().item()
+        if dimg.mean().item() > 0.5 or rmse > 2.0 or imgs[1].mean() <= 10:
+            raise RuntimeError(f"256x128 {name} probe frame card vs CPU plain: mean |d| "
+                               f"{dimg.mean().item()}, RMSE {rmse} levels")
+        phase("5e", f"256x128 {name} probe frame (fog density {FOG_DENSITY}), card vs "
+                    f"CPU plain path: mean |d| {dimg.mean().item():.4f} levels, RMSE "
+                    f"{rmse:.4f} levels (limits 0.5, 2)")
+
+    # ---- 6e. timing (informational: this PR claims no speed)
+    ms_e = frame_ms(render_e, inputs, n=5)
+    ms_5 = frame_ms(render_5, inputs, n=5)
+    ms_dda = frame_ms(render_dda, inputs, n=5)
+    prof = profile_frames(render_e, inputs)
+    w, h = cfg.padded_width, cfg.padded_height
+    ibl_sky = {k: v for k, v in state["ibl"].items() if k != "envprobes"}
+    state_sky = dict(state, ibl=ibl_sky)
+    hdr = hk.permute(1, 2, 0)
+    stages = {
+        "plane assembly with the box probe": wall_ms(lambda: F._assemble_gplanes(
+            cfg, planes, state, s_t, shadows, w, h)),
+        "plane assembly, skybox only": wall_ms(lambda: F._assemble_gplanes(
+            cfg, planes, state_sky, s_t, shadows, w, h)),
+        "fog planes (1)": wall_ms(lambda: F._fog_planes(cfg, hdr, planes["depth"], d_t, s_t)),
+        "DDA SSR (half res, upsample)": wall_ms(lambda: F._ssr(
+            cfg_dda, state, s_t, hdr, planes["depth"], F._ssr_inputs_planes(gpl))),
+        "binned SSR (quarter res)": wall_ms(lambda: F._ssr(
+            cfg, state, s_t, hdr, planes["depth"], F._ssr_inputs_planes(gpl))),
+    }
+    t = dict(k2e=cuda_ms(lambda: shade_deferred_cuda(**k2e_in), 20),
+             k2n=cuda_ms(lambda: shade_deferred_cuda(**k2n_in), 20),
+             k2ep=cuda_ms(lambda: shade_deferred_reference(**k2e_in), 1),
+             gather=cuda_ms(lambda: gather_rows_cuda(tab, idx), 50),
+             gather_lib=cuda_ms(lambda: tab[idx], 50),
+             gather_plain=cuda_ms(lambda: gather_rows_reference(tab, idx), 50))
+    # the microbenchmark's own path: one counted gather_rows call
+    for k in kernels.values():
+        k.launches = 0
+    gather_rows(tab, idx)
+    torch.cuda.synchronize()
+    bench_launches = gather_rows_cuda.launches
+    if bench_launches != 1:
+        raise RuntimeError(f"gather_rows launched {bench_launches} kernels")
+    phase("6e", f"{ms_e:.3f} ms/frame megakernel probe frame, {ms_5:.3f} deferred K5 probe "
+                f"frame, {ms_dda:.3f} probe frame with the DDA SSR (median of 5, CUDA "
+                f"events, {W}x{H}) on {card}")
+    phase("6e", f"megakernel probe frame under torch.profiler (3 frames): {prof[0]:.3f} ms "
+                f"of device time and {prof[1]:.0f} launches per frame, busy "
+                f"{prof[0] / ms_e:.3f}")
+    phase("6e", "probe frame stages (ms, wall, synced, median of 5): "
+          + "; ".join(f"{n} {v:.3f}" for n, v in stages.items()))
+    px = w * h
+    n_lights = int(k2e_in["counts"][0]) + int(k2e_in["counts"][1])
+    k2_ops = px * (OPS_K2_PIXEL + OPS_K2_LIGHT * n_lights + OPS_K2_PROBE * 4)
+    b = dict(k2e=bound(_nbytes(k2e_in["f32_planes"], k2e_in["planes"], k2e_in["ao"],
+                               k2e_in["spotsf"]) + 3 * px * 4, k2_ops),
+             k2n=bound(_nbytes(k2n_in["f32_planes"], k2n_in["planes"], k2n_in["ao"],
+                               k2n_in["spotsf"]) + 3 * px * 4, k2_ops),
+             gather=bound(_nbytes(tab, idx, gk), 0))
+    phase("6e", f"K2 with the edm group {t['k2e']:.3f} ms, without it {t['k2n']:.3f} ms "
+                f"(the same inputs), plain {t['k2ep']:.3f} ms; bounds {b['k2e'][0]:.4f} / "
+                f"{b['k2n'][0]:.4f} ms ({b['k2e'][1]}); gather_rows {t['gather']:.4f} ms vs "
+                f"tab[idx] {t['gather_lib']:.4f} ms (int32 indices), plain "
+                f"{t['gather_plain']:.4f} ms, bound {b['gather'][0]:.4f} ms ({b['gather'][1]}"
+                f"), launches {bench_launches} a benchmark call, 0 a frame; on {card}")
+    return dict(t=t, b=b, errs=dict(k2e=k2e_err, gather=gather_err), launches=launches,
+                bench_launches=bench_launches, cover=cover,
+                ms=dict(probe=ms_e, deferred=ms_5, dda=ms_dda))
+
+
 def main():
     import torch
 
@@ -1113,17 +1373,21 @@ def main():
         raster_shade_cuda, raster_shade_reference)
     from datum_tpu_torch.ops.raster_depth_cuda import (
         depth_inputs, raster_depth_cuda, raster_depth_reference)
+    from datum_tpu_torch.ops.gather_cuda import gather_rows_cuda
     from datum_tpu_torch.ops.shade_cuda import (
-        epilogue_inputs, shade_deferred_cuda, shade_deferred_reference,
-        shade_epilogue_cuda, shade_epilogue_reference, shade_inputs)
+        epilogue_inputs, shade_deferred_cuda, shade_deferred_envd,
+        shade_deferred_reference, shade_epilogue_cuda, shade_epilogue_reference,
+        shade_inputs)
     from datum_tpu_torch.render import frame as F
     from datum_tpu_torch.scenes import datumtest_scene
     kernels = dict(raster_shade=raster_shade_cuda,
                    raster_shade_2p=raster_shade_2p_cuda,
                    shade_deferred=shade_deferred_cuda,
+                   shade_deferred_envd=shade_deferred_envd,
                    raster_depth=raster_depth_cuda,
                    raster_blend=raster_blend_cuda,
-                   shade_epilogue=shade_epilogue_cuda)
+                   shade_epilogue=shade_epilogue_cuda,
+                   gather_rows=gather_rows_cuda)
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -1473,6 +1737,7 @@ def main():
     st = stress_phases(dev, card, kernels)
     dp = deferred_phases(dev, card, kernels, (cfg, state, inputs, setup, bins, counts,
                                               big_ids, ex, uv, wn, d_t, kp))
+    ep = env_phases(dev, card, kernels, bench_expect)
 
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in ("jax", "datum_tpu"))
@@ -1507,7 +1772,11 @@ def main():
             "datum_tpu/ops/shade_pallas.py:161", k2_err, t_k2, t_k2p, k2_bound,
             clustered_ms=t["k2c"], clustered_plain_ms=t["k2cp"],
             clustered_bound_ms=sb["k2c"][0], clustered_max_abs_err=st["errs"]["k2c"],
-            dense128_ms=t["k2d"], dense128_bound_ms=sb["k2d"][0]),
+            dense128_ms=t["k2d"], dense128_bound_ms=sb["k2d"][0],
+            envd_ms=ep["t"]["k2e"], envd_max_abs_err=ep["errs"]["k2e"],
+            envd_plain_ms=ep["t"]["k2ep"], envd_bound_ms=ep["b"]["k2e"][0],
+            envd_without_group_ms=ep["t"]["k2n"], envd_coverage=ep["cover"],
+            envd_launches=ep["launches"]["shade_deferred_envd"]),
         # the three stacks of one frame together
         row("raster_depth", "datum_tpu_torch/csrc/raster_depth.cu",
             "datum_tpu/ops/raster_pallas.py:730", max(*k3_errs, st["errs"]["k3"]),
@@ -1530,6 +1799,15 @@ def main():
              ms=dp["t"]["k7"], plain_ms=dp["t"]["k7p"], bound_ms=dp["b7"][0],
              bound_by=dp["b7"][1], library_ms=None, tpu_product_bound_ms=dp["b7_tpu"],
              frame_ms=dp["ms"]["k7"]),
+        # launches: a frame runs no gather (the microbenchmark's kernel);
+        # benchmark_launches: one counted gather_rows call
+        dict(name="gather_rows", route="cuda",
+             source="datum_tpu_torch/csrc/gather_rows.cu",
+             replaces="profiling/prof_gather.py:164", launches=0,
+             max_abs_err=ep["errs"]["gather"], ms=ep["t"]["gather"],
+             plain_ms=ep["t"]["gather_plain"], bound_ms=ep["b"]["gather"][0],
+             bound_by=ep["b"]["gather"][1], library_ms=ep["t"]["gather_lib"],
+             benchmark_launches=ep["bench_launches"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,9 +6,10 @@ this module takes.  `to_torch` maps any such tree — dicts, lists and
 tuples of numpy arrays or numpy scalars — onto torch tensors on one
 device, keeping every dtype (f32 stays f32, i32 stays i32, u8 stays u8,
 bool stays bool).  The one exception is the environment's mip-pair and
-quad tables `flatp` and `flatq`: the JAX package bitcasts their f32
-rows to u8 for the TPU's gathers, and to_torch views such a table as
-the f32 rows it holds, so one JAX state feeds both packages.  The port's own host side (render.context,
+quad tables `flatp` and `flatq`, and the box probes' list of quad
+tables `flatqs`: the JAX package bitcasts their f32 rows to u8 for the
+TPU's gathers, and to_torch views such a table as the f32 rows it holds,
+so one JAX state feeds both packages.  The port's own host side (render.context,
 render.types, renderlist.draw_arrays) produces the same numpy trees, so
 one function moves both onto the card.
 """
@@ -25,7 +26,9 @@ def to_torch(tree, device):
     Tensors already in the tree are moved to `device`; other leaves
     (None, strings, Python numbers) pass through unchanged."""
     if isinstance(tree, dict):
-        return {k: to_torch(_f32_rows(v) if k in ("flatp", "flatq") else v, device)
+        return {k: to_torch(_f32_rows(v) if k in ("flatp", "flatq")
+                            else [_f32_rows(t) for t in v] if k == "flatqs" else v,
+                            device)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)

@@ -8,12 +8,14 @@
 // lights (dense, in chunks of `point_chunk`; or clustered: the list of
 // the pixel's 16-row band and 128-column sub-tile), shadowed spot slots
 // with factor planes then the unshadowed remainder, emissive, and the
-// sky fill of uncovered pixels.  The nearest lit layer's blend, its
-// refraction, the fog and the WBOIT resolve are the epilogue kernel's
-// (shade_epilogue.cu); the box env-probe override is rejected by the
-// Python wrapper.
+// sky fill of uncovered pixels; with `envd`, the box env-probe diffuse
+// override (the `edm` group, shade_pallas.py:229-234): where the bf16
+// edm plane is > 0.5, edr/edg/edb replace the SH-9 env diffuse before
+// the SH probe blend.  The nearest lit layer's blend, its refraction,
+// the fog and the WBOIT resolve are the epilogue kernel's
+// (shade_epilogue.cu).
 //
-// What bounds it on the H100.  Per pixel it reads 2 f32 + 18..21 bf16
+// What bounds it on the H100.  Per pixel it reads 2 f32 + 18..25 bf16
 // planes (+ ao and factor planes) and writes 3 f32 planes: ~56 B/pixel,
 // ~120 MB a 1920x1088 frame, ~40 us at 3.35 TB/s.  The arithmetic is
 // ~150 f32 operations per light with several divides and square roots,
@@ -127,14 +129,16 @@ __device__ __forceinline__ float bf(const __nv_bfloat16* p, size_t i) {
     return __bfloat162float(p[i]);
 }
 
-// bf16 plane order (after depth, visf):
+// bf16 plane order (after depth, visf); the sky group, then the env
+// override group (edr, edg, edb, edm), then the deeper lit layers follow
+// the groups given
 enum { NX, NY, NZ, DR, DG, DB, EM, SR, SG, SB, RGH, ESR, ESG, ESB, EB0, EB1, EB2, SF,
        SKY_R, SKY_G, SKY_B };
 
 __global__ void __launch_bounds__(BX * BY)
 shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth, visf
              const __nv_bfloat16* __restrict__ planes,      // (n_bf16, H, W)
-             int has_sky, int n_trk,
+             int has_sky, int envd, int n_trk,
              const __nv_bfloat16* __restrict__ ao,          // (H, W) or null
              const __nv_bfloat16* __restrict__ spotsf,      // (n_maps, H, W) or null
              int n_maps,
@@ -244,6 +248,11 @@ shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth,
             env[c] = fmaxf(acc, 0.0f) * INV_PI;
         }
     }
+    // the box env probes' diffuse, on the bf16 edm (0.5 keeps the SH-9)
+    const int grp0 = has_sky ? SKY_B + 1 : SKY_R;     // the first plane after the sky
+    if (envd && bf(planes, (size_t)(grp0 + 3) * plane + o) > 0.5f) {
+        for (int c = 0; c < 3; ++c) env[c] = bf(planes, (size_t)(grp0 + c) * plane + o);
+    }
     // local SH probes blended by radial falloff
     if (n_probe_rows > 0) {
         const float bx = nrm.x, by = nrm.y, bz = nrm.z;
@@ -341,7 +350,7 @@ shade_kernel(const float* __restrict__ f32_planes,          // (2, H, W): depth,
     }
     // deeper lit translucent layers (tr2, tr3, tr4 as r, g, b, a planes
     // after the sky), blended under the nearest one, deepest first
-    const int trk0 = has_sky ? SKY_B + 1 : SKY_R;
+    const int trk0 = grp0 + (envd ? 4 : 0);
     for (int k = n_trk - 1; k >= 0; --k) {
         const int b = trk0 + 4 * k;
         const float a = bf(planes, (size_t)(b + 3) * plane + o);
@@ -363,7 +372,7 @@ extern "C" int shade_smem_bytes(int n_lights_rows, int n_spot_rows, int n_probe_
 }
 
 extern "C" int shade_launch(const float* f32_planes, const void* planes, int has_sky,
-                            int n_trk, const void* ao, const void* spotsf, int n_maps,
+                            int envd, int n_trk, const void* ao, const void* spotsf, int n_maps,
                             const float* params, const float* lights, int n_lights_rows,
                             const float* spots, int n_spot_rows, const float* probes,
                             int n_probe_rows, const int* counts, int point_chunk,
@@ -374,7 +383,8 @@ extern "C" int shade_launch(const float* f32_planes, const void* planes, int has
     const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY);
     const int smem = shade_smem_bytes(n_lights_rows, n_spot_rows, n_probe_rows, cl_cap);
     shade_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-        f32_planes, (const __nv_bfloat16*)planes, has_sky, n_trk, (const __nv_bfloat16*)ao,
+        f32_planes, (const __nv_bfloat16*)planes, has_sky, envd, n_trk,
+        (const __nv_bfloat16*)ao,
         (const __nv_bfloat16*)spotsf, n_maps, params, lights, n_lights_rows, spots,
         n_spot_rows, probes, n_probe_rows, counts, point_chunk, cl_lists, cl_counts,
         cl_cap, H, W, cx, cy, out);

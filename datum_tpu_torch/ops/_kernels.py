@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster_shade.cu", "raster_shade_2p.cu", "shade.cu", "raster_depth.cu",
-           "raster_blend.cu", "shade_epilogue.cu", "raster_v1.cu", "raster_mxu.cu")
+           "raster_blend.cu", "shade_epilogue.cu", "raster_v1.cu", "raster_mxu.cu",
+           "gather_rows.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -50,7 +51,7 @@ class KernelLibrary:
         self.lib.raster_shade_2p_smem_bytes.restype = i
         self.lib.shade_smem_bytes.argtypes = [i, i, i, i]
         self.lib.shade_smem_bytes.restype = i
-        self.lib.shade_launch.argtypes = [p, p, i, i, p, p, i, p, p, i, p, i, p,
+        self.lib.shade_launch.argtypes = [p, p, i, i, i, p, p, i, p, p, i, p, i, p,
                                           i, p, i, p, p, i, i, i, f, f, p, p]
         self.lib.shade_launch.restype = i
         self.lib.raster_depth_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, f,
@@ -65,6 +66,8 @@ class KernelLibrary:
         self.lib.raster_v1_launch.restype = i
         self.lib.raster_mxu_launch.argtypes = [p, p, p, p, i, i, i, i, f, f, i, p, p]
         self.lib.raster_mxu_launch.restype = i
+        self.lib.gather_rows_launch.argtypes = [p, p, ctypes.c_longlong, i, p, p]
+        self.lib.gather_rows_launch.restype = i
 
 
 def _nvcc() -> str:

@@ -8,8 +8,9 @@ the screen taps read the volume at reduced resolution through one
 quad-packed table (two row gathers and a z lerp per pixel) and are
 upsampled to four full-resolution planes, which K2's epilogue applies as
 col * fog_t + fog_rgb; the deferred (XLA) path applies the same taps to
-its hdr image (`apply_fog`).  The analytic fog planes
-(`apply_fog_planes`, FrameConfig.max_fog_planes) are not ported.
+its hdr image (`apply_fog`).  The analytic half-space fog planes
+(`apply_fog_planes`, FrameConfig.max_fog_planes) blend over the lit
+frame on both branches.
 """
 
 from __future__ import annotations
@@ -156,3 +157,39 @@ def apply_fog(hdr, depth, fogvol, proj, *, depth_range=FOG_DEPTH_RANGE,
                           exponent=exponent, sample_scale=sample_scale)
     fog = resize_up_dense(fog_q, h, w) if q > 1 else fog_q
     return hdr * fog[..., 3:4] + fog[..., :3]
+
+
+def apply_fog_planes(hdr, depth, planes, *, proj, invview, exposure=1.0):
+    """Analytic half-space fog planes blended over the lit frame hdr (H,
+    W, 3): per pixel, the length of the view ray inside each fog
+    half-space gives factor = exp2(-(density * dist)^2), and the plane's
+    colour blends in with weight alpha * (1 - factor).  planes:
+    dict(plane (K, 4), color (K, 4), density, startdistance, falloff (K,),
+    count ()); the slots past count add nothing."""
+    from .lighting_pass import reconstruct_positions
+
+    h, w = depth.shape
+    # the background (depth 0) lies at infinity: clamp, so the sky gets
+    # the full-distance fog with finite arithmetic
+    _, worldpos = reconstruct_positions(torch.clamp(depth, min=1e-7), proj,
+                                        invview, w, h)
+    campos = invview[:3, 3]
+    v = campos - worldpos
+    vlen = torch.clamp(torch.linalg.norm(v, dim=-1), max=1e7)
+    for i in range(planes["plane"].shape[0]):
+        pl = planes["plane"][i]
+        fdotc = (pl[:3] * campos).sum() + pl[3]
+        fdotp = worldpos @ pl[:3] + pl[3]
+        fdotv = v @ pl[:3]
+        k = (fdotc <= 0).to(torch.float32)
+        c1 = torch.clamp(k * fdotp, max=0.0) + k * fdotc
+        c2 = torch.where(fdotp <= 0, (1 - k) * fdotp, k * fdotc)
+        t = torch.clamp(-0.5 * planes["falloff"][i]
+                        * (c1 - c2 * fdotp / torch.clamp(torch.abs(fdotv), min=1e-6)),
+                        max=1.0)
+        dist = torch.clamp(t * vlen - planes["startdistance"][i], 0.0, 1e6)
+        factor = torch.clamp(torch.exp2(-(planes["density"][i] * dist) ** 2), 0.0, 1.0)
+        on = (i < planes["count"]).to(torch.float32)
+        wgt = (planes["color"][i, 3] * (1.0 - factor) * on)[..., None]
+        hdr = hdr * (1 - wgt) + exposure * planes["color"][i, :3] * wgt
+    return hdr

@@ -4,11 +4,11 @@
 `shade_deferred` turns the gbuffer and the lights into hdr colour for
 the frame's branches off the megakernel: the environment (the SH +
 quad-packed fast path at half resolution, or the flat / per-mip
-trilinear taps), SH probes, the sun with the ESM factor or the PCF
-stack, dense or clustered point lights, shadowed and unshadowed spots,
-emissive and exposure.  Plain PyTorch on every device: the JAX package
-runs it in XLA, with no Pallas kernel.  Box environment probes are not
-ported (ROADMAP Queue 1 item 3).
+trilinear taps), the box environment probes' per-pixel override
+(ops/envprobe.py; with probes the fast path is off), SH probes, the sun
+with the ESM factor or the PCF stack, dense or clustered point lights,
+shadowed and unshadowed spots, emissive and exposure.  Plain PyTorch on
+every device: the JAX package runs it in XLA, with no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import brdf
+from .envprobe import env_probe_lookup
 
 
 def view_ray_grid(invproj, width, height):
@@ -55,9 +56,12 @@ def _inv_proj(proj):
     return m
 
 
-def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale):
-    """(env_specular, env_diffuse, envbrdf) of the global environment
-    (..., 3) each."""
+def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale,
+               worldpos):
+    """(env_specular, env_diffuse, envbrdf) of the environment, (..., 3)
+    each: the skybox's terms, with the box probes' pixels replaced.  The
+    SH + quad-packed fast path at 1/env_scale runs only without probes;
+    with them every term is tapped per pixel."""
     from .blur import downsample_pool, resize_up_dense
     from .sampling import (sample_cubemap, sample_cubemap_lod, sample_cubemap_lod_flat,
                            sample_cubemap_lod_quad)
@@ -69,7 +73,8 @@ def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale):
     lut = ibl["envbrdf"]
     s = lut.shape[0]
     ndv = torch.clamp((normal * eyevec).sum(-1), 0.0, 1.0)
-    if ("sh" in ibl and "flatq" in ibl and env_scale > 1
+    envs = ibl.get("envprobes")
+    if ("sh" in ibl and "flatq" in ibl and envs is None and env_scale > 1
             and h % env_scale == 0 and w % env_scale == 0):
         # radiance at 1/env_scale, mask-weighted (background lanes hold
         # far clamped positions), upsampled; diffuse from the SH-9
@@ -99,6 +104,9 @@ def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale):
                                  ddir_e)[..., :3]
     bi = torch.clamp((rough * s).to(torch.int32), 0, s - 1).long()
     bj = torch.clamp((ndv * s).to(torch.int32), 0, s - 1).long()
+    if envs is not None and envs["position"].shape[0] > 0:
+        env_specular, env_diffuse = env_probe_lookup(worldpos, sdir, ddir, rough, envs,
+                                                     env_specular, env_diffuse)
     return env_specular, env_diffuse, lut[bi, bj]
 
 
@@ -135,12 +143,9 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
 
     env_specular = env_diffuse = envbrdf = None
     if ibl is not None:
-        if ibl.get("envprobes") is not None:
-            raise NotImplementedError(
-                "shade_deferred: box environment probes are not ported yet — "
-                "ROADMAP Queue 1 item 3")
         env_specular, env_diffuse, envbrdf = _env_terms(
-            gbuffer, normal, eyevec, rough, ibl, cam["skyrot_inv"], h, w, env_scale)
+            gbuffer, normal, eyevec, rough, ibl, cam["skyrot_inv"], h, w, env_scale,
+            worldpos)
 
     probes = sceneset.get("probes")
     if probes is not None and probes["position"].shape[0] > 0 and env_diffuse is not None:

@@ -350,3 +350,12 @@ def sample_cubemap_lod_quad(flatq, d, lod):
     s0 = _quad_bilinear(table, bases[l0].long(), sizes[l0].long(), face, uv, c)
     s1 = _quad_bilinear(table, bases[l1].long(), sizes[l1].long(), face, uv, c)
     return s0 + (s1 - s0) * f
+
+
+def sample_cubemap_quad(flatq, d, level=0):
+    """Bilinear cubemap sample of one mip of a quad-packed chain: one row
+    gather per output texel.  d: (..., 3); level: the mip index."""
+    table, bases, sizes = flatq
+    face, uv = cubemap_face_uv(d)
+    return _quad_bilinear(table, bases[level].long(), sizes[level].long(),
+                          face.long(), uv, table.shape[-1] // 4)

@@ -11,17 +11,19 @@ tensors (`shade_deferred_cuda`, then `shade_epilogue_cuda`) or their
 plain PyTorch versions for CPU tensors (`shade_deferred_reference`,
 `shade_epilogue_reference`).
 
-Supported: PLANE_NAMES, the sky fill (SKY_NAMES), ao, shadowed spot
-slots (spotsf), SH probes, dense point lights or the clustered lights'
-per-sub-tile lists (`clusters=`, from ops/cluster.py), the lit
-translucent layers (TR_NAMES and the deeper tr2..tr4), the refraction
-offsets (REFR_NAMES), the volumetric fog (FOG_NAMES), the WBOIT resolve
-(OIT_NAMES) and planes_out.  K2 shades and blends the deeper layers;
-what reads neighbouring pixels (the refraction of the nearest layer),
-that layer's blend, the fog and the WBOIT resolve run in the epilogue
-kernel, which launches only when one of those groups is given.  The box
-env-probe override raises NotImplementedError naming the ROADMAP slice
-that brings it.
+Supported: PLANE_NAMES, the sky fill (SKY_NAMES), the box env-probe
+diffuse override (ENVD_NAMES: where edm > 0.5 after its bf16 rounding,
+edr/edg/edb replace the SH-9 env diffuse, before the SH probe blend),
+ao, shadowed spot slots (spotsf), SH probes, dense point lights or the
+clustered lights' per-sub-tile lists (`clusters=`, from ops/cluster.py),
+the lit translucent layers (TR_NAMES and the deeper tr2..tr4), the
+refraction offsets (REFR_NAMES), the volumetric fog (FOG_NAMES), the
+WBOIT resolve (OIT_NAMES) and planes_out.  K2 shades and blends the
+deeper layers; what reads neighbouring pixels (the refraction of the
+nearest layer), that layer's blend, the fog and the WBOIT resolve run in
+the epilogue kernel, which launches only when one of those groups is
+given.  `shade_deferred_cuda.launches` counts K2's launches and
+`shade_deferred_envd.launches` those of them that carried the override.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ PLANE_NAMES = ["depth", "visf", "nx", "ny", "nz", "dr", "dg", "db", "em",
                "sr", "sg", "sb", "rgh",
                "esr", "esg", "esb", "eb0", "eb1", "eb2", "sf"]
 SKY_NAMES = ["sky_r", "sky_g", "sky_b"]
+ENVD_NAMES = ["edr", "edg", "edb", "edm"]       # box env-probe diffuse override
 F32_PLANES = ("depth", "visf")
 BF16_NAMES = [n for n in PLANE_NAMES if n not in F32_PLANES]
 TR_NAMES = ["tr_r", "tr_g", "tr_b", "tr_a"]     # nearest lit translucent layer
@@ -55,12 +58,6 @@ OIT_NAMES = ["oit_r", "oit_g", "oit_b", "oit_w", "oit_rev"]
 SHADE_ROWS = 16     # the TPU kernel's row band: vertical refraction wraps in it
 SUBTILE_W = 128     # columns of a sub-tile: each walks its own light list
 
-# epilogue groups of the Pallas kernel that later slices bring
-_LATER = (
-    (("edr", "edg", "edb", "edm"),
-     "box env-probe diffuse override: ROADMAP Queue 1, IBL/skybox environment slice"),
-)
-
 INV_PI = 0.3183098861837907
 POINT_CHUNK = 8   # point lights per loop trip (reads past the count clamp)
 
@@ -68,9 +65,9 @@ POINT_CHUNK = 8   # point lights per loop trip (reads past the count clamp)
 def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
                  clusters=None):
     """Pack the K2 arguments both versions take (see shade_deferred)."""
-    for keys, why in _LATER:
-        if any(k in gplanes for k in keys):
-            raise NotImplementedError(f"shade_deferred: {why}")
+    given = [k in gplanes for k in ENVD_NAMES]
+    if any(given) and not all(given):
+        raise ValueError(f"shade_deferred: the planes {ENVD_NAMES} come as a group")
     depth = gplanes["depth"]
     dev = depth.device
     H, W = depth.shape
@@ -125,11 +122,11 @@ def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
     trk = [trk_names(k) for k in range(2, MAX_TR_LAYERS + 1)
            if f"tr{k}_r" in gplanes]
     names = (BF16_NAMES + (SKY_NAMES if "sky_r" in gplanes else [])
-             + [n for grp in trk for n in grp])
+             + (ENVD_NAMES if all(given) else []) + [n for grp in trk for n in grp])
     return dict(
         f32_planes=torch.stack([gplanes["depth"], gplanes["visf"]]).contiguous(),
         planes=_bf16(torch.stack([gplanes[k] for k in names])),
-        has_sky="sky_r" in gplanes, n_trk=len(trk),
+        has_sky="sky_r" in gplanes, envd=all(given), n_trk=len(trk),
         ao=None if ao is None else _bf16(ao),
         spotsf=None if spotsf is None else _bf16(spotsf),
         params=params, lights=lights, spots=spots, probes=probes,
@@ -245,20 +242,27 @@ def _cluster_lights(lights, n_point, cl_lists, cl_counts):
         yield lights[lid].unbind(-1), j < count
 
 
+def _group_names(has_sky, envd):
+    """The bf16 planes before the deeper lit layers, in packing order."""
+    return (BF16_NAMES + (SKY_NAMES if has_sky else [])
+            + (ENVD_NAMES if envd else []))
+
+
 def shade_deferred_reference(f32_planes, planes, has_sky, ao, spotsf, params,
                              lights, spots, probes, counts, n_trk=0,
-                             cl_lists=None, cl_counts=None):
+                             cl_lists=None, cl_counts=None, envd=False):
     """Plain PyTorch K2: (3, H, W) f32 HDR planes (the kernel's math,
     operation for operation).  With cl_lists (H/16, W/128, cap) and
     cl_counts (H/16, W/128), each pixel adds the point lights of its
     16-row band's and 128-column sub-tile's list, slots j < count in list
-    order, instead of every light."""
+    order, instead of every light.  With envd, the planes after the sky
+    carry ENVD_NAMES."""
     P = params
     dev = P.device
     _, H, W = f32_planes.shape
-    nb = len(BF16_NAMES) + (len(SKY_NAMES) if has_sky else 0)
-    g = dict(zip(BF16_NAMES + (SKY_NAMES if has_sky else []),
-                 planes[:nb].to(torch.float32).unbind(0)))
+    names = _group_names(has_sky, envd)
+    nb = len(names)
+    g = dict(zip(names, planes[:nb].to(torch.float32).unbind(0)))
     trk = planes[nb:].to(torch.float32).reshape(n_trk, 4, H, W)
     depth, visf = f32_planes[0], f32_planes[1]
     mask = visf >= 0.0
@@ -302,6 +306,9 @@ def shade_deferred_reference(f32_planes, planes, has_sky, ao, spotsf, params,
         for k in range(1, 9):
             acc = acc + basis[k] * P[27 + 3 * k + c]
         env.append(torch.clamp(acc, min=0.0) * INV_PI)
+    if envd:
+        # the box probes' diffuse, on the bf16 edm (0.5 itself keeps SH-9)
+        env = [torch.where(g["edm"] > 0.5, g["ed" + ch], e) for ch, e in zip("rgb", env)]
 
     n_probe = min(int(counts[3]), probes.shape[0])
     if probes.shape[0] > 0:
@@ -461,13 +468,13 @@ def shade_epilogue_reference(bg, tr=None, refr=None, fog=None, oit=None):
 
 def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
                         lights, spots, probes, counts, n_trk=0, cl_lists=None,
-                        cl_counts=None):
+                        cl_counts=None, envd=False):
     """K2 on the card: the same contract as shade_deferred_reference."""
     dev = f32_planes.device
     if dev.type != "cuda":
         raise ValueError(f"shade_deferred_cuda needs CUDA tensors, got {dev}")
     _, H, W = f32_planes.shape
-    nb = len(BF16_NAMES) + (len(SKY_NAMES) if has_sky else 0) + 4 * n_trk
+    nb = len(_group_names(has_sky, envd)) + 4 * n_trk
     n_maps = 0 if spotsf is None else spotsf.shape[0]
     checks = [("f32_planes", f32_planes, torch.float32, (2, H, W)),
               ("planes", planes, torch.bfloat16, (nb, H, W)),
@@ -501,17 +508,30 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
     vp = ctypes.c_void_p
     ptr = lambda t: vp(None if t is None else t.data_ptr())
     code = kl.lib.shade_launch(
-        ptr(f32_planes), ptr(planes), int(has_sky), n_trk, ptr(ao), ptr(spotsf), n_maps,
+        ptr(f32_planes), ptr(planes), int(has_sky), int(envd), n_trk, ptr(ao),
+        ptr(spotsf), n_maps,
         ptr(params), ptr(lights), lights.shape[0], ptr(spots), spots.shape[0],
         ptr(probes), probes.shape[0], ptr(counts), POINT_CHUNK, ptr(cl_lists),
         ptr(cl_counts), cap, H, W, float(np.float32(2.0 / W)),
         float(np.float32(2.0 / H)), ptr(out), vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "shade_deferred")
     shade_deferred_cuda.launches += 1
+    if envd:
+        shade_deferred_envd.launches += 1
     return out
 
 
 shade_deferred_cuda.launches = 0
+
+
+class _GroupLaunches:
+    """A launch count of K2 with one of its optional plane groups."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+shade_deferred_envd = _GroupLaunches()     # K2 launches with ENVD_NAMES
 
 
 def shade_epilogue_cuda(bg, tr=None, refr=None, fog=None, oit=None):
@@ -548,8 +568,8 @@ def shade_deferred(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
                    planes_out=False, clusters=None):
     """Deferred shade of one layer.
 
-    gplanes: dict of (H, W) f32 planes PLANE_NAMES [+ SKY_NAMES, TR_NAMES,
-    trk_names(2..4), REFR_NAMES, FOG_NAMES, OIT_NAMES]; ao: optional
+    gplanes: dict of (H, W) f32 planes PLANE_NAMES [+ SKY_NAMES, ENVD_NAMES,
+    TR_NAMES, trk_names(2..4), REFR_NAMES, FOG_NAMES, OIT_NAMES]; ao: optional
     (H, W) ambient multiplier; spotsf: optional (n_maps, H, W) spot
     factors; sceneset carries "_sh" (9, 3).  Returns hdr (H, W, 3), or
     its three (H, W) planes with planes_out.  CUDA tensors run the K2

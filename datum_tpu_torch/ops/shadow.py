@@ -14,9 +14,8 @@ megakernel path), the 12-tap Poisson PCF of the sun cascades with the
 split blend weights, and the single-tap perspective spot test (the
 deferred path).
 
-Not ported: the pair-row cascade blend (`build_esm_pair`, `esm_pair`),
-the general second projection (`affine_next=False`) and the slow
-per-slice `shadow_factor_esm` (no frame path calls it).
+Not ported: the pair-row cascade blend (`build_esm_pair`, `esm_pair`)
+and the slow per-slice `shadow_factor_esm` (no frame path calls them).
 """
 
 from __future__ import annotations
@@ -177,18 +176,20 @@ def build_esm(shadowmaps, shadowview):
 
 
 def shadow_factor_esm_fast(worldpos, esm, zmax, zscale, splits, shadowview,
-                           view_dist, normal=None, slice_blend=0.0):
+                           view_dist, normal=None, slice_blend=0.0, affine_next=True):
     """Single-tap ESM sun factor: the cascade is chosen per pixel from
     the view distance, then one nearest tap of its map.
 
     slice_blend > 0 blends into the next cascade over the last
     slice_blend fraction of each split range, with a second tap of the
-    next map.  Precondition: the next slice's clip coordinates are taken
-    as an affine function of this slice's (`affine_next`), which holds
-    only when all cascades share axes — sun cascades do, since only
-    their ortho extents and centres differ.  The normal-offset bias of
-    the second tap uses this slice's texel size (a sub-texel difference
-    at the seam)."""
+    next map.  With affine_next (the frames' path) the next slice's clip
+    coordinates are an affine function of this slice's, which holds only
+    when all cascades share axes — sun cascades do, since only their
+    ortho extents and centres differ — and the normal-offset bias of the
+    second tap uses this slice's texel size (a sub-texel difference at
+    the seam).  affine_next=False projects the position again through
+    the next slice's own matrix, normal offset and bias (cascades with
+    unrelated axes)."""
     nslices, res, _ = esm.shape
     s_sel = torch.zeros(view_dist.shape, dtype=torch.int64,
                         device=view_dist.device)
@@ -203,24 +204,29 @@ def shadow_factor_esm_fast(worldpos, esm, zmax, zscale, splits, shadowview,
         return torch.where(inside, torch.clamp(tap * expt, 0.0, 1.0),
                            torch.ones_like(tap))
 
-    m = shadowview[s_sel]                                 # (..., 4, 4)
-    zscale_sel = zscale[s_sel]
-    wtexel = 2.0 / (res * xnorm[s_sel])
-    pos = (worldpos if normal is None
-           else worldpos + normal * (1.5 * wtexel)[..., None])
-    px, py, pz = pos[..., 0], pos[..., 1], pos[..., 2]
-    cx = m[..., 0, 0] * px + m[..., 0, 1] * py + m[..., 0, 2] * pz + m[..., 0, 3]
-    cy = m[..., 1, 0] * px + m[..., 1, 1] * py + m[..., 1, 2] * pz + m[..., 1, 3]
-    ref = m[..., 2, 0] * px + m[..., 2, 1] * py + m[..., 2, 2] * pz + m[..., 2, 3]
-    u = cx * 0.5 + 0.5
-    v = cy * 0.5 + 0.5
-    inside = ((u > 0.01) & (u < 0.99) & (v > 0.01) & (v < 0.99)
-              & (ref > 0) & (ref < 1))
-    xi, yi = texel_index(u * res, res), texel_index(v * res, res)
-    dref = (zmax[s_sel] - ref) * zscale_sel
-    bias = wtexel * zscale_sel * znorm[s_sel] * 2.0
-    expt = torch.exp(torch.clamp(-ESM_C * (dref - bias), -20.0, 20.0))
-    lit = lit_of(flat[(s_sel * res + yi) * res + xi], inside, expt)
+    def project(sl):
+        """Slice sl's texel, inside mask, exp term and clip coords."""
+        m = shadowview[sl]                                 # (..., 4, 4)
+        zscale_sel = zscale[sl]
+        wtexel = 2.0 / (res * xnorm[sl])
+        pos = (worldpos if normal is None
+               else worldpos + normal * (1.5 * wtexel)[..., None])
+        px, py, pz = pos[..., 0], pos[..., 1], pos[..., 2]
+        cx = m[..., 0, 0] * px + m[..., 0, 1] * py + m[..., 0, 2] * pz + m[..., 0, 3]
+        cy = m[..., 1, 0] * px + m[..., 1, 1] * py + m[..., 1, 2] * pz + m[..., 1, 3]
+        ref = m[..., 2, 0] * px + m[..., 2, 1] * py + m[..., 2, 2] * pz + m[..., 2, 3]
+        u = cx * 0.5 + 0.5
+        v = cy * 0.5 + 0.5
+        inside = ((u > 0.01) & (u < 0.99) & (v > 0.01) & (v < 0.99)
+                  & (ref > 0) & (ref < 1))
+        xi, yi = texel_index(u * res, res), texel_index(v * res, res)
+        dref = (zmax[sl] - ref) * zscale_sel
+        bias = wtexel * zscale_sel * znorm[sl] * 2.0
+        expt = torch.exp(torch.clamp(-ESM_C * (dref - bias), -20.0, 20.0))
+        return (sl * res + yi) * res + xi, inside, expt, (cx, cy, ref)
+
+    texel, inside, expt, (cx, cy, ref) = project(s_sel)
+    lit = lit_of(flat[texel], inside, expt)
     if not (slice_blend > 0 and nslices > 1):
         return lit
 
@@ -232,6 +238,9 @@ def shadow_factor_esm_fast(worldpos, esm, zmax, zscale, splits, shadowview,
     wgt = torch.clamp((t_ - (1.0 - slice_blend)) / slice_blend, 0.0, 1.0)
     wgt = torch.where(s_sel >= nslices - 1, torch.zeros_like(wgt), wgt)
     s_next = torch.clamp(s_sel + 1, max=nslices - 1)
+    if not affine_next:
+        texel_n, inn, exptn, _ = project(s_next)
+        return lit + (lit_of(flat[texel_n], inn, exptn) - lit) * wgt
 
     # the next slice's clip coords, affine in this slice's (shared axes)
     r3 = shadowview[:, :3, :3]

@@ -1,15 +1,18 @@
 """Procedural skybox: single-scatter atmosphere (counterpart of
-datum_tpu/ops/skybox_gen.py; its optional cloud layer is not ported).
+datum_tpu/ops/skybox_gen.py).
 
 O'Neil-style Rayleigh/Mie single scattering with an inverse-wavelength
-tint, the sun disc from a strong Mie forward lobe and a ground
-hemisphere blend, evaluated densely over all six faces."""
+tint, the sun disc from a strong Mie forward lobe, a ground hemisphere
+blend and an optional normal-lit cloud layer, evaluated densely over all
+six faces."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ibl import cube_dirs
+from .sampling import sample_image_bilinear
 
 OUTER_R = 1.025
 INNER_R = 1.0
@@ -38,8 +41,14 @@ def _rayleigh_phase(cosangle):
 
 
 def generate_skybox(size, *, skycolor, groundcolor, sundirection, sunintensity,
-                    exposure=1.0):
-    """Returns the (6, size, size, 3) f32 HDR cubemap (on the host)."""
+                    exposure=1.0, clouds=None, cloudheight=100.0,
+                    cloudcolor=(1.0, 1.0, 1.0, 0.0)):
+    """Returns the (6, size, size, 3) f32 HDR cubemap (on the host).
+
+    clouds: optional dict(density (H, W, 1+) image, normal (H, W, 3)
+    image, each float in [0, 1] or u8): a cloud layer at cloudheight,
+    lit by its normals, blended toward cloudcolor.rgb by the density
+    times cloudcolor.a, above the horizon only."""
     f32 = dict(dtype=torch.float32)
     ray = cube_dirs(size)                                  # (6, S, S, 3)
     skycolor = torch.as_tensor(skycolor, **f32)
@@ -84,4 +93,18 @@ def generate_skybox(size, *, skycolor, groundcolor, sundirection, sunintensity,
     ground = torch.as_tensor(groundcolor, **f32) * torch.clamp(-sund[1], min=0.0)
     skyalpha = torch.clamp(-10.0 * ry, 0.0, 1.0)[..., None]
     color = sky * (1 - skyalpha) + ground * skyalpha
+
+    if clouds is not None:
+        tiny = torch.full_like(ry, 1e-3)
+        cloudpos = ray * (cloudheight / torch.where(torch.abs(ry) < 1e-3, tiny, ry))[..., None]
+        clouduv = torch.remainder(0.000005 * cloudpos[..., [0, 2]], 1.0)
+        cn = sample_image_bilinear(torch.as_tensor(np.asarray(clouds["normal"])),
+                                   clouduv) * 2.0 - 1.0
+        cn = cn / torch.clamp(torch.linalg.norm(cn, dim=-1, keepdim=True), min=1e-6)
+        cn_world = torch.stack([cn[..., 0], cn[..., 2], cn[..., 1]], -1)
+        ndl = torch.clamp((cn_world * -sund).sum(-1), min=0.0)
+        dens = sample_image_bilinear(torch.as_tensor(np.asarray(clouds["density"])),
+                                     clouduv)[..., 0]
+        calpha = ndl * dens * torch.clamp(10.0 * ry, 0.0, 1.0) * cloudcolor[3]
+        color = color + (torch.as_tensor(cloudcolor[:3], **f32) - color) * calpha[..., None]
     return exposure * color

@@ -3,10 +3,11 @@ datum_tpu/render/context.py, the host side the port needs).
 
 The geometry pool, the material and texture tables, the material-map
 mip table (`_rebuild_matmaps`, with the `packed10` per-material rows),
-the fitted colour-grading polynomial and the skybox environment (its
-mip chain, mip-pair table, SH-9 and the env-BRDF LUT) are numpy, as in
-the JAX package; `device_state(device)` returns them as torch tensors on
-`device`.
+the fitted colour-grading polynomial, the skybox environment (its mip
+chain, mip-pair table, SH-9 and the env-BRDF LUT) and the box
+environment probes (`add_environment`: their stacked mip chains and one
+quad-packed table each) are numpy, as in the JAX package;
+`device_state(device)` returns them as torch tensors on `device`.
 """
 
 from __future__ import annotations
@@ -182,6 +183,7 @@ class RenderContext:
         self._state = None         # render()'s device state, until a pool changes
         self._ibl = None
         self._envbrdf = None
+        self._envprobes = []
 
     def set_skybox(self, skybox):
         """Attach an EnvMap/SkyBox as the global environment; its flat,
@@ -206,11 +208,43 @@ class RenderContext:
 
     def add_environment(self, position, halfdim, cubemap, rotation=None,
                         levels=5):
-        """Local box environment probes are not ported yet."""
-        raise NotImplementedError(
-            "RenderContext.add_environment: box environment probes are not "
-            "ported yet — ROADMAP Queue 1: IBL/skybox environment (box "
-            "probes: ops/envprobe.py and the K2 edm override)")
+        """Local environment probe box: a world box (position, halfdim,
+        rotation as a w, x, y, z quaternion) whose cubemap (6, S, S, 3+)
+        lights the pixels inside it; its specular mip chain is
+        prefiltered here, once.  Every probe of a context shares one
+        cubemap size (device_state raises otherwise)."""
+        self._state = None
+        from ..math import quat_to_matrix
+        from ..ops.ibl import build_specular_mips
+
+        mips = build_specular_mips(torch.as_tensor(np.asarray(cubemap, np.float32)),
+                                   levels)
+        rot = np.eye(3, dtype=np.float32) if rotation is None \
+            else np.asarray(quat_to_matrix(rotation), np.float32)
+        self._envprobes.append(dict(
+            position=np.asarray(position, np.float32), inv_rot=rot.T,
+            halfdim=np.asarray(halfdim, np.float32),
+            mips=[m.numpy() for m in mips]))
+
+    def _envprobe_state(self):
+        """The probes' tables (the JAX package's ibl["envprobes"]):
+        stacked positions, inverse rotations, half sizes and mip levels,
+        one quad-packed mip table per probe (the megakernel branch's
+        fields tap it) and the count."""
+        from ..ops.sampling import flatten_cube_mips_quad
+
+        eps = self._envprobes
+        if len({tuple(m.shape for m in e["mips"]) for e in eps}) != 1:
+            raise ValueError("environment probes must share cubemap size")
+        return dict(
+            position=np.stack([e["position"] for e in eps]),
+            inv_rot=np.stack([e["inv_rot"] for e in eps]),
+            halfdim=np.stack([e["halfdim"] for e in eps]),
+            mips=[np.stack([e["mips"][lv] for e in eps])
+                  for lv in range(len(eps[0]["mips"]))],
+            flatqs=[tuple(t.numpy() for t in flatten_cube_mips_quad(
+                [torch.from_numpy(m) for m in e["mips"]])) for e in eps],
+            count=np.int32(len(eps)))
 
     def envbrdf_lut(self):
         """Split-sum env-BRDF LUT (64, 64, 3): the port's tracked copy of
@@ -284,6 +318,8 @@ class RenderContext:
         self._rebuild_matmaps(state)
         if self._ibl is not None:
             state["ibl"] = self._ibl
+            if self._envprobes:
+                state["ibl"] = dict(self._ibl, envprobes=self._envprobe_state())
         if self.colorlut_poly is not None:
             state["colorlut_poly"] = self.colorlut_poly
         elif self.colorlut is not None:
@@ -338,8 +374,8 @@ class RenderContext:
         """The draws tree of one frame, as the JAX package's
         RenderContext.render builds it: the draw arrays plus, for the
         capacities the config carries, the particle billboards
-        ("forward"), the translucent draws and the decals; then the host
-        expansion."""
+        ("forward"), the translucent draws, the decals and the fog planes;
+        then the host expansion."""
         cfg = self.config
         draws = renderlist.draw_arrays(cfg.max_instances, self.default_material)
         if cfg.max_particle_quads > 0:
@@ -350,28 +386,38 @@ class RenderContext:
                 cfg.max_translucent_draws, self.default_material)
         if cfg.max_decals_active > 0:
             draws["decals"] = renderlist.decal_arrays(cfg.max_decals_active)
+        if cfg.max_fog_planes > 0:
+            draws["fogplanes"] = renderlist.fogplane_arrays(cfg.max_fog_planes)
         return self.expand_host(draws)
 
     def render(self, camera, renderlist, params, sceneset=None):
         """Render one frame on self.device; returns a numpy uint8 (height,
         width, 3) image (the JAX package's RenderContext.render, trimmed
-        to what the port renders: fog planes, sprites and dynamic vertices
-        raise in render_frame's check_config).  With ssao_temporal, the frame's AO
-        feeds the next frame's temporal reprojection; the history resets
-        when the resolution changes.  Sets self.luminance and
-        self.bin_overflow."""
+        to what the port renders: sprites and dynamic vertices raise in
+        render_frame's check_config).  The renderlist's SH probes go into
+        the sceneset.  With params.scale != 1 the frame renders at
+        (round(width * scale) & ~1, round(height * scale) & ~1), at least
+        2 each, and a nearest blit by integer indices scales it back to
+        the viewport.  With ssao_temporal, the frame's AO feeds the next
+        frame's temporal reprojection; the history is keyed on the
+        rendered size and resets when it changes.  Sets self.luminance
+        and self.bin_overflow."""
+        import dataclasses
+
         from . import frame as frame_mod
         from .types import make_sceneset
 
         cfg = self.config
-        if float(getattr(params, "scale", 1.0) or 1.0) != 1.0:
-            raise NotImplementedError("RenderContext.render: params.scale != 1 "
-                                      "(the scaled-fbo blit) is not ported yet — "
-                                      "ROADMAP Queue 1: post")
+        scale = float(getattr(params, "scale", 1.0) or 1.0)
+        if scale != 1.0:
+            cfg = dataclasses.replace(
+                cfg, width=max(int(round(cfg.width * scale)) & ~1, 2),
+                height=max(int(round(cfg.height * scale)) & ~1, 2))
         if sceneset is None:
             sceneset = make_sceneset(camera, params,
                                      point_lights=renderlist.point_lights,
-                                     spot_lights=renderlist.spot_lights)
+                                     spot_lights=renderlist.spot_lights,
+                                     probes=renderlist.probes)
         draws = self.frame_draws(renderlist, camera)
         prev = None
         if cfg.ssao_temporal and cfg.enable_ssao and self._ao_prev is not None:
@@ -386,4 +432,10 @@ class RenderContext:
             self._ao_prev = dict(out["ao_prev"], _cfg=(cfg.width, cfg.height))
         self.luminance = float(out["luminance"])
         self.bin_overflow = int(out["bin_overflow"])
-        return out["image"].cpu().numpy()
+        img = out["image"].cpu().numpy()
+        if scale != 1.0:
+            vh, vw = self.config.height, self.config.width
+            yi = (np.arange(vh) * img.shape[0] // vh).clip(0, img.shape[0] - 1)
+            xi = (np.arange(vw) * img.shape[1] // vw).clip(0, img.shape[1] - 1)
+            img = img[yi][:, xi]
+        return img

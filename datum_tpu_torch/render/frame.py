@@ -8,8 +8,11 @@ perspective spot maps (K3) and their ESM -> triangle setup and binning
 into 32x128 tiles -> K1 fused visibility raster, or K6 with
 raster_two_phase (ops/raster_cuda.py; with raster_early_z K1, K6 and K3
 end their walks early) -> plane assembly at half resolution with the
-skybox environment, one batched upsample, the quarter-res sun factor,
-then the decals (ops/decal.py), SSAO (ops/ssao.py, with its temporal
+skybox environment (and the box environment probes' quarter-res
+fields, ops/envprobe.py: their specular blends into the env field,
+their diffuse goes to K2 as the edr/edg/edb/edm override planes), one
+batched upsample, the quarter-res sun factor, then the decals
+(ops/decal.py), SSAO (ops/ssao.py, with its temporal
 history), the spot factors, sky planes and the froxel fog planes
 (ops/fog.py) -> the lit translucent layers (K1 or K6 with alpha_in_alb
 and peel, plane assembly and K2 on a 1/translucent_lit_scale viewport,
@@ -17,9 +20,11 @@ upsampled) -> one merged weighted-blend OIT stream of the residual
 translucents and the particle billboards (K4, ops/raster_blend_cuda.py)
 -> the clustered lights' per-tile lists (ops/cluster.py,
 use_light_clusters) -> K2 deferred-shade megakernel and its
-translucent/fog/OIT epilogue (ops/shade_cuda.py) -> luminance, binned
-SSR at quarter resolution (ops/ssr2.py), bloom, depth of field,
-composite with the colour grade, u8.
+translucent/fog/OIT epilogue (ops/shade_cuda.py) -> the analytic fog
+planes (ops/fog.py::apply_fog_planes) -> luminance, SSR (binned at
+quarter resolution, ops/ssr2.py, or the DDA march at half resolution,
+ops/ssr.py), bloom, depth of field, composite with the colour grade,
+u8.
 
 Every other config takes the deferred branch (FrameConfig's defaults
 among them): sun cascades (ESM or PCF) and perspective spot maps, K3
@@ -28,8 +33,9 @@ with `use_pallas`, else the scan raster -> the visibility raster: K1
 with `gbuffer_from_planes`, or K5 (ops/raster_v1_cuda.py) or the scan
 raster (ops/raster.py::raster, without `use_pallas`) with
 `resolve_gbuffer` -> gbuffer decals, SSAO -> the XLA lighting
-(ops/lighting_pass.py::shade_deferred) -> sky fill, fog apply -> two
-separate weighted-blend passes, translucents then particles (K4 with
+(ops/lighting_pass.py::shade_deferred, with the box probes' per-pixel
+lookup) -> sky fill, fog apply, fog planes -> two separate
+weighted-blend passes, translucents then particles (K4 with
 `use_pallas`, else ops/blend.py::raster_blend) -> the same post.
 Without `use_pallas` the rasters and the blend are plain PyTorch on the
 card too: that is the reference's own algorithm for the flag, not a
@@ -58,6 +64,7 @@ from ..ops.cluster import bin_lights, tile_depth_bounds
 from ..ops.common import TILE_H, TILE_W, FrameConfig, round_up, texel_index
 from ..ops.composite import composite, to_u8_image
 from ..ops.decal import apply_decals, apply_decals_planes
+from ..ops.envprobe import env_probe_fields
 from ..ops.geometry import terrain_morph, transform_vertices_rigid
 from ..ops.ibl import rotate_sh9
 from ..ops.lighting_pass import _inv_proj, reconstruct_positions, view_ray_grid
@@ -70,14 +77,12 @@ from ..ops.sampling import (sample_cubemap, sample_cubemap_lod_flat,
 from ..ops.shade import gbuffer_from_planes, resolve_gbuffer, sample_matmaps
 from ..ops.shade_cuda import MAX_TR_LAYERS, SHADE_ROWS, shade_deferred
 from ..ops.ssao import hbao, make_hbao_params
+from ..ops.ssr import ssr as ssr_dda
 from ..ops.ssr2 import ssr_binned
 from .renderlist import RenderList
 
 # (rejected when true, what it is and the ROADMAP Queue 1 item that ports it)
 _LATER = (
-    (lambda c: c.max_fog_planes > 0, "fog planes", "post (fog planes)"),
-    (lambda c: c.enable_ssr and c.ssr_mode != "binned",
-     "the DDA SSR (ssr_mode='dda', ops/ssr.py)", "post (DDA SSR)"),
     (lambda c: c.max_overlay_sprites > 0, "the device sprite pass",
      "post (sprites)"),
     (lambda c: c.enable_skinning, "skinning", "off-main-path device code"),
@@ -263,7 +268,11 @@ def _env_fields(planes, mm12, ibl, sceneset, w, h):
     """Half-res environment fields of the skybox, channel-first: the
     specular env tap along the roughness-bent reflection (3, H/2, W/2),
     and the quarter-res env-BRDF taps upsampled to half res (3, H/2,
-    W/2)."""
+    W/2); then the box probes' quarter-res fields, or None without
+    probes: (diffuse (H/4, W/4, 3), hit (H/4, W/4)).  Where a probe hits
+    (its upsampled hit > 0.5) its specular replaces the skybox's; the
+    probes tap world directions (the boxes are world-authored), the
+    skybox its rotated ones."""
     p = 2
     proj, invview = sceneset["proj"], sceneset["invview"]
     mk = (planes["visf"] >= 0.0).to(torch.float32)
@@ -282,6 +291,18 @@ def _env_fields(planes, mm12, ibl, sceneset, w, h):
     spec_h = sample_cubemap_lod_pair(
         ibl["flatp"], brdf.normalize(sdir_h) @ _skyrot(sceneset).T,
         rough_h * (len(ibl["mips"]) - 1))[..., :3]
+    probe_dif = None
+    envs = ibl.get("envprobes")
+    if envs is not None:
+        nrm_q = brdf.normalize(downsample_pool(nrm_h, 2))
+        eye_q = brdf.normalize(downsample_pool(eye_h, 2))
+        rough_q = downsample_pool(rough_h, 2)
+        spec_o, dif_o, hitm = env_probe_fields(
+            downsample_pool(wp_h, 2), brdf.normalize(downsample_pool(sdir_h, 2)),
+            brdf.diffuse_dominant_direction(nrm_q, eye_q, rough_q), rough_q, envs)
+        spec_h = torch.where(resize_up_dense(hitm, h // p, w // p)[..., None] > 0.5,
+                             resize_up_dense(spec_o, h // p, w // p), spec_h)
+        probe_dif = (dif_o, hitm)
     # env-BRDF at quarter res: the split-sum field is smooth in
     # (roughness, NdotV)
     lut = ibl["envbrdf"]
@@ -291,7 +312,7 @@ def _env_fields(planes, mm12, ibl, sceneset, w, h):
     bj = texel_index(downsample_pool(ndv_h, 2) * s_, s_)
     eb_q = lut.reshape(-1, lut.shape[-1])[(bi * s_ + bj).long()]
     eb_h = resize_up_dense(eb_q, h // p, w // p)
-    return spec_h.permute(2, 0, 1), eb_h.permute(2, 0, 1)
+    return spec_h.permute(2, 0, 1), eb_h.permute(2, 0, 1), probe_dif
 
 
 def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows, w, h):
@@ -312,8 +333,9 @@ def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows, w, h):
                           pool=p)                          # (12, H/2, W/2)
 
     ibl = state.get("ibl")
+    probe_dif = None
     if ibl is not None:
-        spec_h, eb_h = _env_fields(planes, mm12, ibl, sceneset, w, h)
+        spec_h, eb_h, probe_dif = _env_fields(planes, mm12, ibl, sceneset, w, h)
     else:
         # no environment: zero specular env; the constant-ambient
         # fallback rides the SH DC coefficient with eb2 = 1
@@ -353,6 +375,12 @@ def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows, w, h):
                         + nrm * nm_z[..., None] * 2.0
                         - (tgt + btg + nrm))
     gpl["nx"], gpl["ny"], gpl["nz"] = sn[..., 0], sn[..., 1], sn[..., 2]
+
+    # the box probes' diffuse override planes for K2 (edm: where > 0.5)
+    if probe_dif is not None:
+        dif_o, hitm = probe_dif
+        gpl["edr"], gpl["edg"], gpl["edb"] = resize_up_dense(dif_o, h, w).unbind(-1)
+        gpl["edm"] = resize_up_dense(hitm, h, w)
 
     # sun shadow factor: quarter-res ESM taps, upsampled
     if shadows["sun"] is not None:
@@ -466,6 +494,16 @@ def _fog(cfg: FrameConfig, depth, sceneset, shadows, gpl):
     gpl["fog_r"], gpl["fog_g"], gpl["fog_b"], gpl["fog_t"] = fog_ops.fog_planes(
         depth, fogvol, proj, depth_range=cfg.fog_depth_range,
         sample_scale=cfg.fog_sample_scale)
+
+
+def _fog_planes(cfg: FrameConfig, hdr, depth, draws, sceneset):
+    """The analytic half-space fog planes (draws["fogplanes"]) over the
+    lit hdr; hdr itself without max_fog_planes."""
+    if cfg.max_fog_planes <= 0:
+        return hdr
+    return fog_ops.apply_fog_planes(hdr, depth, draws["fogplanes"],
+                                    proj=sceneset["proj"], invview=sceneset["invview"],
+                                    exposure=sceneset["camera"]["exposure"])
 
 
 def _shade_inputs(cfg: FrameConfig, planes, state, draws, sceneset, shadows,
@@ -724,22 +762,40 @@ def _ssr_inputs_gbuffer(gbuffer):
 
 
 def _ssr(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
-    """Binned SSR at quarter resolution on the final hdr, fed by ssr_in
-    (_ssr_inputs_planes or _ssr_inputs_gbuffer): (hq, wq, 4) with
-    ssrstrength on rgb only (the composite adds rgb * a), or None."""
+    """The SSR on the final hdr, fed by ssr_in (_ssr_inputs_planes or
+    _ssr_inputs_gbuffer), with ssrstrength on rgb only (the composite
+    adds rgb * a): (quarter-res (hq, wq, 4) or None, full-res (H, W, 4)
+    or None).  ssr_mode 'binned' marches at quarter resolution (the
+    caller upsamples it, with the bloom when DoF is off); 'dda' marches
+    at half resolution (ops/ssr.py) on the top-left texel of each 2x2
+    cell and is upsampled here.  (None, None) without SSR."""
     if not cfg.enable_ssr:
-        return None
-    q = 4
+        return None, None
     nenc, spec, rough, mask = ssr_in
     ibl = state.get("ibl")
-    ssr_q = ssr_binned(
-        downsample_pool(hdr, q), downsample_pool(depth, q, reduce="first"),
-        downsample_pool(nenc, q, reduce="first"), downsample_pool(spec, q),
-        downsample_pool(rough, q, reduce="first"),
-        downsample_pool(mask, q) > 0.5, sceneset["proj"], sceneset["view"],
-        envbrdf_lut=None if ibl is None else ibl["envbrdf"])
-    return torch.cat([ssr_q[..., :3] * sceneset["camera"]["ssrstrength"],
-                      ssr_q[..., 3:]], -1)
+    lut = None if ibl is None else ibl["envbrdf"]
+    strength = sceneset["camera"]["ssrstrength"]
+    if cfg.ssr_mode == "binned":
+        q = 4
+        ssr_q = ssr_binned(
+            downsample_pool(hdr, q), downsample_pool(depth, q, reduce="first"),
+            downsample_pool(nenc, q, reduce="first"), downsample_pool(spec, q),
+            downsample_pool(rough, q, reduce="first"),
+            downsample_pool(mask, q) > 0.5, sceneset["proj"], sceneset["view"],
+            envbrdf_lut=lut)
+        return torch.cat([ssr_q[..., :3] * strength, ssr_q[..., 3:]], -1), None
+    first = lambda x: downsample_pool(x, 2, reduce="first")
+    # the coverage mask is all true: the JAX package pools its bool mask
+    # with reduce='first', whose max over a window padded with True
+    # (bool(-inf)) is True everywhere; the march's depth test still
+    # skips the background
+    gb_h = dict(normal=first(nenc), specular=first(torch.cat([spec, rough[..., None]], -1)),
+                mask=torch.ones(first(depth).shape, dtype=torch.bool, device=depth.device))
+    ssr_h = ssr_dda(downsample_pool(hdr, 2), first(depth), gb_h, sceneset["proj"],
+                    sceneset["view"], envbrdf_lut=lut)
+    h, w = depth.shape
+    ssr_img = resize_up_dense(ssr_h, h, w)
+    return None, torch.cat([ssr_img[..., :3] * strength, ssr_img[..., 3:]], -1)
 
 
 def dof_fields(hdr, depth, proj, camera):
@@ -767,8 +823,8 @@ def _post(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
     lum = torch.exp(torch.mean(torch.log(
         1e-4 + hdr[:cfg.height, :cfg.width] @ lum_w)))
 
-    ssr_q = _ssr(cfg, state, sceneset, hdr, depth, ssr_in)
-    ssr_img = bloom_img = glow = dof_blur = dof_amount = None
+    ssr_q, ssr_img = _ssr(cfg, state, sceneset, hdr, depth, ssr_in)
+    bloom_img = glow = dof_blur = dof_amount = None
     if ssr_q is not None and cfg.enable_depth_of_field:
         ssr_img, ssr_q = resize_up_dense(ssr_q, h, w), None
     if cfg.enable_bloom:
@@ -797,13 +853,15 @@ def _post(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
 def use_shade_kernel(cfg: FrameConfig, state):
     """Whether the frame takes the megakernel branch: use_shade_kernel
     with use_pallas, a 'mip' filter and the v2 raster, an environment
-    with SH-9 and the quad-packed table (or none), and ESM sun shadows."""
+    with SH-9 and the quad-packed table (or none; box probes need their
+    quad-packed tables), and ESM sun shadows."""
     ibl = state.get("ibl")
     fused_mip = (cfg.use_pallas and cfg.texture_filter.startswith("mip")
                  and cfg.raster_kernel != "mxu")
+    envs = None if ibl is None else ibl.get("envprobes")
     return (cfg.use_shade_kernel and fused_mip
             and (ibl is None or ("sh" in ibl and "flatq" in ibl
-                                 and ibl.get("envprobes") is None))
+                                 and (envs is None or "flatqs" in envs)))
             and (not cfg.enable_shadows or cfg.shadow_mode == "esm"))
 
 
@@ -821,6 +879,7 @@ def _megakernel_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
     hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
                          invview=sceneset["invview"], ao=ao, spotsf=spotsf,
                          clusters=light_clusters(cfg, planes["depth"], sceneset))
+    hdr = _fog_planes(cfg, hdr, planes["depth"], draws, sceneset)
     vis = torch.round(planes["visf"]).to(torch.int32)
     return (hdr, planes["depth"], vis, bin_overflow, ao_state,
             _ssr_inputs_planes(gpl))
@@ -1008,6 +1067,7 @@ def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
             depth_range=cfg.fog_depth_range)
         hdr = fog_ops.apply_fog(hdr, depth, fogvol, proj, depth_range=cfg.fog_depth_range,
                                 sample_scale=cfg.fog_sample_scale)
+    hdr = _fog_planes(cfg, hdr, depth, draws, sceneset)
     hdr = _deferred_forward(cfg, state, draws, sceneset, hdr, depth)
     return hdr, depth, vis, bin_overflow, ao_state, _ssr_inputs_gbuffer(gbuffer)
 
@@ -1032,8 +1092,9 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     state: RenderContext.device_state(device) (or any tree of the same
     layout, e.g. the JAX package's state through convert.to_torch);
     draws: RenderContext.frame_draws (the draw arrays with, for the
-    config's capacities, "forward", "translucent" and "decals", after
-    the host expansion); sceneset: render.types.make_sceneset.  draws
+    config's capacities, "forward", "translucent", "decals" and
+    "fogplanes", after the host expansion); sceneset:
+    render.types.make_sceneset (with the SH probes).  draws
     and sceneset may be numpy trees; they are moved onto `device` here.
     prev: the previous frame's out["ao_prev"] (SSAO's temporal
     reprojection), or None.

@@ -1,7 +1,8 @@
 """RenderList: the per-frame draw-building facade (counterpart of
 datum_tpu/render/renderlist.py, trimmed to what the port renders:
 meshes, terrain with geomorph, translucent meshes, point and spot lights,
-decals, particle billboards, and their fixed-capacity arrays)."""
+SH probes, decals, fog planes, particle billboards, and their
+fixed-capacity arrays)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ class RenderList:
         self.spot_lights = []
         self.translucents = []
         self.decals = []
+        self.fogplanes = []
+        self.probes = []
         self.particles = []      # forward OIT billboard systems
 
     def push_mesh(self, mesh, transform, material):
@@ -81,6 +84,12 @@ class RenderList:
                                      intensity=np.asarray(intensity, np.float32),
                                      attenuation=att, cutoff=float(cutoff)))
 
+    def push_probe(self, position, sh, radius=5.0):
+        """SH irradiance probe: sh (9, 3) coefficients, blended in within
+        radius of position."""
+        self.probes.append(dict(position=np.asarray(position, np.float32),
+                                sh=np.asarray(sh, np.float32), radius=radius))
+
     def push_decal(self, transform, halfdim, color=(1, 1, 1, 1), metalness=0.0,
                    roughness=1.0, reflectivity=0.5, emissive=0.0,
                    albedomap=-1, normalmap=-1):
@@ -116,6 +125,30 @@ class RenderList:
                 out[k][i] = d[k]
         return out
 
+    def push_fogplane(self, color, plane=(0.0, 1.0, 0.0, -4.0), density=0.01,
+                      startdistance=10.0, falloff=0.5):
+        """Analytic half-space fog: color (rgb, alpha), the plane (n, d)
+        with the fog where n . p + d <= 0, its density, the distance the
+        fog starts at and its falloff."""
+        self.fogplanes.append(dict(
+            color=np.asarray(color, np.float32),
+            plane=np.asarray(plane, np.float32),
+            density=density, startdistance=startdistance, falloff=falloff))
+
+    def fogplane_arrays(self, max_planes):
+        out = dict(
+            plane=np.tile(np.array([0, 1, 0, -1e9], np.float32), (max_planes, 1)),
+            color=np.zeros((max_planes, 4), np.float32),
+            density=np.zeros(max_planes, np.float32),
+            startdistance=np.zeros(max_planes, np.float32),
+            falloff=np.full(max_planes, 0.5, np.float32),
+            count=np.int32(min(len(self.fogplanes), max_planes)),
+        )
+        for i, p in enumerate(self.fogplanes[:max_planes]):
+            for k in ("plane", "color", "density", "startdistance", "falloff"):
+                out[k][i] = p[k]
+        return out
+
     def push_particles(self, instance, emissive=0.0):
         """Queue a live particle system (position, size, rotation, color,
         alive arrays) for the forward OIT pass."""
@@ -142,7 +175,7 @@ class RenderList:
                     f"forward_arrays: {n} billboards of one system (> "
                     f"{MAX_NUMPY_BILLBOARDS}) need the native billboard "
                     "helper, which is not ported yet — ROADMAP Queue 1: "
-                    "off-main-path device code")
+                    "the host engine")
             idx = alive[:n]
             col = inst.color[idx]
             base = q * 4

@@ -1,6 +1,6 @@
 """SkyBox resource (counterpart of datum_tpu/render/skybox.py): the
-procedural atmosphere (ops/skybox_gen.py) followed by the GGX convolve
-chain over its mips."""
+procedural atmosphere (ops/skybox_gen.py, with its optional cloud
+layer) followed by the GGX convolve chain over its mips."""
 
 from __future__ import annotations
 
@@ -19,6 +19,9 @@ class SkyBoxParams:
     sundirection: tuple = (-0.4, -0.7, -0.6)
     sunintensity: tuple = (8.0, 7.56, 7.88)
     exposure: float = 1.0
+    cloudheight: float = 100.0
+    cloudcolor: tuple = (1.0, 1.0, 1.0, 0.0)
+    clouds: object = None      # dict(density, normal) images, or None
 
 
 class SkyBox(EnvMap):
@@ -35,5 +38,6 @@ class SkyBox(EnvMap):
             size, skycolor=self.params.skycolor,
             groundcolor=self.params.groundcolor, sundirection=sd,
             sunintensity=self.params.sunintensity,
-            exposure=self.params.exposure)
+            exposure=self.params.exposure, clouds=self.params.clouds,
+            cloudheight=self.params.cloudheight, cloudcolor=self.params.cloudcolor)
         super().__init__(EnvMap.from_cubemap(cube, N_MIPS, convolve_samples).mips)

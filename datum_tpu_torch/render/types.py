@@ -1,8 +1,8 @@
 """Frame parameter types and the SceneSet tree (counterpart of
 datum_tpu/render/types.py; host numpy, copied).
 
-make_sceneset packs the camera, params and light lists into the
-fixed-capacity arrays the frame consumes.  Every array is numpy here;
+make_sceneset packs the camera, params, light lists and SH probes into
+the fixed-capacity arrays the frame consumes.  Every array is numpy here;
 convert.to_torch moves the tree onto a device.
 """
 
@@ -13,8 +13,6 @@ import dataclasses
 import numpy as np
 
 from ..ops.common import MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS
-
-N_PROBES = 8      # SH probe table rows the sceneset carries
 
 
 def _spot_view(light):
@@ -70,6 +68,9 @@ def _mainlight(camera, params):
 class RenderParams:
     width: int = 1280
     height: int = 720
+    # the frame renders at this fraction of the viewport and is blitted
+    # back to it (RenderContext.render)
+    scale: float = 1.0
 
     sundirection: np.ndarray = dataclasses.field(
         default_factory=lambda: np.array([0.0, -1.0, 0.0], np.float32))
@@ -94,13 +95,19 @@ class RenderParams:
         default_factory=lambda: np.array([0.0, 0.15, 0.0], np.float32))
 
 
-def make_sceneset(camera, params: RenderParams, *, point_lights=(), spot_lights=()):
-    """Pack camera + params + lights into the fixed-shape SceneSet tree
-    (the JAX package's layout and capacities).
+def make_sceneset(camera, params: RenderParams, *, point_lights=(), spot_lights=(),
+                  probes=(), environments=(), prevview=None, n_probe=8):
+    """Pack camera + params + lights + SH probes into the fixed-shape
+    SceneSet tree (the JAX package's layout and capacities).
 
     point_lights: iterable of dict(position, intensity, attenuation).
     spot_lights:  iterable of dict(position, intensity, attenuation,
                   direction, cutoff).
+    probes:       iterable of dict(position, sh (9, 3), radius), the
+                  first n_probe of them kept (RenderList.push_probe).
+    environments: accepted for the JAX package's signature and unused
+                  there too (box probes live in the context's state).
+    prevview:     the previous frame's view matrix (default: this view).
     """
     n_point, n_spot = MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS
     proj = camera.proj()
@@ -139,7 +146,7 @@ def make_sceneset(camera, params: RenderParams, *, point_lights=(), spot_lights=
         proj=proj.astype(np.float32),
         view=view.astype(np.float32),
         invview=invview.astype(np.float32),
-        prevview=view.astype(np.float32),
+        prevview=(prevview if prevview is not None else view).astype(np.float32),
         camera=dict(
             position=np.asarray(camera.position, np.float32),
             exposure=np.float32(camera.exposure),
@@ -166,14 +173,19 @@ def make_sceneset(camera, params: RenderParams, *, point_lights=(), spot_lights=
             view=sl_rigid,
             count=np.int32(min(len(spot_lights), n_spot)),
         ),
-        probes=_probes(),
+        probes=_probes(probes, n_probe),
     )
 
 
-def _probes():
-    """SH irradiance probe table (position.xyz + radius in w, 9x3 SH).
-    The slice pushes no probes: the table keeps its capacity, count 0."""
-    pos = np.zeros((N_PROBES, 4), np.float32)
+def _probes(probes, n_probe):
+    """SH irradiance probe table: position.xyz + radius in w (default
+    5), 9x3 SH coefficients; rows past the count keep radius 1 and zero
+    SH."""
+    pos = np.zeros((n_probe, 4), np.float32)
     pos[:, 3] = 1.0
-    return dict(position=pos, sh=np.zeros((N_PROBES, 9, 3), np.float32),
-                count=np.int32(0))
+    sh = np.zeros((n_probe, 9, 3), np.float32)
+    for i, p in enumerate(probes[:n_probe]):
+        pos[i, :3] = p["position"]
+        pos[i, 3] = p.get("radius", 5.0)
+        sh[i] = np.asarray(p["sh"], np.float32).reshape(9, 3)
+    return dict(position=pos, sh=sh, count=np.int32(min(len(probes), n_probe)))

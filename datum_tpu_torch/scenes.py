@@ -39,13 +39,19 @@ class _ParticleCloud:
 
 
 def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
-                    n_point_lights=8, skybox=True, skybox_size=64, device="cuda",
-                    **cfg_kw):
+                    n_point_lights=8, skybox=True, skybox_size=64, local_env=False,
+                    device="cuda", **cfg_kw):
     """Build the flagship scene; returns (ctx, camera, params,
     make_renderlist).  Materials, textures, meshes and the random light
     placement are the JAX package's, in the same order, so both packages
     build equal state for the same arguments.  device: where ctx.render
-    draws (render_frame takes its own)."""
+    draws (render_frame takes its own).  With the config's
+    max_fog_planes, the renderlist carries tests/test_kitchen_sink.py's
+    fog plane.  local_env (needs the skybox): a box environment probe
+    around the sphere grid, its cubemap a 64^2 procedural sky under a
+    second sun, prefiltered at 5 levels, and 4 SH probes of that cubemap
+    at the grid's corners (the local-environment frame; the JAX
+    package's scene has no such option)."""
     cfg = FrameConfig(width=width, height=height, **cfg_kw)
     ctx = RenderContext(cfg, device=device)
 
@@ -125,8 +131,15 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
                             (n_particles, 3)).astype(np.float32)
     part_phase = rng.uniform(0, 2 * np.pi, n_particles).astype(np.float32)
 
+    sh_probes = _local_environment(ctx, grid) if local_env else []
+
     def make_renderlist(t=0.0):
         rl = RenderList()
+        for pos in sh_probes:
+            rl.push_probe(pos, sh_probes[pos], radius=5.0)
+        if cfg.max_fog_planes > 0:
+            rl.push_fogplane((0.6, 0.65, 0.7, 0.5), plane=(0.0, 1.0, 0.0, -0.5),
+                             density=0.05)
         rl.push_mesh(ground, Transform.identity(), floor_mat)
         k = 0
         for j in range(gy):
@@ -169,6 +182,29 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
         return rl
 
     return ctx, camera, params, make_renderlist
+
+
+def _local_environment(ctx, grid):
+    """Add the box environment probe around the sphere grid to ctx;
+    returns the 4 SH probes as {position: (9, 3) SH-9 of its cubemap}."""
+    import torch
+
+    from .ops.ibl import sh_project
+    from .ops.skybox_gen import generate_skybox
+
+    if ctx.skybox is None:
+        raise ValueError("datumtest_scene: local_env needs the skybox")
+    sun2 = np.float32([0.5, -0.6, 0.62])
+    cube = generate_skybox(64, skycolor=(0.65, 0.57, 0.475),
+                           groundcolor=(0.41, 0.37, 0.32),
+                           sundirection=sun2 / np.linalg.norm(sun2),
+                           sunintensity=(8.0, 7.56, 7.88))
+    gx, gy = grid
+    hx, top = (gx - 1) / 2 * 2.2 + 1.4, 1.0 + (gy - 1) * 2.2 + 1.4
+    ctx.add_environment([0.0, top / 2 - 0.25, 0.0], [hx, top / 2 + 0.25, 2.5],
+                        cube.numpy(), levels=5)
+    sh = sh_project(torch.as_tensor(cube)[..., :3]).numpy()
+    return {(x, y, 2.0): sh for x in (-0.5 * hx, 0.5 * hx) for y in (1.5, 0.7 * top)}
 
 
 def stress_scene(width=1920, height=1080, *, terrain_n=192, sphere_detail=36,

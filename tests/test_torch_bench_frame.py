@@ -14,6 +14,8 @@ density is 0 (the bench renders no fog); these tests give it one
 (FOG_DENSITY).
 """
 
+import dataclasses
+
 import datum_tpu.ops.raster_pallas as jrp
 import numpy as np
 import pytest
@@ -49,13 +51,25 @@ def test_bench_frame_matches_jax_frame():
 
 
 def test_render_context_defaults_to_the_card():
-    """RenderContext.render draws on the card unless told otherwise; a
-    scale other than 1 raises naming ROADMAP."""
+    """RenderContext.render draws on the card unless told otherwise; with
+    params.scale 0.5 it renders the frame at half the viewport and blits
+    it back by nearest integer indices (the JAX package's render: every
+    output pixel (y, x) is frame pixel (y // 2, x // 2))."""
     ctx, cam, params, make_rl = datumtest_scene(**SLICE)
     assert ctx.device == torch.device("cuda")
+    ctx, cam, params, make_rl = datumtest_scene(device="cpu", **SLICE)
     params.scale = 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctx.render(cam, make_rl(0.0), params)
+    rl = make_rl(0.0)
+    img = ctx.render(cam, rl, params)
+    assert img.shape == (SLICE["height"], SLICE["width"], 3) and img.dtype == np.uint8
+    half = dataclasses.replace(ctx.config, width=SLICE["width"] // 2,
+                               height=SLICE["height"] // 2)
+    ss = make_sceneset(cam, params, point_lights=rl.point_lights,
+                       spot_lights=rl.spot_lights)
+    small = render_frame(half, ctx.host_state(), ctx.frame_draws(rl, cam), ss,
+                         device="cpu")["image"].numpy()
+    assert small.mean() > 10
+    np.testing.assert_array_equal(img, small.repeat(2, 0).repeat(2, 1))
 
 
 def _frame(**kw):

@@ -16,7 +16,10 @@ bit-identical to themselves without it and to their plain versions.
 K5 and K7 bit-identical to their plain versions on every plane, on the
 small inputs of tests/test_torch_raster_v1.py, and K5, K7 and the
 deferred frames (use_pallas=False, K5, K7) on the card against the CPU
-plain path."""
+plain path.  K2 with the box probes' edm group is held as K2; the row
+gather is bit-identical to tab[idx]; the local-environment frames (the
+box probe, SH probes and a fog plane on the megakernel and the K5
+branch, and with the DDA SSR) on the card against the CPU plain path."""
 
 import dataclasses
 
@@ -38,7 +41,9 @@ from datum_tpu_torch.ops.raster_blend_cuda import (blend_inputs,
 from datum_tpu_torch.ops.raster_depth_cuda import (depth_inputs,
                                                    raster_depth_cuda,
                                                    raster_depth_reference)
+from datum_tpu_torch.ops.gather_cuda import gather_rows_cuda, gather_rows_reference
 from datum_tpu_torch.ops.shade_cuda import (shade_deferred_cuda,
+                                            shade_deferred_envd,
                                             shade_deferred_reference,
                                             shade_epilogue_cuda,
                                             shade_epilogue_reference,
@@ -89,7 +94,7 @@ def _frame(card, t=0.4, scene=SLICE):
     ctx, camera, params, make_rl = datumtest_scene(**scene)
     rl = make_rl(t)
     ss = make_sceneset(camera, params, point_lights=rl.point_lights,
-                       spot_lights=rl.spot_lights)
+                       spot_lights=rl.spot_lights, probes=rl.probes)
     return ctx, ctx.device_state(card), ctx.frame_draws(rl, camera), ss
 
 
@@ -655,3 +660,86 @@ def test_deferred_frame_on_card_matches_cpu_plain(card, scene):
     assert np.abs(ia - ib).mean() <= 0.5
     assert np.sqrt(((ia - ib) ** 2).mean()) <= 2.0
     assert (a["vis"].cpu() == b["vis"]).float().mean().item() >= 0.999
+
+
+# the local-environment frame: the box probe around the sphere grid, 4 SH
+# probes and a fog plane (datumtest_scene(local_env=True))
+LOCAL_ENV = dict(SLICE, skybox=True, skybox_size=16, local_env=True, max_fog_planes=1)
+
+
+def test_k2_edm_kernel_matches_plain(card):
+    """K2 with the edm group on the probe frame's planes (a band of edm
+    set to exactly 0.5, which keeps the SH-9 term), as K2 is held; the
+    envd count moves by one."""
+    ctx, state, draws, ss = _frame(card, scene=LOCAL_ENV)
+    cfg = ctx.config
+    d, s = to_torch(draws, card), to_torch(ss, card)
+    ex, uv, clip, wn, wt, _ = frame_mod._vertex_stage(cfg, state, d, s)
+    planes, _ = frame_mod._raster_stage(cfg, state, d, ex, uv, clip, wn, wt)
+    gpl, ss2, *_ = frame_mod._shade_inputs(cfg, planes, state, d, s,
+                                           dict(sun=None, spot=None))
+    assert (gpl["edm"] > 0.5).float().mean().item() > 0.01
+    gpl["edm"][:, :64] = 0.5
+    k2 = shade_inputs(gpl, ss2, proj=s["proj"], invview=s["invview"])
+    assert k2["envd"] and int(k2["counts"][3]) == 4
+    n = shade_deferred_envd.launches, shade_deferred_cuda.launches
+    a = shade_deferred_cuda(**k2)
+    assert (shade_deferred_envd.launches, shade_deferred_cuda.launches) == (n[0] + 1,
+                                                                            n[1] + 1)
+    b = shade_deferred_reference(**k2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+def test_gather_kernel_matches_tab_idx(card):
+    """The row gather bit-identical to tab[idx] on the microbenchmark's
+    shapes and on a small table; its checks refuse bad input."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for rows, cols, n in ((16384, 16, 524288), (1000, 8, 777), (5, 4, 0)):
+        tab = torch.rand((rows, cols), generator=g).to(card)
+        idx = torch.randint(0, rows, (n,), generator=g).to(torch.int32).to(card)
+        before = gather_rows_cuda.launches
+        out = gather_rows_cuda(tab, idx, check_bounds=True)
+        torch.cuda.synchronize()
+        assert gather_rows_cuda.launches == before + 1
+        assert torch.equal(out, gather_rows_reference(tab, idx))
+        assert torch.equal(out, tab[idx.long()])
+    tab = torch.rand((64, 16), device=card)
+    with pytest.raises(IndexError):
+        gather_rows_cuda(tab, torch.tensor([3, 64], dtype=torch.int32, device=card),
+                         check_bounds=True)
+    with pytest.raises(IndexError):
+        gather_rows_cuda(tab, torch.tensor([-1], dtype=torch.int32, device=card),
+                         check_bounds=True)
+    with pytest.raises(ValueError):
+        gather_rows_cuda(tab, torch.tensor([3], device=card))            # int64
+    with pytest.raises(ValueError):
+        gather_rows_cuda(torch.rand((64, 6), device=card),
+                         torch.tensor([3], dtype=torch.int32, device=card))
+    with pytest.raises(ValueError):
+        gather_rows_cuda(tab.cpu(), torch.tensor([3], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("extra", [{}, dict(texture_filter="bilinear"),
+                                   dict(enable_ssr=True, ssr_mode="dda")],
+                         ids=["megakernel", "K5", "dda"])
+def test_local_env_frame_on_card_matches_cpu_plain(card, extra):
+    """The local-environment frame on the card against the CPU plain path:
+    K2 launches once with the edm group on the megakernel branch, never
+    on the K5 branch (the probes go through the XLA lighting)."""
+    ctx, state, draws, ss = _frame(card, scene=dict(LOCAL_ENV, **extra))
+    cfg = ctx.config
+    n = shade_deferred_envd.launches, raster_v1_cuda.launches
+    a = frame_mod.render_frame(cfg, state, draws, ss, device=card)
+    torch.cuda.synchronize()
+    n = shade_deferred_envd.launches - n[0], raster_v1_cuda.launches - n[1]
+    k5 = cfg.texture_filter == "bilinear"
+    assert n == (int(not k5), int(k5))
+    b = frame_mod.render_frame(cfg, ctx.host_state(), draws, ss, device="cpu")
+    ia = a["image"].cpu().numpy().astype(np.float32)
+    ib = b["image"].numpy().astype(np.float32)
+    assert ib.mean() > 10
+    assert np.abs(ia - ib).mean() <= 0.5
+    assert np.sqrt(((ia - ib) ** 2).mean()) <= 2.0
+    assert int(a["bin_overflow"]) == int(b["bin_overflow"]) == 0

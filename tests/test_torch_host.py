@@ -170,12 +170,26 @@ def test_to_torch_keeps_scalars_zero_d():
 
 
 def test_skybox_is_rejected_not_dropped():
-    """The skybox is ported; box environment probes are not, and
-    add_environment raises naming ROADMAP instead of dropping them."""
-    ctx = datumtest_scene(**SLICE)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctx.add_environment([0, 1, 0], [2, 2, 2],
-                            np.ones((6, 8, 8, 3), np.float32))
+    """Box environment probes are ported: add_environment is accepted and
+    fills the environment's envprobes (stacked tables, one quad table
+    per probe, the count) once a skybox is set; probes of two cubemap
+    sizes raise."""
+    ctx = datumtest_scene(**dict(SLICE, skybox=True, skybox_size=16))[0]
+    ctx.add_environment([0, 1, 0], [2, 2, 2], np.ones((6, 8, 8, 3), np.float32),
+                        levels=3)
+    ctx.add_environment([1, 1, 0], [1, 2, 3], np.full((6, 8, 8, 3), 0.5, np.float32),
+                        rotation=[0.9238795, 0.0, 0.3826834, 0.0], levels=3)
+    envs = ctx.host_state()["ibl"]["envprobes"]
+    assert int(envs["count"]) == 2
+    assert envs["position"].shape == (2, 3) and envs["halfdim"].shape == (2, 3)
+    assert [m.shape for m in envs["mips"]] == [(2, 6, 8, 8, 3), (2, 6, 4, 4, 3)]
+    assert len(envs["flatqs"]) == 2 and envs["flatqs"][0][0].shape == (6 * 80, 12)
+    np.testing.assert_allclose(envs["inv_rot"][1] @ envs["inv_rot"][1].T, np.eye(3),
+                               atol=1e-6)
+    ctx.add_environment([0, 0, 0], [1, 1, 1], np.ones((6, 16, 16, 3), np.float32),
+                        levels=3)
+    with pytest.raises(ValueError, match="cubemap size"):
+        ctx.host_state()
 
 
 def test_slice_config_is_accepted():
@@ -202,7 +216,6 @@ _IDS = lambda d: "-".join(f"{k}={v}" for k, v in d.items())
 
 
 @pytest.mark.parametrize("override", [
-    dict(max_fog_planes=1), dict(enable_ssr=True, ssr_mode="dda"),
     dict(max_overlay_sprites=4),
     dict(enable_skinning=True), dict(enable_foliage=True),
     dict(max_dynamic_vertices=64),
@@ -225,14 +238,15 @@ def test_unsupported_flags_raise(override):
     dict(max_spot_shadows=1, spot_shadow_mode="perspective"),
     dict(raster_kernel="mxu"), dict(use_pallas=False), dict(texture_filter="nearest"),
     dict(use_shade_kernel=False), dict(enable_material_maps=False),
+    dict(max_fog_planes=1), dict(enable_ssr=True, ssr_mode="dda"),
 ], ids=_IDS)
 def test_post_flags_accepted(override):
     """SSAO, the froxel fog, the binned SSR, depth of field, the
     two-phase raster (K6), the terrain geomorph, clustered lights and the
     early-z exit are ported, and so is the deferred branch of the frame
     (PCF, perspective spot maps, K7, the scan raster, the legacy texture
-    filters, the XLA lighting, no material maps): check_config passes
-    them."""
+    filters, the XLA lighting, no material maps), the fog planes and the
+    DDA SSR: check_config passes them."""
     check_config(FrameConfig(**dict(_BASE, **override)))
 
 

@@ -184,12 +184,25 @@ def test_k2_fog_group(extra):
     dict(edr=1, edg=1, edb=1, edm=1), dict(edm=1),
 ], ids=lambda d: "-".join(sorted(d)))
 def test_k2_later_groups_raise(extra):
-    """The box env-probe override raises naming its ROADMAP item, even
-    when only one plane of the group is given."""
+    """The box env-probe override is ported: given whole with edm 0 (no
+    pixel in a box) it leaves the shade unchanged (exactly), with edm 1
+    its diffuse (2, 0, 0) replaces the SH-9 term; a part of the group is
+    refused."""
     ss, g = _torch_tree(_scene()), _torch_tree(_gplanes(sky=False))
+    base = shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
     g.update({k: torch.zeros(H, W) for k in extra})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
+    if len(extra) < 4:
+        with pytest.raises(ValueError, match="group"):
+            shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
+        return
+    assert torch.equal(shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"]),
+                       base)
+    g["edr"] = torch.full((H, W), 2.0)
+    g["edm"] = torch.ones(H, W)
+    out = shade_deferred(g, ss, proj=ss["proj"], invview=ss["invview"])
+    covered = torch.from_numpy(_gplanes()["visf"] >= 0)
+    assert (out[..., 0] > base[..., 0])[covered].all()
+    assert (out[..., 1:] < base[..., 1:])[covered].all()     # edg = edb = 0
 
 
 @pytest.mark.parametrize("count", [0, 3], ids=["clusters-empty", "clusters"])
