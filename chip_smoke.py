@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--versions FILE]
 
 Renders the bench frame, the dense stress frame, the deferred
 (non-megakernel) frames and the local-environment frames at 1920x1088
@@ -23,13 +23,15 @@ and exits non-zero:
 
 1. require a CUDA device; print its name and nvidia-smi's name and
    power limit; turn TF32 off;
-2. build the kernels (timed, first use);
+2. build the kernels (timed, first use; ptxas registers and spill per
+   source);
 3. build the scene through the port's datumtest_scene; the main
    bin_overflow must be 0; print each shadow stack's, the lit layer's
    and the forward (WBOIT) stream's overflow;
 4. each kernel against its plain PyTorch version on the bench frame's
    real inputs, with the stated tolerances: K3 on all three shadow
-   stacks, K1 on the opaque and the lit layer, K2 (with SSAO's ao), its
+   stacks with early-z off and on (bit-identical), K1 on the opaque and
+   the lit layer, K2 (with SSAO's ao; and on the lit layer), its
    epilogue with refraction active, the epilogue with the fog group, K4
    on the merged stream; K6 against its plain version and against K1 on
    the opaque and the lit layer (bit-identical); then, at
@@ -79,8 +81,10 @@ and exits non-zero:
    CPU plain path; ms/frame, a profiler window, the stages of the probe
    fields, the fog planes and the SSRs, K2 with and without the group,
    the gather against tab[idx], and their bounds;
-7. print the kernels' JSON line (9 rows), then the device JSON line
-   last, after the script's wall time.
+7. with --versions FILE, other versions of K2's and K3's sources built
+   alone and timed beside this build's on the same inputs (see
+   versions_phase); then print the kernels' JSON line (9 rows), then the
+   device JSON line last, after the script's wall time.
 
 Needs one card, torch with CUDA and nvcc; imports no jax and nothing of
 the JAX package.
@@ -261,6 +265,34 @@ def cuda_ms(fn, reps):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20):
+    """Device time of fn() a call: after one warm-up, the reps calls are
+    enqueued behind a sleep kernel that keeps the card busy while the host
+    launches them, so that they run back to back and the CUDA events
+    around them time the kernels alone.  cuda_ms also counts the host's
+    time between launches, which sets it for a kernel shorter than its
+    wrapper's Python.  Raises if the host took longer to enqueue the
+    calls than the sleep lasted (the kernels then waited for the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0.record()
+    torch.cuda._sleep(100_000_000)          # ~50 ms at ~2 GHz
+    start.record()
+    host = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - host) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host >= t0.elapsed_time(start):
+        raise RuntimeError(f"device_ms: enqueuing took {host:.3f} ms, longer than "
+                           f"the {t0.elapsed_time(start):.3f} ms sleep")
     return start.elapsed_time(end) / reps
 
 
@@ -725,7 +757,11 @@ def stress_phases(dev, card, kernels):
              k3p=cuda_ms(lambda: raster_depth_reference(**k3_in), 1),
              k2c=cuda_ms(lambda: shade_deferred_cuda(**k2c_in), 20),
              k2d=cuda_ms(lambda: shade_deferred_cuda(**k2d_in), 20),
-             k2cp=cuda_ms(lambda: shade_deferred_reference(**k2c_in), 1))
+             k2cp=cuda_ms(lambda: shade_deferred_reference(**k2c_in), 1),
+             k1_dev=device_ms(lambda: raster_shade_cuda(**k1_in)),
+             k3_dev=device_ms(lambda: raster_depth_cuda(**k3_in)),
+             k3z_dev=device_ms(lambda: raster_depth_cuda(**k3z_in)),
+             k2c_dev=device_ms(lambda: shade_deferred_cuda(**k2c_in)))
     # the gather microbenchmark's shapes (profiling/prof_gather.py:159-170):
     # a 16K x 16 f32 table, 512K rows gathered; the one PyTorch call
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -748,7 +784,9 @@ def stress_phases(dev, card, kernels):
                 f"early-z {t['k3z']:.3f} ms, plain {t['k3p']:.3f} ms; K2 clustered "
                 f"{t['k2c']:.3f} ms, dense {t['k2d']:.3f} ms (128 lights), clustered "
                 f"plain {t['k2cp']:.3f} ms; gather tab[idx] (16384x16 f32, 524288 rows) "
-                f"{t['gather']:.4f} ms on {card}")
+                f"{t['gather']:.4f} ms; device time a call (device_ms): K1 "
+                f"{t['k1_dev']:.4f} ms, K3 {t['k3_dev']:.4f} ms, with early-z "
+                f"{t['k3z_dev']:.4f} ms, K2 clustered {t['k2c_dev']:.4f} ms on {card}")
 
     px = cfg.padded_width * cfg.padded_height
     k1_bytes = (_nbytes(*(k1_in[k] for k in ("rows", "bins", "counts", "big_ids")))
@@ -797,7 +835,8 @@ def stress_phases(dev, card, kernels):
                 "TPU's vertex bound; by the vertex bound if the bins were sorted by "
                 "it, nearest first): " + "; ".join(walks))
     return dict(t=t, b=b, launches=pfz[0], errs=dict(k1=k1_err, k6=k6_err, k3=k3_err,
-                                                     k2c=k2c_err))
+                                                     k2c=k2c_err),
+                inputs=dict(k2c=k2c_in, k3=k3_in, k3z=k3z_in))
 
 
 def read_png_rgb(path):
@@ -1079,7 +1118,9 @@ def deferred_phases(dev, card, kernels, bench):
     t = dict(k5=cuda_ms(lambda: raster_v1_cuda(**k5_in), 20),
              k5p=cuda_ms(lambda: raster_v1_reference(**k5_in), 1),
              k7=cuda_ms(lambda: raster_mxu_cuda(**k7_in), 20),
-             k7p=cuda_ms(lambda: raster_mxu_reference(**k7_in), 1))
+             k7p=cuda_ms(lambda: raster_mxu_reference(**k7_in), 1),
+             k5_dev=device_ms(lambda: raster_v1_cuda(**k5_in)),
+             k7_dev=device_ms(lambda: raster_mxu_cuda(**k7_in)))
     px = w * h
     walked = _walked(k5_in)
     b5 = bound(_nbytes(*(k5_in[k] for k in ("rows", "bins", "counts", "big_ids")))
@@ -1098,7 +1139,9 @@ def deferred_phases(dev, card, kernels, bench):
                 f"walked x 4096 pixels x 6 "
                 f"planes); the TPU's padded 24 x (6*2048) product would count "
                 f"{tpu_ops:.4g} f32 operations, {b7_tpu:.4f} ms ({chunks} chunks, not the "
-                f"work); bench inputs {W}x{H}, library call: none, on {card}")
+                f"work); bench inputs {W}x{H}, library call: none; device time a call "
+                f"(device_ms): K5 {t['k5_dev']:.4f} ms, K7 {t['k7_dev']:.4f} ms, on "
+                f"{card}")
     launches = dict(raster_v1=pf5[0]["raster_v1"], raster_mxu=pf7[0]["raster_mxu"])
     return dict(t=t, b5=b5, b7=b7, b7_tpu=b7_tpu, launches=launches,
                 errs=dict(k5=k5_err, k7=k7_err), ms=dict(k5=ms5, k7=ms7, entry=mse),
@@ -1301,7 +1344,10 @@ def env_phases(dev, card, kernels, bench_expect):
              k2ep=cuda_ms(lambda: shade_deferred_reference(**k2e_in), 1),
              gather=cuda_ms(lambda: gather_rows_cuda(tab, idx), 50),
              gather_lib=cuda_ms(lambda: tab[idx], 50),
-             gather_plain=cuda_ms(lambda: gather_rows_reference(tab, idx), 50))
+             gather_plain=cuda_ms(lambda: gather_rows_reference(tab, idx), 50),
+             k2e_dev=device_ms(lambda: shade_deferred_cuda(**k2e_in)),
+             gather_dev=device_ms(lambda: gather_rows_cuda(tab, idx)),
+             gather_lib_dev=device_ms(lambda: tab[idx]))
     # the microbenchmark's own path: one counted gather_rows call
     for k in kernels.values():
         k.launches = 0
@@ -1331,15 +1377,85 @@ def env_phases(dev, card, kernels, bench_expect):
                 f"{b['k2n'][0]:.4f} ms ({b['k2e'][1]}); gather_rows {t['gather']:.4f} ms vs "
                 f"tab[idx] {t['gather_lib']:.4f} ms (int32 indices), plain "
                 f"{t['gather_plain']:.4f} ms, bound {b['gather'][0]:.4f} ms ({b['gather'][1]}"
-                f"), launches {bench_launches} a benchmark call, 0 a frame; on {card}")
+                f"), launches {bench_launches} a benchmark call, 0 a frame; device time a "
+                f"call (device_ms): K2 with the group {t['k2e_dev']:.4f} ms, gather_rows "
+                f"{t['gather_dev']:.4f} ms, tab[idx] {t['gather_lib_dev']:.4f} ms; on {card}")
     return dict(t=t, b=b, errs=dict(k2e=k2e_err, gather=gather_err), launches=launches,
                 bench_launches=bench_launches, cover=cover,
-                ms=dict(probe=ms_e, deferred=ms_5, dda=ms_dda))
+                ms=dict(probe=ms_e, deferred=ms_5, dda=ms_dda), inputs=dict(k2e=k2e_in))
+
+
+def versions_phase(path, card, sets):
+    """--versions FILE: other versions of K2's and K3's sources, timed
+    beside this build's on the same inputs.  FILE is a JSON list of
+    {"name", "kernel": "shade_deferred" | "raster_depth", "source" (relative
+    to FILE), "fmad": true | false}.  Each version is built alone
+    (ptxas registers and spill printed), checked against the plain
+    version as the kernel is held (K2 atol 1e-4 / rtol 1e-3, K3 bit for
+    bit: printed, not raised, so that a version's error is measured) and
+    timed in turns, the versions in order and then in reverse, the mean of
+    the two.  sets: per kernel, [(name, inputs)].  Informational: it is
+    how a kernel's redesign is timed step by step against the earlier
+    design in one call on one card (PERF.md section 6's K2 and K3
+    tables), kept for the redesigns still queued (K1 next, ROADMAP).
+    The default run builds and launches none of it."""
+    import contextlib
+    from pathlib import Path
+
+    import torch
+
+    from datum_tpu_torch.ops import _kernels
+    from datum_tpu_torch.ops.raster_depth_cuda import (raster_depth_cuda,
+                                                       raster_depth_reference)
+    from datum_tpu_torch.ops.shade_cuda import shade_deferred_cuda, shade_deferred_reference
+
+    base = os.path.dirname(os.path.abspath(path))
+    with open(path) as f:
+        spec = json.load(f)
+    runs = dict(shade_deferred=(shade_deferred_cuda, shade_deferred_reference, "shade.cu"),
+                raster_depth=(raster_depth_cuda, raster_depth_reference, "raster_depth.cu"))
+    for kernel, (run, ref, src) in runs.items():
+        versions = [("this build", None)] + [
+            (v["name"], _kernels.build_version(Path(base, v["source"]), v["fmad"],
+                                               v["name"]))
+            for v in spec if v["kernel"] == kernel]
+        for name, lib in versions:
+            rep = lib.ptxas(*lib.logs) if lib else _kernels.library().ptxas(src)
+            phase(7, f"{kernel} version {name}: ptxas {rep}")
+        plains = {n: ref(**inp) for n, inp in sets[kernel]}
+        ms = {(v, n): [] for v, _ in versions for n, _ in sets[kernel]}
+        for order in (versions, versions[::-1]):
+            for name, lib in order:
+                with _kernels.using(lib) if lib else contextlib.nullcontext():
+                    for n, inp in sets[kernel]:
+                        out = run(**inp)
+                        torch.cuda.synchronize()
+                        err = (out - plains[n]).abs().max().item()
+                        ok = (torch.equal(out, plains[n]) if kernel == "raster_depth"
+                              else torch.allclose(out, plains[n], atol=1e-4, rtol=1e-3))
+                        ms[name, n].append((device_ms(lambda: run(**inp)),
+                                            cuda_ms(lambda: run(**inp), 20), err, ok))
+        for name, _ in versions:
+            phase(7, f"{kernel} version {name} on {card}: device ms a call (CUDA-event "
+                     "ms a call), mean of the two turns: " + "; ".join(
+                f"{n} {statistics.mean(d for d, _, _, _ in ms[name, n]):.4f} "
+                f"({', '.join(f'{d:.4f}' for d, _, _, _ in ms[name, n])}; "
+                f"{statistics.mean(m for _, m, _, _ in ms[name, n]):.4f}), max abs err "
+                f"{ms[name, n][0][2]:.3g}, {'within' if ms[name, n][0][3] else 'BEYOND'} "
+                f"{'bit-identity' if kernel == 'raster_depth' else 'atol 1e-4 / rtol 1e-3'}"
+                for n, _ in sets[kernel]))
 
 
 def main():
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--versions", metavar="FILE",
+                    help="also time other versions of K2's and K3's sources "
+                         "(see versions_phase)")
+    args = ap.parse_args()
     t_start = time.perf_counter()
 
     # ---- 1. device
@@ -1393,10 +1509,12 @@ def main():
     t0 = time.perf_counter()
     lib = _kernels.library()
     phase(2, f"built {lib.path.name} from {', '.join(_kernels.SOURCES)} in "
-             f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)})")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print("  nvcc:", line.strip(), flush=True)
+             f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)}; "
+             f"-fmad=true for {', '.join(_kernels.FMAD_SOURCES)})")
+    for src in _kernels.SOURCES:
+        for line in lib.logs[src].splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  nvcc {src}:", line.strip(), flush=True)
 
     # ---- 3. the bench scene at full width
     t0 = time.perf_counter()
@@ -1445,18 +1563,19 @@ def main():
                                                  cfg.big_capacity)
         inp = depth_inputs(st["setup"], bins, big, counts, st["tiles_x"],
                            st["res"], st["height"])
+        inpz = depth_inputs(st["setup"], bins, big, counts, st["tiles_x"],
+                            st["res"], st["height"], early_z=True)
         dk = raster_depth_cuda(**inp)
+        dz = raster_depth_cuda(**inpz)
         dr = raster_depth_reference(**inp)
         torch.cuda.synchronize()
-        same = (dk == dr).float().mean().item()
+        require_equal(dk, dr, f"K3 vs plain on the {name}")
+        require_equal(dz, dr, f"K3 with early-z vs plain on the {name}")
         err = (dk - dr).abs().max().item()
         covered = (dr > 0).float().mean().item()
-        if same < 0.9999 or err > 1e-6 or not torch.isfinite(dk).all():
-            raise RuntimeError(f"K3 vs plain on the {name}: identical on "
-                               f"{same}, max abs err {err}")
-        phase(4, f"K3 vs plain, {name} ({st['res']}x{st['height']}): "
-                 f"bit-identical on {same:.6f} of texels (covered "
-                 f"{covered:.3f}), max abs err {err:.3g} (atol 1e-6)")
+        phase(4, f"K3 vs plain, {name} ({st['res']}x{st['height']}, {bins.shape[0]} "
+                 f"tiles, {int((counts == bins.shape[1]).sum())} full bins): with early-z "
+                 f"off and on bit-identical on every texel (covered {covered:.3f})")
         k3_in.append(inp)
         k3_errs.append(err)
 
@@ -1508,6 +1627,25 @@ def main():
              f"{(sf < 0.5).float().mean().item():.3f}, spot factor < 0.5 on "
              f"{(spf < 0.5).float().mean().item():.3f}, ao < 0.9 on "
              f"{(ao < 0.9).float().mean().item():.3f} of pixels")
+    # the lit layer's K2 launch (render/frame.py::_lit_layers): the layer's
+    # planes in front of the opaque depth, assembled at its viewport
+    planes_t = dict(zip(PLANE_NAMES, lk))
+    planes_t["visf"] = torch.where(
+        planes_t["depth"] > resize_matmul(kp["depth"], lh, lw, nearest=True),
+        planes_t["visf"], torch.full_like(planes_t["visf"], -1.0))
+    gpl_t, _ = F._assemble_gplanes(cfg, planes_t, state, s_t, shadows, lw, lh)
+    k2l_in = shade_inputs(gpl_t, ss2, proj=s_t["proj"], invview=s_t["invview"])
+    hk = shade_deferred_cuda(**k2l_in)
+    hr = shade_deferred_reference(**k2l_in)
+    torch.cuda.synchronize()
+    k2_lit_err = (hk - hr).abs().max().item()
+    if not torch.isfinite(hk).all() or not torch.allclose(hk, hr, atol=1e-4, rtol=1e-3):
+        raise RuntimeError(f"K2 vs plain on the lit layer: max abs err {k2_lit_err} "
+                           "beyond atol 1e-4 / rtol 1e-3")
+    k2_err = max(k2_err, k2_lit_err)
+    phase(4, f"K2 vs plain, lit layer ({lw}x{lh}, covered "
+             f"{(planes_t['visf'] >= 0).float().mean().item():.3f}): hdr max abs err "
+             f"{k2_lit_err:.3g} (atol 1e-4, rtol 1e-3)")
 
     # K4 on the merged stream (particles; no residual at one lit layer)
     st = F.oit_stream(cfg, state, d_t, s_t, ts, None)
@@ -1684,6 +1822,17 @@ def main():
     t_k6l = cuda_ms(lambda: raster_shade_2p_cuda(**lit_in), 20)
     t_k2 = cuda_ms(lambda: shade_deferred_cuda(**k2_in), 20)
     t_k2p = cuda_ms(lambda: shade_deferred_reference(**k2_in), 1)
+    t_k2l = cuda_ms(lambda: shade_deferred_cuda(**k2l_in), 20)
+    t_k2lp = cuda_ms(lambda: shade_deferred_reference(**k2l_in), 1)
+    # device time a call (the kernels alone, without the wrappers' host time)
+    dev_ms = dict(k1=device_ms(lambda: raster_shade_cuda(**k1_in)),
+                  k1l=device_ms(lambda: raster_shade_cuda(**lit_in)),
+                  k6=device_ms(lambda: raster_shade_2p_cuda(**k1_in)),
+                  k2=device_ms(lambda: shade_deferred_cuda(**k2_in)),
+                  k2l=device_ms(lambda: shade_deferred_cuda(**k2l_in)),
+                  k3=[device_ms(lambda i=i: raster_depth_cuda(**i)) for i in k3_in],
+                  k4=device_ms(lambda: raster_blend_cuda(**k4_in)),
+                  ep=device_ms(lambda: shade_epilogue_cuda(epi_bg, **epi_in)))
     t_k3 = [cuda_ms(lambda i=i: raster_depth_cuda(**i), 20) for i in k3_in]
     t_k3p = [cuda_ms(lambda i=i: raster_depth_reference(**i), 1) for i in k3_in]
     t_k4 = cuda_ms(lambda: raster_blend_cuda(**k4_in), 20)
@@ -1705,12 +1854,19 @@ def main():
     phase(6, f"K1 {t_k1:.3f} ms, K6 {t_k6:.3f} ms vs plain {t_k1p:.3f} / "
              f"{t_k6p:.3f} ms (opaque layer, the same inputs); lit layer "
              f"{lw}x{lh}: K1 {t_k1l:.3f} ms, K6 {t_k6l:.3f} ms; K2 "
-             f"{t_k2:.3f} ms vs plain {t_k2p:.3f} ms; K2 epilogue (tr, refraction, "
+             f"{t_k2:.3f} ms vs plain {t_k2p:.3f} ms, lit layer {t_k2l:.3f} ms vs plain "
+             f"{t_k2lp:.3f} ms; K2 epilogue (tr, refraction, "
              f"fog, WBOIT) {t_ep:.3f} ms vs plain {t_epp:.3f} ms; K4 {t_k4:.3f} ms "
              f"vs plain {t_k4p:.3f} ms (merged stream); K3 " + ", ".join(
                  f"{n} {a:.3f} ms vs plain {b:.3f} ms"
                  for n, a, b in zip(STACKS, t_k3, t_k3p))
           + f" ({W}x{H}) on {card}")
+    phase(6, "device time a call (20 calls behind a sleep kernel; ms): " + "; ".join(
+        f"{n} {v:.4f}" for n, v in (
+            ("K1", dev_ms["k1"]), ("K1 lit layer", dev_ms["k1l"]), ("K6", dev_ms["k6"]),
+            ("K2", dev_ms["k2"]), ("K2 lit layer", dev_ms["k2l"]),
+            *((f"K3 {n}", v) for n, v in zip(STACKS, dev_ms["k3"])),
+            ("K4", dev_ms["k4"]), ("K2 epilogue", dev_ms["ep"]))) + f" on {card}")
 
     # bounds from this run's inputs (timed calls above)
     px = W * H
@@ -1718,10 +1874,16 @@ def main():
                                                   "big_ids")))
                      + 22 * px * 4,
                      _walked(k1_in) * 4096 * OPS_WALK_DEPTH + px * OPS_K1_PIXEL)
+    k1l_bound = bound(_nbytes(*(lit_in[k] for k in ("rows", "bins", "counts",
+                                                    "big_ids")))
+                      + 22 * lw * lh * 4,
+                      _walked(lit_in) * 4096 * OPS_WALK_DEPTH + lw * lh * OPS_K1_PIXEL)
     n_lights = int(k2_in["counts"][0]) + int(k2_in["counts"][1])
     k2_bound = bound(_nbytes(k2_in["f32_planes"], k2_in["planes"], k2_in["ao"],
                              k2_in["spotsf"]) + 3 * px * 4,
                      px * (OPS_K2_PIXEL + OPS_K2_LIGHT * n_lights))
+    k2l_bound = bound(_nbytes(k2l_in["f32_planes"], k2l_in["planes"]) + 3 * lw * lh * 4,
+                      lw * lh * (OPS_K2_PIXEL + OPS_K2_LIGHT * n_lights))
     k3_bound = bound(sum(_nbytes(i["rows"], i["bins"], i["counts"], i["big_ids"])
                          + 4 * i["bins"].shape[0] * 4096 for i in k3_in),
                      sum(_walked(i) * 4096 * OPS_WALK_DEPTH for i in k3_in))
@@ -1732,12 +1894,20 @@ def main():
                      px * OPS_EPILOGUE_PIXEL)
     phase(6, "bounds (ms, by): " + "; ".join(
         f"{n} {b[0]:.4f} {b[1]}" for n, b in (
-            ("K1 and K6", k1_bound), ("K2", k2_bound), ("K3 (3 stacks)", k3_bound),
+            ("K1 and K6", k1_bound), ("K1, lit layer", k1l_bound), ("K2", k2_bound),
+            ("K2, lit layer", k2l_bound), ("K3 (3 stacks)", k3_bound),
             ("K4", k4_bound), ("epilogue", ep_bound))))
     st = stress_phases(dev, card, kernels)
     dp = deferred_phases(dev, card, kernels, (cfg, state, inputs, setup, bins, counts,
                                               big_ids, ex, uv, wn, d_t, kp))
     ep = env_phases(dev, card, kernels, bench_expect)
+    if args.versions:
+        versions_phase(args.versions, card, dict(
+            shade_deferred=[("bench", k2_in), ("lit layer", k2l_in),
+                            ("clustered", st["inputs"]["k2c"]),
+                            ("edm", ep["inputs"]["k2e"])],
+            raster_depth=[*zip(STACKS, k3_in), ("stress", st["inputs"]["k3"]),
+                          ("stress, early-z", st["inputs"]["k3z"])]))
 
     loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and m.split(".")[0] in ("jax", "datum_tpu"))
@@ -1748,8 +1918,12 @@ def main():
     # any of these kernels' functions).  launches: each kernel's count in
     # the bench frame's run (K6: in the two-phase bench frame's run);
     # stress_launches: per stress frame with early-z; the stress_* and
-    # early_z_* fields time the kernel on the stress frame's inputs
+    # early_z_* fields time the kernel on the stress frame's inputs; lit_*:
+    # the bench frame's second launch, on the lit layer; ptxas_*: the
+    # source's registers and spill-store bytes.  An earlier design's time
+    # is measured only with --versions (phase 7) and printed there
     t, sb = st["t"], st["b"]
+    ptxas = lambda src: {f"ptxas_{k}": v for k, v in lib.ptxas(src).items()}
 
     def row(name, source, replaces, err, ms, plain_ms, b, n=None, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1763,13 +1937,20 @@ def main():
             "datum_tpu/ops/raster_pallas.py:343", max(k1_err, st["errs"]["k1"]), t_k1,
             t_k1p, k1_bound, stress_ms=t["k1"], stress_plain_ms=t["k1p"],
             stress_bound_ms=sb["k1"][0], early_z_ms=t["k1z"],
-            early_z_bound_ms=sb["k1z"][0]),
+            early_z_bound_ms=sb["k1z"][0], lit_ms=t_k1l, lit_bound_ms=k1l_bound[0],
+            lit_bound_by=k1l_bound[1], device_ms=dev_ms["k1"],
+            lit_device_ms=dev_ms["k1l"], stress_device_ms=t["k1_dev"]),
         row("raster_shade_2p", "datum_tpu_torch/csrc/raster_shade_2p.cu",
             "datum_tpu/ops/raster_pallas.py:454", max(k6_err, st["errs"]["k6"]), t_k6,
             t_k6p, k1_bound, n=launches6["raster_shade_2p"], stress_ms=t["k6"],
-            early_z_ms=t["k6z"]),
+            early_z_ms=t["k6z"], device_ms=dev_ms["k6"]),
         row("shade_deferred", "datum_tpu_torch/csrc/shade.cu",
             "datum_tpu/ops/shade_pallas.py:161", k2_err, t_k2, t_k2p, k2_bound,
+            **ptxas("shade.cu"),
+            lit_ms=t_k2l, lit_plain_ms=t_k2lp, lit_bound_ms=k2l_bound[0],
+            lit_bound_by=k2l_bound[1], lit_max_abs_err=k2_lit_err,
+            device_ms=dev_ms["k2"], lit_device_ms=dev_ms["k2l"],
+            clustered_device_ms=t["k2c_dev"], envd_device_ms=ep["t"]["k2e_dev"],
             clustered_ms=t["k2c"], clustered_plain_ms=t["k2cp"],
             clustered_bound_ms=sb["k2c"][0], clustered_max_abs_err=st["errs"]["k2c"],
             dense128_ms=t["k2d"], dense128_bound_ms=sb["k2d"][0],
@@ -1780,25 +1961,30 @@ def main():
         # the three stacks of one frame together
         row("raster_depth", "datum_tpu_torch/csrc/raster_depth.cu",
             "datum_tpu/ops/raster_pallas.py:730", max(*k3_errs, st["errs"]["k3"]),
-            sum(t_k3), sum(t_k3p), k3_bound, stress_ms=t["k3"],
+            sum(t_k3), sum(t_k3p), k3_bound, **ptxas("raster_depth.cu"), device_ms=sum(dev_ms["k3"]),
+            stack_device_ms=dev_ms["k3"], stress_device_ms=t["k3_dev"],
+            early_z_device_ms=t["k3z_dev"], stress_ms=t["k3"],
             stress_plain_ms=t["k3p"], stress_bound_ms=sb["k3"][0],
             early_z_ms=t["k3z"], early_z_bound_ms=sb["k3z"][0]),
         row("raster_blend", "datum_tpu_torch/csrc/raster_blend.cu",
-            "datum_tpu/ops/raster_pallas.py:877", k4_err, t_k4, t_k4p, k4_bound),
+            "datum_tpu/ops/raster_pallas.py:877", k4_err, t_k4, t_k4p, k4_bound,
+            device_ms=dev_ms["k4"]),
         row("shade_epilogue", "datum_tpu_torch/csrc/shade_epilogue.cu",
-            "datum_tpu/ops/shade_pallas.py:414", epi_err, t_ep, t_epp, ep_bound),
+            "datum_tpu/ops/shade_pallas.py:414", epi_err, t_ep, t_epp, ep_bound,
+            device_ms=dev_ms["ep"]),
         # launches: per K5 (K7) frame of the deferred branch
         dict(name="raster_v1", route="cuda", source="datum_tpu_torch/csrc/raster_v1.cu",
              replaces="datum_tpu/ops/raster_pallas.py:58",
              launches=dp["launches"]["raster_v1"], max_abs_err=dp["errs"]["k5"],
              ms=dp["t"]["k5"], plain_ms=dp["t"]["k5p"], bound_ms=dp["b5"][0],
-             bound_by=dp["b5"][1], library_ms=None, frame_ms=dp["ms"]["k5"]),
+             bound_by=dp["b5"][1], library_ms=None, frame_ms=dp["ms"]["k5"],
+             device_ms=dp["t"]["k5_dev"]),
         dict(name="raster_mxu", route="cuda", source="datum_tpu_torch/csrc/raster_mxu.cu",
              replaces="datum_tpu/ops/raster_pallas.py:1098",
              launches=dp["launches"]["raster_mxu"], max_abs_err=dp["errs"]["k7"],
              ms=dp["t"]["k7"], plain_ms=dp["t"]["k7p"], bound_ms=dp["b7"][0],
              bound_by=dp["b7"][1], library_ms=None, tpu_product_bound_ms=dp["b7_tpu"],
-             frame_ms=dp["ms"]["k7"]),
+             frame_ms=dp["ms"]["k7"], device_ms=dp["t"]["k7_dev"]),
         # launches: a frame runs no gather (the microbenchmark's kernel);
         # benchmark_launches: one counted gather_rows call
         dict(name="gather_rows", route="cuda",
@@ -1807,7 +1993,8 @@ def main():
              max_abs_err=ep["errs"]["gather"], ms=ep["t"]["gather"],
              plain_ms=ep["t"]["gather_plain"], bound_ms=ep["b"]["gather"][0],
              bound_by=ep["b"]["gather"][1], library_ms=ep["t"]["gather_lib"],
-             benchmark_launches=ep["bench_launches"]),
+             benchmark_launches=ep["bench_launches"], device_ms=ep["t"]["gather_dev"],
+             library_device_ms=ep["t"]["gather_lib_dev"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,22 +2,34 @@
 
 The sources under datum_tpu_torch/csrc/ are compiled by `nvcc` into one
 shared library with a plain C interface, at first use, into
-datum_tpu_torch/_build/ (named by a hash of the sources and flags, so
-an edited source rebuilds).  Each source compiles in its own nvcc
-process, all started together; one more nvcc links the objects.  The library is loaded with ctypes;
-pointers and the CUDA stream are passed as c_void_p.  Nothing here runs
-at import time: the CPU tests import every module.
+datum_tpu_torch/_build/ (named by a hash of the sources and of each
+source's flags, so an edited source or flag rebuilds).  Each source
+compiles in its own nvcc process, all started together; one more nvcc
+links the objects.  The library is loaded with ctypes; pointers and the
+CUDA stream are passed as c_void_p.  Nothing here runs at import time:
+the CPU tests import every module.
 
-Flags: sm_90a (Hopper), -O3, and -fmad=false — without it nvcc contracts
+Flags (`nvcc_flags`): sm_90a (Hopper), -O3, -Xptxas -v (registers and
+spill, kept per source in KernelLibrary.logs), and -fmad=false for every
+source but those of FMAD_SOURCES.  Without -fmad=false nvcc contracts
 `a*x + b*y + c` into FMAs, edge and depth values move by an ulp against
-the plain PyTorch versions and edge-pixel winners flip.
+the plain PyTorch versions and edge-pixel winners flip: the rasters (K1,
+K6, K3, K4, K5, K7), the K2 epilogue and the gather are held to their
+plain versions bit for bit and keep it.  K2 (shade.cu) is held within
+atol 1e-4 / rtol 1e-3 and takes -fmad=true: nvcc fuses its shading
+terms' multiply-adds, while its view and light geometry, whose rounding
+the GGX highlight of a smooth surface magnifies, is written with
+__fmul_rn / __fadd_rn, which nvcc never contracts.
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -29,45 +41,77 @@ SOURCES = ("raster_shade.cu", "raster_shade_2p.cu", "shade.cu", "raster_depth.cu
            "raster_blend.cu", "shade_epilogue.cu", "raster_v1.cu", "raster_mxu.cu",
            "gather_rows.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# the flags of every source but those of FMAD_SOURCES
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+FMAD_SOURCES = ("shade.cu",)       # held to a tolerance: nvcc may contract
+
+
+def nvcc_flags(source: str, fmad: bool | None = None) -> tuple:
+    """The nvcc flags of one source (a file name under csrc/); fmad
+    overrides FMAD_SOURCES (for builds of other versions of a source)."""
+    if fmad is None:
+        fmad = source in FMAD_SOURCES
+    return tuple("-fmad=true" if f == "-fmad=false" and fmad else f for f in NVCC_FLAGS)
+
+
+def compile_commands(nvcc: str, sources, objects, fmad: bool | None = None) -> list:
+    """One nvcc command line per source: compile it to its object (fmad:
+    as in nvcc_flags)."""
+    return [[nvcc, *nvcc_flags(Path(s).name, fmad), "-c", "-o", str(o), str(s)]
+            for s, o in zip(sources, objects)]
+
+
+def library_path(sources=None) -> Path:
+    """Where the build of these sources (default SOURCES) lands: named by
+    a hash of every source's flags and bytes."""
+    h = hashlib.sha256()
+    for s in (sources or [CSRC / n for n in SOURCES]):
+        h.update(" ".join(nvcc_flags(Path(s).name)).encode())
+        h.update(Path(s).read_bytes())
+    return BUILD_DIR / f"libdatum_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+# argtypes of every C entry point, by name (p: pointer, i: int, f: float,
+# L: long long)
+_SIGNATURES = dict(
+    raster_shade_launch="ppppppiiiiffiipp",
+    raster_shade_2p_launch="ppppppiiiiffiipp",
+    raster_shade_2p_smem_bytes="ii",
+    shade_smem_bytes="iiii",
+    shade_launch="ppiiippippipipipppiiiffpp",
+    raster_depth_launch="pppppiiiiffipp",
+    raster_blend_launch="ppppppiiiiiffipp",
+    shade_epilogue_launch="pppppiipp",
+    raster_v1_launch="ppppiiiiffipp",
+    raster_mxu_launch="ppppiiiiffipp",
+    gather_rows_launch="ppLipp",
+)
 
 
 class KernelLibrary:
-    """The loaded shared library plus what its build reported."""
+    """The loaded shared library plus what its build reported: logs maps
+    each source's name to nvcc's output for it."""
 
-    def __init__(self, path: Path, build_log: str):
+    def __init__(self, path: Path, logs: dict):
         self.path = path
-        self.build_log = build_log
+        self.logs = logs
         self.lib = ctypes.CDLL(str(path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.raster_shade_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f,
-                                                 i, i, p, p]
-        self.lib.raster_shade_launch.restype = i
-        self.lib.raster_shade_2p_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, f,
-                                                    f, i, i, p, p]
-        self.lib.raster_shade_2p_launch.restype = i
-        self.lib.raster_shade_2p_smem_bytes.argtypes = [i, i]
-        self.lib.raster_shade_2p_smem_bytes.restype = i
-        self.lib.shade_smem_bytes.argtypes = [i, i, i, i]
-        self.lib.shade_smem_bytes.restype = i
-        self.lib.shade_launch.argtypes = [p, p, i, i, i, p, p, i, p, p, i, p, i, p,
-                                          i, p, i, p, p, i, i, i, f, f, p, p]
-        self.lib.shade_launch.restype = i
-        self.lib.raster_depth_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, f,
-                                                 i, p, p]
-        self.lib.raster_depth_launch.restype = i
-        self.lib.raster_blend_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                                 f, f, i, p, p]
-        self.lib.raster_blend_launch.restype = i
-        self.lib.shade_epilogue_launch.argtypes = [p, p, p, p, p, i, i, p, p]
-        self.lib.shade_epilogue_launch.restype = i
-        self.lib.raster_v1_launch.argtypes = [p, p, p, p, i, i, i, i, f, f, i, p, p]
-        self.lib.raster_v1_launch.restype = i
-        self.lib.raster_mxu_launch.argtypes = [p, p, p, p, i, i, i, i, f, f, i, p, p]
-        self.lib.raster_mxu_launch.restype = i
-        self.lib.gather_rows_launch.argtypes = [p, p, ctypes.c_longlong, i, p, p]
-        self.lib.gather_rows_launch.restype = i
+        types = dict(p=ctypes.c_void_p, i=ctypes.c_int, f=ctypes.c_float,
+                     L=ctypes.c_longlong)
+        for name, sig in _SIGNATURES.items():
+            fn = getattr(self.lib, name, None)      # a library of one source
+            if fn is not None:
+                fn.argtypes = [types[c] for c in sig]
+                fn.restype = ctypes.c_int
+
+    def ptxas(self, source: str) -> dict:
+        """What ptxas reported for the kernels of one source: the most
+        registers and spill-store bytes over its entry functions."""
+        log = self.logs.get(source, "")
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+        spill = [int(v) for v in re.findall(r"(\d+) bytes spill stores", log)]
+        return dict(registers=max(regs, default=None), spill_bytes=max(spill, default=None))
 
 
 def _nvcc() -> str:
@@ -80,36 +124,48 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
-def _build() -> KernelLibrary:
-    srcs = [CSRC / s for s in SOURCES]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.read_bytes())
-    out = BUILD_DIR / f"libdatum_tpu_torch_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return KernelLibrary(out, "(cached build)")
+def _compile(sources, out: Path, commands) -> dict:
+    """Run the compile commands together, link their objects into out;
+    returns nvcc's output per source name."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = _nvcc(), f"{h.hexdigest()[:16]}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-             for s, o in zip(srcs, objs)]
-    logs = [p.communicate()[0] for p in procs]
-    log = "\n".join(logs)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in commands]
+    logs = {Path(s).name: p.communicate()[0] for s, p in zip(sources, procs)}
     if any(p.returncode for p in procs):
         raise RuntimeError(f"nvcc failed ({[p.returncode for p in procs]}):\n"
-                           f"{log}")
+                           + "\n".join(logs.values()))
+    objs = [c[c.index("-o") + 1] for c in commands]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
-                          *map(str, objs)], capture_output=True, text=True)
+    res = subprocess.run([commands[0][0], *ARCH, "-shared", "-o", str(tmp), *objs],
+                         capture_output=True, text=True)
     for o in objs:
-        o.unlink()
+        Path(o).unlink()
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{res.stdout}\n{res.stderr}")
+    out.with_suffix(".log.json").write_text(json.dumps(logs))
     os.replace(tmp, out)
-    return KernelLibrary(out, log)
+    return logs
+
+
+def _build() -> KernelLibrary:
+    srcs = [CSRC / s for s in SOURCES]
+    out = library_path(srcs)
+    if out.exists():
+        return KernelLibrary(out, json.loads(out.with_suffix(".log.json").read_text()))
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    return KernelLibrary(out, _compile(srcs, out, compile_commands(_nvcc(), srcs, objs)))
+
+
+def build_version(source: Path, fmad: bool, name: str) -> KernelLibrary:
+    """Another version of one kernel source (its own library, binding the
+    entry points it defines), built with -fmad=true or false: for timing
+    versions of a kernel side by side (chip_smoke.py --versions)."""
+    out = BUILD_DIR / "versions" / f"{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    return KernelLibrary(out, _compile([source], out, compile_commands(
+        _nvcc(), [source], [out.with_suffix(".o")], fmad)))
 
 
 _LIBRARY: KernelLibrary | None = None
@@ -121,6 +177,35 @@ def library() -> KernelLibrary:
     if _LIBRARY is None:
         _LIBRARY = _build()
     return _LIBRARY
+
+
+class using:
+    """Launch the entry points a version's library defines from it while
+    the with-block runs (the others from the main library)."""
+
+    def __init__(self, version: KernelLibrary):
+        self.version = version
+
+    def __enter__(self):
+        global _LIBRARY
+        self.main = library()
+        _LIBRARY = copy.copy(self.main)
+        _LIBRARY.lib = _Merged(self.version.lib, self.main.lib)
+
+    def __exit__(self, *exc):
+        global _LIBRARY
+        _LIBRARY = self.main
+
+
+class _Merged:
+    """Entry points of one library, falling back to another's."""
+
+    def __init__(self, first, second):
+        self._first, self._second = first, second
+
+    def __getattr__(self, name):
+        fn = getattr(self._first, name, None)
+        return fn if fn is not None else getattr(self._second, name)
 
 
 def check(code: int, what: str):

@@ -18,12 +18,20 @@ version.  The TPU lane packing (DEPTH_PACK, DEPTH_TILES_PER_STEP) moves no
 value and is not carried over.  With early_z the kernel takes the
 early-z bounds `szb` (ops/raster_cuda.early_z_bounds) and ends its walk
 early (the same depths); the plain version walks every entry.
+
+The kernel splits each tile's walk over a cluster of 8 blocks (4 on a
+stack of at least twice as many tiles as the card has SMs) and combines
+their partial maps by a max, and each warp skips the entries
+that `warp_rect_reject` (its plain twin here, with the same arithmetic)
+finds cannot pass on the warp's 32 x 16 rectangle; neither moves a
+value (csrc/raster_depth.cu derives the reject's margin).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -32,6 +40,9 @@ from .raster import _untile
 from .raster_cuda import _entry_ids, _ndc_scale, _plane, early_z_bounds
 
 ROW = 16              # floats per triangle row (the setup's row16)
+WARP_W, WARP_H = 32, 16          # a K3 warp's rectangle: columns x rows
+REJECT_REL = 2.0 ** -21          # the reject margin: fl(S) * 8u + 1e-36
+REJECT_ABS = float(np.float32(1e-36))
 
 
 def raster_depth_reference(rows, bins, counts, big_ids, tiles_x, width, height,
@@ -64,6 +75,39 @@ def raster_depth_reference(rows, bins, counts, big_ids, tiles_x, width, height,
         d = _plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
         depth = torch.where(inside & (d > depth) & (d <= 1.0), d, depth)
     return _untile(depth, tiles_x, n_tiles // tiles_x)
+
+
+def warp_rects(tiles_x, n_tiles, width, height, device="cpu"):
+    """The K3 warps' rectangles: (x0, x1, y0, y1), each (n_tiles, 8) f32,
+    the first and last column's xn and the first and last row's yn of
+    warp w = 4 * (row band) + (column band) of each tile, computed as the
+    kernel computes its pixel centres."""
+    tile = torch.arange(n_tiles, device=device)
+    w = torch.arange(TILE_H * TILE_W // (WARP_W * WARP_H), device=device)
+    col0 = ((tile % tiles_x) * TILE_W)[:, None] + (w % 4 * WARP_W)[None, :]
+    row0 = ((tile // tiles_x) * TILE_H)[:, None] + (w // 4 * WARP_H)[None, :]
+    ndc = lambda pix, scale: (pix.to(torch.float32) + 0.5) * scale - 1.0
+    cx, cy = _ndc_scale(width), _ndc_scale(height)
+    return (ndc(col0, cx), ndc(col0 + WARP_W - 1, cx),
+            ndc(row0, cy), ndc(row0 + WARP_H - 1, cy))
+
+
+def warp_rect_reject(r, x0, x1, y0, y1):
+    """Plain twin of K3's warp-rectangle reject, with the kernel's
+    arithmetic: True where entry row r (..., 16) passes at no pixel of
+    the rectangle [x0, x1] x [y0, y1] (f32, broadcast against r[..., 0]):
+    its y scissor misses the rows, or an edge's value at the rectangle's
+    corner where the exact plane is largest, plus the margin
+    fl(|a| mx + |b| my + |c|) * 8 * 2^-24 + 1e-36, is below 0."""
+    out = (y1 < r[..., 14]) | (y0 >= r[..., 15])
+    mx = torch.maximum(x0.abs(), x1.abs())
+    my = torch.maximum(y0.abs(), y1.abs())
+    for k in range(3):
+        a, b, c = r[..., 3 * k], r[..., 3 * k + 1], r[..., 3 * k + 2]
+        margin = (a.abs() * mx + b.abs() * my + c.abs()) * REJECT_REL + REJECT_ABS
+        corner = _plane(a, b, c, torch.where(a > 0, x1, x0), torch.where(b > 0, y1, y0))
+        out = out | (corner + margin < 0)
+    return out
 
 
 def raster_depth_cuda(rows, bins, counts, big_ids, tiles_x, width, height,

@@ -511,7 +511,7 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
         ptr(f32_planes), ptr(planes), int(has_sky), int(envd), n_trk, ptr(ao),
         ptr(spotsf), n_maps,
         ptr(params), ptr(lights), lights.shape[0], ptr(spots), spots.shape[0],
-        ptr(probes), probes.shape[0], ptr(counts), POINT_CHUNK, ptr(cl_lists),
+        ptr(probes), probes.shape[0], ptr(counts), ptr(cl_lists),
         ptr(cl_counts), cap, H, W, float(np.float32(2.0 / W)),
         float(np.float32(2.0 / H)), ptr(out), vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "shade_deferred")

@@ -743,3 +743,161 @@ def test_local_env_frame_on_card_matches_cpu_plain(card, extra):
     assert np.abs(ia - ib).mean() <= 0.5
     assert np.sqrt(((ia - ib) ** 2).mean()) <= 2.0
     assert int(a["bin_overflow"]) == int(b["bin_overflow"]) == 0
+
+
+# ---- K3's cluster split and warp-rectangle reject, K2's two-pixel
+# persistent layout: the shapes where they could go wrong
+
+def _random_stack(card, seed, n_tris, w, h, cap, big_cap, size=0.08, bands=0,
+                  spread=1.0):
+    """K3 inputs of n_tris small random triangles (clip w = 1, and a tenth
+    in perspective) centred in [-spread, spread]^2 on a w x h stack, binned
+    at cap + big_cap; with bands > 0 each triangle carries the y scissor
+    of one of that many bands.  Returns (inputs, inputs with early-z,
+    counts)."""
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(-spread, spread, (n_tris, 1, 2)).astype(np.float32)
+    xy = c + rng.uniform(-size, size, (n_tris, 3, 2)).astype(np.float32)
+    z = rng.uniform(0.05, 0.95, (n_tris, 3, 1)).astype(np.float32)
+    wv = np.where(rng.rand(n_tris, 1, 1) < 0.1,
+                  rng.uniform(0.5, 2.0, (n_tris, 3, 1)), 1.0).astype(np.float32)
+    clip = np.concatenate([xy * wv, z * wv, wv], -1).reshape(-1, 4)
+    tris = torch.arange(3 * n_tris, dtype=torch.int32, device=card).reshape(-1, 3)
+    tx, ty = w // 128, h // 32
+    ylim = None
+    if bands:
+        band = torch.arange(n_tris, device=card) % bands
+        lo = -1.0 + band.to(torch.float32) * (2.0 / bands)
+        ylim = (lo, lo + 2.0 / bands)
+    setup = raster_ops.triangle_setup(torch.from_numpy(clip).to(card), tris, w, h, tx,
+                                      ty, ylim=ylim)
+    bins, counts, big = raster_ops.bin_triangles(setup, n_tris, tx, ty, cap, big_cap)
+    return (depth_inputs(setup, bins, big, counts, tx, w, h),
+            depth_inputs(setup, bins, big, counts, tx, w, h, early_z=True), counts)
+
+
+def _k3_bit_identical(inp, inpz):
+    before = raster_depth_cuda.launches
+    k, kz, r = raster_depth_cuda(**inp), raster_depth_cuda(**inpz), raster_depth_reference(**inp)
+    torch.cuda.synchronize()
+    assert raster_depth_cuda.launches == before + 2
+    assert (r > 0).float().mean().item() > 0.05
+    assert torch.equal(k, r) and torch.equal(kz, r)
+
+
+@pytest.mark.parametrize("size", [(256, 64), (1024, 2048)], ids=["4-tiles", "512-tiles"])
+def test_k3_full_bins_bit_identical(card, size):
+    """Tiles whose bins hold their full 128 entries (the bench cascades'
+    busiest tiles): every 8th slot to each block of the cluster (every
+    4th on a stack of 512 tiles, twice the SMs), the blocks' partial maps
+    combined by the max; early-z off and on."""
+    w, h = size
+    inp, inpz, counts = _random_stack(card, 11, 900 if w == 256 else 8000, w, h, 128,
+                                      64, spread=1.0 if w == 256 else 0.3)
+    assert int((counts == 128).sum()) >= 2
+    _k3_bit_identical(inp, inpz)
+
+
+def test_k3_deep_bins_bit_identical(card):
+    """The stress stack's bin depth (1024 + 128): each block walks ~144
+    slots in three chunks; early-z off and on."""
+    inp, inpz, counts = _random_stack(card, 12, 3000, 256, 64, 1024, 128, size=0.12)
+    assert int(counts.max()) > 512
+    _k3_bit_identical(inp, inpz)
+
+
+def test_k3_one_tile_wide_stack_bit_identical(card):
+    """A stack one tile wide (128 columns, 8 tiles tall) with a y scissor
+    band a triangle, as a stacked atlas gives them."""
+    inp, inpz, _ = _random_stack(card, 13, 400, 128, 256, 128, 16, size=0.2, bands=4)
+    assert inp["tiles_x"] == 1
+    _k3_bit_identical(inp, inpz)
+
+
+def _k2_frame_inputs(card, scene, **kw):
+    """K2's inputs of a frame's opaque layer (random sky planes, ao and a
+    spot factor plane where kw asks for them)."""
+    ctx, state, draws, ss = _frame(card, scene=scene)
+    cfg = ctx.config
+    d, s = to_torch(draws, card), to_torch(ss, card)
+    ex, uv, clip, wn, wt, _ = frame_mod._vertex_stage(cfg, state, d, s)
+    planes, _ = frame_mod._raster_stage(cfg, state, d, ex, uv, clip, wn, wt)
+    gpl, ss2, *_ = frame_mod._shade_inputs(cfg, planes, state, d, s,
+                                           dict(sun=None, spot=None))
+    return cfg, planes, gpl, ss2, s
+
+
+def _k2_matches_plain(k2):
+    before = shade_deferred_cuda.launches
+    a = shade_deferred_cuda(**k2)
+    b = shade_deferred_reference(**k2)
+    torch.cuda.synchronize()
+    assert shade_deferred_cuda.launches == before + 1
+    assert torch.isfinite(a).all()
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+    return a
+
+
+def test_k2_at_the_lit_layer_size(card):
+    """K2 at the bench lit layer's 1024x544: 34 bands x 8 sub-tiles x 4
+    units of 4 rows x 128 columns, which the persistent grid's blocks,
+    each taking every gridDim-th unit, do not share out evenly."""
+    _, _, gpl, ss2, s = _k2_frame_inputs(card, dict(SLICE, width=1024, height=544))
+    assert tuple(gpl["depth"].shape) == (544, 1024)
+    _k2_matches_plain(shade_inputs(gpl, ss2, proj=s["proj"], invview=s["invview"]))
+
+
+@pytest.mark.parametrize("size", [(75, 300), (75, 301), (9, 2), (1, 1)],
+                         ids=["75x300", "75x301-odd", "9x2", "1x1"])
+def test_k2_off_its_pixel_footprint(card, size):
+    """Sizes that are no multiple of K2's unit (4 rows x 128 columns, two
+    pixels a thread), odd widths among them (scalar loads): random planes
+    with the slice scene's lights, a sky, ao and a spot factor plane."""
+    from datum_tpu_torch.ops.shade_cuda import BF16_NAMES, SKY_NAMES
+
+    _, _, gpl0, ss2, s = _k2_frame_inputs(card, SLICE)
+    h, w = size
+    g = torch.Generator(device="cpu").manual_seed(h * 1000 + w)
+    rnd = lambda lo, hi: (lo + (hi - lo) * torch.rand((h, w), generator=g)).to(card)
+    gpl = {n: rnd(0.0, 1.0) for n in BF16_NAMES + SKY_NAMES}
+    gpl.update(nx=rnd(-1, 1), ny=rnd(-1, 1), nz=rnd(-1, 1), depth=rnd(0.2, 0.99),
+               visf=rnd(-0.5, 1.0))
+    k2 = shade_inputs(gpl, ss2, proj=s["proj"], invview=s["invview"], ao=rnd(0, 1),
+                      spotsf=rnd(0, 1)[None])
+    out = _k2_matches_plain(k2)
+    assert tuple(out.shape) == (3, h, w)
+
+
+def test_k2_counts_above_the_tables_rows(card):
+    """Live counts above the light and spot tables' rows: the kernel adds
+    the last row again for each count past it, as the plain version reads
+    lights[min(i, L - 1)] and spots[min(m, S - 1)] (a spot factor plane
+    on the first slot; a cutoff of -2 opens every cone)."""
+    _, _, gpl, ss2, s = _k2_frame_inputs(card, SLICE)
+    h, w = gpl["depth"].shape
+    g = torch.Generator(device="cpu").manual_seed(5)
+    k2 = shade_inputs(gpl, ss2, proj=s["proj"], invview=s["invview"],
+                      spotsf=torch.rand((1, h, w), generator=g).to(card))
+    lights = k2["lights"][:3].contiguous()
+    spots = torch.zeros((2, 16), dtype=torch.float32, device=card)
+    spots[:, :10] = k2["lights"][3:5, :10]
+    spots[:, 10:13] = torch.tensor([0.0, -1.0, 0.0])
+    spots[:, 13] = -2.0
+    counts = torch.tensor([8, 4, 0, int(k2["counts"][3])], dtype=torch.int32,
+                          device=card)
+    k2.update(lights=lights, spots=spots, counts=counts)
+    _k2_matches_plain(k2)
+
+
+def test_k2_edm_with_clusters(card):
+    """The probe frame's planes with the edm group, 4 SH probes and the
+    clustered lights' lists (lists of 4: some cells truncate)."""
+    cfg, planes, gpl, ss2, s = _k2_frame_inputs(card, LOCAL_ENV)
+    ccfg = dataclasses.replace(cfg, use_light_clusters=True, tile_light_capacity=4)
+    clusters = frame_mod.light_clusters(ccfg, planes["depth"], s)
+    assert clusters[1].max() > 0
+    k2 = shade_inputs(gpl, ss2, proj=s["proj"], invview=s["invview"], clusters=clusters)
+    assert k2["envd"] and int(k2["counts"][3]) == 4
+    n = shade_deferred_envd.launches
+    _k2_matches_plain(k2)
+    assert shade_deferred_envd.launches == n + 1
