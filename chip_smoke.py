@@ -81,8 +81,8 @@ and exits non-zero:
    CPU plain path; ms/frame, a profiler window, the stages of the probe
    fields, the fog planes and the SSRs, K2 with and without the group,
    the gather against tab[idx], and their bounds;
-7. with --versions FILE, other versions of K2's and K3's sources built
-   alone and timed beside this build's on the same inputs (see
+7. with --versions FILE, other versions of K1's, K2's, K3's and K4's
+   sources built alone and timed beside this build's on the same inputs (see
    versions_phase); then print the kernels' JSON line (9 rows), then the
    device JSON line last, after the script's wall time.
 
@@ -132,9 +132,6 @@ SMALL = dict(SCENE, sphere_detail=8, grid=(4, 3), max_vertices=2048,
              skybox_size=32, shadow_res=256, shadow_far_res=128,
              shadow_bin_capacity=1024, spot_shadow_res=128,
              forward_bin_capacity=256)
-K1_INTERP = ("u", "v", "nx", "ny", "nz", "tanx", "tany", "tanz")
-K1_EXACT = ("cr", "cg", "cb", "em", "met", "rgh", "rfl", "alb", "mbase",
-            "msize", "tanw", "absorb")
 STACKS = ("near cascades", "far cascades", "spot")
 # the dense stress frame (profiling/bench_stress.py::run_dense at its
 # default DATUM_STRESS_CAP=1024): stress_scene's 256^2-cell geomorphed
@@ -440,36 +437,19 @@ def bound(nbytes, nops):
 
 
 def check_k1(kp, rp, what):
-    """K1 vs plain: visf identical on >= 99.9%, depth atol 1e-6,
-    interpolated planes atol/rtol 1e-4, per-triangle planes exact.
-    Returns (visf agreement, max abs err over all planes)."""
+    """K1 vs plain: all 22 planes bit-identical on every pixel.  Returns
+    the max abs error (0)."""
     import torch
 
     from datum_tpu_torch.ops.raster_cuda import PLANE_NAMES
 
-    kp, rp = dict(zip(PLANE_NAMES, kp)), dict(zip(PLANE_NAMES, rp))
-    same = kp["visf"] == rp["visf"]
-    vis_agree = same.float().mean().item()
-    depth_err = (kp["depth"] - rp["depth"])[same].abs().max().item()
-    interp_err = max((kp[n] - rp[n])[same].abs().max().item() for n in K1_INTERP)
-    exact_bad = sum(int((kp[n] != rp[n])[same].sum()) for n in K1_EXACT)
-    for n in K1_INTERP:
-        if not torch.allclose(kp[n][same], rp[n][same], atol=1e-4, rtol=1e-4):
-            raise RuntimeError(f"K1 ({what}) plane {n} differs beyond atol/rtol 1e-4")
-    if vis_agree < 0.999 or depth_err > 1e-6 or exact_bad:
-        raise RuntimeError(f"K1 ({what}) vs plain: visf agreement {vis_agree}, "
-                           f"depth err {depth_err}, {exact_bad} per-triangle "
-                           "values differ")
-    covered = (kp["visf"] >= 0).float().mean().item()
-    bit_same = sum(int((kp[n] == rp[n]).sum()) for n in PLANE_NAMES) / (
-        len(PLANE_NAMES) * kp["visf"].numel())
-    phase(4, f"K1 vs plain, {what} ({tuple(kp['visf'].shape)}): visf identical on "
-             f"{vis_agree:.6f} of pixels (covered {covered:.3f}), all planes "
-             f"bit-identical on {bit_same:.6f}, depth max err {depth_err:.3g} "
-             f"(atol 1e-6), interpolated max err {interp_err:.3g} (atol/rtol "
-             f"1e-4), per-triangle planes exact")
-    k1_err = max((kp[n] - rp[n])[same].abs().max().item() for n in PLANE_NAMES)
-    return vis_agree, k1_err
+    if not torch.equal(kp, rp):
+        same = (kp == rp).float().mean().item()
+        raise RuntimeError(f"K1 ({what}) vs plain: bit-identical on {same} of values")
+    covered = (kp[1] >= 0).float().mean().item()
+    phase(4, f"K1 vs plain, {what} ({tuple(kp.shape[1:])}): all {len(PLANE_NAMES)} planes "
+             f"bit-identical on every pixel (covered {covered:.3f})")
+    return 0.0
 
 
 def check_same(k, r, what, extra=""):
@@ -638,7 +618,7 @@ def stress_phases(dev, card, kernels):
     pr = raster_shade_reference(**k1_in)
     torch.cuda.synchronize()
     require_equal(pz, pk, "K1 with early-z vs without (stress opaque layer)")
-    _, k1_err = check_k1(pz, pr, "stress opaque layer, early-z")
+    k1_err = check_k1(pz, pr, "stress opaque layer, early-z")
     phase("4s", f"K1 with early-z vs without: all 22 planes bit-identical on every "
                 f"pixel; vs plain: {(pz == pr).float().mean().item():.6f} of values "
                 "bit-identical")
@@ -759,6 +739,8 @@ def stress_phases(dev, card, kernels):
              k2d=cuda_ms(lambda: shade_deferred_cuda(**k2d_in), 20),
              k2cp=cuda_ms(lambda: shade_deferred_reference(**k2c_in), 1),
              k1_dev=device_ms(lambda: raster_shade_cuda(**k1_in)),
+             k1z_dev=device_ms(lambda: raster_shade_cuda(**k1z_in)),
+             k6_dev=device_ms(lambda: raster_shade_2p_cuda(**k1_in)),
              k3_dev=device_ms(lambda: raster_depth_cuda(**k3_in)),
              k3z_dev=device_ms(lambda: raster_depth_cuda(**k3z_in)),
              k2c_dev=device_ms(lambda: shade_deferred_cuda(**k2c_in)))
@@ -785,7 +767,8 @@ def stress_phases(dev, card, kernels):
                 f"{t['k2c']:.3f} ms, dense {t['k2d']:.3f} ms (128 lights), clustered "
                 f"plain {t['k2cp']:.3f} ms; gather tab[idx] (16384x16 f32, 524288 rows) "
                 f"{t['gather']:.4f} ms; device time a call (device_ms): K1 "
-                f"{t['k1_dev']:.4f} ms, K3 {t['k3_dev']:.4f} ms, with early-z "
+                f"{t['k1_dev']:.4f} ms, with early-z {t['k1z_dev']:.4f} ms, K6 "
+                f"{t['k6_dev']:.4f} ms, K3 {t['k3_dev']:.4f} ms, with early-z "
                 f"{t['k3z_dev']:.4f} ms, K2 clustered {t['k2c_dev']:.4f} ms on {card}")
 
     px = cfg.padded_width * cfg.padded_height
@@ -836,7 +819,7 @@ def stress_phases(dev, card, kernels):
                 "it, nearest first): " + "; ".join(walks))
     return dict(t=t, b=b, launches=pfz[0], errs=dict(k1=k1_err, k6=k6_err, k3=k3_err,
                                                      k2c=k2c_err),
-                inputs=dict(k2c=k2c_in, k3=k3_in, k3z=k3z_in))
+                inputs=dict(k1=k1_in, k1z=k1z_in, k2c=k2c_in, k3=k3_in, k3z=k3z_in))
 
 
 def read_png_rgb(path):
@@ -1386,35 +1369,57 @@ def env_phases(dev, card, kernels, bench_expect):
 
 
 def versions_phase(path, card, sets):
-    """--versions FILE: other versions of K2's and K3's sources, timed
-    beside this build's on the same inputs.  FILE is a JSON list of
-    {"name", "kernel": "shade_deferred" | "raster_depth", "source" (relative
-    to FILE), "fmad": true | false}.  Each version is built alone
-    (ptxas registers and spill printed), checked against the plain
-    version as the kernel is held (K2 atol 1e-4 / rtol 1e-3, K3 bit for
-    bit: printed, not raised, so that a version's error is measured) and
-    timed in turns, the versions in order and then in reverse, the mean of
-    the two.  sets: per kernel, [(name, inputs)].  Informational: it is
-    how a kernel's redesign is timed step by step against the earlier
-    design in one call on one card (PERF.md section 6's K2 and K3
-    tables), kept for the redesigns still queued (K1 next, ROADMAP).
-    The default run builds and launches none of it."""
+    """--versions FILE: other versions of K1's, K2's, K3's and K4's
+    sources, timed beside this build's on the same inputs.  FILE is a
+    JSON list of {"name", "kernel": "raster_shade" | "shade_deferred" |
+    "raster_depth" | "raster_blend", "source" (relative to FILE), "fmad":
+    true | false}; a kernel no version names is skipped.  Each version is
+    built alone (ptxas registers and spill printed), checked against the
+    plain version as the kernel is held (K1 and K3 bit for bit, K2 atol
+    1e-4 / rtol 1e-3, K4 as check_same) and against this build's output
+    bit for bit (printed, not raised, so that a version's error is
+    measured), and timed in turns, the versions in order and then in
+    reverse, the mean of the two.  sets: per kernel, [(name, inputs)].
+    Informational: it is how a kernel's redesign is timed step by step
+    against the earlier design in one call on one card (PERF.md section
+    6's step tables).  The default run builds and launches none of it."""
     import contextlib
     from pathlib import Path
 
     import torch
 
     from datum_tpu_torch.ops import _kernels
+    from datum_tpu_torch.ops.raster_blend_cuda import (raster_blend_cuda,
+                                                       raster_blend_reference)
+    from datum_tpu_torch.ops.raster_cuda import raster_shade_cuda, raster_shade_reference
     from datum_tpu_torch.ops.raster_depth_cuda import (raster_depth_cuda,
                                                        raster_depth_reference)
     from datum_tpu_torch.ops.shade_cuda import shade_deferred_cuda, shade_deferred_reference
 
+    def close(out, plain, kernel):
+        if kernel == "shade_deferred":
+            return torch.allclose(out, plain, atol=1e-4, rtol=1e-3)
+        if kernel == "raster_blend":
+            return bool(torch.isfinite(out).all()) and (
+                (out == plain).float().mean().item() >= 0.9999
+                and torch.allclose(out, plain, atol=1e-5, rtol=1e-5))
+        return torch.equal(out, plain)
+
+    bits = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
     base = os.path.dirname(os.path.abspath(path))
     with open(path) as f:
         spec = json.load(f)
-    runs = dict(shade_deferred=(shade_deferred_cuda, shade_deferred_reference, "shade.cu"),
-                raster_depth=(raster_depth_cuda, raster_depth_reference, "raster_depth.cu"))
-    for kernel, (run, ref, src) in runs.items():
+    runs = dict(raster_shade=(raster_shade_cuda, raster_shade_reference, "raster_shade.cu",
+                              "bit-identity"),
+                shade_deferred=(shade_deferred_cuda, shade_deferred_reference, "shade.cu",
+                                "atol 1e-4 / rtol 1e-3"),
+                raster_depth=(raster_depth_cuda, raster_depth_reference, "raster_depth.cu",
+                              "bit-identity"),
+                raster_blend=(raster_blend_cuda, raster_blend_reference, "raster_blend.cu",
+                              "check_same"))
+    for kernel, (run, ref, src, held) in runs.items():
+        if not any(v["kernel"] == kernel for v in spec):
+            continue
         versions = [("this build", None)] + [
             (v["name"], _kernels.build_version(Path(base, v["source"]), v["fmad"],
                                                v["name"]))
@@ -1423,6 +1428,7 @@ def versions_phase(path, card, sets):
             rep = lib.ptxas(*lib.logs) if lib else _kernels.library().ptxas(src)
             phase(7, f"{kernel} version {name}: ptxas {rep}")
         plains = {n: ref(**inp) for n, inp in sets[kernel]}
+        built = {n: run(**inp) for n, inp in sets[kernel]}
         ms = {(v, n): [] for v, _ in versions for n, _ in sets[kernel]}
         for order in (versions, versions[::-1]):
             for name, lib in order:
@@ -1431,19 +1437,19 @@ def versions_phase(path, card, sets):
                         out = run(**inp)
                         torch.cuda.synchronize()
                         err = (out - plains[n]).abs().max().item()
-                        ok = (torch.equal(out, plains[n]) if kernel == "raster_depth"
-                              else torch.allclose(out, plains[n], atol=1e-4, rtol=1e-3))
                         ms[name, n].append((device_ms(lambda: run(**inp)),
-                                            cuda_ms(lambda: run(**inp), 20), err, ok))
+                                            cuda_ms(lambda: run(**inp), 20), err,
+                                            close(out, plains[n], kernel),
+                                            bits(out, built[n])))
         for name, _ in versions:
             phase(7, f"{kernel} version {name} on {card}: device ms a call (CUDA-event "
                      "ms a call), mean of the two turns: " + "; ".join(
-                f"{n} {statistics.mean(d for d, _, _, _ in ms[name, n]):.4f} "
-                f"({', '.join(f'{d:.4f}' for d, _, _, _ in ms[name, n])}; "
-                f"{statistics.mean(m for _, m, _, _ in ms[name, n]):.4f}), max abs err "
+                f"{n} {statistics.mean(r[0] for r in ms[name, n]):.4f} "
+                f"({', '.join(f'{r[0]:.4f}' for r in ms[name, n])}; "
+                f"{statistics.mean(r[1] for r in ms[name, n]):.4f}), max abs err "
                 f"{ms[name, n][0][2]:.3g}, {'within' if ms[name, n][0][3] else 'BEYOND'} "
-                f"{'bit-identity' if kernel == 'raster_depth' else 'atol 1e-4 / rtol 1e-3'}"
-                for n, _ in sets[kernel]))
+                f"{held}, {'the same bits as' if ms[name, n][0][4] else 'OTHER BITS than'} "
+                "this build" for n, _ in sets[kernel]))
 
 
 def main():
@@ -1453,8 +1459,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--versions", metavar="FILE",
-                    help="also time other versions of K2's and K3's sources "
-                         "(see versions_phase)")
+                    help="also time other versions of K1's, K2's, K3's and K4's "
+                         "sources (see versions_phase)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1586,7 +1592,7 @@ def main():
     pk = raster_shade_cuda(**k1_in)
     pr = raster_shade_reference(**k1_in)
     torch.cuda.synchronize()
-    _, k1_err = check_k1(pk, pr, "opaque layer")
+    k1_err = check_k1(pk, pr, "opaque layer")
     kp = dict(zip(PLANE_NAMES, pk))
     k6_err = check_k6(raster_shade_2p_cuda(**k1_in), raster_shade_2p_reference(**k1_in),
                       pk, "opaque layer")
@@ -1599,7 +1605,7 @@ def main():
     lk = raster_shade_cuda(**lit_in)
     lr = raster_shade_reference(**lit_in)
     torch.cuda.synchronize()
-    _, k1_lit_err = check_k1(lk, lr, "lit layer, alpha_in_alb")
+    k1_lit_err = check_k1(lk, lr, "lit layer, alpha_in_alb")
     k1_err = max(k1_err, k1_lit_err)
     k6_err = max(k6_err, check_k6(raster_shade_2p_cuda(**lit_in),
                                   raster_shade_2p_reference(**lit_in), lk,
@@ -1698,7 +1704,7 @@ def main():
     pk2 = raster_shade_cuda(**peel_in)
     pr2 = raster_shade_reference(**peel_in)
     torch.cuda.synchronize()
-    _, k1_peel_err = check_k1(pk2, pr2, "lit layer 2, peel_depth")
+    k1_peel_err = check_k1(pk2, pr2, "lit layer 2, peel_depth")
     k1_err = max(k1_err, k1_peel_err)
     k6_err = max(k6_err, check_k6(raster_shade_2p_cuda(**peel_in),
                                   raster_shade_2p_reference(**peel_in), pk2,
@@ -1903,6 +1909,12 @@ def main():
     ep = env_phases(dev, card, kernels, bench_expect)
     if args.versions:
         versions_phase(args.versions, card, dict(
+            raster_shade=[("bench opaque", k1_in), ("lit layer", lit_in),
+                          ("peeled layer", peel_in), ("stress", st["inputs"]["k1"]),
+                          ("stress, early-z", st["inputs"]["k1z"])],
+            raster_blend=[("merged stream", k4_in), ("soft", dict(k4_in, soft=True)),
+                          ("not soft", dict(k4_in, soft=False)),
+                          ("peeled residual", k4p_in)],
             shade_deferred=[("bench", k2_in), ("lit layer", k2l_in),
                             ("clustered", st["inputs"]["k2c"]),
                             ("edm", ep["inputs"]["k2e"])],
@@ -1938,12 +1950,13 @@ def main():
             t_k1p, k1_bound, stress_ms=t["k1"], stress_plain_ms=t["k1p"],
             stress_bound_ms=sb["k1"][0], early_z_ms=t["k1z"],
             early_z_bound_ms=sb["k1z"][0], lit_ms=t_k1l, lit_bound_ms=k1l_bound[0],
-            lit_bound_by=k1l_bound[1], device_ms=dev_ms["k1"],
-            lit_device_ms=dev_ms["k1l"], stress_device_ms=t["k1_dev"]),
+            lit_bound_by=k1l_bound[1], **ptxas("raster_shade.cu"),
+            device_ms=dev_ms["k1"], lit_device_ms=dev_ms["k1l"],
+            stress_device_ms=t["k1_dev"], early_z_device_ms=t["k1z_dev"]),
         row("raster_shade_2p", "datum_tpu_torch/csrc/raster_shade_2p.cu",
             "datum_tpu/ops/raster_pallas.py:454", max(k6_err, st["errs"]["k6"]), t_k6,
             t_k6p, k1_bound, n=launches6["raster_shade_2p"], stress_ms=t["k6"],
-            early_z_ms=t["k6z"], device_ms=dev_ms["k6"]),
+            early_z_ms=t["k6z"], device_ms=dev_ms["k6"], stress_device_ms=t["k6_dev"]),
         row("shade_deferred", "datum_tpu_torch/csrc/shade.cu",
             "datum_tpu/ops/shade_pallas.py:161", k2_err, t_k2, t_k2p, k2_bound,
             **ptxas("shade.cu"),
@@ -1968,7 +1981,7 @@ def main():
             early_z_ms=t["k3z"], early_z_bound_ms=sb["k3z"][0]),
         row("raster_blend", "datum_tpu_torch/csrc/raster_blend.cu",
             "datum_tpu/ops/raster_pallas.py:877", k4_err, t_k4, t_k4p, k4_bound,
-            device_ms=dev_ms["k4"]),
+            **ptxas("raster_blend.cu"), device_ms=dev_ms["k4"]),
         row("shade_epilogue", "datum_tpu_torch/csrc/shade_epilogue.cu",
             "datum_tpu/ops/shade_pallas.py:414", epi_err, t_ep, t_epp, ep_bound,
             device_ms=dev_ms["ep"]),

@@ -27,16 +27,49 @@
 // 1920x1088.
 //
 // What the design does about it.
-//  * One block per tile, 256 threads, 16 pixels per thread (one column,
-//    16 rows), as K1 and K3: the five accumulators, the opaque depth and
-//    the peel depth of a thread's 16 pixels stay in registers for the
-//    whole walk.  Entry rows (36 floats) are staged in shared memory in
-//    chunks of 64, so each coefficient load is a broadcast that feeds 16
-//    pixels.
+//  * Two blocks a tile, one over each 16-row half (grid n_tiles * 2), 256
+//    threads a block, 8 pixels a thread (one column, 8 rows): the five
+//    accumulators, the opaque depth and the peel depth of a thread's 8
+//    pixels stay in registers for the whole walk, and at most 128
+//    registers a thread (__launch_bounds__(256, 2)) let two blocks or
+//    more share an SM (one block of 16 pixels a thread held 201).  Each
+//    pixel still walks all of its entries in order.  Each block stages
+//    the tile's entry rows (36 floats) in shared memory in chunks of 64,
+//    so each coefficient load is a broadcast that feeds 8 pixels.  yn is
+//    recomputed from the row index (the same bits) instead of carried.
 //  * Order is part of the result: the sums and the product are taken in
 //    walk order, so each pixel walks its entries sequentially (never
-//    atomics).  Invalid entries (id -1) are zero rows, whose terms are
-//    exact zeros, so the block skips them uniformly.
+//    atomics, never a split walk, whose partial sums would round apart).
+//    Invalid entries (id -1) are zero rows, whose terms are exact zeros,
+//    so the block skips them uniformly.
+//  * A warp-uniform rectangle reject that changes no bit.  Warp w covers
+//    32 columns x 8 rows.  It skips an entry where (1) one of its edges is
+//    below 0 on the whole rectangle, by K3's corner test and margin
+//    (raster_depth.cu derives it), so that visible is false at every
+//    pixel there, and (2) every term the entry adds there is finite.  A
+//    skipped pixel's step is then an exact no-op: alpha = 0, wgt = wk * 0
+//    = +0 with wk in [0.01, 300] (d is finite, see below, so 10 / (1e-5
+//    + b^3) is not NaN), ar = fma(cr, +0, ar) = ar and aw alike
+//    (ar never holds -0: it starts at +0 and an exact zero sum rounds to
+//    +0), rv *= 1.  But the step multiplies cr * wgt at every pixel, as the
+//    JAX kernel and the plain version do, and where s = e0+e1+e2 nears 0
+//    off the triangle (its horizon line) l0 = e0/s overflows and an
+//    invisible pixel's inf * 0 turns ar to NaN.  So (2) asks that s stays
+//    well above 0 and the colour and depth coefficients bounded there:
+//    with the summed plane (A, B, C) = fl((a0 + a1) + a2), ..., and T =
+//    sum of the edges' |a|mx + |b|my + |c| (mx, my as in K3's margin), a
+//    pixel's computed s is within ~10.1u T of A*x + B*y + C at the corner
+//    that minimises it (the edges' and the corner plane's rounding, the
+//    two adds of s and the rounding of A, B, C), so
+//      s_lo = fl(corner plane - (fl(T) * 16u + 1e-36))
+//    is below every pixel's s.  The reject asks s_lo >= 2^-100 (1/s is
+//    finite), fl(T) <= 2^60 s_lo (|l0|, |l1| <= 2^60 (1 + 15u), |l2| <= 1 +
+//    |l0| + |l1|, with some slack), the 9 colour coefficients of cr, cg,
+//    cb and the 3 depth coefficients at most 2^60 in magnitude (so |cr|
+//    <= ~2^122 and d is finite).
+//    NaN coefficients fail these tests and are walked.  Otherwise the
+//    entry is walked.  ops/raster_blend_cuda.py holds the plain twin
+//    (`blend_reject`), which the CPU tests hold against the plain walk.
 //  * Rounding.  The file is built with -fmad=false and writes with
 //    __fmaf_rn exactly the fused multiply-adds that XLA's contraction puts
 //    into the JAX kernel (the planes, the interpolations, the squared
@@ -52,9 +85,17 @@ namespace {
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 128;
 constexpr int THREADS = 256;
-constexpr int ROWS_PER_THREAD = TILE_H * TILE_W / THREADS;   // 16
+constexpr int HALVES = 2;          // blocks a tile, one over each row half
+constexpr int ROWS_PER_THREAD = TILE_H / HALVES * TILE_W / THREADS;   // 8
 constexpr int CHUNK = 64;          // entries staged per round
 constexpr int ROW = 36;            // floats per triangle row
+constexpr int WARP_W = 32;         // a warp's rectangle: 32 columns x 8 rows
+constexpr float REJECT_REL = 0x1p-21f;   // 8u, u = 2^-24: K3's edge margin
+constexpr float REJECT_ABS = 1e-36f;
+constexpr float S_REL = 0x1p-20f;        // 16u: the margin of s's lower bound
+constexpr float S_MIN = 0x1p-100f;       // s_lo at least this
+constexpr float S_RATIO = 0x1p60f;       // fl(T) at most this times s_lo
+constexpr float COEF_MAX = 0x1p60f;      // |colour|, |depth coefficient| at most
 
 // a*xn + b*yn + c as XLA compiles it: fma(a, xn, b*yn) + c
 __device__ __forceinline__ float plane(float a, float b, float c, float xn, float yn) {
@@ -67,11 +108,52 @@ __device__ __forceinline__ float lerp3(const float* r, int o, int step, float l0
     return __fmaf_rn(r[o + 2 * step], l2, __fmaf_rn(r[o], l0, r[o + step] * l1));
 }
 
+// clip(x, lo, hi) keeping a NaN, as jnp.clip and torch.clamp do (fminf
+// and fmaxf alone would return lo)
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
-    return fminf(fmaxf(x, lo), hi);
+    return x != x ? x : fminf(fmaxf(x, lo), hi);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// the pixel-centre NDC coordinate of tile row / column `pix`: (origin +
+// pix + 0.5) * scale - 1, the sum of the two integers exact in f32
+__device__ __forceinline__ float ndc(int origin, int pix, float scale) {
+    return ((float)origin + (float)pix + 0.5f) * scale - 1.0f;
+}
+
+// True when entry row r adds an exact no-op at every pixel of the
+// rectangle [x0, x1] x [y0, y1] (see the header): an edge is below 0 on
+// the whole rectangle, s is bounded away from 0 there and the colour and
+// depth coefficients are bounded.
+__device__ __forceinline__ bool blend_reject(const float* r, float x0, float x1,
+                                             float y0, float y1) {
+    const float mx = fmaxf(fabsf(x0), fabsf(x1));
+    const float my = fmaxf(fabsf(y0), fabsf(y1));
+    float t[3];
+    bool outside = false;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        const float a = r[3 * k], b = r[3 * k + 1], c = r[3 * k + 2];
+        t[k] = fabsf(a) * mx + fabsf(b) * my + fabsf(c);
+        outside |= plane(a, b, c, a > 0.0f ? x1 : x0, b > 0.0f ? y1 : y0)
+                   + (t[k] * REJECT_REL + REJECT_ABS) < 0.0f;
+    }
+    if (!outside) return false;
+    const float A = (r[0] + r[3]) + r[6];
+    const float B = (r[1] + r[4]) + r[7];
+    const float C = (r[2] + r[5]) + r[8];
+    const float T = (t[0] + t[1]) + t[2];
+    const float s_lo = plane(A, B, C, A > 0.0f ? x0 : x1, B > 0.0f ? y0 : y1)
+                       - (T * S_REL + REJECT_ABS);
+    if (!(s_lo >= S_MIN) || !(T <= S_RATIO * s_lo)) return false;
+    bool bounded = true;           // depth 9-11; each vertex's r, g, b (22 + 4k ..)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+        bounded &= (fabsf(r[9 + k]) <= COEF_MAX) & (fabsf(r[22 + 4 * k]) <= COEF_MAX)
+                   & (fabsf(r[23 + 4 * k]) <= COEF_MAX) & (fabsf(r[24 + 4 * k]) <= COEF_MAX);
+    return bounded;
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 raster_blend_kernel(const float* __restrict__ rows,
                     const int* __restrict__ bins,
                     const int* __restrict__ counts,
@@ -84,13 +166,14 @@ raster_blend_kernel(const float* __restrict__ rows,
 {
     __shared__ float s_row[CHUNK][ROW];
 
-    const int tile = blockIdx.x;
+    const int tile = blockIdx.x / HALVES;
     const int ty = tile / tiles_x;
     const int tx = tile - ty * tiles_x;
     const int col = threadIdx.x % TILE_W;
-    const int row0 = (threadIdx.x / TILE_W) * ROWS_PER_THREAD;
+    const int row0 = (blockIdx.x % HALVES) * (TILE_H / HALVES)
+                     + (threadIdx.x / TILE_W) * ROWS_PER_THREAD;
     const int x = tx * TILE_W + col;
-    const float xn = ((float)(tx * TILE_W) + (float)col + 0.5f) * cx - 1.0f;
+    const float xn = ndc(tx * TILE_W, col, cx);
     const bool has_peel = peel != nullptr;
 
     float ar[ROWS_PER_THREAD], ag[ROWS_PER_THREAD], ab[ROWS_PER_THREAD];
@@ -104,6 +187,12 @@ raster_blend_kernel(const float* __restrict__ rows,
         od[p] = opaque_depth[o];
         pl[p] = has_peel ? peel[o] : 0.0f;
     }
+    // the warp's rectangle: its first and last column's xn, its rows' yn
+    const int wcol = col - col % WARP_W;
+    const float x0 = ndc(tx * TILE_W, wcol, cx);
+    const float x1 = ndc(tx * TILE_W, wcol + WARP_W - 1, cx);
+    const float y0 = ndc(ty * TILE_H, row0, cy);
+    const float y1 = ndc(ty * TILE_H, row0 + ROWS_PER_THREAD - 1, cy);
 
     const int n_entries = n_big + counts[tile];
     for (int base = 0; base < n_entries; base += CHUNK) {
@@ -121,12 +210,13 @@ raster_blend_kernel(const float* __restrict__ rows,
         for (int e = 0; e < n_here; ++e) {
             const float* r = s_row[e];
             if (!(r[12] > 0.0f)) continue;
+            if (blend_reject(r, x0, x1, y0, y1)) continue;
             // which tests this entry takes (uniform over the block)
             const bool peel_test = has_peel && (soft_mode != 2 || r[35] > 0.0f);
             const bool soft = soft_mode == 1 || (soft_mode == 2 && r[34] > 0.0f);
 #pragma unroll
             for (int p = 0; p < ROWS_PER_THREAD; ++p) {
-                const float yn = ((float)(ty * TILE_H) + (float)(row0 + p) + 0.5f) * cy - 1.0f;
+                const float yn = ndc(ty * TILE_H, row0 + p, cy);
                 const float e0 = plane(r[0], r[1], r[2], xn, yn);
                 const float e1 = plane(r[3], r[4], r[5], xn, yn);
                 const float e2 = plane(r[6], r[7], r[8], xn, yn);
@@ -167,7 +257,7 @@ raster_blend_kernel(const float* __restrict__ rows,
         __syncthreads();
     }
 
-    const size_t plane_size = (size_t)gridDim.x / tiles_x * TILE_H * out_w;
+    const size_t plane_size = (size_t)(gridDim.x / HALVES) / tiles_x * TILE_H * out_w;
 #pragma unroll
     for (int p = 0; p < ROWS_PER_THREAD; ++p) {
         const size_t o = (size_t)(ty * TILE_H + row0 + p) * out_w + x;
@@ -192,7 +282,7 @@ extern "C" int raster_blend_launch(const float* rows, const int* bins, const int
                                    int bin_capacity, int tiles_x, int n_tiles, float cx,
                                    float cy, int out_w, float* out, void* stream)
 {
-    raster_blend_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
+    raster_blend_kernel<<<n_tiles * HALVES, THREADS, 0, (cudaStream_t)stream>>>(
         rows, bins, counts, big_ids, opaque_depth, peel, soft_mode, n_big, bin_capacity,
         tiles_x, cx, cy, out_w, out);
     return (int)cudaGetLastError();

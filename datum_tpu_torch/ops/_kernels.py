@@ -162,7 +162,7 @@ def build_version(source: Path, fmad: bool, name: str) -> KernelLibrary:
     """Another version of one kernel source (its own library, binding the
     entry points it defines), built with -fmad=true or false: for timing
     versions of a kernel side by side (chip_smoke.py --versions)."""
-    out = BUILD_DIR / "versions" / f"{name}.so"
+    out = BUILD_DIR / "versions" / (re.sub(r"[^A-Za-z0-9_.-]", "_", name) + ".so")
     out.parent.mkdir(parents=True, exist_ok=True)
     return KernelLibrary(out, _compile([source], out, compile_commands(
         _nvcc(), [source], [out.with_suffix(".o")], fmad)))

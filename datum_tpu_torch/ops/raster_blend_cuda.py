@@ -23,7 +23,12 @@ l2 = 1 - l0 - l1; rgba interpolated (alpha times the radial falloff of
 the uv disc where soft); wgt = clip(10 / (1e-5 + b^3), 0.01, 300) *
 alpha with b = (1 - d) * 5; ar += r*wgt, ..., aw += wgt, rv *= 1 - alpha.
 The sums and the product are taken in walk order, so the kernel walks
-each pixel's entries sequentially, as K1 does.
+each pixel's entries sequentially, never split (two blocks a tile, one
+over each row half).  Each warp skips the entries that `blend_reject`
+(its plain twin here, with the same arithmetic) finds to be exact no-ops
+on its 32 x 8 rectangle: an edge below 0 on the whole rectangle, s bounded
+away from 0 and the coefficients bounded, so that no invisible pixel's
+cr * 0 is NaN (csrc/raster_blend.cu derives the bounds).
 
 Rounding: both versions fuse a multiply and an add exactly where XLA's
 contraction of the JAX kernel does — the planes, the interpolations
@@ -44,10 +49,18 @@ import torch
 from . import _kernels
 from .common import TILE_H, TILE_W, fma
 from .raster import _untile, tile_image
-from .raster_cuda import _entry_ids, _ndc_scale, _plane
+from .raster_cuda import _entry_ids, _ndc_scale, _plane, _tile_ndc
+from .raster_depth_cuda import REJECT_ABS, warp_rect_reject
 
 ROW = 36              # floats per triangle row
 SOFT_MODES = {False: 0, True: 1, "per_tri": 2}
+WARP_H = 8                       # a K4 warp's rectangle: 32 columns x 8 rows
+# the reject's bounds on s and the coefficients (csrc/raster_blend.cu)
+S_REL = 2.0 ** -20               # s's lower bound: corner - (fl(T) * 16u + 1e-36)
+S_MIN = 2.0 ** -100
+S_RATIO = 2.0 ** 60
+COEF_MAX = 2.0 ** 60
+BOUNDED_SLOTS = (9, 10, 11, 22, 23, 24, 26, 27, 28, 30, 31, 32)   # depth; r, g, b
 
 
 def blend_rows(setup, tris, uv, color, soft_flag=None, peel_flag=None):
@@ -69,6 +82,28 @@ def _lerp3(r, o, step, l0, l1, l2):
                fma(r[..., o], l0, r[..., o + step] * l1))
 
 
+def blend_reject(r, x0, x1, y0, y1):
+    """Plain twin of K4's warp-rectangle reject, with the kernel's
+    arithmetic: True where entry row r (..., 36) adds an exact no-op at
+    every pixel of the rectangle [x0, x1] x [y0, y1] (f32, broadcast
+    against r[..., 0]): K3's edge test rejects it there
+    (`warp_rect_reject` without the scissor), the summed edge plane's
+    lower bound s_lo over the rectangle is at least 2^-100 and at least
+    fl(T) / 2^60, and the depth and r, g, b coefficients are at most 2^60
+    in magnitude."""
+    mx = torch.maximum(x0.abs(), x1.abs())
+    my = torch.maximum(y0.abs(), y1.abs())
+    t = [r[..., 3 * k].abs() * mx + r[..., 3 * k + 1].abs() * my + r[..., 3 * k + 2].abs()
+         for k in range(3)]
+    T = t[0] + t[1] + t[2]
+    A, B, C = (r[..., j] + r[..., j + 3] + r[..., j + 6] for j in range(3))
+    s_lo = (_plane(A, B, C, torch.where(A > 0, x0, x1), torch.where(B > 0, y0, y1))
+            - (T * S_REL + REJECT_ABS))
+    bounded = (r[..., list(BOUNDED_SLOTS)].abs() <= COEF_MAX).all(-1)
+    return (warp_rect_reject(r, x0, x1, y0, y1, scissor=False) & (s_lo >= S_MIN)
+            & (T <= S_RATIO * s_lo) & bounded)
+
+
 def raster_blend_reference(rows, bins, counts, big_ids, opaque_depth, tiles_x,
                            width, height, soft, peel=None):
     """Plain PyTorch K4: (5, tiles_y*32, tiles_x*128) f32 planes ar, ag,
@@ -80,13 +115,7 @@ def raster_blend_reference(rows, bins, counts, big_ids, opaque_depth, tiles_x,
     n_tiles = bins.shape[0]
     tiles_y = n_tiles // tiles_x
     ids = _entry_ids(bins, big_ids)
-    tile = torch.arange(n_tiles, device=dev)
-    ty = (tile // tiles_x).to(torch.float32)[:, None, None]
-    tx = (tile % tiles_x).to(torch.float32)[:, None, None]
-    yy = torch.arange(TILE_H, device=dev, dtype=torch.float32)[None, :, None]
-    xx = torch.arange(TILE_W, device=dev, dtype=torch.float32)[None, None, :]
-    yn = (ty * TILE_H + yy + 0.5) * _ndc_scale(height) - 1.0     # (n, 32, 1)
-    xn = (tx * TILE_W + xx + 0.5) * _ndc_scale(width) - 1.0      # (n, 1, 128)
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev)
     od = tile_image(opaque_depth, tiles_x, tiles_y)
     pl = None if peel is None else tile_image(peel, tiles_x, tiles_y)
 

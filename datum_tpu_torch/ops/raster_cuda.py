@@ -31,6 +31,17 @@ material alpha rides the albedo-id slot 41) and, from its second layer
 on, peel_depth: a fragment then passes only if it is strictly farther
 than the previous layer's depth (d < peel).
 
+K1 splits each tile's walk over a cluster of 4 blocks (2 where the
+frame has at least twice as many tiles as the card has SMs and shallow
+bins): block r walks the slots r (mod 4) of the tile's sequence and
+carries its partial (depth, walk slot); the combine takes the largest
+depth and, among equal ones, the smallest slot, which is the sequential
+walk's winner (`walk_step` is the plain step the CPU tests build that
+split from).
+Each warp skips the entries one of whose edges is below 0 on its 32 x 16
+rectangle (`raster_depth_cuda.warp_rect_reject` with scissor=False: K1
+reads no y scissor).  Neither moves a value (csrc/raster_shade.cu).
+
 Early-z (raster_early_z): the kernels also take `szb` (early_z_bounds),
 per tile and walk slot an upper bound on the depth of every fragment of
 that slot and the slots after it.  A walk may stop once a pixel's depth
@@ -151,6 +162,37 @@ def early_z_bounds(rows, bins, big_ids, tiles_x, width, height):
     return torch.flip(torch.cummax(torch.flip(bound, [1]), 1).values, [1]).float().contiguous()
 
 
+def _tile_ndc(n_tiles, tiles_x, width, height, device):
+    """The kernels' pixel centres of every tile: xn (n, 1, 128) and yn
+    (n, 32, 1) f32, (origin + pixel + 0.5) * (2/size) - 1."""
+    tile = torch.arange(n_tiles, device=device)
+    ty = (tile // tiles_x).to(torch.float32)[:, None, None]
+    tx = (tile % tiles_x).to(torch.float32)[:, None, None]
+    yy = torch.arange(TILE_H, device=device, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(TILE_W, device=device, dtype=torch.float32)[None, None, :]
+    return ((tx * TILE_W + xx + 0.5) * _ndc_scale(width) - 1.0,
+            (ty * TILE_H + yy + 0.5) * _ndc_scale(height) - 1.0)
+
+
+def walk_step(rows, idk, xn, yn, depth, peel_t=None):
+    """One slot of the K1/K6 walk for every tile: the entries idk (n,)
+    (-1: none) at every pixel of their tile.  Returns (passed, d): the
+    inside test, d > depth, d <= 1 and, with peel_t (n, 32, 128), d <
+    peel_t."""
+    r = (rows[torch.clamp(idk, min=0).long(), :13]
+         * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
+    e0 = _plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
+    e1 = _plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
+    e2 = _plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
+    s = e0 + e1 + e2
+    inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0) & (r[:, 12] > 0)
+    d = _plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
+    passed = inside & (d > depth) & (d <= 1.0)
+    if peel_t is not None:
+        passed = passed & (d < peel_t)
+    return passed, d
+
+
 def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height,
                            peel=None, szb=None):
     """Plain PyTorch K1: (22, tiles_y*32, tiles_x*128) f32 planes.  It
@@ -162,14 +204,7 @@ def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height,
     dev = rows.device
     n_tiles = bins.shape[0]
     ids = _entry_ids(bins, big_ids)
-    tile = torch.arange(n_tiles, device=dev)
-    ty = (tile // tiles_x).to(torch.float32)[:, None, None]
-    tx = (tile % tiles_x).to(torch.float32)[:, None, None]
-    yy = torch.arange(TILE_H, device=dev, dtype=torch.float32)[None, :, None]
-    xx = torch.arange(TILE_W, device=dev, dtype=torch.float32)[None, None, :]
-    yn = (ty * TILE_H + yy + 0.5) * _ndc_scale(height) - 1.0     # (n, 32, 1)
-    xn = (tx * TILE_W + xx + 0.5) * _ndc_scale(width) - 1.0      # (n, 1, 128)
-
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev)
     depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
     win = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32,
                      device=dev)
@@ -178,17 +213,7 @@ def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height,
     # entries beyond a tile's count are -1 in bins: zero rows never pass
     for k in range(ids.shape[1]):
         idk = ids[:, k]
-        r = (rows[torch.clamp(idk, min=0).long(), :13]
-             * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
-        e0 = _plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
-        e1 = _plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
-        e2 = _plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
-        s = e0 + e1 + e2
-        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0) & (r[:, 12] > 0)
-        d = _plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
-        passed = inside & (d > depth) & (d <= 1.0)
-        if peel_t is not None:
-            passed = passed & (d < peel_t)
+        passed, d = walk_step(rows, idk, xn, yn, depth, peel_t)
         depth = torch.where(passed, d, depth)
         win = torch.where(passed, idk[:, None, None], win)
 
@@ -230,30 +255,14 @@ def raster_shade_2p_reference(rows, bins, counts, big_ids, tiles_x, width,
     ids = _entry_ids(bins, big_ids)
     E = ids.shape[1]
     tile = torch.arange(n_tiles, device=dev)
-    ty = (tile // tiles_x).to(torch.float32)[:, None, None]
-    tx = (tile % tiles_x).to(torch.float32)[:, None, None]
-    yy = torch.arange(TILE_H, device=dev, dtype=torch.float32)[None, :, None]
-    xx = torch.arange(TILE_W, device=dev, dtype=torch.float32)[None, None, :]
-    yn = (ty * TILE_H + yy + 0.5) * _ndc_scale(height) - 1.0
-    xn = (tx * TILE_W + xx + 0.5) * _ndc_scale(width) - 1.0
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev)
 
     # ---- phase 1: depth + winning slot
     depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
     slot = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int64, device=dev)
     peel_t = None if peel is None else tile_image(peel, tiles_x, n_tiles // tiles_x)
     for k in range(E):
-        idk = ids[:, k]
-        r = (rows[torch.clamp(idk, min=0).long(), :13]
-             * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
-        e0 = _plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
-        e1 = _plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
-        e2 = _plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
-        s = e0 + e1 + e2
-        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0) & (r[:, 12] > 0)
-        d = _plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
-        passed = inside & (d > depth) & (d <= 1.0)
-        if peel_t is not None:
-            passed = passed & (d < peel_t)
+        passed, d = walk_step(rows, ids[:, k], xn, yn, depth, peel_t)
         depth = torch.where(passed, d, depth)
         slot = torch.where(passed, torch.full_like(slot, k), slot)
 

@@ -24,7 +24,8 @@ stack of at least twice as many tiles as the card has SMs) and combines
 their partial maps by a max, and each warp skips the entries
 that `warp_rect_reject` (its plain twin here, with the same arithmetic)
 finds cannot pass on the warp's 32 x 16 rectangle; neither moves a
-value (csrc/raster_depth.cu derives the reject's margin).
+value (csrc/raster_depth.cu derives the reject's margin).  K1 and K4
+take the same edge test without the scissor.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 from . import _kernels
 from .common import TILE_H, TILE_W
 from .raster import _untile
-from .raster_cuda import _entry_ids, _ndc_scale, _plane, early_z_bounds
+from .raster_cuda import _entry_ids, _ndc_scale, _plane, _tile_ndc, early_z_bounds
 
 ROW = 16              # floats per triangle row (the setup's row16)
 WARP_W, WARP_H = 32, 16          # a K3 warp's rectangle: columns x rows
@@ -53,13 +54,7 @@ def raster_depth_reference(rows, bins, counts, big_ids, tiles_x, width, height,
     dev = rows.device
     n_tiles = bins.shape[0]
     ids = _entry_ids(bins, big_ids)
-    tile = torch.arange(n_tiles, device=dev)
-    ty = (tile // tiles_x).to(torch.float32)[:, None, None]
-    tx = (tile % tiles_x).to(torch.float32)[:, None, None]
-    yy = torch.arange(TILE_H, device=dev, dtype=torch.float32)[None, :, None]
-    xx = torch.arange(TILE_W, device=dev, dtype=torch.float32)[None, None, :]
-    yn = (ty * TILE_H + yy + 0.5) * _ndc_scale(height) - 1.0     # (n, 32, 1)
-    xn = (tx * TILE_W + xx + 0.5) * _ndc_scale(width) - 1.0      # (n, 1, 128)
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev)
 
     depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
     for k in range(ids.shape[1]):
@@ -77,29 +72,34 @@ def raster_depth_reference(rows, bins, counts, big_ids, tiles_x, width, height,
     return _untile(depth, tiles_x, n_tiles // tiles_x)
 
 
-def warp_rects(tiles_x, n_tiles, width, height, device="cpu"):
-    """The K3 warps' rectangles: (x0, x1, y0, y1), each (n_tiles, 8) f32,
-    the first and last column's xn and the first and last row's yn of
-    warp w = 4 * (row band) + (column band) of each tile, computed as the
-    kernel computes its pixel centres."""
+def warp_rects(tiles_x, n_tiles, width, height, device="cpu", warp_h=WARP_H):
+    """The warps' rectangles of K3 and K1 (32 x 16) or, with warp_h=8,
+    K4: (x0, x1, y0, y1), each (n_tiles, 4 * 32 // warp_h) f32, the first
+    and last column's xn and the first and last row's yn of warp w = 4 *
+    (row band) + (column band) of each tile, computed as the kernels
+    compute their pixel centres."""
     tile = torch.arange(n_tiles, device=device)
-    w = torch.arange(TILE_H * TILE_W // (WARP_W * WARP_H), device=device)
+    w = torch.arange(TILE_H * TILE_W // (WARP_W * warp_h), device=device)
     col0 = ((tile % tiles_x) * TILE_W)[:, None] + (w % 4 * WARP_W)[None, :]
-    row0 = ((tile // tiles_x) * TILE_H)[:, None] + (w // 4 * WARP_H)[None, :]
+    row0 = ((tile // tiles_x) * TILE_H)[:, None] + (w // 4 * warp_h)[None, :]
     ndc = lambda pix, scale: (pix.to(torch.float32) + 0.5) * scale - 1.0
     cx, cy = _ndc_scale(width), _ndc_scale(height)
     return (ndc(col0, cx), ndc(col0 + WARP_W - 1, cx),
-            ndc(row0, cy), ndc(row0 + WARP_H - 1, cy))
+            ndc(row0, cy), ndc(row0 + warp_h - 1, cy))
 
 
-def warp_rect_reject(r, x0, x1, y0, y1):
+def warp_rect_reject(r, x0, x1, y0, y1, scissor=True):
     """Plain twin of K3's warp-rectangle reject, with the kernel's
-    arithmetic: True where entry row r (..., 16) passes at no pixel of
-    the rectangle [x0, x1] x [y0, y1] (f32, broadcast against r[..., 0]):
-    its y scissor misses the rows, or an edge's value at the rectangle's
-    corner where the exact plane is largest, plus the margin
-    fl(|a| mx + |b| my + |c|) * 8 * 2^-24 + 1e-36, is below 0."""
-    out = (y1 < r[..., 14]) | (y0 >= r[..., 15])
+    arithmetic: True where entry row r (..., 16 or more) passes at no
+    pixel of the rectangle [x0, x1] x [y0, y1] (f32, broadcast against
+    r[..., 0]): its y scissor (slots 14-15) misses the rows, or an edge's
+    value at the rectangle's corner where the exact plane is largest, plus
+    the margin fl(|a| mx + |b| my + |c|) * 8 * 2^-24 + 1e-36, is below 0.
+    scissor=False is K1's reject, edges only: K1 reads no scissor."""
+    out = torch.zeros(torch.broadcast_shapes(r[..., 0].shape, x0.shape), dtype=torch.bool,
+                      device=r.device)
+    if scissor:
+        out = (y1 < r[..., 14]) | (y0 >= r[..., 15])
     mx = torch.maximum(x0.abs(), x1.abs())
     my = torch.maximum(y0.abs(), y1.abs())
     for k in range(3):
