@@ -51,7 +51,9 @@ and exits non-zero:
    each kernel's bound from this run's inputs;
 3s-6s. the stress frame: its scene (triangles, bin entries, overflows);
    K1, K6 and K3 with early-z against themselves without it and their
-   plain versions, clustered K2 against its plain version and clustered
+   plain versions, K7 on the stress frame's setup and bins (the
+   stress-depth set) against its plain version (bit-identical),
+   clustered K2 against its plain version and clustered
    frames against dense ones (also the 128-light bench scene); the
    frame driven 3 times with early-z off and 3 times on, with its
    launches checked; its ms/frame, stages, kernels, the gather
@@ -81,10 +83,10 @@ and exits non-zero:
    CPU plain path; ms/frame, a profiler window, the stages of the probe
    fields, the fog planes and the SSRs, K2 with and without the group,
    the gather against tab[idx], and their bounds;
-7. with --versions FILE, other versions of K1's, K2's, K3's and K4's
-   sources built alone and timed beside this build's on the same inputs (see
-   versions_phase); then print the kernels' JSON line (9 rows), then the
-   device JSON line last, after the script's wall time.
+7. with --versions FILE, other versions of K1's, K6's, K2's, K3's, K4's
+   and K7's sources built alone and timed beside this build's on the same
+   inputs (see versions_phase); then print the kernels' JSON line (9
+   rows), then the device JSON line last, after the script's wall time.
 
 Needs one card, torch with CUDA and nvcc; imports no jax and nothing of
 the JAX package.
@@ -568,6 +570,8 @@ def stress_phases(dev, card, kernels):
         raster_shade_2p_reference, raster_shade_cuda, raster_shade_reference)
     from datum_tpu_torch.ops.raster_depth_cuda import (
         depth_inputs, raster_depth_cuda, raster_depth_reference)
+    from datum_tpu_torch.ops.raster_mxu_cuda import (
+        raster_mxu_cuda, raster_mxu_inputs, raster_mxu_reference)
     from datum_tpu_torch.ops.shade_cuda import (
         shade_deferred_cuda, shade_deferred_reference, shade_inputs)
     from datum_tpu_torch.render import frame as F
@@ -629,6 +633,21 @@ def stress_phases(dev, card, kernels):
     k6_err = check_k6(k6z, raster_shade_2p_reference(**k1_in), pk,
                       "stress opaque layer, early-z")
     phase("4s", "K6 with early-z vs without: all 22 planes bit-identical on every pixel")
+    # K7 at the stress frame's bin depth: its setup and bins through
+    # raster_mxu_inputs (the stress-depth set; the K7 frame itself runs the
+    # bench scene)
+    k7_in = raster_mxu_inputs(setup, bins, big, counts, ex["tris"], uv, wn,
+                              d_t["tri_mat"], state["materials"], cfg.tiles_x,
+                              cfg.padded_width, cfg.padded_height)
+    k7 = raster_mxu_cuda(**k7_in)
+    k7r = raster_mxu_reference(**k7_in)
+    torch.cuda.synchronize()
+    require_equal(k7, k7r, "K7 vs plain (stress-depth inputs)")
+    k7_err = (k7 - k7r).abs().max().item()
+    phase("4s", f"K7 vs plain on the stress-depth inputs (the stress frame's setup "
+                f"and bins, {k7_in['big_ids'].shape[0]} + {k7_in['bins'].shape[1]} "
+                f"entries a tile, covered {(k7r[1] >= 0).float().mean().item():.3f}): "
+                "all 15 planes bit-identical on every pixel")
 
     (stack,) = shadow_ops.cascade_stacks(wp, ex["tris"], s_t["mainlight"]["shadowview"],
                                          res=cfg.shadow_res, far_res=cfg.shadow_far_res)
@@ -741,6 +760,10 @@ def stress_phases(dev, card, kernels):
              k1_dev=device_ms(lambda: raster_shade_cuda(**k1_in)),
              k1z_dev=device_ms(lambda: raster_shade_cuda(**k1z_in)),
              k6_dev=device_ms(lambda: raster_shade_2p_cuda(**k1_in)),
+             k6z_dev=device_ms(lambda: raster_shade_2p_cuda(**k1z_in)),
+             k7=cuda_ms(lambda: raster_mxu_cuda(**k7_in), 20),
+             k7p=cuda_ms(lambda: raster_mxu_reference(**k7_in), 1),
+             k7_dev=device_ms(lambda: raster_mxu_cuda(**k7_in)),
              k3_dev=device_ms(lambda: raster_depth_cuda(**k3_in)),
              k3z_dev=device_ms(lambda: raster_depth_cuda(**k3z_in)),
              k2c_dev=device_ms(lambda: shade_deferred_cuda(**k2c_in)))
@@ -766,9 +789,11 @@ def stress_phases(dev, card, kernels):
                 f"early-z {t['k3z']:.3f} ms, plain {t['k3p']:.3f} ms; K2 clustered "
                 f"{t['k2c']:.3f} ms, dense {t['k2d']:.3f} ms (128 lights), clustered "
                 f"plain {t['k2cp']:.3f} ms; gather tab[idx] (16384x16 f32, 524288 rows) "
-                f"{t['gather']:.4f} ms; device time a call (device_ms): K1 "
+                f"{t['gather']:.4f} ms; K7 (stress-depth inputs) {t['k7']:.3f} ms, plain "
+                f"{t['k7p']:.3f} ms; device time a call (device_ms): K1 "
                 f"{t['k1_dev']:.4f} ms, with early-z {t['k1z_dev']:.4f} ms, K6 "
-                f"{t['k6_dev']:.4f} ms, K3 {t['k3_dev']:.4f} ms, with early-z "
+                f"{t['k6_dev']:.4f} ms, with early-z {t['k6z_dev']:.4f} ms, K7 "
+                f"{t['k7_dev']:.4f} ms, K3 {t['k3_dev']:.4f} ms, with early-z "
                 f"{t['k3z_dev']:.4f} ms, K2 clustered {t['k2c_dev']:.4f} ms on {card}")
 
     px = cfg.padded_width * cfg.padded_height
@@ -792,6 +817,8 @@ def stress_phases(dev, card, kernels):
         k2d=bound(_nbytes(k2d_in["f32_planes"], k2d_in["planes"], k2d_in["ao"])
                   + 3 * px * 4,
                   px * (OPS_K2_PIXEL + OPS_K2_LIGHT * int(k2d_in["counts"][0]))),
+        k7=bound(_nbytes(*(k7_in[k] for k in ("rows", "bins", "counts", "big_ids")))
+                 + 15 * px * 4, _walked(k7_in) * 4096 * OPS_WALK_K7 + px * OPS_K7_PIXEL),
         gather=bound(_nbytes(tab, idx) + idx.numel() * 16 * 4, 0))
     phase("6s", "stress bounds (ms, by): " + "; ".join(
         f"{n} {v[0]:.4f} {v[1]}" for n, v in b.items()))
@@ -818,8 +845,9 @@ def stress_phases(dev, card, kernels):
                 "TPU's vertex bound; by the vertex bound if the bins were sorted by "
                 "it, nearest first): " + "; ".join(walks))
     return dict(t=t, b=b, launches=pfz[0], errs=dict(k1=k1_err, k6=k6_err, k3=k3_err,
-                                                     k2c=k2c_err),
-                inputs=dict(k1=k1_in, k1z=k1z_in, k2c=k2c_in, k3=k3_in, k3z=k3z_in))
+                                                     k2c=k2c_err, k7=k7_err),
+                inputs=dict(k1=k1_in, k1z=k1z_in, k2c=k2c_in, k3=k3_in, k3z=k3z_in,
+                            k7=k7_in))
 
 
 def read_png_rgb(path):
@@ -1128,7 +1156,7 @@ def deferred_phases(dev, card, kernels, bench):
     launches = dict(raster_v1=pf5[0]["raster_v1"], raster_mxu=pf7[0]["raster_mxu"])
     return dict(t=t, b5=b5, b7=b7, b7_tpu=b7_tpu, launches=launches,
                 errs=dict(k5=k5_err, k7=k7_err), ms=dict(k5=ms5, k7=ms7, entry=mse),
-                golden_rmse=g_rmse)
+                golden_rmse=g_rmse, inputs=dict(k7=k7_in))
 
 
 def wall_ms(fn, reps=5):
@@ -1369,14 +1397,15 @@ def env_phases(dev, card, kernels, bench_expect):
 
 
 def versions_phase(path, card, sets):
-    """--versions FILE: other versions of K1's, K2's, K3's and K4's
-    sources, timed beside this build's on the same inputs.  FILE is a
-    JSON list of {"name", "kernel": "raster_shade" | "shade_deferred" |
-    "raster_depth" | "raster_blend", "source" (relative to FILE), "fmad":
-    true | false}; a kernel no version names is skipped.  Each version is
-    built alone (ptxas registers and spill printed), checked against the
-    plain version as the kernel is held (K1 and K3 bit for bit, K2 atol
-    1e-4 / rtol 1e-3, K4 as check_same) and against this build's output
+    """--versions FILE: other versions of K1's, K6's, K2's, K3's, K4's and
+    K7's sources, timed beside this build's on the same inputs.  FILE is
+    a JSON list of {"name", "kernel": "raster_shade" | "raster_shade_2p"
+    | "shade_deferred" | "raster_depth" | "raster_blend" | "raster_mxu",
+    "source" (relative to FILE), "fmad": true | false}; a kernel no
+    version names is skipped.  Each version is built alone (ptxas
+    registers and spill printed), checked against the plain version as
+    the kernel is held (K1, K6, K3 and K7 bit for bit, K2 atol 1e-4 /
+    rtol 1e-3, K4 as check_same) and against this build's output
     bit for bit (printed, not raised, so that a version's error is
     measured), and timed in turns, the versions in order and then in
     reverse, the mean of the two.  sets: per kernel, [(name, inputs)].
@@ -1391,9 +1420,12 @@ def versions_phase(path, card, sets):
     from datum_tpu_torch.ops import _kernels
     from datum_tpu_torch.ops.raster_blend_cuda import (raster_blend_cuda,
                                                        raster_blend_reference)
-    from datum_tpu_torch.ops.raster_cuda import raster_shade_cuda, raster_shade_reference
+    from datum_tpu_torch.ops.raster_cuda import (raster_shade_2p_cuda,
+                                                 raster_shade_2p_reference,
+                                                 raster_shade_cuda, raster_shade_reference)
     from datum_tpu_torch.ops.raster_depth_cuda import (raster_depth_cuda,
                                                        raster_depth_reference)
+    from datum_tpu_torch.ops.raster_mxu_cuda import raster_mxu_cuda, raster_mxu_reference
     from datum_tpu_torch.ops.shade_cuda import shade_deferred_cuda, shade_deferred_reference
 
     def close(out, plain, kernel):
@@ -1411,6 +1443,10 @@ def versions_phase(path, card, sets):
         spec = json.load(f)
     runs = dict(raster_shade=(raster_shade_cuda, raster_shade_reference, "raster_shade.cu",
                               "bit-identity"),
+                raster_shade_2p=(raster_shade_2p_cuda, raster_shade_2p_reference,
+                                 "raster_shade_2p.cu", "bit-identity"),
+                raster_mxu=(raster_mxu_cuda, raster_mxu_reference, "raster_mxu.cu",
+                            "bit-identity"),
                 shade_deferred=(shade_deferred_cuda, shade_deferred_reference, "shade.cu",
                                 "atol 1e-4 / rtol 1e-3"),
                 raster_depth=(raster_depth_cuda, raster_depth_reference, "raster_depth.cu",
@@ -1459,8 +1495,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--versions", metavar="FILE",
-                    help="also time other versions of K1's, K2's, K3's and K4's "
-                         "sources (see versions_phase)")
+                    help="also time other versions of K1's, K6's, K2's, K3's, K4's "
+                         "and K7's sources (see versions_phase)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1834,6 +1870,8 @@ def main():
     dev_ms = dict(k1=device_ms(lambda: raster_shade_cuda(**k1_in)),
                   k1l=device_ms(lambda: raster_shade_cuda(**lit_in)),
                   k6=device_ms(lambda: raster_shade_2p_cuda(**k1_in)),
+                  k6l=device_ms(lambda: raster_shade_2p_cuda(**lit_in)),
+                  k6p=device_ms(lambda: raster_shade_2p_cuda(**peel_in)),
                   k2=device_ms(lambda: shade_deferred_cuda(**k2_in)),
                   k2l=device_ms(lambda: shade_deferred_cuda(**k2l_in)),
                   k3=[device_ms(lambda i=i: raster_depth_cuda(**i)) for i in k3_in],
@@ -1870,6 +1908,7 @@ def main():
     phase(6, "device time a call (20 calls behind a sleep kernel; ms): " + "; ".join(
         f"{n} {v:.4f}" for n, v in (
             ("K1", dev_ms["k1"]), ("K1 lit layer", dev_ms["k1l"]), ("K6", dev_ms["k6"]),
+            ("K6 lit layer", dev_ms["k6l"]), ("K6 peeled layer", dev_ms["k6p"]),
             ("K2", dev_ms["k2"]), ("K2 lit layer", dev_ms["k2l"]),
             *((f"K3 {n}", v) for n, v in zip(STACKS, dev_ms["k3"])),
             ("K4", dev_ms["k4"]), ("K2 epilogue", dev_ms["ep"]))) + f" on {card}")
@@ -1908,10 +1947,12 @@ def main():
                                               big_ids, ex, uv, wn, d_t, kp))
     ep = env_phases(dev, card, kernels, bench_expect)
     if args.versions:
+        k1_sets = [("bench opaque", k1_in), ("lit layer", lit_in), ("peeled layer", peel_in),
+                   ("stress", st["inputs"]["k1"]), ("stress, early-z", st["inputs"]["k1z"])]
         versions_phase(args.versions, card, dict(
-            raster_shade=[("bench opaque", k1_in), ("lit layer", lit_in),
-                          ("peeled layer", peel_in), ("stress", st["inputs"]["k1"]),
-                          ("stress, early-z", st["inputs"]["k1z"])],
+            raster_shade=k1_sets, raster_shade_2p=k1_sets,
+            raster_mxu=[("bench", dp["inputs"]["k7"]),
+                        ("stress-depth", st["inputs"]["k7"])],
             raster_blend=[("merged stream", k4_in), ("soft", dict(k4_in, soft=True)),
                           ("not soft", dict(k4_in, soft=False)),
                           ("peeled residual", k4p_in)],
@@ -1956,7 +1997,10 @@ def main():
         row("raster_shade_2p", "datum_tpu_torch/csrc/raster_shade_2p.cu",
             "datum_tpu/ops/raster_pallas.py:454", max(k6_err, st["errs"]["k6"]), t_k6,
             t_k6p, k1_bound, n=launches6["raster_shade_2p"], stress_ms=t["k6"],
-            early_z_ms=t["k6z"], device_ms=dev_ms["k6"], stress_device_ms=t["k6_dev"]),
+            early_z_ms=t["k6z"], device_ms=dev_ms["k6"], stress_device_ms=t["k6_dev"],
+            early_z_device_ms=t["k6z_dev"], lit_device_ms=dev_ms["k6l"],
+            peeled_device_ms=dev_ms["k6p"], stress_bound_ms=sb["k1"][0],
+            **ptxas("raster_shade_2p.cu")),
         row("shade_deferred", "datum_tpu_torch/csrc/shade.cu",
             "datum_tpu/ops/shade_pallas.py:161", k2_err, t_k2, t_k2p, k2_bound,
             **ptxas("shade.cu"),
@@ -1997,7 +2041,10 @@ def main():
              launches=dp["launches"]["raster_mxu"], max_abs_err=dp["errs"]["k7"],
              ms=dp["t"]["k7"], plain_ms=dp["t"]["k7p"], bound_ms=dp["b7"][0],
              bound_by=dp["b7"][1], library_ms=None, tpu_product_bound_ms=dp["b7_tpu"],
-             frame_ms=dp["ms"]["k7"], device_ms=dp["t"]["k7_dev"]),
+             frame_ms=dp["ms"]["k7"], device_ms=dp["t"]["k7_dev"],
+             **ptxas("raster_mxu.cu"), stress_max_abs_err=st["errs"]["k7"],
+             stress_ms=t["k7"], stress_plain_ms=t["k7p"], stress_device_ms=t["k7_dev"],
+             stress_bound_ms=sb["k7"][0], stress_bound_by=sb["k7"][1]),
         # launches: a frame runs no gather (the microbenchmark's kernel);
         # benchmark_launches: one counted gather_rows call
         dict(name="gather_rows", route="cuda",

@@ -19,19 +19,78 @@
 // and its material values and id.
 //
 // What bounds it on the H100.  The work the function must do is each
-// walked entry x each pixel x six planes (~25 f32 operations a pair);
+// walked entry x each pixel x six planes (~26 f32 operations a pair);
 // the TPU's padded product (24 x 128 x 12288 a chunk-half, 21 of every
 // 24 terms zero) is a TPU layout, not work.  At the 1920x1088 bench
 // inputs the least time is set by the 15 output planes' bytes; the walk
-// itself is limited by instruction throughput, like K1's.
+// itself is limited by instruction throughput, like K1's, and the
+// busiest tiles' walks set the time of a kernel that gives each tile to
+// one block.
 //
-// What the design does about it.
+// What the design does about it (K1's design, csrc/raster_shade.cu, in
+// K7's arithmetic):
 //  * No product at all: each pixel evaluates the six planes of an entry
 //    directly from its 14 staged coefficients (no tensor core, no
 //    library call); the one-hot attribute fetch becomes one gather of
 //    the winner's row after the walk.
-//  * One block per tile, 256 threads, 16 pixels per thread; entries are
-//    staged in shared memory 64 at a time (broadcast loads).
+//  * One tile's walk is split over a thread-block cluster of SPLIT blocks
+//    (grid n_tiles * SPLIT).  Block r walks the slots g = r (mod SPLIT)
+//    of the tile's sequence, with K1's launcher rule: SPLIT 2 where there
+//    are at least twice as many tiles as SMs and n_big + bin_capacity <=
+//    512, else 4.  256 threads a block, 16 pixels a thread (one column,
+//    16 rows); each block stages its own entries' 14 walk slots in
+//    shared memory, 64 at a time, so every coefficient load is a
+//    broadcast that feeds 16 pixels.
+//  * A block carries, per pixel, its partial (depth, walk slot g): the
+//    slot, not the id, since the same id can stand twice in a tile's
+//    sequence and the id order is not the walk order.  The combine is
+//    exact, by the argument above: every condition but d > depth (the
+//    inside test, the scissor, d <= 1) is independent of the walk's
+//    state, so the sequential walk's depth at a pixel is the largest d
+//    among the entries that pass them, and its winner the first slot
+//    that reaches it; a block's partial walk gives the same over its own
+//    slots.  So the full walk's (depth, slot) is the largest partial
+//    depth and, among the blocks that reach it, the smallest partial
+//    slot; a pixel nothing passes keeps depth 0 and NO_SLOT.  Only after
+//    the combine is the slot mapped to its id.
+//  * The combine goes through distributed shared memory: block r reduces
+//    rows r*32/SPLIT.. of the tile; after its walk each block stores its
+//    partial rows into their reducer's shared memory, then one full
+//    cluster barrier, after which no block touches another's memory.
+//    Each block then gathers the winner's 40-float row of each of its
+//    pixels from global memory (K1's way) and writes the 15 planes,
+//    coalesced, each texel once.
+//  * A warp-uniform rectangle reject, edges only.  Warp w covers 32
+//    columns x 16 rows.  It skips an entry one of whose edges is below 0
+//    on the whole rectangle: its value at the corner where the exact
+//    affine function is largest (x1 where a > 0 else x0, y1 where b > 0
+//    else y0), computed in K7's form fma(b, y, a*x) + c, plus the margin
+//    m = fl(fl(|a| mx + |b| my + |c|) * 8u + 1e-36), is < 0 (mx, my: the
+//    largest |x|, |y| of the rectangle; u = 2^-24).  Why that is exact:
+//    with E = a x + b y + c the exact edge, K7's value at a point in the
+//    rectangle is v = fl(fl(b y + fl(a x)) + c) = ((b y + a x (1 + d1))
+//    (1 + d2) + c)(1 + d3) with |di| <= u, so v - E = a x ((1 + d1)(1 +
+//    d2)(1 + d3) - 1) + b y ((1 + d2)(1 + d3) - 1) + c d3 and |v - E| <=
+//    ((1 + u)^3 - 1) S < 3.0001 u S, S = |a| mx + |b| my + |c|: the same
+//    bound as K1's form fma(a, x, b*y) + c, where the a- and b-terms swap
+//    roles.  The corner's and each pixel's values both lie within it.  E is
+//    largest on the rectangle at the chosen corner, so at every pixel v_p
+//    <= E_p + 3.0001uS <= E_c + 3.0001uS <= v_c + 6.0002uS.  The computed
+//    margin is at least (8uS(1 - 3.0001u) + 1e-36)(1 - u) > 6.0002uS
+//    (the 8u scaling is exact; underflowed products err by at most
+//    2^-150 each, far below the 1e-36).  fl(v_c + m) < 0 implies v_c + m <
+//    0, so v_p < 0 at every pixel: the entry fails e >= 0 there, and
+//    skipping it changes nothing.  A NaN or infinite coefficient makes m
+//    NaN or infinite, and the entry is never skipped.  Zero rows (id -1)
+//    are skipped block-wide before the test; their edges would never be
+//    rejected (0 + 1e-36 > 0) and their s = 0 fails anyway.  No scissor
+//    reject: pack_v3's default ylim (-8, 8) never rejects a frame row.
+//    ops/raster_depth_cuda.py holds the plain twin (`warp_rect_reject`
+//    with scissor=False, form="dot"), which the CPU tests hold against
+//    the plain raster and the exact edge.
+//  * __launch_bounds__(256, 2): at most 128 registers, two blocks an SM.
+//    yn is recomputed from the row index (the same bits) instead of
+//    being carried for 16 rows.
 //  * Rounding, as XLA:CPU computes the TPU kernel: its dot accumulates
 //    the 24 terms in order with fused multiply-adds from 0 (the zero
 //    terms add exact zeros), so a plane is fma(b, yn, a*xn) + c — not
@@ -41,7 +100,11 @@
 //    version computes the same ones, so winners and planes agree bit
 //    for bit.
 
+#include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -53,6 +116,10 @@ constexpr int CHUNK = 64;          // entries staged per round
 constexpr int WALK_SLOTS = 14;     // row slots the walk reads (0..13)
 constexpr int ROW = 40;            // floats per triangle row
 constexpr int N_PLANES = 15;
+constexpr int WARP_W = 32;         // a warp's rectangle: 32 columns x 16 rows
+constexpr int NO_SLOT = INT_MAX;   // no entry passed at the pixel
+constexpr float REJECT_REL = 8.0f / 16777216.0f;   // 8u, u = 2^-24
+constexpr float REJECT_ABS = 1e-36f;
 
 // one column of the coefficient product as XLA:CPU's dot accumulates
 // it: ((0 + a*xn) + b*yn) + c*1 with fused multiply-adds
@@ -66,7 +133,31 @@ __device__ __forceinline__ float lerp3(float a, float b, float c, float l0, floa
     return __fmaf_rn(c, l2, __fmaf_rn(a, l0, b * l1));
 }
 
-__global__ void __launch_bounds__(THREADS)
+// True when the edge a*x + b*y + c, evaluated as dplane, is below 0 at
+// every pixel of the rectangle [x0, x1] x [y0, y1] (the header derives
+// the margin)
+__device__ __forceinline__ bool edge_outside(float a, float b, float c, float x0,
+                                             float x1, float y0, float y1) {
+    const float mx = fmaxf(fabsf(x0), fabsf(x1));
+    const float my = fmaxf(fabsf(y0), fabsf(y1));
+    const float margin = (fabsf(a) * mx + fabsf(b) * my + fabsf(c)) * REJECT_REL
+                         + REJECT_ABS;
+    return dplane(a, b, c, a > 0.0f ? x1 : x0, b > 0.0f ? y1 : y0) + margin < 0.0f;
+}
+
+// the pixel-centre NDC coordinate of tile row / column `pix`: (origin +
+// pix + 0.5) * scale - 1, the sum of the two integers exact in f32
+__device__ __forceinline__ float ndc(int origin, int pix, float scale) {
+    return ((float)origin + (float)pix + 0.5f) * scale - 1.0f;
+}
+
+__device__ __forceinline__ int entry_id(const int* big_ids, const int* bins, int tile,
+                                        int bin_capacity, int n_big, int g) {
+    return g < n_big ? big_ids[g] : bins[(size_t)tile * bin_capacity + (g - n_big)];
+}
+
+template <int SPLIT>                // blocks of a cluster: one tile's walk
+__global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(THREADS, 2)
 raster_mxu_kernel(const float* __restrict__ tri_rows,
                   const int* __restrict__ bins,
                   const int* __restrict__ counts,
@@ -75,88 +166,126 @@ raster_mxu_kernel(const float* __restrict__ tri_rows,
                   float cx, float cy, int out_w, size_t plane_size,
                   float* __restrict__ out)
 {
+    constexpr int ROWS_PER_RANK = TILE_H / SPLIT;
+    constexpr int RANK_PIXELS = ROWS_PER_RANK * TILE_W;
     __shared__ float s_row[CHUNK][WALK_SLOTS];
     __shared__ int s_id[CHUNK];
+    __shared__ float s_depth[SPLIT][RANK_PIXELS];   // the rows this block combines
+    __shared__ int s_slot[SPLIT][RANK_PIXELS];
 
-    const int tile = blockIdx.x;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    // this block runs: its peers may write into s_depth / s_slot once all have arrived
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    const int tile = blockIdx.x / SPLIT;
     const int ty = tile / tiles_x;
     const int tx = tile - ty * tiles_x;
     const int col = threadIdx.x % TILE_W;
     const int row0 = (threadIdx.x / TILE_W) * ROWS_PER_THREAD;
-
-    const float xn = ((float)(tx * TILE_W) + (float)col + 0.5f) * cx - 1.0f;
     const int x = tx * TILE_W + col;
-    float yn[ROWS_PER_THREAD];
+    const float xn = ndc(tx * TILE_W, col, cx);
+
     float depth[ROWS_PER_THREAD];
-    int win[ROWS_PER_THREAD];
+    int slot[ROWS_PER_THREAD];
 #pragma unroll
     for (int p = 0; p < ROWS_PER_THREAD; ++p) {
-        yn[p] = ((float)(ty * TILE_H) + (float)(row0 + p) + 0.5f) * cy - 1.0f;
         depth[p] = 0.0f;
-        win[p] = -1;
+        slot[p] = NO_SLOT;
     }
+    // the warp's rectangle: its first and last column's xn, its rows' yn
+    const int wcol = col - col % WARP_W;
+    const float x0 = ndc(tx * TILE_W, wcol, cx);
+    const float x1 = ndc(tx * TILE_W, wcol + WARP_W - 1, cx);
+    const float y0 = ndc(ty * TILE_H, row0, cy);
+    const float y1 = ndc(ty * TILE_H, row0 + ROWS_PER_THREAD - 1, cy);
 
     // every big slot, then the tile's bin range (the TPU kernel's
-    // active = idx < B + count)
+    // active = idx < B + count); this block's share of them
     const int n_entries = n_big + counts[tile];
-    for (int base = 0; base < n_entries; base += CHUNK) {
-        const int n_here = min(CHUNK, n_entries - base);
+    const int n_mine = n_entries > rank ? (n_entries - rank + SPLIT - 1) / SPLIT : 0;
+    for (int base = 0; base < n_mine; base += CHUNK) {
+        const int n_here = min(CHUNK, n_mine - base);
         for (int i = threadIdx.x; i < n_here * WALK_SLOTS; i += THREADS) {
             const int e = i / WALK_SLOTS;
             const int k = i - e * WALK_SLOTS;
-            const int g = base + e;
-            const int id = g < n_big ? big_ids[g]
-                                     : bins[(size_t)tile * bin_capacity + (g - n_big)];
+            const int id = entry_id(big_ids, bins, tile, bin_capacity, n_big,
+                                    (base + e) * SPLIT + rank);
             s_row[e][k] = id >= 0 ? tri_rows[(size_t)id * ROW + k] : 0.0f;
             if (k == 0) s_id[e] = id;
         }
         __syncthreads();
         for (int e = 0; e < n_here; ++e) {
-            const int id = s_id[e];
-            if (id < 0) continue;          // a zero row: s = 0 never passes
+            if (s_id[e] < 0) continue;     // a zero row: s = 0 never passes
             const float* r = s_row[e];
             const float a0 = r[0], b0 = r[1], c0 = r[2];
             const float a1 = r[3], b1 = r[4], c1 = r[5];
             const float a2 = r[6], b2 = r[7], c2 = r[8];
+            if (edge_outside(a0, b0, c0, x0, x1, y0, y1)
+                || edge_outside(a1, b1, c1, x0, x1, y0, y1)
+                || edge_outside(a2, b2, c2, x0, x1, y0, y1)) continue;
             const float az = r[9], bz = r[10], cz = r[11];
             const float ylo = r[12], yhi = r[13];
+            const int g = (base + e) * SPLIT + rank;
 #pragma unroll
             for (int p = 0; p < ROWS_PER_THREAD; ++p) {
-                const float e0 = dplane(a0, b0, c0, xn, yn[p]);
-                const float e1 = dplane(a1, b1, c1, xn, yn[p]);
-                const float e2 = dplane(a2, b2, c2, xn, yn[p]);
-                const float d = dplane(az, bz, cz, xn, yn[p]);
+                const float yn = ndc(ty * TILE_H, row0 + p, cy);
+                const float e0 = dplane(a0, b0, c0, xn, yn);
+                const float e1 = dplane(a1, b1, c1, xn, yn);
+                const float e2 = dplane(a2, b2, c2, xn, yn);
+                const float d = dplane(az, bz, cz, xn, yn);
                 const float s = (e0 + e1) + e2;
                 const bool pass = (e0 >= 0.0f) & (e1 >= 0.0f) & (e2 >= 0.0f)
-                                  & (s > 0.0f) & (yn[p] - ylo >= 0.0f)
-                                  & (yhi - yn[p] > 0.0f)
+                                  & (s > 0.0f) & (yn - ylo >= 0.0f) & (yhi - yn > 0.0f)
                                   & (d > depth[p]) & (d <= 1.0f);
                 depth[p] = pass ? d : depth[p];
-                win[p] = pass ? id : win[p];
+                slot[p] = pass ? g : slot[p];
             }
         }
         __syncthreads();
     }
 
-    // epilogue: the winner's barycentrics and attributes
+    // combine: each block sends rank q its partial rows of q's slice
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#pragma unroll
     for (int p = 0; p < ROWS_PER_THREAD; ++p) {
-        const int y = ty * TILE_H + row0 + p;
+        const int row = row0 + p;
+        const int q = row / ROWS_PER_RANK;
+        const int o = (row % ROWS_PER_RANK) * TILE_W + col;
+        cluster.map_shared_rank(&s_depth[rank][0], q)[o] = depth[p];
+        cluster.map_shared_rank(&s_slot[rank][0], q)[o] = slot[p];
+    }
+    cluster.sync();
+
+    // epilogue over this block's rows: the largest depth, the smallest
+    // slot among equal depths; then the winner's barycentrics and
+    // attributes from its row
+    for (int i = threadIdx.x; i < RANK_PIXELS; i += THREADS) {
+        float best = 0.0f;
+        int g = NO_SLOT;
+#pragma unroll
+        for (int q = 0; q < SPLIT; ++q) {
+            const float dq = s_depth[q][i];
+            const int gq = s_slot[q][i];
+            if (dq > best || (dq == best && gq < g)) { best = dq; g = gq; }
+        }
+        const int row = rank * ROWS_PER_RANK + i / TILE_W;     // i % TILE_W == col
         float v[N_PLANES];
 #pragma unroll
         for (int j = 0; j < N_PLANES; ++j) v[j] = 0.0f;
         v[1] = -1.0f;
-        const int id = win[p];
-        if (id >= 0) {
+        if (g != NO_SLOT) {
+            const int id = entry_id(big_ids, bins, tile, bin_capacity, n_big, g);
             const float* r = tri_rows + (size_t)id * ROW;
-            const float e0 = dplane(r[0], r[1], r[2], xn, yn[p]);
-            const float e1 = dplane(r[3], r[4], r[5], xn, yn[p]);
-            const float e2 = dplane(r[6], r[7], r[8], xn, yn[p]);
+            const float yn = ndc(ty * TILE_H, row, cy);
+            const float e0 = dplane(r[0], r[1], r[2], xn, yn);
+            const float e1 = dplane(r[3], r[4], r[5], xn, yn);
+            const float e2 = dplane(r[6], r[7], r[8], xn, yn);
             const float s = (e0 + e1) + e2;
             const float inv_s = 1.0f / (s == 0.0f ? 1.0f : s);
             const float l0 = e0 * inv_s;
             const float l1 = e1 * inv_s;
             const float l2 = (1.0f - l0) - l1;
-            v[0] = depth[p];
+            v[0] = best;
             v[1] = (float)id;
             v[2] = lerp3(r[16], r[18], r[20], l0, l1, l2);     // u
             v[3] = lerp3(r[17], r[19], r[21], l0, l1, l2);     // v
@@ -166,7 +295,7 @@ raster_mxu_kernel(const float* __restrict__ tri_rows,
 #pragma unroll
             for (int j = 0; j < 8; ++j) v[7 + j] = r[32 + j];  // material, albedo id
         }
-        const size_t o = (size_t)y * out_w + x;
+        const size_t o = (size_t)(ty * TILE_H + row) * out_w + x;
 #pragma unroll
         for (int j = 0; j < N_PLANES; ++j) out[j * plane_size + o] = v[j];
     }
@@ -186,8 +315,16 @@ extern "C" int raster_mxu_launch(const float* tri_rows, const int* bins,
                                  float* out, void* stream)
 {
     const size_t plane_size = (size_t)(n_tiles / tiles_x) * TILE_H * out_w;
-    raster_mxu_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        tri_rows, bins, counts, big_ids, n_big, bin_capacity, tiles_x, cx, cy,
-        out_w, plane_size, out);
+    int dev = 0, n_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (n_tiles >= 2 * n_sm && n_big + bin_capacity <= 512)
+        raster_mxu_kernel<2><<<n_tiles * 2, THREADS, 0, (cudaStream_t)stream>>>(
+            tri_rows, bins, counts, big_ids, n_big, bin_capacity, tiles_x, cx, cy,
+            out_w, plane_size, out);
+    else
+        raster_mxu_kernel<4><<<n_tiles * 4, THREADS, 0, (cudaStream_t)stream>>>(
+            tri_rows, bins, counts, big_ids, n_big, bin_capacity, tiles_x, cx, cy,
+            out_w, plane_size, out);
     return (int)cudaGetLastError();
 }

@@ -31,16 +31,18 @@ material alpha rides the albedo-id slot 41) and, from its second layer
 on, peel_depth: a fragment then passes only if it is strictly farther
 than the previous layer's depth (d < peel).
 
-K1 splits each tile's walk over a cluster of 4 blocks (2 where the
-frame has at least twice as many tiles as the card has SMs and shallow
-bins): block r walks the slots r (mod 4) of the tile's sequence and
-carries its partial (depth, walk slot); the combine takes the largest
-depth and, among equal ones, the smallest slot, which is the sequential
-walk's winner (`walk_step` is the plain step the CPU tests build that
-split from).
-Each warp skips the entries one of whose edges is below 0 on its 32 x 16
-rectangle (`raster_depth_cuda.warp_rect_reject` with scissor=False: K1
-reads no y scissor).  Neither moves a value (csrc/raster_shade.cu).
+K1 and K6 split each tile's walk over a cluster of 4 blocks (2 where
+the frame has at least twice as many tiles as the card has SMs and
+shallow bins): block r walks the slots r (mod 4) of the tile's sequence
+and carries its partial (depth, walk slot); the combine takes the
+largest depth and, among equal ones, the smallest slot, which is the
+sequential walk's winner (`split_walk` is that walk in plain PyTorch,
+built from `walk_step`, the plain versions' step).  K6's blocks then run
+its second phase on the rows each combined.  Each warp skips the
+entries one of whose edges is below 0 on its 32 x 16 rectangle
+(`raster_depth_cuda.warp_rect_reject` with scissor=False: K1 reads no y
+scissor).  None of it moves a value (csrc/raster_shade.cu,
+csrc/raster_shade_2p.cu).
 
 Early-z (raster_early_z): the kernels also take `szb` (early_z_bounds),
 per tile and walk slot an upper bound on the depth of every fragment of
@@ -193,6 +195,47 @@ def walk_step(rows, idk, xn, yn, depth, peel_t=None):
     return passed, d
 
 
+NO_SLOT = 2 ** 31 - 1    # the kernels' slot where no entry passed
+WALK_CHUNK = 64          # entries a block stages a round
+
+
+def split_walk(rows, ids, tiles_x, width, height, split, peel=None, szb=None,
+               step=walk_step):
+    """The split walk of K1, K6 and K7 in plain PyTorch: (depth, slot),
+    each (n_tiles, 32, 128), slot NO_SLOT where no entry passes.  Block r
+    walks the slots r, r + split, .. of ids (n_tiles, E) in chunks of
+    WALK_CHUNK; with szb each thread (one column, 16 rows) stops at the
+    first slot g whose szb[:, g] its partial min depth, refreshed once a
+    chunk, reaches.  The blocks' partials combine to the largest depth
+    and, among equal ones, the smallest slot.  step(rows, idk, xn, yn,
+    depth, peel_t) -> (passed, d) is one slot of the walk (K7's:
+    raster_mxu_cuda.mxu_walk_step)."""
+    n_tiles, E = ids.shape
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, rows.device)
+    peel_t = None if peel is None else tile_image(peel, tiles_x, n_tiles // tiles_x)
+    best = torch.zeros((n_tiles, TILE_H, TILE_W), device=rows.device)
+    best_g = torch.full_like(best, NO_SLOT, dtype=torch.int64)
+    for r in range(split):
+        mine = list(range(r, E, split))
+        depth = torch.zeros_like(best)
+        slot = torch.full_like(best_g, NO_SLOT)
+        tmin = torch.zeros((n_tiles, 2, TILE_W), device=rows.device)   # per thread
+        done = torch.zeros((n_tiles, 2, TILE_W), dtype=torch.bool, device=rows.device)
+        for c0 in range(0, len(mine), WALK_CHUNK):
+            for g in mine[c0:c0 + WALK_CHUNK]:
+                if szb is not None:
+                    done |= tmin >= szb[:, g, None, None]
+                passed, d = step(rows, ids[:, g], xn, yn, depth, peel_t)
+                passed &= ~done.repeat_interleave(TILE_H // 2, 1)
+                depth = torch.where(passed, d, depth)
+                slot = torch.where(passed, torch.full_like(slot, g), slot)
+            tmin = depth.reshape(n_tiles, 2, TILE_H // 2, TILE_W).amin(2)
+        better = (depth > best) | ((depth == best) & (slot < best_g))
+        best = torch.where(better, depth, best)
+        best_g = torch.where(better, slot, best_g)
+    return best, best_g
+
+
 def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height,
                            peel=None, szb=None):
     """Plain PyTorch K1: (22, tiles_y*32, tiles_x*128) f32 planes.  It
@@ -332,10 +375,10 @@ def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
 
 raster_shade_cuda.launches = 0
 
-# K6's shared memory above its ~20 KB of static staging: 8 bytes per entry
+# K6's shared memory above its ~45 KB of static staging: 8 bytes per entry
 # of n_big + bin_capacity (csrc/raster_shade_2p.cu), within the 227 KB a
 # block may opt in to
-MAX_2P_DYN_SMEM = 200 * 1024
+MAX_2P_DYN_SMEM = 180 * 1024
 
 
 def raster_shade_2p_cuda(rows, bins, counts, big_ids, tiles_x, width, height,

@@ -39,6 +39,7 @@ from . import _kernels
 from .common import TILE_H, TILE_W
 from .raster import _untile
 from .raster_cuda import _entry_ids, _ndc_scale, _plane, _tile_ndc, early_z_bounds
+from .raster_mxu_cuda import _dot_plane
 
 ROW = 16              # floats per triangle row (the setup's row16)
 WARP_W, WARP_H = 32, 16          # a K3 warp's rectangle: columns x rows
@@ -88,14 +89,19 @@ def warp_rects(tiles_x, n_tiles, width, height, device="cpu", warp_h=WARP_H):
             ndc(row0, cy), ndc(row0 + warp_h - 1, cy))
 
 
-def warp_rect_reject(r, x0, x1, y0, y1, scissor=True):
+def warp_rect_reject(r, x0, x1, y0, y1, scissor=True, form="plane"):
     """Plain twin of K3's warp-rectangle reject, with the kernel's
     arithmetic: True where entry row r (..., 16 or more) passes at no
     pixel of the rectangle [x0, x1] x [y0, y1] (f32, broadcast against
     r[..., 0]): its y scissor (slots 14-15) misses the rows, or an edge's
     value at the rectangle's corner where the exact plane is largest, plus
     the margin fl(|a| mx + |b| my + |c|) * 8 * 2^-24 + 1e-36, is below 0.
-    scissor=False is K1's reject, edges only: K1 reads no scissor."""
+    scissor=False is K1's reject, edges only: K1 reads no scissor.  form
+    is the corner value's rounding: "plane", fma(a, x, b*y) + c (K3, K1,
+    K6); "dot", fma(b, y, a*x) + c (K7, with scissor=False: K7's rows
+    keep the scissor in slots 12-13, and csrc/raster_mxu.cu derives the
+    margin for that form)."""
+    plane = dict(plane=_plane, dot=_dot_plane)[form]
     out = torch.zeros(torch.broadcast_shapes(r[..., 0].shape, x0.shape), dtype=torch.bool,
                       device=r.device)
     if scissor:
@@ -105,7 +111,7 @@ def warp_rect_reject(r, x0, x1, y0, y1, scissor=True):
     for k in range(3):
         a, b, c = r[..., 3 * k], r[..., 3 * k + 1], r[..., 3 * k + 2]
         margin = (a.abs() * mx + b.abs() * my + c.abs()) * REJECT_REL + REJECT_ABS
-        corner = _plane(a, b, c, torch.where(a > 0, x1, x0), torch.where(b > 0, y1, y0))
+        corner = plane(a, b, c, torch.where(a > 0, x1, x0), torch.where(b > 0, y1, y0))
         out = out | (corner + margin < 0)
     return out
 

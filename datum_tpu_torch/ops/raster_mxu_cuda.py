@@ -13,7 +13,13 @@ one-hot product fetches the winner's 32 attribute values.  That is a
 sequential walk with a strict depth test: the first entry in walk order
 that reaches the largest passing depth wins.  Both versions here walk
 each pixel's entries so, and evaluate the six planes of an entry
-directly (no product, no library call).
+directly (no product, no library call).  The kernel splits each tile's
+walk over a cluster of 2 or 4 blocks carrying (depth, walk slot), as K1
+does (`raster_cuda.split_walk` with `mxu_walk_step` is that walk in
+plain PyTorch), and each warp skips the entries one of whose edges is
+below 0 on its 32 x 16 rectangle, in K7's rounding form
+(`raster_depth_cuda.warp_rect_reject(..., scissor=False, form="dot")`).
+Neither moves a value (csrc/raster_mxu.cu).
 
 What makes K7 differ from K1, and is kept:
 - no valid flag: every big slot (valid or not) and the bin entries are
@@ -90,6 +96,23 @@ def _lerp3(r, o, step, l0, l1, l2):
     return fma(r[..., o + 2 * step], l2, fma(r[..., o], l0, r[..., o + step] * l1))
 
 
+def mxu_walk_step(rows, idk, xn, yn, depth, peel_t=None):
+    """One slot of the K7 walk for every tile: the entries idk (n,) (-1:
+    none, a zero row) at every pixel of their tile.  Returns (passed, d):
+    the inside test with the scissor planes, d > depth and d <= 1.  K7
+    takes no peel plane: peel_t (split_walk's step signature) is None."""
+    r = (rows[torch.clamp(idk, min=0).long(), :14]
+         * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
+    e0 = _dot_plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
+    e1 = _dot_plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
+    e2 = _dot_plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
+    d = _dot_plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
+    s = e0 + e1 + e2
+    inside = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0)
+              & (yn - r[:, 12] >= 0) & (r[:, 13] - yn > 0))
+    return inside & (d > depth) & (d <= 1.0), d
+
+
 def raster_mxu_reference(rows, bins, counts, big_ids, tiles_x, width, height):
     """Plain PyTorch K7: (15, tiles_y*32, tiles_x*128) f32 planes (see
     PLANE_NAMES; visf and alb are the winner's id and albedo id as f32,
@@ -103,19 +126,18 @@ def raster_mxu_reference(rows, bins, counts, big_ids, tiles_x, width, height):
     win = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32, device=dev)
     for k in range(ids.shape[1]):
         idk = ids[:, k]
-        r = (rows[torch.clamp(idk, min=0).long(), :14]
-             * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
-        e0 = _dot_plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
-        e1 = _dot_plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
-        e2 = _dot_plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
-        d = _dot_plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
-        s = e0 + e1 + e2
-        inside = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0)
-                  & (yn - r[:, 12] >= 0) & (r[:, 13] - yn > 0))
-        passed = inside & (d > depth) & (d <= 1.0)
+        passed, d = mxu_walk_step(rows, idk, xn, yn, depth)
         depth = torch.where(passed, d, depth)
         win = torch.where(passed, idk[:, None, None], win)
+    tiles_y = n_tiles // tiles_x
+    return torch.stack([_untile(p, tiles_x, tiles_y)
+                        for p in mxu_planes(rows, win, depth, xn, yn)])
 
+
+def mxu_planes(rows, win, depth, xn, yn):
+    """K7's epilogue: the 15 tiled planes (each (n, 32, 128)) from each
+    pixel's winning id win (-1: none) and depth, at the pixel centres
+    xn, yn."""
     has = win >= 0
     r = rows[torch.clamp(win, min=0).long()]                  # (n, 32, 128, 40)
     e0 = _dot_plane(r[..., 0], r[..., 1], r[..., 2], xn, yn)
@@ -132,9 +154,7 @@ def raster_mxu_reference(rows, bins, counts, big_ids, tiles_x, width, height):
             _lerp3(r, 22, 3, l0, l1, l2), _lerp3(r, 23, 3, l0, l1, l2),
             _lerp3(r, 24, 3, l0, l1, l2)] + [r[..., 32 + j] for j in range(8)]
     planes = [depth, torch.where(has, vals[1], zero - 1.0)]
-    planes += [torch.where(has, v, zero) for v in vals[2:]]
-    tiles_y = n_tiles // tiles_x
-    return torch.stack([_untile(p, tiles_x, tiles_y) for p in planes])
+    return planes + [torch.where(has, v, zero) for v in vals[2:]]
 
 
 def raster_mxu_cuda(rows, bins, counts, big_ids, tiles_x, width, height):

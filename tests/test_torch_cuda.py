@@ -11,7 +11,9 @@ and on), on 136 tiles with a peel plane and one tile wide; K4
 bit-identical in every soft mode with a peel plane, NaNs included
 (elsewhere, as the K2 epilogue with its fog group, bit-identical on >=
 99.99% of values, atol/rtol 1e-5 on the rest); ptxas at most 128
-registers and no spill for K1 and K4; K2 atol 1e-4 / rtol 1e-3 (CUDA's
+registers and no spill for K1, K4, K6 and K7; K6 and K7 bit-identical on
+full bins of the stress and the bench depth, on 136 tiles (K6 with a
+peel plane, early-z off and on) and one tile wide; K2 atol 1e-4 / rtol 1e-3 (CUDA's
 and torch's sqrt and division differ by ulps); K3 bit-identical on >=
 99.99% of texels, max abs error 1e-6.  Clustered K2 is held as K2; K1,
 K6 and K3 with the early-z exit bit-identical to themselves without it
@@ -1025,6 +1027,69 @@ def test_k4_soft_modes_with_peel_bit_identical(card, soft):
 
 @pytest.mark.parametrize("src", ["raster_shade.cu", "raster_blend.cu"])
 def test_k1_k4_ptxas_no_spill(card, src):
+    """ptxas: at most 128 registers (two blocks of 256 threads an SM), no
+    spill."""
+    from datum_tpu_torch.ops import _kernels
+
+    rep = _kernels.library().ptxas(src)
+    assert rep["registers"] is not None and rep["registers"] <= 128, rep
+    assert not rep["spill_bytes"], rep
+
+
+# ---- K6's and K7's cluster split (K6: K1's walk, then its second phase per
+# block; K7: the split in its own arithmetic, with its own reject)
+
+def _random_k7(card, seed, n_tris, w, h, cap, big_cap, size=0.08, spread=1.0):
+    """K7 inputs of _random_setup's triangles (random uv, normals and
+    materials), binned at cap + big_cap.  Returns (inputs, counts)."""
+    tx, ty = w // 128, h // 32
+    setup, tris = _random_setup(card, seed, n_tris, w, h, size, 0, spread)
+    bins, counts, big = raster_ops.bin_triangles(setup, n_tris, tx, ty, cap, big_cap)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=g).to(card)
+    V, nm = 3 * n_tris, 5
+    mats = dict(color=rnd(nm, 4), emissive=rnd(nm), metalness=rnd(nm),
+                roughness=rnd(nm), reflectivity=rnd(nm),
+                albedomap=torch.randint(0, 4, (nm,), generator=g).to(torch.int32).to(card))
+    inp = raster_mxu_inputs(setup, bins, big, counts, tris, rnd(V, 2), rnd(V, 3) * 2 - 1,
+                            torch.randint(0, nm, (n_tris,), generator=g).to(card), mats,
+                            tx, w, h)
+    return inp, counts
+
+
+@pytest.mark.parametrize("cap", [(1024, 128), (160, 64)], ids=["deep", "shallow"])
+def test_k7_full_bins_bit_identical(card, cap):
+    """Full bins on a frame of 510 tiles: the stress frame's bin depth
+    (1024 + 128: 4 blocks a tile) and the bench frame's (160 + 64: 2
+    blocks a tile)."""
+    inp, counts = _random_k7(card, 23, 60000, 1920, 1088, *cap, size=0.02, spread=0.3)
+    assert inp["bins"].shape[0] == 510 and int((counts == cap[0]).sum()) >= 2
+    before = raster_mxu_cuda.launches
+    k = raster_mxu_cuda(**inp)
+    r = raster_mxu_reference(**inp)
+    torch.cuda.synchronize()
+    assert raster_mxu_cuda.launches == before + 1
+    assert (r[1] >= 0).float().mean().item() > 0.05
+    assert torch.equal(k, r)
+
+
+@pytest.mark.parametrize("size", [(1024, 544), (128, 256)], ids=["136-tiles", "one-wide"])
+def test_k6_k7_small_frames_bit_identical(card, size):
+    """136 tiles (4 blocks a tile) with a peel plane for K6, and a frame
+    one tile wide; K6 also with early-z."""
+    w, h = size
+    n = 4000 if w > 128 else 600
+    inp, counts = _random_k1(card, 24, n, w, h, 128, 16, size=0.1, peel=True)
+    assert int(counts.max()) > 64
+    r = raster_shade_2p_reference(**inp)
+    for szb in (None, inp["szb"]):
+        assert torch.equal(raster_shade_2p_cuda(**dict(inp, szb=szb)), r)
+    inp7, _ = _random_k7(card, 24, n, w, h, 128, 16, size=0.1)
+    assert torch.equal(raster_mxu_cuda(**inp7), raster_mxu_reference(**inp7))
+
+
+@pytest.mark.parametrize("src", ["raster_shade_2p.cu", "raster_mxu.cu"])
+def test_k6_k7_ptxas_no_spill(card, src):
     """ptxas: at most 128 registers (two blocks of 256 threads an SM), no
     spill."""
     from datum_tpu_torch.ops import _kernels

@@ -5,11 +5,11 @@ The K1 kernel (csrc/raster_shade.cu) splits each tile's walk over a
 cluster of 4 blocks (2 on large frames with shallow bins): block r walks the slots g = r
 (mod split) of the tile's sequence, with its own early-z exit, carrying
 its partial (depth, slot); the combine takes the largest depth and,
-among equal ones, the smallest slot.  `split_walk` below is that walk in
-plain PyTorch (the kernel's per-thread exit and chunking included), built
-from `walk_step`, the plain K1's own step; the tests hold it against the
-full walk `raster_shade_reference`.  K1's warps skip the entries that
-`warp_rect_reject(..., scissor=False)` rejects; the tests hold that
+among equal ones, the smallest slot.  `ops/raster_cuda.split_walk` is
+that walk in plain PyTorch (the kernel's per-thread exit and chunking
+included), built from `walk_step`, the plain K1's own step; the tests
+hold it against the full walk `raster_shade_reference`.  K1's warps
+skip the entries that `warp_rect_reject(..., scissor=False)` rejects; the tests hold that
 against the plain raster of each entry alone.  K4 (csrc/raster_blend.cu)
 skips an entry for a warp where `blend_reject` says its terms are exact
 no-ops there; the tests hold that against the plain accumulation."""
@@ -23,17 +23,15 @@ from datum_tpu_torch.ops import raster as raster_ops
 from datum_tpu_torch.ops.raster import tile_image
 from datum_tpu_torch.ops.raster_blend_cuda import (blend_inputs, blend_reject,
                                                    raster_blend_reference)
-from datum_tpu_torch.ops.raster_cuda import (_entry_ids, _plane, _tile_ndc,
+from datum_tpu_torch.ops.raster_cuda import (NO_SLOT, _entry_ids, _plane, _tile_ndc,
                                              early_z_bounds, raster_shade_reference,
-                                             walk_step)
+                                             split_walk)
 from datum_tpu_torch.ops.raster_depth_cuda import warp_rect_reject, warp_rects
 from datum_tpu_torch.render import frame as frame_mod
 from datum_tpu_torch.render.types import make_sceneset
 from datum_tpu_torch.scenes import stress_scene
 
 W, H, TX, TY = 256, 64, 2, 2          # 4 tiles of 32 x 128
-NO_SLOT = 2 ** 31 - 1
-CHUNK = 64
 
 
 @pytest.fixture(autouse=True)
@@ -43,40 +41,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def split_walk(rows, ids, tiles_x, width, height, split, peel=None, szb=None):
-    """The K1 kernel's split walk in plain PyTorch: (depth, slot), each
-    (n_tiles, 32, 128), slot NO_SLOT where no entry passes.  Block r
-    walks the slots r, r + split, .. of ids (n_tiles, E) in chunks of 64;
-    each thread (one column, 16 rows) stops at the first slot g whose
-    szb[g] its partial min depth, refreshed once a chunk, reaches.  The
-    blocks' partials combine to the largest depth and, among equal ones,
-    the smallest slot."""
-    n_tiles, E = ids.shape
-    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, rows.device)
-    peel_t = None if peel is None else tile_image(peel, tiles_x, n_tiles // tiles_x)
-    best = torch.zeros((n_tiles, 32, 128))
-    best_g = torch.full((n_tiles, 32, 128), NO_SLOT, dtype=torch.int64)
-    for r in range(split):
-        mine = list(range(r, E, split))
-        depth = torch.zeros_like(best)
-        slot = torch.full_like(best_g, NO_SLOT)
-        tmin = torch.zeros((n_tiles, 2, 128))           # per thread
-        done = torch.zeros((n_tiles, 2, 128), dtype=torch.bool)
-        for c0 in range(0, len(mine), CHUNK):
-            for g in mine[c0:c0 + CHUNK]:
-                if szb is not None:
-                    done |= tmin >= szb[:, g, None, None]
-                passed, d = walk_step(rows, ids[:, g], xn, yn, depth, peel_t)
-                passed &= ~done.repeat_interleave(16, 1)
-                depth = torch.where(passed, d, depth)
-                slot = torch.where(passed, torch.full_like(slot, g), slot)
-            tmin = depth.reshape(n_tiles, 2, 16, 128).amin(2)
-        better = (depth > best) | ((depth == best) & (slot < best_g))
-        best = torch.where(better, depth, best)
-        best_g = torch.where(better, slot, best_g)
-    return best, best_g
 
 
 def _check_split(rows, ids, tiles_x, width, height, peel=None, szb=None):
