@@ -44,6 +44,13 @@ and exits non-zero:
    once with DoF; check the image, the luminance, bin_overflow 0 and the
    launches of every frame; check a small bench frame against the plain
    path on the CPU;
+5r. render the bench frame as profiling/capture_frame.py does (its
+   config at make_rl(0.5), no SSAO history) and compare its rows
+   [:1080] with the TPU's tests/golden/datumtest_1080_tpu.png: the
+   port's own frame (exact f32 matmuls) printed, the frame with the
+   TPU's bf16 rounding of f32 matmul operands held at that script's
+   gate, RMSE < 0.01 (RMSE, mean |d|, bin_overflow and the blocks that
+   differ most printed for both);
 6. time ms/frame (CUDA events, median) of the frames (the bench frame
    with K1 and with K6 in turns), the bench frame's device time and
    launches under torch.profiler, its stages (the post
@@ -51,8 +58,9 @@ and exits non-zero:
    each kernel's bound from this run's inputs;
 3s-6s. the stress frame: its scene (triangles, bin entries, overflows);
    K1, K6 and K3 with early-z against themselves without it and their
-   plain versions, K7 on the stress frame's setup and bins (the
-   stress-depth set) against its plain version (bit-identical),
+   plain versions, K7 and K5 on the stress frame's setup and bins (the
+   stress-depth and the K5 stress sets) against their plain versions
+   (bit-identical),
    clustered K2 against its plain version and clustered
    frames against dense ones (also the 128-light bench scene); the
    frame driven 3 times with early-z off and 3 times on, with its
@@ -83,8 +91,8 @@ and exits non-zero:
    CPU plain path; ms/frame, a profiler window, the stages of the probe
    fields, the fog planes and the SSRs, K2 with and without the group,
    the gather against tab[idx], and their bounds;
-7. with --versions FILE, other versions of K1's, K6's, K2's, K3's, K4's
-   and K7's sources built alone and timed beside this build's on the same
+7. with --versions FILE, other versions of K1's, K6's, K2's, K3's, K4's,
+   K5's and K7's sources built alone and timed beside this build's on the same
    inputs (see versions_phase); then print the kernels' JSON line (9
    rows), then the device JSON line last, after the script's wall time.
 
@@ -209,6 +217,18 @@ OPS_K2_PROBE = 75
 # the gather microbenchmark's shapes (profiling/prof_gather.py:159-170):
 # 524,288 rows of a 16384 x 16 f32 table
 GATHER_ROWS, GATHER_TABLE = 524288, (16384, 16)
+# profiling/capture_frame.py:41-54's config (bench.py's at 1920x1088),
+# rendered at make_rl(0.5) with no SSAO history: its rows [:1080] are the
+# TPU's tests/golden/datumtest_1080_tpu.png, gated at RMSE < 0.01 (:82)
+CAPTURE = dict(sphere_detail=24, n_point_lights=8, max_vertices=1 << 15,
+               max_triangles=1 << 15, bin_capacity=160, big_capacity=64, bin_max_span=8,
+               use_pallas=True, shadow_factor_scale=4, enable_material_maps=True,
+               texture_filter="mip_half", enable_ssao=True, enable_fog=True,
+               enable_ssr=True, max_spot_shadows=1, max_particle_quads=512,
+               max_translucent_draws=2, max_translucent_tris=2048, max_decals_active=2,
+               decal_textures=False, translucent_lit_scale=2, shadow_far_res=512,
+               shadow_slice_blend=0.25, fog_sample_scale=8)
+CAPTURE_ROWS, CAPTURE_RMSE = 1080, 0.01
 # datum_tpu/tools/stress_golden.py's CONFIG, rendered for tests/golden/stress.png
 STRESS_GOLDEN = dict(width=320, height=160, terrain_n=96, sphere_detail=20,
                      grid=(6, 3), n_point_lights=64, skybox_size=16,
@@ -572,6 +592,8 @@ def stress_phases(dev, card, kernels):
         depth_inputs, raster_depth_cuda, raster_depth_reference)
     from datum_tpu_torch.ops.raster_mxu_cuda import (
         raster_mxu_cuda, raster_mxu_inputs, raster_mxu_reference)
+    from datum_tpu_torch.ops.raster_v1_cuda import (
+        raster_v1_cuda, raster_v1_inputs, raster_v1_reference)
     from datum_tpu_torch.ops.shade_cuda import (
         shade_deferred_cuda, shade_deferred_reference, shade_inputs)
     from datum_tpu_torch.render import frame as F
@@ -648,6 +670,18 @@ def stress_phases(dev, card, kernels):
                 f"and bins, {k7_in['big_ids'].shape[0]} + {k7_in['bins'].shape[1]} "
                 f"entries a tile, covered {(k7r[1] >= 0).float().mean().item():.3f}): "
                 "all 15 planes bit-identical on every pixel")
+    # K5 on the same setup and bins (the K5 frame itself runs the bench scene)
+    k5_in = raster_v1_inputs(setup, bins, big, counts, cfg.tiles_x, cfg.padded_width,
+                             cfg.padded_height)
+    k5 = raster_v1_cuda(**k5_in)
+    k5r = raster_v1_reference(**k5_in)
+    torch.cuda.synchronize()
+    require_equal(k5, k5r, "K5 vs plain (stress inputs)")
+    k5_err = (k5 - k5r).abs().max().item()
+    phase("4s", f"K5 vs plain on the stress inputs (the stress frame's setup and bins, "
+                f"{k5_in['big_ids'].shape[0]} + {k5_in['bins'].shape[1]} entries a tile, "
+                f"covered {(k5r[1] >= 0).float().mean().item():.3f}): all 4 planes "
+                "bit-identical on every pixel")
 
     (stack,) = shadow_ops.cascade_stacks(wp, ex["tris"], s_t["mainlight"]["shadowview"],
                                          res=cfg.shadow_res, far_res=cfg.shadow_far_res)
@@ -764,6 +798,9 @@ def stress_phases(dev, card, kernels):
              k7=cuda_ms(lambda: raster_mxu_cuda(**k7_in), 20),
              k7p=cuda_ms(lambda: raster_mxu_reference(**k7_in), 1),
              k7_dev=device_ms(lambda: raster_mxu_cuda(**k7_in)),
+             k5=cuda_ms(lambda: raster_v1_cuda(**k5_in), 20),
+             k5p=cuda_ms(lambda: raster_v1_reference(**k5_in), 1),
+             k5_dev=device_ms(lambda: raster_v1_cuda(**k5_in)),
              k3_dev=device_ms(lambda: raster_depth_cuda(**k3_in)),
              k3z_dev=device_ms(lambda: raster_depth_cuda(**k3z_in)),
              k2c_dev=device_ms(lambda: shade_deferred_cuda(**k2c_in)))
@@ -790,10 +827,12 @@ def stress_phases(dev, card, kernels):
                 f"{t['k2c']:.3f} ms, dense {t['k2d']:.3f} ms (128 lights), clustered "
                 f"plain {t['k2cp']:.3f} ms; gather tab[idx] (16384x16 f32, 524288 rows) "
                 f"{t['gather']:.4f} ms; K7 (stress-depth inputs) {t['k7']:.3f} ms, plain "
-                f"{t['k7p']:.3f} ms; device time a call (device_ms): K1 "
+                f"{t['k7p']:.3f} ms; K5 (stress inputs) {t['k5']:.3f} ms, plain "
+                f"{t['k5p']:.3f} ms; device time a call (device_ms): K1 "
                 f"{t['k1_dev']:.4f} ms, with early-z {t['k1z_dev']:.4f} ms, K6 "
                 f"{t['k6_dev']:.4f} ms, with early-z {t['k6z_dev']:.4f} ms, K7 "
-                f"{t['k7_dev']:.4f} ms, K3 {t['k3_dev']:.4f} ms, with early-z "
+                f"{t['k7_dev']:.4f} ms, K5 {t['k5_dev']:.4f} ms, K3 {t['k3_dev']:.4f} ms, "
+                f"with early-z "
                 f"{t['k3z_dev']:.4f} ms, K2 clustered {t['k2c_dev']:.4f} ms on {card}")
 
     px = cfg.padded_width * cfg.padded_height
@@ -819,6 +858,8 @@ def stress_phases(dev, card, kernels):
                   px * (OPS_K2_PIXEL + OPS_K2_LIGHT * int(k2d_in["counts"][0]))),
         k7=bound(_nbytes(*(k7_in[k] for k in ("rows", "bins", "counts", "big_ids")))
                  + 15 * px * 4, _walked(k7_in) * 4096 * OPS_WALK_K7 + px * OPS_K7_PIXEL),
+        k5=bound(_nbytes(*(k5_in[k] for k in ("rows", "bins", "counts", "big_ids")))
+                 + 4 * px * 4, _walked(k5_in) * 4096 * OPS_WALK_K5 + px * OPS_K5_PIXEL),
         gather=bound(_nbytes(tab, idx) + idx.numel() * 16 * 4, 0))
     phase("6s", "stress bounds (ms, by): " + "; ".join(
         f"{n} {v[0]:.4f} {v[1]}" for n, v in b.items()))
@@ -845,14 +886,17 @@ def stress_phases(dev, card, kernels):
                 "TPU's vertex bound; by the vertex bound if the bins were sorted by "
                 "it, nearest first): " + "; ".join(walks))
     return dict(t=t, b=b, launches=pfz[0], errs=dict(k1=k1_err, k6=k6_err, k3=k3_err,
-                                                     k2c=k2c_err, k7=k7_err),
+                                                     k2c=k2c_err, k7=k7_err, k5=k5_err),
                 inputs=dict(k1=k1_in, k1z=k1z_in, k2c=k2c_in, k3=k3_in, k3z=k3z_in,
-                            k7=k7_in))
+                            k7=k7_in, k5=k5_in))
 
 
 def read_png_rgb(path):
     """An 8-bit RGB PNG (no interlace) as a (h, w, 3) uint8 numpy array,
-    decoded with zlib: the card's machine has no PIL."""
+    decoded with zlib: the card's machine has no PIL.  A byte's filter
+    predictor reads its left, upper and upper-left neighbours, all on
+    earlier anti-diagonals x + y of the pixel grid, so the rows are
+    unfiltered one anti-diagonal at a time, every pixel of it at once."""
     import struct
     import zlib
 
@@ -873,28 +917,121 @@ def read_png_rgb(path):
             idat += body
         pos += 12 + n
     raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    out = np.zeros((h, 3 * w), np.int32)
-    for y in range(h):
-        f, line = raw[y, 0], raw[y, 1:].astype(np.int32)
-        up = out[y - 1] if y else np.zeros(3 * w, np.int32)
-        if f in (0, 2):
-            out[y] = (line + (up if f == 2 else 0)) & 255
-            continue
-        row = np.zeros(3 * w + 3, np.int32)         # 3 zero bytes to the left
-        upl = np.concatenate([np.zeros(3, np.int32), up])
-        for x in range(3 * w):
-            a, b, c = row[x], upl[x + 3], upl[x]
-            if f == 1:
-                pred = a
-            elif f == 3:
-                pred = (a + b) // 2
-            else:                                  # Paeth
-                p_ = a + b - c
-                pa, pb, pc = abs(p_ - a), abs(p_ - b), abs(p_ - c)
-                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-            row[x + 3] = (line[x] + pred) & 255
-        out[y] = row[3:]
-    return out.reshape(h, w, 3).astype(np.uint8)
+    filt = raw[:, 0].astype(np.int32)
+    if (filt > 4).any():
+        raise RuntimeError(f"{path}: unknown PNG filter {int(filt.max())}")
+    line = raw[:, 1:].reshape(h, w, 3).astype(np.int32)
+    out = np.zeros((h + 1, w + 1, 3), np.int32)     # a zero row above, a zero column left
+    for diag in range(h + w - 1):
+        y = np.arange(max(0, diag - w + 1), min(h, diag + 1))
+        x = diag - y
+        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]   # left, up, up-left
+        p_ = a + b - c
+        pa, pb, pc = np.abs(p_ - a), np.abs(p_ - b), np.abs(p_ - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        f = filt[y][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                         [a, b, (a + b) // 2, paeth], 0)
+        out[y + 1, x + 1] = (line[y, x] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
+class tpu_default_matmuls:
+    """While the with-block runs, the port's f32 matmuls (torch.matmul,
+    torch.einsum, the @ operator: all it calls) take each f32 operand
+    rounded to bf16, with exact products and f32 sums: how a TPU runs the
+    JAX package's f32 dots at their default precision (one bf16 pass; the
+    JAX package's blur.py says so of its upsamples).  The port's contract
+    is exact f32, as the JAX package computes on the CPU; this is for
+    holding the port against a frame the TPU rendered."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = torch.matmul, torch.einsum, torch.Tensor.__matmul__
+        mm, ein, at = self.saved
+
+        def rnd(t):
+            return t.to(torch.bfloat16).to(t.dtype) if t.dtype == torch.float32 else t
+
+        def einsum(eq, *ops):
+            if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
+                ops = ops[0]
+            return ein(eq, *(rnd(o) for o in ops))
+
+        torch.matmul = lambda a, b, **kw: mm(rnd(a), rnd(b), **kw)
+        torch.einsum = einsum
+        torch.Tensor.__matmul__ = lambda a, b: at(rnd(a), rnd(b))
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.matmul, torch.einsum, torch.Tensor.__matmul__ = self.saved
+
+
+def reference_1080_phase(dev):
+    """Phase 5r: the port's bench frame as profiling/capture_frame.py
+    renders it (CAPTURE at make_rl(0.5), no history) against the TPU's
+    tests/golden/datumtest_1080_tpu.png, its rows [:1080], at that
+    script's gate (RMSE < 0.01 on [0, 1] values).  The port's own frame
+    (exact f32 matmuls) misses it: the TPU rounded the operands of its
+    f32 matmuls to bf16, among them proj @ view, which moves every
+    projected vertex (ROADMAP Queue 3); its RMSE is printed, not held.
+    The same frame with the TPU's matmul rounding (tpu_default_matmuls)
+    is held at the gate.  Prints each one's RMSE, mean |d|, bin_overflow
+    and the 64 x 64 blocks that differ most.  Returns dict(rmse,
+    rmse_tpu_matmuls)."""
+    import torch
+
+    from datum_tpu_torch.render import frame as F
+    from datum_tpu_torch.render.types import make_sceneset
+    from datum_tpu_torch.scenes import datumtest_scene
+
+    gold = torch.from_numpy(read_png_rgb(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+        "datumtest_1080_tpu.png"))).float()
+    ctx, camera, params, make_rl = datumtest_scene(width=W, height=H, **CAPTURE)
+    rl = make_rl(0.5)
+    ss = make_sceneset(camera, params, point_lights=rl.point_lights,
+                       spot_lights=rl.spot_lights)
+    draws, state = ctx.frame_draws(rl, camera), ctx.device_state(dev)
+
+    def versus_gold(what):
+        out = F.render_frame(ctx.config, state, draws, ss, device=dev)
+        img = out["image"][:CAPTURE_ROWS].cpu().float()
+        if img.shape != gold.shape:
+            raise RuntimeError(f"1080p frame {tuple(img.shape)} vs golden "
+                               f"{tuple(gold.shape)}")
+        d = (img - gold).abs()
+        rmse = ((d / 255.0) ** 2).mean().sqrt().item()
+        ovf = int(out["bin_overflow"])
+        blocks = d.mean(2)[:CAPTURE_ROWS // 64 * 64].reshape(
+            CAPTURE_ROWS // 64, 64, W // 64, 64).mean((1, 3))
+        worst = torch.topk(blocks.flatten(), 3)
+        where = ", ".join(f"rows {int(i) // blocks.shape[1] * 64}+64 cols "
+                          f"{int(i) % blocks.shape[1] * 64}+64 {v:.2f}"
+                          for v, i in zip(worst.values.tolist(), worst.indices.tolist()))
+        phase("5r", f"{what}: RMSE {rmse:.5f} (gate < {CAPTURE_RMSE}), mean |d| "
+                    f"{d.mean().item():.4f} levels, max {d.max().item():.0f}, "
+                    f"{(d.amax(2) > 8).float().mean().item():.5f} of pixels off by more "
+                    f"than 8 levels, bin_overflow {ovf}; the 64x64 blocks that differ "
+                    f"most (mean |d| levels): {where}")
+        if ovf:
+            raise RuntimeError(f"the 1080p frame overflows its bins: {ovf}")
+        return rmse
+
+    intro = ("bench frame as profiling/capture_frame.py renders it (make_rl(0.5), no "
+             f"history, rows [:{CAPTURE_ROWS}]) on the card vs the TPU's "
+             "tests/golden/datumtest_1080_tpu.png")
+    rmse = versus_gold(f"{intro}, the port's exact f32 matmuls (printed, not held: the "
+                       "TPU rounded its f32 matmul operands to bf16, ROADMAP Queue 3)")
+    with tpu_default_matmuls():
+        rmse_tpu = versus_gold(f"{intro}, f32 matmul operands rounded to bf16 as on the "
+                               "TPU (held)")
+    if not rmse_tpu < CAPTURE_RMSE:
+        raise RuntimeError(f"the 1080p frame with the TPU's matmul rounding misses the "
+                           f"TPU frame: RMSE {rmse_tpu}")
+    return dict(rmse=rmse, rmse_tpu_matmuls=rmse_tpu)
 
 
 def deferred_stage_ms(cfg, state, draws, ss, dev, reps=5):
@@ -1156,7 +1293,7 @@ def deferred_phases(dev, card, kernels, bench):
     launches = dict(raster_v1=pf5[0]["raster_v1"], raster_mxu=pf7[0]["raster_mxu"])
     return dict(t=t, b5=b5, b7=b7, b7_tpu=b7_tpu, launches=launches,
                 errs=dict(k5=k5_err, k7=k7_err), ms=dict(k5=ms5, k7=ms7, entry=mse),
-                golden_rmse=g_rmse, inputs=dict(k7=k7_in))
+                golden_rmse=g_rmse, inputs=dict(k7=k7_in, k5=k5_in))
 
 
 def wall_ms(fn, reps=5):
@@ -1397,14 +1534,15 @@ def env_phases(dev, card, kernels, bench_expect):
 
 
 def versions_phase(path, card, sets):
-    """--versions FILE: other versions of K1's, K6's, K2's, K3's, K4's and
-    K7's sources, timed beside this build's on the same inputs.  FILE is
-    a JSON list of {"name", "kernel": "raster_shade" | "raster_shade_2p"
-    | "shade_deferred" | "raster_depth" | "raster_blend" | "raster_mxu",
-    "source" (relative to FILE), "fmad": true | false}; a kernel no
-    version names is skipped.  Each version is built alone (ptxas
-    registers and spill printed), checked against the plain version as
-    the kernel is held (K1, K6, K3 and K7 bit for bit, K2 atol 1e-4 /
+    """--versions FILE: other versions of K1's, K6's, K2's, K3's, K4's,
+    K5's and K7's sources, timed beside this build's on the same inputs.
+    FILE is a JSON list of {"name", "kernel": "raster_shade" |
+    "raster_shade_2p" | "shade_deferred" | "raster_depth" | "raster_blend"
+    | "raster_v1" | "raster_mxu", "source" (relative to FILE), "fmad":
+    true | false}; a kernel no version names is skipped.  Each version is
+    built alone (ptxas registers and spill printed), checked against the
+    plain version as the kernel is held (K1, K6, K3, K5 and K7 bit for
+    bit, K2 atol 1e-4 /
     rtol 1e-3, K4 as check_same) and against this build's output
     bit for bit (printed, not raised, so that a version's error is
     measured), and timed in turns, the versions in order and then in
@@ -1426,6 +1564,7 @@ def versions_phase(path, card, sets):
     from datum_tpu_torch.ops.raster_depth_cuda import (raster_depth_cuda,
                                                        raster_depth_reference)
     from datum_tpu_torch.ops.raster_mxu_cuda import raster_mxu_cuda, raster_mxu_reference
+    from datum_tpu_torch.ops.raster_v1_cuda import raster_v1_cuda, raster_v1_reference
     from datum_tpu_torch.ops.shade_cuda import shade_deferred_cuda, shade_deferred_reference
 
     def close(out, plain, kernel):
@@ -1447,6 +1586,8 @@ def versions_phase(path, card, sets):
                                  "raster_shade_2p.cu", "bit-identity"),
                 raster_mxu=(raster_mxu_cuda, raster_mxu_reference, "raster_mxu.cu",
                             "bit-identity"),
+                raster_v1=(raster_v1_cuda, raster_v1_reference, "raster_v1.cu",
+                           "bit-identity"),
                 shade_deferred=(shade_deferred_cuda, shade_deferred_reference, "shade.cu",
                                 "atol 1e-4 / rtol 1e-3"),
                 raster_depth=(raster_depth_cuda, raster_depth_reference, "raster_depth.cu",
@@ -1463,7 +1604,14 @@ def versions_phase(path, card, sets):
         for name, lib in versions:
             rep = lib.ptxas(*lib.logs) if lib else _kernels.library().ptxas(src)
             phase(7, f"{kernel} version {name}: ptxas {rep}")
-        plains = {n: ref(**inp) for n, inp in sets[kernel]}
+        plains = {}
+        cache = {}                  # one plain run a distinct input (split aside)
+        for n, inp in sets[kernel]:
+            plain_in = {k: v for k, v in inp.items() if k != "split"}
+            key = tuple(sorted((k, id(v)) for k, v in plain_in.items()))
+            if key not in cache:
+                cache[key] = ref(**plain_in)
+            plains[n] = cache[key]
         built = {n: run(**inp) for n, inp in sets[kernel]}
         ms = {(v, n): [] for v, _ in versions for n, _ in sets[kernel]}
         for order in (versions, versions[::-1]):
@@ -1495,8 +1643,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--versions", metavar="FILE",
-                    help="also time other versions of K1's, K6's, K2's, K3's, K4's "
-                         "and K7's sources (see versions_phase)")
+                    help="also time other versions of K1's, K6's, K2's, K3's, K4's, "
+                         "K5's and K7's sources (see versions_phase)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1843,6 +1991,9 @@ def main():
                  f"{FOG_DENSITY}, SSR), card vs CPU plain path: mean |d| "
                  f"{d_img.mean().item():.4f} levels, RMSE {rmse * 255:.4f} levels")
 
+    # ---- 5r. the reference's only full-resolution frame
+    reference_1080_phase(dev)
+
     # ---- 6. timing (informational: this PR claims no speed)
     # K1 and K6 frames in turns (K1, K6, K6, K1): one call's order
     # effects fall on both
@@ -1953,6 +2104,12 @@ def main():
             raster_shade=k1_sets, raster_shade_2p=k1_sets,
             raster_mxu=[("bench", dp["inputs"]["k7"]),
                         ("stress-depth", st["inputs"]["k7"])],
+            # K5 also at 2, 4 and 8 blocks a tile forced (a version that
+            # takes no split ignores it)
+            raster_v1=[(f"{n}{f', split {k}' if k else ''}", dict(inp, split=k or None))
+                       for n, inp in (("bench", dp["inputs"]["k5"]),
+                                      ("stress", st["inputs"]["k5"]))
+                       for k in (0, 2, 4, 8)],
             raster_blend=[("merged stream", k4_in), ("soft", dict(k4_in, soft=True)),
                           ("not soft", dict(k4_in, soft=False)),
                           ("peeled residual", k4p_in)],
@@ -2035,7 +2192,10 @@ def main():
              launches=dp["launches"]["raster_v1"], max_abs_err=dp["errs"]["k5"],
              ms=dp["t"]["k5"], plain_ms=dp["t"]["k5p"], bound_ms=dp["b5"][0],
              bound_by=dp["b5"][1], library_ms=None, frame_ms=dp["ms"]["k5"],
-             device_ms=dp["t"]["k5_dev"]),
+             device_ms=dp["t"]["k5_dev"], **ptxas("raster_v1.cu"),
+             stress_max_abs_err=st["errs"]["k5"], stress_ms=t["k5"],
+             stress_plain_ms=t["k5p"], stress_device_ms=t["k5_dev"],
+             stress_bound_ms=sb["k5"][0], stress_bound_by=sb["k5"][1]),
         dict(name="raster_mxu", route="cuda", source="datum_tpu_torch/csrc/raster_mxu.cu",
              replaces="datum_tpu/ops/raster_pallas.py:1098",
              launches=dp["launches"]["raster_mxu"], max_abs_err=dp["errs"]["k7"],

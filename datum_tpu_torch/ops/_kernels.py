@@ -83,7 +83,7 @@ _SIGNATURES = dict(
     raster_depth_launch="pppppiiiiffipp",
     raster_blend_launch="ppppppiiiiiffipp",
     shade_epilogue_launch="pppppiipp",
-    raster_v1_launch="ppppiiiiffipp",
+    raster_v1_launch="ppppiiiiffiipp",
     raster_mxu_launch="ppppiiiiffipp",
     gather_rows_launch="ppLipp",
 )

@@ -201,7 +201,7 @@ WALK_CHUNK = 64          # entries a block stages a round
 
 def split_walk(rows, ids, tiles_x, width, height, split, peel=None, szb=None,
                step=walk_step):
-    """The split walk of K1, K6 and K7 in plain PyTorch: (depth, slot),
+    """The split walk of K1, K5, K6 and K7 in plain PyTorch: (depth, slot),
     each (n_tiles, 32, 128), slot NO_SLOT where no entry passes.  Block r
     walks the slots r, r + split, .. of ids (n_tiles, E) in chunks of
     WALK_CHUNK; with szb each thread (one column, 16 rows) stops at the
@@ -209,7 +209,7 @@ def split_walk(rows, ids, tiles_x, width, height, split, peel=None, szb=None,
     chunk, reaches.  The blocks' partials combine to the largest depth
     and, among equal ones, the smallest slot.  step(rows, idk, xn, yn,
     depth, peel_t) -> (passed, d) is one slot of the walk (K7's:
-    raster_mxu_cuda.mxu_walk_step)."""
+    raster_mxu_cuda.mxu_walk_step; K5's: raster_v1_cuda.raster_v1_walk_step)."""
     n_tiles, E = ids.shape
     xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, rows.device)
     peel_t = None if peel is None else tile_image(peel, tiles_x, n_tiles // tiles_x)

@@ -24,8 +24,8 @@ stack of at least twice as many tiles as the card has SMs) and combines
 their partial maps by a max, and each warp skips the entries
 that `warp_rect_reject` (its plain twin here, with the same arithmetic)
 finds cannot pass on the warp's 32 x 16 rectangle; neither moves a
-value (csrc/raster_depth.cu derives the reject's margin).  K1 and K4
-take the same edge test without the scissor.
+value (csrc/raster_depth.cu derives the reject's margin).  K5 takes the
+same test with the scissor; K1 and K4 take its edge test without it.
 """
 
 from __future__ import annotations
@@ -96,11 +96,11 @@ def warp_rect_reject(r, x0, x1, y0, y1, scissor=True, form="plane"):
     r[..., 0]): its y scissor (slots 14-15) misses the rows, or an edge's
     value at the rectangle's corner where the exact plane is largest, plus
     the margin fl(|a| mx + |b| my + |c|) * 8 * 2^-24 + 1e-36, is below 0.
-    scissor=False is K1's reject, edges only: K1 reads no scissor.  form
-    is the corner value's rounding: "plane", fma(a, x, b*y) + c (K3, K1,
-    K6); "dot", fma(b, y, a*x) + c (K7, with scissor=False: K7's rows
-    keep the scissor in slots 12-13, and csrc/raster_mxu.cu derives the
-    margin for that form)."""
+    scissor=True is K3's and K5's reject; scissor=False is K1's, edges
+    only: K1 reads no scissor.  form is the corner value's rounding:
+    "plane", fma(a, x, b*y) + c (K3, K1, K5, K6); "dot", fma(b, y, a*x)
+    + c (K7, with scissor=False: K7's rows keep the scissor in slots
+    12-13, and csrc/raster_mxu.cu derives the margin for that form)."""
     plane = dict(plane=_plane, dot=_dot_plane)[form]
     out = torch.zeros(torch.broadcast_shapes(r[..., 0].shape, x0.shape), dtype=torch.bool,
                       device=r.device)

@@ -54,8 +54,7 @@ import torch
 from . import _kernels
 from .common import TILE_H, TILE_W, fma
 from .raster import _untile, depth_plane_coefs
-from .raster_cuda import _entry_ids, _ndc_scale
-from .raster_v1_cuda import _pixel_ndc
+from .raster_cuda import _entry_ids, _ndc_scale, _tile_ndc
 
 ROW = 40              # floats per triangle row
 N_PLANES = 15
@@ -121,7 +120,7 @@ def raster_mxu_reference(rows, bins, counts, big_ids, tiles_x, width, height):
     dev = rows.device
     n_tiles = bins.shape[0]
     ids = _entry_ids(bins, big_ids)
-    xn, yn = _pixel_ndc(n_tiles, tiles_x, width, height, dev)
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev)
     depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
     win = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32, device=dev)
     for k in range(ids.shape[1]):

@@ -24,6 +24,14 @@ walk (the values the Pallas kernel carries are the winner's, so they
 are the same bits).  Unlike the scan raster (`ops/raster.py::raster`),
 K5 walks the big list first, accepts one winding only (the rows carry
 det's sign) and reads the valid flag and the scissor.
+
+The kernel splits each tile's walk over a cluster of 2 or 4 blocks
+carrying (depth, walk slot), as K1 does (`raster_cuda.split_walk` with
+`raster_v1_walk_step` is that walk in plain PyTorch), maps the winning
+slot to its id after the combine, and each warp skips the entries whose
+scissor misses its 32 x 16 rectangle or one of whose edges is below 0
+on it (`raster_depth_cuda.warp_rect_reject(..., scissor=True)`, K3's
+reject).  Neither moves a value (csrc/raster_v1.cu).
 """
 
 from __future__ import annotations
@@ -35,49 +43,34 @@ import torch
 from . import _kernels
 from .common import TILE_H, TILE_W
 from .raster import _untile
-from .raster_cuda import _entry_ids, _ndc_scale, _plane
+from .raster_cuda import _entry_ids, _ndc_scale, _plane, _tile_ndc
 
 ROW = 16              # floats per triangle row (the setup's row16)
+SPLITS = (2, 4, 8)    # the blocks a tile a caller may force
 
 
-def _pixel_ndc(n_tiles, tiles_x, width, height, dev):
-    """K5's pixel centres (xn (n, 1, 128), yn (n, 32, 1)):
-    (origin + pixel + 0.5) * (2 / size) - 1."""
-    tile = torch.arange(n_tiles, device=dev)
-    ty = (tile // tiles_x).to(torch.float32)[:, None, None]
-    tx = (tile % tiles_x).to(torch.float32)[:, None, None]
-    yy = torch.arange(TILE_H, device=dev, dtype=torch.float32)[None, :, None]
-    xx = torch.arange(TILE_W, device=dev, dtype=torch.float32)[None, None, :]
-    yn = (ty * TILE_H + yy + 0.5) * _ndc_scale(height) - 1.0
-    xn = (tx * TILE_W + xx + 0.5) * _ndc_scale(width) - 1.0
-    return xn, yn
+def raster_v1_walk_step(rows, idk, xn, yn, depth, peel_t=None):
+    """One slot of the K5 walk for every tile: the entries idk (n,) (-1:
+    none, a zero row) at every pixel of their tile.  Returns (passed, d):
+    the inside test, the valid flag, the row scissor ylo <= yn < yhi
+    (slots 14-15), d > depth and d <= 1.  K5 takes no peel plane: peel_t
+    (split_walk's step signature) is None."""
+    r = (rows[torch.clamp(idk, min=0).long()]
+         * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
+    e0 = _plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
+    e1 = _plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
+    e2 = _plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
+    s = e0 + e1 + e2
+    inside = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0) & (r[:, 12] > 0)
+              & (yn >= r[:, 14]) & (yn < r[:, 15]))
+    d = _plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
+    return inside & (d > depth) & (d <= 1.0), d
 
 
-def raster_v1_reference(rows, bins, counts, big_ids, tiles_x, width, height):
-    """Plain PyTorch K5: (4, tiles_y*32, tiles_x*128) f32 planes depth,
-    visf (the winner's id as f32, -1 uncovered), l0, l1.  It walks every
-    slot: empty slots hold -1 and give zero rows, which never pass."""
-    dev = rows.device
-    n_tiles = bins.shape[0]
-    ids = _entry_ids(bins, big_ids)
-    xn, yn = _pixel_ndc(n_tiles, tiles_x, width, height, dev)
-    depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
-    win = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32, device=dev)
-    for k in range(ids.shape[1]):
-        idk = ids[:, k]
-        r = (rows[torch.clamp(idk, min=0).long()]
-             * (idk >= 0)[:, None].to(rows.dtype))[:, :, None, None]
-        e0 = _plane(r[:, 0], r[:, 1], r[:, 2], xn, yn)
-        e1 = _plane(r[:, 3], r[:, 4], r[:, 5], xn, yn)
-        e2 = _plane(r[:, 6], r[:, 7], r[:, 8], xn, yn)
-        s = e0 + e1 + e2
-        inside = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (s > 0) & (r[:, 12] > 0)
-                  & (yn >= r[:, 14]) & (yn < r[:, 15]))
-        d = _plane(r[:, 9], r[:, 10], r[:, 11], xn, yn)
-        passed = inside & (d > depth) & (d <= 1.0)
-        depth = torch.where(passed, d, depth)
-        win = torch.where(passed, idk[:, None, None], win)
-
+def v1_planes(rows, win, depth, xn, yn):
+    """K5's epilogue: the 4 tiled planes (each (n, 32, 128)) depth, visf,
+    l0, l1 from each pixel's winning id win (-1: none) and depth, at the
+    pixel centres xn, yn."""
     has = win >= 0
     r = rows[torch.clamp(win, min=0).long()]                  # (n, 32, 128, 16)
     e0 = _plane(r[..., 0], r[..., 1], r[..., 2], xn, yn)
@@ -86,18 +79,42 @@ def raster_v1_reference(rows, bins, counts, big_ids, tiles_x, width, height):
     s = e0 + e1 + e2
     inv_s = 1.0 / torch.where(s == 0, torch.ones_like(s), s)
     zero = torch.zeros_like(depth)
-    planes = (depth, torch.where(has, win.to(torch.float32), zero - 1.0),
-              torch.where(has, e0 * inv_s, zero), torch.where(has, e1 * inv_s, zero))
+    return (depth, torch.where(has, win.to(torch.float32), zero - 1.0),
+            torch.where(has, e0 * inv_s, zero), torch.where(has, e1 * inv_s, zero))
+
+
+def raster_v1_reference(rows, bins, counts, big_ids, tiles_x, width, height):
+    """Plain PyTorch K5: (4, tiles_y*32, tiles_x*128) f32 planes depth,
+    visf (the winner's id as f32, -1 uncovered), l0, l1.  It walks every
+    slot in order: empty slots hold -1 and give zero rows, which never
+    pass."""
+    dev = rows.device
+    n_tiles = bins.shape[0]
+    ids = _entry_ids(bins, big_ids)
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev)
+    depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
+    win = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32, device=dev)
+    for k in range(ids.shape[1]):
+        idk = ids[:, k]
+        passed, d = raster_v1_walk_step(rows, idk, xn, yn, depth)
+        depth = torch.where(passed, d, depth)
+        win = torch.where(passed, idk[:, None, None], win)
     tiles_y = n_tiles // tiles_x
-    return torch.stack([_untile(p, tiles_x, tiles_y) for p in planes])
+    return torch.stack([_untile(p, tiles_x, tiles_y)
+                        for p in v1_planes(rows, win, depth, xn, yn)])
 
 
-def raster_v1_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
-    """K5 on the card: the same contract as raster_v1_reference."""
+def raster_v1_cuda(rows, bins, counts, big_ids, tiles_x, width, height, split=None):
+    """K5 on the card: the same contract as raster_v1_reference.  split
+    forces the blocks a tile (2, 4 or 8; None: the launcher's rule, 2 on
+    at least two tiles an SM and n_big + bin_capacity <= 512, else 4):
+    the same planes."""
     dev = rows.device
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
         raise ValueError(f"raster_v1_cuda needs CUDA tensors, got {dev}")
+    if split is not None and split not in SPLITS:
+        raise ValueError(f"raster_v1_cuda: split {split} is none of {SPLITS}")
     if n_tiles % tiles_x:
         raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
     out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W
@@ -111,7 +128,7 @@ def raster_v1_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
     code = _kernels.library().lib.raster_v1_launch(
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
         vp(big_ids.data_ptr()), big_ids.shape[0], cap, tiles_x, n_tiles,
-        _ndc_scale(width), _ndc_scale(height), out_w, vp(out.data_ptr()),
+        _ndc_scale(width), _ndc_scale(height), out_w, split or 0, vp(out.data_ptr()),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "raster_v1")
     raster_v1_cuda.launches += 1

@@ -11,9 +11,10 @@ and on), on 136 tiles with a peel plane and one tile wide; K4
 bit-identical in every soft mode with a peel plane, NaNs included
 (elsewhere, as the K2 epilogue with its fog group, bit-identical on >=
 99.99% of values, atol/rtol 1e-5 on the rest); ptxas at most 128
-registers and no spill for K1, K4, K6 and K7; K6 and K7 bit-identical on
-full bins of the stress and the bench depth, on 136 tiles (K6 with a
-peel plane, early-z off and on) and one tile wide; K2 atol 1e-4 / rtol 1e-3 (CUDA's
+registers and no spill for K1, K4, K5, K6 and K7; K5, K6 and K7
+bit-identical on full bins of the stress and the bench depth, on 136
+tiles (K6 with a peel plane, early-z off and on) and one tile wide, K5
+with y scissors and also at 2, 4 and 8 blocks a tile forced; K2 atol 1e-4 / rtol 1e-3 (CUDA's
 and torch's sqrt and division differ by ulps); K3 bit-identical on >=
 99.99% of texels, max abs error 1e-6.  Clustered K2 is held as K2; K1,
 K6 and K3 with the early-z exit bit-identical to themselves without it
@@ -574,6 +575,71 @@ def test_k5_kernel_matches_plain(card, scissor):
     torch.cuda.synchronize()
     assert (k[1] >= 0).float().mean().item() > 0.2
     assert torch.equal(k, r)
+
+
+def _random_k5(card, seed, n_tris, w, h, cap, big_cap, size=0.08, spread=1.0):
+    """K5 inputs of _random_setup's triangles with y scissors in 7 bands,
+    binned at cap + big_cap.  Returns (inputs, counts)."""
+    tx, ty = w // 128, h // 32
+    setup, _ = _random_setup(card, seed, n_tris, w, h, size, 7, spread)
+    bins, counts, big = raster_ops.bin_triangles(setup, n_tris, tx, ty, cap, big_cap)
+    return raster_v1_inputs(setup, bins, big, counts, tx, w, h), counts
+
+
+def _k5_bit_identical(inp, splits=(None,)):
+    """K5 at each split (None: the launcher's rule) against its plain
+    version on all 4 planes; returns the covered share."""
+    before = raster_v1_cuda.launches
+    r = raster_v1_reference(**inp)
+    for split in splits:
+        assert torch.equal(raster_v1_cuda(**inp, split=split), r), split
+    torch.cuda.synchronize()
+    assert raster_v1_cuda.launches == before + len(splits)
+    return (r[1] >= 0).float().mean().item()
+
+
+@pytest.mark.parametrize("cap", [(1024, 128), (160, 64)], ids=["deep", "shallow"])
+def test_k5_full_bins_bit_identical(card, cap):
+    """Full bins (every bin slot valid) on a frame of 510 tiles: the
+    stress frame's bin depth (1024 + 128: 4 blocks a tile) and the bench
+    frame's (160 + 64: 2 blocks a tile), with y scissors in the rows (a
+    seventh of the rows each: the shallow bins cover ~2% of the frame)."""
+    inp, counts = _random_k5(card, 25, 60000, 1920, 1088, *cap, size=0.02, spread=0.3)
+    assert inp["bins"].shape[0] == 510 and int((counts == cap[0]).sum()) >= 2
+    assert _k5_bit_identical(inp) > 0.01
+
+
+@pytest.mark.parametrize("size", [(1024, 544), (128, 256)], ids=["136-tiles", "one-wide"])
+def test_k5_small_frames_bit_identical(card, size):
+    """136 tiles, fewer than twice the SMs (4 blocks a tile), and a frame
+    one tile wide."""
+    w, h = size
+    inp, counts = _random_k5(card, 26, 4000 if w > 128 else 600, w, h, 128, 16,
+                             size=0.1)
+    assert int(counts.max()) > 64
+    assert _k5_bit_identical(inp) > 0.05
+
+
+def test_k5_forced_splits_bit_identical(card):
+    """2, 4 and 8 blocks a tile forced on the same inputs, each
+    bit-identical to the plain version; a split the kernel lacks is
+    refused before any launch."""
+    inp, _ = _random_k5(card, 27, 6000, 1024, 544, 256, 32, size=0.1)
+    assert _k5_bit_identical(inp, splits=(2, 4, 8)) > 0.05
+    before = raster_v1_cuda.launches
+    with pytest.raises(ValueError):
+        raster_v1_cuda(**inp, split=3)
+    assert raster_v1_cuda.launches == before
+
+
+def test_k5_ptxas_no_spill(card):
+    """ptxas: at most 128 registers (two blocks of 256 threads an SM), no
+    spill."""
+    from datum_tpu_torch.ops import _kernels
+
+    rep = _kernels.library().ptxas("raster_v1.cu")
+    assert rep["registers"] is not None and rep["registers"] <= 128, rep
+    assert not rep["spill_bytes"], rep
 
 
 def test_k7_kernel_matches_plain(card):
