@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--versions FILE]
 
 Renders the bench frame, the dense stress frame, the deferred
-(non-megakernel) frames and the local-environment frames at 1920x1088
-through
+(non-megakernel) frames, the local-environment frames and the animated
+vertex stage's frame at 1920x1088 through
 datum_tpu_torch.render.frame.render_frame, after building the port's
 CUDA kernels from datum_tpu_torch/csrc with nvcc.  The bench
 frame is bench.py's config (the datumtest scene with 4 sun cascades as a
@@ -91,6 +91,22 @@ and exits non-zero:
    CPU plain path; ms/frame, a profiler window, the stages of the probe
    fields, the fog planes and the SSRs, K2 with and without the group,
    the gather against tab[idx], and their bounds;
+3v-6v. the animated vertex stage: the bench scene with a skinned actor
+   (an Animator blending two channels), 8x8 wind-bent foliage blades and
+   an FFT ocean (examples/ocean.py's grid 96) through the dynamic-vertex
+   slab (scenes.VertexModes), bins 1024 + 64; its triangles, slab,
+   palettes and overflows (main bins held at 0); skinning, the wind
+   bends, the ocean's maps and the patched pool on the card against the
+   CPU, K1, K2 and K3 against their plain versions on its inputs; 3
+   frames with the animation advancing 1/60 s a frame, their launches
+   checked (K1 and K2 2, K3 3, K4 and the epilogue 1, K5/K6/K7 0) and
+   each region's change printed (nonzero); examples/ocean.py's config
+   through RenderContext.render (320x160, 3 updates, no kernel) against
+   tests/golden/ocean.png at RMSE < 2/255; 256x128 vertex-modes frames
+   (megakernel, deferred K5) and a translucent Water frame on the card
+   against the CPU plain path; ms/frame beside the bench frame, a
+   profiler window and the vertex stage's wall ms with and without the
+   three modes;
 7. with --versions FILE, other versions of K1's, K6's, K2's, K3's, K4's,
    K5's and K7's sources built alone and timed beside this build's on the same
    inputs (see versions_phase); then print the kernels' JSON line (9
@@ -229,6 +245,9 @@ CAPTURE = dict(sphere_detail=24, n_point_lights=8, max_vertices=1 << 15,
                decal_textures=False, translucent_lit_scale=2, shadow_far_res=512,
                shadow_slice_blend=0.25, fog_sample_scale=8)
 CAPTURE_ROWS, CAPTURE_RMSE = 1080, 0.01
+# examples/ocean.py's frame size in tests/golden/ocean.png
+# (datum_tpu/tools/update_goldens.py: 320x160, 3 frames)
+OCEAN_EXAMPLE = (320, 160)
 # datum_tpu/tools/stress_golden.py's CONFIG, rendered for tests/golden/stress.png
 STRESS_GOLDEN = dict(width=320, height=160, terrain_n=96, sphere_detail=20,
                      grid=(6, 3), n_point_lights=64, skybox_size=16,
@@ -1533,6 +1552,359 @@ def env_phases(dev, card, kernels, bench_expect):
                 ms=dict(probe=ms_e, deferred=ms_5, dda=ms_dda), inputs=dict(k2e=k2e_in))
 
 
+def _region_masks(draws, vis, meshes):
+    """Boolean (H, W) masks of the pixels whose visible triangle belongs
+    to a draw of each mesh id in meshes (a dict name -> mesh id)."""
+    tri = vis.long().clamp(min=0)
+    mesh_of_px = draws["mesh"].long()[draws["tri_draw"].long()[tri]]
+    return {n: (vis >= 0) & (mesh_of_px == m) for n, m in meshes.items()}
+
+
+def _water_frame_inputs(dev):
+    """A 256x128 megakernel frame with a translucent Water (push_water(
+    translucent=True), the first ocean: the slab moves its grid) on the
+    lit layer over a floor and a sphere: (cfg, ctx, draws, sceneset)."""
+    import numpy as np
+
+    from datum_tpu_torch.math import Transform
+    from datum_tpu_torch.ops.common import FrameConfig
+    from datum_tpu_torch.render import primitives
+    from datum_tpu_torch.render.camera import Camera
+    from datum_tpu_torch.render.context import RenderContext
+    from datum_tpu_torch.render.renderlist import RenderList
+    from datum_tpu_torch.render.types import RenderParams, make_sceneset
+    from datum_tpu_torch.render.water import Water, push_water
+
+    cfg = FrameConfig(width=256, height=128, max_vertices=1 << 13, max_triangles=1 << 13,
+                      max_instances=8, bin_capacity=512, big_capacity=16,
+                      enable_shadows=False, enable_material_maps=True,
+                      texture_filter="mip_half", use_pallas=True,
+                      max_dynamic_vertices=1 << 11, max_translucent_draws=2,
+                      max_translucent_tris=2048, forward_bin_capacity=512)
+    ctx = RenderContext(cfg, device=dev)
+    sv, si = primitives.unit_sphere(12, 6)
+    ball = ctx.add_mesh(sv, si)
+    floor = ctx.add_mesh(*primitives.plane(20.0, 4.0))
+    red = ctx.add_material(color=(0.85, 0.3, 0.2, 1), roughness=0.5)
+    grey = ctx.add_material(color=(0.6, 0.6, 0.65, 1), roughness=0.9)
+    wmat = ctx.add_water_material(color=(0.6, 0.8, 1.0, 0.35))
+    water = Water(ctx, grid=24, patch_size=8.0, ripple=2e-3, flow=(0.2, 0.1))
+    water.update(1.5)
+    cam = Camera()
+    cam.set_projection(np.radians(60), 2.0)
+    cam.lookat(np.array([0.0, 3.0, 9.0]), np.array([0.0, 0.5, 0.0]),
+               np.array([0.0, 1.0, 0.0]))
+    params = RenderParams(width=256, height=128)
+    params.sundirection = np.float32([-0.3, -0.8, -0.4]) / np.linalg.norm([-0.3, -0.8, -0.4])
+    params.sunintensity = np.float32([3.5, 3.4, 3.2])
+    rl = RenderList()
+    rl.push_mesh(floor, Transform.identity(), grey)
+    rl.push_mesh(ball, Transform.translation([0.5, 0.3, 0.0]), red)
+    push_water(rl, water, Transform.translation([-4.0, 0.4, -4.0]), wmat, translucent=True)
+    ss = make_sceneset(cam, params, point_lights=rl.point_lights,
+                       spot_lights=rl.spot_lights, probes=rl.probes)
+    return cfg, ctx, ctx.frame_draws(rl, cam), ss
+
+
+def _ocean_example_frames(dev):
+    """examples/ocean.py's config through the port's RenderContext.render
+    on dev: 320x160, the deferred default path (use_pallas off: the scan
+    raster, no kernel), 3 updates of 1/60 s each followed by a frame, as
+    datum_tpu/tools/update_goldens.py renders tests/golden/ocean.png.
+    Returns the last image (numpy u8) and its bin_overflow."""
+    import numpy as np
+
+    from datum_tpu_torch.math import Transform
+    from datum_tpu_torch.ops.common import FrameConfig
+    from datum_tpu_torch.render.camera import Camera
+    from datum_tpu_torch.render.context import RenderContext
+    from datum_tpu_torch.render.ocean import Ocean, OceanParams, render_ocean_surface
+    from datum_tpu_torch.render.renderlist import RenderList
+    from datum_tpu_torch.render.types import RenderParams
+
+    w, h = OCEAN_EXAMPLE
+    ctx = RenderContext(FrameConfig(width=w, height=h, max_vertices=1 << 14,
+                                    max_triangles=1 << 15, max_instances=4,
+                                    big_capacity=64, enable_shadows=False,
+                                    max_dynamic_vertices=1 << 14, enable_bloom=True),
+                        device=dev)
+    ocean = Ocean(ctx, grid=96, patch_size=64.0,
+                  params=OceanParams(wind=(9.0, 3.0), choppiness=1.6, swellamplitude=0.4))
+    water = ctx.add_material(color=(0.07, 0.22, 0.36, 1), metalness=0.0, roughness=0.1,
+                             reflectivity=0.9)
+    cam = Camera()
+    cam.set_projection(np.radians(60), w / h)
+    cam.lookat(np.array([32.0, 16.0, 78.0]), np.array([32.0, 0.0, 32.0]),
+               np.array([0.0, 1.0, 0.0]))
+    params = RenderParams(width=w, height=h)
+    sun = np.array([-0.4, -0.5, -0.75], np.float32)
+    params.sundirection = sun / np.linalg.norm(sun)
+    params.sunintensity = np.array([5.0, 4.7, 4.2], np.float32)
+    params.ambientintensity = 0.5
+    for _ in range(3):
+        ocean.update(1 / 60)
+        rl = RenderList()
+        render_ocean_surface(ocean, rl, Transform.identity(), water)
+        img = ctx.render(cam, rl, params)
+    return img, ctx.bin_overflow
+
+
+def vertex_phases(dev, card, kernels, bench):
+    """Phases 3v-6v: the animated vertex stage (scenes.VertexModes: the
+    skinned actor, 8x8 foliage blades and the FFT ocean's dynamic-vertex
+    slab beside the bench scene, VERTEX_MODES).  3v: the scene's
+    triangles, slab, palettes and overflows (main bins held at 0); 4v:
+    skinning, the wind bends, the ocean's maps and the patched pool on
+    the card against the same functions on the CPU, and K1, K2 and K3
+    against their plain versions on this frame's inputs; 5v: 3 frames
+    with the Animator, the Ocean and the wind time advancing by 1/60 s,
+    their launches checked and each region's change printed; the ocean
+    example against tests/golden/ocean.png; 256x128 vertex-modes frames
+    (megakernel, deferred K5) and a translucent Water frame on the card
+    against the CPU plain path; 6v: ms/frame beside the bench frame in
+    turns, a profiler window and the vertex stage's wall ms with and
+    without the three modes.  bench: (render, inputs) of the bench
+    frame.  Returns the numbers PERF.md records."""
+    import numpy as np
+    import torch
+
+    from datum_tpu_torch.convert import to_torch
+    from datum_tpu_torch.ops import geometry, ocean as ocean_ops
+    from datum_tpu_torch.ops import shadow as shadow_ops
+    from datum_tpu_torch.ops.raster_cuda import (PLANE_NAMES, raster_inputs,
+                                                 raster_shade_cuda, raster_shade_reference)
+    from datum_tpu_torch.ops.raster_depth_cuda import (
+        depth_inputs, raster_depth_cuda, raster_depth_reference)
+    from datum_tpu_torch.ops.shade_cuda import (shade_deferred_cuda,
+                                                shade_deferred_reference, shade_inputs)
+    from datum_tpu_torch.ops.raster_mxu_cuda import raster_mxu_cuda
+    from datum_tpu_torch.ops.raster_v1_cuda import raster_v1_cuda
+    from datum_tpu_torch.render import frame as F
+    from datum_tpu_torch.scenes import VERTEX_MODES_CONFIG, datumtest_scene
+
+    kernels = dict(kernels, raster_v1=raster_v1_cuda, raster_mxu=raster_mxu_cuda)
+    vm_kw = dict(SCENE, **VERTEX_MODES_CONFIG)
+    # ---- 3v. the scene at full width
+    t0 = time.perf_counter()
+    ctx, camera, params, make_rl = datumtest_scene(width=W, height=H, vertex_modes=True,
+                                                   device=dev, **vm_kw)
+    cfg, vm = ctx.config, make_rl.vertex_modes
+    md, offset = cfg.max_dynamic_vertices, vm.ocean.vertex_offset
+    if offset + md > cfg.max_vertices:
+        raise RuntimeError(f"the slab [{offset}, {offset + md}) passes the pool's "
+                           f"{cfg.max_vertices} rows")
+    state = ctx.device_state(dev)
+    # 3 frames: the lights at t = 0, the animation advancing 1/60 s a frame
+    inputs = []
+    for _ in range(3):
+        inputs.append(frame_inputs(ctx, camera, params, make_rl, 0.0))
+        vm.update(1 / 60)
+    build_s = time.perf_counter() - t0
+    overflows = []
+    for draws, ss in inputs:
+        d_t, s_t = to_torch(draws, dev), to_torch(ss, dev)
+        st_p = F.patch_dynamic(cfg, state, d_t)
+        ex, _, clip, _, _, wp = F._vertex_stage(cfg, st_p, d_t, s_t)
+        setup, bins, counts, big, main_ovf = F._bin_stage(cfg, ex, clip)
+        ts = F.translucent_stream(st_p, d_t, s_t)
+        st = F.oit_stream(cfg, st_p, d_t, s_t, ts, None)
+        overflows.append(dict(
+            main=int(main_ovf), max_bin=int(counts.max()),
+            stacks=[int(shadow_ops.bin_stack(s, cfg.shadow_bin_capacity, cfg.big_capacity,
+                                             return_overflow=True)[3])
+                    for s in shadow_stacks(cfg, ex, wp, s_t)],
+            lit=int(lit_bins(cfg, ts, return_overflow=True)[-1]),
+            wboit=int(F.oit_bins(cfg, st, return_overflow=True)[3])))
+    draws = inputs[0][0]
+    dyn = draws["dyn"]
+    n_pal = int((draws["palette_id"] > 0).sum())
+    phase("3v", f"vertex-modes scene {W}x{H} ({build_s:.1f} s, 3 frames' inputs): "
+                f"{int(draws['t_valid'].sum())} opaque + "
+                f"{int(draws['translucent']['t_valid'].sum())} translucent triangles "
+                f"drawn (the actor {vm.actor.trianglecount}, {len(vm.blades)} blades x "
+                f"{vm.blade.trianglecount}, the ocean {vm.ocean.mesh.trianglecount}), "
+                f"{int(draws['count'])} draws; slab {int(dyn['count'])} of {md} rows at "
+                f"pool offset {offset} (+ {md} <= {cfg.max_vertices}), on "
+                f"{dyn['positions'].device}; palettes {n_pal} actor(s) of "
+                f"{cfg.max_palettes} x {cfg.max_bones} bones; bins "
+                f"{cfg.bin_capacity}+{cfg.big_capacity}")
+    phase("3v", f"overflow per frame (main bins, max entries in a bin, shadow stacks "
+                f"{', '.join(STACKS)}, lit layer, WBOIT stream): {overflows}")
+    if any(o["main"] for o in overflows):
+        raise RuntimeError(f"vertex-modes main bins overflow: {overflows}")
+
+    # ---- 4v. the vertex modes and K1/K2/K3 against the CPU / plain
+    draws, ss = inputs[0]
+    d_t, s_t = to_torch(draws, dev), to_torch(ss, dev)
+    d_c, s_c = to_torch(draws, "cpu"), to_torch(ss, "cpu")
+    st_p = F.patch_dynamic(cfg, state, d_t)
+    st_c = F.patch_dynamic(cfg, ctx.device_state("cpu"), d_c)
+    errs = {}
+    if not torch.equal(st_p["geometry"]["attr12"].cpu(), st_c["geometry"]["attr12"]):
+        raise RuntimeError("the patched pool on the card differs from the CPU's")
+    errs["patched pool"] = 0.0
+    src, vd = d_t["src_v"].long(), d_t["vtx_draw"].long()
+    g = st_p["geometry"]
+    rows = g["attr12"][src]
+    skin_args = (rows[:, 0:3], rows[:, 5:8], rows[:, 8:12], g["bone_idx"][src],
+                 g["bone_wt"][src], d_t["palettes"].reshape(-1, 8), d_t["palette_id"][vd])
+    on_card = geometry.skin_vertices(*skin_args, cfg.max_bones)
+    on_cpu = geometry.skin_vertices(*(a.cpu() for a in skin_args), cfg.max_bones)
+    errs["skin_vertices"] = max((a.cpu() - b).abs().max().item()
+                                for a, b in zip(on_card, on_cpu))
+    fol = F._foliage_bend(rows[:, 0:3], d_t, vd)
+    errs["inline wind bends"] = (fol.cpu() - F._foliage_bend(
+        rows[:, 0:3].cpu(), d_c, vd.cpu())).abs().max().item()
+    o = int(ctx.pool.mesh_vtx_offset[vm.blade.mesh_id])
+    blade = torch.from_numpy(ctx.pool.positions[o:o + vm.blade.vertexcount].copy())
+    anchor = vm.blades[0].translation_vec()
+    for name, fn, a in (("wind_bend", geometry.wind_bend, (vm.WIND, (0, 0.35, 0))),
+                        ("wind_detail_bend", geometry.wind_detail_bend,
+                         (anchor, vm.wind_time, vm.WIND, (0, 0.1, 0)))):
+        errs[name] = (fn(blade.to(dev), *a).cpu() - fn(blade, *a)).abs().max().item()
+    oc = vm.ocean
+    t_oc = torch.tensor(np.float32(oc.time))
+    maps_c = ocean_ops.ocean_maps(*(x.cpu() for x in oc._spectrum_dev), t_oc,
+                                  oc.params.choppiness)
+    maps_g = ocean_ops.ocean_maps(*oc._spectrum_dev, t_oc.to(dev), oc.params.choppiness)
+    errs["ocean_maps (rel. to max)"] = max(((a.cpu() - b).abs().max()
+                                            / b.abs().max()).item()
+                                           for a, b in zip(maps_g, maps_c))
+    p = oc.params
+    swell = (p.swellamplitude, *p.swelldirection, p.swellwavelength)
+    base = oc._base_dev
+    pg, ng = ocean_ops.displace_grid(base, *maps_g, oc.patch_size, swell)
+    pc, nc = ocean_ops.displace_grid(base.cpu(), *maps_c, oc.patch_size, swell)
+    errs["displace_grid"] = max((pg.cpu() - pc).abs().max().item(),
+                                (ng.cpu() - nc).abs().max().item())
+    cam = camera.position
+    errs["ocean_lut_uv"] = (ocean_ops.ocean_lut_uv(pg, ng, cam).cpu()
+                            - ocean_ops.ocean_lut_uv(pc, nc, cam)).abs().max().item()
+    tol = {"ocean_maps (rel. to max)": 1e-5}
+    bad = {k: v for k, v in errs.items() if not v <= tol.get(k, 1e-5)}
+    if bad:
+        raise RuntimeError(f"vertex modes on the card vs the CPU beyond 1e-5: {bad}")
+    phase("4v", "on the card vs the same functions on the CPU, max abs err (limit 1e-5; "
+                "the maps relative to their max |value|; the pool bit for bit): "
+          + "; ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, st_p, d_t, s_t)
+    k3_in = []
+    for name, stk in zip(STACKS, shadow_stacks(cfg, ex, wp, s_t)):
+        bins, counts, big = shadow_ops.bin_stack(stk, cfg.shadow_bin_capacity,
+                                                 cfg.big_capacity)
+        inp = depth_inputs(stk["setup"], bins, big, counts, stk["tiles_x"], stk["res"],
+                           stk["height"])
+        require_equal(raster_depth_cuda(**inp), raster_depth_reference(**inp),
+                      f"K3 vs plain on the vertex-modes {name}")
+        k3_in.append(inp)
+    setup, bins, counts, big_ids, _ = F._bin_stage(cfg, ex, clip)
+    k1_in = raster_inputs(setup, bins, big_ids, counts, ex["tris"], uv, wn, d_t["tri_mat"],
+                          st_p["materials"], cfg.tiles_x, cfg.padded_width,
+                          cfg.padded_height, wt)
+    pk = raster_shade_cuda(**k1_in)
+    check_k1(pk, raster_shade_reference(**k1_in), "vertex-modes opaque layer")
+    kp = dict(zip(PLANE_NAMES, pk))
+    shadows = F._shadow_stage(cfg, ex, wp, s_t)
+    gpl, ss2, spotsf, ao, _ = F._shade_inputs(cfg, kp, st_p, d_t, s_t, shadows)
+    k2_in = shade_inputs(gpl, ss2, proj=s_t["proj"], invview=s_t["invview"], ao=ao,
+                         spotsf=spotsf)
+    hk, hr = shade_deferred_cuda(**k2_in), shade_deferred_reference(**k2_in)
+    torch.cuda.synchronize()
+    k2_err = (hk - hr).abs().max().item()
+    if not torch.isfinite(hk).all() or not torch.allclose(hk, hr, atol=1e-4, rtol=1e-3):
+        raise RuntimeError(f"K2 vs plain on the vertex-modes frame: {k2_err}")
+    phase("4v", f"K3 on the 3 vertex-modes stacks bit-identical to plain; K1 above; K2 vs "
+                f"plain hdr max abs err {k2_err:.3g} (atol 1e-4, rtol 1e-3)")
+
+    # ---- 5v. the frames, counts set to 0 just before
+    render_v = lambda d, s: F.render_frame(cfg, state, d, s, device=dev)
+    per_frame = {"raster_shade": 2, "shade_deferred": 2, "raster_depth": 3,
+                 "raster_blend": 1, "shade_epilogue": 1}
+    pf, _, _, _ = drive(render_v, inputs, kernels, per_frame,
+                        forbid=("raster_shade_2p", "raster_v1", "raster_mxu",
+                                "gather_rows", "shade_deferred_envd"))
+    if any(f[n] != m for f in pf for n, m in per_frame.items()):
+        raise RuntimeError(f"vertex-modes launches {pf}, expected {per_frame} a frame")
+    meshes = dict(actor=vm.actor.mesh_id, foliage=vm.blade.mesh_id,
+                  ocean=vm.ocean.mesh.mesh_id)
+    outs = [render_v(d, s) for d, s in inputs]
+    moved = []
+    for (da, _), (db, _), a, b in zip(inputs, inputs[1:], outs, outs[1:]):
+        ma = _region_masks(to_torch(da, dev), a["vis"], meshes)
+        mb = _region_masks(to_torch(db, dev), b["vis"], meshes)
+        diff = (a["image"].float() - b["image"].float()).abs().mean(-1)
+        moved.append({n: diff[ma[n] | mb[n]].mean().item() for n in meshes})
+    cover = {n: m.float().mean().item() for n, m in _region_masks(
+        to_torch(inputs[0][0], dev), outs[0]["vis"], meshes).items()}
+    if any(not v > 0 for f in moved for v in f.values()):
+        raise RuntimeError(f"a region did not change between frames: {moved}")
+    phase("5v", f"3 vertex-modes frames {W}x{H} (Animator, Ocean and wind time + 1/60 s a "
+                f"frame, lights fixed): launches per frame {pf}; regions cover {cover} of "
+                f"the frame; mean |d| a region between frames (levels): {moved}")
+    img, ovf = _ocean_example_frames(dev)
+    gold = read_png_rgb(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                     "tests", "golden", "ocean.png")).astype(np.float32)
+    dd = img.astype(np.float32) - gold
+    rmse_ocean = float(np.sqrt(np.mean((dd / 255.0) ** 2)))
+    if img.shape != gold.shape or not rmse_ocean < 2 / 255 or ovf:
+        raise RuntimeError(f"ocean example vs golden: RMSE {rmse_ocean}, overflow {ovf}")
+    phase("5v", f"examples/ocean.py's config through RenderContext.render on the card "
+                f"({OCEAN_EXAMPLE[0]}x{OCEAN_EXAMPLE[1]}, 3 updates, deferred default "
+                f"path) vs tests/golden/ocean.png: RMSE {rmse_ocean:.6f} (gate < "
+                f"{2 / 255:.6f}), mean |d| {np.abs(dd).mean():.4f} levels")
+    sctx, scam, sparams, smake = datumtest_scene(
+        width=256, height=128, vertex_modes=True, ocean_grid=16, device=dev,
+        **dict(SMALL, **dict(VERTEX_MODES_CONFIG, bin_capacity=512)))
+    smake.vertex_modes.update(0.4)
+    sd, sss = frame_inputs(sctx, scam, sparams, smake, 0.3)
+    wcfg, wctx, wd, wss = _water_frame_inputs(dev)
+    small = (("megakernel", sctx.config, sctx, sd, sss),
+             ("deferred K5", dataclasses.replace(sctx.config, texture_filter="bilinear"),
+              sctx, sd, sss),
+             ("translucent Water", wcfg, wctx, wd, wss))
+    small_d = {}
+    for name, mcfg, mctx, md_, mss in small:
+        imgs = [F.render_frame(mcfg, mctx.host_state(), md_, mss, device=d)["image"]
+                .cpu().float() for d in (dev, "cpu")]
+        dimg = (imgs[0] - imgs[1]).abs()
+        rmse = ((imgs[0] - imgs[1]) ** 2).mean().sqrt().item()
+        if dimg.mean().item() > 0.5 or rmse > 2.0 or imgs[1].mean() <= 10:
+            raise RuntimeError(f"256x128 {name} vertex-modes frame card vs CPU plain: "
+                               f"mean |d| {dimg.mean().item()}, RMSE {rmse} levels")
+        small_d[name] = (dimg.mean().item(), rmse)
+    phase("5v", "256x128 frames, card vs CPU plain path (mean |d|, RMSE levels; limits 0.5, "
+                "2): " + "; ".join(f"{n} {a:.4f}, {b:.4f}" for n, (a, b) in small_d.items()))
+
+    # ---- 6v. timing (informational: no frame gain is claimed)
+    render_b, b_inputs = bench
+    runs = dict(bench=[frame_ms(render_b, b_inputs)], vm=[])
+    runs["vm"] += [frame_ms(render_v, inputs), frame_ms(render_v, inputs)]
+    runs["bench"].append(frame_ms(render_b, b_inputs))
+    prof = profile_frames(render_v, inputs)
+    no_modes = dataclasses.replace(cfg, enable_skinning=False, enable_foliage=False,
+                                   max_dynamic_vertices=0)
+    stage = dict(
+        with_modes=wall_ms(lambda: F._vertex_stage(cfg, F.patch_dynamic(cfg, state, d_t),
+                                                   d_t, s_t)),
+        without=wall_ms(lambda: F._vertex_stage(no_modes, state, d_t, s_t)),
+        slab=wall_ms(lambda: vm.ocean.vertex_data(md, camera.position)))
+    ms_vm, ms_b = statistics.mean(runs["vm"]), statistics.mean(runs["bench"])
+    phase("6v", f"{ms_vm:.3f} ms/frame vertex-modes frame, {ms_b:.3f} ms/frame bench frame "
+                f"(each the mean of 2 medians of 7, timed bench, vertex modes x2, bench: "
+                f"{runs['bench'][0]:.3f}, {runs['vm'][0]:.3f}, {runs['vm'][1]:.3f}, "
+                f"{runs['bench'][1]:.3f}; CUDA events, {W}x{H}) on {card}")
+    phase("6v", f"vertex-modes frame under torch.profiler (3 frames): {prof[0]:.3f} ms of "
+                f"device time and {prof[1]:.0f} launches per frame, busy "
+                f"{prof[0] / ms_vm:.3f}")
+    phase("6v", f"vertex stage (wall ms, synced, median of 5): with the three modes (slab "
+                f"patch, gather, bends, skinning, transform) {stage['with_modes']:.3f}, "
+                f"without them on the same draws {stage['without']:.3f}; the ocean's slab "
+                f"(FFT, displace, LUT coords; Ocean.vertex_data) {stage['slab']:.3f} on "
+                f"{card}")
+    return dict(ms=ms_vm, ms_bench=ms_b, prof=prof, stage=stage, moved=moved,
+                rmse_ocean=rmse_ocean, launches=pf[0], overflows=overflows)
+
+
 def versions_phase(path, card, sets):
     """--versions FILE: other versions of K1's, K6's, K2's, K3's, K4's,
     K5's and K7's sources, timed beside this build's on the same inputs.
@@ -2097,6 +2469,7 @@ def main():
     dp = deferred_phases(dev, card, kernels, (cfg, state, inputs, setup, bins, counts,
                                               big_ids, ex, uv, wn, d_t, kp))
     ep = env_phases(dev, card, kernels, bench_expect)
+    vertex_phases(dev, card, kernels, (render_b, inputs))
     if args.versions:
         k1_sets = [("bench opaque", k1_in), ("lit layer", lit_in), ("peeled layer", peel_in),
                    ("stress", st["inputs"]["k1"]), ("stress, early-z", st["inputs"]["k1z"])]

@@ -92,3 +92,16 @@ def quat_to_matrix(q):
         ],
         axis=-2,
     )
+
+
+def quat_slerp(a, b, t):
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    d = float(np.dot(a, b))
+    if d < 0:
+        b, d = -b, -d
+    if d > 0.9995:
+        out = a + t * (b - a)
+        return out / np.linalg.norm(out)
+    theta = np.arccos(np.clip(d, -1, 1))
+    return (np.sin((1 - t) * theta) * a + np.sin(t * theta) * b) / np.sin(theta)

@@ -1,13 +1,17 @@
 """RenderContext: persistent pools + device state (counterpart of
 datum_tpu/render/context.py, the host side the port needs).
 
-The geometry pool, the material and texture tables, the material-map
+The geometry pool (with its skinning rig rows), the material and
+texture tables (the water material's colour LUT among them), the
+material-map
 mip table (`_rebuild_matmaps`, with the `packed10` per-material rows),
 the fitted colour-grading polynomial, the skybox environment (its mip
 chain, mip-pair table, SH-9 and the env-BRDF LUT) and the box
 environment probes (`add_environment`: their stacked mip chains and one
 quad-packed table each) are numpy, as in the JAX package;
-`device_state(device)` returns them as torch tensors on `device`.
+`device_state(device)` returns them as torch tensors on `device`.  An
+ocean's dynamic-vertex slab is computed each frame on the context's
+device (render/ocean.py) and rides in the frame's draws.
 """
 
 from __future__ import annotations
@@ -91,11 +95,15 @@ class GeometryPool:
         self.n_triangles = 0
         self.n_meshes = 0
 
-    def add_mesh(self, vertices, indices) -> MeshHandle:
+    def add_mesh(self, vertices, indices, mincorner=None, maxcorner=None,
+                 rig=None) -> MeshHandle:
         """vertices: dict of arrays (position, texcoord, normal, tangent,
         and for a terrain its geomorph targets morph_position and
         morph_normal, stored as deltas for the vertex stage); indices:
-        (K,) or (K/3, 3) mesh-local triangle indices."""
+        (K,) or (K/3, 3) mesh-local triangle indices; mincorner and
+        maxcorner: the handle's bounds (default: the positions'); rig: a
+        structured array with fields bone (4 int) and weight (4 float)
+        per vertex (default: bone 0 at weight 1)."""
         pos = np.asarray(vertices["position"], np.float32)
         uv = np.asarray(vertices.get("texcoord", np.zeros((len(pos), 2))), np.float32)
         nrm = np.asarray(vertices.get("normal", np.tile([0, 0, 1.0], (len(pos), 1))), np.float32)
@@ -109,6 +117,9 @@ class GeometryPool:
         self.texcoords[v0:v0 + nv] = uv
         self.normals[v0:v0 + nv] = nrm
         self.tangents[v0:v0 + nv] = tan
+        if rig is not None:
+            self.bone_idx[v0:v0 + nv] = rig["bone"]
+            self.bone_wt[v0:v0 + nv] = rig["weight"]
         if "morph_position" in vertices:
             self.morph[v0:v0 + nv, :3] = (
                 np.asarray(vertices["morph_position"], np.float32) - pos)
@@ -124,7 +135,9 @@ class GeometryPool:
         self.n_vertices += nv
         self.n_triangles += nt
         self.n_meshes += 1
-        return MeshHandle(m, nv, nt, pos.min(0), pos.max(0))
+        if mincorner is None:
+            mincorner, maxcorner = pos.min(0), pos.max(0)
+        return MeshHandle(m, nv, nt, mincorner, maxcorner)
 
     def host_arrays(self):
         """The device geometry arrays, as numpy (attr12 = position, uv,
@@ -297,9 +310,23 @@ class RenderContext:
         self.n_textures += 1
         return i
 
-    def add_mesh(self, vertices, indices) -> MeshHandle:
+    def add_mesh(self, vertices, indices, **kw) -> MeshHandle:
+        """GeometryPool.add_mesh (mincorner=, maxcorner=, rig=)."""
         self._state = None
-        return self.pool.add_mesh(vertices, indices)
+        return self.pool.add_mesh(vertices, indices, **kw)
+
+    def add_water_material(self, color=(1, 1, 1, 1), metalness=0.0,
+                           roughness=0.08, reflectivity=0.9, absorb=0.35,
+                           **lut_kw) -> int:
+        """Water material: the procedural (depth, facing) colour LUT
+        (ops/ocean.py::water_color_lut) as its albedo map; ocean vertices
+        carry LUT coordinates."""
+        from ..ops.ocean import water_color_lut
+
+        tex = self.add_texture(water_color_lut(**lut_kw))
+        return self.add_material(color=color, metalness=metalness,
+                                 roughness=roughness, absorb=absorb,
+                                 reflectivity=reflectivity, albedomap=tex)
 
     def host_state(self):
         """The device state as a numpy tree (the layout of the JAX
@@ -372,12 +399,17 @@ class RenderContext:
 
     def frame_draws(self, renderlist, camera):
         """The draws tree of one frame, as the JAX package's
-        RenderContext.render builds it: the draw arrays plus, for the
-        capacities the config carries, the particle billboards
-        ("forward"), the translucent draws, the decals and the fog planes;
-        then the host expansion."""
+        RenderContext.render builds it: the draw arrays (with the
+        skinning palettes under enable_skinning) plus, for the capacities
+        the config carries, the particle billboards ("forward"), the
+        translucent draws, the decals, the fog planes and the
+        dynamic-vertex slab ("dyn": the first ocean's vertices on its
+        device, else a zero slab of count 0); then the host expansion."""
         cfg = self.config
-        draws = renderlist.draw_arrays(cfg.max_instances, self.default_material)
+        draws = renderlist.draw_arrays(
+            cfg.max_instances, self.default_material,
+            max_palettes=cfg.max_palettes if cfg.enable_skinning else 0,
+            max_bones=cfg.max_bones)
         if cfg.max_particle_quads > 0:
             draws["forward"] = renderlist.forward_arrays(cfg.max_particle_quads,
                                                          camera)
@@ -388,13 +420,23 @@ class RenderContext:
             draws["decals"] = renderlist.decal_arrays(cfg.max_decals_active)
         if cfg.max_fog_planes > 0:
             draws["fogplanes"] = renderlist.fogplane_arrays(cfg.max_fog_planes)
+        if cfg.max_dynamic_vertices > 0:
+            md = cfg.max_dynamic_vertices
+            if renderlist.oceans:
+                draws["dyn"] = renderlist.oceans[0].vertex_data(md, camera.position)
+            else:
+                draws["dyn"] = dict(
+                    positions=np.zeros((md, 3), np.float32),
+                    normals=np.zeros((md, 3), np.float32),
+                    texcoords=np.zeros((md, 2), np.float32),
+                    offset=np.int32(0), count=np.int32(0))
         return self.expand_host(draws)
 
     def render(self, camera, renderlist, params, sceneset=None):
         """Render one frame on self.device; returns a numpy uint8 (height,
         width, 3) image (the JAX package's RenderContext.render, trimmed
-        to what the port renders: sprites and dynamic vertices raise in
-        render_frame's check_config).  The renderlist's SH probes go into
+        to what the port renders: sprites raise in render_frame's
+        check_config).  The renderlist's SH probes go into
         the sceneset.  With params.scale != 1 the frame renders at
         (round(width * scale) & ~1, round(height * scale) & ~1), at least
         2 each, and a nearest blit by integer indices scales it back to

@@ -1,8 +1,13 @@
 """The frame (counterpart of datum_tpu/render/frame.py `_frame`).
 
+Every branch starts with the vertex stage: the dynamic-vertex slab
+(an ocean's displaced grid) patched into a copy of the geometry pool
+(patch_dynamic), host draw expansion (numpy) -> attribute gather -> the
+foliage wind bends, dual-quaternion skinning and the terrain geomorph,
+each under its flag -> rigid transform.
+
 The megakernel branch (`use_shade_kernel` with `use_pallas`, a 'mip'
-texture filter and ESM sun shadows), in order: host draw expansion
-(numpy) -> attribute gather, the terrain geomorph and rigid transform ->
+texture filter and ESM sun shadows), in order: the vertex stage ->
 sun cascades (K3, ops/raster_depth_cuda.py) and their ESM, parabolic or
 perspective spot maps (K3) and their ESM -> triangle setup and binning
 into 32x128 tiles -> K1 fused visibility raster, or K6 with
@@ -65,7 +70,7 @@ from ..ops.common import TILE_H, TILE_W, FrameConfig, round_up, texel_index
 from ..ops.composite import composite, to_u8_image
 from ..ops.decal import apply_decals, apply_decals_planes
 from ..ops.envprobe import env_probe_fields
-from ..ops.geometry import terrain_morph, transform_vertices_rigid
+from ..ops.geometry import skin_vertices, terrain_morph, transform_vertices_rigid
 from ..ops.ibl import rotate_sh9
 from ..ops.lighting_pass import _inv_proj, reconstruct_positions, view_ray_grid
 from ..ops.raster_blend_cuda import raster_blend
@@ -84,11 +89,7 @@ from .renderlist import RenderList
 # (rejected when true, what it is and the ROADMAP Queue 1 item that ports it)
 _LATER = (
     (lambda c: c.max_overlay_sprites > 0, "the device sprite pass",
-     "post (sprites)"),
-    (lambda c: c.enable_skinning, "skinning", "off-main-path device code"),
-    (lambda c: c.enable_foliage, "foliage wind bend", "off-main-path device code"),
-    (lambda c: c.max_dynamic_vertices > 0, "dynamic vertices (ocean)",
-     "off-main-path device code"),
+     "sprites, overlays and debug"),
 )
 
 
@@ -156,36 +157,110 @@ def attach_host_expansion(pool, draws, max_v, max_t, max_translucent_t):
     return draws
 
 
+def patch_dynamic(cfg: FrameConfig, state, draws):
+    """The dynamic-vertex slab: with max_dynamic_vertices md > 0, the
+    state with a copy of its geometry whose attr12 rows start .. start +
+    md - 1 take draws["dyn"]'s positions (columns 0:3), normals (5:8)
+    and texcoords (3:5) on the slab's first `count` rows; the other
+    rows keep the pool's.  start is the slab's offset clamped into [0, V
+    - md], as the JAX package's dynamic_slice and dynamic_update_slice
+    clamp it (a slab past the pool's end overwrites the rows before
+    it).  The state itself is never written, so a frame with count 0
+    reads the pool's own rows.  Without a slab, state itself."""
+    md = cfg.max_dynamic_vertices
+    if md <= 0:
+        return state
+    geom = state["geometry"]
+    a12 = geom["attr12"]
+    n_v, dev = a12.shape[0], a12.device
+    if md > n_v:
+        raise ValueError(f"max_dynamic_vertices {md} exceeds the pool's {n_v} rows")
+    dyn = draws["dyn"]
+    k = torch.arange(md, device=dev)
+    start = torch.clamp(torch.as_tensor(dyn["offset"], device=dev).long(), 0, n_v - md)
+    rows = start + k
+    cur = a12[rows]
+    new = torch.cat([dyn["positions"], dyn["texcoords"], dyn["normals"], cur[:, 8:12]],
+                    -1)
+    mask = (k < torch.as_tensor(dyn["count"], device=dev))[:, None]
+    attr12 = a12.index_copy(0, rows, torch.where(mask, new, cur))
+    return dict(state, geometry=dict(geom, attr12=attr12))
+
+
 def _vertex_stage(cfg: FrameConfig, state, draws, sceneset):
-    """Host-expanded streams + ONE attr12 row gather + the terrain
-    geomorph (enable_terrain_morph) + rigid transform.  Returns (ex, uv,
-    clip, wnormal, wtangent, worldp)."""
+    """Host-expanded streams + ONE attr12 row gather + the vertex modes of
+    cfg (the foliage wind bends, skinning, the terrain geomorph) + rigid
+    transform.  With a dynamic-vertex slab, state is patch_dynamic's.
+    Returns (ex, uv, clip, wnormal, wtangent, worldp)."""
     if "src_v" not in draws:
         raise ValueError("draws need the host draw expansion "
                          "(RenderContext.expand_host) before render_frame")
     ex = {k: draws[k] for k in ("src_v", "vtx_draw", "v_valid", "tris",
                                 "tri_draw", "t_valid")}
-    uv, clip, wnormal, wtangent, worldp = _stream_vertices(
-        state, draws, sceneset, morph=cfg.enable_terrain_morph)
+    uv, clip, wnormal, wtangent, worldp = _stream_vertices(state, draws, sceneset, cfg)
     return ex, uv, clip, wnormal, wtangent, worldp
 
 
-def _stream_vertices(state, d, sceneset, morph=False):
+def _foliage_bend(positions, d, vd):
+    """The foliage wind bends in local space, in the JAX frame's inline
+    form: each draw's wind rotated into its model frame, the detail
+    flutter (phase (p @ ones) * sum(anchor)) and then the main bend,
+    renormalised to the vertex's distance from the pivot (norm floor
+    1e-20).  ops/geometry.py's wind_detail_bend and wind_bend are the
+    standalone forms, which round differently."""
+    world = d["world"]
+    lw = torch.einsum("dji,dj->di", world[:, :, :3], d["wind"][:, :3])
+    wv = lw[vd]                                          # (V, 3)
+    tv = d["wind"][vd, 3]
+    bs = d["bendscale"][vd]
+    ds = d["detailbendscale"][vd]
+    anch = world[vd, :, 3]
+
+    ones = torch.ones(3, dtype=torch.float32, device=positions.device)
+    phase = positions @ ones * anch.sum(-1)
+    wvs = torch.stack([(tv + phase) * 1.975, (tv + phase) * 0.793], -1)
+    waves = torch.remainder(wvs, 1.0) * 2.0 - 1.0
+    waves = torch.abs(torch.remainder(waves + 0.5, 1.0) * 2.0 - 1.0)
+    waves = waves * waves * (3.0 - 2.0 * waves)
+    positions = positions + wv * (waves.sum(-1) * torch.sum(positions * ds, -1))[:, None]
+
+    bf = torch.sum(positions * bs, -1) + 1.0
+    bf = bf * bf
+    bf = bf * bf - bf
+    bent = positions + wv * bf[:, None]
+    ln = torch.linalg.norm(positions, dim=-1, keepdim=True)
+    bn = torch.clamp(torch.linalg.norm(bent, dim=-1, keepdim=True), min=1e-20)
+    return bent * (ln / bn)
+
+
+def _stream_vertices(state, d, sceneset, cfg=None):
     """ONE attr12 row gather + rigid transform of a host-expanded draw
-    stream d (the opaque draws or draws["translucent"]); with morph, the
-    terrain geomorph of d's morph_range draws first.  Returns (uv, clip,
-    wnormal, wtangent, worldp)."""
+    stream d (the opaque draws or draws["translucent"]).  With cfg (the
+    opaque draws), first the vertex modes its flags ask for, in the JAX
+    package's order: the foliage wind bends (enable_foliage),
+    dual-quaternion skinning with d's palettes (enable_skinning), the
+    terrain geomorph of d's morph_range draws (enable_terrain_morph).
+    Returns (uv, clip, wnormal, wtangent, worldp)."""
     geom = state["geometry"]
     src = d["src_v"].long()
     rows12 = geom["attr12"][src]
-    positions, normals = rows12[:, 0:3], rows12[:, 5:8]
-    if morph:
-        positions, normals = terrain_morph(
-            positions, normals, geom["morph6"][src], d["vtx_draw"], d["world"],
-            d["morph_range"], sceneset["invview"][:3, 3])
+    positions, normals, tangents = rows12[:, 0:3], rows12[:, 5:8], rows12[:, 8:12]
+    if cfg is not None:
+        vd = d["vtx_draw"].long()
+        if cfg.enable_foliage:
+            positions = _foliage_bend(positions, d, vd)
+        if cfg.enable_skinning:
+            positions, normals, tangents = skin_vertices(
+                positions, normals, tangents, geom["bone_idx"][src],
+                geom["bone_wt"][src], d["palettes"].reshape(-1, 8),
+                d["palette_id"][vd], cfg.max_bones)
+        if cfg.enable_terrain_morph:
+            positions, normals = terrain_morph(
+                positions, normals, geom["morph6"][src], d["vtx_draw"], d["world"],
+                d["morph_range"], sceneset["invview"][:3, 3])
     viewproj = sceneset["proj"] @ sceneset["view"]
     clip, wnormal, wtangent, worldp = transform_vertices_rigid(
-        positions, normals, rows12[:, 8:12], d["vtx_draw"], d["world"], viewproj)
+        positions, normals, tangents, d["vtx_draw"], d["world"], viewproj)
     return rows12[:, 3:5], clip, wnormal, wtangent, worldp
 
 
@@ -1073,6 +1148,9 @@ def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
 
 
 def _frame(cfg: FrameConfig, state, draws, sceneset, prev=None):
+    # every stream below (the opaque draws, the lit layers, WBOIT, the
+    # deferred branch's translucents) reads the patched pool
+    state = patch_dynamic(cfg, state, draws)
     vtx = _vertex_stage(cfg, state, draws, sceneset)
     branch = _megakernel_frame if use_shade_kernel(cfg, state) else _deferred_frame
     hdr, depth, vis, bin_overflow, ao_state, ssr_in = branch(cfg, state, draws,
@@ -1092,8 +1170,9 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     state: RenderContext.device_state(device) (or any tree of the same
     layout, e.g. the JAX package's state through convert.to_torch);
     draws: RenderContext.frame_draws (the draw arrays with, for the
-    config's capacities, "forward", "translucent", "decals" and
-    "fogplanes", after the host expansion); sceneset:
+    config's flags and capacities, the skinning palettes, "forward",
+    "translucent", "decals", "fogplanes" and the dynamic-vertex slab
+    "dyn", after the host expansion); sceneset:
     render.types.make_sceneset (with the SH probes).  draws
     and sceneset may be numpy trees; they are moved onto `device` here.
     prev: the previous frame's out["ao_prev"] (SSAO's temporal

@@ -1,6 +1,6 @@
 """Procedural built-in meshes (counterpart of
-datum_tpu/render/primitives.py, trimmed to the sphere, the plane and
-the stress scene's terrain).  Vertices carry {position, texcoord,
+datum_tpu/render/primitives.py, trimmed to the quad, the cube, the
+sphere, the plane and the stress scene's terrain).  Vertices carry {position, texcoord,
 normal, tangent(xyz,w)}."""
 
 from __future__ import annotations
@@ -13,6 +13,38 @@ def _mesh(pos, uv, nrm, tan, idx):
                 texcoord=np.asarray(uv, np.float32),
                 normal=np.asarray(nrm, np.float32),
                 tangent=np.asarray(tan, np.float32)), np.asarray(idx, np.int32)
+
+
+def unit_quad():
+    """XY quad from (-1,-1) to (1,1), facing +Z."""
+    pos = [[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]]
+    uv = [[0, 0], [1, 0], [1, 1], [0, 1]]
+    nrm = [[0, 0, 1]] * 4
+    tan = [[1, 0, 0, 1]] * 4
+    return _mesh(pos, uv, nrm, tan, [0, 1, 2, 0, 2, 3])
+
+
+def unit_cube():
+    """Axis-aligned cube [-1, 1]^3, outward normals, per-face uvs."""
+    faces = [
+        ((0, 0, 1), (1, 0, 0), (0, 1, 0)),
+        ((0, 0, -1), (-1, 0, 0), (0, 1, 0)),
+        ((1, 0, 0), (0, 0, -1), (0, 1, 0)),
+        ((-1, 0, 0), (0, 0, 1), (0, 1, 0)),
+        ((0, 1, 0), (1, 0, 0), (0, 0, -1)),
+        ((0, -1, 0), (1, 0, 0), (0, 0, 1)),
+    ]
+    pos, uv, nrm, tan, idx = [], [], [], [], []
+    for n, t, b in faces:
+        n, t, b = np.array(n, np.float32), np.array(t, np.float32), np.array(b, np.float32)
+        base = len(pos)
+        for su, sv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+            pos.append(n + su * t + sv * b)
+            uv.append([(su + 1) / 2, (sv + 1) / 2])
+            nrm.append(n)
+            tan.append([*t, 1.0])
+        idx += [base, base + 1, base + 2, base, base + 2, base + 3]
+    return _mesh(pos, uv, nrm, tan, idx)
 
 
 def unit_sphere(segments=32, rings=16):

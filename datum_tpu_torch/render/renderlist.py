@@ -1,8 +1,9 @@
 """RenderList: the per-frame draw-building facade (counterpart of
 datum_tpu/render/renderlist.py, trimmed to what the port renders:
-meshes, terrain with geomorph, translucent meshes, point and spot lights,
-SH probes, decals, fog planes, particle billboards, and their
-fixed-capacity arrays)."""
+meshes, terrain with geomorph, foliage with its wind bends, skinned
+actors with their palettes, shadow casters, oceans, translucent meshes,
+point and spot lights, SH probes, decals, fog planes, particle
+billboards, and their fixed-capacity arrays)."""
 
 from __future__ import annotations
 
@@ -19,26 +20,78 @@ MAX_NUMPY_BILLBOARDS = 4096
 class RenderList:
     def __init__(self):
         self.draws = []          # dict(mesh, transform(3,4), material)
+        self.casters = []        # shadow-casting subset
         self.point_lights = []
         self.spot_lights = []
         self.translucents = []
+        self.oceans = []         # dynamic ocean surfaces (the first feeds the slab)
         self.decals = []
         self.fogplanes = []
         self.probes = []
         self.particles = []      # forward OIT billboard systems
 
-    def push_mesh(self, mesh, transform, material):
-        self.draws.append(dict(mesh=mesh.mesh_id, transform=_to_affine(transform),
-                               material=material))
+    def push_mesh(self, mesh, transform, material, caster=True):
+        m = _to_affine(transform)
+        self.draws.append(dict(mesh=mesh.mesh_id, transform=m, material=material))
+        if caster:
+            self.casters.append(dict(mesh=mesh.mesh_id, transform=m, material=material))
 
-    def push_terrain(self, mesh, transform, material, morph=(24.0, 48.0)):
+    push_geometry = push_mesh
+
+    def push_foliage(self, mesh, transforms, material, wind=(0, 0, 0, 0),
+                     bendscale=(0, 0.025, 0), detailbendscale=(0, 0.025, 0),
+                     caster=True):
+        """Instanced foliage with the wind bends: wind.xyz = direction *
+        strength, wind.w = time.  Needs FrameConfig.enable_foliage."""
+        if not isinstance(transforms, (list, tuple)):
+            transforms = [transforms]
+        for t in transforms:
+            m = _to_affine(t)
+            self.draws.append(dict(
+                mesh=mesh.mesh_id, transform=m, material=material,
+                wind=np.asarray(wind, np.float32),
+                bendscale=np.asarray(bendscale, np.float32),
+                detailbendscale=np.asarray(detailbendscale, np.float32)))
+            if caster:
+                self.casters.append(dict(mesh=mesh.mesh_id, transform=m,
+                                         material=material))
+
+    def push_terrain(self, mesh, transform, material, morph=(24.0, 48.0),
+                     caster=True):
         """Terrain draw with LOD geomorph: the mesh carries baked morph
         targets (primitives.terrain(morph_grid=...)); morph = (morphbeg,
         morphend) camera distances.  Needs
         FrameConfig.enable_terrain_morph."""
-        self.draws.append(dict(mesh=mesh.mesh_id, transform=_to_affine(transform),
-                               material=material,
+        m = _to_affine(transform)
+        self.draws.append(dict(mesh=mesh.mesh_id, transform=m, material=material,
                                morph=np.asarray(morph, np.float32)))
+        if caster:
+            self.casters.append(dict(mesh=mesh.mesh_id, transform=m,
+                                     material=material))
+
+    def push_actor(self, mesh, transform, material, palette, caster=True):
+        """Skinned draw: palette is the Animator's (B, 8) dual-quat bone
+        palette.  Needs FrameConfig.enable_skinning."""
+        m = _to_affine(transform)
+        self.draws.append(dict(mesh=mesh.mesh_id, transform=m, material=material,
+                               palette=np.asarray(palette, np.float32)))
+        if caster:
+            self.casters.append(dict(mesh=mesh.mesh_id, transform=m,
+                                     material=material))
+
+    def push_caster(self, mesh, transform, material=0):
+        self.casters.append(dict(mesh=mesh.mesh_id, transform=_to_affine(transform),
+                                 material=material))
+
+    def caster_arrays(self, max_draws):
+        mesh = np.zeros(max_draws, np.int32)
+        world = np.zeros((max_draws, 3, 4), np.float32)
+        world[:, :, :3] = np.eye(3)
+        n = min(len(self.casters), max_draws)
+        for i, d in enumerate(self.casters[:n]):
+            mesh[i] = d["mesh"]
+            world[i] = d["transform"]
+        return dict(mesh=mesh, world=world, count=np.int32(n))
 
     def push_translucent(self, mesh, transform, material):
         """Translucent mesh (material alpha < 1): the lit glass/water
@@ -206,27 +259,50 @@ class RenderList:
                             base + np.array([[0, 2, 3]], np.int32)], axis=1)
         return t.reshape(-1, 3)
 
-    def draw_arrays(self, max_draws, default_material):
-        """Fixed-capacity draw arrays (the JAX package's draw_arrays
-        without skinning palettes, which the port rejects); morph_range
-        (morphbeg, morphend) is (0, 0), off, except on terrain draws."""
+    def draw_arrays(self, max_draws, default_material, max_palettes=0,
+                    max_bones=128):
+        """Fixed-capacity draw arrays: morph_range (morphbeg, morphend) is
+        (0, 0), off, except on terrain draws; wind, bendscale and
+        detailbendscale are 0 except on foliage draws.  With
+        max_palettes, also palettes (max_palettes, max_bones, 8) and
+        palette_id (max_draws,): palette 0 is the identity, each actor
+        takes the next one, and actors past max_palettes take palette 0."""
         mesh = np.zeros(max_draws, np.int32)
         world = np.zeros((max_draws, 3, 4), np.float32)
         world[:, :, :3] = np.eye(3)
         material = np.full(max_draws, default_material, np.int32)
-        morph_range = np.zeros((max_draws, 2), np.float32)   # end <= 0: off
         n = min(len(self.draws), max_draws)
+        wind = np.zeros((max_draws, 4), np.float32)
+        bendscale = np.zeros((max_draws, 3), np.float32)
+        detailbendscale = np.zeros((max_draws, 3), np.float32)
+        morph_range = np.zeros((max_draws, 2), np.float32)   # end <= 0: off
+        out = dict(mesh=mesh, world=world, material=material, count=np.int32(n),
+                   wind=wind, bendscale=bendscale,
+                   detailbendscale=detailbendscale, morph_range=morph_range)
+        if max_palettes:
+            palettes = np.zeros((max_palettes, max_bones, 8), np.float32)
+            palettes[:, :, 0] = 1.0      # identity dual-quats
+            palette_id = np.zeros(max_draws, np.int32)
+            next_pal = 1
         for i, d in enumerate(self.draws[:n]):
             mesh[i] = d["mesh"]
             world[i] = d["transform"]
             material[i] = d["material"]
+            if "wind" in d:
+                wind[i] = d["wind"]
+                bendscale[i] = d["bendscale"]
+                detailbendscale[i] = d["detailbendscale"]
             if "morph" in d:
                 morph_range[i] = d["morph"]
-        return dict(mesh=mesh, world=world, material=material, count=np.int32(n),
-                    wind=np.zeros((max_draws, 4), np.float32),
-                    bendscale=np.zeros((max_draws, 3), np.float32),
-                    detailbendscale=np.zeros((max_draws, 3), np.float32),
-                    morph_range=morph_range)
+            if max_palettes and d.get("palette") is not None and next_pal < max_palettes:
+                p = d["palette"]
+                palettes[next_pal, :len(p)] = p[:max_bones]
+                palette_id[i] = next_pal
+                next_pal += 1
+        if max_palettes:
+            out["palettes"] = palettes
+            out["palette_id"] = palette_id
+        return out
 
 
 def _to_affine(transform):

@@ -40,7 +40,7 @@ class _ParticleCloud:
 
 def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
                     n_point_lights=8, skybox=True, skybox_size=64, local_env=False,
-                    device="cuda", **cfg_kw):
+                    vertex_modes=False, ocean_grid=96, device="cuda", **cfg_kw):
     """Build the flagship scene; returns (ctx, camera, params,
     make_renderlist).  Materials, textures, meshes and the random light
     placement are the JAX package's, in the same order, so both packages
@@ -51,7 +51,15 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
     around the sphere grid, its cubemap a 64^2 procedural sky under a
     second sun, prefiltered at 5 levels, and 4 SH probes of that cubemap
     at the grid's corners (the local-environment frame; the JAX
-    package's scene has no such option)."""
+    package's scene has no such option).  vertex_modes (also port-only):
+    the animated vertex stage's content beside the bench's (see
+    VertexModes): a skinned actor, 8x8 foliage blades and an FFT ocean;
+    the config then defaults to VERTEX_MODES_CONFIG, the ocean has
+    ocean_grid x ocean_grid cells, and make_renderlist carries the
+    scene's VertexModes as make_renderlist.vertex_modes."""
+    if vertex_modes:
+        for k, v in VERTEX_MODES_CONFIG.items():
+            cfg_kw.setdefault(k, v)
     cfg = FrameConfig(width=width, height=height, **cfg_kw)
     ctx = RenderContext(cfg, device=device)
 
@@ -132,6 +140,7 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
     part_phase = rng.uniform(0, 2 * np.pi, n_particles).astype(np.float32)
 
     sh_probes = _local_environment(ctx, grid) if local_env else []
+    vm = VertexModes(ctx, ocean_grid) if vertex_modes else None
 
     def make_renderlist(t=0.0):
         rl = RenderList()
@@ -179,9 +188,123 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
                  np.cos(t * 0.4 + part_phase) * 0.4 + 0.2,
                  np.cos(t * 0.6 + part_phase) * 0.8], -1).astype(np.float32)
             rl.push_particles(_ParticleCloud(pos), emissive=0.4)
+        if vm is not None:
+            vm.push(rl)
         return rl
 
+    make_renderlist.vertex_modes = vm
     return ctx, camera, params, make_renderlist
+
+
+# the vertex-modes scene's config: the three vertex modes on, a slab that
+# holds the ocean's 9,409 vertices, room for its 18,432 triangles beside
+# the bench's 20,162 (1<<15 cannot hold them), and main bins deep enough
+# for the ocean's far rows, which crowd ~600 triangles into a 32x128 tile
+VERTEX_MODES_CONFIG = dict(enable_skinning=True, enable_foliage=True,
+                           max_dynamic_vertices=1 << 14, max_vertices=1 << 16,
+                           max_triangles=1 << 16, bin_capacity=1024)
+
+
+def _chain_rig(pos, pivots):
+    """Per-vertex rig of a column over the joints at heights pivots
+    (local y): each vertex blends the two joints around its height
+    linearly (weights 0 on the other two slots)."""
+    y = pos[:, 1]
+    rig = np.zeros(len(pos), dtype=[("bone", np.int32, 4), ("weight", np.float32, 4)])
+    seg = np.clip(np.searchsorted(pivots, y) - 1, 0, len(pivots) - 2)
+    f = np.clip((y - pivots[seg]) / (pivots[seg + 1] - pivots[seg]), 0.0, 1.0)
+    rig["bone"][:, 0] = seg
+    rig["bone"][:, 1] = seg + 1
+    rig["weight"][:, 0] = 1.0 - f
+    rig["weight"][:, 1] = f
+    return rig
+
+
+def _sway(joints, pivots, axis, amplitude, duration, n_keys=5):
+    """An Animation of the joint chain: each joint's key k is its offset
+    from its parent then a rotation of amplitude * sin(2 pi k / (n_keys -
+    1)) about axis, over duration seconds."""
+    from .render.animation import Animation
+
+    times, transforms, table = [], [], []
+    for j, (name, parent) in enumerate(joints):
+        off = [0.0, pivots[j] - (pivots[parent] if parent != j else 0.0), 0.0]
+        table.append(dict(name=name, parent=parent, index=len(times), count=n_keys))
+        for k in range(n_keys):
+            times.append(duration * k / (n_keys - 1))
+            a = amplitude * np.sin(2 * np.pi * k / (n_keys - 1))
+            transforms.append((Transform.translation(off)
+                               * Transform.rotation(axis, a)).flat())
+    return Animation(duration, table, times, transforms)
+
+
+class VertexModes:
+    """The animated content of datumtest_scene(vertex_modes=True), on
+    ctx's pools:
+    - actor: a sphere stretched into a column (0.9 x 3 x 0.9 at detail
+      24), rigged to a 3-joint chain with linear two-bone weights and
+      animated by an Animator blending two looping channels, a sway
+      about z (weight 0.6, 2 s) and a bow about x (weight 0.4, 1.5 s);
+      right of the sphere wall;
+    - foliage: 8x8 blades (unit_quad, 0.24 x 1.2, pivot at the root) in
+      front of the actor, with the wind (0.8, 0, 0.3) and its time
+      wind_time;
+    - ocean: an opaque FFT ocean at examples/ocean.py's grid (96: 9,409
+      vertices, 18,432 triangles; ocean_grid) and OceanParams over a
+      16-unit patch on the left half of the floor, under the water LUT
+      material.
+    update(dt) advances the Animator, the Ocean and the wind time."""
+
+    JOINTS = (("root", 0), ("mid", 0), ("tip", 1))
+    PIVOTS = np.float32([-3.0, -1.0, 1.0])       # joint heights, mesh-local
+    WIND = (0.8, 0.0, 0.3)
+
+    def __init__(self, ctx, ocean_grid=96):
+        from .render.animation import Animator
+        from .render.ocean import Ocean, OceanParams
+
+        sv, si = primitives.unit_sphere(24, 12)
+        pos = sv["position"] * np.float32([0.9, 3.0, 0.9])
+        self.actor = ctx.add_mesh(dict(sv, position=pos), si,
+                                  rig=_chain_rig(pos, self.PIVOTS))
+        qv, qi = primitives.unit_quad()
+        blade = qv["position"] * np.float32([0.12, 0.6, 1.0]) + np.float32([0, 0.6, 0])
+        self.blade = ctx.add_mesh(dict(qv, position=blade), qi)
+        self.actor_mat = ctx.add_material(color=(0.85, 0.3, 0.2, 1), roughness=0.5)
+        self.leaf_mat = ctx.add_material(color=(0.2, 0.8, 0.3, 1), roughness=0.8)
+        self.water_mat = ctx.add_water_material()
+        self.ocean = Ocean(ctx, grid=ocean_grid, patch_size=16.0,
+                           params=OceanParams(wind=(9.0, 3.0), choppiness=1.6,
+                                              swellamplitude=0.4))
+        # inverse bind: each bone's bind pose is its joint's translation
+        self.animator = Animator([(n, Transform.translation([0.0, -self.PIVOTS[i], 0.0]).flat())
+                                  for i, (n, _) in enumerate(self.JOINTS)])
+        self.animator.play(_sway(self.JOINTS, self.PIVOTS, [0, 0, 1.0], 0.35, 2.0),
+                           weight=0.6)
+        self.animator.play(_sway(self.JOINTS, self.PIVOTS, [1.0, 0, 0], 0.3, 1.5),
+                           weight=0.4, rate=1.3)
+        rng = np.random.RandomState(5)
+        self.blades = [Transform.translation([5.2 + 0.45 * i, 0.0, 1.0 + 0.45 * j])
+                       * Transform.rotation([0, 1.0, 0], float(rng.uniform(-0.8, 0.8)))
+                       for j in range(8) for i in range(8)]
+        self.wind_time = 0.0
+        self.update(0.0)
+
+    def update(self, dt):
+        self.animator.update(dt)
+        self.ocean.update(dt)
+        self.wind_time += dt
+
+    def push(self, rl):
+        from .render.ocean import render_ocean_surface
+
+        rl.push_actor(self.actor, Transform.translation([10.5, 3.0, -6.0]), self.actor_mat,
+                      self.animator.palette())
+        rl.push_foliage(self.blade, self.blades, self.leaf_mat,
+                        wind=(*self.WIND, self.wind_time), bendscale=(0, 0.35, 0),
+                        detailbendscale=(0, 0.1, 0))
+        render_ocean_surface(self.ocean, rl, Transform.translation([-16.0, 0.25, -6.0]),
+                             self.water_mat)
 
 
 def _local_environment(ctx, grid):

@@ -25,7 +25,12 @@ deferred frames (use_pallas=False, K5, K7) on the card against the CPU
 plain path.  K2 with the box probes' edm group is held as K2; the row
 gather is bit-identical to tab[idx]; the local-environment frames (the
 box probe, SH probes and a fog plane on the megakernel and the K5
-branch, and with the DDA SSR) on the card against the CPU plain path."""
+branch, and with the DDA SSR) on the card against the CPU plain path.
+The animated vertex stage (no kernel of its own): skinning, the wind
+bends (both forms) and the ocean (torch.fft maps, the slab of an Ocean
+on the card) within atol/rtol 1e-5 of the CPU (the maps within 1e-5 of
+their max |value|), and the vertex-modes frame on the card against the
+CPU plain path (the patched pool bit for bit)."""
 
 import dataclasses
 
@@ -1163,3 +1168,114 @@ def test_k6_k7_ptxas_no_spill(card, src):
     rep = _kernels.library().ptxas(src)
     assert rep["registers"] is not None and rep["registers"] <= 128, rep
     assert not rep["spill_bytes"], rep
+
+
+def _rig_inputs(seed=0, V=4096, P=4, B=8):
+    """Seeded skinning inputs (tests/test_torch_vertex_modes.py's kind:
+    antipodal rows, zero and unnormalised weights, a few rows past the
+    table)."""
+    rng = np.random.RandomState(seed)
+    pal = rng.randn(P * B, 8).astype(np.float32)
+    pal[1::2] = -pal[0::2]
+    bw = rng.uniform(0, 1, (V, 4)).astype(np.float32)
+    bw[1::5] = 0.0
+    bi = rng.randint(0, B, (V, 4)).astype(np.int32)
+    bi[:8, 0] = B + 3
+    return [torch.from_numpy(a) for a in (
+        rng.randn(V, 3).astype(np.float32), rng.randn(V, 3).astype(np.float32),
+        rng.randn(V, 4).astype(np.float32), bi, bw, pal,
+        rng.randint(0, P, V).astype(np.int32))], B
+
+
+def test_skinning_and_wind_bends_on_card_match_cpu(card):
+    """skin_vertices, wind_bend, wind_detail_bend and the frame's inline
+    bend on the card against the same functions on the CPU: atol/rtol
+    1e-5 (the CPU tests' tolerance against the JAX package)."""
+    from datum_tpu_torch.ops import geometry
+
+    args, B = _rig_inputs()
+    cpu = geometry.skin_vertices(*args, B)
+    gpu = geometry.skin_vertices(*(a.to(card) for a in args), B)
+    for c, g in zip(cpu, gpu):
+        torch.testing.assert_close(g.cpu(), c, atol=1e-5, rtol=1e-5)
+    rng = np.random.RandomState(3)
+    pos = torch.from_numpy(rng.randn(4096, 3).astype(np.float32))
+    wind, scale, anchor = np.float32([0.7, 0.1, -0.4]), np.float32([0, 0.3, 0.05]), \
+        np.float32([3.0, 0.5, -1.0])
+    for fn, a in ((geometry.wind_bend, (wind, scale)),
+                  (geometry.wind_detail_bend, (anchor, -2.3, wind, scale))):
+        torch.testing.assert_close(fn(pos.to(card), *a).cpu(), fn(pos, *a),
+                                   atol=1e-5, rtol=1e-5)
+    D = 6
+    d = dict(world=torch.from_numpy(np.concatenate(
+                 [np.tile(np.eye(3, dtype=np.float32), (D, 1, 1)),
+                  rng.randn(D, 3, 1).astype(np.float32) * 3], -1)),
+             wind=torch.from_numpy(rng.randn(D, 4).astype(np.float32)),
+             bendscale=torch.from_numpy(rng.uniform(0, 0.4, (D, 3)).astype(np.float32)),
+             detailbendscale=torch.from_numpy(rng.uniform(0, 0.1, (D, 3))
+                                              .astype(np.float32)))
+    vd = torch.from_numpy(rng.randint(0, D, 4096))
+    torch.testing.assert_close(
+        frame_mod._foliage_bend(pos.to(card), to_torch(d, card), vd.to(card)).cpu(),
+        frame_mod._foliage_bend(pos, d, vd), atol=1e-5, rtol=1e-5)
+
+
+def test_ocean_on_card_matches_cpu(card):
+    """ocean_maps (torch.fft on the card), displace_grid with the flow and
+    the swell, ocean_lut_uv and Ocean.vertex_data on a context on the
+    card against the CPU: the maps within 1e-5 of their max |value|, the
+    slab within atol/rtol 1e-5, its tensors on the card."""
+    from datum_tpu_torch.ops import ocean
+    from datum_tpu_torch.ops.common import FrameConfig
+    from datum_tpu_torch.render.context import RenderContext
+    from datum_tpu_torch.render.ocean import Ocean, OceanParams
+
+    h0 = ocean.phillips_spectrum(64, 64.0, (9.0, 3.0), 4e-4, 0)
+    f = ocean.wave_frequencies(64, 64.0)
+    args = [torch.from_numpy(a) for a in (h0, *f)]
+    t = torch.tensor(1.25)
+    cpu = ocean.ocean_maps(*args, t, 1.6)
+    gpu = ocean.ocean_maps(*(a.to(card) for a in args), t.to(card), 1.6)
+    for c, g in zip(cpu, gpu):
+        torch.testing.assert_close(g.cpu(), c, atol=1e-5 * c.abs().max().item(), rtol=0)
+    slabs = []
+    for dev in (card, torch.device("cpu")):
+        ctx = RenderContext(FrameConfig(width=64, height=32, max_vertices=1 << 14,
+                                        max_triangles=1 << 15), device=dev)
+        oc = Ocean(ctx, grid=96, patch_size=64.0,
+                   params=OceanParams(wind=(9.0, 3.0), choppiness=1.6,
+                                      swellamplitude=0.4, flow=(0.3, -0.2)))
+        oc.update(0.75)
+        slabs.append(oc.vertex_data(1 << 14, (32.0, 16.0, 78.0)))
+    for k in ("positions", "normals", "texcoords"):
+        assert slabs[0][k].device.type == "cuda"
+        torch.testing.assert_close(slabs[0][k].cpu(), slabs[1][k], atol=1e-5, rtol=1e-5)
+
+
+VERTEX_MODES = dict(width=256, height=128, sphere_detail=8, grid=(4, 3),
+                    n_point_lights=4, skybox=False, vertex_modes=True, ocean_grid=16,
+                    bin_capacity=512, big_capacity=32, use_pallas=True,
+                    texture_filter="mip_half", enable_shadows=True, shadow_res=256,
+                    shadow_bin_capacity=1024)
+
+
+def test_vertex_modes_frame_on_card_matches_cpu_plain(card):
+    """scenes.datumtest_scene(vertex_modes=True) at 256x128 (the skinned
+    actor, the foliage blades, the ocean's slab, sun cascades through K3)
+    on the card against the CPU plain path: mean |d| <= 0.5, RMSE <= 2
+    levels; the patched pool bit-equal on both."""
+    ctx, camera, params, make_rl = datumtest_scene(device="cpu", **VERTEX_MODES)
+    rl = make_rl(0.3)
+    ss = make_sceneset(camera, params, point_lights=rl.point_lights,
+                       spot_lights=rl.spot_lights, probes=rl.probes)
+    draws = ctx.frame_draws(rl, camera)
+    pools = [frame_mod.patch_dynamic(ctx.config, ctx.device_state(d),
+                                     to_torch(draws, d))["geometry"]["attr12"].cpu()
+             for d in (card, "cpu")]
+    assert torch.equal(*pools)
+    imgs = [frame_mod.render_frame(ctx.config, ctx.host_state(), draws, ss,
+                                   device=d)["image"].cpu().float()
+            for d in (card, "cpu")]
+    diff = imgs[0] - imgs[1]
+    assert imgs[1].mean() > 10
+    assert diff.abs().mean() <= 0.5 and (diff ** 2).mean().sqrt() <= 2.0

@@ -217,8 +217,6 @@ _IDS = lambda d: "-".join(f"{k}={v}" for k, v in d.items())
 
 @pytest.mark.parametrize("override", [
     dict(max_overlay_sprites=4),
-    dict(enable_skinning=True), dict(enable_foliage=True),
-    dict(max_dynamic_vertices=64),
 ], ids=_IDS)
 def test_unsupported_flags_raise(override):
     cfg = FrameConfig(**dict(_BASE, **override))
@@ -239,14 +237,17 @@ def test_unsupported_flags_raise(override):
     dict(raster_kernel="mxu"), dict(use_pallas=False), dict(texture_filter="nearest"),
     dict(use_shade_kernel=False), dict(enable_material_maps=False),
     dict(max_fog_planes=1), dict(enable_ssr=True, ssr_mode="dda"),
+    dict(enable_skinning=True), dict(enable_foliage=True),
+    dict(max_dynamic_vertices=64),
 ], ids=_IDS)
 def test_post_flags_accepted(override):
     """SSAO, the froxel fog, the binned SSR, depth of field, the
     two-phase raster (K6), the terrain geomorph, clustered lights and the
     early-z exit are ported, and so is the deferred branch of the frame
     (PCF, perspective spot maps, K7, the scan raster, the legacy texture
-    filters, the XLA lighting, no material maps), the fog planes and the
-    DDA SSR: check_config passes them."""
+    filters, the XLA lighting, no material maps), the fog planes, the
+    DDA SSR and the animated vertex stage (skinning, the foliage bends,
+    the dynamic-vertex slab): check_config passes them."""
     check_config(FrameConfig(**dict(_BASE, **override)))
 
 
