@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--versions FILE]
 
 Renders the bench frame, the dense stress frame, the deferred
-(non-megakernel) frames, the local-environment frames and the animated
-vertex stage's frame at 1920x1088 through
+(non-megakernel) frames, the local-environment frames, the animated
+vertex stage's frame, the bench frame with a sprite and text HUD and the
+city example at 1920x1088 through
 datum_tpu_torch.render.frame.render_frame, after building the port's
 CUDA kernels from datum_tpu_torch/csrc with nvcc.  The bench
 frame is bench.py's config (the datumtest scene with 4 sun cascades as a
@@ -107,9 +108,28 @@ and exits non-zero:
    against the CPU plain path; ms/frame beside the bench frame, a
    profiler window and the vertex stage's wall ms with and without the
    three modes;
+4o-6o. the overlay layer and the scene systems: the HUD (the bench
+   config with max_overlay_sprites 256 and a 128-px window: icons, a
+   layered and a rotated one, a panel and a map larger than the window,
+   10 lines of builtin-font text) on the bench scene; the sprite kernel
+   against its plain version on the HUD's instances, bit for bit; 3 HUD
+   frames through RenderContext.render with their launches checked (K1
+   and K2 2, K3 3, K4 1, epilogue 1, sprite pass 1 a frame), the HUD
+   frame equal to the frame without it outside the sprites' rectangles,
+   3 HUD frames at params.scale 0.5 (the sprites in display space); the
+   city example through its harness (ECS, occlusion culling, sun
+   shadows, two depth-tested gizmos, the debug overlay; the scan
+   raster, no kernel) at 1920x1088 for one frame and at the golden's
+   320x160 (43/73 visible; tests/golden/city.png held at RMSE < 2/255
+   with the jitted reference's zero-area-triangle texels in the cascade
+   stack, CITY_GOLDEN_SLIVERS); the HUD frame's ms/frame beside the
+   bench frame in turns, both under torch.profiler, the sprite kernel
+   and the plain pass (its launches counted) with the kernel's bound,
+   the host ms of the draws with and without the HUD, the city frame's
+   and its host culling's ms from the debug ring;
 7. with --versions FILE, other versions of K1's, K6's, K2's, K3's, K4's,
    K5's and K7's sources built alone and timed beside this build's on the same
-   inputs (see versions_phase); then print the kernels' JSON line (9
+   inputs (see versions_phase); then print the kernels' JSON line (10
    rows), then the device JSON line last, after the script's wall time.
 
 Needs one card, torch with CUDA and nvcc; imports no jax and nothing of
@@ -118,6 +138,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -252,6 +273,58 @@ OCEAN_EXAMPLE = (320, 160)
 STRESS_GOLDEN = dict(width=320, height=160, terrain_n=96, sphere_detail=20,
                      grid=(6, 3), n_point_lights=64, skybox_size=16,
                      max_vertices=1 << 16, max_triangles=1 << 16, big_capacity=32)
+# the HUD on the bench frame: the bench config with the sprite pass at
+# 256 instances and a 128-px window
+HUD = dict(SCENE, max_overlay_sprites=256, overlay_region=128)
+# FP32 operations a (window pixel, sprite) of the sprite pass, counted
+# from csrc/sprite_pass.cu: the sprite-local (u, v) 14, the atlas
+# coordinates 6, the bilinear weights and tap coordinates 11, its 4
+# channels 36, the alpha and the 3-channel blend 15
+OPS_SPRITE_PIXEL = 82
+# examples/city.py's golden config (datum_tpu/tools/update_goldens.py:
+# 320x160, 3 frames).  tests/golden/city.png is the jitted JAX frame on the
+# CPU, whose shadow setup XLA contracts into FMAs: there six zero-area
+# triangles of the lat-long spheres (two corners at one position) keep a
+# det of rounding residue that passes the relative degeneracy test, and
+# each wins one cascade texel at a depth off its corners' (ROADMAP Queue
+# 3).  Those texels raise the ESM's zmax of cascades 2 and 3, and with it
+# the street's shadows (RMSE 0.03094 against the port's frame).  The
+# port's setup rejects these triangles, as the JAX function does
+# un-jitted.  The golden is held at 2/255 with the six texels of the
+# jitted stack (slice, row, column, depth) written into the port's stack
+# (golden_slivers); tests/test_torch_city.py derives them from the live
+# JAX frame and holds this table to them.
+CITY_GOLDEN = (320, 160)
+CITY_GOLDEN_SLIVERS = ((2, 168, 434, 0.064453125), (2, 269, 114, 0.0703125),
+                       (3, 274, 221, 0.31390380859375), (3, 337, 190, 0.3905029296875),
+                       (3, 362, 207, 0.25), (3, 364, 228, 0.34765625))
+
+
+@contextlib.contextmanager
+def golden_slivers():
+    """Inside the block, every sun cascade stack the port renders takes
+    CITY_GOLDEN_SLIVERS' depths at their texels (the city golden's
+    config: one stack of 4 x 512 x 512)."""
+    import torch
+
+    from datum_tpu_torch.ops import shadow
+
+    orig = shadow.render_shadow_cascades
+
+    def with_slivers(*args, **kw):
+        maps = orig(*args, **kw)
+        if not (torch.is_tensor(maps) and tuple(maps.shape) == (4, 512, 512)):
+            raise ValueError("golden_slivers: not the city golden's cascade stack")
+        maps = maps.clone()
+        for sl, y, x, d in CITY_GOLDEN_SLIVERS:
+            maps[sl, y, x] = d
+        return maps
+
+    shadow.render_shadow_cascades = with_slivers
+    try:
+        yield
+    finally:
+        shadow.render_shadow_cascades = orig
 
 
 def phase(n, msg):
@@ -450,7 +523,7 @@ def stage_ms(cfg, state, draws, ss, dev, reps=5):
         mark()
         F._ssr(cfg, state, s, hdr, planes["depth"], F._ssr_inputs_planes(gpl))
         mark()
-        F._post(no_ssr, state, s, hdr, planes["depth"], F._ssr_inputs_planes(gpl))
+        F._post(no_ssr, state, d, s, hdr, planes["depth"], F._ssr_inputs_planes(gpl))
         mark()
         F.dof_fields(hdr, planes["depth"], s["proj"], s["camera"])
         mark()
@@ -1117,7 +1190,7 @@ def deferred_stage_ms(cfg, state, draws, ss, dev, reps=5):
         mark()
         hdr = F._deferred_forward(cfg, state, d, s, hdr, depth)
         mark()
-        F._post(cfg, state, s, hdr, depth, F._ssr_inputs_gbuffer(gb))
+        F._post(cfg, state, d, s, hdr, depth, F._ssr_inputs_gbuffer(gb))
         mark()
         runs.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
     return {n: statistics.median(r[i] for r in runs) for i, n in enumerate(names)}
@@ -1905,6 +1978,289 @@ def vertex_phases(dev, card, kernels, bench):
                 rmse_ocean=rmse_ocean, launches=pf[0], overflows=overflows)
 
 
+def hud_sprites(ctx, seed=13):
+    """Register the HUD's images on ctx (seeded): an opaque 32^2 icon, a
+    layered icon (4 layers of 24^2), a translucent 64x32 panel image and
+    the builtin font.  Returns their sprite ids."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    icon = rng.randint(0, 256, (32, 32, 4)).astype(np.uint8)
+    icon[..., 3] = 255
+    layered = rng.randint(0, 256, (4 * 24, 24, 4)).astype(np.uint8)
+    panel = rng.randint(0, 256, (32, 64, 4)).astype(np.uint8)
+    panel[..., 3] = 160
+    ids = (ctx.add_sprite(icon), ctx.add_sprite(layered, layers=4),
+           ctx.add_sprite(panel))
+    ctx.set_overlay_font()
+    return ids
+
+
+def hud_renderlist(make_rl, t, ids):
+    """The bench frame's render list at time t with the HUD pushed on
+    top: the opaque icon, a layer of the layered icon, the icon rotated
+    and translucent, a 600x200 panel and a 180^2 map (both larger than
+    the 128-px window: sprite_arrays splits them into chunks) and 10
+    lines of builtin-font text at scale 2 over the panel."""
+    icon, layered, panel = ids
+    rl = make_rl(t)
+    rl.push_sprite((24, 24, 32, 32), icon)
+    rl.push_sprite((70, 24, 48, 48), layered, layer=2)
+    rl.push_sprite((140, 24, 40, 40), icon, tint=(1, 1, 1, 0.8), rotation=0.6)
+    rl.push_sprite((16, H - 228, 600, 200), panel, tint=(0.6, 0.7, 1, 0.9))
+    rl.push_sprite((W - 200, 20, 180, 180), layered, layer=1, rotation=0.2)
+    for k in range(10):
+        rl.push_text(f"LINE {k}: {t * 60 + k:05.1f} MS", (28, H - 220 + 19 * k),
+                     tint=(1, 1, 0.4 + 0.06 * k, 1), scale=2)
+    return rl
+
+
+def sprite_rect_mask(inst, w, h):
+    """(h, w) bool: each live sprite's bounding box, one pixel wider each
+    side (every pixel a sprite can paint)."""
+    import numpy as np
+
+    mask = np.zeros((h, w), bool)
+    for i in range(int(inst["count"])):
+        o, ax, ay = inst["origin"][i], inst["axis_x"][i], inst["axis_y"][i]
+        xs = [o[0], o[0] + ax[0], o[0] + ay[0], o[0] + ax[0] + ay[0]]
+        ys = [o[1], o[1] + ax[1], o[1] + ay[1], o[1] + ax[1] + ay[1]]
+        x0, x1 = int(np.floor(min(xs))) - 1, int(np.ceil(max(xs))) + 1
+        y0, y1 = int(np.floor(min(ys))) - 1, int(np.ceil(max(ys))) + 1
+        mask[max(y0, 0):max(y1 + 1, 0), max(x0, 0):max(x1 + 1, 0)] = True
+    return mask
+
+
+def ring_ms(log, name, frames):
+    """Wall ms of the timed block `name` in each of the debug ring's
+    frames in `frames` (its begin/end pairs within the frame summed)."""
+    from datum_tpu_torch.debug.debug import ENTRY_BEGIN, ENTRY_END
+
+    out = {f: 0.0 for f in frames}
+    start = {}
+    for idx in range(max(0, log.tail - log.size), log.tail):
+        kind, n, ts, _, _, frame = log.entries[idx % log.size]
+        if n != name or frame not in out:
+            continue
+        if kind == ENTRY_BEGIN:
+            start[frame] = ts
+        elif kind == ENTRY_END and frame in start:
+            out[frame] += (ts - start.pop(frame)) * 1e3
+    return [out[f] for f in frames]
+
+
+def profile_call(fn):
+    """(device ms, kernel launches) of one fn() under torch.profiler."""
+    return profile_frames(lambda d, s: fn(), [(None, None)])
+
+
+def overlay_phases(dev, card, kernels, bench):
+    """Phases 4o-6o: the sprite and text pass, the host overlays, the
+    scene systems and the city example.  4o: the HUD (HUD: the bench
+    config with 256 sprite instances and a 128-px window; icons, a
+    layered and a rotated one, a panel and a map split into chunks, 10
+    lines of text) on the bench scene at full width; the sprite kernel
+    against its plain version on the HUD's instances over the frame
+    without the HUD, bit for bit.  5o: 3 HUD frames through
+    RenderContext.render with the kernel counts set to 0 just before
+    and read just after (K1 2, K2 2, K3 3, K4 1, epilogue 1, sprite pass
+    1 a frame); the HUD frame equal to the frame without the HUD (same
+    context, no SSAO history) outside the sprites' rectangles; 3 HUD
+    frames at params.scale 0.5 (the sprites composite after the blit:
+    the opaque icon's pixels equal the scale-1 frame's); the city example
+    through its harness (examples/city.py's config, use_pallas off:
+    the scan raster, no kernel) at full width for one frame with the
+    debug overlay, and at the golden's 320x160 for 3 frames: 43 of 73
+    meshes visible, the frame against tests/golden/city.png at 2/255
+    with CITY_GOLDEN_SLIVERS in the cascade stack (golden_slivers), and
+    the port's own frame's RMSE printed.  6o: the HUD frame's ms/frame
+    beside the bench frame in turns and their launches under
+    torch.profiler, the host ms of the draws with and without the HUD,
+    the sprite kernel's and the plain pass's ms (the plain pass's
+    launches counted), the city frame's and its host culling's ms from
+    the debug ring, and the phases' wall time.  bench: (render, inputs) of
+    the bench frame.  The city PNGs go to chiprun_out/city/.  Returns the
+    numbers the kernels line and PERF.md record."""
+    import numpy as np
+    import torch
+
+    from datum_tpu_torch.convert import to_torch
+    from datum_tpu_torch.debug import debug as dbg
+    from datum_tpu_torch.examples import city
+    from datum_tpu_torch.ops.raster_mxu_cuda import raster_mxu_cuda
+    from datum_tpu_torch.ops.raster_v1_cuda import raster_v1_cuda
+    from datum_tpu_torch.ops.sprite_pass import composite_sprites_reference
+    from datum_tpu_torch.ops.sprite_pass_cuda import composite_sprites_cuda
+    from datum_tpu_torch.render import frame as F
+    from datum_tpu_torch.render.types import make_sceneset
+    from datum_tpu_torch.scenes import datumtest_scene
+
+    kernels = dict(kernels, raster_v1=raster_v1_cuda, raster_mxu=raster_mxu_cuda,
+                   sprite_pass=composite_sprites_cuda)
+    expect = dict({n: 0 for n in kernels}, raster_shade=2, shade_deferred=2,
+                  raster_depth=3, raster_blend=1, shade_epilogue=1, sprite_pass=1)
+
+    def count(fn, n):
+        """fn(i) for i < n with every count set to 0 just before; the
+        per-frame launches, checked against expect, and the last result."""
+        for k in kernels.values():
+            k.launches = 0
+        per = []
+        for i in range(n):
+            before = {m: k.launches for m, k in kernels.items()}
+            out = fn(i)
+            torch.cuda.synchronize()
+            per.append({m: k.launches - before[m] for m, k in kernels.items()})
+        if any(f != expect for f in per):
+            raise RuntimeError(f"HUD frame launches {per}, expected {expect} a frame")
+        return per[0], out
+
+    # ---- 4o. the HUD scene; the sprite kernel vs plain on its inputs
+    t_all = t0 = time.perf_counter()
+    ctx, camera, params, make_rl = datumtest_scene(width=W, height=H, device=dev, **HUD)
+    cfg, R = ctx.config, ctx.overlay_region()
+    ids = hud_sprites(ctx)
+    n_pushed = len(hud_renderlist(make_rl, 0.0, ids).sprites)
+    plain_img = ctx.render(camera, make_rl(0.0), params)
+    hud_draws = ctx.frame_draws(hud_renderlist(make_rl, 0.0, ids), camera)
+    inst = hud_draws["sprites"]
+    n_live, atlas = int(inst["count"]), ctx._state["overlay_atlas"]
+    if not n_pushed < n_live <= cfg.max_overlay_sprites:
+        raise RuntimeError(f"HUD: {n_live} instances from {n_pushed} pushes")
+    rgb = torch.from_numpy(plain_img).to(dev).float() / torch.tensor(255.0, device=dev)
+    inst_t = to_torch(inst, dev)
+    ks = composite_sprites_cuda(rgb, inst_t, atlas, R)
+    ps = composite_sprites_reference(rgb, inst_t, atlas, R)
+    torch.cuda.synchronize()
+    if not torch.equal(ks.view(torch.int32), ps.view(torch.int32)):
+        same = (ks == ps).float().mean().item()
+        raise RuntimeError(f"sprite kernel vs plain: bit-identical on {same} of values")
+    sp_err = (ks - ps).abs().max().item()
+    changed = (ks != rgb).any(-1).float().mean().item()
+    phase("4o", f"HUD scene {W}x{H} ({time.perf_counter() - t0:.1f} s): {n_pushed} pushes "
+                f"-> {n_live} instances of {cfg.max_overlay_sprites} (the panel and the "
+                f"map split into chunks), window {R}, atlas {tuple(atlas.shape)}; the "
+                f"sprite kernel vs plain on them: every bit equal ({changed:.4f} of "
+                f"pixels changed)")
+
+    # ---- 5o. the HUD frames, counts set to 0 just before
+    hud = lambda i: ctx.render(camera, hud_renderlist(make_rl, 0.0, ids), params)
+    pf, img_hud = count(hud, 3)
+    mask = sprite_rect_mask(inst, W, H)
+    outside = ~mask
+    if not np.array_equal(img_hud[outside], plain_img[outside]):
+        raise RuntimeError(f"the HUD frame differs from the frame without it outside "
+                           f"the sprites on {(img_hud != plain_img)[outside].mean()}")
+    inside = (img_hud != plain_img).any(-1)[mask].mean()
+    phase("5o", f"3 HUD frames through RenderContext.render: launches per frame {pf}; "
+                f"outside the sprites' rectangles ({outside.mean():.4f} of the frame) "
+                f"every pixel equals the frame without the HUD; {inside:.4f} of the "
+                f"pixels inside changed")
+    half = dataclasses.replace(params, scale=0.5)
+    pf_half, img_half = count(lambda i: ctx.render(camera, hud_renderlist(
+        make_rl, 0.0, ids), half), 3)
+    if img_half.shape != img_hud.shape or tuple(ctx.last_depth.shape) != (H // 2, W // 2):
+        raise RuntimeError(f"scale 0.5: image {img_half.shape}, depth "
+                           f"{tuple(ctx.last_depth.shape)}")
+    icon = (slice(28, 52), slice(28, 52))      # the opaque icon's inner pixels
+    if not np.array_equal(img_half[icon], img_hud[icon]):
+        raise RuntimeError("scale 0.5: the opaque icon is not where it was pushed")
+    phase("5o", f"3 HUD frames at params.scale 0.5 ({W // 2}x{H // 2} rendered, "
+                f"{W}x{H} out): launches per frame {pf_half}; the opaque icon's pixels "
+                f"equal the scale-1 frame's (display-space sprites)")
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                           "city")
+    os.makedirs(out_dir, exist_ok=True)
+    frame0 = dbg.g_debuglog.frame
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    cstate = city.main(["--frames", "1", "--width", str(W), "--height", str(H),
+                        "--overlay", "--out", os.path.join(out_dir, "city.png")])
+    city_s = time.perf_counter() - t0
+    city_launches = {n: k.launches for n, k in kernels.items() if k.launches}
+    cimg = read_png_rgb(os.path.join(out_dir, "city.png"))
+    if cimg.shape != (H, W, 3) or not cimg.mean() > 10 or city_launches:
+        raise RuntimeError(f"city {W}x{H}: image {cimg.shape} mean {cimg.mean()}, "
+                           f"kernel launches {city_launches}")
+    ring = dict(render=ring_ms(dbg.g_debuglog, "render", [frame0 + 1])[0],
+                cull=ring_ms(dbg.g_debuglog, "cull", [frame0 + 1])[0])
+    phase("5o", f"city example {W}x{H} through its harness (1 frame, --overlay; "
+                f"{city_s:.1f} s with the set-up): {cstate['stats'][0]}/"
+                f"{cstate['stats'][1]} meshes after frustum + occlusion culling, "
+                f"bin_overflow {cstate['ctx'].bin_overflow}, no kernel launched "
+                f"(use_pallas off)")
+    gw, gh = CITY_GOLDEN
+    with golden_slivers():
+        gstate = city.main(["--frames", "3", "--width", str(gw), "--height", str(gh),
+                            "--out", os.path.join(out_dir, "city_golden.png")])
+    gimg = read_png_rgb(os.path.join(out_dir, "city_golden.png")).astype(np.float32)
+    own = city.render(gstate).astype(np.float32)     # the port's own cascades
+    gold = read_png_rgb(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                     "tests", "golden", "city.png")).astype(np.float32)
+    rmse = lambda a, b: float(np.sqrt(np.mean((a / 255.0 - b / 255.0) ** 2)))
+    city_rmse, city_rmse_own = rmse(gimg, gold), rmse(own, gold)
+    city_mean = float(np.abs(gimg - gold).mean())
+    if gstate["stats"] != (43, 73) or not city_rmse < 2 / 255 or not city_mean <= 0.5:
+        raise RuntimeError(f"city golden: {gstate['stats']} visible, RMSE {city_rmse} "
+                           f"(< {2 / 255}), mean |d| {city_mean} levels (<= 0.5)")
+    phase("5o", f"city example {gw}x{gh} (3 frames) vs tests/golden/city.png: "
+                f"{gstate['stats'][0]}/{gstate['stats'][1]} visible; with the jitted "
+                f"reference's {len(CITY_GOLDEN_SLIVERS)} zero-area-triangle texels in the "
+                f"cascade stack RMSE {city_rmse:.6f} (gate < {2 / 255:.6f}), mean |d| "
+                f"{city_mean:.4f} levels (gate <= 0.5); the port's own frame RMSE "
+                f"{city_rmse_own:.6f} (printed: ROADMAP Queue 3)")
+
+    # ---- 6o. timing (informational: no frame gain is claimed)
+    render_b, b_inputs = bench
+    state_h = ctx._state
+    render_h = lambda d, s: F.render_frame(cfg, state_h, d, s, device=dev)
+    h_inputs = []
+    for t in (0.0, 0.1, 0.2):
+        rl = hud_renderlist(make_rl, t, ids)
+        h_inputs.append((ctx.frame_draws(rl, camera), make_sceneset(
+            camera, params, point_lights=rl.point_lights, spot_lights=rl.spot_lights,
+            probes=rl.probes)))
+    runs = dict(bench=[frame_ms(render_b, b_inputs)], hud=[])
+    runs["hud"] += [frame_ms(render_h, h_inputs), frame_ms(render_h, h_inputs)]
+    runs["bench"].append(frame_ms(render_b, b_inputs))
+    ms_h, ms_b = statistics.mean(runs["hud"]), statistics.mean(runs["bench"])
+    prof_h, prof_b = profile_frames(render_h, h_inputs), profile_frames(render_b, b_inputs)
+    t = dict(sp=cuda_ms(lambda: composite_sprites_cuda(rgb, inst_t, atlas, R), 20),
+             sp_dev=device_ms(lambda: composite_sprites_cuda(rgb, inst_t, atlas, R)),
+             plain=cuda_ms(lambda: composite_sprites_reference(rgb, inst_t, atlas, R), 1))
+    plain_prof = profile_call(lambda: composite_sprites_reference(rgb, inst_t, atlas, R))
+    b_sp = bound(2 * _nbytes(rgb) + _nbytes(atlas, *inst_t.values()),
+                 n_live * R * R * OPS_SPRITE_PIXEL)
+    host_h = wall_ms(lambda: ctx.frame_draws(hud_renderlist(make_rl, 0.0, ids), camera))
+    host_b = wall_ms(lambda: ctx.frame_draws(make_rl(0.0), camera))
+    phase("6o", f"{ms_h:.3f} ms/frame HUD frame, {ms_b:.3f} ms/frame bench frame (each "
+                f"the mean of 2 medians of 7, timed bench, HUD x2, bench: "
+                f"{runs['bench'][0]:.3f}, {runs['hud'][0]:.3f}, {runs['hud'][1]:.3f}, "
+                f"{runs['bench'][1]:.3f}; CUDA events around render_frame, {W}x{H}) on "
+                f"{card}")
+    phase("6o", f"under torch.profiler (3 frames each): HUD frame {prof_h[0]:.3f} ms of "
+                f"device time and {prof_h[1]:.0f} launches a frame, bench frame "
+                f"{prof_b[0]:.3f} ms and {prof_b[1]:.0f} launches; the draws on the host "
+                f"(frame_draws, wall, median of 5) {host_h:.3f} ms with the HUD "
+                f"(sprite_arrays), {host_b:.3f} ms without, on {card}")
+    phase("6o", f"sprite kernel {t['sp']:.4f} ms a call ({t['sp_dev']:.4f} ms device time) "
+                f"vs plain {t['plain']:.3f} ms ({plain_prof[1]:.0f} launches, "
+                f"{plain_prof[0]:.3f} ms of device time) on {n_live} instances, window "
+                f"{R}, {W}x{H}; bound {b_sp[0]:.4f} ms by {b_sp[1]} on {card}")
+    phase("6o", f"city frame {W}x{H}, the debug ring's ms of its harness frame: "
+                f"'render' (the culling, the frame, its read-back and the two "
+                f"depth-tested gizmos) {ring['render']:.3f}; 'cull' (fill_occlusion + "
+                f"update_meshes) {ring['cull']:.3f} on {card}")
+    phase("6o", f"phases 4o-6o took {time.perf_counter() - t_all:.1f} s")
+    return dict(err=sp_err, t=t, bound=b_sp, launches=pf["sprite_pass"], n_live=n_live,
+                plain_launches=plain_prof[1], ms_hud=ms_h, ms_bench=ms_b, prof_h=prof_h,
+                prof_b=prof_b, city_ms=ring["render"], cull_ms=ring["cull"],
+                host_hud=host_h, host_bench=host_b,
+                city_rmse=city_rmse, city_rmse_own=city_rmse_own)
+
+
 def versions_phase(path, card, sets):
     """--versions FILE: other versions of K1's, K6's, K2's, K3's, K4's,
     K5's and K7's sources, timed beside this build's on the same inputs.
@@ -2052,6 +2408,7 @@ def main():
     from datum_tpu_torch.ops.raster_depth_cuda import (
         depth_inputs, raster_depth_cuda, raster_depth_reference)
     from datum_tpu_torch.ops.gather_cuda import gather_rows_cuda
+    from datum_tpu_torch.ops.sprite_pass_cuda import composite_sprites_cuda
     from datum_tpu_torch.ops.shade_cuda import (
         epilogue_inputs, shade_deferred_cuda, shade_deferred_envd,
         shade_deferred_reference, shade_epilogue_cuda, shade_epilogue_reference,
@@ -2065,7 +2422,8 @@ def main():
                    raster_depth=raster_depth_cuda,
                    raster_blend=raster_blend_cuda,
                    shade_epilogue=shade_epilogue_cuda,
-                   gather_rows=gather_rows_cuda)
+                   gather_rows=gather_rows_cuda,
+                   sprite_pass=composite_sprites_cuda)
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -2321,7 +2679,7 @@ def main():
     bench_expect = dict(raster_shade=2, shade_deferred=2, shade_epilogue=1,
                         raster_depth=3, raster_blend=1)
     pf, launches, img, lum = drive(render_b, inputs, kernels, bench_expect,
-                                   forbid=("raster_shade_2p",))
+                                   forbid=("raster_shade_2p", "sprite_pass"))
     phase(5, f"3 bench frames {W}x{H} (K1): image {tuple(img.shape)} u8 mean "
              f"{img.float().mean().item():.2f}, luminance {lum.item():.6g}, "
              f"bin_overflow 0, launches per frame {pf}")
@@ -2470,6 +2828,7 @@ def main():
                                               big_ids, ex, uv, wn, d_t, kp))
     ep = env_phases(dev, card, kernels, bench_expect)
     vertex_phases(dev, card, kernels, (render_b, inputs))
+    op = overlay_phases(dev, card, kernels, (render_b, inputs))
     if args.versions:
         k1_sets = [("bench opaque", k1_in), ("lit layer", lit_in), ("peeled layer", peel_in),
                    ("stress", st["inputs"]["k1"]), ("stress, early-z", st["inputs"]["k1z"])]
@@ -2588,6 +2947,14 @@ def main():
              bound_by=ep["b"]["gather"][1], library_ms=ep["t"]["gather_lib"],
              benchmark_launches=ep["bench_launches"], device_ms=ep["t"]["gather_dev"],
              library_device_ms=ep["t"]["gather_lib_dev"]),
+        # launches: per HUD frame; no Pallas counterpart (the JAX pass is an
+        # XLA fori_loop); plain_launches: the plain pass's kernel launches
+        dict(name="sprite_pass", route="cuda", source="datum_tpu_torch/csrc/sprite_pass.cu",
+             replaces="datum_tpu/ops/sprite_pass.py:53", launches=op["launches"],
+             max_abs_err=op["err"], ms=op["t"]["sp"], plain_ms=op["t"]["plain"],
+             bound_ms=op["bound"][0], bound_by=op["bound"][1], library_ms=None,
+             device_ms=op["t"]["sp_dev"], plain_launches=op["plain_launches"],
+             instances=op["n_live"], **ptxas("sprite_pass.cu")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

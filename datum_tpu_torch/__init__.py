@@ -9,7 +9,11 @@ and nothing of `datum_tpu`: it keeps its own copies of the numpy host
 math (`math/`) and of the env-BRDF LUT (`data/envbrdf64.npy`).
 
 Entry points: `scenes.datumtest_scene` builds the scene,
-`render.frame.render_frame` renders one frame on a given device, and
-`convert.to_torch` moves numpy state (or the JAX package's state) onto
-a device.
+`render.frame.render_frame` renders one frame on a given device,
+`render.context.RenderContext.render` draws a render list (its sprites
+and text included) on the context's device, `convert.to_torch` moves
+numpy state (or the JAX package's state) onto a device, and
+`examples/city.py` runs the city example app (`scene/`: the ECS with
+frustum and occlusion culling; `debug/`: the profiling ring and its
+overlay).
 """

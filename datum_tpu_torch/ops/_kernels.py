@@ -14,8 +14,8 @@ spill, kept per source in KernelLibrary.logs), and -fmad=false for every
 source but those of FMAD_SOURCES.  Without -fmad=false nvcc contracts
 `a*x + b*y + c` into FMAs, edge and depth values move by an ulp against
 the plain PyTorch versions and edge-pixel winners flip: the rasters (K1,
-K6, K3, K4, K5, K7), the K2 epilogue and the gather are held to their
-plain versions bit for bit and keep it.  K2 (shade.cu) is held within
+K6, K3, K4, K5, K7), the K2 epilogue, the gather and the sprite pass
+are held to their plain versions bit for bit and keep it.  K2 (shade.cu) is held within
 atol 1e-4 / rtol 1e-3 and takes -fmad=true: nvcc fuses its shading
 terms' multiply-adds, while its view and light geometry, whose rounding
 the GGX highlight of a smooth surface magnifies, is written with
@@ -39,7 +39,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster_shade.cu", "raster_shade_2p.cu", "shade.cu", "raster_depth.cu",
            "raster_blend.cu", "shade_epilogue.cu", "raster_v1.cu", "raster_mxu.cu",
-           "gather_rows.cu")
+           "gather_rows.cu", "sprite_pass.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # the flags of every source but those of FMAD_SOURCES
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -86,6 +86,7 @@ _SIGNATURES = dict(
     raster_v1_launch="ppppiiiiffiipp",
     raster_mxu_launch="ppppiiiiffipp",
     gather_rows_launch="ppLipp",
+    sprite_pass_launch="ppiipppppppipiiip",
 )
 
 

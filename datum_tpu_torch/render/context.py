@@ -8,7 +8,8 @@ mip table (`_rebuild_matmaps`, with the `packed10` per-material rows),
 the fitted colour-grading polynomial, the skybox environment (its mip
 chain, mip-pair table, SH-9 and the env-BRDF LUT) and the box
 environment probes (`add_environment`: their stacked mip chains and one
-quad-packed table each) are numpy, as in the JAX package;
+quad-packed table each) and the shelf-packed overlay atlas of the
+sprites and the font (`overlay_info`) are numpy, as in the JAX package;
 `device_state(device)` returns them as torch tensors on `device`.  An
 ocean's dynamic-vertex slab is computed each frame on the context's
 device (render/ocean.py) and rides in the frame's draws.
@@ -16,6 +17,7 @@ device (render/ocean.py) and rides in the frame's draws.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +52,10 @@ class MeshHandle:
         self.trianglecount = trianglecount
         self.mincorner = np.asarray(mincorner, np.float32)
         self.maxcorner = np.asarray(maxcorner, np.float32)
+
+    def bound(self):
+        from ..math.bound import Bound3
+        return Bound3(self.mincorner, self.maxcorner)
 
 
 def _to_rgba_u8(image):
@@ -194,9 +200,15 @@ class RenderContext:
         self.skybox = None
         self._ao_prev = None
         self._state = None         # render()'s device state, until a pool changes
+        self.last_depth = None     # the last frame's depth plane (on self.device)
+        self.luminance = 0.18      # the last frame's log-average luminance
+        self.bin_overflow = 0
         self._ibl = None
         self._envbrdf = None
         self._envprobes = []
+        self._overlay_images = []  # (RGBA u8 image, layers) per sprite id
+        self._overlay_font = None
+        self._overlay_cache = None
 
     def set_skybox(self, skybox):
         """Attach an EnvMap/SkyBox as the global environment; its flat,
@@ -328,6 +340,71 @@ class RenderContext:
                                  roughness=roughness, absorb=absorb,
                                  reflectivity=reflectivity, albedomap=tex)
 
+    def add_sprite(self, image, layers=1) -> int:
+        """Register an overlay sprite image (RGBA; layers stacked
+        vertically) for the device sprite pass; returns the sprite id
+        RenderList.push_sprite takes."""
+        self._state = None
+        self._overlay_cache = None
+        self._overlay_images.append((_to_rgba_u8(image), int(layers)))
+        return len(self._overlay_images) - 1
+
+    def set_overlay_font(self, font=None):
+        """Attach a Font whose atlas joins the overlay atlas (None: the
+        builtin 5x7 font); RenderList.push_text draws with it."""
+        self._state = None
+        self._overlay_cache = None
+        if font is None:
+            from .sprite import Font
+            font = Font.builtin()
+        self._overlay_font = font
+
+    def overlay_info(self):
+        """The shelf-packed overlay atlas (RGBA u8, a power-of-two width at
+        least 64 and the widest entry), each sprite's atlas rect (uv0,
+        uv1 in pixels) and layer count, and the font's glyph table placed
+        at its atlas origin (RenderList.sprite_arrays reads it)."""
+        if self._overlay_cache is None:
+            font = self._overlay_font
+            entries = [im for im, _ in self._overlay_images]
+            if font is not None:
+                fa = font.atlas
+                if fa.ndim == 2:
+                    fa = np.stack([np.full_like(fa, 255)] * 3 + [fa], -1)
+                entries = entries + [fa]
+            if not entries:
+                entries = [np.full((1, 1, 4), 255, np.uint8)]
+            aw = max(64, max(e.shape[1] for e in entries))
+            aw = int(2 ** np.ceil(np.log2(aw)))
+            cx, cy, sh_h = 0, 0, 0
+            rects = []
+            for e in entries:
+                h_, w_ = e.shape[:2]
+                if cx + w_ > aw and cx > 0:
+                    cy += sh_h
+                    cx, sh_h = 0, 0
+                rects.append((cx, cy))
+                cx += w_
+                sh_h = max(sh_h, h_)
+            atlas = np.zeros((int(cy + sh_h), aw, 4), np.uint8)
+            for e, (x, y) in zip(entries, rects):
+                atlas[y:y + e.shape[0], x:x + e.shape[1]] = e
+            uv0 = [np.array(r, np.float32) for r in rects[:len(self._overlay_images)]]
+            uv1 = [r + np.array([e.shape[1], e.shape[0]], np.float32)
+                   for r, (e, _) in zip(uv0, self._overlay_images)]
+            info = dict(atlas=atlas, uv0=uv0, uv1=uv1,
+                        layers=[n for _, n in self._overlay_images])
+            if font is not None:
+                info["font"] = dict(
+                    origin=np.array(rects[-1], np.float32),
+                    x=np.asarray(font.x), y=np.asarray(font.y),
+                    width=np.asarray(font.width), height=np.asarray(font.height),
+                    offsetx=np.asarray(font.offsetx),
+                    offsety=np.asarray(font.offsety),
+                    advance=np.asarray(font.advance), glyph_index=font.glyph_index)
+            self._overlay_cache = info
+        return self._overlay_cache
+
     def host_state(self):
         """The device state as a numpy tree (the layout of the JAX
         package's RenderContext.device_state)."""
@@ -351,6 +428,9 @@ class RenderContext:
             state["colorlut_poly"] = self.colorlut_poly
         elif self.colorlut is not None:
             state["colorlut"] = self.colorlut
+        if self.config.max_overlay_sprites > 0:
+            state["overlay_atlas"] = (self.overlay_info()["atlas"].astype(np.float32)
+                                      / np.float32(255.0))
         return state
 
     def device_state(self, device):
@@ -402,7 +482,8 @@ class RenderContext:
         RenderContext.render builds it: the draw arrays (with the
         skinning palettes under enable_skinning) plus, for the capacities
         the config carries, the particle billboards ("forward"), the
-        translucent draws, the decals, the fog planes and the
+        translucent draws, the decals, the fog planes, the overlay sprites
+        and text (split to the viewport's overlay region) and the
         dynamic-vertex slab ("dyn": the first ocean's vertices on its
         device, else a zero slab of count 0); then the host expansion."""
         cfg = self.config
@@ -420,6 +501,9 @@ class RenderContext:
             draws["decals"] = renderlist.decal_arrays(cfg.max_decals_active)
         if cfg.max_fog_planes > 0:
             draws["fogplanes"] = renderlist.fogplane_arrays(cfg.max_fog_planes)
+        if cfg.max_overlay_sprites > 0:
+            draws["sprites"] = renderlist.sprite_arrays(
+                self.overlay_info(), cfg.max_overlay_sprites, self.overlay_region())
         if cfg.max_dynamic_vertices > 0:
             md = cfg.max_dynamic_vertices
             if renderlist.oceans:
@@ -432,20 +516,42 @@ class RenderContext:
                     offset=np.int32(0), count=np.int32(0))
         return self.expand_host(draws)
 
+    def overlay_region(self):
+        """The sprite pass's window side: FrameConfig.overlay_region, at
+        most the padded viewport."""
+        cfg = self.config
+        return min(cfg.overlay_region, cfg.padded_width, cfg.padded_height)
+
+    def resize(self, width, height):
+        """Render at a new viewport size from the next frame: every pool
+        and the device state carry over; the depth plane and the SSAO
+        history reset."""
+        if (width, height) == (self.config.width, self.config.height):
+            return
+        self.config = dataclasses.replace(self.config, width=int(width),
+                                          height=int(height))
+        self.last_depth = None
+        self._ao_prev = None
+
     def render(self, camera, renderlist, params, sceneset=None):
         """Render one frame on self.device; returns a numpy uint8 (height,
-        width, 3) image (the JAX package's RenderContext.render, trimmed
-        to what the port renders: sprites raise in render_frame's
-        check_config).  The renderlist's SH probes go into
-        the sceneset.  With params.scale != 1 the frame renders at
-        (round(width * scale) & ~1, round(height * scale) & ~1), at least
-        2 each, and a nearest blit by integer indices scales it back to
-        the viewport.  With ssao_temporal, the frame's AO feeds the next
-        frame's temporal reprojection; the history is keyed on the
-        rendered size and resets when it changes.  Sets self.luminance
-        and self.bin_overflow."""
-        import dataclasses
-
+        width, 3) image (the JAX package's RenderContext.render).  The
+        renderlist's SH probes go into the sceneset, its sprites and text
+        into the frame's sprite pass (max_overlay_sprites > 0).  With
+        params.scale != 1 the frame renders at (round(width * scale) & ~1,
+        round(height * scale) & ~1), at least 2 each, a nearest blit by
+        integer indices scales it back to the viewport, and the sprites
+        composite after the blit, in display coordinates.  With
+        ssao_temporal, the frame's AO feeds the next frame's temporal
+        reprojection; the history is keyed on the rendered size and
+        resets when it changes.  Sets self.luminance, self.bin_overflow
+        (a nonzero count also goes to the debug gauge
+        "raster.bin_overflow" and is logged once) and self.last_depth:
+        the frame's reverse-Z depth cropped to the rendered size, a
+        tensor on self.device."""
+        from ..debug.debug import log_once, resource_use
+        from ..ops.composite import to_u8_image
+        from ..ops.sprite_pass import composite_sprites
         from . import frame as frame_mod
         from .types import make_sceneset
 
@@ -461,6 +567,7 @@ class RenderContext:
                                      spot_lights=renderlist.spot_lights,
                                      probes=renderlist.probes)
         draws = self.frame_draws(renderlist, camera)
+        sprites_display = draws.pop("sprites", None) if scale != 1.0 else None
         prev = None
         if cfg.ssao_temporal and cfg.enable_ssao and self._ao_prev is not None:
             prev = {k: v for k, v in self._ao_prev.items() if k != "_cfg"}
@@ -474,10 +581,42 @@ class RenderContext:
             self._ao_prev = dict(out["ao_prev"], _cfg=(cfg.width, cfg.height))
         self.luminance = float(out["luminance"])
         self.bin_overflow = int(out["bin_overflow"])
-        img = out["image"].cpu().numpy()
+        if self.bin_overflow:
+            resource_use("raster.bin_overflow", self.bin_overflow, cfg.bin_capacity)
+            log_once(f"raster: {self.bin_overflow} (tile, tri) pairs dropped — "
+                     "raise FrameConfig.bin_capacity or bin_max_span")
+        self.last_depth = out["depth"][:cfg.height, :cfg.width]
+        img = out["image"]
         if scale != 1.0:
             vh, vw = self.config.height, self.config.width
-            yi = (np.arange(vh) * img.shape[0] // vh).clip(0, img.shape[0] - 1)
-            xi = (np.arange(vw) * img.shape[1] // vw).clip(0, img.shape[1] - 1)
-            img = img[yi][:, xi]
-        return img
+            dev = img.device
+            yi = torch.arange(vh, device=dev) * img.shape[0] // vh
+            xi = torch.arange(vw, device=dev) * img.shape[1] // vw
+            img = img[yi.clamp(0, img.shape[0] - 1)][:, xi.clamp(0, img.shape[1] - 1)]
+            if sprites_display is not None:
+                # a tensor divisor: the card divides by a host scalar through
+                # its reciprocal, the reference's division is exact
+                rgb = img.to(torch.float32) / torch.tensor(255.0, device=dev)
+                img = to_u8_image(composite_sprites(
+                    rgb, to_torch(sprites_display, dev), self._state["overlay_atlas"],
+                    self.overlay_region()))
+        return img.cpu().numpy()
+
+
+def render_fallback(width, height, tick=0):
+    """The loader frame shown before the scene is ready: a dark scan
+    background and the animated "DATUM TPU / LOADING..." title in the
+    builtin font, a numpy uint8 (height, width, 3) image."""
+    from .sprite import Font, draw_text
+
+    img = np.zeros((height, width, 3), np.uint8)
+    ys = (np.arange(height)[:, None] + tick) % 32
+    img[..., 2] = (ys < 2) * 24
+    font = Font.builtin()
+    text = "DATUM TPU"
+    tw = len(text) * 6 * 2
+    draw_text(img, font, text, (width - tw) // 2, height // 2 - 8,
+              tint=(0.9, 0.9, 1.0, 1.0), scale=2)
+    draw_text(img, font, "LOADING" + "." * (1 + tick // 20 % 3), (width - tw) // 2,
+              height // 2 + 14, tint=(0.5, 0.5, 0.6, 1.0))
+    return img

@@ -83,23 +83,9 @@ from ..ops.shade import gbuffer_from_planes, resolve_gbuffer, sample_matmaps
 from ..ops.shade_cuda import MAX_TR_LAYERS, SHADE_ROWS, shade_deferred
 from ..ops.ssao import hbao, make_hbao_params
 from ..ops.ssr import ssr as ssr_dda
+from ..ops.sprite_pass import composite_sprites
 from ..ops.ssr2 import ssr_binned
 from .renderlist import RenderList
-
-# (rejected when true, what it is and the ROADMAP Queue 1 item that ports it)
-_LATER = (
-    (lambda c: c.max_overlay_sprites > 0, "the device sprite pass",
-     "sprites, overlays and debug"),
-)
-
-
-def check_config(cfg: FrameConfig):
-    """Raise NotImplementedError for every flag the port lacks."""
-    for rejected, what, item in _LATER:
-        if rejected(cfg):
-            raise NotImplementedError(
-                f"render_frame: {what} is not ported yet — ROADMAP Queue 1: "
-                f"{item}")
 
 
 def expand_draws_host(pool, draw_mesh, draw_count, max_v, max_t):
@@ -885,9 +871,11 @@ def dof_fields(hdr, depth, proj, camera):
     return blurred, amount
 
 
-def _post(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
-    """Log-average luminance, SSR, bloom, depth of field and the graded
-    composite: (u8 image (height, width, 3), luminance).  With DoF off the
+def _post(cfg: FrameConfig, state, draws, sceneset, hdr, depth, ssr_in):
+    """Log-average luminance, SSR, bloom, depth of field, the graded
+    composite and the sprite pass (with max_overlay_sprites: the draws'
+    sprites and text blended into the padded image, ops/sprite_pass.py):
+    (u8 image (height, width, 3), luminance).  With DoF off the
     quarter-res bloom and SSR add into one term (`glow`) that is upsampled
     once; with DoF on the DoF mix falls between the SSR and the bloom
     adds, so each is upsampled on its own."""
@@ -922,6 +910,9 @@ def _post(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
                     lut=state.get("colorlut") if grading else None,
                     lut_poly=state.get("colorlut_poly") if grading else None,
                     glow=glow)
+    if cfg.max_overlay_sprites > 0 and "sprites" in draws:
+        rgb = composite_sprites(rgb.contiguous(), draws["sprites"], state["overlay_atlas"],
+                                region=min(cfg.overlay_region, w, h))
     return to_u8_image(rgb[:cfg.height, :cfg.width]), lum
 
 
@@ -1155,7 +1146,7 @@ def _frame(cfg: FrameConfig, state, draws, sceneset, prev=None):
     branch = _megakernel_frame if use_shade_kernel(cfg, state) else _deferred_frame
     hdr, depth, vis, bin_overflow, ao_state, ssr_in = branch(cfg, state, draws,
                                                              sceneset, prev, vtx)
-    image, lum = _post(cfg, state, sceneset, hdr, depth, ssr_in)
+    image, lum = _post(cfg, state, draws, sceneset, hdr, depth, ssr_in)
     out = dict(image=image, luminance=lum, depth=depth, vis=vis,
                bin_overflow=bin_overflow)
     if ao_state is not None:
@@ -1191,11 +1182,7 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     torch.backends.cuda.matmul.allow_tf32 = False and
     torch.backends.cudnn.allow_tf32 = False; with TF32 matmuls enabled
     on a CUDA device this raises, since the plane upsamples are matmuls
-    and the reference is exact f32.
-
-    Flags the port does not implement raise NotImplementedError naming
-    their ROADMAP item (check_config)."""
-    check_config(cfg)
+    and the reference is exact f32."""
     device = torch.device(device)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise ValueError("render_frame: set torch.backends.cuda.matmul."

@@ -3,7 +3,8 @@ datum_tpu/render/renderlist.py, trimmed to what the port renders:
 meshes, terrain with geomorph, foliage with its wind bends, skinned
 actors with their palettes, shadow casters, oceans, translucent meshes,
 point and spot lights, SH probes, decals, fog planes, particle
-billboards, and their fixed-capacity arrays)."""
+billboards, overlay sprites and text, and their fixed-capacity
+arrays)."""
 
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ class RenderList:
         self.fogplanes = []
         self.probes = []
         self.particles = []      # forward OIT billboard systems
+        self.sprites = []        # overlay sprites and text, in draw order
 
     def push_mesh(self, mesh, transform, material, caster=True):
         m = _to_affine(transform)
@@ -258,6 +260,125 @@ class RenderList:
         t = np.concatenate([base + np.array([[0, 1, 2]], np.int32),
                             base + np.array([[0, 2, 3]], np.int32)], axis=1)
         return t.reshape(-1, 3)
+
+    # --- overlays ---------------------------------------------------------
+    def push_sprite(self, rect, image_id, layer=0.0, tint=(1, 1, 1, 1),
+                    rotation=0.0):
+        """Overlay sprite quad: image_id from RenderContext.add_sprite,
+        rect = (x, y, w, h) display px; layer picks a layer of a layered
+        sprite; rotation spins the rect about its center (radians).
+        Needs FrameConfig.max_overlay_sprites."""
+        self.sprites.append(dict(rect=np.asarray(rect, np.float32),
+                                 image=image_id, layer=layer,
+                                 tint=np.asarray(tint, np.float32),
+                                 rotation=float(rotation)))
+
+    def push_text(self, text, pos, tint=(1, 1, 1, 1), scale=1):
+        """Overlay text from the context's overlay font
+        (RenderContext.set_overlay_font): one glyph quad a character, pos
+        the glyph top (bitmap fonts) or the baseline (baked fonts)."""
+        self.sprites.append(dict(text=str(text),
+                                 pos=np.asarray(pos, np.float32),
+                                 tint=np.asarray(tint, np.float32),
+                                 scale=int(scale)))
+
+    def sprite_arrays(self, overlay, max_sprites, region=128):
+        """Flatten pushed sprites/text into the instance arrays of
+        ops/sprite_pass.composite_sprites (at most max_sprites; the rest
+        are dropped).
+
+        overlay: RenderContext.overlay_info() — atlas uv rects per
+        sprite id, layer count, and the overlay font's glyph table.
+        Rects larger than the blend region split into region-sized
+        chunks in sprite-local space (rotation-safe), so arbitrary HUD
+        panels work with the fixed-region kernel.
+        """
+        prims = []      # (origin2, ax2, ay2, uv0, uv1, tint)
+        for s in self.sprites:
+            if "text" in s:
+                f = overlay.get("font")
+                if f is None:
+                    continue
+                sc = s["scale"]
+                cx, cy = float(s["pos"][0]), float(s["pos"][1])
+                idx = [f["glyph_index"](ch) for ch in s["text"]]
+                ox, oy = f["origin"]
+                for k, gi in enumerate(idx):
+                    gx, gy = float(f["x"][gi]), float(f["y"][gi])
+                    gw, gh = float(f["width"][gi]), float(f["height"][gi])
+                    if gw > 0 and gh > 0:
+                        org = np.array([cx + f["offsetx"][gi] * sc,
+                                        cy + f["offsety"][gi] * sc],
+                                       np.float32)
+                        prims.append((org,
+                                      np.array([gw * sc, 0], np.float32),
+                                      np.array([0, gh * sc], np.float32),
+                                      np.array([ox + gx, oy + gy], np.float32),
+                                      np.array([ox + gx + gw, oy + gy + gh],
+                                               np.float32),
+                                      s["tint"]))
+                    nxt = idx[k + 1] if k + 1 < len(idx) else 0
+                    adv = (f["advance"][gi, nxt] if f["advance"].ndim > 1
+                           else f["advance"][gi])
+                    cx += float(adv) * sc
+            else:
+                sid = s["image"]
+                if sid >= len(overlay["uv0"]):
+                    continue
+                u0 = np.array(overlay["uv0"][sid], np.float32)
+                u1 = np.array(overlay["uv1"][sid], np.float32)
+                layers = overlay["layers"][sid]
+                if layers > 1:
+                    lh = (u1[1] - u0[1]) / layers
+                    li = int(s["layer"]) % layers
+                    u0 = u0 + np.array([0, li * lh], np.float32)
+                    u1 = np.array([u1[0], u0[1] + lh], np.float32)
+                x, y, w_, h_ = [float(v) for v in s["rect"]]
+                rot = s.get("rotation", 0.0)
+                c, sn = np.cos(rot), np.sin(rot)
+                ax = np.array([w_ * c, w_ * sn], np.float32)
+                ay = np.array([-h_ * sn, h_ * c], np.float32)
+                ctr = np.array([x + w_ * 0.5, y + h_ * 0.5], np.float32)
+                org = ctr - 0.5 * ax - 0.5 * ay
+                prims.append((org, ax, ay, u0, u1, s["tint"]))
+
+        # split prims whose screen bbox exceeds the blend region into
+        # local-space chunks (chunk axes stay a pure rescale of the
+        # parent's, so uv mapping is exact)
+        out = []
+        for org, ax, ay, u0, u1, tint in prims:
+            bw = abs(ax[0]) + abs(ay[0])
+            bh = abs(ax[1]) + abs(ay[1])
+            ku = max(int(np.ceil(bw / max(region - 1, 1))), 1)
+            kv = max(int(np.ceil(bh / max(region - 1, 1))), 1)
+            if ku * kv == 1:
+                out.append((org, ax, ay, u0, u1, tint))
+                continue
+            du, dv = 1.0 / ku, 1.0 / kv
+            for a in range(ku):
+                for b in range(kv):
+                    o2 = org + ax * (a * du) + ay * (b * dv)
+                    out.append((o2, ax * du, ay * dv,
+                                u0 + (u1 - u0) * np.array([a * du, b * dv],
+                                                          np.float32),
+                                u0 + (u1 - u0) * np.array([(a + 1) * du,
+                                                           (b + 1) * dv],
+                                                          np.float32),
+                                tint))
+
+        S = max_sprites
+        origin = np.zeros((S, 2), np.float32)
+        axis_x = np.zeros((S, 2), np.float32)
+        axis_y = np.zeros((S, 2), np.float32)
+        uv0 = np.zeros((S, 2), np.float32)
+        uv1 = np.zeros((S, 2), np.float32)
+        tint = np.zeros((S, 4), np.float32)
+        n = min(len(out), S)
+        for i, (o, axv, ayv, u0, u1, t) in enumerate(out[:n]):
+            origin[i], axis_x[i], axis_y[i] = o, axv, ayv
+            uv0[i], uv1[i], tint[i] = u0, u1, t
+        return dict(origin=origin, axis_x=axis_x, axis_y=axis_y,
+                    uv0=uv0, uv1=uv1, tint=tint, count=np.int32(n))
 
     def draw_arrays(self, max_draws, default_material, max_palettes=0,
                     max_bones=128):

@@ -64,6 +64,8 @@ from datum_tpu_torch.ops.raster_mxu_cuda import (raster_mxu_cuda, raster_mxu_inp
                                                  raster_mxu_reference)
 from datum_tpu_torch.ops.raster_v1_cuda import (raster_v1_cuda, raster_v1_inputs,
                                                 raster_v1_reference)
+from datum_tpu_torch.ops.sprite_pass import composite_sprites, composite_sprites_reference
+from datum_tpu_torch.ops.sprite_pass_cuda import composite_sprites_cuda
 from datum_tpu_torch.render import frame as frame_mod
 from datum_tpu_torch.render.types import make_sceneset
 from datum_tpu_torch.scenes import datumtest_scene, stress_scene
@@ -1279,3 +1281,74 @@ def test_vertex_modes_frame_on_card_matches_cpu_plain(card):
     diff = imgs[0] - imgs[1]
     assert imgs[1].mean() > 10
     assert diff.abs().mean() <= 0.5 and (diff ** 2).mean().sqrt() <= 2.0
+
+
+def _sprites(seed, S, count, w, h, aw, ah, device):
+    """Seeded sprite instances: glyph-sized to region-sized rects,
+    rotated, anywhere around the image (some offscreen), every fifth
+    degenerate, atlas rects partly outside the atlas, garbage past
+    count."""
+    rng = np.random.RandomState(seed)
+    rot = rng.uniform(-np.pi, np.pi, S)
+    size = rng.uniform(3, 120, (S, 2))
+    c, s = np.cos(rot), np.sin(rot)
+    ax = np.stack([size[:, 0] * c, size[:, 0] * s], -1)
+    ay = np.stack([-size[:, 1] * s, size[:, 1] * c], -1)
+    ay[3::5] = ax[3::5] * 0.5
+    uv0 = rng.uniform([-4, -4], [aw, ah], (S, 2))
+    inst = dict(origin=rng.uniform([-100, -100], [w + 20, h + 20], (S, 2)),
+                axis_x=ax, axis_y=ay, uv0=uv0, uv1=uv0 + rng.uniform(1, 64, (S, 2)),
+                tint=rng.uniform(0, 1.2, (S, 4)))
+    inst = {k: v.astype(np.float32) for k, v in inst.items()}
+    inst["count"] = np.int32(count)
+    rgb = torch.from_numpy(rng.rand(h, w, 3).astype(np.float32)).to(device)
+    atlas = torch.from_numpy(rng.rand(ah, aw, 4).astype(np.float32)).to(device)
+    return rgb, to_torch(inst, device), atlas
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32).cpu()
+
+
+@pytest.mark.parametrize("S,count,region", [(256, 200, 128), (768, 700, 128),
+                                            (64, 64, 40), (32, 0, 128)])
+def test_sprite_kernel_matches_plain(card, S, count, region):
+    """One launch per pass, bit-equal to the plain version on the card
+    (every bit, NaN-free): a HUD-sized set, more sprites than a block
+    collects at once (256), a small window, and no live sprite."""
+    rgb, inst, atlas = _sprites(S + count, S, count, 1920, 1088, 256, 96, card)
+    n0 = composite_sprites_cuda.launches
+    got = composite_sprites(rgb, inst, atlas, region)
+    torch.cuda.synchronize()
+    assert composite_sprites_cuda.launches == n0 + 1
+    want = composite_sprites_reference(rgb, inst, atlas, region)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(rgb), _bits(rgb.clone()))          # input untouched
+    assert (got != rgb).any() == (count > 0)
+
+
+def test_sprite_kernel_small_images_and_edges(card):
+    """Images that are not a multiple of the 16 x 16 tile, a window as
+    wide as the image, sprites clamped at every edge."""
+    for h, w, region in ((37, 53, 37), (128, 256, 64), (17, 300, 16)):
+        rgb, inst, atlas = _sprites(h * w, 48, 40, w, h, 32, 32, card)
+        got = composite_sprites_cuda(rgb, inst, atlas, region)
+        want = composite_sprites_reference(rgb, inst, atlas, region)
+        assert torch.equal(_bits(got), _bits(want)), (h, w, region)
+
+
+def test_sprite_pass_raises_rather_than_falling_back(card):
+    rgb, inst, atlas = _sprites(1, 16, 8, 256, 128, 32, 32, card)
+    with pytest.raises(ValueError):
+        composite_sprites_cuda(rgb.cpu(), inst, atlas, 64)            # CPU image
+    with pytest.raises(ValueError):
+        composite_sprites(rgb, dict(inst, count=inst["count"].long()), atlas, 64)
+    with pytest.raises(ValueError):
+        composite_sprites(rgb, inst, atlas.double(), 64)
+    with pytest.raises(ValueError):
+        composite_sprites(rgb, inst, atlas, 200)                      # region > h
+    with pytest.raises(ValueError):
+        composite_sprites(rgb, dict(inst, tint=inst["tint"][:, :3]), atlas, 64)
+    flat = torch.zeros(32 * 32 * 4 + 1, device=card)
+    with pytest.raises(ValueError):
+        composite_sprites(rgb, inst, flat[1:].view(32, 32, 4), 64)    # misaligned

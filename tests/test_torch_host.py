@@ -22,7 +22,6 @@ from datum_tpu.scenes import datumtest_scene as jax_datumtest_scene
 from datum_tpu_torch import math as tmath
 from datum_tpu_torch.convert import to_torch
 from datum_tpu_torch.ops.common import FrameConfig
-from datum_tpu_torch.render.frame import check_config
 from datum_tpu_torch.render.types import make_sceneset
 from datum_tpu_torch.scenes import datumtest_scene
 
@@ -192,10 +191,29 @@ def test_skybox_is_rejected_not_dropped():
         ctx.host_state()
 
 
+# a small datumtest scene: the frames below check that render_frame takes
+# each configuration (the port rejects no FrameConfig flag)
+TINY = dict(width=64, height=32, sphere_detail=4, grid=(2, 2), n_point_lights=2,
+            skybox=False, max_vertices=512, max_triangles=512, bin_capacity=64,
+            big_capacity=8, shadow_res=128, spot_shadow_res=128)
+
+
+def _renders(**cfg):
+    """One frame of the datumtest scene through RenderContext.render on
+    the CPU with the given config: a u8 image of its size, not all black."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ctx, camera, params, make_rl = datumtest_scene(device="cpu", **cfg)
+        img = ctx.render(camera, make_rl(0.3), params)
+    finally:
+        torch.set_num_threads(threads)
+    assert img.shape == (cfg["height"], cfg["width"], 3) and img.dtype == np.uint8
+    assert img.max() > 0
+
+
 def test_slice_config_is_accepted():
-    check_config(FrameConfig(**{k: v for k, v in SLICE.items()
-                                if k not in ("sphere_detail", "grid",
-                                             "n_point_lights", "skybox")}))
+    _renders(**SLICE)
 
 
 _BASE = dict(use_pallas=True, texture_filter="mip_half", enable_shadows=False)
@@ -203,25 +221,16 @@ _BASE = dict(use_pallas=True, texture_filter="mip_half", enable_shadows=False)
 
 def test_translucent_config_is_accepted():
     """The translucent frame's capacities (lit glass/water layers,
-    particles, decals) pass check_config."""
+    particles, decals) render."""
     for layers in (1, 2):
-        check_config(FrameConfig(**dict(
-            _BASE, max_translucent_draws=2, max_translucent_tris=2048,
+        _renders(**dict(
+            TINY, **_BASE, max_translucent_draws=2, max_translucent_tris=2048,
             translucent_lit=True, translucent_lit_layers=layers,
             translucent_lit_scale=2, max_particle_quads=512,
-            max_decals_active=2, decal_textures=False)))
+            max_decals_active=2, decal_textures=False))
 
 
 _IDS = lambda d: "-".join(f"{k}={v}" for k, v in d.items())
-
-
-@pytest.mark.parametrize("override", [
-    dict(max_overlay_sprites=4),
-], ids=_IDS)
-def test_unsupported_flags_raise(override):
-    cfg = FrameConfig(**dict(_BASE, **override))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        check_config(cfg)
 
 
 @pytest.mark.parametrize("override", [
@@ -238,7 +247,7 @@ def test_unsupported_flags_raise(override):
     dict(use_shade_kernel=False), dict(enable_material_maps=False),
     dict(max_fog_planes=1), dict(enable_ssr=True, ssr_mode="dda"),
     dict(enable_skinning=True), dict(enable_foliage=True),
-    dict(max_dynamic_vertices=64),
+    dict(max_dynamic_vertices=64), dict(max_overlay_sprites=4),
 ], ids=_IDS)
 def test_post_flags_accepted(override):
     """SSAO, the froxel fog, the binned SSR, depth of field, the
@@ -246,14 +255,16 @@ def test_post_flags_accepted(override):
     early-z exit are ported, and so is the deferred branch of the frame
     (PCF, perspective spot maps, K7, the scan raster, the legacy texture
     filters, the XLA lighting, no material maps), the fog planes, the
-    DDA SSR and the animated vertex stage (skinning, the foliage bends,
-    the dynamic-vertex slab): check_config passes them."""
-    check_config(FrameConfig(**dict(_BASE, **override)))
+    DDA SSR, the animated vertex stage (skinning, the foliage bends,
+    the dynamic-vertex slab) and the sprite pass: a small frame renders
+    with each."""
+    _renders(**dict(TINY, **dict(_BASE, **override)))
 
 
 def test_bench_config_is_accepted():
-    """The bench frame's config (bench.py), also with DoF and with the
-    two-phase raster."""
+    """The bench frame's flags (bench.py), also with DoF and with the
+    two-phase raster, render (at TINY's size and capacities: the bench's
+    1920x1088 belongs on the card)."""
     bench = dict(_BASE, enable_shadows=True, shadow_mode="esm", shadow_far_res=512,
                  shadow_slice_blend=0.25, bin_capacity=160, big_capacity=64,
                  bin_max_span=8, shadow_factor_scale=4, enable_ssao=True,
@@ -262,4 +273,4 @@ def test_bench_config_is_accepted():
                  max_translucent_tris=2048, max_decals_active=2,
                  decal_textures=False, translucent_lit_scale=2, fog_sample_scale=8)
     for extra in ({}, dict(enable_depth_of_field=True), dict(raster_two_phase=True)):
-        check_config(FrameConfig(width=1920, height=1088, **dict(bench, **extra)))
+        _renders(**dict(TINY, **dict(bench, **extra, shadow_res=256, shadow_far_res=128)))

@@ -47,7 +47,8 @@ def test_every_source_compiles_alone_for_hopper(no_nvcc):
         assert sum(f.startswith("-fmad=") for f in cmd) == 1, name
 
 
-@pytest.mark.parametrize("name", RASTERS + ("shade_epilogue.cu", "gather_rows.cu"))
+@pytest.mark.parametrize("name", RASTERS + ("shade_epilogue.cu", "gather_rows.cu",
+                                            "sprite_pass.cu"))
 def test_bit_exact_sources_keep_fmad_false(no_nvcc, name):
     cmd = _commands()[name]
     assert "-fmad=false" in cmd and "-fmad=true" not in cmd
