@@ -107,32 +107,36 @@ def cube_dirs(size, device="cpu"):
     return torch.stack([cubemap_texel_dir(f, uu, vv) for f in range(6)], 0)
 
 
-def convolve_cubemap(cube, roughness, samples=64):
-    """GGX specular prefilter of one mip (N = V = R).  cube: (6, S, S, 3);
-    returns the same shape."""
-    n = cube_dirs(cube.shape[1], cube.device)                 # (6, S, S, 3)
-    if roughness <= 1e-3:
-        return cube
-    alpha = roughness * roughness
-    h_local = _ggx_sample_dirs(hammersley(samples), alpha)   # (N, 3)
+def ggx_taps(n, roughness, samples):
+    """The GGX prefilter's taps (N = V = R) about the texel normals n
+    (..., 3): per sample, the light direction l (..., 3) and its weight
+    n.l clamped to [0, 1] (..., 1)."""
+    h_local = _ggx_sample_dirs(hammersley(samples), roughness * roughness)  # (N, 3)
 
     # tangent frame per texel
-    f32 = dict(dtype=torch.float32, device=cube.device)
+    f32 = dict(dtype=torch.float32, device=n.device)
     up = torch.where(torch.abs(n[..., 2:3]) < 0.999,
                      torch.tensor([0.0, 0.0, 1.0], **f32),
                      torch.tensor([1.0, 0.0, 0.0], **f32))
     t = torch.linalg.cross(up, n)
     t = t / torch.clamp(torch.linalg.norm(t, dim=-1, keepdim=True), min=1e-9)
     b = torch.linalg.cross(n, t)
-
-    acc = torch.zeros_like(cube)
-    wsum = torch.zeros(cube.shape[:-1] + (1,), **f32)
     for i in range(h_local.shape[0]):
         hx, hy, hz = (float(np.float32(h_local[i, k])) for k in range(3))
         h = t * hx + b * hy + n * hz
         vdh = (n * h).sum(-1, keepdim=True)
         l = 2 * vdh * h - n
-        ndl = torch.clamp((n * l).sum(-1, keepdim=True), 0.0, 1.0)
+        yield l, torch.clamp((n * l).sum(-1, keepdim=True), 0.0, 1.0)
+
+
+def convolve_cubemap(cube, roughness, samples=64):
+    """GGX specular prefilter of one mip (N = V = R).  cube: (6, S, S, 3);
+    returns the same shape."""
+    if roughness <= 1e-3:
+        return cube
+    acc = torch.zeros_like(cube)
+    wsum = torch.zeros(cube.shape[:-1] + (1,), dtype=torch.float32, device=cube.device)
+    for l, ndl in ggx_taps(cube_dirs(cube.shape[1], cube.device), roughness, samples):
         acc = acc + sample_cubemap(cube, l) * ndl
         wsum = wsum + ndl
     return acc / torch.clamp(wsum, min=1e-6)

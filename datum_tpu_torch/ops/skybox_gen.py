@@ -42,15 +42,15 @@ def _rayleigh_phase(cosangle):
 
 def generate_skybox(size, *, skycolor, groundcolor, sundirection, sunintensity,
                     exposure=1.0, clouds=None, cloudheight=100.0,
-                    cloudcolor=(1.0, 1.0, 1.0, 0.0)):
-    """Returns the (6, size, size, 3) f32 HDR cubemap (on the host).
+                    cloudcolor=(1.0, 1.0, 1.0, 0.0), device="cpu"):
+    """Returns the (6, size, size, 3) f32 HDR cubemap, built on `device`.
 
     clouds: optional dict(density (H, W, 1+) image, normal (H, W, 3)
     image, each float in [0, 1] or u8): a cloud layer at cloudheight,
     lit by its normals, blended toward cloudcolor.rgb by the density
     times cloudcolor.a, above the horizon only."""
-    f32 = dict(dtype=torch.float32)
-    ray = cube_dirs(size)                                  # (6, S, S, 3)
+    f32 = dict(dtype=torch.float32, device=device)
+    ray = cube_dirs(size, device)                          # (6, S, S, 3)
     skycolor = torch.as_tensor(skycolor, **f32)
     sund = torch.as_tensor(sundirection, **f32)
     sund = sund / torch.clamp(torch.linalg.norm(sund), min=1e-9)
@@ -98,13 +98,12 @@ def generate_skybox(size, *, skycolor, groundcolor, sundirection, sunintensity,
         tiny = torch.full_like(ry, 1e-3)
         cloudpos = ray * (cloudheight / torch.where(torch.abs(ry) < 1e-3, tiny, ry))[..., None]
         clouduv = torch.remainder(0.000005 * cloudpos[..., [0, 2]], 1.0)
-        cn = sample_image_bilinear(torch.as_tensor(np.asarray(clouds["normal"])),
-                                   clouduv) * 2.0 - 1.0
+        img = lambda k: torch.as_tensor(np.asarray(clouds[k]), device=device)
+        cn = sample_image_bilinear(img("normal"), clouduv) * 2.0 - 1.0
         cn = cn / torch.clamp(torch.linalg.norm(cn, dim=-1, keepdim=True), min=1e-6)
         cn_world = torch.stack([cn[..., 0], cn[..., 2], cn[..., 1]], -1)
         ndl = torch.clamp((cn_world * -sund).sum(-1), min=0.0)
-        dens = sample_image_bilinear(torch.as_tensor(np.asarray(clouds["density"])),
-                                     clouduv)[..., 0]
+        dens = sample_image_bilinear(img("density"), clouduv)[..., 0]
         calpha = ndl * dens * torch.clamp(10.0 * ry, 0.0, 1.0) * cloudcolor[3]
         color = color + (torch.as_tensor(cloudcolor[:3], **f32) - color) * calpha[..., None]
     return exposure * color

@@ -212,23 +212,23 @@ class RenderContext:
 
     def set_skybox(self, skybox):
         """Attach an EnvMap/SkyBox as the global environment; its flat,
-        quad-packed and mip-pair tables and SH-9 are baked here, once
-        (the megakernel path reads the mip-pair table, the deferred path
-        the flat and quad ones)."""
+        quad-packed and mip-pair tables and SH-9 are baked here, once, on
+        the device its mips lie on (the megakernel path reads the
+        mip-pair table, the deferred path the flat and quad ones).  The
+        tables stay tensors there until device_state moves them."""
         self._state = None
         from ..ops.ibl import sh_project
         from ..ops.sampling import (flatten_cube_mips, flatten_cube_mips_pair,
                                     flatten_cube_mips_quad)
 
         self.skybox = skybox
-        mips = [torch.from_numpy(m) for m in skybox.mips]
-        as_np = lambda tables: tuple(t.numpy() for t in tables)
+        mips = list(skybox.mips)
         self._ibl = dict(
-            mips=tuple(skybox.mips),
-            flat=as_np(flatten_cube_mips(mips)),
-            flatq=as_np(flatten_cube_mips_quad(mips)),
-            flatp=as_np(flatten_cube_mips_pair(mips)),
-            sh=sh_project(mips[0][..., :3]).numpy(),
+            mips=tuple(mips),
+            flat=flatten_cube_mips(mips),
+            flatq=flatten_cube_mips_quad(mips),
+            flatp=flatten_cube_mips_pair(mips),
+            sh=sh_project(mips[0][..., :3]),
             envbrdf=self.envbrdf_lut())
 
     def add_environment(self, position, halfdim, cubemap, rotation=None,
@@ -407,18 +407,10 @@ class RenderContext:
 
     def host_state(self):
         """The device state as a numpy tree (the layout of the JAX
-        package's RenderContext.device_state)."""
-        state = dict(
-            geometry=self.pool.host_arrays(),
-            materials=dict(
-                color=self.mat_color, metalness=self.mat_metalness,
-                roughness=self.mat_roughness,
-                reflectivity=self.mat_reflectivity,
-                emissive=self.mat_emissive, albedomap=self.mat_albedomap,
-                surfacemap=self.mat_surfacemap, normalmap=self.mat_normalmap,
-            ),
-            textures=self.textures,
-        )
+        package's RenderContext.device_state); the skybox's tables are
+        the tensors set_skybox baked, on the sky's device."""
+        state = dict(geometry=self.pool.host_arrays(),
+                     materials=self._material_arrays(), textures=self.textures)
         self._rebuild_matmaps(state)
         if self._ibl is not None:
             state["ibl"] = self._ibl
@@ -437,24 +429,35 @@ class RenderContext:
         """The pools as torch tensors on `device`."""
         return to_torch(self.host_state(), device)
 
-    def _rebuild_matmaps(self, state):
+    def _material_arrays(self):
+        return dict(color=self.mat_color, metalness=self.mat_metalness,
+                    roughness=self.mat_roughness, reflectivity=self.mat_reflectivity,
+                    emissive=self.mat_emissive, albedomap=self.mat_albedomap,
+                    surfacemap=self.mat_surfacemap, normalmap=self.mat_normalmap)
+
+    def _rebuild_matmaps(self, state, rows_only=False):
         """Combined material-map mip table (one 48-byte quad row per texel
         holds albedo+surface+normal) and the packed per-material rows
         (color rgb, emissive, metalness, roughness, reflectivity, albedo
-        id, matmap base, matmap size, absorb, 0) the raster reads."""
+        id, matmap base, matmap size, absorb, 0) the raster reads.
+        rows_only: re-pack the rows with the last table's bases and sizes
+        (the table depends only on the map triples and their texels)."""
         from .texturepool import build_matmap_pool
 
         nm = self.mat_color.shape[0]
-        triples = [(int(self.mat_albedomap[m]), int(self.mat_surfacemap[m]),
-                    int(self.mat_normalmap[m]))
-                   for m in range(max(self.n_materials, 1))]
-        table, base, size = build_matmap_pool(
-            triples, self.tex_native, max_size=self.config.matmap_max_size)
-        base_full = np.zeros(nm, np.int32)
-        size_full = np.ones(nm, np.int32)
-        base_full[:len(triples)] = base
-        size_full[:len(triples)] = size
-        state["matmaps"] = dict(table=table, base=base_full, size=size_full)
+        if not rows_only:
+            triples = [(int(self.mat_albedomap[m]), int(self.mat_surfacemap[m]),
+                        int(self.mat_normalmap[m]))
+                       for m in range(max(self.n_materials, 1))]
+            table, base, size = build_matmap_pool(
+                triples, self.tex_native, max_size=self.config.matmap_max_size)
+            base_full = np.zeros(nm, np.int32)
+            size_full = np.ones(nm, np.int32)
+            base_full[:len(triples)] = base
+            size_full[:len(triples)] = size
+            state["matmaps"] = dict(table=table, base=base_full, size=size_full)
+            self._matmap_rows = (base_full, size_full)
+        base_full, size_full = self._matmap_rows
         packed = np.concatenate([
             self.mat_color[:, :3],
             self.mat_emissive[:, None], self.mat_metalness[:, None],
@@ -466,6 +469,38 @@ class RenderContext:
             np.zeros((nm, 1), np.float32)], axis=1)
         state["materials"] = dict(state["materials"],
                                   packed10=packed.astype(np.float32))
+
+    def update_material(self, i, **fields):
+        """Live-edit material i (fields: color, metalness, roughness,
+        reflectivity, emissive, absorb, albedomap, surfacemap, normalmap).
+        A rendered context's device state keeps everything but the
+        material rows, which are re-packed and uploaded; an edit of a map
+        binding also rebuilds and uploads the material-map table."""
+        for k, v in fields.items():
+            getattr(self, f"mat_{k}")[i] = v
+        if self._state is not None:
+            self._upload_materials(rows_only=not (
+                {"albedomap", "surfacemap", "normalmap"} & fields.keys()))
+
+    def update_texture(self, i, image):
+        """Live-edit texture slot i (any image, resampled to TEX_SIZE).  A
+        rendered context's device pool gets that one slot patched in
+        place, and the material-map table (whose mips come from the
+        texels) is rebuilt and uploaded."""
+        img = _to_rgba_u8(image)
+        self.tex_native[i] = img
+        self.textures[i] = _resample_nearest(img, TEX_SIZE)
+        if self._state is not None:
+            self._state["textures"][i] = torch.from_numpy(self.textures[i]).to(
+                self.device)
+            self._upload_materials()
+
+    def _upload_materials(self, rows_only=False):
+        """Replace the device state's material rows (and, unless
+        rows_only, its material-map table) with the host's."""
+        part = dict(materials=self._material_arrays())
+        self._rebuild_matmaps(part, rows_only=rows_only)
+        self._state = dict(self._state, **to_torch(part, self.device))
 
     def expand_host(self, draws):
         """Attach the host-precomputed draw expansion (numpy) in place

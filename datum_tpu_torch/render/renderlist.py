@@ -12,11 +12,6 @@ import numpy as np
 
 from ..math import Transform, quat_to_matrix
 
-# forward_arrays builds the billboards in numpy up to this many quads of
-# one particle system; above it the JAX package switches to a native
-# helper (equal results), which the port has not ported
-MAX_NUMPY_BILLBOARDS = 4096
-
 
 class RenderList:
     def __init__(self):
@@ -212,7 +207,9 @@ class RenderList:
     def forward_arrays(self, max_quads, camera):
         """Camera-facing billboard quads of all queued particles: dict(
         positions (4Q, 3), uv (4Q, 2), color (4Q, 4), quad_count), the
-        vertex stream of the weighted-blend OIT raster."""
+        vertex stream of the weighted-blend OIT raster.  Built in numpy
+        for any particle count (the JAX package's native helper, which it
+        takes above 4096 quads of one system, computes the same quads)."""
         positions = np.zeros((max_quads * 4, 3), np.float32)
         uv = np.zeros((max_quads * 4, 2), np.float32)
         color = np.zeros((max_quads * 4, 4), np.float32)
@@ -225,12 +222,6 @@ class RenderList:
             n = min(len(alive), max_quads - q)
             if n <= 0:
                 continue
-            if n > MAX_NUMPY_BILLBOARDS:
-                raise NotImplementedError(
-                    f"forward_arrays: {n} billboards of one system (> "
-                    f"{MAX_NUMPY_BILLBOARDS}) need the native billboard "
-                    "helper, which is not ported yet — ROADMAP Queue 1: "
-                    "the host engine")
             idx = alive[:n]
             col = inst.color[idx]
             base = q * 4

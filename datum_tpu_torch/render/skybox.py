@@ -1,6 +1,8 @@
 """SkyBox resource (counterpart of datum_tpu/render/skybox.py): the
 procedural atmosphere (ops/skybox_gen.py, with its optional cloud
-layer) followed by the GGX convolve chain over its mips."""
+layer) followed by the GGX convolve chain over its mips, both on the
+caller's device (the card unless the caller names another), and
+render_skybox, the re-bake after a parameter change."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import dataclasses
 import numpy as np
 
 from ..ops import skybox_gen
-from .envmap import EnvMap, N_MIPS
+from .envmap import N_MIPS, EnvMap
 
 
 @dataclasses.dataclass
@@ -25,19 +27,35 @@ class SkyBoxParams:
 
 
 class SkyBox(EnvMap):
-    """Procedural sky environment."""
+    """Procedural sky environment, baked on `device`."""
 
     def __init__(self, size=128, params: SkyBoxParams | None = None,
-                 convolve_samples=32):
+                 convolve_samples=32, device="cuda"):
         self.gen_size = size
         self.convolve_samples = convolve_samples
         self.params = params or SkyBoxParams()
-        sd = np.asarray(self.params.sundirection, np.float32)
+        cube = self._generate(self.params, device)
+        super().__init__(EnvMap.from_cubemap(cube, N_MIPS, convolve_samples,
+                                             device=device).mips)
+
+    def _generate(self, params: SkyBoxParams, device="cuda"):
+        """The (6, gen_size, gen_size, 3) atmosphere cube of params."""
+        sd = np.asarray(params.sundirection, np.float32)
         sd = sd / max(np.linalg.norm(sd), 1e-9)
-        cube = skybox_gen.generate_skybox(
-            size, skycolor=self.params.skycolor,
-            groundcolor=self.params.groundcolor, sundirection=sd,
-            sunintensity=self.params.sunintensity,
-            exposure=self.params.exposure, clouds=self.params.clouds,
-            cloudheight=self.params.cloudheight, cloudcolor=self.params.cloudcolor)
-        super().__init__(EnvMap.from_cubemap(cube, N_MIPS, convolve_samples).mips)
+        return skybox_gen.generate_skybox(
+            self.gen_size, skycolor=params.skycolor, groundcolor=params.groundcolor,
+            sundirection=sd, sunintensity=params.sunintensity,
+            exposure=params.exposure, clouds=params.clouds,
+            cloudheight=params.cloudheight, cloudcolor=params.cloudcolor,
+            device=device)
+
+
+def render_skybox(skybox: SkyBox, params: SkyBoxParams | None = None, device="cuda"):
+    """Regenerate the atmosphere (with params, when given) and re-run the
+    convolve chain on `device`; the skybox's mips are replaced."""
+    if params is not None:
+        skybox.params = params
+    cube = skybox._generate(skybox.params, device)
+    skybox.mips = EnvMap.from_cubemap(cube, N_MIPS, skybox.convolve_samples,
+                                      device=device).mips
+    return skybox

@@ -1,19 +1,19 @@
 """Entity-component scene (counterpart of datum_tpu/scene): a Scene
 with generation-checked entity ids, component storages, the transform
 hierarchy and the per-frame systems that cull before they push draws.
-ParticleSystemComponent and update_particlesystems wait for the
-particle system, Model for the asset module."""
+Model waits for the asset module."""
 
 from .components import (
-    ActorComponent, MeshComponent, NameComponent, PointLightComponent,
-    SpotLightComponent, SpriteComponent, TransformComponent,
+    ActorComponent, MeshComponent, NameComponent, ParticleSystemComponent,
+    PointLightComponent, SpotLightComponent, SpriteComponent, TransformComponent,
 )
 from .scene import EntityId, Scene
 from .storage import DefaultStorage
 from .systems import (MESH_FLAG_OCCLUDER, fill_occlusion, gather_lights, update_actors,
-                      update_meshes)
+                      update_meshes, update_particlesystems)
 
 __all__ = ["ActorComponent", "DefaultStorage", "EntityId", "MESH_FLAG_OCCLUDER",
-           "MeshComponent", "NameComponent", "PointLightComponent", "Scene",
-           "SpotLightComponent", "SpriteComponent", "TransformComponent",
-           "fill_occlusion", "gather_lights", "update_actors", "update_meshes"]
+           "MeshComponent", "NameComponent", "ParticleSystemComponent",
+           "PointLightComponent", "Scene", "SpotLightComponent", "SpriteComponent",
+           "TransformComponent", "fill_occlusion", "gather_lights", "update_actors",
+           "update_meshes", "update_particlesystems"]

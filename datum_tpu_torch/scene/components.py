@@ -1,8 +1,8 @@
-"""Scene components (counterpart of datum_tpu/scene/components.py,
-copied without ParticleSystemComponent, which waits for the particle
-system): Name, Transform (a hierarchy with lazy world resolution and
+"""Scene components (counterpart of datum_tpu/scene/components.py):
+Name, Transform (a hierarchy with lazy world resolution and
 invalidation down the children), Sprite, Mesh (its cached world bound),
-Actor (an embedded Animator), Point and Spot lights."""
+Actor (an embedded Animator), Point and Spot lights and ParticleSystem
+(a system and its live instance)."""
 
 from __future__ import annotations
 
@@ -149,6 +149,17 @@ class SpotLightComponent:
             att[3] = _attenuation_range(att[:3])
         self.attenuation = att
         self.cutoff = cutoff
+
+    @classmethod
+    def make_storage(cls):
+        return DefaultStorage(cls)
+
+
+class ParticleSystemComponent:
+    def __init__(self, entity, system=None):
+        self.entity = entity
+        self.system = system             # render.particlesystem.ParticleSystem
+        self.instance = None             # live ParticleInstance
 
     @classmethod
     def make_storage(cls):

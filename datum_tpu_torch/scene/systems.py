@@ -1,9 +1,8 @@
-"""Per-frame scene systems (counterpart of datum_tpu/scene/systems.py,
-copied without update_particlesystems, which waits for the particle
-system).  update_meshes and update_actors frustum-cull against the
-camera (and update_meshes optionally against the software occlusion
-buffer) before doing work, and push what is visible into the render
-list; gather_lights pushes the light components."""
+"""Per-frame scene systems (counterpart of datum_tpu/scene/systems.py).
+update_meshes, update_actors and update_particlesystems frustum-cull
+against the camera (and update_meshes optionally against the software
+occlusion buffer) before doing work, and push what is visible into the
+render list; gather_lights pushes the light components."""
 
 from __future__ import annotations
 
@@ -11,8 +10,8 @@ import numpy as np
 
 from ..math.bound import bound_expand
 from .components import (
-    ActorComponent, MeshComponent, PointLightComponent, SpotLightComponent,
-    TransformComponent,
+    ActorComponent, MeshComponent, ParticleSystemComponent, PointLightComponent,
+    SpotLightComponent, TransformComponent,
 )
 
 # MeshComponent.flags bit: this mesh is a software occluder — it is
@@ -98,6 +97,28 @@ def update_actors(scene, camera, dt, renderlist=None):
                                           comp.animator.palette())
                 else:           # no animator: draw as a static mesh
                     renderlist.push_mesh(comp.mesh, world, comp.material)
+    return visible
+
+
+def update_particlesystems(scene, camera, dt, renderlist=None):
+    """Create each component's instance on first use, then step the
+    systems whose bound (under the entity's world transform) meets the
+    frustum and push their instances; returns the visible components."""
+    storage = scene.storage(ParticleSystemComponent)
+    frustum = camera.frustum()
+    visible = []
+    for comp in storage.rows():
+        tc = scene.get_component(comp.entity, TransformComponent)
+        if comp.instance is None and comp.system is not None:
+            comp.instance = comp.system.create()
+        if comp.instance is None:
+            continue
+        bound = comp.system.bound.transformed(tc.world)
+        if frustum.intersects_bound(bound):
+            comp.system.update(comp.instance, dt, tc.world, camera)
+            visible.append(comp)
+            if renderlist is not None and hasattr(renderlist, "push_particles"):
+                renderlist.push_particles(comp.instance)
     return visible
 
 

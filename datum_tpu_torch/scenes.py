@@ -45,7 +45,7 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
     make_renderlist).  Materials, textures, meshes and the random light
     placement are the JAX package's, in the same order, so both packages
     build equal state for the same arguments.  device: where ctx.render
-    draws (render_frame takes its own).  With the config's
+    draws and where the skybox bakes (render_frame takes its own).  With the config's
     max_fog_planes, the renderlist carries tests/test_kitchen_sink.py's
     fog plane.  local_env (needs the skybox): a box environment probe
     around the sphere grid, its cubemap a 64^2 procedural sky under a
@@ -65,7 +65,7 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
 
     if skybox:
         from .render.skybox import SkyBox
-        ctx.set_skybox(SkyBox(size=skybox_size, convolve_samples=16))
+        ctx.set_skybox(SkyBox(size=skybox_size, convolve_samples=16, device=device))
 
     verts, idx = primitives.unit_sphere(sphere_detail, sphere_detail // 2)
     sphere = ctx.add_mesh(verts, idx)
@@ -350,7 +350,7 @@ def stress_scene(width=1920, height=1080, *, terrain_n=192, sphere_detail=36,
 
     if skybox:
         from .render.skybox import SkyBox
-        ctx.set_skybox(SkyBox(size=skybox_size, convolve_samples=16))
+        ctx.set_skybox(SkyBox(size=skybox_size, convolve_samples=16, device=device))
 
     tverts, tidx = primitives.terrain(
         size=28.0, n=terrain_n, height=2.2,

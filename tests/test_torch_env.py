@@ -146,7 +146,7 @@ def test_context_environment_state():
     tables, SH-9 and the LUT into device_state()['ibl'] (the LUT read
     only from the port's tracked copy)."""
     ctx = RenderContext()
-    ctx.set_skybox(SkyBox(size=16, convolve_samples=4))
+    ctx.set_skybox(SkyBox(size=16, convolve_samples=4, device="cpu"))
     ibl = ctx.device_state("cpu")["ibl"]
     assert sorted(ibl) == ["envbrdf", "flat", "flatp", "flatq", "mips", "sh"]
     assert [m.shape for m in ibl["mips"]] == [(6, 16, 16, 3), (6, 8, 8, 3),

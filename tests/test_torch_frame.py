@@ -152,7 +152,7 @@ def test_translucent_unlit_matches_jax_frame():
 
 
 def _port_frame(t=0.0, **over):
-    ctx, camera, params, make_rl = datumtest_scene(**dict(SLICE, **over))
+    ctx, camera, params, make_rl = datumtest_scene(device="cpu", **dict(SLICE, **over))
     rl = make_rl(t)
     ss = make_sceneset(camera, params, point_lights=rl.point_lights,
                        spot_lights=rl.spot_lights)
@@ -272,7 +272,8 @@ def test_shadowed_skylit_port_runs_without_jax():
         " skybox_size=16, max_vertices=1024, max_triangles=1024,"
         " bin_capacity=64, big_capacity=16, use_pallas=True,"
         " texture_filter='mip_half', shadow_res=256, shadow_far_res=128,"
-        " shadow_slice_blend=0.25, max_spot_shadows=1, spot_shadow_res=128)\n"
+        " shadow_slice_blend=0.25, max_spot_shadows=1, spot_shadow_res=128,"
+        " device='cpu')\n"
         "rl = make_rl(0.0)\n"
         "ss = make_sceneset(cam, params, point_lights=rl.point_lights,"
         " spot_lights=rl.spot_lights)\n"
@@ -300,7 +301,7 @@ def test_translucent_port_runs_without_jax():
         " max_translucent_draws=2, max_translucent_tris=1024,"
         " translucent_lit_layers=2, translucent_lit_scale=2,"
         " max_particle_quads=512, max_decals_active=2, decal_textures=False,"
-        " forward_bin_capacity=256)\n"
+        " forward_bin_capacity=256, device='cpu')\n"
         "rl = make_rl(0.0)\n"
         "ss = make_sceneset(cam, params, point_lights=rl.point_lights,"
         " spot_lights=rl.spot_lights)\n"

@@ -46,9 +46,9 @@ def assert_tree_equal(a, b, path="root"):
     np.testing.assert_array_equal(a, b, err_msg=path)
 
 
-def _frame_host(scene_fn, sceneset_fn, t):
+def _frame_host(scene_fn, sceneset_fn, t, **kw):
     ctx, camera, params, make_rl = scene_fn(**dict(SLICE, skybox=True,
-                                                   skybox_size=16))
+                                                   skybox_size=16, **kw))
     rl = make_rl(t)
     ss = sceneset_fn(camera, params, point_lights=rl.point_lights,
                      spot_lights=rl.spot_lights)
@@ -60,7 +60,7 @@ def _frame_host(scene_fn, sceneset_fn, t):
 @pytest.fixture(scope="module")
 def both():
     jctx, jdraws, jss = _frame_host(jax_datumtest_scene, jax_make_sceneset, 0.7)
-    tctx, tdraws, tss = _frame_host(datumtest_scene, make_sceneset, 0.7)
+    tctx, tdraws, tss = _frame_host(datumtest_scene, make_sceneset, 0.7, device="cpu")
     return jctx, jdraws, jss, tctx, tdraws, tss
 
 
@@ -173,7 +173,7 @@ def test_skybox_is_rejected_not_dropped():
     fills the environment's envprobes (stacked tables, one quad table
     per probe, the count) once a skybox is set; probes of two cubemap
     sizes raise."""
-    ctx = datumtest_scene(**dict(SLICE, skybox=True, skybox_size=16))[0]
+    ctx = datumtest_scene(device="cpu", **dict(SLICE, skybox=True, skybox_size=16))[0]
     ctx.add_environment([0, 1, 0], [2, 2, 2], np.ones((6, 8, 8, 3), np.float32),
                         levels=3)
     ctx.add_environment([1, 1, 0], [1, 2, 3], np.full((6, 8, 8, 3), 0.5, np.float32),

@@ -8,10 +8,9 @@ Tolerances:
   FFTs sum in other orders);
 - displace_grid, ocean_lut_uv and Ocean.vertex_data: atol 1e-5, rtol
   1e-5 (the maps' error carried through the bilinear taps);
-- examples/ocean.py's config (320x160, 3 updates of 1/60 s, the
-  deferred default path with no kernel) rendered through the port's own
-  host classes against tests/golden/ocean.png: RMSE < 2/255 and mean
-  |d| <= 0.5 levels.
+- the ocean example module at the golden's config (320x160, 3 updates
+  of 1/60 s, the deferred default path with no kernel) against
+  tests/golden/ocean.png: RMSE < 2/255 and mean |d| <= 0.5 levels.
 """
 
 from pathlib import Path
@@ -142,45 +141,25 @@ def test_ocean_vertex_data_matches_jax(flow):
 
 
 def test_ocean_example_matches_golden():
-    """examples/ocean.py's config through the port's RenderContext and
-    Ocean (FrameConfig's default deferred path, use_pallas off: the scan
-    raster, no kernel): three updates of 1/60 s, then the frame the
-    golden holds (the example renders after each update; the earlier
-    frames leave no state behind), against tests/golden/ocean.png."""
+    """The ocean example module (datum_tpu_torch/examples/ocean.py, the
+    port of examples/ocean.py) at the golden's 320x160 on the CPU: its
+    init, three updates of 1/60 s, then the frame the golden holds
+    (through the module's render: FrameConfig's default deferred path,
+    use_pallas off, the scan raster; the harness renders after each
+    update, and the earlier frames leave no state behind), against
+    tests/golden/ocean.png."""
+    import types
+
     from PIL import Image
 
-    from datum_tpu_torch.math import Transform
-    from datum_tpu_torch.ops.common import FrameConfig
-    from datum_tpu_torch.render.camera import Camera
-    from datum_tpu_torch.render.context import RenderContext
-    from datum_tpu_torch.render.ocean import Ocean, OceanParams, render_ocean_surface
-    from datum_tpu_torch.render.renderlist import RenderList
-    from datum_tpu_torch.render.types import RenderParams
+    from datum_tpu_torch.examples import ocean as example
 
     w, h = 320, 160
-    ctx = RenderContext(FrameConfig(width=w, height=h, max_vertices=1 << 14,
-                                    max_triangles=1 << 15, max_instances=4,
-                                    big_capacity=64, enable_shadows=False,
-                                    max_dynamic_vertices=1 << 14, enable_bloom=True),
-                        device="cpu")
-    oc = Ocean(ctx, grid=96, patch_size=64.0,
-               params=OceanParams(wind=(9.0, 3.0), choppiness=1.6, swellamplitude=0.4))
-    water = ctx.add_material(color=(0.07, 0.22, 0.36, 1), metalness=0.0,
-                             roughness=0.1, reflectivity=0.9)
-    cam = Camera()
-    cam.set_projection(np.radians(60), w / h)
-    cam.lookat(np.array([32.0, 16.0, 78.0]), np.array([32.0, 0.0, 32.0]),
-               np.array([0.0, 1.0, 0.0]))
-    params = RenderParams(width=w, height=h)
-    params.sundirection = np.array([-0.4, -0.5, -0.75], np.float32)
-    params.sundirection /= np.linalg.norm(params.sundirection)
-    params.sunintensity = np.array([5.0, 4.7, 4.2], np.float32)
-    params.ambientintensity = 0.5
+    state = example.init(types.SimpleNamespace(width=w, height=h, device="cpu"))
     for _ in range(3):
-        oc.update(1 / 60)
-    rl = RenderList()
-    render_ocean_surface(oc, rl, Transform.identity(), water)
-    img = ctx.render(cam, rl, params).astype(np.float32)
+        example.update(state, 1 / 60)
+    img = example.render(state).astype(np.float32)
+    ctx = state["ctx"]
     gold = np.asarray(Image.open(GOLDEN).convert("RGB")).astype(np.float32)
     assert img.shape == gold.shape == (h, w, 3) and ctx.bin_overflow == 0
     d = img - gold
