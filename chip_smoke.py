@@ -6,8 +6,9 @@
 Renders the bench frame, the dense stress frame, the deferred
 (non-megakernel) frames, the local-environment frames, the animated
 vertex stage's frame, the bench frame with a sprite and text HUD, the
-city example, the datumtest example with its live particle system and
-the bench frame with that live stream at 1920x1088 through
+city example, the datumtest example with its live particle system, the
+bench frame with that live stream and the bench scene loaded from a
+pack written from a seed at 1920x1088 through
 datum_tpu_torch.render.frame.render_frame, after building the port's
 CUDA kernels from datum_tpu_torch/csrc with nvcc.  The bench
 frame is bench.py's config (the datumtest scene with 4 sun cascades as a
@@ -151,6 +152,26 @@ and exits non-zero:
    pool), of the billboards at 8000 particles and the re-bake's ms, the
    bench frame with the live stream beside the bench frame in turns and
    under torch.profiler;
+3a-6a. the pack pipeline: the bench scene written as a pack from a seed
+   (packscene: the sphere grid and the floor as one MODL with 13 maps of
+   1024^2 with full mip chains, BC3, RGBA and RGBE; the rigged column of
+   the vertex-modes scene with 3 clips) and the core pack at its default
+   sizes, LZ4-compressed, their bytes and ratios; the AssetManager on 4
+   workers decoding every asset equal to what the writer took, the native
+   and the Python LZ4 codec each decoding the other's stream of every
+   CDAT block, the DeviceUploader on its CUDA side stream landing every
+   payload bit-equal to its host copy and keeping it while the default
+   stream reads it behind a long kernel and the uploader evicts and
+   re-uploads, K1/K2/K3/K4 against their plain versions on the pack
+   frame's inputs; the pack frame (Model.load into a Scene with the
+   animated column, the bench config with matmap_max_size 1024) 3 times
+   with the bench frame's launches, each bit-equal to the frame of the
+   same scene built in memory; the teapot example (a seeded lathe OBJ
+   through obj_to_pack) and the character example (the scene pack) at
+   320x160 for 3 frames on the card against the CPU plain path (run in a
+   child process from phase 1 on); the write, compress, decode, stream,
+   upload and Model.load times and the pack frame's ms beside the bench
+   frame's, in turns and under torch.profiler;
 7. with --versions FILE, other versions of K1's, K6's, K2's, K3's, K4's,
    K5's and K7's sources built alone and timed beside this build's on the same
    inputs (see versions_phase); then print the kernels' JSON line (10
@@ -488,6 +509,22 @@ def profile_frames(render, inputs):
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                 "cuLaunchKernel", "cuLaunchKernelEx"))
     return device_us / 1e3 / len(inputs), launches / len(inputs)
+
+
+def kernel_counts(render, inputs):
+    """{device kernel name: launches a frame} over a torch.profiler window
+    of len(inputs) frames."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for draws, ss in inputs:
+            render(draws, ss)
+        torch.cuda.synchronize()
+    return {e.key: e.count / len(inputs) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
 
 
 def stage_ms(cfg, state, draws, ss, dev, reps=5):
@@ -2655,6 +2692,694 @@ def particle_phases(dev, card, kernels, bench):
                 launches_live=pf_live[0]["raster_blend"], rebake_err=rebake_err)
 
 
+# ---- the pack pipeline (phases 3a-6a)
+# the pack scene: its seed, its maps' size and the materials (of the 35
+# spheres, row-major) that carry maps; the pack frame renders the bench
+# config (SCENE without datumtest_scene's own arguments) with the maps at
+# their size
+PACK_SEED, PACK_MAP_SIZE, PACK_MAPPED = 0, 1024, (0, 12, 24, 34)
+PACK_CFG = dict({k: v for k, v in SCENE.items()
+                 if k not in ("sphere_detail", "n_point_lights", "skybox", "skybox_size")},
+                matmap_max_size=1024)
+PACK_WORKERS = 4
+# the teapot and character examples' run, on the card and on the CPU
+EXAMPLE_ARGV = ["--frames", "3", "--width", "320", "--height", "160"]
+# ~1 s of the sleep kernel at ~2 GHz: the reads of the upload check wait
+# behind it while the uploader evicts and re-uploads
+UPLOAD_SLEEP_CYCLES = 2_000_000_000
+
+
+def pack_dir(*sub):
+    """Where the phases write their packs: under the gitignored build
+    directory (tens of MB; removed at the end of the pack phases)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "datum_tpu_torch",
+                     "_build", "smoke_packs", *sub)
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def write_example_packs(directory):
+    """The teapot example's pack (the seeded lathe OBJ through
+    obj_to_pack) and the character example's (the rigged column and its
+    clips, the scene pack's assets 1-4); returns their paths."""
+    from datum_tpu_torch import packscene
+    from datum_tpu_torch.asset.pack import PackWriter
+    from datum_tpu_torch.tools.objparser import obj_to_pack
+
+    obj = os.path.join(directory, "lathe.obj")
+    with open(obj, "w") as f:
+        f.write(packscene.lathe_obj(PACK_SEED))
+    lathe = os.path.join(directory, "lathe.pack")
+    obj_to_pack(obj, lathe)
+    w = PackWriter()
+    packscene.write_character(w)
+    char = os.path.join(directory, "character.pack")
+    with open(char, "wb") as f:
+        f.write(w.finish())
+    return lathe, char
+
+
+def cpu_examples(directory, out_dir, argv):
+    """The teapot and the character example through their harness on the
+    CPU (the plain path) with argv, on write_example_packs' packs; their
+    PNGs go to out_dir as <name>_cpu.png.  chip_smoke runs this in a
+    child process while the card works (start_cpu_examples)."""
+    import torch
+
+    from datum_tpu_torch.examples import character, teapot
+
+    torch.set_num_threads(2)           # beside the main process's host work
+    lathe, char = write_example_packs(directory)
+    for name, mod, pack in (("teapot", teapot, lathe), ("character", character, char)):
+        t0 = time.perf_counter()
+        mod.main(["--cpu", *argv, "--pack", pack,
+                  "--out", os.path.join(out_dir, f"{name}_cpu.png")])
+        print(f"{name} on the CPU: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def start_cpu_examples():
+    """Start cpu_examples in a child process that sees no card (its log in
+    chiprun_out/examples/cpu_examples.log); returns (the process, its pack
+    directory, the PNGs' directory).  The process is killed at exit if it
+    still runs."""
+    import atexit
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    directory = pack_dir("cpu")
+    out_dir = os.path.join(here, "chiprun_out", "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    log = open(os.path.join(out_dir, "cpu_examples.log"), "w")
+    code = (f"import chip_smoke; chip_smoke.cpu_examples({directory!r}, {out_dir!r}, "
+            f"{EXAMPLE_ARGV!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here, stdout=log,
+                            stderr=subprocess.STDOUT,
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, directory, out_dir
+
+
+def _tree_equal(a, b, where="payload"):
+    """Raise unless two decoded payload trees are equal (arrays by dtype,
+    shape and bytes)."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            raise RuntimeError(f"{where}: keys {list(a)} vs {list(b)}")
+        for k in a:
+            _tree_equal(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise RuntimeError(f"{where}: {len(a)} items vs {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _tree_equal(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise RuntimeError(f"{where}: arrays differ ({a.dtype}{a.shape} vs "
+                               f"{b.dtype}{b.shape})")
+    elif a != b:
+        raise RuntimeError(f"{where}: {a!r} vs {b!r}")
+
+
+def _cdat_blocks(path):
+    """Every CDAT block of a pack: (compressed bytes, its output cap)."""
+    import struct
+
+    from datum_tpu_torch.asset.pack import BLOCK_SIZE, PackReader
+
+    r = PackReader(path)
+    data = r._data
+    out = []
+    for info in r.assets.values():
+        length = struct.unpack_from("<I", data, info.dataoffset)[0]
+        if data[info.dataoffset + 4:info.dataoffset + 8] != b"CDAT":
+            continue
+        cursor, remaining, left = info.dataoffset + 8, length, info.datasize
+        while remaining > 0:
+            (csize,) = struct.unpack_from("<I", data, cursor)
+            out.append((data[cursor + 4:cursor + 4 + csize], left))
+            n = min(BLOCK_SIZE, remaining)
+            cursor += n
+            remaining -= n
+            left = -1                      # set from the decode below
+    return out
+
+
+def _leaf_bytes(tree):
+    """The array leaves of a payload tree, flattened, as bytes."""
+    import numpy as np
+    import torch
+
+    if isinstance(tree, dict):
+        return [b for v in tree.values() for b in _leaf_bytes(v)]
+    if isinstance(tree, (list, tuple)):
+        return [b for v in tree for b in _leaf_bytes(v)]
+    if isinstance(tree, torch.Tensor):
+        return [tree.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()]
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return [np.asarray(tree).tobytes()]
+    return []
+
+
+def _device_reads(tree):
+    """Byte copies of every tensor leaf, queued on the current stream."""
+    import torch
+
+    if isinstance(tree, dict):
+        return [r for v in tree.values() for r in _device_reads(v)]
+    if isinstance(tree, (list, tuple)):
+        return [r for v in tree for r in _device_reads(v)]
+    if isinstance(tree, torch.Tensor):
+        return [tree.reshape(-1).view(torch.uint8).clone()]
+    return []
+
+
+def _uploadable(info, payload):
+    """A payload the card can hold: a mesh's structured arrays and an
+    animation's joint table as plain arrays (their own payloads park a
+    TypeError, as jax.device_put's would)."""
+    import numpy as np
+
+    if info.type == "mesh":
+        out = dict(vertices=payload["vertices"].view(np.float32).reshape(
+            len(payload["vertices"]), -1), indices=payload["indices"])
+        if "rig" in payload:
+            out["rig"] = payload["rig"].view(np.uint32).reshape(len(payload["rig"]), -1)
+            out["bones"] = payload["bones"].view(np.uint8).reshape(len(payload["bones"]), -1)
+        return out
+    if info.type == "anim":
+        return dict(times=payload["times"], transforms=payload["transforms"])
+    return None
+
+
+def upload_under_load(up, keys, host, record=True):
+    """Read every uploaded payload of keys on the default stream behind a
+    ~1 s sleep kernel while the uploader evicts them and uploads their
+    bitwise complement under new keys (allocations on its side stream
+    that could reuse the evicted blocks).  record=False skips get()'s
+    record_stream (the hazard the uploader guards against).  Returns
+    (reads that differ from the host bytes, whether the re-uploads landed
+    before the reads ran)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(UPLOAD_SLEEP_CYCLES)
+    reads = []
+    for k in keys:
+        if record:
+            dev = up.get(k)
+        else:
+            with up._lock:
+                dev = up._resident[k]
+        reads.append(_device_reads(dev))
+        up.evict(k)
+        del dev
+    queued = torch.cuda.Event()
+    queued.record()
+
+    def flip(tree):
+        if isinstance(tree, dict):
+            return {kk: flip(v) for kk, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(flip(v) for v in tree)
+        if isinstance(tree, np.ndarray) and tree.dtype.kind in "ui":
+            return ~tree
+        return tree
+
+    for k in keys:
+        up.submit(("again", record, k), flip(host[k]))
+    up.flush()
+    overlapped = not queued.query()
+    torch.cuda.synchronize()
+    bad = sum(r.cpu().numpy().tobytes() != h
+              for k, rs in zip(keys, reads) for r, h in zip(rs, _leaf_bytes(host[k])))
+    for k in keys:
+        up.evict(("again", record, k))
+    return bad, overlapped
+
+
+def pack_phases(dev, card, kernels, bench, cpu_job):
+    """Phases 3a-6a: the pack pipeline.  3a: the bench scene written as a
+    pack (packscene.scene_assets at PACK_MAP_SIZE: the MODL of the sphere
+    grid and the floor with 13 mipped maps, the rigged column with 3 clips)
+    and the core pack at its default sizes, both LZ4-compressed (and once
+    raw), the teapot's OBJ through obj_to_pack; 4a: the AssetManager on 4
+    workers decodes every asset equal to what the writer took (the core
+    pack's equal to its raw build's), the native and the Python LZ4 codec
+    each decode the other's stream of every CDAT block, the
+    DeviceUploader lands every payload bit-equal to the host copy (a mesh
+    and an animation park a TypeError; their arrays upload) and keeps it
+    while the default stream reads behind a long kernel and the uploader
+    evicts and re-uploads, and K1, K2, K3 and K4 hold against their plain
+    versions on the pack frame's inputs; 5a: the pack frame (Model.load
+    into a Scene, the animated column) 3 times with the launches of the
+    bench frame, each bit-equal to the frame of the same scene built in
+    memory, and the teapot and character examples on the card against
+    the CPU (cpu_job: start_cpu_examples' child) at RMSE < 2/255; 6a:
+    the write and compress times, the codecs' MB/s, the manager's, the
+    uploader's GB/s against a plain .to(), Model.load's ms, and the pack
+    frame's ms beside the bench frame's in turns and under torch.profiler.
+    bench: (render, inputs) of the bench frame.  Returns the numbers
+    PERF.md records."""
+    import concurrent.futures
+    import multiprocessing
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from datum_tpu_torch import packscene
+    from datum_tpu_torch.asset import AssetManager, DeviceUploader, PackReader, lz4
+    from datum_tpu_torch.asset.upload import _tensors as upload_tensors
+    from datum_tpu_torch.convert import to_torch
+    from datum_tpu_torch.examples import character, teapot
+    from datum_tpu_torch.ops import shadow as shadow_ops
+    from datum_tpu_torch.ops.raster_blend_cuda import (blend_inputs, raster_blend_cuda,
+                                                       raster_blend_reference)
+    from datum_tpu_torch.ops.raster_cuda import (PLANE_NAMES, raster_inputs,
+                                                 raster_shade_cuda, raster_shade_reference)
+    from datum_tpu_torch.ops.raster_depth_cuda import (depth_inputs, raster_depth_cuda,
+                                                       raster_depth_reference)
+    from datum_tpu_torch.ops.raster_mxu_cuda import raster_mxu_cuda
+    from datum_tpu_torch.ops.raster_v1_cuda import raster_v1_cuda
+    from datum_tpu_torch.ops.shade_cuda import (shade_deferred_cuda,
+                                                shade_deferred_reference, shade_inputs)
+    from datum_tpu_torch.render import frame as F
+    from datum_tpu_torch.render.context import RenderContext
+    from datum_tpu_torch.render.skybox import SkyBox
+    from datum_tpu_torch.render.types import make_sceneset
+    from datum_tpu_torch.scene import Model, Scene
+    from datum_tpu_torch.tools.assetbuilder import build_core_pack
+
+    t_all = time.perf_counter()
+    kernels = dict(kernels, raster_v1=raster_v1_cuda, raster_mxu=raster_mxu_cuda)
+    directory = pack_dir()
+    mb = lambda n: n / 1e6
+
+    # ---- 3a. write the packs
+    t0 = time.perf_counter()
+    assets = packscene.scene_assets(PACK_SEED, map_size=PACK_MAP_SIZE, mapped=PACK_MAPPED)
+    column = packscene.rigged_column()
+    t_assets = time.perf_counter() - t0
+    paths = {n: os.path.join(directory, f"{n}.pack")
+             for n in ("scene", "scene_raw", "core", "core_raw")}
+    t = {}
+    for name, compress in (("scene_raw", False), ("scene", True)):
+        t0 = time.perf_counter()
+        packscene.write_scene_pack(paths[name], assets, column, compress=compress)
+        t[name] = time.perf_counter() - t0
+    for name, compress in (("core_raw", False), ("core", True)):
+        t0 = time.perf_counter()
+        build_core_pack(paths[name], compress=compress)
+        t[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lathe_path, char_path = write_example_packs(directory)
+    t["obj_to_pack"] = time.perf_counter() - t0
+    size = {n: os.path.getsize(p) for n, p in paths.items()}
+    raw_bytes = {n: sum(i.datasize for i in PackReader(paths[n]).assets.values())
+                 for n in ("scene", "core")}
+    n_tris = sum(len(assets["meshes"][i["mesh"]][1]) // 3 for i in assets["instances"])
+    n_maps = len(assets["textures"])
+    phase("3a", f"scene pack: the bench scene's MODL ({len(assets['instances'])} instances, "
+                f"{n_tris} triangles, {len(assets['materials'])} materials, {n_maps} maps "
+                f"of {PACK_MAP_SIZE}^2 with {assets['textures'][0]['levels']} mips: "
+                f"{sum(t_['format'] == 3 for t_ in assets['textures'])} BC3, "
+                f"{sum(t_['format'] == 0 for t_ in assets['textures'])} RGBA, "
+                f"{sum(t_['format'] == 5 for t_ in assets['textures'])} RGBE), the rigged "
+                f"column ({len(column['vertices'])} vertices, {len(column['bones'])} bones) "
+                f"and {len(column['clips'])} clips: {size['scene']} bytes on disk LZ4, "
+                f"{size['scene_raw']} raw (payloads {raw_bytes['scene']} bytes; ratio "
+                f"{size['scene'] / size['scene_raw']:.4f}); core pack at its default sizes "
+                f"{size['core']} bytes LZ4, {size['core_raw']} raw (ratio "
+                f"{size['core'] / size['core_raw']:.4f}); the lathe OBJ's pack "
+                f"{os.path.getsize(lathe_path)} bytes ({time.perf_counter() - t_all:.1f} s)")
+
+    # ---- 4a. load: the manager, the codecs, the uploader
+    mgr = AssetManager(workers=PACK_WORKERS)
+    base_s, base_c = mgr.load(paths["scene"]), mgr.load(paths["core"])
+    ids = sorted(mgr._assets)
+    t0 = time.perf_counter()
+    for a in ids:
+        mgr.request(a)
+    while not all(mgr.ready(a) or mgr.error(a) is not None for a in ids):
+        if time.perf_counter() - t0 > 300:
+            raise RuntimeError("the manager did not decode the packs in 300 s")
+        time.sleep(0.001)
+    t["stream"] = time.perf_counter() - t0
+    failed = {a: mgr.error(a) for a in ids if mgr.error(a) is not None}
+    if failed:
+        raise RuntimeError(f"decodes failed: {failed}")
+    got = {a: mgr.request(a) for a in ids}
+    decoded_bytes = sum(mgr.find(a).info.datasize for a in ids)
+    # the scene pack against what the writer took
+    c = got[base_s + packscene.ID_COLUMN]
+    _tree_equal({k: c[k] for k in ("vertices", "indices", "rig", "bones")},
+                {k: np.asarray(column[k], dict(indices=np.uint32).get(k)) for k in
+                 ("vertices", "indices", "rig", "bones")}, "column")
+    for aid, clip in zip(packscene.ID_CLIPS, column["clips"]):
+        a = got[base_s + aid]
+        _tree_equal(dict(duration=a["duration"], joints=a["joints"], times=a["times"],
+                         transforms=a["transforms"]),
+                    dict(duration=float(np.float32(clip["duration"])), joints=clip["joints"],
+                         times=np.asarray(clip["times"], np.float32),
+                         transforms=np.asarray(clip["transforms"], np.float32)), f"clip {aid}")
+    n_mesh = len(assets["meshes"])
+    tex_ids = [packscene.ID_MESHES + n_mesh + i for i in range(n_maps)]
+    m = got[base_s + packscene.ID_MODEL]
+    _tree_equal(m["textures"], [dict(type=t_["type"], texture=aid)
+                                for t_, aid in zip(assets["textures"], tex_ids)], "textures")
+    _tree_equal(m["meshes"], [packscene.ID_MESHES + i for i in range(n_mesh)], "meshes")
+    for got_m, want in zip(m["materials"], assets["materials"]):
+        _tree_equal(got_m, {k: (np.asarray(v, np.float32) if k == "color"
+                                else float(np.float32(v)) if isinstance(v, float) else v)
+                            for k, v in want.items()}, "material")
+    _tree_equal([dict(i, transform=np.asarray(i["transform"], np.float32))
+                 for i in assets["instances"]], m["instances"], "instances")
+    for i, (v, idx) in enumerate(assets["meshes"]):
+        md = got[base_s + packscene.ID_MESHES + i]
+        _tree_equal([md["vertices"], md["indices"]], [v, idx], f"mesh {i}")
+    for t_, aid in zip(assets["textures"], tex_ids):
+        img = got[base_s + aid]
+        if b"".join(mm.tobytes() for mm in img["mips"]) != t_["payload"]:
+            raise RuntimeError(f"image {aid}: the decoded mips differ from the payload")
+    # the core pack against its raw build
+    raw = PackReader(paths["core_raw"])
+    for a in ids:
+        if a >= base_c:
+            info = raw.assets[a - base_c]
+            name = dict(catl="catalog", imag="image", matl="material", anim="animation",
+                        modl="model", part="particlesystem").get(info.type, info.type)
+            _tree_equal(got[a], getattr(raw, name)(a - base_c), f"core asset {a - base_c}")
+    phase("4a", f"AssetManager ({PACK_WORKERS} workers): {len(ids)} assets of the scene "
+                f"pack (base {base_s}) and the core pack (base {base_c}), "
+                f"{decoded_bytes} payload bytes, decoded in {t['stream']:.3f} s; every "
+                f"scene asset equal to what the writer took, every core asset equal to "
+                f"the raw core pack's")
+
+    # the codecs on every CDAT block: each decodes the other's stream
+    blocks = _cdat_blocks(paths["scene"]) + _cdat_blocks(paths["core"])
+    t0 = time.perf_counter()
+    plain = []
+    cap = None
+    for blk, left in blocks:
+        cap = left if left >= 0 else cap - len(plain[-1])
+        plain.append(lz4.decompress(blk, cap))
+    # one call a block into a new buffer of the payload's remaining size
+    # (the JAX reader's calls), then PackReader.payload (each block into
+    # the payload's one buffer)
+    t["native_decode_calls"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for path in (paths["scene"], paths["core"]):
+        r = PackReader(path)
+        for aid in r.assets:
+            r.payload(aid)
+    t["native_decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for (blk, _), p in zip(blocks, plain):
+        if lz4.py_decompress(blk, len(p)) != p:
+            raise RuntimeError("the Python codec decodes a native block differently")
+    t["python_decode"] = time.perf_counter() - t0
+    plain_bytes = sum(len(p) for p in plain)
+    caps = [len(p) + len(p) // 255 + 64 for p in plain]
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            8, mp_context=multiprocessing.get_context("spawn")) as pool:
+        streams = list(pool.map(lz4.py_compress, plain, caps, chunksize=16))
+    t["python_compress"] = time.perf_counter() - t0
+    for (s, used), p in zip(streams, plain):
+        if used != len(p) or lz4.decompress(s, len(p)) != p:
+            raise RuntimeError("the native codec decodes a Python block differently")
+    phase("4a", f"LZ4 on all {len(blocks)} CDAT blocks ({plain_bytes} bytes out): the "
+                f"native and the Python codec decode each native block to the same bytes, "
+                f"and the native codec decodes each block's Python stream (8 processes, "
+                f"{t['python_compress']:.1f} s) to its bytes")
+
+    # the uploader on its CUDA side stream
+    up = DeviceUploader(dev)
+    host, parked = {}, []
+    for a in ids:
+        info = mgr.find(a).info
+        up.submit(a, got[a])
+        flat = _uploadable(info, got[a])
+        if flat is not None:
+            up.submit(("arrays", a), flat)
+            host[("arrays", a)] = flat
+        if info.type in ("imag", "matl", "modl", "font"):
+            host[a] = got[a]
+    up.flush()
+    for a in ids:
+        try:
+            dev_p = up.get(a)
+        except TypeError:
+            parked.append(mgr.find(a).type)
+            continue
+        if a not in host:
+            raise RuntimeError(f"asset {a} ({mgr.find(a).type}) uploaded; expected a "
+                               "TypeError")
+    n_leaves = 0
+    for k, h in host.items():
+        dev_p = up.get(k)
+        if _leaf_bytes(dev_p) != _leaf_bytes(h):
+            raise RuntimeError(f"upload {k}: the card's bytes differ from the host's")
+        if any(tt.device != dev for tt in upload_tensors(dev_p)):
+            raise RuntimeError(f"upload {k}: a tensor off the card")
+        n_leaves += len(_leaf_bytes(h))
+    img_keys = [a for a in host if not isinstance(a, tuple) and mgr.find(a).type == "imag"]
+    bad, overlapped = upload_under_load(up, img_keys, host)
+    if bad or not overlapped:
+        raise RuntimeError(f"upload under load: {bad} reads differ from the host bytes "
+                           f"(re-uploads landed before the reads: {overlapped})")
+    for k in img_keys:
+        up.submit(k, host[k])
+    up.flush()
+    bad_unrecorded, overlapped_u = upload_under_load(up, img_keys, host, record=False)
+    phase("4a", f"DeviceUploader on its CUDA stream: {len(host)} payloads ({n_leaves} "
+                f"arrays) bit-equal to the host copies; parked TypeErrors for "
+                f"{sorted(set(parked))} as jax.device_put would (their arrays uploaded "
+                f"apart); {len(img_keys)} images read on the default stream behind a ~1 s "
+                f"kernel while the uploader evicted them and uploaded their complements: "
+                f"0 reads differ (re-uploads landed first: {overlapped}); without "
+                f"get()'s record_stream {bad_unrecorded} reads of "
+                f"{sum(len(_leaf_bytes(host[k])) for k in img_keys)} differ")
+
+    # ---- the pack scene and its in-memory twin
+    t0 = time.perf_counter()
+    sky = SkyBox(size=64, convolve_samples=16, device=dev)
+    reader = PackReader(paths["scene"])
+    pctx, pcam, pparams, pmake, _, pmodel = packscene.pack_scene(
+        W, H, pack=reader, skybox=sky, device=dev, **PACK_CFG)
+    mctx, mcam, mparams, mmake, _, _ = packscene.pack_scene(
+        W, H, assets=assets, column=column, skybox=sky, device=dev, **PACK_CFG)
+    cfg = pctx.config
+    pstate, mstate = pctx.device_state(dev), mctx.device_state(dev)
+    t_build = time.perf_counter() - t0
+    for k in ("geometry", "materials", "matmaps"):
+        for name, v in pstate[k].items():
+            if not torch.equal(v, mstate[k][name]):
+                raise RuntimeError(f"pack scene vs in-memory scene: state {k}.{name} differs")
+    p_in, m_in = [], []
+    for f in range(3):
+        for ctx_, cam_, par_, make_, acc in ((pctx, pcam, pparams, pmake, p_in),
+                                             (mctx, mcam, mparams, mmake, m_in)):
+            rl = make_(0.0, 1 / 60)
+            acc.append((ctx_.frame_draws(rl, cam_),
+                        make_sceneset(cam_, par_, point_lights=rl.point_lights,
+                                      spot_lights=rl.spot_lights, probes=rl.probes)))
+    draws, ss = p_in[0]
+    d_t, s_t = to_torch(draws, dev), to_torch(ss, dev)
+    ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, pstate, d_t, s_t)
+    setup, bins, counts, big_ids, ovf = F._bin_stage(cfg, ex, clip)
+    if int(ovf):
+        raise RuntimeError(f"pack frame bin overflow {int(ovf)}")
+    k3 = []
+    for name, stk in zip(STACKS, shadow_stacks(cfg, ex, wp, s_t)):
+        sb, sc, sg = shadow_ops.bin_stack(stk, cfg.shadow_bin_capacity, cfg.big_capacity)
+        inp = depth_inputs(stk["setup"], sb, sg, sc, stk["tiles_x"], stk["res"],
+                           stk["height"])
+        require_equal(raster_depth_cuda(**inp), raster_depth_reference(**inp),
+                      f"K3 vs plain on the pack frame's {name}")
+        k3.append(name)
+    k1_in = raster_inputs(setup, bins, big_ids, counts, ex["tris"], uv, wn, d_t["tri_mat"],
+                          pstate["materials"], cfg.tiles_x, cfg.padded_width,
+                          cfg.padded_height, wt)
+    pk = raster_shade_cuda(**k1_in)
+    check_k1(pk, raster_shade_reference(**k1_in), "pack frame, opaque layer")
+    kp = dict(zip(PLANE_NAMES, pk))
+    shadows = F._shadow_stage(cfg, ex, wp, s_t)
+    gpl, ss2, spotsf, ao, _ = F._shade_inputs(cfg, kp, pstate, d_t, s_t, shadows)
+    k2_in = shade_inputs(gpl, ss2, proj=s_t["proj"], invview=s_t["invview"], ao=ao,
+                         spotsf=spotsf)
+    hk, hr = shade_deferred_cuda(**k2_in), shade_deferred_reference(**k2_in)
+    torch.cuda.synchronize()
+    k2_err = (hk - hr).abs().max().item()
+    if not torch.isfinite(hk).all() or not torch.allclose(hk, hr, atol=1e-4, rtol=1e-3):
+        raise RuntimeError(f"K2 vs plain on the pack frame: max abs err {k2_err}")
+    ts = F.translucent_stream(pstate, d_t, s_t)
+    st = F.oit_stream(cfg, pstate, d_t, s_t, ts, None)
+    obins, ocounts, obig = F.oit_bins(cfg, st)
+    k4_in = blend_inputs(st["setup"], obins, obig, ocounts, st["tris"], st["uv"],
+                         st["color"], kp["depth"], cfg.tiles_x, cfg.padded_width,
+                         cfg.padded_height, "per_tri", None, st["soft_flag"],
+                         st["peel_flag"])
+    k4_err = check_same(raster_blend_cuda(**k4_in), raster_blend_reference(**k4_in),
+                        "K4, pack frame's merged stream", tag="4a")
+    n_mat = pctx.n_materials
+    mapped = int((pstate["matmaps"]["size"][:n_mat] > 1).sum())
+    table_mb = pstate["matmaps"]["table"].numel() / 1e6
+    phase("4a", f"pack frame {W}x{H} (built in {t_build:.1f} s; its state equal to the "
+                f"in-memory scene's): K3 on the {len(k3)} stacks bit-identical to plain, K1 "
+                f"above, K2 vs plain hdr max abs err {k2_err:.3g} (atol 1e-4, rtol 1e-3), K4 "
+                f"{k4_err:.3g}; {mapped} of {n_mat} materials with maps over 1x1 (the material-"
+                f"map table {table_mb:.1f} MB on the card)")
+
+    # ---- 5a. render: the pack frame, its twin, the examples
+    render_p = lambda d, s: F.render_frame(cfg, pstate, d, s, device=dev)
+    render_m = lambda d, s: F.render_frame(mctx.config, mstate, d, s, device=dev)
+    per_frame = {"raster_shade": 2, "shade_deferred": 2, "raster_depth": 3,
+                 "raster_blend": 1, "shade_epilogue": 1}
+    pf, _, _, _ = drive(render_p, p_in, kernels, per_frame,
+                        forbid=("raster_shade_2p", "raster_v1", "raster_mxu", "gather_rows",
+                                "shade_deferred_envd", "sprite_pass"))
+    if any(f[n] != v for f in pf for n, v in per_frame.items()):
+        raise RuntimeError(f"pack frame launches {pf}, expected {per_frame} a frame")
+    imgs = []
+    for (pd, ps_), (md, ms) in zip(p_in, m_in):
+        a, b = render_p(pd, ps_)["image"], render_m(md, ms)["image"]
+        if not torch.equal(a, b):
+            raise RuntimeError(f"the pack frame differs from the in-memory frame: "
+                               f"{image_diff(a, b)}")
+        imgs.append(a)
+    moved = [image_diff(a, b)[0] for a, b in zip(imgs, imgs[1:])]
+    if not all(v > 0 for v in moved):
+        raise RuntimeError(f"the animated pack frames do not move: {moved}")
+    phase("5a", f"3 pack frames {W}x{H} (the column's Animator + 1/60 s a frame): launches "
+                f"per frame {pf}; each equal bit for bit to the frame of the scene built in "
+                f"memory; image mean {imgs[-1].float().mean().item():.2f}, mean |d| between "
+                f"frames {', '.join(f'{v:.4f}' for v in moved)} levels")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                           "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    card_png = {}
+    for name, mod, pack in (("teapot", teapot, lathe_path), ("character", character,
+                                                              paths["scene"])):
+        out = os.path.join(out_dir, f"{name}_card.png")
+        st_ = mod.main([*EXAMPLE_ARGV, "--pack", pack, "--out", out])
+        if st_["ctx"].bin_overflow:
+            raise RuntimeError(f"{name} example: bin overflow {st_['ctx'].bin_overflow}")
+        card_png[name] = out
+    t_card = time.perf_counter() - t0
+    proc, cpu_dir, cpu_out = cpu_job
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    t_wait = time.perf_counter() - t0
+    with open(os.path.join(cpu_out, "cpu_examples.log")) as f:
+        cpu_log = f.read()
+    if rc != 0:
+        raise RuntimeError(f"the CPU examples failed (exit {rc}):\n{cpu_log[-2000:]}")
+    cpu_lathe, cpu_char = (os.path.join(cpu_dir, n) for n in ("lathe.pack", "character.pack"))
+    if open(cpu_lathe, "rb").read() != open(lathe_path, "rb").read():
+        raise RuntimeError("the CPU run's lathe pack differs from this run's")
+    cr = PackReader(cpu_char)
+    for aid in (packscene.ID_COLUMN, *packscene.ID_CLIPS):
+        if cr.payload(aid) != reader.payload(aid):
+            raise RuntimeError(f"the CPU run's character asset {aid} differs")
+    ex_rmse = {}
+    for name in card_png:
+        a = read_png_rgb(card_png[name]).astype(np.float32)
+        b = read_png_rgb(os.path.join(cpu_out, f"{name}_cpu.png")).astype(np.float32)
+        ex_rmse[name] = (float(np.sqrt(np.mean(((a - b) / 255.0) ** 2))),
+                         float(np.abs(a - b).mean()), float(b.mean()))
+        if not ex_rmse[name][0] < 2 / 255 or not ex_rmse[name][2] > 10:
+            raise RuntimeError(f"{name} example card vs CPU: {ex_rmse[name]}")
+    phase("5a", f"teapot (the lathe OBJ: {len(PackReader(lathe_path).mesh(0)['vertices'])} "
+                f"vertices) and character (the scene pack) examples through their "
+                f"harness, {EXAMPLE_ARGV[3]}x{EXAMPLE_ARGV[5]}, {EXAMPLE_ARGV[1]} frames, on "
+                f"the card "
+                f"({t_card:.1f} s) vs the CPU plain path (a child process; waited "
+                f"{t_wait:.1f} s; {cpu_log.strip().replace(chr(10), '; ')}): "
+                + "; ".join(f"{n} RMSE {r:.6f}, mean |d| {d:.4f} levels" for n, (r, d, _)
+                            in ex_rmse.items()) + f" (gate < {2 / 255:.6f})")
+
+    # ---- 6a. timing (informational: no gain is claimed)
+    codec = dict(native=mb(decoded_bytes) / t["native_decode"],
+                 native_calls=mb(plain_bytes) / t["native_decode_calls"],
+                 python=mb(plain_bytes) / t["python_decode"])
+    up_bytes = sum(len(b) for k in img_keys for b in _leaf_bytes(host[k]))
+    for k in img_keys:
+        up.evict(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in img_keys:
+        up.submit(("timed", k), host[k])
+    up.flush()
+    t_up = time.perf_counter() - t0
+    arrays = [a for k in img_keys for a in host[k]["mips"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_up = [torch.from_numpy(a).to(dev) for a in arrays]
+    torch.cuda.synchronize()
+    t_plain_up = time.perf_counter() - t0
+    del plain_up
+    up.close()
+    load_ms = []
+    for _ in range(3):
+        lctx = RenderContext(cfg, device=dev)
+        t0 = time.perf_counter()
+        Model.load(Scene(), lctx, reader, packscene.ID_MODEL)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    render_b, b_inputs = bench
+    runs = dict(bench=[frame_ms(render_b, b_inputs)], pack=[])
+    runs["pack"] += [frame_ms(render_p, p_in), frame_ms(render_p, p_in)]
+    runs["bench"].append(frame_ms(render_b, b_inputs))
+    ms_p, ms_b = statistics.mean(runs["pack"]), statistics.mean(runs["bench"])
+    prof_p, prof_b = profile_frames(render_p, p_in), profile_frames(render_b, b_inputs)
+    names_p, names_b = kernel_counts(render_p, p_in), kernel_counts(render_b, b_inputs)
+    moved_k = sorted(((names_p.get(k, 0) - names_b.get(k, 0), k) for k in {*names_p, *names_b}
+                      if names_p.get(k, 0) != names_b.get(k, 0)), key=lambda x: -abs(x[0]))
+    mgr.close()
+    phase("6a", f"write: scene assets generated (maps, BC3) in {t_assets:.2f} s; the scene "
+                f"pack written raw in {t['scene_raw']:.3f} s and with LZ4 in "
+                f"{t['scene']:.3f} s; the core pack built raw in {t['core_raw']:.2f} s and "
+                f"with LZ4 in {t['core']:.2f} s; the lathe OBJ through obj_to_pack "
+                f"{t['obj_to_pack']:.3f} s (host)")
+    phase("6a", f"decode: PackReader.payload of every asset (native LZ4 into the "
+                f"payload's buffer) {codec['native']:.1f} MB/s; the native codec one call a "
+                f"block into a buffer of the payload's remaining size (the JAX reader's "
+                f"calls) {codec['native_calls']:.1f} MB/s; the Python codec "
+                f"{codec['python']:.2f} MB/s ({mb(plain_bytes):.1f} MB out of {len(blocks)} "
+                f"blocks; Python compress on 8 processes {t['python_compress']:.1f} s); the "
+                f"manager streaming both packs on {PACK_WORKERS} workers "
+                f"{mb(decoded_bytes) / t['stream']:.1f} MB/s ({t['stream']:.3f} s for "
+                f"{mb(decoded_bytes):.1f} MB of payloads) (host)")
+    phase("6a", f"upload of the {len(img_keys)} images ({mb(up_bytes):.1f} MB): "
+                f"DeviceUploader (pinned staging, side stream, one fence a payload) "
+                f"{up_bytes / t_up / 1e9:.2f} GB/s ({t_up * 1e3:.1f} ms), plain .to(card) "
+                f"from pageable memory {up_bytes / t_plain_up / 1e9:.2f} GB/s "
+                f"({t_plain_up * 1e3:.1f} ms), wall, synced, on {card}")
+    phase("6a", f"Model.load ({n_maps} maps decoded, {len(assets['materials'])} materials, "
+                f"{n_mesh} meshes, {len(assets['instances'])} instances; host) "
+                f"{statistics.median(load_ms):.1f} ms (median of 3: "
+                f"{', '.join(f'{v:.1f}' for v in load_ms)})")
+    phase("6a", f"pack frame {ms_p:.3f} ms/frame, bench frame {ms_b:.3f} (each the mean of 2 "
+                f"medians of 7, timed bench, pack x2, bench: {runs['bench'][0]:.3f}, "
+                f"{runs['pack'][0]:.3f}, {runs['pack'][1]:.3f}, {runs['bench'][1]:.3f}; CUDA "
+                f"events, {W}x{H}); under torch.profiler {prof_p[0]:.3f} ms of device time "
+                f"and {prof_p[1]:.0f} launches a frame vs {prof_b[0]:.3f} ms and "
+                f"{prof_b[1]:.0f} on {card}")
+    phase("6a", "device kernels a frame, pack minus bench, by name (largest first): "
+          + "; ".join(f"{d:+.0f} {k[:60]}" for d, k in moved_k[:12]))
+    shutil.rmtree(pack_dir(), ignore_errors=True)
+    phase("6a", f"phases 3a-6a took {time.perf_counter() - t_all:.1f} s")
+    return dict(t=t, codec=codec, up_gbs=up_bytes / t_up / 1e9,
+                plain_up_gbs=up_bytes / t_plain_up / 1e9, load_ms=statistics.median(load_ms),
+                ms_pack=ms_p, ms_bench=ms_b, prof_p=prof_p, prof_b=prof_b, launches=pf[0],
+                ex_rmse=ex_rmse, k2_err=k2_err, k4_err=k4_err, size=size,
+                bad_unrecorded=bad_unrecorded)
+
+
 def versions_phase(path, card, sets):
     """--versions FILE: other versions of K1's, K6's, K2's, K3's, K4's,
     K5's and K7's sources, timed beside this build's on the same inputs.
@@ -2788,6 +3513,9 @@ def main():
     phase(1, f"device {kind}, count {torch.cuda.device_count()}, torch "
              f"{torch.__version__}, CUDA {torch.version.cuda}, TF32 off")
     print(smi, flush=True)
+    # the teapot and character examples on the CPU, for phase 5a, run in a
+    # child process from here on
+    cpu_job = start_cpu_examples()
 
     from datum_tpu_torch.convert import to_torch
     from datum_tpu_torch.ops import _kernels
@@ -3224,6 +3952,7 @@ def main():
     vertex_phases(dev, card, kernels, (render_b, inputs))
     op = overlay_phases(dev, card, kernels, (render_b, inputs))
     pp = particle_phases(dev, card, kernels, (render_b, inputs))
+    pack_phases(dev, card, kernels, (render_b, inputs), cpu_job)
     if args.versions:
         k1_sets = [("bench opaque", k1_in), ("lit layer", lit_in), ("peeled layer", peel_in),
                    ("stress", st["inputs"]["k1"]), ("stress, early-z", st["inputs"]["k1z"])]

@@ -15,5 +15,9 @@ and text included) on the context's device, `convert.to_torch` moves
 numpy state (or the JAX package's state) onto a device, and
 `examples/city.py` runs the city example app (`scene/`: the ECS with
 frustum and occlusion culling; `debug/`: the profiling ring and its
-overlay).
+overlay).  `asset/` reads and writes .pack files (its LZ4 codec is
+`csrc/lz4.cpp`, built with g++ at first use), decodes them on worker
+threads and uploads them to the card on a CUDA side stream;
+`scene/model.py` loads a pack's model into the ECS; `tools/` holds the
+pack tools; `packscene.py` writes the packs the tests read from a seed.
 """

@@ -6,5 +6,6 @@ common.run_example, on the card unless --cpu asks for the CPU:
                                               --out PNG --overlay --cpu]
 
 with <name> one of triangle, material, skybox, ocean, stardust,
-asteroids, datumtest and city.
+asteroids, datumtest and city; teapot and character read a pack
+(--pack PATH).
 """

@@ -35,8 +35,9 @@ def write_png(path, image):
 
 
 def run_example(name, init, update, render, frames=8, width=640, height=352,
-                out=None, argv=None):
-    """Parse --frames --width --height --out --overlay --cpu from argv
+                out=None, argv=None, options=()):
+    """Parse --frames --width --height --out --overlay --cpu (and the
+    example's own options: (flag, argparse keywords) pairs) from argv
     (default sys.argv), then init(args) (args.device: "cuda", or "cpu"
     under --cpu), and per frame a frame marker, update(state, 1/60) and
     render(state) under the debug ring's timed blocks "update" and
@@ -52,6 +53,8 @@ def run_example(name, init, update, render, frames=8, width=640, height=352,
     parser.add_argument("--out", default=out or os.path.join(tempfile.gettempdir(),
                                                              f"{name}.png"))
     parser.add_argument("--overlay", action="store_true")
+    for flag, kw in options:
+        parser.add_argument(flag, **kw)
     args = parser.parse_args(argv)
     args.device = "cpu" if args.cpu else "cuda"
     if args.device == "cuda":

@@ -6,8 +6,9 @@ looping and translation scale), accumulates the joints down the
 hierarchy and composes each with its bone's inverse bind transform into
 the (B, 8) dual-quaternion palette that ops/geometry.py::skin_vertices
 reads.  An Animation is built from arrays (`Animation(duration, joints,
-times, transforms)`); decoding one from a pack waits for the asset
-module."""
+times, transforms)`) or from a pack's ANIM asset
+(`Animation.from_asset(pack.animation(id))`); the Animator takes a
+pack's bone table (`pack.mesh(id)["bones"]`) or (name, invbind) pairs."""
 
 from __future__ import annotations
 
@@ -38,6 +39,12 @@ class Animation:
         self.times = np.asarray(times, np.float32)
         self.transforms = np.asarray(transforms, np.float32)
 
+    @classmethod
+    def from_asset(cls, decoded):
+        """From asset/pack.py's PackReader.animation payload."""
+        return cls(decoded["duration"], decoded["joints"], decoded["times"],
+                   decoded["transforms"])
+
 
 class _Channel:
     __slots__ = ("animation", "time", "rate", "weight", "looping", "scale", "jointmap")
@@ -56,10 +63,16 @@ class Animator:
     """Blends channels into a skeleton pose each update."""
 
     def __init__(self, bones):
-        """bones: a list of (name, inverse bind transform (8,)) tuples (a
-        pack's bone table waits for the asset module)."""
-        self.bone_names = [b[0] for b in bones]
-        self.bind = np.asarray([b[1] for b in bones], np.float32)
+        """bones: a pack's bone table, a (B,) structured array with fields
+        name (S32, NUL-padded) and transform (8,) (asset/pack.py
+        BONE_DTYPE), or a list of (name, inverse bind transform (8,))
+        tuples."""
+        if hasattr(bones, "dtype"):
+            self.bone_names = [n.split(b"\0")[0].decode() for n in bones["name"]]
+            self.bind = np.asarray(bones["transform"], np.float32)
+        else:
+            self.bone_names = [b[0] for b in bones]
+            self.bind = np.asarray([b[1] for b in bones], np.float32)
         self.pose = Pose(len(self.bind))
         self.channels: list[_Channel] = []
         # skeleton joints: built from the first animation's joints

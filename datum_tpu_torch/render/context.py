@@ -105,11 +105,14 @@ class GeometryPool:
                  rig=None) -> MeshHandle:
         """vertices: dict of arrays (position, texcoord, normal, tangent,
         and for a terrain its geomorph targets morph_position and
-        morph_normal, stored as deltas for the vertex stage); indices:
+        morph_normal, stored as deltas for the vertex stage) or a pack's
+        structured vertex array (asset/pack.py VERTEX_DTYPE); indices:
         (K,) or (K/3, 3) mesh-local triangle indices; mincorner and
         maxcorner: the handle's bounds (default: the positions'); rig: a
         structured array with fields bone (4 int) and weight (4 float)
         per vertex (default: bone 0 at weight 1)."""
+        if isinstance(vertices, np.ndarray) and vertices.dtype.names:
+            vertices = {k: vertices[k] for k in vertices.dtype.names}
         pos = np.asarray(vertices["position"], np.float32)
         uv = np.asarray(vertices.get("texcoord", np.zeros((len(pos), 2))), np.float32)
         nrm = np.asarray(vertices.get("normal", np.tile([0, 0, 1.0], (len(pos), 1))), np.float32)

@@ -38,6 +38,22 @@ class _ParticleCloud:
         self.alive = np.ones(n, bool)
 
 
+def bench_colorlut(size=32):
+    """The flagship scene's colour-grading LUT (size^3 x 3): a mild S-curve
+    contrast with warm highlights; smooth, so set_colorlut grades through
+    its fitted polynomial."""
+    gax = np.linspace(0.0, 1.0, size, dtype=np.float32)
+    lb, lg, lr = np.meshgrid(gax, gax, gax, indexing="ij")
+    lum_ = 0.2126 * lr + 0.7152 * lg + 0.0722 * lb
+    con = lambda x: x + 0.12 * x * (1.0 - x) * (2.0 * x - 1.0)
+    hw_ = lum_ ** 2
+    return np.stack([
+        con(lr) + 0.035 * hw_ * (1 - con(lr)),
+        con(lg) + 0.010 * hw_ * (1 - con(lg)),
+        con(lb),
+    ], -1)
+
+
 def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
                     n_point_lights=8, skybox=True, skybox_size=64, local_env=False,
                     vertex_modes=False, ocean_grid=96, device="cuda", **cfg_kw):
@@ -105,20 +121,7 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
                 color=(0.8, 0.16, 0.12, 1), metalness=metal, roughness=rough,
                 reflectivity=0.5))
 
-    # colour-grading LUT: mild S-curve contrast, warm highlights; smooth,
-    # so set_colorlut grades through its fitted polynomial
-    s_ = 32
-    gax = np.linspace(0.0, 1.0, s_, dtype=np.float32)
-    lb, lg, lr = np.meshgrid(gax, gax, gax, indexing="ij")
-    lum_ = 0.2126 * lr + 0.7152 * lg + 0.0722 * lb
-    con = lambda x: x + 0.12 * x * (1.0 - x) * (2.0 * x - 1.0)
-    hw_ = lum_ ** 2
-    lut = np.stack([
-        con(lr) + 0.035 * hw_ * (1 - con(lr)),
-        con(lg) + 0.010 * hw_ * (1 - con(lg)),
-        con(lb),
-    ], -1)
-    ctx.set_colorlut(lut)
+    ctx.set_colorlut(bench_colorlut())
 
     camera = Camera()
     camera.set_projection(np.radians(60), width / height)

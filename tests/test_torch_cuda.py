@@ -30,7 +30,12 @@ The animated vertex stage (no kernel of its own): skinning, the wind
 bends (both forms) and the ocean (torch.fft maps, the slab of an Ocean
 on the card) within atol/rtol 1e-5 of the CPU (the maps within 1e-5 of
 their max |value|), and the vertex-modes frame on the card against the
-CPU plain path (the patched pool bit for bit)."""
+CPU plain path (the patched pool bit for bit).  The pack pipeline: the
+DeviceUploader's payloads land bit-equal to their host bytes on its side
+stream and stay so while the default stream reads them behind a long
+kernel and the uploader evicts them and re-uploads (allocator reuse);
+the native LZ4 codec builds with the machine's g++ and agrees with the
+Python codec both ways."""
 
 import dataclasses
 
@@ -1352,3 +1357,106 @@ def test_sprite_pass_raises_rather_than_falling_back(card):
     flat = torch.zeros(32 * 32 * 4 + 1, device=card)
     with pytest.raises(ValueError):
         composite_sprites(rgb, inst, flat[1:].view(32, 32, 4), 64)    # misaligned
+
+
+# ---------------------------------------------------------------------------
+# the pack pipeline on the card: the uploader's side stream, the LZ4 build
+# ---------------------------------------------------------------------------
+
+def _upload_tree(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _upload_tree(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _upload_tree(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def test_uploader_lands_payloads_bit_equal(card):
+    """Every leaf of a payload tree lands on the card equal to its host
+    bytes (u32 mips, u16, f32, a numpy scalar); ready() only once landed;
+    a structured array parks a TypeError."""
+    from datum_tpu_torch.asset import DeviceUploader
+
+    rng = np.random.RandomState(0)
+    host = {i: dict(mips=[rng.randint(0, 2 ** 32, (1, 64 >> j, 64 >> j), dtype=np.uint64)
+                          .astype(np.uint32) for j in range(7)],
+                    x=rng.randint(0, 60000, 9).astype(np.uint16),
+                    color=rng.rand(4).astype(np.float32), level=np.int32(i), width=64)
+            for i in range(6)}
+    up = DeviceUploader(card)
+    try:
+        assert up.stream is not None and up.device == card
+        for k, p in host.items():
+            up.submit(k, p)
+        up.submit("mesh", dict(v=np.zeros(4, [("position", np.float32, 3)])))
+        up.flush()
+        for k, p in host.items():
+            assert up.ready(k)
+            got = up.get(k)
+            assert got["width"] == 64
+            for t, h in zip(_upload_tree(got), [*p["mips"], p["x"], p["color"], p["level"]]):
+                assert t.device == card and t.shape == h.shape
+                assert t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes() == h.tobytes()
+        with pytest.raises(TypeError):
+            up.get("mesh")
+    finally:
+        up.close()
+
+
+def test_uploader_cross_stream_under_allocator_reuse(card):
+    """Tensors the side stream allocated, read on the default stream
+    behind a ~0.5 s kernel while the uploader evicts them and uploads the
+    bitwise complements (allocations that would reuse their blocks): the
+    reads see the host bytes, because get() records the reading stream."""
+    from datum_tpu_torch.asset import DeviceUploader
+
+    rng = np.random.RandomState(1)
+    host = {i: dict(mips=[rng.randint(0, 2 ** 32, (1, 256, 256), dtype=np.uint64)
+                          .astype(np.uint32)]) for i in range(8)}
+    up = DeviceUploader(card)
+    try:
+        for k, p in host.items():
+            up.submit(k, p)
+        up.flush()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000_000)
+        reads = []
+        for k in host:
+            t = up.get(k)["mips"][0]
+            reads.append(t.reshape(-1).view(torch.uint8).clone())
+            up.evict(k)
+            del t
+        queued = torch.cuda.Event()
+        queued.record()
+        for k, p in host.items():
+            up.submit(("again", k), dict(mips=[~p["mips"][0]]))
+        up.flush()
+        assert not queued.query(), "the re-uploads did not land before the reads ran"
+        torch.cuda.synchronize()
+        for r, p in zip(reads, host.values()):
+            assert r.cpu().numpy().tobytes() == p["mips"][0].tobytes()
+        for k, p in host.items():
+            got = up.get(("again", k))["mips"][0]
+            assert got.cpu().numpy().tobytes() == (~p["mips"][0]).tobytes()
+    finally:
+        up.close()
+
+
+def test_lz4_native_codec_builds_and_agrees(card):
+    """The native codec builds with the machine's g++ and agrees with the
+    plain Python codec both ways; a pack round trip through CDAT."""
+    from datum_tpu_torch.asset import lz4
+    from datum_tpu_torch.asset.pack import IMAGE_RGBA, PackReader, PackWriter
+
+    assert lz4.build().exists()
+    rng = np.random.RandomState(2)
+    data = (b"abcabcabc" * 500) + rng.bytes(1000) + (np.arange(20000, dtype=np.uint32) // 7
+                                                     ).tobytes()
+    comp, used = lz4.compress(data, len(data) * 2)
+    assert used == len(data) and lz4.py_decompress(comp, used) == data
+    pcomp, pused = lz4.py_compress(data, len(data) * 2)
+    assert lz4.decompress(pcomp, pused) == data
+    img = (np.arange(3 * 128 * 128, dtype=np.uint32) // 11).reshape(3, 128, 128)
+    w = PackWriter()
+    w.write_image(0, 128, 128, 3, 1, IMAGE_RGBA, img.tobytes(), compress=True)
+    assert np.array_equal(PackReader(w.finish()).image(0)["mips"][0], img)
