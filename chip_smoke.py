@@ -168,8 +168,9 @@ and exits non-zero:
    with the bench frame's launches, each bit-equal to the frame of the
    same scene built in memory; the teapot example (a seeded lathe OBJ
    through obj_to_pack) and the character example (the scene pack) at
-   320x160 for 3 frames on the card against the CPU plain path (run in a
-   child process from phase 1 on); the write, compress, decode, stream,
+   320x160 for 3 frames on the card against the CPU plain path (each run
+   in a child process from the end of 4a to 5a, beside none of the timings
+   below and of earlier phases); the write, compress, decode, stream,
    upload and Model.load times and the pack frame's ms beside the bench
    frame's, in turns and under torch.profiler;
 7. with --versions FILE, other versions of K1's, K6's, K2's, K3's, K4's,
@@ -489,10 +490,11 @@ def frame_ms(render, inputs, n=7):
     return statistics.median(times)
 
 
-def profile_frames(render, inputs):
+def profile_frames(render, inputs, by_name=False):
     """(device ms, kernel launches) per frame over a torch.profiler window
     of len(inputs) frames: the summed time of the kernels the card ran
-    (torch's and the port's) and the count of kernel launches."""
+    (torch's and the port's) and the count of kernel launches; with
+    by_name, also {device kernel name: launches a frame}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -508,23 +510,11 @@ def profile_frames(render, inputs):
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                 "cuLaunchKernel", "cuLaunchKernelEx"))
-    return device_us / 1e3 / len(inputs), launches / len(inputs)
-
-
-def kernel_counts(render, inputs):
-    """{device kernel name: launches a frame} over a torch.profiler window
-    of len(inputs) frames."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for draws, ss in inputs:
-            render(draws, ss)
-        torch.cuda.synchronize()
-    return {e.key: e.count / len(inputs) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    out = (device_us / 1e3 / len(inputs), launches / len(inputs))
+    if by_name:
+        out += ({e.key: e.count / len(inputs) for e in events
+                 if e.device_type == DeviceType.CUDA},)
+    return out
 
 
 def stage_ms(cfg, state, draws, ss, dev, reps=5):
@@ -2739,43 +2729,48 @@ def write_example_packs(directory):
     return lathe, char
 
 
-def cpu_examples(directory, out_dir, argv):
-    """The teapot and the character example through their harness on the
-    CPU (the plain path) with argv, on write_example_packs' packs; their
-    PNGs go to out_dir as <name>_cpu.png.  chip_smoke runs this in a
-    child process while the card works (start_cpu_examples)."""
+def cpu_example(name, directory, out_dir, argv):
+    """The teapot or the character example (name) through its harness on
+    the CPU (the plain path) with argv, on write_example_packs' packs in
+    directory; its PNG goes to out_dir as <name>_cpu.png.  chip_smoke runs
+    each example in a child process of its own while the card works
+    (start_cpu_examples)."""
     import torch
 
     from datum_tpu_torch.examples import character, teapot
 
     torch.set_num_threads(2)           # beside the main process's host work
+    t0 = time.perf_counter()
     lathe, char = write_example_packs(directory)
-    for name, mod, pack in (("teapot", teapot, lathe), ("character", character, char)):
-        t0 = time.perf_counter()
-        mod.main(["--cpu", *argv, "--pack", pack,
-                  "--out", os.path.join(out_dir, f"{name}_cpu.png")])
-        print(f"{name} on the CPU: {time.perf_counter() - t0:.1f} s", flush=True)
+    mod, pack = dict(teapot=(teapot, lathe), character=(character, char))[name]
+    mod.main(["--cpu", *argv, "--pack", pack,
+              "--out", os.path.join(out_dir, f"{name}_cpu.png")])
+    print(f"{name} on the CPU: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def start_cpu_examples():
-    """Start cpu_examples in a child process that sees no card (its log in
-    chiprun_out/examples/cpu_examples.log); returns (the process, its pack
-    directory, the PNGs' directory).  The process is killed at exit if it
-    still runs."""
+    """Start cpu_example for the teapot and for the character, each in a
+    child process that sees no card (its log in
+    chiprun_out/examples/<name>_cpu.log); returns ({name: (the process,
+    its pack directory)}, the PNGs' directory).  The processes are
+    killed at exit if they still run."""
     import atexit
 
     here = os.path.dirname(os.path.abspath(__file__))
-    directory = pack_dir("cpu")
     out_dir = os.path.join(here, "chiprun_out", "examples")
     os.makedirs(out_dir, exist_ok=True)
-    log = open(os.path.join(out_dir, "cpu_examples.log"), "w")
-    code = (f"import chip_smoke; chip_smoke.cpu_examples({directory!r}, {out_dir!r}, "
-            f"{EXAMPLE_ARGV!r})")
-    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here, stdout=log,
-                            stderr=subprocess.STDOUT,
-                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc, directory, out_dir
+    jobs = {}
+    for name in ("teapot", "character"):
+        directory = pack_dir(f"cpu_{name}")
+        log = open(os.path.join(out_dir, f"{name}_cpu.log"), "w")
+        code = (f"import chip_smoke; chip_smoke.cpu_example({name!r}, {directory!r}, "
+                f"{out_dir!r}, {EXAMPLE_ARGV!r})")
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=here, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        jobs[name] = (proc, directory)
+    return jobs, out_dir
 
 
 def _tree_equal(a, b, where="payload"):
@@ -2827,32 +2822,26 @@ def _cdat_blocks(path):
 
 
 def _leaf_bytes(tree):
-    """The array leaves of a payload tree, flattened, as bytes."""
+    """The array leaves of a payload tree (numpy or torch), in order, as
+    bytes."""
     import numpy as np
     import torch
 
-    if isinstance(tree, dict):
-        return [b for v in tree.values() for b in _leaf_bytes(v)]
-    if isinstance(tree, (list, tuple)):
-        return [b for v in tree for b in _leaf_bytes(v)]
-    if isinstance(tree, torch.Tensor):
-        return [tree.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()]
-    if isinstance(tree, (np.ndarray, np.generic)):
-        return [np.asarray(tree).tobytes()]
-    return []
+    from datum_tpu_torch.asset.upload import leaves
+
+    return [x.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+            if isinstance(x, torch.Tensor) else np.asarray(x).tobytes()
+            for x in leaves(tree) if isinstance(x, (torch.Tensor, np.ndarray, np.generic))]
 
 
 def _device_reads(tree):
     """Byte copies of every tensor leaf, queued on the current stream."""
     import torch
 
-    if isinstance(tree, dict):
-        return [r for v in tree.values() for r in _device_reads(v)]
-    if isinstance(tree, (list, tuple)):
-        return [r for v in tree for r in _device_reads(v)]
-    if isinstance(tree, torch.Tensor):
-        return [tree.reshape(-1).view(torch.uint8).clone()]
-    return []
+    from datum_tpu_torch.asset.upload import leaves
+
+    return [x.reshape(-1).view(torch.uint8).clone() for x in leaves(tree)
+            if isinstance(x, torch.Tensor)]
 
 
 def _uploadable(info, payload):
@@ -2920,7 +2909,7 @@ def upload_under_load(up, keys, host, record=True):
     return bad, overlapped
 
 
-def pack_phases(dev, card, kernels, bench, cpu_job):
+def pack_phases(dev, card, kernels, bench):
     """Phases 3a-6a: the pack pipeline.  3a: the bench scene written as a
     pack (packscene.scene_assets at PACK_MAP_SIZE: the MODL of the sphere
     grid and the floor with 13 mipped maps, the rigged column with 3 clips)
@@ -2937,7 +2926,8 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
     into a Scene, the animated column) 3 times with the launches of the
     bench frame, each bit-equal to the frame of the same scene built in
     memory, and the teapot and character examples on the card against
-    the CPU (cpu_job: start_cpu_examples' child) at RMSE < 2/255; 6a:
+    the CPU (start_cpu_examples' children, started after 4a's timings
+    and waited for before 6a's) at RMSE < 2/255; 6a:
     the write and compress times, the codecs' MB/s, the manager's, the
     uploader's GB/s against a plain .to(), Model.load's ms, and the pack
     frame's ms beside the bench frame's in turns and under torch.profiler.
@@ -2952,7 +2942,7 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
 
     from datum_tpu_torch import packscene
     from datum_tpu_torch.asset import AssetManager, DeviceUploader, PackReader, lz4
-    from datum_tpu_torch.asset.upload import _tensors as upload_tensors
+    from datum_tpu_torch.asset.upload import leaves
     from datum_tpu_torch.convert import to_torch
     from datum_tpu_torch.examples import character, teapot
     from datum_tpu_torch.ops import shadow as shadow_ops
@@ -3087,8 +3077,8 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
         cap = left if left >= 0 else cap - len(plain[-1])
         plain.append(lz4.decompress(blk, cap))
     # one call a block into a new buffer of the payload's remaining size
-    # (the JAX reader's calls), then PackReader.payload (each block into
-    # the payload's one buffer)
+    # (the JAX reader's buffer pattern, through the port's codec), then
+    # PackReader.payload (each block into the payload's one buffer)
     t["native_decode_calls"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for path in (paths["scene"], paths["core"]):
@@ -3143,7 +3133,7 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
         dev_p = up.get(k)
         if _leaf_bytes(dev_p) != _leaf_bytes(h):
             raise RuntimeError(f"upload {k}: the card's bytes differ from the host's")
-        if any(tt.device != dev for tt in upload_tensors(dev_p)):
+        if any(tt.device != dev for tt in leaves(dev_p) if isinstance(tt, torch.Tensor)):
             raise RuntimeError(f"upload {k}: a tensor off the card")
         n_leaves += len(_leaf_bytes(h))
     img_keys = [a for a in host if not isinstance(a, tuple) and mgr.find(a).type == "imag"]
@@ -3163,6 +3153,11 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
                 f"0 reads differ (re-uploads landed first: {overlapped}); without "
                 f"get()'s record_stream {bad_unrecorded} reads of "
                 f"{sum(len(_leaf_bytes(host[k])) for k in img_keys)} differ")
+
+    # the teapot and character examples on the CPU, for 5a, in a child
+    # process each from here to 5a's wait, beside none of the times 6a prints
+    t_child = time.perf_counter() - t_all
+    cpu_job = start_cpu_examples()
 
     # ---- the pack scene and its in-memory twin
     t0 = time.perf_counter()
@@ -3271,15 +3266,20 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
             raise RuntimeError(f"{name} example: bin overflow {st_['ctx'].bin_overflow}")
         card_png[name] = out
     t_card = time.perf_counter() - t0
-    proc, cpu_dir, cpu_out = cpu_job
+    jobs, cpu_out = cpu_job
     t0 = time.perf_counter()
-    rc = proc.wait(timeout=600)
+    rcs = {n: proc.wait(timeout=600) for n, (proc, _) in jobs.items()}
     t_wait = time.perf_counter() - t0
-    with open(os.path.join(cpu_out, "cpu_examples.log")) as f:
-        cpu_log = f.read()
-    if rc != 0:
-        raise RuntimeError(f"the CPU examples failed (exit {rc}):\n{cpu_log[-2000:]}")
-    cpu_lathe, cpu_char = (os.path.join(cpu_dir, n) for n in ("lathe.pack", "character.pack"))
+    t_child_end = time.perf_counter() - t_all
+    cpu_log = ""
+    for n, rc in rcs.items():
+        with open(os.path.join(cpu_out, f"{n}_cpu.log")) as f:
+            log = f.read()
+        if rc != 0:
+            raise RuntimeError(f"the CPU {n} example failed (exit {rc}):\n{log[-2000:]}")
+        cpu_log += log
+    cpu_lathe = os.path.join(jobs["teapot"][1], "lathe.pack")
+    cpu_char = os.path.join(jobs["character"][1], "character.pack")
     if open(cpu_lathe, "rb").read() != open(lathe_path, "rb").read():
         raise RuntimeError("the CPU run's lathe pack differs from this run's")
     cr = PackReader(cpu_char)
@@ -3298,7 +3298,8 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
                 f"vertices) and character (the scene pack) examples through their "
                 f"harness, {EXAMPLE_ARGV[3]}x{EXAMPLE_ARGV[5]}, {EXAMPLE_ARGV[1]} frames, on "
                 f"the card "
-                f"({t_card:.1f} s) vs the CPU plain path (a child process; waited "
+                f"({t_card:.1f} s) vs the CPU plain path (a child process each from "
+                f"{t_child:.1f} s to {t_child_end:.1f} s of phases 3a-6a, waited "
                 f"{t_wait:.1f} s; {cpu_log.strip().replace(chr(10), '; ')}): "
                 + "; ".join(f"{n} RMSE {r:.6f}, mean |d| {d:.4f} levels" for n, (r, d, _)
                             in ex_rmse.items()) + f" (gate < {2 / 255:.6f})")
@@ -3335,8 +3336,9 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
     runs["pack"] += [frame_ms(render_p, p_in), frame_ms(render_p, p_in)]
     runs["bench"].append(frame_ms(render_b, b_inputs))
     ms_p, ms_b = statistics.mean(runs["pack"]), statistics.mean(runs["bench"])
-    prof_p, prof_b = profile_frames(render_p, p_in), profile_frames(render_b, b_inputs)
-    names_p, names_b = kernel_counts(render_p, p_in), kernel_counts(render_b, b_inputs)
+    prof_p = profile_frames(render_p, p_in, by_name=True)
+    prof_b = profile_frames(render_b, b_inputs, by_name=True)
+    names_p, names_b = prof_p[2], prof_b[2]
     moved_k = sorted(((names_p.get(k, 0) - names_b.get(k, 0), k) for k in {*names_p, *names_b}
                       if names_p.get(k, 0) != names_b.get(k, 0)), key=lambda x: -abs(x[0]))
     mgr.close()
@@ -3347,15 +3349,16 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
                 f"{t['obj_to_pack']:.3f} s (host)")
     phase("6a", f"decode: PackReader.payload of every asset (native LZ4 into the "
                 f"payload's buffer) {codec['native']:.1f} MB/s; the native codec one call a "
-                f"block into a buffer of the payload's remaining size (the JAX reader's "
-                f"calls) {codec['native_calls']:.1f} MB/s; the Python codec "
+                f"block into a new buffer of the payload's remaining size (the JAX "
+                f"reader's buffer pattern, the port's codec) {codec['native_calls']:.1f} MB/s; the Python codec "
                 f"{codec['python']:.2f} MB/s ({mb(plain_bytes):.1f} MB out of {len(blocks)} "
                 f"blocks; Python compress on 8 processes {t['python_compress']:.1f} s); the "
                 f"manager streaming both packs on {PACK_WORKERS} workers "
                 f"{mb(decoded_bytes) / t['stream']:.1f} MB/s ({t['stream']:.3f} s for "
                 f"{mb(decoded_bytes):.1f} MB of payloads) (host)")
     phase("6a", f"upload of the {len(img_keys)} images ({mb(up_bytes):.1f} MB): "
-                f"DeviceUploader (pinned staging, side stream, one fence a payload) "
+                f"DeviceUploader (pageable copies on its side stream, one event a "
+                f"payload) "
                 f"{up_bytes / t_up / 1e9:.2f} GB/s ({t_up * 1e3:.1f} ms), plain .to(card) "
                 f"from pageable memory {up_bytes / t_plain_up / 1e9:.2f} GB/s "
                 f"({t_plain_up * 1e3:.1f} ms), wall, synced, on {card}")
@@ -3375,7 +3378,7 @@ def pack_phases(dev, card, kernels, bench, cpu_job):
     phase("6a", f"phases 3a-6a took {time.perf_counter() - t_all:.1f} s")
     return dict(t=t, codec=codec, up_gbs=up_bytes / t_up / 1e9,
                 plain_up_gbs=up_bytes / t_plain_up / 1e9, load_ms=statistics.median(load_ms),
-                ms_pack=ms_p, ms_bench=ms_b, prof_p=prof_p, prof_b=prof_b, launches=pf[0],
+                ms_pack=ms_p, ms_bench=ms_b, prof_p=prof_p[:2], prof_b=prof_b[:2], launches=pf[0],
                 ex_rmse=ex_rmse, k2_err=k2_err, k4_err=k4_err, size=size,
                 bad_unrecorded=bad_unrecorded)
 
@@ -3513,9 +3516,6 @@ def main():
     phase(1, f"device {kind}, count {torch.cuda.device_count()}, torch "
              f"{torch.__version__}, CUDA {torch.version.cuda}, TF32 off")
     print(smi, flush=True)
-    # the teapot and character examples on the CPU, for phase 5a, run in a
-    # child process from here on
-    cpu_job = start_cpu_examples()
 
     from datum_tpu_torch.convert import to_torch
     from datum_tpu_torch.ops import _kernels
@@ -3952,7 +3952,7 @@ def main():
     vertex_phases(dev, card, kernels, (render_b, inputs))
     op = overlay_phases(dev, card, kernels, (render_b, inputs))
     pp = particle_phases(dev, card, kernels, (render_b, inputs))
-    pack_phases(dev, card, kernels, (render_b, inputs), cpu_job)
+    pack_phases(dev, card, kernels, (render_b, inputs))
     if args.versions:
         k1_sets = [("bench opaque", k1_in), ("lit layer", lit_in), ("peeled layer", peel_in),
                    ("stress", st["inputs"]["k1"]), ("stress, early-z", st["inputs"]["k1z"])]

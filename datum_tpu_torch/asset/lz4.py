@@ -85,11 +85,9 @@ def native():
 def decompress(src: bytes, dstcap: int) -> bytes:
     """Decompress one LZ4 block, producing at most dstcap bytes.  Raises
     ValueError on a corrupt block."""
-    out = ctypes.create_string_buffer(dstcap)
-    n = native().datum_lz4_decompress(bytes(src), len(src), out, dstcap)
-    if n < 0:
-        raise ValueError("corrupt LZ4 block")
-    return out.raw[:n]
+    out = bytearray(dstcap)
+    n = decompress_into(bytes(src), 0, len(src), out, 0)
+    return bytes(out[:n])
 
 
 def decompress_into(src: bytes, start: int, size: int, dst: bytearray, offset: int) -> int:

@@ -5,18 +5,26 @@ with block_until_ready).
 Decoded host payloads stream to the card on a worker thread while the
 render loop polls `ready()`, never blocking a frame on an upload.  The
 uploader owns a `torch.cuda.Stream`; its one worker thread sets its
-device and uploads each payload on that stream.  Each numpy leaf
-of a payload tree (dicts, lists and tuples of numpy arrays and numpy
-scalars; the image decoder's `mips` list of u32 arrays) is copied into a
-pinned staging buffer on the host, then to a tensor on the card with
-`non_blocking=True` on the side stream.  One `torch.cuda.Event` is
-recorded after a payload's last copy, and the worker waits on it before
-it publishes the payload: `ready()` means the copy landed, as in the JAX
-version.  Python numbers and None stay as they are (host metadata:
-widths, levels, material factors); a leaf the card cannot hold (a str
-or bytes, or a structured array such as a mesh's VERTEX_DTYPE vertices,
-which torch.from_numpy rejects as jax.device_put does) makes the upload
-fail with TypeError, which is parked and raised by `get()`.
+device and uploads each payload on that stream.  Each numpy leaf of a
+payload tree (dicts, lists and tuples of numpy arrays and numpy scalars;
+the image decoder's `mips` list of u32 arrays) is copied from its host
+memory to a tensor on the card with `non_blocking=True` on the side
+stream.  One `torch.cuda.Event` is recorded after a payload's last copy,
+and the worker waits on it before it publishes the payload: `ready()`
+means the copy landed, as in the JAX version.  Python numbers and None
+stay as they are (host metadata: widths, levels, material factors); a
+leaf the card cannot hold (a str or bytes, or a structured array such as
+a mesh's VERTEX_DTYPE vertices, which torch.from_numpy rejects as
+jax.device_put does) makes the upload fail with TypeError, which is
+parked and raised by `get()`.
+
+No pinned staging: the decoded arrays live in pageable memory, so a
+pinned buffer adds a host copy that CUDA's own pageable copy makes
+anyway.  On an H100 (700 W) the 28 images of chip_smoke.py's phase 6a
+(39.4 MB) uploaded at 1.92 GB/s through a pinned buffer a leaf (3.70
+GB/s for pageable copies in the same run) and at 2.92 GB/s through one
+pinned buffer a payload, staged while the previous payload's copy was
+in flight (4.23 GB/s pageable).
 
 Cross-stream lifetime: the device tensors are allocated on the side
 stream and read on the consumer's.  When the consumer drops one, the
@@ -51,19 +59,13 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _tensors(tree):
-    """The tensor leaves of a payload tree."""
+def leaves(tree):
+    """The leaves of a payload tree (host or device), in order."""
     if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _tensors(v)]
+        return [x for v in tree.values() for x in leaves(v)]
     if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _tensors(v)]
-    return [tree] if isinstance(tree, torch.Tensor) else []
-
-
-def _torch_dtype(dtype):
-    """The torch dtype of a numpy dtype; TypeError where torch has none
-    (structured and object dtypes)."""
-    return torch.from_numpy(np.empty(0, dtype)).dtype
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
 
 
 class DeviceUploader:
@@ -107,36 +109,31 @@ class DeviceUploader:
                 exc = fut.exception()
                 self._resident[key] = exc if exc is not None else fut.result()
 
-    def _leaf(self, x, staged):
+    def _leaf(self, x):
         """One leaf of a payload on the uploader's device: a numpy array
-        or scalar copied (through a pinned buffer, appended to staged, on
-        the card), a Python number or None as it is; TypeError else."""
+        or scalar copied, a Python number or None as it is; TypeError
+        else."""
         if isinstance(x, (np.ndarray, np.generic)):
             a = np.asarray(x)
-            dtype = _torch_dtype(a.dtype)
             if self._device.type == "cpu":
                 return torch.from_numpy(np.array(a, copy=True))
-            pinned = torch.empty(a.shape, dtype=dtype, pin_memory=True)
-            pinned.numpy()[...] = a
-            staged.append(pinned)
-            out = torch.empty(a.shape, dtype=dtype, device=self._device)
-            out.copy_(pinned, non_blocking=True)
-            return out
+            # torch.from_numpy takes no negative strides and warns on a
+            # read-only array (a mesh's indices, viewed in the pack's bytes)
+            a = np.require(a, requirements=["C", "W"])
+            return torch.from_numpy(a).to(self._device, non_blocking=True)
         if x is None or isinstance(x, (bool, int, float)):
             return x
         raise TypeError(f"upload: a {type(x).__name__} leaf is not an array")
 
     def _upload(self, payload):
-        staged = []                       # pinned buffers, alive until the fence
         if self._device.type == "cpu":
-            return _tree_map(lambda x: self._leaf(x, staged), payload)
+            return _tree_map(self._leaf, payload)
         with torch.cuda.stream(self.stream):
-            dev = _tree_map(lambda x: self._leaf(x, staged), payload)
+            dev = _tree_map(self._leaf, payload)
             done = torch.cuda.Event()
             done.record(self.stream)
         # the fence: ready() must mean the copy landed
         done.synchronize()
-        del staged
         return dev
 
     # --- producer side ------------------------------------------------------
@@ -184,8 +181,9 @@ class DeviceUploader:
             raise dev
         if dev is not None and self._device.type == "cuda":
             consumer = torch.cuda.current_stream(self._device)
-            for t in _tensors(dev):
-                t.record_stream(consumer)
+            for t in leaves(dev):
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(consumer)
         return dev
 
     def flush(self):

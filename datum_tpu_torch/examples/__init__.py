@@ -7,5 +7,5 @@ common.run_example, on the card unless --cpu asks for the CPU:
 
 with <name> one of triangle, material, skybox, ocean, stardust,
 asteroids, datumtest and city; teapot and character read a pack
-(--pack PATH).
+(--pack PATH, required).
 """

@@ -3,20 +3,16 @@ a rigged mesh read from a pack (its asset 1, with its bone table) under
 an Animator playing the pack's clips 2, 3 and 4, crossfading the first
 two over time.
 
-    python -m datum_tpu_torch.examples.character [--cpu] [--pack PATH]
+    python -m datum_tpu_torch.examples.character --pack PATH [--cpu]
 
---pack defaults to the reference engine's bin/character.pack in a
-checkout beside this repository, the pack the JAX example reads.
+--pack is required: the reference engine's bin/character.pack, which the
+JAX example reads, or a pack laid out the same way (packscene.py's
+write_character writes one).
 """
-
-from pathlib import Path
 
 import numpy as np
 
 from .common import run_example
-
-DEFAULT_PACK = str(Path(__file__).resolve().parents[3] / "reference" / "bin"
-                   / "character.pack")
 
 
 def init(args):
@@ -34,7 +30,7 @@ def init(args):
                       enable_shadows=False, enable_skinning=True,
                       max_palettes=4, max_bones=128)
     ctx = RenderContext(cfg, device=args.device)
-    pack = PackReader(getattr(args, "pack", None) or DEFAULT_PACK)
+    pack = PackReader(args.pack)
     md = pack.mesh(1)
     mesh = ctx.add_mesh(md["vertices"], md["indices"],
                         mincorner=md["mincorner"], maxcorner=md["maxcorner"],
@@ -90,7 +86,7 @@ def render(state):
 def main(argv=None):
     return run_example("character", init, update, render, width=384, height=384,
                        argv=argv, options=[("--pack", dict(
-                           default=DEFAULT_PACK, help="the pack to read (asset 1: a "
+                           required=True, help="the pack to read (asset 1: a "
                            "rigged mesh; assets 2-4: its clips)"))])
 
 

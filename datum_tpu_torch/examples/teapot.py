@@ -1,20 +1,16 @@
 """example-teapot on the port (counterpart of examples/teapot.py): a mesh
 read from a pack (its asset 0), a PBR material, a floor and sun shadows.
 
-    python -m datum_tpu_torch.examples.teapot [--cpu] [--pack PATH]
+    python -m datum_tpu_torch.examples.teapot --pack PATH [--cpu]
 
---pack defaults to the reference engine's bin/teapot.pack in a checkout
-beside this repository, the pack the JAX example reads; any pack whose
-asset 0 is a mesh will do (tools/objparser.py writes one from an OBJ).
+--pack is required: any pack whose asset 0 is a mesh will do (the
+reference engine's bin/teapot.pack, which the JAX example reads, or one
+that tools/objparser.py writes from an OBJ).
 """
-
-from pathlib import Path
 
 import numpy as np
 
 from .common import run_example
-
-DEFAULT_PACK = str(Path(__file__).resolve().parents[3] / "reference" / "bin" / "teapot.pack")
 
 
 def init(args):
@@ -30,7 +26,7 @@ def init(args):
                       max_instances=8, bin_capacity=1024, big_capacity=16,
                       shadow_res=512, shadow_bin_capacity=256)
     ctx = RenderContext(cfg, device=args.device)
-    pack = PackReader(getattr(args, "pack", None) or DEFAULT_PACK)
+    pack = PackReader(args.pack)
     m = pack.mesh(0)
     teapot = ctx.add_mesh(m["vertices"], m["indices"],
                           mincorner=m["mincorner"], maxcorner=m["maxcorner"])
@@ -73,7 +69,7 @@ def render(state):
 
 def main(argv=None):
     return run_example("teapot", init, update, render, argv=argv,
-                       options=[("--pack", dict(default=DEFAULT_PACK,
+                       options=[("--pack", dict(required=True,
                                                 help="the pack to read (asset 0: a mesh)"))])
 
 

@@ -1363,25 +1363,21 @@ def test_sprite_pass_raises_rather_than_falling_back(card):
 # the pack pipeline on the card: the uploader's side stream, the LZ4 build
 # ---------------------------------------------------------------------------
 
-def _upload_tree(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _upload_tree(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _upload_tree(v)]
-    return [tree] if isinstance(tree, torch.Tensor) else []
-
-
 def test_uploader_lands_payloads_bit_equal(card):
     """Every leaf of a payload tree lands on the card equal to its host
-    bytes (u32 mips, u16, f32, a numpy scalar); ready() only once landed;
-    a structured array parks a TypeError."""
+    bytes (u32 mips, u16, f32, a numpy scalar, a read-only and a reversed
+    array); ready() only once landed; a structured array parks a
+    TypeError."""
     from datum_tpu_torch.asset import DeviceUploader
+    from datum_tpu_torch.asset.upload import leaves
 
     rng = np.random.RandomState(0)
     host = {i: dict(mips=[rng.randint(0, 2 ** 32, (1, 64 >> j, 64 >> j), dtype=np.uint64)
                           .astype(np.uint32) for j in range(7)],
                     x=rng.randint(0, 60000, 9).astype(np.uint16),
-                    color=rng.rand(4).astype(np.float32), level=np.int32(i), width=64)
+                    color=rng.rand(4).astype(np.float32), level=np.int32(i), width=64,
+                    ro=np.frombuffer(rng.bytes(64), np.uint32),
+                    rev=rng.rand(5, 6).astype(np.float32)[::-1, ::-2])
             for i in range(6)}
     up = DeviceUploader(card)
     try:
@@ -1394,7 +1390,11 @@ def test_uploader_lands_payloads_bit_equal(card):
             assert up.ready(k)
             got = up.get(k)
             assert got["width"] == 64
-            for t, h in zip(_upload_tree(got), [*p["mips"], p["x"], p["color"], p["level"]]):
+            tensors = [t for t in leaves(got) if isinstance(t, torch.Tensor)]
+            want = [*p["mips"], p["x"], p["color"], p["level"], p["ro"],
+                    np.ascontiguousarray(p["rev"])]
+            assert len(tensors) == len(want)
+            for t, h in zip(tensors, want):
                 assert t.device == card and t.shape == h.shape
                 assert t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes() == h.tobytes()
         with pytest.raises(TypeError):

@@ -57,6 +57,19 @@ def test_tree_and_many(up):
         assert got["meta"] == (i, 0.5, None)
 
 
+def test_readonly_and_strided_leaves(up):
+    """A read-only array (a view of bytes, as a mesh's indices are),
+    a transposed and a reversed array land equal to their values."""
+    ro = np.frombuffer(np.arange(12, dtype=np.uint32).tobytes(), np.uint32)
+    m = np.arange(12, dtype=np.float32).reshape(3, 4)
+    up.submit("p", dict(ro=ro, t=m.T, r=m[::-1, ::-2]))
+    up.flush()
+    got = up.get("p")
+    for k, want in (("ro", ro), ("t", m.T), ("r", m[::-1, ::-2])):
+        assert got[k].numpy().dtype == want.dtype
+        assert np.array_equal(got[k].numpy(), want)
+
+
 def test_duplicate_submit_is_noop(up):
     a = np.ones(4, np.float32)
     up.submit("k", a)
