@@ -173,6 +173,22 @@ and exits non-zero:
    below and of earlier phases); the write, compress, decode, stream,
    upload and Model.load times and the pack frame's ms beside the bench
    frame's, in turns and under torch.profiler;
+4m-6m. the tile-sharded frame (datum_tpu_torch/parallel/) on the bench
+   config at translucent_lit_scale 1 (MULTI): K1 and K6 (early-z), K4,
+   K2 (dense and clustered) and its epilogue on two bands of 17 tile rows
+   against their plain versions in band mode (bit-identical; K2 within
+   its tolerance) and against the whole frame's rows (bit-identical); the
+   sharded frame at world size 1 on nccl in this process, 3 frames and
+   one with raster_two_phase, each bit-equal to render_frame's, their
+   launches counted; at world size 2, two processes on the one card over
+   gloo (host-staged), the frame bit-equal to render_frame's and the
+   replicated stage's outputs equal on both ranks, the RMSE at the
+   bench's translucent_lit_scale 2 printed (the parity exception), the
+   reduced path at 256x128 with bloom off and on within
+   tests/test_parallel.py's tolerances; dryrun_multichip(4) on the card
+   with its gate; ms/frame of the world-1 sharded frame beside
+   render_frame's in turns and the byte ledger at n = 2 (two ranks on one
+   card are not timed);
 7. with --versions FILE, other versions of K1's, K6's, K2's, K3's, K4's,
    K5's and K7's sources built alone and timed beside this build's on the same
    inputs (see versions_phase); then print the kernels' JSON line (10
@@ -194,6 +210,8 @@ import subprocess
 import sys
 import time
 import types
+
+from datum_tpu_torch.examples.common import read_png
 
 W, H = 1920, 1088
 # the shadowed, sky-lit frame (the bench scene without its forward content)
@@ -390,8 +408,12 @@ def golden_slivers(slivers=CITY_GOLDEN_SLIVERS, stack=CITY_GOLDEN_STACK):
         raise ValueError(f"golden_slivers: no cascade stack of shape {stack} rendered")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(n, msg):
-    print(f"phase {n}: {msg}", flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(f"phase {n} [{time.perf_counter() - _T0:.0f} s]: {msg}", flush=True)
 
 
 def frame_inputs(ctx, camera, params, make_rl, t):
@@ -1052,51 +1074,6 @@ def stress_phases(dev, card, kernels):
                             k7=k7_in, k5=k5_in))
 
 
-def read_png_rgb(path):
-    """An 8-bit RGB PNG (no interlace) as a (h, w, 3) uint8 numpy array,
-    decoded with zlib: the card's machine has no PIL.  A byte's filter
-    predictor reads its left, upper and upper-left neighbours, all on
-    earlier anti-diagonals x + y of the pixel grid, so the rows are
-    unfiltered one anti-diagonal at a time, every pixel of it at once."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    data = open(path, "rb").read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise RuntimeError(f"{path} is not a PNG")
-    pos, idat, w, h = 8, b"", None, None
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if kind == b"IHDR":
-            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
-            if (depth, ctype, interlace) != (8, 2, 0):
-                raise RuntimeError(f"{path}: not 8-bit RGB without interlace")
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    filt = raw[:, 0].astype(np.int32)
-    if (filt > 4).any():
-        raise RuntimeError(f"{path}: unknown PNG filter {int(filt.max())}")
-    line = raw[:, 1:].reshape(h, w, 3).astype(np.int32)
-    out = np.zeros((h + 1, w + 1, 3), np.int32)     # a zero row above, a zero column left
-    for diag in range(h + w - 1):
-        y = np.arange(max(0, diag - w + 1), min(h, diag + 1))
-        x = diag - y
-        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]   # left, up, up-left
-        p_ = a + b - c
-        pa, pb, pc = np.abs(p_ - a), np.abs(p_ - b), np.abs(p_ - c)
-        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-        f = filt[y][:, None]
-        pred = np.select([f == 1, f == 2, f == 3, f == 4],
-                         [a, b, (a + b) // 2, paeth], 0)
-        out[y + 1, x + 1] = (line[y, x] + pred) & 255
-    return out[1:, 1:].astype(np.uint8)
-
-
 class tpu_default_matmuls:
     """While the with-block runs, the port's f32 matmuls (torch.matmul,
     torch.einsum, the @ operator: all it calls) take each f32 operand
@@ -1148,7 +1125,7 @@ def reference_1080_phase(dev):
     from datum_tpu_torch.render.types import make_sceneset
     from datum_tpu_torch.scenes import datumtest_scene
 
-    gold = torch.from_numpy(read_png_rgb(os.path.join(
+    gold = torch.from_numpy(read_png(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
         "datumtest_1080_tpu.png"))).float()
     ctx, camera, params, make_rl = datumtest_scene(width=W, height=H, **CAPTURE)
@@ -1389,7 +1366,7 @@ def deferred_phases(dev, card, kernels, bench):
                     f"0.5, 2), max {dimg.max().item():.0f}, vis identical on {vis:.6f}")
 
     # ---- 5d. the stress golden through the port
-    gold = torch.from_numpy(read_png_rgb(os.path.join(
+    gold = torch.from_numpy(read_png(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
         "stress.png"))).float()
     gctx, gcam, gparams, gmake = stress_scene(**STRESS_GOLDEN)
@@ -1411,15 +1388,15 @@ def deferred_phases(dev, card, kernels, bench):
     ms7 = frame_ms(render7, inputs, n=5)
     mse = frame_ms(render_e, e_inputs, n=5)
     prof5 = profile_frames(render5, inputs)
-    profe = profile_frames(render_e, e_inputs)
+    profe = profile_frames(render_e, e_inputs[:1])      # one frame: ~1 s and 150K launches
     st5 = deferred_stage_ms(cfg5, state, *inputs[0], dev)
     ste = deferred_stage_ms(ecfg, estate, *e_inputs[0], dev)
     phase("6d", f"{ms5:.3f} ms/frame K5 frame, {ms7:.3f} ms/frame K7 frame ({W}x{H}), "
                 f"{mse:.3f} ms/frame entry() frame ({ew}x{eh}) (median of 5, CUDA "
                 f"events) on {card}")
-    phase("6d", f"under torch.profiler (3 frames): K5 frame {prof5[0]:.3f} ms of device "
+    phase("6d", f"under torch.profiler: K5 frame (3 frames) {prof5[0]:.3f} ms of device "
                 f"time and {prof5[1]:.0f} launches per frame, busy {prof5[0] / ms5:.3f}; "
-                f"entry() frame {profe[0]:.3f} ms and {profe[1]:.0f} launches per frame, "
+                f"entry() frame (1 frame) {profe[0]:.3f} ms and {profe[1]:.0f} launches, "
                 f"busy {profe[0] / mse:.3f}")
     for name, stg in (("K5 frame", st5), ("entry() frame", ste)):
         phase("6d", f"{name} stages (ms, wall, synced, median of 5): "
@@ -2206,7 +2183,7 @@ def overlay_phases(dev, card, kernels, bench):
                         "--overlay", "--out", os.path.join(out_dir, "city.png")])
     city_s = time.perf_counter() - t0
     city_launches = {n: k.launches for n, k in kernels.items() if k.launches}
-    cimg = read_png_rgb(os.path.join(out_dir, "city.png"))
+    cimg = read_png(os.path.join(out_dir, "city.png"))
     if cimg.shape != (H, W, 3) or not cimg.mean() > 10 or city_launches:
         raise RuntimeError(f"city {W}x{H}: image {cimg.shape} mean {cimg.mean()}, "
                            f"kernel launches {city_launches}")
@@ -2221,9 +2198,9 @@ def overlay_phases(dev, card, kernels, bench):
     with golden_slivers():
         gstate = city.main(["--frames", "3", "--width", str(gw), "--height", str(gh),
                             "--out", os.path.join(out_dir, "city_golden.png")])
-    gimg = read_png_rgb(os.path.join(out_dir, "city_golden.png")).astype(np.float32)
+    gimg = read_png(os.path.join(out_dir, "city_golden.png")).astype(np.float32)
     own = city.render(gstate).astype(np.float32)     # the port's own cascades
-    gold = read_png_rgb(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+    gold = read_png(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                      "tests", "golden", "city.png")).astype(np.float32)
     rmse = lambda a, b: float(np.sqrt(np.mean((a / 255.0 - b / 255.0) ** 2)))
     city_rmse, city_rmse_own = rmse(gimg, gold), rmse(own, gold)
@@ -2391,8 +2368,8 @@ def golden_example(name, out_dir, slivers=None):
     with golden_slivers(*slivers) if slivers else contextlib.nullcontext():
         state = mod.main(GOLDEN_ARGV + ["--out", out])
     secs = time.perf_counter() - t0
-    img = read_png_rgb(out).astype(np.float32)
-    gold = read_png_rgb(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+    img = read_png(out).astype(np.float32)
+    gold = read_png(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                                      "golden", f"{name}.png")).astype(np.float32)
     if img.shape != gold.shape:
         raise RuntimeError(f"{name}: image {img.shape}, golden {gold.shape}")
@@ -2470,7 +2447,7 @@ def particle_phases(dev, card, kernels, bench):
         datumtest.update, datumtest.render = update, render
     torch.cuda.synchronize()
     d_launches = launched()
-    dimg = read_png_rgb(os.path.join(out_dir, "datumtest_full.png"))
+    dimg = read_png(os.path.join(out_dir, "datumtest_full.png"))
     if (len(counts) != 3 or not counts[1] > 0 or d_launches or dimg.shape != (H, W, 3)
             or not dimg.mean() > 10):
         raise RuntimeError(f"datumtest {W}x{H}: live particles {counts}, kernel launches "
@@ -2602,7 +2579,7 @@ def particle_phases(dev, card, kernels, bench):
         extra = ""
         if name == "datumtest":
             own = datumtest.render(st).astype(np.float32)
-            gold = read_png_rgb(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+            gold = read_png(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                              "tests", "golden", "datumtest.png"))
             golden["datumtest_own"] = float(np.sqrt(np.mean(((own - gold) / 255.0) ** 2)))
             extra = (f"; with the jitted reference's {len(DATUMTEST_GOLDEN_SLIVERS)} "
@@ -2617,7 +2594,7 @@ def particle_phases(dev, card, kernels, bench):
         t0 = time.perf_counter()
         st = mod.main(["--frames", "1", "--width", str(W), "--height", str(H),
                        "--out", os.path.join(out_dir, f"{name}_full.png")])
-        img = read_png_rgb(os.path.join(out_dir, f"{name}_full.png"))
+        img = read_png(os.path.join(out_dir, f"{name}_full.png"))
         lit = float((img.max(-1) > 0).mean())
         if img.shape != (H, W, 3) or not lit > 0:
             raise RuntimeError(f"{name} {W}x{H}: image {img.shape}, {lit} of it lit")
@@ -3288,8 +3265,8 @@ def pack_phases(dev, card, kernels, bench):
             raise RuntimeError(f"the CPU run's character asset {aid} differs")
     ex_rmse = {}
     for name in card_png:
-        a = read_png_rgb(card_png[name]).astype(np.float32)
-        b = read_png_rgb(os.path.join(cpu_out, f"{name}_cpu.png")).astype(np.float32)
+        a = read_png(card_png[name]).astype(np.float32)
+        b = read_png(os.path.join(cpu_out, f"{name}_cpu.png")).astype(np.float32)
         ex_rmse[name] = (float(np.sqrt(np.mean(((a - b) / 255.0) ** 2))),
                          float(np.abs(a - b).mean()), float(b.mean()))
         if not ex_rmse[name][0] < 2 / 255 or not ex_rmse[name][2] > 10:
@@ -3381,6 +3358,316 @@ def pack_phases(dev, card, kernels, bench):
                 ms_pack=ms_p, ms_bench=ms_b, prof_p=prof_p[:2], prof_b=prof_b[:2], launches=pf[0],
                 ex_rmse=ex_rmse, k2_err=k2_err, k4_err=k4_err, size=size,
                 bad_unrecorded=bad_unrecorded)
+
+
+# the tile-sharded frame (datum_tpu_torch/parallel/): the bench config at
+# translucent_lit_scale 1, where the sharded frame equals the
+# single-device frame bit for bit (at the bench's 2 the lit layers shade
+# at full resolution in band mode: the parity exception), in two bands
+MULTI = dict(SCENE, translucent_lit_scale=1)
+MULTI_BANDS = 2
+# the reduced path's check: tests/test_parallel.py's tiny config at
+# 256x128, bloom off and on (its beacon), two ranks
+MULTI_REDUCED = dict(width=256, height=128, sphere_detail=8, grid=(2, 2),
+                     n_point_lights=2, max_vertices=2048, max_triangles=2048,
+                     max_instances=8, bin_capacity=128, big_capacity=8,
+                     enable_shadows=True, shadow_res=128, shadow_bin_capacity=32,
+                     enable_bloom=False, skybox=False)
+
+
+def reduced_inputs(bloom, dev, reduced=MULTI_REDUCED):
+    """(cfg, state, draws, sceneset) of the reduced config, with bloom on
+    and tests/test_parallel.py's emissive beacon."""
+    from datum_tpu_torch.math import Transform
+    from datum_tpu_torch.render import primitives
+    from datum_tpu_torch.render.types import make_sceneset
+    from datum_tpu_torch.scenes import datumtest_scene
+
+    ctx, camera, params, make_rl = datumtest_scene(device=dev, **reduced)
+    cfg = ctx.config
+    if bloom:
+        cfg = dataclasses.replace(cfg, enable_bloom=True)
+        qv, qi = primitives.unit_quad()
+        beacon = ctx.add_mesh(qv, qi)
+        glow = ctx.add_material(color=(1.0, 0.8, 0.4, 1), emissive=0.8)
+    rl = make_rl(0.0)
+    if bloom:
+        rl.push_mesh(beacon, Transform.translation([0, 2.0, 2.0]), glow)
+    return (cfg, ctx.device_state(dev), ctx.frame_draws(rl, camera),
+            make_sceneset(camera, params, point_lights=rl.point_lights))
+
+
+def replicated_digest(cfg, state, draws, ss):
+    """sha256 of each replicated stage output of the sharded frame (the
+    patched pool's vertex stage, the shadow ESMs, the fog volume, setup
+    and bins) on this rank."""
+    import hashlib
+
+    from datum_tpu_torch.render import frame as F
+
+    state = F.patch_dynamic(cfg, state, draws)
+    ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, state, draws, ss)
+    shadows = F._shadow_stage(cfg, ex, wp, ss)
+    setup, bins, counts, big, over = F._bin_stage(cfg, ex, clip)
+    parts = dict(clip=[clip, wn, wt, wp, uv], sun_esm=list(shadows["sun"]),
+                 spot_esm=[shadows["spot"]], setup=[setup["row16"], setup["zbound"]],
+                 bins=[bins, counts, big, over])
+    if cfg.enable_fog:
+        parts["fog_volume"] = [F.fog_volume(cfg, ss, shadows)]
+    out = {}
+    for name, ts in parts.items():
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        out[name] = h.hexdigest()[:16]
+    return out
+
+
+def multi_rank(bands, size, scene, reduced):
+    """One rank of phase 5m's 2-rank group on the one card: the bench frame
+    (scene at size, t = 0) at translucent_lit_scale 1 and 2, the replicated
+    stage's digests, the byte ledger and the reduced path's two frames."""
+    import torch
+
+    from datum_tpu_torch.convert import to_torch
+    from datum_tpu_torch.parallel import ici_report, render_frame_sharded
+    from datum_tpu_torch.scenes import datumtest_scene
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = bands.device
+    out = {}
+    for scale in (1, 2):
+        ctx, camera, params, make_rl = datumtest_scene(
+            width=size[0], height=size[1], device=dev,
+            **dict(scene, translucent_lit_scale=scale))
+        draws, ss = frame_inputs(ctx, camera, params, make_rl, 0.0)
+        state = ctx.device_state(dev)
+        ici_report(reset=True)
+        o = render_frame_sharded(ctx.config, bands, state, draws, ss)
+        out[f"bench{scale}"] = o["image"].cpu().numpy()
+        out[f"ledger{scale}"] = ici_report(reset=True)
+        out[f"overflow{scale}"] = int(o["bin_overflow"])
+        if scale == 1:
+            out["replicated"] = replicated_digest(ctx.config, state, to_torch(draws, dev),
+                                                  to_torch(ss, dev))
+    for bloom in (False, True):
+        rcfg, rstate, rdraws, rss = reduced_inputs(bloom, dev, reduced)
+        o = render_frame_sharded(rcfg, bands, rstate, rdraws, rss)
+        out[f"reduced{int(bloom)}"] = o["image"].cpu().numpy()
+    return out
+
+
+def multi_phases(dev, card, kernels):
+    """Phases 4m-6m: the tile-sharded frame.  Returns the numbers the
+    kernels' JSON line reports for it."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from datum_tpu_torch.convert import to_torch
+    from datum_tpu_torch.entry import dryrun_multichip
+    from datum_tpu_torch.ops.common import TILE_H
+    from datum_tpu_torch.ops.raster_blend_cuda import (
+        blend_inputs, raster_blend_cuda, raster_blend_reference)
+    from datum_tpu_torch.ops.raster_cuda import (
+        PLANE_NAMES, raster_inputs, raster_shade_2p_cuda, raster_shade_2p_reference,
+        raster_shade_cuda, raster_shade_reference)
+    from datum_tpu_torch.ops.raster_mxu_cuda import raster_mxu_cuda
+    from datum_tpu_torch.ops.raster_v1_cuda import raster_v1_cuda
+    from datum_tpu_torch.ops.shade_cuda import (
+        SHADE_ROWS, epilogue_inputs, shade_deferred_cuda, shade_deferred_reference,
+        shade_epilogue_cuda, shade_epilogue_reference, shade_inputs)
+    from datum_tpu_torch.parallel import (close_bands, init_bands, render_frame_sharded,
+                                          spawn_bands)
+    from datum_tpu_torch.render import frame as F
+    from datum_tpu_torch.scenes import datumtest_scene
+
+    t_start = time.perf_counter()
+    kernels = dict(kernels, raster_v1=raster_v1_cuda, raster_mxu=raster_mxu_cuda)
+    ctx, camera, params, make_rl = datumtest_scene(width=W, height=H, device=dev, **MULTI)
+    cfg = ctx.config
+    cfg_c = dataclasses.replace(cfg, use_light_clusters=True, tile_light_capacity=8)
+    state = ctx.device_state(dev)
+    inputs = [frame_inputs(ctx, camera, params, make_rl, t) for t in (0.0, 0.1, 0.2)]
+    d_t, s_t = to_torch(inputs[0][0], dev), to_torch(inputs[0][1], dev)
+
+    # ---- 4m. K1, K6, K4 and K2 (+ epilogue) on two bands of the bench
+    # frame's inputs: each band's output against its plain version in band
+    # mode and against the rows of the whole frame's kernel output
+    ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, state, d_t, s_t)
+    setup, bins, counts, big, _ = F._bin_stage(cfg, ex, clip)
+    k1_in = raster_inputs(setup, bins, big, counts, ex["tris"], uv, wn, d_t["tri_mat"],
+                          state["materials"], cfg.tiles_x, cfg.padded_width,
+                          cfg.padded_height, wt, early_z=True)
+    full1, full6 = raster_shade_cuda(**k1_in), raster_shade_2p_cuda(**k1_in)
+    planes = dict(zip(PLANE_NAMES, full1))
+    shadows = F._shadow_stage(cfg, ex, wp, s_t)
+    gpl, ss2, spotsf, ao, _ = F._shade_inputs(cfg, planes, state, d_t, s_t, shadows)
+    F._translucent_stage(cfg, state, d_t, s_t, ss2, shadows, planes["depth"], gpl)
+    st = F.oit_stream(cfg, state, d_t, s_t, F.translucent_stream(state, d_t, s_t), None)
+    obins, ocounts, obig = F.oit_bins(cfg, st)
+    k4_in = blend_inputs(st["setup"], obins, obig, ocounts, st["tris"], st["uv"],
+                         st["color"], planes["depth"], cfg.tiles_x, cfg.padded_width,
+                         cfg.padded_height, "per_tri", None, st["soft_flag"],
+                         st["peel_flag"])
+    full4 = raster_blend_cuda(**k4_in)
+    clusters = F.light_clusters(cfg_c, planes["depth"], s_t)
+    kw = dict(proj=s_t["proj"], invview=s_t["invview"], ao=ao, spotsf=spotsf)
+    epi = epilogue_inputs(gpl)
+    full2 = {c: shade_deferred_cuda(**shade_inputs(gpl, ss2, clusters=cl, **kw))
+             for c, cl in (("dense", None), ("clustered", clusters))}
+    full_epi = shade_epilogue_cuda(full2["dense"], **epi)
+    torch.cuda.synchronize()
+    n_rows = cfg.tiles_y // MULTI_BANDS
+    band_h, n_tiles = n_rows * TILE_H, n_rows * cfg.tiles_x
+    errs = dict(k1=0.0, k6=0.0, k4=0.0, k2=0.0)
+    for b in range(MULTI_BANDS):
+        t0, y0 = b * n_tiles, b * band_h
+        rows, tiles = slice(y0, y0 + band_h), slice(t0, t0 + n_tiles)
+        kb = dict(k1_in, bins=k1_in["bins"][tiles].contiguous(),
+                  counts=k1_in["counts"][tiles].contiguous(),
+                  szb=k1_in["szb"][tiles].contiguous(), tile0=t0)
+        for name, fk, fr, full in (("K1", raster_shade_cuda, raster_shade_reference, full1),
+                                   ("K6", raster_shade_2p_cuda, raster_shade_2p_reference,
+                                    full6)):
+            k, r = fk(**kb), fr(**kb)
+            require_equal(k, r, f"{name} band {b} vs its plain version in band mode")
+            require_equal(k, full[:, rows], f"{name} band {b} vs the whole frame's rows")
+        k4b = dict(k4_in, bins=k4_in["bins"][tiles].contiguous(),
+                   counts=k4_in["counts"][tiles].contiguous(),
+                   opaque_depth=k4_in["opaque_depth"][rows].contiguous(), tile0=t0)
+        k, r = raster_blend_cuda(**k4b), raster_blend_reference(**k4b)
+        require_equal(k, r, f"K4 band {b} vs its plain version in band mode")
+        require_equal(k, full4[:, rows], f"K4 band {b} vs the whole frame's rows")
+        gb = {n: v[rows].contiguous() for n, v in gpl.items()}
+        kwb = dict(kw, ao=ao[rows].contiguous(), spotsf=spotsf[:, rows].contiguous())
+        for c, cl in (("dense", None), ("clustered", clusters)):
+            clb = None if cl is None else tuple(
+                x[y0 // SHADE_ROWS:(y0 + band_h) // SHADE_ROWS].contiguous() for x in cl)
+            k2b = shade_inputs(gb, ss2, clusters=clb, y0=y0, full_height=cfg.padded_height,
+                               **kwb)
+            hk, hr = shade_deferred_cuda(**k2b), shade_deferred_reference(**k2b)
+            require_equal(hk, full2[c][:, rows], f"K2 ({c}) band {b} vs the whole "
+                          "frame's rows")
+            err = (hk - hr).abs().max().item()
+            if not torch.allclose(hk, hr, atol=1e-4, rtol=1e-3):
+                raise RuntimeError(f"K2 ({c}) band {b} vs plain: max abs err {err}")
+            errs["k2"] = max(errs["k2"], err)
+            if c == "dense":
+                epib = epilogue_inputs(gb)
+                ek = shade_epilogue_cuda(hk, **epib)
+                require_equal(ek, shade_epilogue_reference(hk, **epib),
+                              f"K2 epilogue band {b} vs its plain version")
+                require_equal(ek, full_epi[:, rows], f"K2 epilogue band {b} vs the "
+                              "whole frame's rows")
+    phase("4m", f"{MULTI_BANDS} bands of {n_rows} tile rows ({band_h} rows) of the bench "
+                f"frame {W}x{H}: K1 and K6 (early-z), K4 (merged stream) and the K2 "
+                f"epilogue bit-identical to their plain versions in band mode and to the "
+                f"whole frame's rows; K2 (dense and with clusters of 8) bit-identical to "
+                f"the whole frame's rows, within atol 1e-4 / rtol 1e-3 of plain (max abs "
+                f"err {errs['k2']:.3g})")
+
+    # ---- 5m. the sharded frame, world size 1 on NCCL in this process
+    def ref(cfg_, st_, draws, ss):
+        return F.render_frame(cfg_, st_, draws, ss, device=dev)
+
+    store = tempfile.mkdtemp(prefix="bands_")
+    bands = init_bands(0, 1, device=dev, backend="nccl", init_method=f"file://{store}/s")
+    render_s = lambda draws, ss: render_frame_sharded(cfg, bands, state, draws, ss)
+    per_frame, _, _, _ = drive(render_s, inputs, kernels,
+                               dict(raster_shade=2, shade_deferred=2, raster_depth=3,
+                                    raster_blend=1, shade_epilogue=1),
+                               forbid=("raster_shade_2p", "raster_v1", "raster_mxu"))
+    launches = per_frame[-1]
+    cfg_2p = dataclasses.replace(cfg, raster_two_phase=True)
+    render_2p = lambda draws, ss: render_frame_sharded(cfg_2p, bands, state, draws, ss)
+    per_2p, _, img_2p, _ = drive(render_2p, inputs[:1], kernels,
+                                 dict(raster_shade_2p=2, shade_deferred=2),
+                                 forbid=("raster_shade", "raster_v1", "raster_mxu"))
+    require_equal(img_2p, ref(cfg_2p, state, *inputs[0])["image"],
+                  "world-1 sharded frame with raster_two_phase vs render_frame")
+    imgs_ref = {}
+    for k, (draws, ss) in enumerate(inputs):
+        o = render_s(draws, ss)
+        r = ref(cfg, state, draws, ss)
+        require_equal(o["image"], r["image"], f"world-1 sharded frame {k} vs render_frame")
+        imgs_ref[k] = r["image"]
+    phase("5m", f"world size 1 (nccl): the sharded bench frame at "
+                f"translucent_lit_scale 1, 3 frames, each bit-equal to render_frame's; "
+                f"launches a frame {launches}; with raster_two_phase (K6), bit-equal, "
+                f"launches {per_2p[0]}")
+
+    # world size 2: two processes on the one card over gloo, host-staged
+    t0 = time.perf_counter()
+    ranks = spawn_bands(multi_rank, 2, backend="gloo", devices=[str(dev)] * 2,
+                        args=((W, H), MULTI, MULTI_REDUCED))
+    secs = time.perf_counter() - t0
+    ref1 = imgs_ref[0].cpu().numpy()
+    for r, res in enumerate(ranks):
+        if not np.array_equal(res["bench1"], ref1):
+            raise RuntimeError(f"2-rank sharded bench frame (rank {r}) != render_frame: "
+                               f"max |d| {np.abs(res['bench1'].astype(int) - ref1).max()}")
+        if res["replicated"] != ranks[0]["replicated"]:
+            raise RuntimeError(f"replicated stage differs between ranks: "
+                               f"{res['replicated']} vs {ranks[0]['replicated']}")
+        if res["overflow1"] or res["overflow2"]:
+            raise RuntimeError(f"rank {r}: bin_overflow {res['overflow1']}")
+    ctx2, camera2, params2, make_rl2 = datumtest_scene(
+        width=W, height=H, device=dev, **dict(MULTI, translucent_lit_scale=2))
+    draws2, ss2_ = frame_inputs(ctx2, camera2, params2, make_rl2, 0.0)
+    ref2 = ref(ctx2.config, ctx2.device_state(dev), draws2, ss2_)["image"].cpu().numpy()
+    rmse2 = float(np.sqrt(np.mean((ranks[0]["bench2"] / 255.0 - ref2 / 255.0) ** 2)))
+    phase("5m", f"world size 2 (gloo, two processes on the one card, CUDA tensors "
+                f"staged through host memory; {secs:.1f} s with their start): the bench "
+                f"frame at translucent_lit_scale 1 bit-equal to render_frame's on both "
+                f"ranks, the replicated stage's outputs equal on both "
+                f"({', '.join(ranks[0]['replicated'])}); at the bench's "
+                f"translucent_lit_scale 2 RMSE {rmse2:.5f} against render_frame (the "
+                f"parity exception: band mode shades the lit layer at full resolution; "
+                f"printed, not gated)")
+    for bloom in (False, True):
+        rcfg, rstate, rdraws, rss = reduced_inputs(bloom, dev, MULTI_REDUCED)
+        single = ref(rcfg, rstate, rdraws, rss)["image"].cpu().numpy().astype(int)
+        for r, res in enumerate(ranks):
+            mm = np.abs(single - res[f"reduced{int(bloom)}"].astype(int)).max(-1)
+            ok = ((mm.mean() < 1.0 and (mm > 12).mean() < 5e-3) if bloom
+                  else (mm.max() <= 1 and (mm > 0).mean() < 1e-3))
+            if not ok:
+                raise RuntimeError(f"reduced path (bloom {bloom}) rank {r}: max |d| "
+                                   f"{mm.max()}, mean {mm.mean()}")
+        phase("5m", f"reduced path, 2 ranks at 256x128, bloom {'on' if bloom else 'off'}:"
+                    f" max |d| {mm.max()}, mean {mm.mean():.4f} levels, pixels off "
+                    f"{(mm > 0).mean():.5f}, by > 12 {(mm > 12).mean():.5f} (tests/"
+                    f"test_parallel.py's tolerances)")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device=str(dev), backend="gloo", verbose=False)
+    phase("5m", f"dryrun_multichip(4) on the card (gloo, 4 processes on the one card; "
+                f"{time.perf_counter() - t0:.1f} s): image {dry['image'].shape}, parity "
+                f"RMSE {dry['rmse']:.5f} (gate < 1e-3), luminance {dry['luminance']:.4f}, "
+                f"ledger total {dry['ledger']['TOTAL']} B a rank")
+
+    # ---- 6m. the band machinery's overhead at world size 1; the ledger
+    t_s = frame_ms(render_s, inputs)
+    t_r = frame_ms(lambda draws, ss: ref(cfg, state, draws, ss), inputs)
+    t_s2 = frame_ms(render_s, inputs)
+    t_r2 = frame_ms(lambda draws, ss: ref(cfg, state, draws, ss), inputs)
+    close_bands(bands)
+    ledger = ranks[0]["ledger1"]
+    per = ", ".join(f"{k} {v}" for k, v in sorted(ledger.items(), key=lambda kv: -kv[1])
+                    if k != "TOTAL")
+    phase("6m", f"ms/frame (CUDA events, median of 7, in turns) at translucent_lit_scale "
+                f"1: world-1 sharded frame {t_s:.3f}, {t_s2:.3f}; render_frame {t_r:.3f}, "
+                f"{t_r2:.3f} on {card}; two ranks on one card are not timed (no scaling "
+                f"number)")
+    phase("6m", f"byte ledger at {W}x{H}, n = 2: {ledger['TOTAL']} B a frame a rank "
+                f"({per}); at the bench's lit scale 2: {ranks[0]['ledger2']['TOTAL']} B")
+    phase("6m", f"phases 4m-6m took {time.perf_counter() - t_start:.1f} s")
+    return dict(errs=errs, launches=launches, launches_2p=per_2p[0],
+                ms=dict(sharded=min(t_s, t_s2),
+                                                      single=min(t_r, t_r2)),
+                ledger=ledger, dry_rmse=dry["rmse"])
 
 
 def versions_phase(path, card, sets):
@@ -3953,6 +4240,7 @@ def main():
     op = overlay_phases(dev, card, kernels, (render_b, inputs))
     pp = particle_phases(dev, card, kernels, (render_b, inputs))
     pack_phases(dev, card, kernels, (render_b, inputs))
+    mp = multi_phases(dev, card, kernels)
     if args.versions:
         k1_sets = [("bench opaque", k1_in), ("lit layer", lit_in), ("peeled layer", peel_in),
                    ("stress", st["inputs"]["k1"]), ("stress, early-z", st["inputs"]["k1z"])]
@@ -4006,14 +4294,16 @@ def main():
             early_z_bound_ms=sb["k1z"][0], lit_ms=t_k1l, lit_bound_ms=k1l_bound[0],
             lit_bound_by=k1l_bound[1], **ptxas("raster_shade.cu"),
             device_ms=dev_ms["k1"], lit_device_ms=dev_ms["k1l"],
-            stress_device_ms=t["k1_dev"], early_z_device_ms=t["k1z_dev"]),
+            stress_device_ms=t["k1_dev"], early_z_device_ms=t["k1z_dev"],
+            band_max_abs_err=mp["errs"]["k1"], sharded_launches=mp["launches"]["raster_shade"]),
         row("raster_shade_2p", "datum_tpu_torch/csrc/raster_shade_2p.cu",
             "datum_tpu/ops/raster_pallas.py:454", max(k6_err, st["errs"]["k6"]), t_k6,
             t_k6p, k1_bound, n=launches6["raster_shade_2p"], stress_ms=t["k6"],
             early_z_ms=t["k6z"], device_ms=dev_ms["k6"], stress_device_ms=t["k6_dev"],
             early_z_device_ms=t["k6z_dev"], lit_device_ms=dev_ms["k6l"],
             peeled_device_ms=dev_ms["k6p"], stress_bound_ms=sb["k1"][0],
-            **ptxas("raster_shade_2p.cu")),
+            **ptxas("raster_shade_2p.cu"), band_max_abs_err=mp["errs"]["k6"],
+            sharded_launches=mp["launches_2p"]["raster_shade_2p"]),
         row("shade_deferred", "datum_tpu_torch/csrc/shade.cu",
             "datum_tpu/ops/shade_pallas.py:161", k2_err, t_k2, t_k2p, k2_bound,
             **ptxas("shade.cu"),
@@ -4027,7 +4317,8 @@ def main():
             envd_ms=ep["t"]["k2e"], envd_max_abs_err=ep["errs"]["k2e"],
             envd_plain_ms=ep["t"]["k2ep"], envd_bound_ms=ep["b"]["k2e"][0],
             envd_without_group_ms=ep["t"]["k2n"], envd_coverage=ep["cover"],
-            envd_launches=ep["launches"]["shade_deferred_envd"]),
+            envd_launches=ep["launches"]["shade_deferred_envd"],
+            band_max_abs_err=mp["errs"]["k2"], sharded_launches=mp["launches"]["shade_deferred"]),
         # the three stacks of one frame together
         row("raster_depth", "datum_tpu_torch/csrc/raster_depth.cu",
             "datum_tpu/ops/raster_pallas.py:730", max(*k3_errs, st["errs"]["k3"]),
@@ -4047,10 +4338,11 @@ def main():
             burst_max_abs_err=pp["errs"]["8000-particle burst"],
             live_launches=pp["launches_live"], live_ms=pp["t_k4"],
             live_plain_ms=pp["t_k4p"], live_bound_ms=pp["b_k4"][0],
-            live_bound_by=pp["b_k4"][1]),
+            live_bound_by=pp["b_k4"][1], band_max_abs_err=mp["errs"]["k4"],
+            sharded_launches=mp["launches"]["raster_blend"]),
         row("shade_epilogue", "datum_tpu_torch/csrc/shade_epilogue.cu",
             "datum_tpu/ops/shade_pallas.py:414", epi_err, t_ep, t_epp, ep_bound,
-            device_ms=dev_ms["ep"]),
+            device_ms=dev_ms["ep"], sharded_launches=mp["launches"]["shade_epilogue"]),
         # launches: per K5 (K7) frame of the deferred branch
         dict(name="raster_v1", route="cuda", source="datum_tpu_torch/csrc/raster_v1.cu",
              replaces="datum_tpu/ops/raster_pallas.py:58",

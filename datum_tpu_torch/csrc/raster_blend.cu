@@ -160,7 +160,7 @@ raster_blend_kernel(const float* __restrict__ rows,
                     const int* __restrict__ big_ids,
                     const float* __restrict__ opaque_depth,   // (out_h, out_w)
                     const float* __restrict__ peel,           // (out_h, out_w) or null
-                    int soft_mode, int n_big, int bin_capacity, int tiles_x,
+                    int soft_mode, int n_big, int bin_capacity, int tiles_x, int ty0,
                     float cx, float cy, int out_w,
                     float* __restrict__ out)                  // (5, out_h, out_w)
 {
@@ -169,6 +169,7 @@ raster_blend_kernel(const float* __restrict__ rows,
     const int tile = blockIdx.x / HALVES;
     const int ty = tile / tiles_x;
     const int tx = tile - ty * tiles_x;
+    const int gy = (ty0 + ty) * TILE_H;     // the tile's first row in the NDC viewport
     const int col = threadIdx.x % TILE_W;
     const int row0 = (blockIdx.x % HALVES) * (TILE_H / HALVES)
                      + (threadIdx.x / TILE_W) * ROWS_PER_THREAD;
@@ -191,8 +192,8 @@ raster_blend_kernel(const float* __restrict__ rows,
     const int wcol = col - col % WARP_W;
     const float x0 = ndc(tx * TILE_W, wcol, cx);
     const float x1 = ndc(tx * TILE_W, wcol + WARP_W - 1, cx);
-    const float y0 = ndc(ty * TILE_H, row0, cy);
-    const float y1 = ndc(ty * TILE_H, row0 + ROWS_PER_THREAD - 1, cy);
+    const float y0 = ndc(gy, row0, cy);
+    const float y1 = ndc(gy, row0 + ROWS_PER_THREAD - 1, cy);
 
     const int n_entries = n_big + counts[tile];
     for (int base = 0; base < n_entries; base += CHUNK) {
@@ -216,7 +217,7 @@ raster_blend_kernel(const float* __restrict__ rows,
             const bool soft = soft_mode == 1 || (soft_mode == 2 && r[34] > 0.0f);
 #pragma unroll
             for (int p = 0; p < ROWS_PER_THREAD; ++p) {
-                const float yn = ndc(ty * TILE_H, row0 + p, cy);
+                const float yn = ndc(gy, row0 + p, cy);
                 const float e0 = plane(r[0], r[1], r[2], xn, yn);
                 const float e1 = plane(r[3], r[4], r[5], xn, yn);
                 const float e2 = plane(r[6], r[7], r[8], xn, yn);
@@ -275,15 +276,17 @@ raster_blend_kernel(const float* __restrict__ rows,
 // i32; big_ids (n_big,) i32; opaque_depth and peel (or null) (out_h,
 // out_w) f32; out (5, out_h, out_w) f32 with out_h = (n_tiles / tiles_x)
 // * 32 and out_w = tiles_x * 128.  cx, cy are 2/width and 2/height of the
-// NDC viewport, rounded to f32 by the caller.
+// NDC viewport, rounded to f32 by the caller.  A band of tile rows: bins,
+// counts, opaque_depth, peel and out hold its tiles only, and ty0 is the
+// viewport's tile row of its first row (0 for the whole frame).
 extern "C" int raster_blend_launch(const float* rows, const int* bins, const int* counts,
                                    const int* big_ids, const float* opaque_depth,
                                    const float* peel, int soft_mode, int n_big,
-                                   int bin_capacity, int tiles_x, int n_tiles, float cx,
+                                   int bin_capacity, int tiles_x, int n_tiles, int ty0, float cx,
                                    float cy, int out_w, float* out, void* stream)
 {
     raster_blend_kernel<<<n_tiles * HALVES, THREADS, 0, (cudaStream_t)stream>>>(
         rows, bins, counts, big_ids, opaque_depth, peel, soft_mode, n_big, bin_capacity,
-        tiles_x, cx, cy, out_w, out);
+        tiles_x, ty0, cx, cy, out_w, out);
     return (int)cudaGetLastError();
 }

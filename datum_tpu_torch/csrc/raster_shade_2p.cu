@@ -145,7 +145,7 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
                        const int* __restrict__ big_ids,
                        const float* __restrict__ peel,     // (out_h, out_w) or null
                        const float* __restrict__ szb,      // (n_tiles, n_big + bin_capacity) or null
-                       int n_big, int bin_capacity, int tiles_x,
+                       int n_big, int bin_capacity, int tiles_x, int ty0,
                        float cx, float cy, int out_h, int out_w,
                        float* __restrict__ out)
 {
@@ -168,6 +168,7 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
     const int tile = blockIdx.x / SPLIT;
     const int ty = tile / tiles_x;
     const int tx = tile - ty * tiles_x;
+    const int gy = (ty0 + ty) * TILE_H;     // the tile's first row in the NDC viewport
     const int col = threadIdx.x % TILE_W;
     const int row0 = (threadIdx.x / TILE_W) * ROWS_PER_THREAD;
     const int x = tx * TILE_W + col;
@@ -186,8 +187,8 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
     const int wcol = col - col % WARP_W;
     const float x0 = ndc(tx * TILE_W, wcol, cx);
     const float x1 = ndc(tx * TILE_W, wcol + WARP_W - 1, cx);
-    const float y0 = ndc(ty * TILE_H, row0, cy);
-    const float y1 = ndc(ty * TILE_H, row0 + ROWS_PER_THREAD - 1, cy);
+    const float y0 = ndc(gy, row0, cy);
+    const float y1 = ndc(gy, row0 + ROWS_PER_THREAD - 1, cy);
 
     const int n_entries = n_big + counts[tile];
     for (int i = threadIdx.x; i < n_entries; i += THREADS) s_pos[i] = 0;
@@ -223,7 +224,7 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
             const int g = (base + e) * SPLIT + rank;
 #pragma unroll
             for (int p = 0; p < ROWS_PER_THREAD; ++p) {
-                const float yn = ndc(ty * TILE_H, row0 + p, cy);
+                const float yn = ndc(gy, row0 + p, cy);
                 const float e0 = plane(a0, b0, c0, xn, yn);
                 const float e1 = plane(a1, b1, c1, xn, yn);
                 const float e2 = plane(a2, b2, c2, xn, yn);
@@ -335,7 +336,7 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
             if (w < 0 || w >= n_here) continue;
             const float* r = s_x.won[w];
             const int row = rank * ROWS_PER_RANK + i / TILE_W;
-            const float yv = ndc(ty * TILE_H, row, cy);
+            const float yv = ndc(gy, row, cy);
             auto lin = [&](int o) { return plane(r[o], r[o + 1], r[o + 2], xn, yv); };
             const float s = (lin(0) + lin(3)) + lin(6);
             const float rcp = 1.0f / (s == 0.0f ? 1.0f : s);
@@ -362,15 +363,15 @@ raster_shade_2p_kernel(const float* __restrict__ tri_rows,
 template <int SPLIT>
 int launch(const float* tri_rows, const int* bins, const int* counts, const int* big_ids,
            const float* peel, const float* szb, int n_big, int bin_capacity, int tiles_x,
-           int n_tiles, float cx, float cy, int out_h, int out_w, float* out, int dyn,
+           int n_tiles, int ty0, float cx, float cy, int out_h, int out_w, float* out, int dyn,
            cudaStream_t stream)
 {
     cudaError_t err = cudaFuncSetAttribute(
         raster_shade_2p_kernel<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
     if (err != cudaSuccess) return (int)err;
     raster_shade_2p_kernel<SPLIT><<<n_tiles * SPLIT, THREADS, dyn, stream>>>(
-        tri_rows, bins, counts, big_ids, peel, szb, n_big, bin_capacity, tiles_x, cx, cy,
-        out_h, out_w, out);
+        tri_rows, bins, counts, big_ids, peel, szb, n_big, bin_capacity, tiles_x, ty0, cx,
+        cy, out_h, out_w, out);
     return (int)cudaGetLastError();
 }
 
@@ -388,12 +389,14 @@ extern "C" int raster_shade_2p_smem_bytes(int n_big, int bin_capacity)
 // szb (n_tiles, n_big + bin_capacity) f32 early-z bounds or null;
 // out (22, out_h, out_w) f32 with out_h = tiles_y * 32 and out_w =
 // tiles_x * 128.  cx, cy are 2/width and 2/height of the NDC viewport,
-// rounded to f32 by the caller.
+// rounded to f32 by the caller.  A band of tile rows (the tile-sharded
+// frame): bins, counts, szb, peel and out hold its tiles only, and ty0 is
+// the tile row of the viewport its first row is (0 for the whole frame).
 extern "C" int raster_shade_2p_launch(const float* tri_rows, const int* bins,
                                       const int* counts, const int* big_ids,
                                       const float* peel, const float* szb,
                                       int n_big, int bin_capacity, int tiles_x,
-                                      int n_tiles, float cx, float cy, int out_h,
+                                      int n_tiles, int ty0, float cx, float cy, int out_h,
                                       int out_w, float* out, void* stream)
 {
     const int dyn = raster_shade_2p_smem_bytes(n_big, bin_capacity);
@@ -402,9 +405,9 @@ extern "C" int raster_shade_2p_launch(const float* tri_rows, const int* bins,
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (n_tiles >= 2 * n_sm && n_big + bin_capacity <= 512)
         return launch<2>(tri_rows, bins, counts, big_ids, peel, szb, n_big, bin_capacity,
-                         tiles_x, n_tiles, cx, cy, out_h, out_w, out, dyn,
+                         tiles_x, n_tiles, ty0, cx, cy, out_h, out_w, out, dyn,
                          (cudaStream_t)stream);
     return launch<4>(tri_rows, bins, counts, big_ids, peel, szb, n_big, bin_capacity,
-                     tiles_x, n_tiles, cx, cy, out_h, out_w, out, dyn,
+                     tiles_x, n_tiles, ty0, cx, cy, out_h, out_w, out, dyn,
                      (cudaStream_t)stream);
 }

@@ -34,6 +34,48 @@ def write_png(path, image):
                 + chunk(b"IEND", b""))
 
 
+def read_png(path):
+    """An 8-bit RGB or RGBA PNG (no interlace) as an (h, w, 3) or (h, w, 4)
+    uint8 numpy array, decoded with zlib: the card's machine has no PIL.
+    A byte's filter predictor reads its left, upper and upper-left
+    neighbours, all on earlier anti-diagonals x + y of the pixel grid, so
+    the rows are unfiltered one anti-diagonal at a time, every pixel of it
+    at once."""
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG")
+    pos, idat, w, h, c = 8, b"", None, None, None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
+            if depth != 8 or ctype not in (2, 6) or interlace != 0:
+                raise ValueError(f"{path}: not 8-bit RGB or RGBA without interlace")
+            c = 3 if ctype == 2 else 4
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + c * w)
+    filt = raw[:, 0].astype(np.int32)
+    if (filt > 4).any():
+        raise ValueError(f"{path}: unknown PNG filter {int(filt.max())}")
+    line = raw[:, 1:].reshape(h, w, c).astype(np.int32)
+    out = np.zeros((h + 1, w + 1, c), np.int32)     # a zero row above, a zero column left
+    for diag in range(h + w - 1):
+        y = np.arange(max(0, diag - w + 1), min(h, diag + 1))
+        x = diag - y
+        a, b, cc = out[y + 1, x], out[y, x + 1], out[y, x]   # left, up, up-left
+        p_ = a + b - cc
+        pa, pb, pc = np.abs(p_ - a), np.abs(p_ - b), np.abs(p_ - cc)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+        f = filt[y][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                         [a, b, (a + b) // 2, paeth], 0)
+        out[y + 1, x + 1] = (line[y, x] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
 def run_example(name, init, update, render, frames=8, width=640, height=352,
                 out=None, argv=None, options=()):
     """Parse --frames --width --height --out --overlay --cpu (and the

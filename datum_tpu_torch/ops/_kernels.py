@@ -75,13 +75,13 @@ def library_path(sources=None) -> Path:
 # argtypes of every C entry point, by name (p: pointer, i: int, f: float,
 # L: long long)
 _SIGNATURES = dict(
-    raster_shade_launch="ppppppiiiiffiipp",
-    raster_shade_2p_launch="ppppppiiiiffiipp",
+    raster_shade_launch="ppppppiiiiiffiipp",
+    raster_shade_2p_launch="ppppppiiiiiffiipp",
     raster_shade_2p_smem_bytes="ii",
     shade_smem_bytes="iiii",
     shade_launch="ppiiippippipipipppiiiffpp",
     raster_depth_launch="pppppiiiiffipp",
-    raster_blend_launch="ppppppiiiiiffipp",
+    raster_blend_launch="ppppppiiiiiiffipp",
     shade_epilogue_launch="pppppiipp",
     raster_v1_launch="ppppiiiiffiipp",
     raster_mxu_launch="ppppiiiiffipp",

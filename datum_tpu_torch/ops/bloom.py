@@ -23,10 +23,12 @@ def bloom_seed(quarter):
     return tonemap(quarter * t[..., None])
 
 
-def bloom(hdr, strength=1.0, upsample=True):
+def bloom(hdr, strength=1.0, upsample=True, pre_downsampled=False):
     """hdr (H, W, 3) -> blurred tonemapped overflow; upsample=False
-    returns the quarter-res result for the caller to upsample."""
-    quarter = downsample2(downsample2(hdr))
+    returns the quarter-res result for the caller to upsample.
+    pre_downsampled: hdr is already the quarter-res image (the
+    tile-sharded frame gathers its bands' quarter-res rows)."""
+    quarter = hdr if pre_downsampled else downsample2(downsample2(hdr))
     blurred = gaussian_blur(bloom_seed(quarter), SIGMA * 0.5)
     if not upsample:
         return blurred * strength

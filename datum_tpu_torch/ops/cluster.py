@@ -69,14 +69,18 @@ def tile_depth_bounds(depth, proj):
 
 
 def bin_lights(light_pos, light_range, count, view, proj, tiles_x, tiles_y,
-               width, height, capacity, tile_zrange=None):
+               width, height, capacity, tile_zrange=None, tile0=0, n_local=None):
     """Per-tile light lists: (lists (n_tiles, capacity) int32 light ids in
     ascending order, -1 padded; counts (n_tiles,) int32, at most
     capacity).  A light is in a tile's list when its sphere (light_range)
     reaches inside all 4 side planes and, with tile_zrange = (zmin, zmax)
     from tile_depth_bounds, overlaps the tile's depth interval; only the
-    first `count` lights take part."""
+    first `count` lights take part.  tile0 / n_local: only the tiles
+    tile0 .. tile0 + n_local - 1 of the frame's grid (a band of the
+    tile-sharded frame; tile_zrange is the band's then)."""
     planes = tile_frustum_planes(view, proj, tiles_x, tiles_y, width, height)
+    if n_local is not None:
+        planes = planes[tile0:tile0 + n_local]
     L = light_pos.shape[0]
     hp = torch.cat([light_pos, torch.ones((L, 1), dtype=light_pos.dtype,
                                           device=light_pos.device)], -1)

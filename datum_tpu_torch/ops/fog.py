@@ -94,10 +94,13 @@ def build_fog_volume(sceneset, *, proj, invview, shadow=None, fog_w=FOG_W,
 
 
 def fog_sample(depth, fogvol, proj, *, depth_range=FOG_DEPTH_RANGE,
-               exponent=FOG_DEPTH_EXPONENT, sample_scale=4):
+               exponent=FOG_DEPTH_EXPONENT, sample_scale=4, band_y0=0,
+               full_height=None):
     """Reduced-resolution fog tap: ((hq, wq, 4) [in-scatter rgb,
     transmittance], q).  Two 16-float row gathers per pixel from one
-    quad-packed table (xy bilinear in a row), the z pair lerped."""
+    quad-packed table (xy bilinear in a row), the z pair lerped.  A band
+    of rows: band_y0 its first row, full_height the frame's (full-res
+    rows)."""
     h, w = depth.shape
     fog_d, fog_h, fog_w, _ = fogvol.shape
     dev = depth.device
@@ -115,7 +118,9 @@ def fog_sample(depth, fogvol, proj, *, depth_range=FOG_DEPTH_RANGE,
     fz = torch.clamp(slice_f - k0, 0.0, 1.0)[..., None]
 
     xf = (torch.arange(wq, dtype=torch.float32, device=dev) + 0.5) / wq * fog_w - 0.5
-    yf = (torch.arange(hq, dtype=torch.float32, device=dev) + 0.5) / hq * fog_h - 0.5
+    fhq = full_height // q if full_height is not None else hq
+    yf = ((torch.arange(hq, dtype=torch.float32, device=dev) + band_y0 // q + 0.5) / fhq
+          * fog_h - 0.5)
     x0 = torch.clamp(torch.floor(xf), 0, fog_w - 1).to(torch.int64)[None, :]
     y0 = torch.clamp(torch.floor(yf), 0, fog_h - 1).to(torch.int64)[:, None]
     # a floor clamped at the low edge takes texel 0 (fraction 0)
@@ -138,12 +143,14 @@ def fog_sample(depth, fogvol, proj, *, depth_range=FOG_DEPTH_RANGE,
 
 
 def fog_planes(depth, fogvol, proj, *, depth_range=FOG_DEPTH_RANGE,
-               exponent=FOG_DEPTH_EXPONENT, sample_scale=4):
+               exponent=FOG_DEPTH_EXPONENT, sample_scale=4, y0=0, full_height=None):
     """The fog apply factors as 4 full-resolution (H, W) planes
-    [in-scatter r, g, b, transmittance] for K2's epilogue."""
+    [in-scatter r, g, b, transmittance] for K2's epilogue.  y0 and
+    full_height (full-res rows) place a band of rows in the frame."""
     h, w = depth.shape
     fog_q, q = fog_sample(depth, fogvol, proj, depth_range=depth_range,
-                          exponent=exponent, sample_scale=sample_scale)
+                          exponent=exponent, sample_scale=sample_scale,
+                          band_y0=y0, full_height=full_height)
     return [resize_up_dense(fog_q[..., c], h, w) if q > 1 else fog_q[..., c]
             for c in range(4)]
 

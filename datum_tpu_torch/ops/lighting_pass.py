@@ -19,26 +19,31 @@ from . import brdf
 from .envprobe import env_probe_lookup
 
 
-def view_ray_grid(invproj, width, height):
+def view_ray_grid(invproj, width, height, y0=0, local_h=None):
     """Per-pixel view ray (x, y, -1) through each pixel centre: returns
-    the (height, width) x and y components."""
+    the (local_h, width) x and y components of rows y0 .. y0 + local_h - 1
+    of a height-row frame (default: all of it)."""
     dev = invproj.device
-    yn = ((torch.arange(height, dtype=torch.float32, device=dev) + 0.5)
+    lh = local_h or height
+    yn = ((torch.arange(lh, dtype=torch.float32, device=dev) + y0 + 0.5)
           / height * 2.0 - 1.0)[:, None]
     xn = ((torch.arange(width, dtype=torch.float32, device=dev) + 0.5)
           / width * 2.0 - 1.0)[None, :]
     rx = invproj[0, 0] * xn
     ry = invproj[1, 1] * yn
-    return rx.expand(height, width), ry.expand(height, width)
+    return rx.expand(lh, width), ry.expand(lh, width)
 
 
-def reconstruct_positions(depth, proj, invview, width, height):
+def reconstruct_positions(depth, proj, invview, width, height, y0=0):
     """Reverse-Z depth (H, W) -> (view-space, world-space) positions
     (H, W, 3).  view_z = proj[2][3] / (d + proj[2][2]) is the positive
     distance along -Z.  The denominator is clamped away from 0 (depth 0
     is the background under the infinite projection), so positions stay
-    finite and reduced-res pooling never mixes NaN into covered pixels."""
-    rx, ry = view_ray_grid(_inv_proj(proj), width, height)
+    finite and reduced-res pooling never mixes NaN into covered pixels.
+    A band of rows (the tile-sharded frame): depth holds rows y0 .. of a
+    frame `height` rows high."""
+    rx, ry = view_ray_grid(_inv_proj(proj), width, height, y0=y0,
+                           local_h=depth.shape[0])
     denom = depth + proj[2, 2]
     tiny = torch.where(denom < 0, torch.full_like(denom, -1e-7),
                        torch.full_like(denom, 1e-7))
@@ -57,11 +62,12 @@ def _inv_proj(proj):
 
 
 def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale,
-               worldpos):
+               worldpos, up):
     """(env_specular, env_diffuse, envbrdf) of the environment, (..., 3)
     each: the skybox's terms, with the box probes' pixels replaced.  The
     SH + quad-packed fast path at 1/env_scale runs only without probes;
-    with them every term is tapped per pixel."""
+    with them every term is tapped per pixel.  up(x, h, w) upsamples the
+    fast path's fields (resize_up_dense, or a band's closure)."""
     from .blur import downsample_pool, resize_up_dense
     from .sampling import (sample_cubemap, sample_cubemap_lod, sample_cubemap_lod_flat,
                            sample_cubemap_lod_quad)
@@ -92,7 +98,7 @@ def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale,
         # the deepest specular mip is ~E(d)/pi and probe_irradiance gives
         # E(d); ddir is not unit length, the SH basis needs it normalised
         env_diffuse = brdf.probe_irradiance(ibl["sh"], brdf.normalize(ddir) @ skyrot.T) / brdf.PI
-        return resize_up_dense(spec_h, h, w), env_diffuse, resize_up_dense(eb_h, h, w)
+        return up(spec_h, h, w), env_diffuse, up(eb_h, h, w)
     lod = rough * (len(mips) - 1)
     sdir_e, ddir_e = sdir @ skyrot.T, ddir @ skyrot.T
     if "flat" in ibl:
@@ -112,7 +118,8 @@ def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale,
 
 def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
                    shadowmaps=None, ibl=None, cluster=None, spotmaps=None,
-                   shadow_factor_scale=2, env_scale=2, shadow_slice_blend=0.0):
+                   shadow_factor_scale=2, env_scale=2, shadow_slice_blend=0.0,
+                   full_size=None, y0=0, up_to=None):
     """The deferred shade: hdr (H, W, 3) times the camera exposure, black
     on the background (the sky fills it later).
 
@@ -123,12 +130,17 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
     environment or None (constant ambient); cluster: (lists, counts,
     tiles_x, tiles_y) of bin_lights or None (the dense point-light
     loop); spotmaps: (n, R, R) perspective depth maps of the first n
-    spots or None."""
+    spots or None.  A band of rows (the tile-sharded frame's reduced
+    path): full_size (H, W) of the frame, y0 the band's first row, and
+    up_to(x, h, w) the upsampler of the reduced-res factor and env fields
+    (default resize_up_dense; a band passes its all-gather closure)."""
     from .blur import downsample_pool, resize_up_dense
     from .shadow import shadow_factor, shadow_factor_esm_fast, spot_shadow_factor
 
     h, w = depth.shape
-    viewpos, worldpos = reconstruct_positions(depth, proj, invview, w, h)
+    fh, fw = full_size if full_size is not None else (h, w)
+    up = up_to if up_to is not None else resize_up_dense
+    viewpos, worldpos = reconstruct_positions(depth, proj, invview, fw, fh, y0=y0)
     campos = invview[:3, 3]
     cam = sceneset["camera"]
     normal = gbuffer["normal"][..., :3] * 2.0 - 1.0
@@ -145,7 +157,7 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
     if ibl is not None:
         env_specular, env_diffuse, envbrdf = _env_terms(
             gbuffer, normal, eyevec, rough, ibl, cam["skyrot_inv"], h, w, env_scale,
-            worldpos)
+            worldpos, up)
 
     probes = sceneset.get("probes")
     if probes is not None and probes["position"].shape[0] > 0 and env_diffuse is not None:
@@ -181,7 +193,7 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
             downsample_pool(worldpos, p), esm, zmx, zsc, ml["splits"], ml["shadowview"],
             downsample_pool(-viewpos[..., 2], p), normal=downsample_pool(normal, p),
             slice_blend=shadow_slice_blend)
-        sf = resize_up_dense(sf_h, h, w)
+        sf = up(sf_h, h, w)
     elif shadowmaps is not None:
         sf = shadow_factor(worldpos, shadowmaps, ml["splits"], ml["shadowview"],
                            -viewpos[..., 2], normal=normal)

@@ -337,7 +337,17 @@ def _tile_ndc(tile_idx, tiles_x, width, height):
     return xn.expand(n, TILE_H, TILE_W), yn.expand(n, TILE_H, TILE_W)
 
 
-def raster(setup, bins, big_ids, tiles_x, tiles_y, width, height):
+def check_band(n_tiles, tiles_x, tile0, tiles_y=None):
+    """Raise unless n_tiles tiles from the frame tile tile0 on are whole
+    tile rows of tiles_x (inside the tiles_y-row frame when given): the
+    whole frame, or a band of the tile-sharded frame."""
+    if (n_tiles % tiles_x or tile0 % tiles_x or tile0 < 0
+            or (tiles_y is not None and tile0 + n_tiles > tiles_x * tiles_y)):
+        raise ValueError(f"{n_tiles} tiles from tile {tile0} are not whole rows of "
+                         f"{tiles_x}" + ("" if tiles_y is None else f" in {tiles_y}"))
+
+
+def raster(setup, bins, big_ids, tiles_x, tiles_y, width, height, tile0=0):
     """The scan raster: depth (Hp, Wp) f32 (reverse-Z, cleared to 0) and
     vis (Hp, Wp) int32 triangle id (-1 = background) over all tiles.
 
@@ -350,12 +360,16 @@ def raster(setup, bins, big_ids, tiles_x, tiles_y, width, height):
     flag (the bins hold only valid triangles); no y scissor (the JAX
     setup carries no "ylim" key, so the stacked shadow atlases raster
     without their band scissor here).  Planes are fma(a, xn, b*yn) + c,
-    as XLA contracts a*xn + b*yn + c."""
+    as XLA contracts a*xn + b*yn + c.  Band mode (the tile-sharded frame):
+    bins holds the whole tile rows from the frame tile tile0 on, and the
+    planes are theirs."""
     dev = bins.device
     adj, det = setup["adj"], setup["det"]
     zs = depth_plane_coefs(setup)
-    n_tiles = tiles_x * tiles_y
-    xn, yn = _tile_ndc(torch.arange(n_tiles, device=dev), tiles_x, width, height)
+    n_tiles = bins.shape[0]
+    check_band(n_tiles, tiles_x, tile0, tiles_y)
+    tiles_y = n_tiles // tiles_x
+    xn, yn = _tile_ndc(torch.arange(n_tiles, device=dev) + tile0, tiles_x, width, height)
     depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
     vis = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32, device=dev)
     ids = torch.cat([bins, big_ids[None, :].expand(n_tiles, big_ids.shape[0])], 1)
@@ -377,12 +391,13 @@ def raster(setup, bins, big_ids, tiles_x, tiles_y, width, height):
     return _untile(depth, tiles_x, tiles_y), _untile(vis, tiles_x, tiles_y)
 
 
-def resolve_barycentrics(vis, setup, width, height):
+def resolve_barycentrics(vis, setup, width, height, y0=0):
     """Per-pixel perspective-correct barycentrics of the winning triangle:
-    (lam (H, W, 3) summing to 1 on covered pixels, mask (H, W))."""
+    (lam (H, W, 3) summing to 1 on covered pixels, mask (H, W)).  y0:
+    vis's first row in the frame (a band of the tile-sharded frame)."""
     h, w = vis.shape
     dev = vis.device
-    ys = ((torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5)
+    ys = ((torch.arange(h, dtype=torch.float32, device=dev)[:, None] + y0 + 0.5)
           / height * 2.0 - 1.0)
     xs = ((torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5)
           / width * 2.0 - 1.0)

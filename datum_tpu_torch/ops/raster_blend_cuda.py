@@ -38,6 +38,11 @@ soft, 1 - ca*falloff — and divide 10 / x as a true division; so the
 plain version is bit-equal to the JAX kernel in interpret mode in all
 three modes (tests/test_torch_translucent.py), and the kernel, which
 writes the same fmas with __fmaf_rn, to the plain version.
+
+Band mode (the tile-sharded frame): `tile0`, as K1's (ops/raster_cuda.py):
+the bins, counts, opaque depth and peel hold the band's tile rows from
+the frame tile tile0 on, the pixel centres are the frame's and the
+planes the band's.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import torch
 
 from . import _kernels
 from .common import TILE_H, TILE_W, fma
-from .raster import _untile, tile_image
+from .raster import _untile, check_band, tile_image
 from .raster_cuda import _entry_ids, _ndc_scale, _plane, _tile_ndc
 from .raster_depth_cuda import REJECT_ABS, warp_rect_reject
 
@@ -105,17 +110,18 @@ def blend_reject(r, x0, x1, y0, y1):
 
 
 def raster_blend_reference(rows, bins, counts, big_ids, opaque_depth, tiles_x,
-                           width, height, soft, peel=None):
+                           width, height, soft, peel=None, tile0=0):
     """Plain PyTorch K4: (5, tiles_y*32, tiles_x*128) f32 planes ar, ag,
     ab, aw, rv.  It walks every bin slot: slots past a tile's count hold
     -1, whose zero rows add exact zeros.  soft: False, True or "per_tri";
-    peel: optional (tiles_y*32, tiles_x*128) f32 depth."""
+    peel: optional (tiles_y*32, tiles_x*128) f32 depth; tile0: the frame
+    tile of the bins' first row (band mode)."""
     mode = SOFT_MODES[soft]
     dev = rows.device
     n_tiles = bins.shape[0]
     tiles_y = n_tiles // tiles_x
     ids = _entry_ids(bins, big_ids)
-    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev)
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev, tile0)
     od = tile_image(opaque_depth, tiles_x, tiles_y)
     pl = None if peel is None else tile_image(peel, tiles_x, tiles_y)
 
@@ -171,14 +177,13 @@ def raster_blend_reference(rows, bins, counts, big_ids, opaque_depth, tiles_x,
 
 
 def raster_blend_cuda(rows, bins, counts, big_ids, opaque_depth, tiles_x,
-                      width, height, soft, peel=None):
+                      width, height, soft, peel=None, tile0=0):
     """K4 on the card: the same contract as raster_blend_reference."""
     dev = rows.device
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
         raise ValueError(f"raster_blend_cuda needs CUDA tensors, got {dev}")
-    if n_tiles % tiles_x:
-        raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
+    check_band(n_tiles, tiles_x, tile0)
     out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W
     checks = [("rows", rows, torch.float32, (rows.shape[0], ROW)),
               ("bins", bins, torch.int32, (n_tiles, cap)),
@@ -194,7 +199,7 @@ def raster_blend_cuda(rows, bins, counts, big_ids, opaque_depth, tiles_x,
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
         vp(big_ids.data_ptr()), vp(opaque_depth.data_ptr()),
         vp(None if peel is None else peel.data_ptr()), SOFT_MODES[soft],
-        big_ids.shape[0], cap, tiles_x, n_tiles, _ndc_scale(width),
+        big_ids.shape[0], cap, tiles_x, n_tiles, tile0 // tiles_x, _ndc_scale(width),
         _ndc_scale(height), out_w, vp(out.data_ptr()),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "raster_blend")
@@ -207,7 +212,7 @@ raster_blend_cuda.launches = 0
 
 def blend_inputs(setup, bins, big_ids, counts, tris, uv, color, opaque_depth,
                  tiles_x, width, height, soft=True, peel_depth=None,
-                 soft_flag=None, peel_flag=None):
+                 soft_flag=None, peel_flag=None, tile0=0):
     """The K4 arguments both versions take, from the stream's tensors."""
     return dict(rows=blend_rows(setup, tris, uv, color, soft_flag, peel_flag),
                 bins=bins.to(torch.int32).contiguous(),
@@ -215,21 +220,22 @@ def blend_inputs(setup, bins, big_ids, counts, tris, uv, color, opaque_depth,
                 big_ids=big_ids.to(torch.int32).contiguous(),
                 opaque_depth=opaque_depth.contiguous(), tiles_x=tiles_x,
                 width=width, height=height, soft=soft,
-                peel=None if peel_depth is None else peel_depth.contiguous())
+                peel=None if peel_depth is None else peel_depth.contiguous(),
+                tile0=tile0)
 
 
 def raster_blend(setup, bins, big_ids, counts, tris, uv, color, opaque_depth,
                  tiles_x, tiles_y, width, height, *, soft=True, peel_depth=None,
-                 soft_flag=None, peel_flag=None):
+                 soft_flag=None, peel_flag=None, tile0=0):
     """Weighted-blend OIT accumulation: the five (tiles_y*32, tiles_x*128)
     f32 planes (ar, ag, ab, aw, reveal) of raster_blend_pallas(planes=
-    True).  CUDA tensors run the K4 kernel (it raises if it cannot
-    launch); CPU tensors run the plain PyTorch version."""
-    if bins.shape[0] != tiles_x * tiles_y:
-        raise ValueError(f"bins has {bins.shape[0]} rows for "
-                         f"{tiles_x}x{tiles_y} tiles")
+    True).  Band mode: bins, opaque_depth and peel_depth hold the tile rows
+    from the frame tile tile0 on.  CUDA tensors run the K4 kernel (it
+    raises if it cannot launch); CPU tensors run the plain PyTorch
+    version."""
+    check_band(bins.shape[0], tiles_x, tile0, tiles_y)
     inp = blend_inputs(setup, bins, big_ids, counts, tris, uv, color,
                        opaque_depth, tiles_x, width, height, soft, peel_depth,
-                       soft_flag, peel_flag)
+                       soft_flag, peel_flag, tile0)
     fn = raster_blend_cuda if inp["rows"].is_cuda else raster_blend_reference
     return tuple(fn(**inp).unbind(0))

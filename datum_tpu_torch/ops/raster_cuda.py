@@ -51,6 +51,14 @@ reaches the bound of everything left: the depth test is strict (d >
 depth), so no remaining entry can win and the planes are the same bit
 for bit.  The plain versions walk every entry; they are the contract
 with and without the exit.
+
+Band mode (the tile-sharded frame, parallel/sharded.py): `tile0`, a
+multiple of tiles_x, names the frame tile of the bins' first row; the
+bins, counts, szb and peel hold the band's whole tile rows only, the
+pixel centres come from the global tile rows (width and height stay the
+viewport's), and the planes are band-sized.  The JAX kernel takes a
+table of tile ids; a band is always tile0 + arange, so its first tile is
+all the kernels need.
 """
 
 from __future__ import annotations
@@ -62,7 +70,7 @@ import torch
 
 from . import _kernels
 from .common import TILE_H, TILE_W, fma
-from .raster import _untile, tile_image
+from .raster import _untile, check_band, tile_image
 
 ROW = 64              # floats per triangle row
 N_PLANES = 22
@@ -132,7 +140,7 @@ def _ndc_scale(n: int) -> float:
     return float(np.float32(2.0 / n))
 
 
-def early_z_bounds(rows, bins, big_ids, tiles_x, width, height):
+def early_z_bounds(rows, bins, big_ids, tiles_x, width, height, tile0=0):
     """The kernels' early-z bounds `szb`: (n_tiles, B+K) f32, per tile and
     walk slot the max, over that slot and every later one, of the
     entry's depth plane a*xn + b*yn + c (row slots 9-11) over the tile's
@@ -144,12 +152,13 @@ def early_z_bounds(rows, bins, big_ids, tiles_x, width, height):
     So once a pixel's depth reaches szb[t, k], no entry from slot k on can
     pass the strict test d > depth: the walk may end there.  Unlike the
     TPU's bound (the triangle's largest vertex z/w), this holds for
-    zero-area triangles too, whose planes are rounding noise."""
+    zero-area triangles too, whose planes are rounding noise.  tile0: the
+    frame tile of the bins' first row (band mode)."""
     n_tiles = bins.shape[0]
     ids = _entry_ids(bins, big_ids).long()
     r = rows[torch.clamp(ids, min=0), 9:13]                    # (n, E, 4)
     az, bz, cz = (r[..., j].double() for j in range(3))
-    tile = torch.arange(n_tiles, device=rows.device)
+    tile = torch.arange(n_tiles, device=rows.device) + tile0
 
     def ndc(origin, pix, scale):
         # the kernels' pixel-centre coordinate, in f32: (origin + pix + 0.5) * scale - 1
@@ -164,10 +173,11 @@ def early_z_bounds(rows, bins, big_ids, tiles_x, width, height):
     return torch.flip(torch.cummax(torch.flip(bound, [1]), 1).values, [1]).float().contiguous()
 
 
-def _tile_ndc(n_tiles, tiles_x, width, height, device):
-    """The kernels' pixel centres of every tile: xn (n, 1, 128) and yn
-    (n, 32, 1) f32, (origin + pixel + 0.5) * (2/size) - 1."""
-    tile = torch.arange(n_tiles, device=device)
+def _tile_ndc(n_tiles, tiles_x, width, height, device, tile0=0):
+    """The kernels' pixel centres of the tiles tile0 .. tile0 + n_tiles -
+    1: xn (n, 1, 128) and yn (n, 32, 1) f32, (origin + pixel + 0.5) *
+    (2/size) - 1."""
+    tile = torch.arange(n_tiles, device=device) + tile0
     ty = (tile // tiles_x).to(torch.float32)[:, None, None]
     tx = (tile % tiles_x).to(torch.float32)[:, None, None]
     yy = torch.arange(TILE_H, device=device, dtype=torch.float32)[None, :, None]
@@ -200,7 +210,7 @@ WALK_CHUNK = 64          # entries a block stages a round
 
 
 def split_walk(rows, ids, tiles_x, width, height, split, peel=None, szb=None,
-               step=walk_step):
+               step=walk_step, tile0=0):
     """The split walk of K1, K5, K6 and K7 in plain PyTorch: (depth, slot),
     each (n_tiles, 32, 128), slot NO_SLOT where no entry passes.  Block r
     walks the slots r, r + split, .. of ids (n_tiles, E) in chunks of
@@ -209,9 +219,10 @@ def split_walk(rows, ids, tiles_x, width, height, split, peel=None, szb=None,
     chunk, reaches.  The blocks' partials combine to the largest depth
     and, among equal ones, the smallest slot.  step(rows, idk, xn, yn,
     depth, peel_t) -> (passed, d) is one slot of the walk (K7's:
-    raster_mxu_cuda.mxu_walk_step; K5's: raster_v1_cuda.raster_v1_walk_step)."""
+    raster_mxu_cuda.mxu_walk_step; K5's: raster_v1_cuda.raster_v1_walk_step).
+    tile0: the frame tile of ids' first row (band mode)."""
     n_tiles, E = ids.shape
-    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, rows.device)
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, rows.device, tile0)
     peel_t = None if peel is None else tile_image(peel, tiles_x, n_tiles // tiles_x)
     best = torch.zeros((n_tiles, TILE_H, TILE_W), device=rows.device)
     best_g = torch.full_like(best, NO_SLOT, dtype=torch.int64)
@@ -237,17 +248,18 @@ def split_walk(rows, ids, tiles_x, width, height, split, peel=None, szb=None,
 
 
 def raster_shade_reference(rows, bins, counts, big_ids, tiles_x, width, height,
-                           peel=None, szb=None):
+                           peel=None, szb=None, tile0=0):
     """Plain PyTorch K1: (22, tiles_y*32, tiles_x*128) f32 planes.  It
     walks every bin slot: slots past a tile's count hold -1 (`counts`
     only bounds the kernel's walk).  peel: optional (tiles_y*32,
     tiles_x*128) f32 depth; only fragments with d < peel pass.  szb (the
     early-z bounds) is not read: the full walk gives the planes the
-    kernel's early exit gives."""
+    kernel's early exit gives.  tile0: the frame tile of the bins' first
+    row (band mode: the planes are the band's)."""
     dev = rows.device
     n_tiles = bins.shape[0]
     ids = _entry_ids(bins, big_ids)
-    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev)
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev, tile0)
     depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
     win = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int32,
                      device=dev)
@@ -286,7 +298,7 @@ def _winner_planes(r, depth, has, visf, xn, yn):
 
 
 def raster_shade_2p_reference(rows, bins, counts, big_ids, tiles_x, width,
-                              height, peel=None, szb=None):
+                              height, peel=None, szb=None, tile0=0):
     """Plain PyTorch K6, in its two phases: the walk carries (depth, the
     winning slot — the entry's index in walk order); each tile flags the
     slots that won a pixel and compacts them (a prefix sum), stages the
@@ -298,7 +310,7 @@ def raster_shade_2p_reference(rows, bins, counts, big_ids, tiles_x, width,
     ids = _entry_ids(bins, big_ids)
     E = ids.shape[1]
     tile = torch.arange(n_tiles, device=dev)
-    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev)
+    xn, yn = _tile_ndc(n_tiles, tiles_x, width, height, dev, tile0)
 
     # ---- phase 1: depth + winning slot
     depth = torch.zeros((n_tiles, TILE_H, TILE_W), device=dev)
@@ -331,14 +343,13 @@ def raster_shade_2p_reference(rows, bins, counts, big_ids, tiles_x, width,
 
 
 def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height,
-                   peel, szb):
+                   peel, szb, tile0):
     """Check the K1/K6 arguments, allocate the planes and launch fn."""
     dev = rows.device
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
         raise ValueError(f"{what}_cuda needs CUDA tensors, got {dev}")
-    if n_tiles % tiles_x:
-        raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
+    check_band(n_tiles, tiles_x, tile0)
     out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W
     checks = [("rows", rows, torch.float32, (rows.shape[0], ROW)),
               ("bins", bins, torch.int32, (n_tiles, cap)),
@@ -355,7 +366,7 @@ def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
         vp(big_ids.data_ptr()), vp(None if peel is None else peel.data_ptr()),
         vp(None if szb is None else szb.data_ptr()),
-        big_ids.shape[0], cap, tiles_x, n_tiles,
+        big_ids.shape[0], cap, tiles_x, n_tiles, tile0 // tiles_x,
         _ndc_scale(width), _ndc_scale(height), out_h, out_w,
         vp(out.data_ptr()), vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, what)
@@ -363,12 +374,12 @@ def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height
 
 
 def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
-                      peel=None, szb=None):
+                      peel=None, szb=None, tile0=0):
     """K1 on the card: the same contract as raster_shade_reference; with
     szb each thread ends its walk early (see the module docstring)."""
     out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_launch(*a),
                          "raster_shade", rows, bins, counts, big_ids, tiles_x,
-                         width, height, peel, szb)
+                         width, height, peel, szb, tile0)
     raster_shade_cuda.launches += 1
     return out
 
@@ -382,7 +393,7 @@ MAX_2P_DYN_SMEM = 180 * 1024
 
 
 def raster_shade_2p_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
-                         peel=None, szb=None):
+                         peel=None, szb=None, tile0=0):
     """K6 on the card: the same contract as raster_shade_2p_reference;
     with szb its first phase ends early."""
     n_entries = big_ids.shape[0] + bins.shape[1]
@@ -391,7 +402,7 @@ def raster_shade_2p_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
                          f"{8 * n_entries} B of shared memory (> {MAX_2P_DYN_SMEM})")
     out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_2p_launch(*a),
                          "raster_shade_2p", rows, bins, counts, big_ids, tiles_x,
-                         width, height, peel, szb)
+                         width, height, peel, szb, tile0)
     raster_shade_2p_cuda.launches += 1
     return out
 
@@ -401,9 +412,9 @@ raster_shade_2p_cuda.launches = 0
 
 def raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
                   tri_material, materials, tiles_x, width, height, tangent,
-                  alpha_in_alb=False, peel_depth=None, early_z=False):
+                  alpha_in_alb=False, peel_depth=None, early_z=False, tile0=0):
     """The K1 arguments both versions take, from the frame's tensors
-    (szb, the early-z bounds, with early_z)."""
+    (szb, the early-z bounds, with early_z; tile0 in band mode)."""
     rows = tri_attr_rows(setup, tris, uv, normal, tri_material, materials, tangent,
                          alpha_in_alb)
     return dict(rows=rows,
@@ -412,14 +423,15 @@ def raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
                 big_ids=big_ids.to(torch.int32).contiguous(),
                 tiles_x=tiles_x, width=width, height=height,
                 peel=None if peel_depth is None else peel_depth.contiguous(),
-                szb=(early_z_bounds(rows, bins, big_ids, tiles_x, width, height)
-                     if early_z else None))
+                szb=(early_z_bounds(rows, bins, big_ids, tiles_x, width, height, tile0)
+                     if early_z else None),
+                tile0=tile0)
 
 
 def raster_shade(setup, bins, big_ids, counts, tris, uv, normal, tri_material,
                  materials, tiles_x, tiles_y, width, height, *, tangent,
                  alpha_in_alb=False, peel_depth=None, two_phase=False,
-                 early_z=False):
+                 early_z=False, tile0=0):
     """Fused raster + attribute/material interpolation.
 
     Returns a dict of the 22 (tiles_y*32, tiles_x*128) f32 planes named
@@ -427,15 +439,15 @@ def raster_shade(setup, bins, big_ids, counts, tris, uv, normal, tri_material,
     them.  alpha_in_alb puts the material alpha in the "alb" plane;
     peel_depth (tiles_y*32, tiles_x*128) keeps only fragments strictly
     farther than it.  two_phase runs K6 instead of K1 (the same planes).
-    early_z lets the kernel end its walk early (the same planes).  CUDA tensors
-    run the kernel (it raises if it cannot launch); CPU tensors run its
-    plain PyTorch version."""
-    if bins.shape[0] != tiles_x * tiles_y:
-        raise ValueError(f"bins has {bins.shape[0]} rows for "
-                         f"{tiles_x}x{tiles_y} tiles")
+    early_z lets the kernel end its walk early (the same planes).  Band
+    mode: bins (and peel_depth) hold the tile rows from the frame tile
+    tile0 on, and the planes are theirs.  CUDA tensors run the kernel (it
+    raises if it cannot launch); CPU tensors run its plain PyTorch
+    version."""
+    check_band(bins.shape[0], tiles_x, tile0, tiles_y)
     inp = raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,
                         tri_material, materials, tiles_x, width, height, tangent,
-                        alpha_in_alb, peel_depth, early_z)
+                        alpha_in_alb, peel_depth, early_z, tile0)
     if inp["rows"].is_cuda:
         fn = raster_shade_2p_cuda if two_phase else raster_shade_cuda
     else:

@@ -24,14 +24,15 @@ from .raster import resolve_barycentrics
 from .sampling import sample_bilinear
 
 
-def _bdiff(a, axis):
-    """Edge-clamped backward difference |a - a_prev| along axis."""
-    first = a.narrow(axis, 0, 1)
+def _bdiff(a, axis, prev0=None):
+    """Edge-clamped backward difference |a - a_prev| along axis; prev0,
+    when given, is the slice before the first (a band's neighbour row)."""
+    first = a.narrow(axis, 0, 1) if prev0 is None else prev0
     prev = torch.cat([first, a.narrow(axis, 0, a.shape[axis] - 1)], dim=axis)
     return torch.abs(a - prev)
 
 
-def sample_matmaps(table, base, size, uv, pool=1):
+def sample_matmaps(table, base, size, uv, pool=1, prev_uv_row=None):
     """One-gather trilinear-ready material sample from the combined mip
     table.
 
@@ -40,12 +41,19 @@ def sample_matmaps(table, base, size, uv, pool=1):
     from screen-space uv derivatives; `pool` notes the resolution divisor
     so derivatives stay calibrated at reduced resolution.
 
+    prev_uv_row: optional (1, W, 2) row before row 0 (the tile-sharded
+    frame passes the band above's last row, so that the band's first row
+    takes the mip level the whole frame gives it).
+
     Returns (12, H, W) f32 in [0, 1]: albedo rgba, surface rgba, normal
     rgba, channel-first."""
     u, v = uv[..., 0], uv[..., 1]
     sf = size.to(torch.float32)
-    du = _bdiff(u, 1) + _bdiff(u, 0)
-    dv = _bdiff(v, 1) + _bdiff(v, 0)
+    pu = pv = None
+    if prev_uv_row is not None:
+        pu, pv = prev_uv_row[..., 0], prev_uv_row[..., 1]
+    du = _bdiff(u, 1) + _bdiff(u, 0, pu)
+    dv = _bdiff(v, 1) + _bdiff(v, 0, pv)
     span = torch.maximum(du, dv) * sf * (1.0 / max(pool, 1))
     lod = torch.log2(torch.clamp(span, min=1.0))
     max_lod = torch.log2(torch.clamp(sf, min=1.0))          # exact for pow2
@@ -112,7 +120,7 @@ def _encode_gbuffer(albedo_rgb, emissive, metalness, reflectivity, roughness,
 
 def resolve_gbuffer(vis, setup, tris, tri_instance, attrs, instances, materials,
                     textures, width, height, material_maps=True, lam=None,
-                    matmaps=None):
+                    matmaps=None, y0=0):
     """vis (H, W) int32 triangle ids (-1 background); attrs dict(uv (V, 2),
     normal (V, 3), tangent (V, 4)); instances dict(material (I,));
     materials dict(color (M, 4), metalness/roughness/reflectivity/
@@ -120,10 +128,11 @@ def resolve_gbuffer(vis, setup, tris, tri_instance, attrs, instances, materials,
     S, 4) u8, the legacy pool, tapped bilinearly.  lam: (H, W, 3)
     barycentrics (K5's), else resolve_barycentrics computes them.
     matmaps: dict(table, base, size) takes the albedo, surface and normal
-    maps from the v2 material-map table instead (the 'mip' filters).
+    maps from the v2 material-map table instead (the 'mip' filters).  y0:
+    vis's first row in the frame (a band of the tile-sharded frame).
     Returns dict(diffuse, specular, normal (H, W, 4), mask (H, W))."""
     if lam is None:
-        lam, mask = resolve_barycentrics(vis, setup, width, height)
+        lam, mask = resolve_barycentrics(vis, setup, width, height, y0=y0)
     else:
         mask = vis >= 0
     t = torch.clamp(vis, min=0).long()

@@ -24,6 +24,12 @@ nearest layer), that layer's blend, the fog and the WBOIT resolve run in
 the epilogue kernel, which launches only when one of those groups is
 given.  `shade_deferred_cuda.launches` counts K2's launches and
 `shade_deferred_envd.launches` those of them that carried the override.
+
+Band mode (the tile-sharded frame): the planes are a band of rows of the
+frame; `y0`, its first row, rides params[26] and `full_height`, the
+frame's, sets the NDC scale 2 / H, so the view rays are the frame's.  The
+epilogue's refraction wraps inside 16-row bands, which a band of whole
+32-row tiles holds whole: it needs nothing.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ POINT_CHUNK = 8   # point lights per loop trip (reads past the count clamp)
 
 
 def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
-                 clusters=None):
+                 clusters=None, y0=0, full_height=None):
     """Pack the K2 arguments both versions take (see shade_deferred)."""
     given = [k in gplanes for k in ENVD_NAMES]
     if any(given) and not all(given):
@@ -98,7 +104,7 @@ def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
     params[23] = cam["ambientintensity"]
     params[24] = cam["exposure"]
     params[25] = cam["specularintensity"]
-    params[26] = 0.0                      # first row (tile bands: later)
+    params[26] = float(y0)                # the band's first row of the frame
     params[27:54] = sceneset["_sh"].reshape(-1)
 
     pl_ = sceneset["pointlights"]
@@ -130,7 +136,8 @@ def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
         ao=None if ao is None else _bf16(ao),
         spotsf=None if spotsf is None else _bf16(spotsf),
         params=params, lights=lights, spots=spots, probes=probes,
-        counts=counts, cl_lists=cl_lists, cl_counts=cl_counts)
+        counts=counts, cl_lists=cl_lists, cl_counts=cl_counts,
+        full_height=H if full_height is None else int(full_height))
 
 
 def _bf16(x):
@@ -250,13 +257,15 @@ def _group_names(has_sky, envd):
 
 def shade_deferred_reference(f32_planes, planes, has_sky, ao, spotsf, params,
                              lights, spots, probes, counts, n_trk=0,
-                             cl_lists=None, cl_counts=None, envd=False):
+                             cl_lists=None, cl_counts=None, envd=False,
+                             full_height=None):
     """Plain PyTorch K2: (3, H, W) f32 HDR planes (the kernel's math,
     operation for operation).  With cl_lists (H/16, W/128, cap) and
     cl_counts (H/16, W/128), each pixel adds the point lights of its
     16-row band's and 128-column sub-tile's list, slots j < count in list
     order, instead of every light.  With envd, the planes after the sky
-    carry ENVD_NAMES."""
+    carry ENVD_NAMES.  full_height: the frame's height when the planes
+    are a band of it from row params[26] (default H)."""
     P = params
     dev = P.device
     _, H, W = f32_planes.shape
@@ -268,7 +277,7 @@ def shade_deferred_reference(f32_planes, planes, has_sky, ao, spotsf, params,
     mask = visf >= 0.0
     yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
     xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
-    yn = (P[26] + yy + 0.5) * float(np.float32(2.0 / H)) - 1.0
+    yn = (P[26] + yy + 0.5) * float(np.float32(2.0 / (full_height or H))) - 1.0
     xn = (xx + 0.5) * float(np.float32(2.0 / W)) - 1.0
 
     denom = depth + P[2]
@@ -468,7 +477,7 @@ def shade_epilogue_reference(bg, tr=None, refr=None, fog=None, oit=None):
 
 def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
                         lights, spots, probes, counts, n_trk=0, cl_lists=None,
-                        cl_counts=None, envd=False):
+                        cl_counts=None, envd=False, full_height=None):
     """K2 on the card: the same contract as shade_deferred_reference."""
     dev = f32_planes.device
     if dev.type != "cuda":
@@ -513,7 +522,8 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
         ptr(params), ptr(lights), lights.shape[0], ptr(spots), spots.shape[0],
         ptr(probes), probes.shape[0], ptr(counts), ptr(cl_lists),
         ptr(cl_counts), cap, H, W, float(np.float32(2.0 / W)),
-        float(np.float32(2.0 / H)), ptr(out), vp(_kernels.stream_ptr(dev)))
+        float(np.float32(2.0 / (full_height or H))), ptr(out),
+        vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "shade_deferred")
     shade_deferred_cuda.launches += 1
     if envd:
@@ -565,19 +575,21 @@ shade_epilogue_cuda.launches = 0
 
 
 def shade_deferred(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
-                   planes_out=False, clusters=None):
+                   planes_out=False, clusters=None, y0=0, full_height=None):
     """Deferred shade of one layer.
 
     gplanes: dict of (H, W) f32 planes PLANE_NAMES [+ SKY_NAMES, ENVD_NAMES,
     TR_NAMES, trk_names(2..4), REFR_NAMES, FOG_NAMES, OIT_NAMES]; ao: optional
     (H, W) ambient multiplier; spotsf: optional (n_maps, H, W) spot
     factors; sceneset carries "_sh" (9, 3).  Returns hdr (H, W, 3), or
-    its three (H, W) planes with planes_out.  CUDA tensors run the K2
-    kernel and, with a tr/refr/fog/oit group, the epilogue kernel (each
-    raises if it cannot launch); CPU tensors run the plain PyTorch
-    versions."""
+    its three (H, W) planes with planes_out.  Band mode: the planes are
+    rows y0 .. y0 + H - 1 of a frame full_height rows high.  CUDA tensors
+    run the K2 kernel and, with a tr/refr/fog/oit group, the epilogue
+    kernel (each raises if it cannot launch); CPU tensors run the plain
+    PyTorch versions."""
     inp = shade_inputs(gplanes, sceneset, proj=proj, invview=invview, ao=ao,
-                       spotsf=spotsf, clusters=clusters)
+                       spotsf=spotsf, clusters=clusters, y0=y0,
+                       full_height=full_height)
     epi = epilogue_inputs(gplanes)
     if inp["f32_planes"].is_cuda:
         out = shade_deferred_cuda(**inp)

@@ -265,13 +265,15 @@ def shadow_factor_esm_fast(worldpos, esm, zmax, zscale, splits, shadowview,
 
 
 def sun_shadow_factor_quarter(depth, nrm_planes, shadowmaps, sceneset, *,
-                              proj, invview, slice_blend=0.0):
+                              proj, invview, slice_blend=0.0, y0=0, full_height=None):
     """Quarter-res sun ESM factor straight from the depth plane.
-    shadowmaps: build_esm's (esm, zmax, zscale)."""
+    shadowmaps: build_esm's (esm, zmax, zscale).  y0 and full_height
+    (full-res rows) place a band of rows in the frame."""
     esm, zmx, zsc = shadowmaps
     dq = downsample_pool(depth, SCALE, reduce="first")
     h4, w4 = dq.shape
-    viewpos, wpos = reconstruct_positions(dq, proj, invview, w4, h4)
+    fh4 = full_height // SCALE if full_height is not None else h4
+    viewpos, wpos = reconstruct_positions(dq, proj, invview, w4, fh4, y0=y0 // SCALE)
     nrm = torch.stack([downsample_pool(p, SCALE, reduce="first")
                        for p in nrm_planes], dim=-1)
     nrm = nrm / torch.clamp(torch.linalg.norm(nrm, dim=-1, keepdim=True),
@@ -339,12 +341,14 @@ def render_spot_maps_parabolic(world_pos, tris, spotview_rigid, spot_far,
 
 
 def spot_factor_quarter_parabolic(depth, spot_esm, view_rigid, far, *,
-                                  proj, invview):
-    """Quarter-res parabolic factor of one spot from its ESM map."""
+                                  proj, invview, y0=0, full_height=None):
+    """Quarter-res parabolic factor of one spot from its ESM map (y0,
+    full_height: a band of rows, as sun_shadow_factor_quarter's)."""
     res = spot_esm.shape[0]
     dq = downsample_pool(depth, SCALE, reduce="first")
     h4, w4 = dq.shape
-    _, wpos = reconstruct_positions(dq, proj, invview, w4, h4)
+    fh4 = full_height // SCALE if full_height is not None else h4
+    _, wpos = reconstruct_positions(dq, proj, invview, w4, fh4, y0=y0 // SCALE)
     m = view_rigid
     vx = wpos @ m[0, :3] + m[0, 3]
     vy = wpos @ m[1, :3] + m[1, 3]
@@ -397,12 +401,15 @@ def spot_shadow_factor(worldpos, spotmap, shadowview, bias=2e-3):
     return torch.where(inside, lit, torch.ones_like(lit))
 
 
-def spot_factor_quarter(depth, spot_esm, shadowview, *, proj, invview):
-    """Quarter-res perspective factor of one spot from its ESM map."""
+def spot_factor_quarter(depth, spot_esm, shadowview, *, proj, invview, y0=0,
+                        full_height=None):
+    """Quarter-res perspective factor of one spot from its ESM map (y0,
+    full_height: a band of rows, as sun_shadow_factor_quarter's)."""
     res = spot_esm.shape[0]
     dq = downsample_pool(depth, SCALE, reduce="first")
     h4, w4 = dq.shape
-    _, wpos = reconstruct_positions(dq, proj, invview, w4, h4)
+    fh4 = full_height // SCALE if full_height is not None else h4
+    _, wpos = reconstruct_positions(dq, proj, invview, w4, fh4, y0=y0 // SCALE)
     xi, yi, ref, inside = _spot_project(wpos, shadowview, res)
     tap = spot_esm.reshape(-1)[yi * res + xi]
     lit = torch.clamp(tap * torch.exp(torch.clamp(SPOT_ESM_C * ref, 0.0, 30.0)),

@@ -48,6 +48,20 @@ fallback.
 
 PyTorch runs eagerly, so there is no jit: each pass is a plain function
 on tensors, and the frame is one call of `render_frame`.
+
+Band mode: the megakernel branch's stages from the raster to K2
+(`shade_band`) also run on a band of whole tile rows of the frame, for
+the tile-sharded frame (parallel/sharded.py).  `band` is then a dict:
+y0 (the band's first row), full_h (the frame's padded height), tile0
+(the frame tile of its first tile), up_to(x, h, w) and up_to_batch(x3,
+h, w) (the upsamplers of reduced-resolution fields: all-gather, upsample
+the whole frame's field, slice the band back out), prev_row(x) (the row
+above a band-local field's first row, from the band above), and, when
+given, ao (the band's SSAO factor) and fogvol (the froxel fog volume).
+Planes stay band-sized; the NDC of every pixel comes from the frame's
+rows.  The lit translucent layers then run at the frame's resolution
+whatever translucent_lit_scale says, as the JAX package's band mode
+does.  With band None every stage gives what it gives the whole frame.
 """
 
 from __future__ import annotations
@@ -325,7 +339,25 @@ def _skyrot(sceneset):
     return sceneset["camera"]["skyrot_inv"]
 
 
-def _env_fields(planes, mm12, ibl, sceneset, w, h):
+def _band(band, h):
+    """(y0, frame height, up_to, up_to_batch, prev_row) of a band (see
+    the module docstring), or of the whole h-row frame when band is
+    None."""
+    if band is None:
+        return 0, h, resize_up_dense, resize_up_dense_batch, None
+    return band["y0"], band["full_h"], band["up_to"], band["up_to_batch"], band["prev_row"]
+
+
+def _band_tiles(band, h, tiles_x, *rows):
+    """(tile0, each of rows (per-tile arrays of the frame) cut to the
+    tile rows of a band h rows high); (0, rows) without a band."""
+    if band is None:
+        return (0, *rows)
+    t0, n = band["tile0"], (h // TILE_H) * tiles_x
+    return (t0, *(r[t0:t0 + n] for r in rows))
+
+
+def _env_fields(planes, mm12, ibl, sceneset, w, h, band=None):
     """Half-res environment fields of the skybox, channel-first: the
     specular env tap along the roughness-bent reflection (3, H/2, W/2),
     and the quarter-res env-BRDF taps upsampled to half res (3, H/2,
@@ -335,6 +367,7 @@ def _env_fields(planes, mm12, ibl, sceneset, w, h):
     probes tap world directions (the boxes are world-authored), the
     skybox its rotated ones."""
     p = 2
+    y0, gh, up, _, _ = _band(band, h)
     proj, invview = sceneset["proj"], sceneset["invview"]
     mk = (planes["visf"] >= 0.0).to(torch.float32)
     # one stacked pool: mask, masked normal, masked roughness
@@ -344,7 +377,7 @@ def _env_fields(planes, mm12, ibl, sceneset, w, h):
     mk_h = torch.clamp(pooled5[..., :1], min=1e-6)
     nrm_h = brdf.normalize(pooled5[..., 1:4] / mk_h)
     d_h = downsample_pool(planes["depth"], p, reduce="first")
-    _, wp_h = reconstruct_positions(d_h, proj, invview, w // p, h // p)
+    _, wp_h = reconstruct_positions(d_h, proj, invview, w // p, gh // p, y0=y0 // p)
     eye_h = brdf.normalize(invview[:3, 3] - wp_h)
     rough_h = pooled5[..., 4] / mk_h[..., 0] * mm12[7]
     r_h = 2.0 * (nrm_h * eye_h).sum(-1, keepdim=True) * nrm_h - eye_h
@@ -361,8 +394,8 @@ def _env_fields(planes, mm12, ibl, sceneset, w, h):
         spec_o, dif_o, hitm = env_probe_fields(
             downsample_pool(wp_h, 2), brdf.normalize(downsample_pool(sdir_h, 2)),
             brdf.diffuse_dominant_direction(nrm_q, eye_q, rough_q), rough_q, envs)
-        spec_h = torch.where(resize_up_dense(hitm, h // p, w // p)[..., None] > 0.5,
-                             resize_up_dense(spec_o, h // p, w // p), spec_h)
+        spec_h = torch.where(up(hitm, h // p, w // p)[..., None] > 0.5,
+                             up(spec_o, h // p, w // p), spec_h)
         probe_dif = (dif_o, hitm)
     # env-BRDF at quarter res: the split-sum field is smooth in
     # (roughness, NdotV)
@@ -372,31 +405,34 @@ def _env_fields(planes, mm12, ibl, sceneset, w, h):
     bi = texel_index(downsample_pool(rough_h, 2) * s_, s_)
     bj = texel_index(downsample_pool(ndv_h, 2) * s_, s_)
     eb_q = lut.reshape(-1, lut.shape[-1])[(bi * s_ + bj).long()]
-    eb_h = resize_up_dense(eb_q, h // p, w // p)
+    eb_h = up(eb_q, h // p, w // p)
     return spec_h.permute(2, 0, 1), eb_h.permute(2, 0, 1), probe_dif
 
 
-def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows, w, h):
+def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows, w, h,
+                      band=None):
     """Material, environment and sun-shadow plane assembly for ONE layer
     of K1 output (the opaque layer, or a lit translucent layer on its
     w x h viewport): half-res material and environment taps, ONE batched
     2x upsample of 15 channel-first planes, the full-res gbuffer encode
     and TBN normal mapping, and the quarter-res sun factor upsampled.
-    Returns (the K2 plane dict, the (h, w) coverage mask)."""
+    Returns (the K2 plane dict, the (h, w) coverage mask).  band: the
+    planes are a band of the frame (module docstring)."""
     p = 2
+    y0, gh, up, up_batch, prev_row = _band(band, h)
     uv_h = torch.stack([downsample_pool(planes["u"], p),
                         downsample_pool(planes["v"], p)], -1)
     base_h = torch.round(downsample_pool(planes["mbase"], p,
                                          reduce="first")).to(torch.int32)
     size_h = torch.round(downsample_pool(planes["msize"], p,
                                          reduce="first")).to(torch.int32)
-    mm12 = sample_matmaps(state["matmaps"]["table"], base_h, size_h, uv_h,
-                          pool=p)                          # (12, H/2, W/2)
+    mm12 = sample_matmaps(state["matmaps"]["table"], base_h, size_h, uv_h, pool=p,
+                          prev_uv_row=None if prev_row is None else prev_row(uv_h))
 
     ibl = state.get("ibl")
     probe_dif = None
     if ibl is not None:
-        spec_h, eb_h, probe_dif = _env_fields(planes, mm12, ibl, sceneset, w, h)
+        spec_h, eb_h, probe_dif = _env_fields(planes, mm12, ibl, sceneset, w, h, band)
     else:
         # no environment: zero specular env; the constant-ambient
         # fallback rides the SH DC coefficient with eb2 = 1
@@ -407,8 +443,7 @@ def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows, w, h):
     sel = torch.tensor([0, 1, 2, 4, 5, 7, 8, 9, 10], device=mm12.device)
     half = torch.cat([mm12[sel], spec_h, eb_h], dim=0)   # (15, H/2, W/2)
     (alb_r, alb_g, alb_b, surf_m, surf_r, surf_rough,
-     nm_x, nm_y, nm_z, es_r, es_g, es_b, eb0, eb1, eb2) = \
-        resize_up_dense_batch(half, h, w).unbind(0)
+     nm_x, nm_y, nm_z, es_r, es_g, es_b, eb0, eb1, eb2) = up_batch(half, h, w).unbind(0)
 
     # full-res material derivation (gbuffer encode, element-wise)
     metal = planes["met"] * surf_m
@@ -440,40 +475,43 @@ def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows, w, h):
     # the box probes' diffuse override planes for K2 (edm: where > 0.5)
     if probe_dif is not None:
         dif_o, hitm = probe_dif
-        gpl["edr"], gpl["edg"], gpl["edb"] = resize_up_dense(dif_o, h, w).unbind(-1)
-        gpl["edm"] = resize_up_dense(hitm, h, w)
+        gpl["edr"], gpl["edg"], gpl["edb"] = up(dif_o, h, w).unbind(-1)
+        gpl["edm"] = up(hitm, h, w)
 
     # sun shadow factor: quarter-res ESM taps, upsampled
     if shadows["sun"] is not None:
         sfq = shadow_ops.sun_shadow_factor_quarter(
             planes["depth"], (planes["nx"], planes["ny"], planes["nz"]),
             shadows["sun"], sceneset, proj=sceneset["proj"],
-            invview=sceneset["invview"], slice_blend=cfg.shadow_slice_blend)
-        gpl["sf"] = resize_up_dense(sfq, h, w)
+            invview=sceneset["invview"], slice_blend=cfg.shadow_slice_blend, y0=y0,
+            full_height=gh)
+        gpl["sf"] = up(sfq, h, w)
     else:
         gpl["sf"] = torch.ones_like(planes["depth"])
     return gpl, planes["visf"] >= 0.0
 
 
-def _sky_planes(ibl, sceneset, w, h):
+def _sky_planes(ibl, sceneset, w, h, band=None):
     """The skybox behind the geometry: view rays tapped at quarter res
     (mip skyboxlod, at least 0) and upsampled 4x.  (3, H, W)."""
+    y0, gh, _, up_batch, _ = _band(band, h)
     proj, invview = sceneset["proj"], sceneset["invview"]
-    rx, ry = view_ray_grid(_inv_proj(proj), w, h)
+    rx, ry = view_ray_grid(_inv_proj(proj), w, gh, y0=y0, local_h=h)
     rays = torch.stack([rx, ry, -torch.ones_like(rx)], -1) @ invview[:3, :3].T
     rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
     lod = torch.clamp(sceneset["camera"]["skyboxlod"], min=0.0)
     rays_q = downsample_pool(rays, 4) @ _skyrot(sceneset).T
     sky_q = sample_cubemap_lod_pair(ibl["flatp"], rays_q,
                                     lod.expand(rays_q.shape[:-1]))[..., :3]
-    return resize_up_dense_batch(sky_q.permute(2, 0, 1), h, w)
+    return up_batch(sky_q.permute(2, 0, 1), h, w)
 
 
-def _sky_sh_spots(cfg: FrameConfig, gpl, planes, state, sceneset, spot):
+def _sky_sh_spots(cfg: FrameConfig, gpl, planes, state, sceneset, spot, band=None):
     """The rest of K2's inputs: the sky planes (into gpl), the sceneset
     with "_sh", and the spot factor planes.  Returns (ss2, spotsf or
     None)."""
-    w, h = cfg.padded_width, cfg.padded_height
+    h, w = planes["depth"].shape
+    y0, gh, up, _, _ = _band(band, h)
     ss2 = dict(sceneset)
     ibl = state.get("ibl")
     if ibl is not None:
@@ -481,7 +519,7 @@ def _sky_sh_spots(cfg: FrameConfig, gpl, planes, state, sceneset, spot):
         # with world normals
         ss2["_sh"] = rotate_sh9(ibl["sh"], _skyrot(sceneset))
         gpl["sky_r"], gpl["sky_g"], gpl["sky_b"] = \
-            _sky_planes(ibl, sceneset, w, h).unbind(0)
+            _sky_planes(ibl, sceneset, w, h, band).unbind(0)
     else:
         # DC-only SH reproducing the constant-ambient fallback:
         # basis0 * c0 / pi = 0.2  =>  c0 = 0.2 * pi / 0.886227
@@ -494,7 +532,8 @@ def _sky_sh_spots(cfg: FrameConfig, gpl, planes, state, sceneset, spot):
     spotsf = None
     if spot is not None:
         sl = sceneset["spotlights"]
-        pv = dict(proj=sceneset["proj"], invview=sceneset["invview"])
+        pv = dict(proj=sceneset["proj"], invview=sceneset["invview"], y0=y0,
+                  full_height=gh)
         if cfg.spot_shadow_mode == "parabolic":
             fq = [shadow_ops.spot_factor_quarter_parabolic(
                 planes["depth"], spot[i], sl["view"][i], sl["attenuation"][i, 3], **pv)
@@ -503,19 +542,20 @@ def _sky_sh_spots(cfg: FrameConfig, gpl, planes, state, sceneset, spot):
             fq = [shadow_ops.spot_factor_quarter(planes["depth"], spot[i],
                                                  sl["shadowview"][i], **pv)
                   for i in range(cfg.max_spot_shadows)]
-        spotsf = torch.stack([resize_up_dense(f, h, w) for f in fq])
+        spotsf = torch.stack([up(f, h, w) for f in fq])
     return ss2, spotsf
 
 
-def _decals(cfg: FrameConfig, gpl, mask, depth, state, draws, sceneset):
+def _decals(cfg: FrameConfig, gpl, mask, depth, state, draws, sceneset, band=None):
     """The decals blended over the opaque layer's K2 planes, on the world
     positions of its depth (a new dict; gpl itself when there are
     none)."""
     if cfg.max_decals_active <= 0:
         return gpl
-    w, h = cfg.padded_width, cfg.padded_height
+    h, w = depth.shape
+    y0, gh, _, _, _ = _band(band, h)
     _, wpos = reconstruct_positions(depth, sceneset["proj"], sceneset["invview"],
-                                    w, h)
+                                    w, gh, y0=y0)
     return apply_decals_planes(
         gpl, wpos.unbind(-1), draws["decals"], mask,
         textures=state["textures"] if cfg.decal_textures else None)
@@ -542,19 +582,24 @@ def _ssao(cfg: FrameConfig, planes, sceneset, prev):
     return 1.0 + (resize_up_dense(ao[..., 0], h, w) - 1.0) * strength, ao
 
 
-def _fog(cfg: FrameConfig, depth, sceneset, shadows, gpl):
-    """The froxel fog volume (shadowed by the sun ESM when there is one)
-    and its four full-res planes, into gpl's fog_r/g/b/t."""
+def fog_volume(cfg: FrameConfig, sceneset, shadows):
+    """The froxel fog volume, shadowed by the sun ESM when there is one."""
+    return fog_ops.build_fog_volume(sceneset, proj=sceneset["proj"],
+                                    invview=sceneset["invview"], shadow=shadows["sun"],
+                                    depth_range=cfg.fog_depth_range)
+
+
+def _fog(cfg: FrameConfig, depth, sceneset, shadows, gpl, band=None):
+    """The froxel fog volume (fog_volume; a band's is given) and its four
+    full-res planes, into gpl's fog_r/g/b/t."""
     if not cfg.enable_fog:
         return
-    proj = sceneset["proj"]
-    fogvol = fog_ops.build_fog_volume(sceneset, proj=proj,
-                                      invview=sceneset["invview"],
-                                      shadow=shadows["sun"],
-                                      depth_range=cfg.fog_depth_range)
+    y0, gh, _, _, _ = _band(band, depth.shape[0])
+    fogvol = band["fogvol"] if band is not None else fog_volume(cfg, sceneset, shadows)
     gpl["fog_r"], gpl["fog_g"], gpl["fog_b"], gpl["fog_t"] = fog_ops.fog_planes(
-        depth, fogvol, proj, depth_range=cfg.fog_depth_range,
-        sample_scale=cfg.fog_sample_scale)
+        depth, fogvol, sceneset["proj"], depth_range=cfg.fog_depth_range,
+        sample_scale=cfg.fog_sample_scale, y0=y0,
+        full_height=gh)
 
 
 def _fog_planes(cfg: FrameConfig, hdr, depth, draws, sceneset):
@@ -568,18 +613,22 @@ def _fog_planes(cfg: FrameConfig, hdr, depth, draws, sceneset):
 
 
 def _shade_inputs(cfg: FrameConfig, planes, state, draws, sceneset, shadows,
-                  prev=None):
+                  prev=None, band=None):
     """(gplanes, sceneset with "_sh", spotsf or None, ao or None, AO state
     or None) for K2 of the opaque layer: decals blended in, SSAO, the sky
     and the fog planes.  shadows: _shadow_stage's dict; prev: the
-    previous frame's ao_prev or None."""
-    w, h = cfg.padded_width, cfg.padded_height
-    gpl, mask = _assemble_gplanes(cfg, planes, state, sceneset, shadows, w, h)
-    gpl = _decals(cfg, gpl, mask, planes["depth"], state, draws, sceneset)
-    ao, ao_state = _ssao(cfg, planes, sceneset, prev)
+    previous frame's ao_prev or None; band: a band of the frame (module
+    docstring), whose SSAO factor, when SSAO is on, is band["ao"]."""
+    h, w = planes["depth"].shape
+    gpl, mask = _assemble_gplanes(cfg, planes, state, sceneset, shadows, w, h, band)
+    gpl = _decals(cfg, gpl, mask, planes["depth"], state, draws, sceneset, band)
+    if band is not None and "ao" in band:
+        ao, ao_state = band["ao"], None
+    else:
+        ao, ao_state = _ssao(cfg, planes, sceneset, prev)
     ss2, spotsf = _sky_sh_spots(cfg, gpl, planes, state, sceneset,
-                                shadows["spot"])
-    _fog(cfg, planes["depth"], sceneset, shadows, gpl)
+                                shadows["spot"], band)
+    _fog(cfg, planes["depth"], sceneset, shadows, gpl, band)
     return gpl, ss2, spotsf, ao, ao_state
 
 
@@ -602,10 +651,12 @@ def translucent_stream(state, draws, sceneset):
     return dict(d=d, uv=uv, clip=clip, wn=wn, wt=wt)
 
 
-def lit_setup(cfg: FrameConfig, ts):
+def lit_setup(cfg: FrameConfig, ts, band=None):
     """Two-sided triangle setup of the translucent stream ts on the lit
-    viewport: (setup, tiles_x, tiles_y, w_t, h_t)."""
-    w_t, h_t = lit_viewport(cfg)
+    viewport (the frame's in band mode): (setup, tiles_x, tiles_y, w_t,
+    h_t)."""
+    w_t, h_t = (lit_viewport(cfg) if band is None
+                else (cfg.padded_width, cfg.padded_height))
     tx, ty = w_t // TILE_W, h_t // TILE_H
     setup = raster_ops.triangle_setup(ts["clip"], ts["d"]["tris"], w_t, h_t,
                                       tx, ty, cull=0,
@@ -620,7 +671,8 @@ def _view_dist(proj, d):
                                     torch.full_like(dn, 1e-7), dn)
 
 
-def _lit_layers(cfg: FrameConfig, state, ts, sceneset, ss2, shadows, depth, gpl):
+def _lit_layers(cfg: FrameConfig, state, ts, sceneset, ss2, shadows, depth, gpl,
+                band=None):
     """The lit translucent layers, nearest first: each a K1 raster of the
     translucent stream (material alpha in "alb"; from the second layer on
     peeled strictly behind the previous one), its plane assembly and K2
@@ -628,33 +680,39 @@ def _lit_layers(cfg: FrameConfig, state, ts, sceneset, ss2, shadows, depth, gpl)
     premultiplied upsample into gpl's tr (tr2..tr4) planes; layer 0 also
     gives the refraction offsets tr_ox, tr_oy.  Returns the last layer's
     depth at full resolution when there are 2 or more layers (the WBOIT
-    residual peels against it), else None."""
-    w, h = cfg.padded_width, cfg.padded_height
-    scaled = cfg.translucent_lit_scale > 1
+    residual peels against it), else None.  In band mode (band: module
+    docstring) the layers run on the band at the frame's resolution: the
+    JAX package's parity exception, its half-res planes' band-local
+    upsamples would clamp at band seams."""
+    h, w = depth.shape
+    y0, gh, _, _, _ = _band(band, h)
+    scaled = cfg.translucent_lit_scale > 1 and band is None
     proj = sceneset["proj"]
-    tsetup, tx, ty, w_t, h_t = lit_setup(cfg, ts)
+    tsetup, tx, ty, w_t, gh_t = lit_setup(cfg, ts, band)
+    h_t = gh_t if band is None else h
     depth_t = resize_matmul(depth, h_t, w_t, nearest=True) if scaled else depth
     tbins, tcounts, tbig = raster_ops.bin_triangles(
         tsetup, cfg.max_translucent_tris, tx, ty, cfg.forward_bin_capacity,
         cfg.forward_big_capacity)
+    tile0, tbins, tcounts = _band_tiles(band, h, tx, tbins, tcounts)
     d = ts["d"]
     n_layers = min(max(1, int(cfg.translucent_lit_layers)), MAX_TR_LAYERS)
     peel = None
     for layer in range(n_layers):
         planes_t = raster_shade(
             tsetup, tbins, tbig, tcounts, d["tris"], ts["uv"], ts["wn"],
-            d["tri_mat"], state["materials"], tx, ty, w_t, h_t,
+            d["tri_mat"], state["materials"], tx, ty, w_t, gh_t,
             tangent=ts["wt"], alpha_in_alb=True, peel_depth=peel,
-            two_phase=cfg.raster_two_phase, early_z=cfg.raster_early_z)
+            two_phase=cfg.raster_two_phase, early_z=cfg.raster_early_z, tile0=tile0)
         peel = planes_t["depth"]          # the next layer peels against it
         # only fragments nearer than the opaque surface
         planes_t = dict(planes_t, visf=torch.where(
             planes_t["depth"] > depth_t, planes_t["visf"],
             torch.full_like(depth_t, -1.0)))
         gpl_t, mask_t = _assemble_gplanes(cfg, planes_t, state, sceneset,
-                                          shadows, w_t, h_t)
+                                          shadows, w_t, h_t, band)
         tr = shade_deferred(gpl_t, ss2, proj=proj, invview=sceneset["invview"],
-                            planes_out=True)
+                            planes_out=True, y0=y0, full_height=gh_t)
         # depth-aware transmission: absorb > 0 materials blend by the
         # water column between the surface and the opaque floor
         a_mat = torch.clamp(planes_t["alb"], 0.0, 1.0)
@@ -752,20 +810,22 @@ def oit_bins(cfg: FrameConfig, st, **kw):
 
 
 def _oit_planes(cfg: FrameConfig, state, draws, sceneset, ts, lit_peel, depth,
-                gpl):
+                gpl, band=None):
     """K4 over the merged stream against the opaque depth, into gpl's
-    oit_r/g/b (exposed), oit_w and oit_rev planes."""
+    oit_r/g/b (exposed), oit_w and oit_rev planes (a band's: its bin rows
+    of the frame's bins)."""
     st = oit_stream(cfg, state, draws, sceneset, ts, lit_peel)
     if st is None:
         zero = torch.zeros_like(depth)
         acc5 = (zero, zero, zero, zero, zero + 1.0)
     else:
         bins, counts, big = oit_bins(cfg, st)
+        tile0, bins, counts = _band_tiles(band, depth.shape[0], cfg.tiles_x, bins, counts)
         acc5 = raster_blend(st["setup"], bins, big, counts, st["tris"], st["uv"],
                             st["color"], depth, cfg.tiles_x, cfg.tiles_y,
                             cfg.padded_width, cfg.padded_height, soft="per_tri",
                             peel_depth=lit_peel, soft_flag=st["soft_flag"],
-                            peel_flag=st["peel_flag"])
+                            peel_flag=st["peel_flag"], tile0=tile0)
     # exposure on the colour sums only: the resolve is rgb / weight
     exposure = sceneset["camera"]["exposure"]
     gpl["oit_r"], gpl["oit_g"], gpl["oit_b"] = (a * exposure for a in acc5[:3])
@@ -773,7 +833,7 @@ def _oit_planes(cfg: FrameConfig, state, draws, sceneset, ts, lit_peel, depth,
 
 
 def _translucent_stage(cfg: FrameConfig, state, draws, sceneset, ss2, shadows,
-                       depth, gpl):
+                       depth, gpl, band=None):
     """The lit translucent layers and the merged WBOIT stream, as planes
     of gpl for K2's epilogue (nothing without translucents or
     particles)."""
@@ -782,29 +842,33 @@ def _translucent_stage(cfg: FrameConfig, state, draws, sceneset, ss2, shadows,
         ts = translucent_stream(state, draws, sceneset)
         if cfg.translucent_lit:
             lit_peel = _lit_layers(cfg, state, ts, sceneset, ss2, shadows, depth,
-                                   gpl)
+                                   gpl, band)
     if cfg.max_translucent_draws > 0 or cfg.max_particle_quads > 0:
-        _oit_planes(cfg, state, draws, sceneset, ts, lit_peel, depth, gpl)
+        _oit_planes(cfg, state, draws, sceneset, ts, lit_peel, depth, gpl, band)
 
 
-def light_clusters(cfg: FrameConfig, depth, sceneset):
+def light_clusters(cfg: FrameConfig, depth, sceneset, band=None):
     """K2's clusters (use_light_clusters), or None: each tile's point
     lights culled against its frustum and its depth interval
     (tile_light_capacity a tile), and each 32-row tile row's lists
     repeated for its two 16-row shade bands: ((H/16, tiles_x, cap) ids,
-    (H/16, tiles_x) counts)."""
+    (H/16, tiles_x) counts).  A band bins only its own tiles of the
+    frame's grid."""
     if not cfg.use_light_clusters:
         return None
     pl_ = sceneset["pointlights"]
     tx, ty, cap = cfg.tiles_x, cfg.tiles_y, cfg.tile_light_capacity
+    ty_local = depth.shape[0] // TILE_H
     proj = sceneset["proj"]
     lists, counts = bin_lights(
         pl_["position"], pl_["attenuation"][:, 3], pl_["count"], sceneset["view"],
         proj, tx, ty, cfg.padded_width, cfg.padded_height, cap,
-        tile_zrange=tile_depth_bounds(depth, proj))
+        tile_zrange=tile_depth_bounds(depth, proj),
+        tile0=0 if band is None else band["tile0"],
+        n_local=None if band is None else ty_local * tx)
     rows = TILE_H // SHADE_ROWS
-    return (lists.reshape(ty, tx, -1).repeat_interleave(rows, 0),
-            counts.reshape(ty, tx).repeat_interleave(rows, 0))
+    return (lists.reshape(ty_local, tx, -1).repeat_interleave(rows, 0),
+            counts.reshape(ty_local, tx).repeat_interleave(rows, 0))
 
 
 def _ssr_inputs_planes(gpl):
@@ -859,16 +923,20 @@ def _ssr(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
     return None, torch.cat([ssr_img[..., :3] * strength, ssr_img[..., 3:]], -1)
 
 
+def dof_amount(depth, proj, camera):
+    """Depth of field's per-pixel blur amount: the view distance's offset
+    to camera["focaldistance"] over camera["focalwidth"], in [0, 1]."""
+    dist = proj[2, 3] / (depth + proj[2, 2])
+    return torch.clamp(torch.abs(dist - camera["focaldistance"])
+                       / torch.clamp(camera["focalwidth"], min=1e-3), 0.0, 1.0)
+
+
 def dof_fields(hdr, depth, proj, camera):
     """Depth of field: (the half-res gaussian blur of hdr upsampled to
-    full res, the per-pixel blur amount from the view distance's offset
-    to camera["focaldistance"] over camera["focalwidth"])."""
+    full res, dof_amount)."""
     h, w = depth.shape
     blurred = resize_up_dense(gaussian_blur(downsample2(hdr), 3.0), h, w)
-    dist = proj[2, 3] / (depth + proj[2, 2])
-    amount = torch.clamp(torch.abs(dist - camera["focaldistance"])
-                         / torch.clamp(camera["focalwidth"], min=1e-3), 0.0, 1.0)
-    return blurred, amount
+    return blurred, dof_amount(depth, proj, camera)
 
 
 def _post(cfg: FrameConfig, state, draws, sceneset, hdr, depth, ssr_in):
@@ -931,6 +999,25 @@ def use_shade_kernel(cfg: FrameConfig, state):
             and (not cfg.enable_shadows or cfg.shadow_mode == "esm"))
 
 
+def shade_band(cfg: FrameConfig, state, draws, sceneset, shadows, planes, prev=None,
+               band=None):
+    """The megakernel branch from K1's planes to K2's hdr: plane assembly
+    with the decals, SSAO, sky, spot factors and fog; the lit layers and
+    the WBOIT stream; the light clusters; K2 and its epilogue.  band: the
+    planes are a band of the frame (module docstring).  Returns (hdr (h,
+    w, 3), the K2 planes, the AO state or None)."""
+    gpl, ss2, spotsf, ao, ao_state = _shade_inputs(cfg, planes, state, draws,
+                                                   sceneset, shadows, prev, band)
+    _translucent_stage(cfg, state, draws, sceneset, ss2, shadows,
+                       planes["depth"], gpl, band)
+    y0, gh, _, _, _ = _band(band, planes["depth"].shape[0])
+    hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
+                         invview=sceneset["invview"], ao=ao, spotsf=spotsf,
+                         clusters=light_clusters(cfg, planes["depth"], sceneset, band),
+                         y0=y0, full_height=gh)
+    return hdr, gpl, ao_state
+
+
 def _megakernel_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
     """The megakernel branch: (hdr, depth, vis, bin_overflow, ao_state,
     SSR inputs)."""
@@ -938,13 +1025,7 @@ def _megakernel_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
     shadows = _shadow_stage(cfg, ex, worldp, sceneset)
     planes, bin_overflow = _raster_stage(cfg, state, draws, ex, uv, clip,
                                          wnormal, wtangent)
-    gpl, ss2, spotsf, ao, ao_state = _shade_inputs(cfg, planes, state, draws,
-                                                   sceneset, shadows, prev)
-    _translucent_stage(cfg, state, draws, sceneset, ss2, shadows,
-                       planes["depth"], gpl)
-    hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
-                         invview=sceneset["invview"], ao=ao, spotsf=spotsf,
-                         clusters=light_clusters(cfg, planes["depth"], sceneset))
+    hdr, gpl, ao_state = shade_band(cfg, state, draws, sceneset, shadows, planes, prev)
     hdr = _fog_planes(cfg, hdr, planes["depth"], draws, sceneset)
     vis = torch.round(planes["visf"]).to(torch.int32)
     return (hdr, planes["depth"], vis, bin_overflow, ao_state,

@@ -1,7 +1,9 @@
 """The pack-free example apps on the port against their goldens (CPU):
-each example module runs through its harness (main with --cpu --frames 3
---width 320 --height 160, datum_tpu/tools/update_goldens.py's config)
-and its saved frame is held to tests/golden/<name>.png at RMSE < 2/255.
+each example module runs through its harness as the port's golden script
+renders it (datum_tpu_torch/tools/update_goldens.py::render_example: main
+with --cpu --frames 3 --width 320 --height 160, the JAX package's
+update_goldens config) and its saved frame is held to
+tests/golden/<name>.png at RMSE < 2/255.
 The goldens are the JAX package's frames.  This file: triangle,
 material and skybox (ocean's golden is held in test_torch_ocean.py
 through the example module; stardust and datumtest in
@@ -12,7 +14,6 @@ Measured RMSE on this CPU: triangle 0, material 0.00710 (the JAX
 package's own frame is 0.00710 from this golden too: the port's frame is
 within 4.8e-5 of it), skybox 0.00119 (the re-bake every 8th step)."""
 
-import importlib
 from pathlib import Path
 
 import numpy as np
@@ -22,7 +23,6 @@ from PIL import Image
 from test_torch_frame import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = Path(__file__).parent / "golden"
-GOLDEN_ARGS = ["--cpu", "--frames", "3", "--width", "320", "--height", "160"]
 
 
 def rmse(a, b):
@@ -31,10 +31,12 @@ def rmse(a, b):
 
 def run_example(name, tmp_path):
     """The port's example `name` through its harness at the golden's
-    config: (its state, its saved frame as float32, the golden)."""
-    mod = importlib.import_module(f"datum_tpu_torch.examples.{name}")
+    config, as update_goldens renders it: (its state, its saved frame as
+    float32, the golden)."""
+    from datum_tpu_torch.tools.update_goldens import render_example
+
     out = tmp_path / f"{name}.png"
-    state = mod.main(GOLDEN_ARGS + ["--out", str(out)])
+    state = render_example(name, str(out), device="cpu")
     img = np.asarray(Image.open(out).convert("RGB")).astype(np.float32)
     gold = np.asarray(Image.open(GOLDEN / f"{name}.png").convert("RGB")).astype(np.float32)
     assert img.shape == gold.shape == (160, 320, 3)

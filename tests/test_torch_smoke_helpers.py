@@ -1,5 +1,6 @@
-"""chip_smoke.py's helpers that run without a card (CPU; no jax): its
-PNG decoder (the card's machine has no PIL) against PIL, on the
+"""chip_smoke.py's helpers that run without a card (CPU; no jax): the
+PNG decoder it uses (datum_tpu_torch/examples/common.py::read_png: the
+card's machine has no PIL) against PIL, on the
 committed goldens (the 1920x1080 TPU frame among them) and on an image
 written with every PNG filter type; and `tpu_default_matmuls`, which
 rounds the port's f32 matmul operands to bf16 while it is active and
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
+from datum_tpu_torch.examples.common import read_png
 
 PIL_Image = pytest.importorskip("PIL.Image")
 
@@ -22,7 +24,7 @@ GOLDENS = ("datumtest_1080_tpu.png", "stress.png", "datumtest.png", "megakernel.
 @pytest.mark.parametrize("name", GOLDENS)
 def test_read_png_rgb_matches_pil_on_the_goldens(name):
     path = f"tests/golden/{name}"
-    img = chip_smoke.read_png_rgb(path)
+    img = read_png(path)
     assert img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
     assert np.array_equal(img, np.asarray(PIL_Image.open(path).convert("RGB")))
 
@@ -61,7 +63,7 @@ def test_read_png_rgb_every_filter(tmp_path):
                     * 5 + np.array([0, 80, 160])).astype(np.uint8)
     path = tmp_path / "filters.png"
     path.write_bytes(_png_with_filters(img, [y % 5 for y in range(h)]))
-    assert np.array_equal(chip_smoke.read_png_rgb(str(path)), img)
+    assert np.array_equal(read_png(str(path)), img)
     assert np.array_equal(np.asarray(PIL_Image.open(path).convert("RGB")), img)
 
 

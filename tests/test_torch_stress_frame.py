@@ -15,8 +15,9 @@
 - The early-z bounds of the port (ops/raster_cuda.early_z_bounds) lie
   above every fragment of a stress cascade stack with collapsed cells;
   the TPU kernels' bound (the triangle's largest vertex depth) does not.
-- tools/megakernel_golden.py's config rendered by the port's
-  datumtest_scene: RMSE < 2/255 against tests/golden/megakernel.png.
+- tools/megakernel_golden.py's config rendered by the port's golden
+  script (datum_tpu_torch/tools/megakernel_golden.py): RMSE < 2/255
+  against tests/golden/megakernel.png.
 """
 
 from pathlib import Path
@@ -43,7 +44,7 @@ from datum_tpu_torch.ops.raster_depth_cuda import raster_depth_cuda
 from datum_tpu_torch.ops.shade_cuda import shade_deferred_cuda
 from datum_tpu_torch.render import frame as frame_mod
 from datum_tpu_torch.render.types import make_sceneset
-from datum_tpu_torch.scenes import datumtest_scene, stress_scene
+from datum_tpu_torch.scenes import stress_scene
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "megakernel.png"
 STRESS = dict(width=256, height=128, terrain_n=24, sphere_detail=8, grid=(3, 2),
@@ -141,29 +142,13 @@ def test_early_z_bounds_hold_on_collapsed_cells():
 def test_megakernel_golden_through_the_port():
     """datum_tpu/tools/megakernel_golden.py's frame (clusters, the spot
     map, SSAO, fog, SSR, particles, the lit glass and water at half
-    resolution, decals), rendered by the port."""
+    resolution, decals), rendered by the port's golden script (which
+    raises on a bin overflow)."""
     from PIL import Image
 
-    ctx, camera, params, make_rl = datumtest_scene(
-        width=256, height=128, sphere_detail=8, grid=(3, 2),
-        n_point_lights=4, skybox=True, skybox_size=16,
-        max_vertices=4096, max_triangles=4096,
-        max_instances=16, bin_capacity=128, big_capacity=32,
-        use_pallas=True, pallas_interpret=True,
-        enable_material_maps=True, texture_filter="mip_half",
-        enable_ssao=True, enable_fog=True, enable_ssr=True,
-        enable_shadows=True, shadow_res=128, shadow_bin_capacity=128,
-        max_spot_shadows=1, spot_shadow_res=128,
-        max_particle_quads=64, max_translucent_draws=2,
-        max_translucent_tris=1024, max_decals_active=2,
-        use_light_clusters=True, translucent_lit_scale=2, device="cpu")
-    rl = make_rl(0.0)
-    ss = make_sceneset(camera, params, point_lights=rl.point_lights,
-                       spot_lights=rl.spot_lights)
-    out = frame_mod.render_frame(ctx.config, ctx.host_state(),
-                                 ctx.frame_draws(rl, camera), ss, device="cpu")
-    assert int(out["bin_overflow"]) == 0
-    img = out["image"].numpy().astype(np.float32) / 255.0
+    from datum_tpu_torch.tools.megakernel_golden import render_megakernel_frame
+
+    img = render_megakernel_frame("cpu").astype(np.float32) / 255.0
     gold = np.asarray(Image.open(GOLDEN).convert("RGB")).astype(np.float32) / 255.0
     assert img.shape == gold.shape
     assert float(np.sqrt(np.mean((img - gold) ** 2))) < 2.0 / 255.0

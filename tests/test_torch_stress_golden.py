@@ -1,6 +1,7 @@
 """datum_tpu/tools/stress_golden.py's CONFIG (320x160, a 96^2-cell
 geomorphed terrain, 6x3 spheres, 64 clustered point lights, 4 ESM
-cascades at 1024), rendered by the port on the deferred path
+cascades at 1024), rendered by the port's golden script
+(datum_tpu_torch/tools/stress_golden.py::render) on the deferred path
 (use_pallas=False, CPU), against tests/golden/stress.png.
 
 The gate of tests/test_stress_scene.py is RMSE < 2/255; the port
@@ -22,15 +23,9 @@ import numpy as np
 import torch
 from PIL import Image
 
-from datum_tpu_torch.render import frame as frame_mod
-from datum_tpu_torch.render.types import make_sceneset
-from datum_tpu_torch.scenes import stress_scene
+from datum_tpu_torch.tools import stress_golden
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "stress.png"
-# datum_tpu/tools/stress_golden.py CONFIG
-CONFIG = dict(width=320, height=160, terrain_n=96, sphere_detail=20, grid=(6, 3),
-              n_point_lights=64, skybox_size=16, max_vertices=1 << 16,
-              max_triangles=1 << 16, big_capacity=32)
 
 
 def test_stress_golden_config_through_the_port():
@@ -39,15 +34,11 @@ def test_stress_golden_config_through_the_port():
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        ctx, camera, params, make_rl = stress_scene(device="cpu", **CONFIG)
-        rl = make_rl(0.0)
-        ss = make_sceneset(camera, params, point_lights=rl.point_lights)
-        out = frame_mod.render_frame(ctx.config, ctx.host_state(),
-                                     ctx.frame_draws(rl, camera), ss, device="cpu")
+        img, out = stress_golden.render("cpu")
     finally:
         torch.set_num_threads(threads)
     assert int(out["bin_overflow"]) == 0
-    img = out["image"].numpy().astype(np.float32)
+    img = img.astype(np.float32)
     gold = np.asarray(Image.open(GOLDEN).convert("RGB")).astype(np.float32)
     rmse = float(np.sqrt(np.mean((img / 255.0 - gold / 255.0) ** 2)))
     assert rmse < 0.0190, f"stress RMSE {rmse:.5f} vs golden (measured 0.01883)"
