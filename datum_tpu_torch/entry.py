@@ -7,7 +7,7 @@ single-device frame step and the n-rank tile-sharded dry run.
 `entry(device)` returns (fn, args): entry()'s frame (the datumtest scene
 at 1280x704, FrameConfig's defaults) as render_frame on `device`.
 
-`dryrun_multichip(n, device=, backend=)` renders the full fast-path
+`dryrun_multichip(n, *, device, backend)` renders the full fast-path
 config (the megakernel frame with SSAO, fog, SSR, particles, the lit
 translucents, decals, a shadowed spot, 4 ESM cascades, the IBL
 environment and a device sprite) at 256 x 2*TILE_H*max(n, 2) over n
@@ -109,7 +109,7 @@ def rank_devices(n, device):
                 else torch.device(device))] * n
 
 
-def dryrun_multichip(n, *, device="cpu", backend="gloo", verbose=True):
+def dryrun_multichip(n, *, device, backend, verbose=True):
     """The tile-sharded dry run over n spawned ranks (module docstring).
     Raises AssertionError when the gate fails, and the spawn's error when
     a rank does.  Returns dict(image, rmse, luminance, ledger)."""

@@ -23,12 +23,15 @@ def bloom_seed(quarter):
     return tonemap(quarter * t[..., None])
 
 
-def bloom(hdr, strength=1.0, upsample=True, pre_downsampled=False):
+def bloom(hdr, strength=1.0, upsample=True):
     """hdr (H, W, 3) -> blurred tonemapped overflow; upsample=False
-    returns the quarter-res result for the caller to upsample.
-    pre_downsampled: hdr is already the quarter-res image (the
-    tile-sharded frame gathers its bands' quarter-res rows)."""
-    quarter = hdr if pre_downsampled else downsample2(downsample2(hdr))
+    returns the quarter-res result for the caller to upsample."""
+    return bloom_quarter(downsample2(downsample2(hdr)), strength, upsample)
+
+
+def bloom_quarter(quarter, strength=1.0, upsample=True):
+    """bloom from the quarter-res image (hdr downsampled twice); the
+    tile-sharded frame gathers its bands' quarter-res rows into it."""
     blurred = gaussian_blur(bloom_seed(quarter), SIGMA * 0.5)
     if not upsample:
         return blurred * strength

@@ -17,7 +17,8 @@ Work split, as the JAX package's:
 - CROSS-BAND passes read reduced-resolution fields: each rank pools its
   band, all-gathers the pooled field, runs the pass on the whole frame's
   field and slices its band back out (SSAO, with its temporal history
-  through `prev=`; the binned or DDA SSR; bloom; DoF).  The band-local
+  through `prev=`; then, in render/frame.py::post_rgb with the band's
+  gather and rows closures, the binned or DDA SSR, bloom, DoF).  The band-local
   upsamples of reduced-resolution fields (sun and spot factors, the
   environment fields, the 15 half-res material planes) ride the same
   all-gather, upsample, slice closures (`up_to`, `up_to_batch`); the
@@ -47,13 +48,16 @@ jax.lax.dynamic_slice's start clamps into the array (`_dslice`).
 
 The byte ledger: `_ag` and `_pp` record, under the JAX package's
 labels, the bytes a rank receives (an all-gather (n - 1) times the local
-piece, a ring shift the piece); `ici_report()` sums them.  Like the JAX
-ledger it accumulates over calls until reset.  The final gather of the
+piece, a ring shift the piece); `ici_report()` gives the running totals
+since its last reset (a frame's, when reset before each frame).  The
+final gather of the
 u8 image to every rank is not in it, as the JAX package's final image
 is not.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -62,41 +66,36 @@ from ..ops import brdf
 from ..ops import lighting_pass
 from ..ops import raster as raster_ops
 from ..ops import shadow as shadow_ops
-from ..ops.bloom import SIGMA, bloom, bloom_seed
+from ..ops.bloom import SIGMA, bloom_seed
 from ..ops.blur import (downsample2, downsample_pool, gaussian_blur, resize_up_dense,
                         resize_up_dense_batch)
 from ..ops.common import TILE_H, FrameConfig
 from ..ops.composite import composite, to_u8_image
 from ..ops.raster_cuda import raster_shade
 from ..ops.shade import resolve_gbuffer
-from ..ops.sprite_pass import composite_sprites
 from ..ops.ssao import hbao, make_hbao_params
-from ..ops.ssr import ssr as ssr_dda
-from ..ops.ssr2 import ssr_binned
 from ..render import frame as F
 from .mesh import Bands, all_gather, all_reduce_sum, ring_shift
 
-_LEDGER = []
+_LEDGER = Counter()
 
 
 def _ag(bands: Bands, x, dim, label):
     """all_gather + ledger: a rank receives (n - 1) local pieces."""
-    _LEDGER.append((label, x.numel() * x.element_size() * (bands.world - 1)))
+    _LEDGER[label] += x.numel() * x.element_size() * (bands.world - 1)
     return all_gather(bands, x, dim)
 
 
 def _pp(bands: Bands, x, step, label):
     """ring_shift + ledger: a rank receives one piece."""
-    _LEDGER.append((label, x.numel() * x.element_size()))
+    _LEDGER[label] += x.numel() * x.element_size()
     return ring_shift(bands, x, step)
 
 
 def ici_report(reset=False):
-    """The ledger summed by label, bytes a rank receives, with "TOTAL"."""
-    agg = {}
-    for label, b in _LEDGER:
-        agg[label] = agg.get(label, 0) + b
-    agg["TOTAL"] = sum(b for _, b in _LEDGER)
+    """The bytes a rank received by label, with "TOTAL", over the frames
+    since the last reset."""
+    agg = dict(_LEDGER, TOTAL=sum(_LEDGER.values()))
     if reset:
         _LEDGER.clear()
     return agg
@@ -167,7 +166,7 @@ def _ssao_decimation(cfg: FrameConfig, band_h):
 
 def _render_sharded_full(cfg: FrameConfig, bands: Bands, state, draws, sceneset, prev):
     """The megakernel branch over the bands (module docstring)."""
-    n, rank = bands.world, bands.rank
+    rank = bands.rank
     tx, ty = cfg.tiles_x, cfg.tiles_y
     w, h = cfg.padded_width, cfg.padded_height
     tile0, n_tiles, y0, band_h = _band_geometry(cfg, bands)
@@ -232,80 +231,19 @@ def _render_sharded_full(cfg: FrameConfig, bands: Bands, state, draws, sceneset,
     hdr, gpl, _ = F.shade_band(cfg, state, draws, sceneset, shadows, planes, band=band)
     lum = _band_luminance(bands, hdr, y0, cfg)
 
-    # ---- the cross-band post passes on gathered reduced-res fields
-    ibl = state.get("ibl")
-    lut = None if ibl is None else ibl["envbrdf"]
-    ssr_img = ssr_q = None
-    if cfg.enable_ssr and cfg.ssr_mode == "binned":
-        q = 4
-        g = lambda x: _ag(bands, x, 0, "ssr")
-        nenc, spec, rough, mask = F._ssr_inputs_planes(gpl)
-        ssr_q = ssr_binned(
-            g(downsample_pool(hdr, q)), g(downsample_pool(depth, q, reduce="first")),
-            g(downsample_pool(nenc, q, reduce="first")), g(downsample_pool(spec, q)),
-            g(downsample_pool(rough, q, reduce="first")), g(downsample_pool(mask, q)) > 0.5,
-            proj, view, envbrdf_lut=lut)
-        ssr_q = torch.cat([ssr_q[..., :3] * cam["ssrstrength"], ssr_q[..., 3:]], -1)
-        if cfg.enable_depth_of_field:
-            # the DoF mix falls between the SSR and the bloom adds
-            ssr_img = _dslice(resize_up_dense(ssr_q, h, w), y0, band_h, 0)
-            ssr_q = None
-    elif cfg.enable_ssr:
-        # the DDA march at half res on gathered fields, as the JAX package
-        # gathers its whole gbuffer (the pooled coverage mask is all true:
-        # render/frame.py::_ssr says why)
-        g = lambda x: _ag(bands, x, 0, "ssr")
-        first = lambda x: downsample_pool(x, 2, reduce="first")
-        zero = torch.zeros_like(depth)[..., None]
-        normal4 = torch.cat([torch.stack([gpl["nx"], gpl["ny"], gpl["nz"]], -1) * 0.5 + 0.5,
-                             zero], -1)
-        spec4 = torch.stack([gpl["sr"], gpl["sg"], gpl["sb"], gpl["rgh"]], -1)
-        diff4 = torch.stack([gpl["dr"], gpl["dg"], gpl["db"], gpl["em"]], -1)
-        gb_h = dict(normal=g(first(normal4)), specular=g(first(spec4)),
-                    diffuse=g(first(diff4)),
-                    mask=g(torch.ones(first(depth).shape, dtype=torch.bool,
-                                      device=depth.device)))
-        ssr_h = ssr_dda(g(downsample_pool(hdr, 2)), g(first(depth)), gb_h, proj, view,
-                        envbrdf_lut=lut)
-        ssr_up = resize_up_dense(ssr_h, h, w)
-        ssr_up = torch.cat([ssr_up[..., :3] * cam["ssrstrength"], ssr_up[..., 3:]], -1)
-        ssr_img = _dslice(ssr_up, y0, band_h, 0)
-
-    bloom_img = glow = None
-    if cfg.enable_bloom:
-        quarter = _ag(bands, downsample2(downsample2(hdr)), 0, "bloom")
-        bq = bloom(quarter, cam["bloomstrength"], upsample=cfg.enable_depth_of_field,
-                   pre_downsampled=True)
-        if cfg.enable_depth_of_field:         # bq at full res
-            bloom_img = _dslice(bq, y0, band_h, 0)
-        else:
-            if ssr_q is not None:
-                bq = bq + ssr_q[..., :3] * ssr_q[..., 3:4]
-                ssr_q = None
-            glow = _dslice(resize_up_dense(bq, h, w), y0, band_h, 0)
-    if ssr_q is not None:                 # SSR alone (bloom off, DoF off)
-        glow = _dslice(resize_up_dense(ssr_q[..., :3] * ssr_q[..., 3:4], h, w),
-                       y0, band_h, 0)
-
-    dof_blur = dof_amount = None
-    if cfg.enable_depth_of_field:
-        hq = _ag(bands, downsample2(hdr), 0, "dof")
-        dof_blur = _dslice(resize_up_dense(gaussian_blur(hq, 3.0), h, w), y0, band_h, 0)
-        dof_amount = F.dof_amount(depth, proj, cam)
-
-    grading = cfg.enable_color_grading
-    rgb = composite(hdr, 1.0, bloom=bloom_img, bloom_strength=1.0, ssr=ssr_img,
-                    dof_blur=dof_blur, dof_amount=dof_amount,
-                    lut=state.get("colorlut") if grading else None,
-                    lut_poly=state.get("colorlut_poly") if grading else None, glow=glow)
-    if cfg.max_overlay_sprites > 0 and "sprites" in draws:
-        # display-space sprites straddle band edges: composite on the
-        # gathered display rgb, slice the band back out
-        rgb_full = _ag(bands, rgb, 0, "sprites_rgb")
-        rgb_full = composite_sprites(rgb_full.contiguous(), draws["sprites"],
-                                     state["overlay_atlas"],
-                                     region=min(cfg.overlay_region, w, h))
-        rgb = _dslice(rgb_full, y0, band_h, 0)
+    # ---- the post passes, cross-band ones on gathered reduced-res fields
+    band.update(gather=lambda x, label: _ag(bands, x, 0, label),
+                rows=lambda x: _dslice(x, y0, band_h, 0))
+    ssr_in = F._ssr_inputs_planes(gpl)
+    if cfg.enable_ssr and cfg.ssr_mode != "binned":
+        # the DDA march reads the normal and the specular planes; the JAX
+        # package's band gathers its whole gbuffer for it, so the normal's
+        # fourth channel and the diffuse planes ride along unread
+        band["ssr_gbuffer"] = dict(
+            normal=torch.cat([ssr_in[0], torch.zeros_like(depth)[..., None]], -1),
+            specular=torch.stack([gpl["sr"], gpl["sg"], gpl["sb"], gpl["rgh"]], -1),
+            diffuse=torch.stack([gpl["dr"], gpl["dg"], gpl["db"], gpl["em"]], -1))
+    rgb = F.post_rgb(cfg, state, draws, sceneset, hdr, depth, ssr_in, band=band)
     image = all_gather(bands, to_u8_image(rgb), 0)
     out = dict(image=image[:cfg.height, :cfg.width], luminance=lum,
                bin_overflow=overflow)

@@ -58,6 +58,9 @@ h, w) (the upsamplers of reduced-resolution fields: all-gather, upsample
 the whole frame's field, slice the band back out), prev_row(x) (the row
 above a band-local field's first row, from the band above), and, when
 given, ao (the band's SSAO factor) and fogvol (the froxel fog volume).
+The post passes (`post_rgb`) take two more: gather(x, label) (all-gather
+a band's reduced-resolution field into the frame's, along rows) and
+rows(x) (the band's rows of a frame-sized field).
 Planes stay band-sized; the NDC of every pixel comes from the frame's
 rows.  The lit translucent layers then run at the frame's resolution
 whatever translucent_lit_scale says, as the JAX package's band mode
@@ -78,7 +81,7 @@ from ..ops import raster as raster_ops
 from ..ops import shadow as shadow_ops
 from ..ops.blur import (downsample2, downsample_pool, gaussian_blur, resize_matmul,
                         resize_up_dense, resize_up_dense_batch)
-from ..ops.bloom import bloom as bloom_op
+from ..ops.bloom import bloom_quarter
 from ..ops.cluster import bin_lights, tile_depth_bounds
 from ..ops.common import TILE_H, TILE_W, FrameConfig, round_up, texel_index
 from ..ops.composite import composite, to_u8_image
@@ -886,16 +889,30 @@ def _ssr_inputs_gbuffer(gbuffer):
             gbuffer["specular"][..., 3], gbuffer["mask"].to(torch.float32))
 
 
-def _ssr(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
+def _band_post(band, h):
+    """(gather, rows, the frame's padded height) of the post passes on a
+    band (module docstring), or identities and h on the whole h-row
+    frame."""
+    if band is None:
+        return (lambda x, label: x), (lambda x: x), h
+    return band["gather"], band["rows"], band["full_h"]
+
+
+def _ssr(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in, band=None):
     """The SSR on the final hdr, fed by ssr_in (_ssr_inputs_planes or
     _ssr_inputs_gbuffer), with ssrstrength on rgb only (the composite
-    adds rgb * a): (quarter-res (hq, wq, 4) or None, full-res (H, W, 4)
-    or None).  ssr_mode 'binned' marches at quarter resolution (the
-    caller upsamples it, with the bloom when DoF is off); 'dda' marches
-    at half resolution (ops/ssr.py) on the top-left texel of each 2x2
-    cell and is upsampled here.  (None, None) without SSR."""
+    adds rgb * a): (the frame's quarter-res (hq, wq, 4) or None, full-res
+    (H, W, 4) or None).  ssr_mode 'binned' marches at quarter resolution
+    (the caller upsamples it, with the bloom when DoF is off); 'dda'
+    marches at half resolution (ops/ssr.py) on the top-left texel of each
+    2x2 cell and is upsampled here.  (None, None) without SSR.  band: the
+    march runs on the bands' gathered pooled fields; band["ssr_gbuffer"]
+    gives the DDA march's normal and specular planes (and what else the
+    JAX package's band gathers beside them)."""
     if not cfg.enable_ssr:
         return None, None
+    gather, rows, gh = _band_post(band, depth.shape[0])
+    g = lambda x: gather(x, "ssr")
     nenc, spec, rough, mask = ssr_in
     ibl = state.get("ibl")
     lut = None if ibl is None else ibl["envbrdf"]
@@ -903,23 +920,24 @@ def _ssr(cfg: FrameConfig, state, sceneset, hdr, depth, ssr_in):
     if cfg.ssr_mode == "binned":
         q = 4
         ssr_q = ssr_binned(
-            downsample_pool(hdr, q), downsample_pool(depth, q, reduce="first"),
-            downsample_pool(nenc, q, reduce="first"), downsample_pool(spec, q),
-            downsample_pool(rough, q, reduce="first"),
-            downsample_pool(mask, q) > 0.5, sceneset["proj"], sceneset["view"],
+            g(downsample_pool(hdr, q)), g(downsample_pool(depth, q, reduce="first")),
+            g(downsample_pool(nenc, q, reduce="first")), g(downsample_pool(spec, q)),
+            g(downsample_pool(rough, q, reduce="first")),
+            g(downsample_pool(mask, q)) > 0.5, sceneset["proj"], sceneset["view"],
             envbrdf_lut=lut)
         return torch.cat([ssr_q[..., :3] * strength, ssr_q[..., 3:]], -1), None
     first = lambda x: downsample_pool(x, 2, reduce="first")
+    gb = (dict(normal=nenc, specular=torch.cat([spec, rough[..., None]], -1))
+          if band is None else band["ssr_gbuffer"])
+    gb_h = {k: g(first(v)) for k, v in gb.items()}
     # the coverage mask is all true: the JAX package pools its bool mask
     # with reduce='first', whose max over a window padded with True
     # (bool(-inf)) is True everywhere; the march's depth test still
     # skips the background
-    gb_h = dict(normal=first(nenc), specular=first(torch.cat([spec, rough[..., None]], -1)),
-                mask=torch.ones(first(depth).shape, dtype=torch.bool, device=depth.device))
-    ssr_h = ssr_dda(downsample_pool(hdr, 2), first(depth), gb_h, sceneset["proj"],
+    gb_h["mask"] = g(torch.ones(first(depth).shape, dtype=torch.bool, device=depth.device))
+    ssr_h = ssr_dda(g(downsample_pool(hdr, 2)), g(first(depth)), gb_h, sceneset["proj"],
                     sceneset["view"], envbrdf_lut=lut)
-    h, w = depth.shape
-    ssr_img = resize_up_dense(ssr_h, h, w)
+    ssr_img = rows(resize_up_dense(ssr_h, gh, depth.shape[1]))
     return None, torch.cat([ssr_img[..., :3] * strength, ssr_img[..., 3:]], -1)
 
 
@@ -931,46 +949,61 @@ def dof_amount(depth, proj, camera):
                        / torch.clamp(camera["focalwidth"], min=1e-3), 0.0, 1.0)
 
 
-def dof_fields(hdr, depth, proj, camera):
+def dof_fields(hdr, depth, proj, camera, band=None):
     """Depth of field: (the half-res gaussian blur of hdr upsampled to
-    full res, dof_amount)."""
-    h, w = depth.shape
-    blurred = resize_up_dense(gaussian_blur(downsample2(hdr), 3.0), h, w)
+    full res, dof_amount).  band: the blur runs on the bands' gathered
+    half-res hdr."""
+    g, rows, gh = _band_post(band, depth.shape[0])
+    hq = g(downsample2(hdr), "dof")
+    blurred = rows(resize_up_dense(gaussian_blur(hq, 3.0), gh, depth.shape[1]))
     return blurred, dof_amount(depth, proj, camera)
 
 
 def _post(cfg: FrameConfig, state, draws, sceneset, hdr, depth, ssr_in):
-    """Log-average luminance, SSR, bloom, depth of field, the graded
-    composite and the sprite pass (with max_overlay_sprites: the draws'
-    sprites and text blended into the padded image, ops/sprite_pass.py):
-    (u8 image (height, width, 3), luminance).  With DoF off the
-    quarter-res bloom and SSR add into one term (`glow`) that is upsampled
-    once; with DoF on the DoF mix falls between the SSR and the bloom
-    adds, so each is upsampled on its own."""
-    w, h = cfg.padded_width, cfg.padded_height
-    cam = sceneset["camera"]
+    """Log-average luminance and the post passes (post_rgb): (u8 image
+    (height, width, 3), luminance)."""
     lum_w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=torch.float32,
                          device=hdr.device)
     lum = torch.exp(torch.mean(torch.log(
         1e-4 + hdr[:cfg.height, :cfg.width] @ lum_w)))
+    rgb = post_rgb(cfg, state, draws, sceneset, hdr, depth, ssr_in)
+    return to_u8_image(rgb[:cfg.height, :cfg.width]), lum
 
-    ssr_q, ssr_img = _ssr(cfg, state, sceneset, hdr, depth, ssr_in)
+
+def post_rgb(cfg: FrameConfig, state, draws, sceneset, hdr, depth, ssr_in, band=None):
+    """SSR, bloom, depth of field, the graded composite and the sprite
+    pass (with max_overlay_sprites: the draws' sprites and text blended
+    into the padded image, ops/sprite_pass.py): the padded display rgb
+    (h, w, 3) in [0, 1].  With DoF off the quarter-res bloom and SSR add
+    into one term (`glow`) that is upsampled once; with DoF on the DoF mix
+    falls between the SSR and the bloom adds, so each is upsampled on its
+    own.  band: hdr and depth are a band's rows (module docstring); each
+    pass that reads across rows runs on the gathered reduced-res field
+    (the sprites on the gathered display rgb) and its band's rows are cut
+    back out, so the band's rgb is the whole frame's rows bit for bit."""
+    w = cfg.padded_width
+    g, rows, h = _band_post(band, depth.shape[0])
+    cam = sceneset["camera"]
+    up = lambda x: rows(resize_up_dense(x, h, w))
+
+    ssr_q, ssr_img = _ssr(cfg, state, sceneset, hdr, depth, ssr_in, band)
     bloom_img = glow = dof_blur = dof_amount = None
     if ssr_q is not None and cfg.enable_depth_of_field:
-        ssr_img, ssr_q = resize_up_dense(ssr_q, h, w), None
+        ssr_img, ssr_q = up(ssr_q), None
     if cfg.enable_bloom:
+        quarter = g(downsample2(downsample2(hdr)), "bloom")
         if cfg.enable_depth_of_field:
-            bloom_img = bloom_op(hdr, cam["bloomstrength"])
+            bloom_img = rows(bloom_quarter(quarter, cam["bloomstrength"]))
         else:
-            bloom_q = bloom_op(hdr, cam["bloomstrength"], upsample=False)
+            bloom_q = bloom_quarter(quarter, cam["bloomstrength"], upsample=False)
             if ssr_q is not None:
                 bloom_q = bloom_q + ssr_q[..., :3] * ssr_q[..., 3:4]
                 ssr_q = None
-            glow = resize_up_dense(bloom_q, h, w)
+            glow = up(bloom_q)
     if ssr_q is not None:                 # SSR alone (bloom off, DoF off)
-        glow = resize_up_dense(ssr_q[..., :3] * ssr_q[..., 3:4], h, w)
+        glow = up(ssr_q[..., :3] * ssr_q[..., 3:4])
     if cfg.enable_depth_of_field:
-        dof_blur, dof_amount = dof_fields(hdr, depth, sceneset["proj"], cam)
+        dof_blur, dof_amount = dof_fields(hdr, depth, sceneset["proj"], cam, band)
 
     grading = cfg.enable_color_grading
     rgb = composite(hdr, 1.0, bloom=bloom_img, bloom_strength=1.0, ssr=ssr_img,
@@ -979,9 +1012,10 @@ def _post(cfg: FrameConfig, state, draws, sceneset, hdr, depth, ssr_in):
                     lut_poly=state.get("colorlut_poly") if grading else None,
                     glow=glow)
     if cfg.max_overlay_sprites > 0 and "sprites" in draws:
-        rgb = composite_sprites(rgb.contiguous(), draws["sprites"], state["overlay_atlas"],
-                                region=min(cfg.overlay_region, w, h))
-    return to_u8_image(rgb[:cfg.height, :cfg.width]), lum
+        rgb = rows(composite_sprites(g(rgb, "sprites_rgb").contiguous(), draws["sprites"],
+                                     state["overlay_atlas"],
+                                     region=min(cfg.overlay_region, w, cfg.padded_height)))
+    return rgb
 
 
 def use_shade_kernel(cfg: FrameConfig, state):
