@@ -1,0 +1,25 @@
+"""k2_roofline_pct: K2 (csrc/shade.cu, the deferred-shade megakernel; its
+epilogue is a kernel of its own): the sum of its bounds over the
+launches of the profiled window (framebench.roofline, from each launch's
+own inputs, captured as the frame calls it) over its device time in the
+same window, found by kernel name. None when the kernel did not run."""
+
+from framebench import roofline
+
+KERNEL = "shade_kernel"
+# the program functions whose arguments are the kernel's inputs (the
+# kernel on CUDA tensors, its plain version on CPU tensors)
+CAPTURE = ("datum_tpu_torch.ops.shade_cuda", ("shade_deferred_cuda", "shade_deferred_reference"))
+
+
+def work(inp):
+    b = roofline.k2_bound(inp)
+    return None if b is None else b[0]
+
+
+def read(r):
+    bounds = r.work.get("k2_roofline_pct")
+    device_s = r.window.kernel_s(KERNEL) * r.frames_profiled
+    if not bounds or device_s <= 0:
+        return None
+    return 100.0 * sum(bounds) / device_s
