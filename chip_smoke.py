@@ -56,8 +56,10 @@ and exits non-zero:
    differ most printed for both);
 6. time ms/frame (CUDA events, median) of the frames (the bench frame
    with K1 and with K6 in turns), the bench frame's device time and
-   launches under torch.profiler, its stages (the post
-   stages among them), and each kernel vs its plain version; compute
+   launches under torch.profiler, its stages (the program's spans over
+   a profiled window with its tracing on: host ms, device ms, launches
+   and syncs a frame of each, and the device's longest idle gaps;
+   debug/stages.py), and each kernel vs its plain version; compute
    each kernel's bound from this run's inputs;
 3s-6s. the stress frame: its scene (triangles, bin entries, overflows);
    K1, K6 and K3 with early-z against themselves without it and their
@@ -539,86 +541,15 @@ def profile_frames(render, inputs, by_name=False):
     return out
 
 
-def stage_ms(cfg, state, draws, ss, dev, reps=5):
-    """Wall ms of each stage of a frame (the bench or the stress frame)
-    with a device sync after each (median of reps): the frame's own
-    stage functions, in its order (a pass the config does not run costs
-    only its sync); then the DoF fields on the same frame (not a stage of
-    either frame, which render without DoF)."""
-    import torch
+def stage_table(render, inputs):
+    """The frame's stages over one torch.profiler window of the frames
+    of inputs with the program's tracing on (debug/stages.py: host ms,
+    device ms, launches and syncs a frame of each span, and the longest
+    idle gaps of the device), as text lines."""
+    from datum_tpu_torch.debug.stages import profile_stages
 
-    from datum_tpu_torch.convert import to_torch
-    from datum_tpu_torch.ops.shade_cuda import (
-        epilogue_inputs, shade_deferred_cuda, shade_epilogue_cuda, shade_inputs)
-    from datum_tpu_torch.render import frame as F
-
-    names = ("upload draws + sceneset", "vertex stage",
-             "sun cascades (K3) + ESM", "spot map (K3) + ESM",
-             "setup + binning + K1", "plane assembly (matmaps, env, sun factor)",
-             "decals", "SSAO (subsample, HBAO, blur, upsample)",
-             "sky planes + SH + spot factor", "fog volume + taps + upsample",
-             "lit layer (vertices, setup, bins, K1, assembly, K2, upsample)",
-             "WBOIT stream (setup, bins, K4)", "light clusters (depth bounds, bins)",
-             "K2 (tables + bf16 + kernel)",
-             "K2 epilogue (bf16 + kernel)", "SSR (quarter-res pools + march)",
-             "luminance + bloom + composite", "DoF fields (not in the frame)")
-    w, h = cfg.padded_width, cfg.padded_height
-    no_ssr = dataclasses.replace(cfg, enable_ssr=False)
-    runs = []
-    for _ in range(reps):
-        t = [time.perf_counter()]
-
-        def mark():
-            torch.cuda.synchronize()
-            t.append(time.perf_counter())
-
-        d, s = to_torch(draws, dev), to_torch(ss, dev)
-        mark()
-        ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, state, d, s)
-        mark()
-        sun = F._sun_shadows(cfg, ex, wp, s)
-        mark()
-        spot = F._spot_shadows(cfg, ex, wp, s)
-        mark()
-        planes, _ = F._raster_stage(cfg, state, d, ex, uv, clip, wn, wt)
-        mark()
-        shadows = dict(sun=sun, spot=spot)
-        gpl, mask = F._assemble_gplanes(cfg, planes, state, s, shadows, w, h)
-        mark()
-        gpl = F._decals(cfg, gpl, mask, planes["depth"], state, d, s)
-        mark()
-        ao, _ = F._ssao(cfg, planes, s, None)
-        mark()
-        ss2, spotsf = F._sky_sh_spots(cfg, gpl, planes, state, s, spot)
-        mark()
-        F._fog(cfg, planes["depth"], s, shadows, gpl)
-        mark()
-        ts = lit_peel = None
-        if cfg.max_translucent_draws > 0:
-            ts = F.translucent_stream(state, d, s)
-            lit_peel = F._lit_layers(cfg, state, ts, s, ss2, shadows,
-                                     planes["depth"], gpl)
-        mark()
-        if cfg.max_translucent_draws > 0 or cfg.max_particle_quads > 0:
-            F._oit_planes(cfg, state, d, s, ts, lit_peel, planes["depth"], gpl)
-        mark()
-        clusters = F.light_clusters(cfg, planes["depth"], s)
-        mark()
-        bg = shade_deferred_cuda(**shade_inputs(gpl, ss2, proj=s["proj"],
-                                                invview=s["invview"], ao=ao,
-                                                spotsf=spotsf, clusters=clusters))
-        mark()
-        epi = epilogue_inputs(gpl)
-        hdr = (bg if epi is None else shade_epilogue_cuda(bg, **epi)).permute(1, 2, 0)
-        mark()
-        F._ssr(cfg, state, s, hdr, planes["depth"], F._ssr_inputs_planes(gpl))
-        mark()
-        F._post(no_ssr, state, d, s, hdr, planes["depth"], F._ssr_inputs_planes(gpl))
-        mark()
-        F.dof_fields(hdr, planes["depth"], s["proj"], s["camera"])
-        mark()
-        runs.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
-    return {n: statistics.median(r[i] for r in runs) for i, n in enumerate(names)}
+    return profile_stages(lambda: [render(d, s) for d, s in inputs], len(inputs),
+                          "cuda").format()
 
 
 def _nbytes(*tensors):
@@ -962,7 +893,7 @@ def stress_phases(dev, card, kernels):
     ms_on += [frame_ms(render_z, inputs, n=5), frame_ms(render_z, inputs, n=5)]
     ms_off.append(frame_ms(render_0, inputs, n=5))
     prof_ms, prof_launches = profile_frames(render_0, inputs)
-    stages = stage_ms(cfg, state, *inputs[0], dev)
+    stages = stage_table(render_0, inputs)
     t = dict(k1=cuda_ms(lambda: raster_shade_cuda(**k1_in), 20),
              k1z=cuda_ms(lambda: raster_shade_cuda(**k1z_in), 20),
              k1p=cuda_ms(lambda: raster_shade_reference(**k1_in), 1),
@@ -1001,8 +932,8 @@ def stress_phases(dev, card, kernels):
     phase("6s", f"stress frame under torch.profiler (3 frames, early-z off): "
                 f"{prof_ms:.3f} ms of device time and {prof_launches:.0f} kernel "
                 f"launches per frame; busy {prof_ms / statistics.mean(ms_off):.3f}")
-    phase("6s", "stress frame stages (ms, wall, synced, median of 5): "
-          + "; ".join(f"{n} {v:.3f}" for n, v in stages.items()))
+    phase("6s", "stress frame stages (3 frames under torch.profiler, tracing on):\n"
+          + stages)
     phase("6s", f"stress inputs: K1 {t['k1']:.3f} ms, with early-z {t['k1z']:.3f} ms, "
                 f"plain {t['k1p']:.3f} ms; K6 {t['k6']:.3f} ms, with early-z "
                 f"{t['k6z']:.3f} ms; K3 (4-cascade stack) {t['k3']:.3f} ms, with "
@@ -1172,76 +1103,6 @@ def reference_1080_phase(dev):
     return dict(rmse=rmse, rmse_tpu_matmuls=rmse_tpu)
 
 
-def deferred_stage_ms(cfg, state, draws, ss, dev, reps=5):
-    """Wall ms of each stage of a deferred frame with a device sync after
-    each (median of reps), in the frame's order."""
-    import torch
-
-    from datum_tpu_torch.convert import to_torch
-    from datum_tpu_torch.ops import fog as fog_ops
-    from datum_tpu_torch.ops import lighting_pass
-    from datum_tpu_torch.ops import shadow as shadow_ops
-    from datum_tpu_torch.render import frame as F
-
-    names = ("upload draws + sceneset", "vertex stage", "sun cascades + ESM",
-             "setup + binning + raster + gbuffer resolve", "decals", "SSAO",
-             "spot maps", "shade_deferred (XLA lighting)", "sky fill", "fog",
-             "WBOIT passes (translucents, particles)", "SSR + bloom + composite")
-    runs = []
-    for _ in range(reps):
-        t = [time.perf_counter()]
-
-        def mark():
-            torch.cuda.synchronize()
-            t.append(time.perf_counter())
-
-        d, s = to_torch(draws, dev), to_torch(ss, dev)
-        mark()
-        ex, uv, clip, wn, wt, wp = F._vertex_stage(cfg, state, d, s)
-        mark()
-        sun = F._sun_shadows(cfg, ex, wp, s)
-        mark()
-        depth, _, gb, _ = F._deferred_raster(cfg, state, d, ex, uv, clip, wn, wt)
-        mark()
-        if cfg.max_decals_active > 0:
-            _, wpos = lighting_pass.reconstruct_positions(
-                depth, s["proj"], s["invview"], cfg.padded_width, cfg.padded_height)
-            gb = F.apply_decals(gb, wpos, d["decals"], textures=state.get("textures"))
-        mark()
-        ssao, _ = F._deferred_ssao(cfg, depth, gb, s, None)
-        mark()
-        spotmaps = None
-        if cfg.max_spot_shadows > 0:
-            spotmaps = shadow_ops.render_spot_maps(
-                wp, ex["tris"], s["spotlights"]["shadowview"], cfg.max_spot_shadows,
-                res=cfg.spot_shadow_res, bin_capacity=cfg.shadow_bin_capacity,
-                big_capacity=cfg.big_capacity, use_kernel=cfg.use_pallas)
-        mark()
-        hdr = lighting_pass.shade_deferred(
-            gb, depth, s, proj=s["proj"], invview=s["invview"], shadowmaps=sun,
-            ibl=state.get("ibl"), ssao=ssao, spotmaps=spotmaps,
-            shadow_factor_scale=cfg.shadow_factor_scale,
-            shadow_slice_blend=cfg.shadow_slice_blend)
-        mark()
-        if state.get("ibl") is not None:
-            hdr = F._sky_fill(state["ibl"], s, hdr, gb["mask"], cfg.padded_width,
-                              cfg.padded_height)
-        mark()
-        if cfg.enable_fog:
-            vol = fog_ops.build_fog_volume(s, proj=s["proj"], invview=s["invview"],
-                                           shadow=sun, depth_range=cfg.fog_depth_range)
-            hdr = fog_ops.apply_fog(hdr, depth, vol, s["proj"],
-                                    depth_range=cfg.fog_depth_range,
-                                    sample_scale=cfg.fog_sample_scale)
-        mark()
-        hdr = F._deferred_forward(cfg, state, d, s, hdr, depth)
-        mark()
-        F._post(cfg, state, d, s, hdr, depth, F._ssr_inputs_gbuffer(gb))
-        mark()
-        runs.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
-    return {n: statistics.median(r[i] for r in runs) for i, n in enumerate(names)}
-
-
 def deferred_phases(dev, card, kernels, bench):
     """Phases 4d-6d: the deferred frame of FrameConfig's default path.  K5
     and K7 against their plain versions on the bench frame's inputs; the
@@ -1389,8 +1250,8 @@ def deferred_phases(dev, card, kernels, bench):
     mse = frame_ms(render_e, e_inputs, n=5)
     prof5 = profile_frames(render5, inputs)
     profe = profile_frames(render_e, e_inputs[:1])      # one frame: ~1 s and 150K launches
-    st5 = deferred_stage_ms(cfg5, state, *inputs[0], dev)
-    ste = deferred_stage_ms(ecfg, estate, *e_inputs[0], dev)
+    st5 = stage_table(render5, inputs)
+    ste = stage_table(render_e, e_inputs[:1])
     phase("6d", f"{ms5:.3f} ms/frame K5 frame, {ms7:.3f} ms/frame K7 frame ({W}x{H}), "
                 f"{mse:.3f} ms/frame entry() frame ({ew}x{eh}) (median of 5, CUDA "
                 f"events) on {card}")
@@ -1398,9 +1259,8 @@ def deferred_phases(dev, card, kernels, bench):
                 f"time and {prof5[1]:.0f} launches per frame, busy {prof5[0] / ms5:.3f}; "
                 f"entry() frame (1 frame) {profe[0]:.3f} ms and {profe[1]:.0f} launches, "
                 f"busy {profe[0] / mse:.3f}")
-    for name, stg in (("K5 frame", st5), ("entry() frame", ste)):
-        phase("6d", f"{name} stages (ms, wall, synced, median of 5): "
-              + "; ".join(f"{n} {v:.3f}" for n, v in stg.items()))
+    for name, stg in (("K5 frame (3 frames)", st5), ("entry() frame (1 frame)", ste)):
+        phase("6d", f"{name} stages under torch.profiler, tracing on:\n" + stg)
     t = dict(k5=cuda_ms(lambda: raster_v1_cuda(**k5_in), 20),
              k5p=cuda_ms(lambda: raster_v1_reference(**k5_in), 1),
              k7=cuda_ms(lambda: raster_mxu_cuda(**k7_in), 20),
@@ -4144,7 +4004,7 @@ def main():
     ms_trans = frame_ms(render_t, inputs, n=5)
     ms_shadowed = frame_ms(render_s, s_inputs, n=5)
     ms_opaque = frame_ms(render_o, o_inputs, n=5)
-    stages = stage_ms(cfg, state, *inputs[0], dev)
+    stages = stage_table(render_b, inputs)
     prof_ms, prof_launches = profile_frames(render_b, inputs)
     t_k1 = cuda_ms(lambda: raster_shade_cuda(**k1_in), 20)
     t_k6 = cuda_ms(lambda: raster_shade_2p_cuda(**k1_in), 20)
@@ -4183,8 +4043,8 @@ def main():
              f"{prof_ms:.3f} ms of device time and {prof_launches:.0f} kernel "
              f"launches per frame; busy {prof_ms / ms_frame:.3f} of the "
              f"{ms_frame:.3f} ms frame")
-    phase(6, "bench frame stages (ms, wall, synced, median of 5): "
-          + "; ".join(f"{n} {v:.3f}" for n, v in stages.items()))
+    phase(6, "bench frame stages (3 frames under torch.profiler, tracing on):\n"
+          + stages)
     phase(6, f"K1 {t_k1:.3f} ms, K6 {t_k6:.3f} ms vs plain {t_k1p:.3f} / "
              f"{t_k6p:.3f} ms (opaque layer, the same inputs); lit layer "
              f"{lw}x{lh}: K1 {t_k1l:.3f} ms, K6 {t_k6l:.3f} ms; K2 "

@@ -5,10 +5,18 @@ A fixed-size global event ring (g_debuglog, 4096 entries) takes frame
 markers, begin/end timed blocks, device pass times (gpu_block), and the
 log also keeps statistics counters, resource gauges and live-tunable
 menu values; stream_debuglog writes the ring in the JAX package's binary
-format, which load_debuglog reads back."""
+format, which load_debuglog reads back.
+
+The program's tracing (set_tracing, off by default) puts every timed
+block on torch.profiler's timeline too, as a range named PREFIX + its
+name, on the clock the device's kernels are on.  The frame's own code
+paths open their blocks through `span` (and `traced`), which while
+tracing is off is a shared no-op: no ring entry, no range."""
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import struct
 import threading
 import time
@@ -21,6 +29,8 @@ ENTRY_END = 2
 ENTRY_GPU = 3
 ENTRY_STAT = 4
 ENTRY_GAUGE = 5
+
+PREFIX = "datum."          # the program's profiler ranges
 
 
 class DebugLog:
@@ -77,18 +87,64 @@ def end_timed_block(name):
     g_debuglog.push(ENTRY_END, name)
 
 
+_tracing = False
+
+
+def set_tracing(on):
+    """Turn the program's tracing on or off (off by default)."""
+    global _tracing
+    _tracing = bool(on)
+
+
+def tracing():
+    """Whether the program's tracing is on."""
+    return _tracing
+
+
 class timed_block:
     """A with-block timed as a begin/end pair in the ring (the end is
-    pushed also when the block raises)."""
+    pushed also when the block raises); while tracing is on, also a
+    torch.profiler range named PREFIX + name inside that pair."""
 
     def __init__(self, name, color=(1, 1, 1)):
         self.name, self.color = name, color
+        self._range = None
 
     def __enter__(self):
         begin_timed_block(self.name, self.color)
+        if _tracing:
+            from torch.profiler import record_function
+
+            self._range = record_function(PREFIX + self.name)
+            self._range.__enter__()
 
     def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         end_timed_block(self.name)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A timed_block of the program's own code paths while tracing is
+    on; the shared no-op otherwise."""
+    return timed_block(name) if _tracing else _NO_SPAN
+
+
+def traced(name):
+    """Decorator: each call of the function is a span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _tracing:
+                return fn(*args, **kwargs)
+            with timed_block(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def gpu_block(name, seconds):

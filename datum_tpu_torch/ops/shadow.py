@@ -119,10 +119,16 @@ def bin_stack(stack, bin_capacity, big_capacity, return_overflow=False):
         tri_block=stack["tri_block"])
 
 
-def raster_stack(stack, bin_capacity, big_capacity, early_z=False, use_kernel=True):
+def raster_stack(stack, bin_capacity, big_capacity, early_z=False, use_kernel=True,
+                 overflow=None):
     """Bin and raster one stack: (n_maps, res, res) reverse-Z depth.  K3
-    with use_kernel (early_z: its early exit), else the scan raster."""
-    bins, counts, big_ids = bin_stack(stack, bin_capacity, big_capacity)
+    with use_kernel (early_z: its early exit), else the scan raster.
+    overflow: a list that gets the stack's dropped bin entries (() i32,
+    on the device), or None (not counted)."""
+    bins, counts, big_ids, *dropped = bin_stack(stack, bin_capacity, big_capacity,
+                                                return_overflow=overflow is not None)
+    if overflow is not None:
+        overflow.append(dropped[0])
     if use_kernel:
         depth = raster_depth(stack["setup"], bins, big_ids, counts,
                              stack["tiles_x"], stack["tiles_y"], stack["res"],
@@ -135,12 +141,13 @@ def raster_stack(stack, bin_capacity, big_capacity, early_z=False, use_kernel=Tr
 
 def render_shadow_cascades(world_pos, tris, shadowview, *, res=1024,
                            bin_capacity=128, big_capacity=32, far_res=None,
-                           early_z=False, use_kernel=True):
+                           early_z=False, use_kernel=True, overflow=None):
     """Depth-only cascades: (S, res, res) reverse-Z depth, or with
     far_res a list of per-slice maps [(res, res)] * NEAR_SLICES +
     [(far_res, far_res)] * the rest (build_esm takes either).  K3 rasters
-    them with use_kernel, the scan raster without."""
-    maps = [raster_stack(st, bin_capacity, big_capacity, early_z, use_kernel)
+    them with use_kernel, the scan raster without.  overflow: as
+    raster_stack's, one entry a stack."""
+    maps = [raster_stack(st, bin_capacity, big_capacity, early_z, use_kernel, overflow)
             for st in cascade_stacks(world_pos, tris, shadowview, res=res,
                                      far_res=far_res)]
     if len(maps) == 1:
@@ -333,11 +340,12 @@ def spot_stack_parabolic(world_pos, tris, spotview_rigid, spot_far, n_maps, *,
 
 def render_spot_maps_parabolic(world_pos, tris, spotview_rigid, spot_far,
                                n_maps, *, res=256, bin_capacity=128,
-                               big_capacity=32, early_z=False):
-    """Parabolic spot depth maps (n_maps, res, res), one K3 launch."""
+                               big_capacity=32, early_z=False, overflow=None):
+    """Parabolic spot depth maps (n_maps, res, res), one K3 launch
+    (overflow: as raster_stack's)."""
     stack = spot_stack_parabolic(world_pos, tris, spotview_rigid, spot_far,
                                  n_maps, res=res)
-    return raster_stack(stack, bin_capacity, big_capacity, early_z)
+    return raster_stack(stack, bin_capacity, big_capacity, early_z, overflow=overflow)
 
 
 def spot_factor_quarter_parabolic(depth, spot_esm, view_rigid, far, *,
@@ -368,14 +376,14 @@ def spot_factor_quarter_parabolic(depth, spot_esm, view_rigid, far, *,
 
 
 def render_spot_maps(world_pos, tris, spotview, n_maps, *, res=256, bin_capacity=128,
-                     big_capacity=32, early_z=True, use_kernel=True):
+                     big_capacity=32, early_z=True, use_kernel=True, overflow=None):
     """Perspective depth maps of the first n_maps spot lights: the
     cascade stack of their shadowviews (n_maps, res, res), res at least
-    one tile wide."""
+    one tile wide (overflow: as raster_stack's)."""
     return render_shadow_cascades(world_pos, tris, spotview[:n_maps],
                                   res=max(res, TILE_W), bin_capacity=bin_capacity,
                                   big_capacity=big_capacity, early_z=early_z,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, overflow=overflow)
 
 
 def _spot_project(worldpos, shadowview, res):

@@ -25,6 +25,7 @@ import numpy as np
 
 from .asset.pack import (BONE_DTYPE, IMAGE_RGBA, IMAGE_RGBA_BC3, IMAGE_RGBE, RIG_DTYPE,
                          VERTEX_DTYPE, PackWriter)
+from .debug.debug import traced
 from .math import Transform
 from .math import color as color_codec
 from .render import primitives
@@ -348,6 +349,7 @@ def pack_scene(width, height, pack=None, assets=None, column=None, skybox=None,
     part_base = rng.uniform([-6, 0.5, -3], [6, 5.0, 3], (256, 3)).astype(np.float32)
     part_phase = rng.uniform(0, 2 * np.pi, 256).astype(np.float32)
 
+    @traced("build.renderlist")
     def make_renderlist(t=0.0, dt=0.0):
         rl = RenderList()
         update_meshes(scene, camera, rl)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..convert import to_torch
+from ..debug.debug import traced
 from ..ops.common import FrameConfig
 
 TEX_SIZE = 256
@@ -515,6 +516,7 @@ class RenderContext:
         return attach_host_expansion(self.pool, draws, cfg.max_vertices,
                                      cfg.max_triangles, cfg.max_translucent_tris)
 
+    @traced("build.draws")
     def frame_draws(self, renderlist, camera):
         """The draws tree of one frame, as the JAX package's
         RenderContext.render builds it: the draw arrays (with the

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from ..convert import to_torch
+from ..debug.debug import span, traced, tracing
 from ..ops import blend as blend_ops
 from ..ops import brdf
 from ..ops import fog as fog_ops
@@ -105,6 +106,7 @@ from ..ops.ssr2 import ssr_binned
 from .renderlist import RenderList
 
 
+@traced("build.expand")
 def expand_draws_host(pool, draw_mesh, draw_count, max_v, max_t):
     """Host-side (numpy) draw expansion into vertex/triangle streams at
     static capacity: the indices depend only on the draw list's mesh ids
@@ -288,39 +290,53 @@ def _raster_stage(cfg: FrameConfig, state, draws, ex, uv, clip, wnormal,
     """Binning and the K1 raster (K6 with raster_two_phase; with
     raster_early_z, its early exit).  Returns (planes dict,
     bin_overflow)."""
-    setup, bins, counts, big_ids, bin_overflow = _bin_stage(cfg, ex, clip)
-    planes = raster_shade(
-        setup, bins, big_ids, counts, ex["tris"], uv, wnormal, draws["tri_mat"],
-        state["materials"], cfg.tiles_x, cfg.tiles_y, cfg.padded_width,
-        cfg.padded_height, tangent=wtangent, two_phase=cfg.raster_two_phase,
-        early_z=cfg.raster_early_z)
+    with span("frame.raster.bins"):
+        setup, bins, counts, big_ids, bin_overflow = _bin_stage(cfg, ex, clip)
+    with span("frame.raster.k1"):
+        planes = raster_shade(
+            setup, bins, big_ids, counts, ex["tris"], uv, wnormal, draws["tri_mat"],
+            state["materials"], cfg.tiles_x, cfg.tiles_y, cfg.padded_width,
+            cfg.padded_height, tangent=wtangent, two_phase=cfg.raster_two_phase,
+            early_z=cfg.raster_early_z)
     return planes, bin_overflow
 
 
-def _sun_shadows(cfg: FrameConfig, ex, worldp, sceneset):
+def _count(counters, name, overflow):
+    """Put each of overflow's tensors (the dropped entries of a pass's
+    bins) into counters, the frame's counter dict or None, as name.<i>."""
+    if counters is not None:
+        counters.update((f"{name}.{i}", o) for i, o in enumerate(overflow))
+
+
+def _sun_shadows(cfg: FrameConfig, ex, worldp, sceneset, counters=None):
     """Sun cascades: with shadow_mode 'esm' their ESM (esm, zmax, zscale),
     with 'pcf' the raw (S, R, R) maps; None without shadows.  K3 rasters
-    them with use_pallas, the scan raster without."""
+    them with use_pallas, the scan raster without.  counters: the
+    frame's counter dict (each stack's dropped entries) or None."""
     if not cfg.enable_shadows:
         return None
     ml = sceneset["mainlight"]
     esm = cfg.shadow_mode == "esm"
+    overflow = None if counters is None else []
     raw = shadow_ops.render_shadow_cascades(
         worldp, ex["tris"], ml["shadowview"], res=cfg.shadow_res,
         bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity,
         far_res=cfg.shadow_far_res if esm else None, early_z=cfg.raster_early_z,
-        use_kernel=cfg.use_pallas)
+        use_kernel=cfg.use_pallas, overflow=overflow)
+    _count(counters, "shadows.sun", overflow)
     return shadow_ops.build_esm(raw, ml["shadowview"]) if esm else raw
 
 
-def _spot_shadows(cfg: FrameConfig, ex, worldp, sceneset):
+def _spot_shadows(cfg: FrameConfig, ex, worldp, sceneset, counters=None):
     """The megakernel path's spot maps (K3), parabolic or perspective
     (spot_shadow_mode), and their ESM: (n, R, R) or None."""
     if cfg.max_spot_shadows <= 0:
         return None
     sl = sceneset["spotlights"]
+    overflow = None if counters is None else []
     kw = dict(res=cfg.spot_shadow_res, bin_capacity=cfg.shadow_bin_capacity,
-              big_capacity=cfg.big_capacity, early_z=cfg.raster_early_z)
+              big_capacity=cfg.big_capacity, early_z=cfg.raster_early_z,
+              overflow=overflow)
     if cfg.spot_shadow_mode == "parabolic":
         maps = shadow_ops.render_spot_maps_parabolic(
             worldp, ex["tris"], sl["view"], sl["attenuation"][:, 3],
@@ -328,6 +344,7 @@ def _spot_shadows(cfg: FrameConfig, ex, worldp, sceneset):
     else:
         maps = shadow_ops.render_spot_maps(worldp, ex["tris"], sl["shadowview"],
                                            cfg.max_spot_shadows, **kw)
+    _count(counters, "shadows.spot", overflow)
     return shadow_ops.build_spot_esm(maps)
 
 
@@ -623,15 +640,20 @@ def _shade_inputs(cfg: FrameConfig, planes, state, draws, sceneset, shadows,
     previous frame's ao_prev or None; band: a band of the frame (module
     docstring), whose SSAO factor, when SSAO is on, is band["ao"]."""
     h, w = planes["depth"].shape
-    gpl, mask = _assemble_gplanes(cfg, planes, state, sceneset, shadows, w, h, band)
-    gpl = _decals(cfg, gpl, mask, planes["depth"], state, draws, sceneset, band)
+    with span("frame.planes.assembly"):
+        gpl, mask = _assemble_gplanes(cfg, planes, state, sceneset, shadows, w, h, band)
+    with span("frame.planes.decals"):
+        gpl = _decals(cfg, gpl, mask, planes["depth"], state, draws, sceneset, band)
     if band is not None and "ao" in band:
         ao, ao_state = band["ao"], None
     else:
-        ao, ao_state = _ssao(cfg, planes, sceneset, prev)
-    ss2, spotsf = _sky_sh_spots(cfg, gpl, planes, state, sceneset,
-                                shadows["spot"], band)
-    _fog(cfg, planes["depth"], sceneset, shadows, gpl, band)
+        with span("frame.planes.ssao"):
+            ao, ao_state = _ssao(cfg, planes, sceneset, prev)
+    with span("frame.planes.sky"):
+        ss2, spotsf = _sky_sh_spots(cfg, gpl, planes, state, sceneset,
+                                    shadows["spot"], band)
+    with span("frame.planes.fog"):
+        _fog(cfg, planes["depth"], sceneset, shadows, gpl, band)
     return gpl, ss2, spotsf, ao, ao_state
 
 
@@ -675,7 +697,7 @@ def _view_dist(proj, d):
 
 
 def _lit_layers(cfg: FrameConfig, state, ts, sceneset, ss2, shadows, depth, gpl,
-                band=None):
+                band=None, counters=None):
     """The lit translucent layers, nearest first: each a K1 raster of the
     translucent stream (material alpha in "alb"; from the second layer on
     peeled strictly behind the previous one), its plane assembly and K2
@@ -686,7 +708,8 @@ def _lit_layers(cfg: FrameConfig, state, ts, sceneset, ss2, shadows, depth, gpl,
     residual peels against it), else None.  In band mode (band: module
     docstring) the layers run on the band at the frame's resolution: the
     JAX package's parity exception, its half-res planes' band-local
-    upsamples would clamp at band seams."""
+    upsamples would clamp at band seams.  counters: the frame's counter
+    dict (the layer bins' dropped entries) or None."""
     h, w = depth.shape
     y0, gh, _, _, _ = _band(band, h)
     scaled = cfg.translucent_lit_scale > 1 and band is None
@@ -694,9 +717,10 @@ def _lit_layers(cfg: FrameConfig, state, ts, sceneset, ss2, shadows, depth, gpl,
     tsetup, tx, ty, w_t, gh_t = lit_setup(cfg, ts, band)
     h_t = gh_t if band is None else h
     depth_t = resize_matmul(depth, h_t, w_t, nearest=True) if scaled else depth
-    tbins, tcounts, tbig = raster_ops.bin_triangles(
+    tbins, tcounts, tbig, *dropped = raster_ops.bin_triangles(
         tsetup, cfg.max_translucent_tris, tx, ty, cfg.forward_bin_capacity,
-        cfg.forward_big_capacity)
+        cfg.forward_big_capacity, return_overflow=counters is not None)
+    _count(counters, "translucent.lit", dropped)
     tile0, tbins, tcounts = _band_tiles(band, h, tx, tbins, tcounts)
     d = ts["d"]
     n_layers = min(max(1, int(cfg.translucent_lit_layers)), MAX_TR_LAYERS)
@@ -813,16 +837,18 @@ def oit_bins(cfg: FrameConfig, st, **kw):
 
 
 def _oit_planes(cfg: FrameConfig, state, draws, sceneset, ts, lit_peel, depth,
-                gpl, band=None):
+                gpl, band=None, counters=None):
     """K4 over the merged stream against the opaque depth, into gpl's
     oit_r/g/b (exposed), oit_w and oit_rev planes (a band's: its bin rows
-    of the frame's bins)."""
+    of the frame's bins).  counters: as _lit_layers'."""
     st = oit_stream(cfg, state, draws, sceneset, ts, lit_peel)
     if st is None:
         zero = torch.zeros_like(depth)
         acc5 = (zero, zero, zero, zero, zero + 1.0)
     else:
-        bins, counts, big = oit_bins(cfg, st)
+        bins, counts, big, *dropped = oit_bins(cfg, st,
+                                               return_overflow=counters is not None)
+        _count(counters, "translucent.wboit", dropped)
         tile0, bins, counts = _band_tiles(band, depth.shape[0], cfg.tiles_x, bins, counts)
         acc5 = raster_blend(st["setup"], bins, big, counts, st["tris"], st["uv"],
                             st["color"], depth, cfg.tiles_x, cfg.tiles_y,
@@ -836,18 +862,22 @@ def _oit_planes(cfg: FrameConfig, state, draws, sceneset, ts, lit_peel, depth,
 
 
 def _translucent_stage(cfg: FrameConfig, state, draws, sceneset, ss2, shadows,
-                       depth, gpl, band=None):
+                       depth, gpl, band=None, counters=None):
     """The lit translucent layers and the merged WBOIT stream, as planes
     of gpl for K2's epilogue (nothing without translucents or
-    particles)."""
+    particles).  counters: as _lit_layers'."""
     ts = lit_peel = None
     if cfg.max_translucent_draws > 0:
-        ts = translucent_stream(state, draws, sceneset)
+        with span("frame.translucent.vertices"):
+            ts = translucent_stream(state, draws, sceneset)
         if cfg.translucent_lit:
-            lit_peel = _lit_layers(cfg, state, ts, sceneset, ss2, shadows, depth,
-                                   gpl, band)
+            with span("frame.translucent.lit"):
+                lit_peel = _lit_layers(cfg, state, ts, sceneset, ss2, shadows, depth,
+                                       gpl, band, counters)
     if cfg.max_translucent_draws > 0 or cfg.max_particle_quads > 0:
-        _oit_planes(cfg, state, draws, sceneset, ts, lit_peel, depth, gpl, band)
+        with span("frame.translucent.wboit"):
+            _oit_planes(cfg, state, draws, sceneset, ts, lit_peel, depth, gpl, band,
+                        counters)
 
 
 def light_clusters(cfg: FrameConfig, depth, sceneset, band=None):
@@ -962,12 +992,15 @@ def dof_fields(hdr, depth, proj, camera, band=None):
 def _post(cfg: FrameConfig, state, draws, sceneset, hdr, depth, ssr_in):
     """Log-average luminance and the post passes (post_rgb): (u8 image
     (height, width, 3), luminance)."""
-    lum_w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=torch.float32,
-                         device=hdr.device)
-    lum = torch.exp(torch.mean(torch.log(
-        1e-4 + hdr[:cfg.height, :cfg.width] @ lum_w)))
+    with span("frame.post.luminance"):
+        lum_w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=torch.float32,
+                             device=hdr.device)
+        lum = torch.exp(torch.mean(torch.log(
+            1e-4 + hdr[:cfg.height, :cfg.width] @ lum_w)))
     rgb = post_rgb(cfg, state, draws, sceneset, hdr, depth, ssr_in)
-    return to_u8_image(rgb[:cfg.height, :cfg.width]), lum
+    with span("frame.post.u8"):
+        image = to_u8_image(rgb[:cfg.height, :cfg.width])
+    return image, lum
 
 
 def post_rgb(cfg: FrameConfig, state, draws, sceneset, hdr, depth, ssr_in, band=None):
@@ -986,35 +1019,41 @@ def post_rgb(cfg: FrameConfig, state, draws, sceneset, hdr, depth, ssr_in, band=
     cam = sceneset["camera"]
     up = lambda x: rows(resize_up_dense(x, h, w))
 
-    ssr_q, ssr_img = _ssr(cfg, state, sceneset, hdr, depth, ssr_in, band)
+    with span("frame.post.ssr"):
+        ssr_q, ssr_img = _ssr(cfg, state, sceneset, hdr, depth, ssr_in, band)
     bloom_img = glow = dof_blur = dof_amount = None
-    if ssr_q is not None and cfg.enable_depth_of_field:
-        ssr_img, ssr_q = up(ssr_q), None
-    if cfg.enable_bloom:
-        quarter = g(downsample2(downsample2(hdr)), "bloom")
-        if cfg.enable_depth_of_field:
-            bloom_img = rows(bloom_quarter(quarter, cam["bloomstrength"]))
-        else:
-            bloom_q = bloom_quarter(quarter, cam["bloomstrength"], upsample=False)
-            if ssr_q is not None:
-                bloom_q = bloom_q + ssr_q[..., :3] * ssr_q[..., 3:4]
-                ssr_q = None
-            glow = up(bloom_q)
-    if ssr_q is not None:                 # SSR alone (bloom off, DoF off)
-        glow = up(ssr_q[..., :3] * ssr_q[..., 3:4])
+    with span("frame.post.bloom"):
+        if ssr_q is not None and cfg.enable_depth_of_field:
+            ssr_img, ssr_q = up(ssr_q), None
+        if cfg.enable_bloom:
+            quarter = g(downsample2(downsample2(hdr)), "bloom")
+            if cfg.enable_depth_of_field:
+                bloom_img = rows(bloom_quarter(quarter, cam["bloomstrength"]))
+            else:
+                bloom_q = bloom_quarter(quarter, cam["bloomstrength"], upsample=False)
+                if ssr_q is not None:
+                    bloom_q = bloom_q + ssr_q[..., :3] * ssr_q[..., 3:4]
+                    ssr_q = None
+                glow = up(bloom_q)
+        if ssr_q is not None:                 # SSR alone (bloom off, DoF off)
+            glow = up(ssr_q[..., :3] * ssr_q[..., 3:4])
     if cfg.enable_depth_of_field:
-        dof_blur, dof_amount = dof_fields(hdr, depth, sceneset["proj"], cam, band)
+        with span("frame.post.dof"):
+            dof_blur, dof_amount = dof_fields(hdr, depth, sceneset["proj"], cam, band)
 
-    grading = cfg.enable_color_grading
-    rgb = composite(hdr, 1.0, bloom=bloom_img, bloom_strength=1.0, ssr=ssr_img,
-                    dof_blur=dof_blur, dof_amount=dof_amount,
-                    lut=state.get("colorlut") if grading else None,
-                    lut_poly=state.get("colorlut_poly") if grading else None,
-                    glow=glow)
+    with span("frame.post.composite"):
+        grading = cfg.enable_color_grading
+        rgb = composite(hdr, 1.0, bloom=bloom_img, bloom_strength=1.0, ssr=ssr_img,
+                        dof_blur=dof_blur, dof_amount=dof_amount,
+                        lut=state.get("colorlut") if grading else None,
+                        lut_poly=state.get("colorlut_poly") if grading else None,
+                        glow=glow)
     if cfg.max_overlay_sprites > 0 and "sprites" in draws:
-        rgb = rows(composite_sprites(g(rgb, "sprites_rgb").contiguous(), draws["sprites"],
-                                     state["overlay_atlas"],
-                                     region=min(cfg.overlay_region, w, cfg.padded_height)))
+        with span("frame.post.sprites"):
+            rgb = rows(composite_sprites(g(rgb, "sprites_rgb").contiguous(),
+                                         draws["sprites"], state["overlay_atlas"],
+                                         region=min(cfg.overlay_region, w,
+                                                    cfg.padded_height)))
     return rgb
 
 
@@ -1034,33 +1073,49 @@ def use_shade_kernel(cfg: FrameConfig, state):
 
 
 def shade_band(cfg: FrameConfig, state, draws, sceneset, shadows, planes, prev=None,
-               band=None):
+               band=None, counters=None):
     """The megakernel branch from K1's planes to K2's hdr: plane assembly
     with the decals, SSAO, sky, spot factors and fog; the lit layers and
-    the WBOIT stream; the light clusters; K2 and its epilogue.  band: the
-    planes are a band of the frame (module docstring).  Returns (hdr (h,
-    w, 3), the K2 planes, the AO state or None)."""
-    gpl, ss2, spotsf, ao, ao_state = _shade_inputs(cfg, planes, state, draws,
-                                                   sceneset, shadows, prev, band)
-    _translucent_stage(cfg, state, draws, sceneset, ss2, shadows,
-                       planes["depth"], gpl, band)
-    y0, gh, _, _, _ = _band(band, planes["depth"].shape[0])
-    hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
-                         invview=sceneset["invview"], ao=ao, spotsf=spotsf,
-                         clusters=light_clusters(cfg, planes["depth"], sceneset, band),
-                         y0=y0, full_height=gh)
+    the WBOIT stream; the light clusters; K2 and its epilogue; on the
+    whole frame (band None), the analytic fog planes.  band: the planes
+    are a band of the frame (module docstring).  counters: as
+    _lit_layers'.  Returns (hdr (h, w, 3), the K2 planes, the AO state or
+    None)."""
+    with span("frame.planes"):
+        gpl, ss2, spotsf, ao, ao_state = _shade_inputs(cfg, planes, state, draws,
+                                                       sceneset, shadows, prev, band)
+    with span("frame.translucent"):
+        _translucent_stage(cfg, state, draws, sceneset, ss2, shadows,
+                           planes["depth"], gpl, band, counters)
+    with span("frame.shade"):
+        y0, gh, _, _, _ = _band(band, planes["depth"].shape[0])
+        with span("frame.shade.clusters"):
+            clusters = light_clusters(cfg, planes["depth"], sceneset, band)
+        with span("frame.shade.k2"):
+            hdr = shade_deferred(gpl, ss2, proj=sceneset["proj"],
+                                 invview=sceneset["invview"], ao=ao, spotsf=spotsf,
+                                 clusters=clusters, y0=y0, full_height=gh)
+        if band is None:
+            with span("frame.shade.fogplanes"):
+                hdr = _fog_planes(cfg, hdr, planes["depth"], draws, sceneset)
     return hdr, gpl, ao_state
 
 
-def _megakernel_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
+def _megakernel_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx,
+                      counters=None):
     """The megakernel branch: (hdr, depth, vis, bin_overflow, ao_state,
-    SSR inputs)."""
+    SSR inputs).  counters: the frame's counter dict or None."""
     ex, uv, clip, wnormal, wtangent, worldp = vtx
-    shadows = _shadow_stage(cfg, ex, worldp, sceneset)
-    planes, bin_overflow = _raster_stage(cfg, state, draws, ex, uv, clip,
-                                         wnormal, wtangent)
-    hdr, gpl, ao_state = shade_band(cfg, state, draws, sceneset, shadows, planes, prev)
-    hdr = _fog_planes(cfg, hdr, planes["depth"], draws, sceneset)
+    with span("frame.shadows"):
+        with span("frame.shadows.sun"):
+            sun = _sun_shadows(cfg, ex, worldp, sceneset, counters)
+        with span("frame.shadows.spot"):
+            spot = _spot_shadows(cfg, ex, worldp, sceneset, counters)
+    with span("frame.raster"):
+        planes, bin_overflow = _raster_stage(cfg, state, draws, ex, uv, clip,
+                                             wnormal, wtangent)
+    hdr, gpl, ao_state = shade_band(cfg, state, draws, sceneset, dict(sun=sun, spot=spot),
+                                    planes, prev, counters=counters)
     vis = torch.round(planes["visf"]).to(torch.int32)
     return (hdr, planes["depth"], vis, bin_overflow, ao_state,
             _ssr_inputs_planes(gpl))
@@ -1087,7 +1142,8 @@ def _deferred_raster(cfg: FrameConfig, state, draws, ex, uv, clip, wnormal, wtan
     (use_pallas) or the scan raster, then resolve_gbuffer."""
     w, h = cfg.padded_width, cfg.padded_height
     tx, ty = cfg.tiles_x, cfg.tiles_y
-    setup, bins, counts, big_ids, bin_overflow = _bin_stage(cfg, ex, clip)
+    with span("frame.raster.bins"):
+        setup, bins, counts, big_ids, bin_overflow = _bin_stage(cfg, ex, clip)
     mip = cfg.texture_filter.startswith("mip")
     if cfg.use_pallas and (not cfg.enable_material_maps
                            or (mip and cfg.raster_kernel != "mxu")):
@@ -1168,105 +1224,130 @@ def _wboit(cfg: FrameConfig, setup, bins, big, counts, tris, uv, color, depth, s
                                   w, h, soft=soft)
 
 
-def _deferred_forward(cfg: FrameConfig, state, draws, sceneset, hdr, depth):
+def _deferred_forward(cfg: FrameConfig, state, draws, sceneset, hdr, depth,
+                      counters=None):
     """The two separate weighted-blend OIT passes over hdr: the
     translucent draws (hard alpha), then the particle billboards (soft
-    alpha), each resolved on its own."""
+    alpha), each resolved on its own.  counters: as _lit_layers'."""
     w, h, tx, ty = cfg.padded_width, cfg.padded_height, cfg.tiles_x, cfg.tiles_y
     exposure = sceneset["camera"]["exposure"]
+    counted = counters is not None
     if cfg.max_translucent_draws > 0:
-        ts = translucent_stream(state, draws, sceneset)
-        d = ts["d"]
-        color = state["materials"]["color"][d["material"][d["vtx_draw"].long()].long()]
-        setup = raster_ops.triangle_setup(ts["clip"], d["tris"], w, h, tx, ty,
-                                          tri_valid=d["t_valid"])
-        bins, counts, big = raster_ops.bin_triangles(
-            setup, cfg.max_translucent_tris, tx, ty, cfg.forward_bin_capacity,
-            cfg.forward_big_capacity)
-        acc, rev = _wboit(cfg, setup, bins, big, counts, d["tris"], ts["uv"], color,
-                          depth, soft=False)
-        hdr = blend_ops.resolve_oit(hdr, acc, rev, exposure=exposure)
+        with span("frame.translucent.wboit"):
+            ts = translucent_stream(state, draws, sceneset)
+            d = ts["d"]
+            color = state["materials"]["color"][d["material"][d["vtx_draw"].long()].long()]
+            setup = raster_ops.triangle_setup(ts["clip"], d["tris"], w, h, tx, ty,
+                                              tri_valid=d["t_valid"])
+            bins, counts, big, *dropped = raster_ops.bin_triangles(
+                setup, cfg.max_translucent_tris, tx, ty, cfg.forward_bin_capacity,
+                cfg.forward_big_capacity, return_overflow=counted)
+            _count(counters, "translucent.wboit", dropped)
+            acc, rev = _wboit(cfg, setup, bins, big, counts, d["tris"], ts["uv"], color,
+                              depth, soft=False)
+            hdr = blend_ops.resolve_oit(hdr, acc, rev, exposure=exposure)
     if cfg.max_particle_quads > 0:
-        fwd = draws["forward"]
-        viewproj = sceneset["proj"] @ sceneset["view"]
-        fclip = fwd["positions"] @ viewproj[:, :3].T + viewproj[:, 3]
-        ftris = torch.from_numpy(RenderList.quad_triangles(
-            cfg.max_particle_quads)).to(fclip.device)
-        valid = torch.arange(ftris.shape[0], device=fclip.device) < fwd["quad_count"] * 2
-        setup = raster_ops.triangle_setup(fclip, ftris, w, h, tx, ty, tri_valid=valid)
-        bins, counts, big = raster_ops.bin_triangles(
-            setup, ftris.shape[0], tx, ty, cfg.forward_bin_capacity,
-            cfg.forward_big_capacity)
-        acc, rev = _wboit(cfg, setup, bins, big, counts, ftris, fwd["uv"], fwd["color"],
-                          depth, soft=True)
-        hdr = blend_ops.resolve_oit(hdr, acc, rev, exposure=exposure)
+        with span("frame.translucent.particles"):
+            fwd = draws["forward"]
+            viewproj = sceneset["proj"] @ sceneset["view"]
+            fclip = fwd["positions"] @ viewproj[:, :3].T + viewproj[:, 3]
+            ftris = torch.from_numpy(RenderList.quad_triangles(
+                cfg.max_particle_quads)).to(fclip.device)
+            valid = torch.arange(ftris.shape[0], device=fclip.device) < fwd["quad_count"] * 2
+            setup = raster_ops.triangle_setup(fclip, ftris, w, h, tx, ty, tri_valid=valid)
+            bins, counts, big, *dropped = raster_ops.bin_triangles(
+                setup, ftris.shape[0], tx, ty, cfg.forward_bin_capacity,
+                cfg.forward_big_capacity, return_overflow=counted)
+            _count(counters, "translucent.particles", dropped)
+            acc, rev = _wboit(cfg, setup, bins, big, counts, ftris, fwd["uv"],
+                              fwd["color"], depth, soft=True)
+            hdr = blend_ops.resolve_oit(hdr, acc, rev, exposure=exposure)
     return hdr
 
 
-def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
+def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx, counters=None):
     """Every branch of `_frame` off the megakernel: (hdr, depth, vis,
-    bin_overflow, ao_state, SSR inputs)."""
+    bin_overflow, ao_state, SSR inputs).  counters: the frame's counter
+    dict or None."""
     ex, uv, clip, wnormal, wtangent, worldp = vtx
     w, h, tx, ty = cfg.padded_width, cfg.padded_height, cfg.tiles_x, cfg.tiles_y
     proj, invview = sceneset["proj"], sceneset["invview"]
-    sun = _sun_shadows(cfg, ex, worldp, sceneset)
-    depth, vis, gbuffer, bin_overflow = _deferred_raster(cfg, state, draws, ex, uv, clip,
-                                                         wnormal, wtangent)
-    cluster = None
-    if cfg.use_light_clusters:
-        pl_ = sceneset["pointlights"]
-        lists, counts = bin_lights(pl_["position"], pl_["attenuation"][:, 3],
-                                   pl_["count"], sceneset["view"], proj, tx, ty, w, h,
-                                   cfg.tile_light_capacity)
-        cluster = (lists, counts, tx, ty)
-    if cfg.max_decals_active > 0:
-        _, wpos = reconstruct_positions(depth, proj, invview, w, h)
-        gbuffer = apply_decals(gbuffer, wpos, draws["decals"],
-                               textures=state.get("textures"))
-    ssao, ao_state = _deferred_ssao(cfg, depth, gbuffer, sceneset, prev)
-    spotmaps = None
-    if cfg.max_spot_shadows > 0:
-        # perspective maps whatever spot_shadow_mode says, with the early
-        # exit on as the reference's default
-        spotmaps = shadow_ops.render_spot_maps(
-            worldp, ex["tris"], sceneset["spotlights"]["shadowview"],
-            cfg.max_spot_shadows, res=cfg.spot_shadow_res,
-            bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity,
-            use_kernel=cfg.use_pallas)
-    ibl = state.get("ibl")
-    hdr = lighting_pass.shade_deferred(
-        gbuffer, depth, sceneset, proj=proj, invview=invview, shadowmaps=sun, ibl=ibl,
-        cluster=cluster, ssao=ssao, spotmaps=spotmaps,
-        shadow_factor_scale=cfg.shadow_factor_scale,
-        shadow_slice_blend=cfg.shadow_slice_blend)
-    if ibl is not None:
-        hdr = _sky_fill(ibl, sceneset, hdr, gbuffer["mask"], w, h)
-    if cfg.enable_fog:
-        fogvol = fog_ops.build_fog_volume(
-            sceneset, proj=proj, invview=invview,
-            shadow=sun if cfg.enable_shadows and cfg.shadow_mode == "esm" else None,
-            depth_range=cfg.fog_depth_range)
-        hdr = fog_ops.apply_fog(hdr, depth, fogvol, proj, depth_range=cfg.fog_depth_range,
-                                sample_scale=cfg.fog_sample_scale)
-    hdr = _fog_planes(cfg, hdr, depth, draws, sceneset)
-    hdr = _deferred_forward(cfg, state, draws, sceneset, hdr, depth)
+    with span("frame.shadows"):
+        with span("frame.shadows.sun"):
+            sun = _sun_shadows(cfg, ex, worldp, sceneset, counters)
+        spotmaps = None
+        if cfg.max_spot_shadows > 0:
+            # perspective maps whatever spot_shadow_mode says, with the
+            # early exit on as the reference's default
+            with span("frame.shadows.spot"):
+                overflow = None if counters is None else []
+                spotmaps = shadow_ops.render_spot_maps(
+                    worldp, ex["tris"], sceneset["spotlights"]["shadowview"],
+                    cfg.max_spot_shadows, res=cfg.spot_shadow_res,
+                    bin_capacity=cfg.shadow_bin_capacity, big_capacity=cfg.big_capacity,
+                    use_kernel=cfg.use_pallas, overflow=overflow)
+                _count(counters, "shadows.spot", overflow)
+    with span("frame.raster"):
+        depth, vis, gbuffer, bin_overflow = _deferred_raster(cfg, state, draws, ex, uv,
+                                                             clip, wnormal, wtangent)
+    with span("frame.planes"):
+        if cfg.max_decals_active > 0:
+            with span("frame.planes.decals"):
+                _, wpos = reconstruct_positions(depth, proj, invview, w, h)
+                gbuffer = apply_decals(gbuffer, wpos, draws["decals"],
+                                       textures=state.get("textures"))
+        with span("frame.planes.ssao"):
+            ssao, ao_state = _deferred_ssao(cfg, depth, gbuffer, sceneset, prev)
+    with span("frame.shade"):
+        cluster = None
+        if cfg.use_light_clusters:
+            with span("frame.shade.clusters"):
+                pl_ = sceneset["pointlights"]
+                lists, counts = bin_lights(pl_["position"], pl_["attenuation"][:, 3],
+                                           pl_["count"], sceneset["view"], proj, tx, ty,
+                                           w, h, cfg.tile_light_capacity)
+                cluster = (lists, counts, tx, ty)
+        ibl = state.get("ibl")
+        with span("frame.shade.lighting"):
+            hdr = lighting_pass.shade_deferred(
+                gbuffer, depth, sceneset, proj=proj, invview=invview, shadowmaps=sun,
+                ibl=ibl, cluster=cluster, ssao=ssao, spotmaps=spotmaps,
+                shadow_factor_scale=cfg.shadow_factor_scale,
+                shadow_slice_blend=cfg.shadow_slice_blend)
+        if ibl is not None:
+            with span("frame.shade.sky"):
+                hdr = _sky_fill(ibl, sceneset, hdr, gbuffer["mask"], w, h)
+        if cfg.enable_fog:
+            with span("frame.shade.fog"):
+                fogvol = fog_ops.build_fog_volume(
+                    sceneset, proj=proj, invview=invview,
+                    shadow=sun if cfg.enable_shadows and cfg.shadow_mode == "esm" else None,
+                    depth_range=cfg.fog_depth_range)
+                hdr = fog_ops.apply_fog(hdr, depth, fogvol, proj,
+                                        depth_range=cfg.fog_depth_range,
+                                        sample_scale=cfg.fog_sample_scale)
+        with span("frame.shade.fogplanes"):
+            hdr = _fog_planes(cfg, hdr, depth, draws, sceneset)
+    with span("frame.translucent"):
+        hdr = _deferred_forward(cfg, state, draws, sceneset, hdr, depth, counters)
     return hdr, depth, vis, bin_overflow, ao_state, _ssr_inputs_gbuffer(gbuffer)
 
 
-def _frame(cfg: FrameConfig, state, draws, sceneset, prev=None):
-    # every stream below (the opaque draws, the lit layers, WBOIT, the
-    # deferred branch's translucents) reads the patched pool
-    state = patch_dynamic(cfg, state, draws)
-    vtx = _vertex_stage(cfg, state, draws, sceneset)
+def _frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
+    """The frame after its input stage: a branch, then the post passes."""
+    counters = {} if tracing() else None
     branch = _megakernel_frame if use_shade_kernel(cfg, state) else _deferred_frame
     hdr, depth, vis, bin_overflow, ao_state, ssr_in = branch(cfg, state, draws,
-                                                             sceneset, prev, vtx)
-    image, lum = _post(cfg, state, draws, sceneset, hdr, depth, ssr_in)
+                                                             sceneset, prev, vtx, counters)
+    with span("frame.post"):
+        image, lum = _post(cfg, state, draws, sceneset, hdr, depth, ssr_in)
     out = dict(image=image, luminance=lum, depth=depth, vis=vis,
                bin_overflow=bin_overflow)
     if ao_state is not None:
         # the temporal AO history: the next frame's `prev`
         out["ao_prev"] = dict(ao=ao_state, view=sceneset["view"])
+    if counters is not None:
+        out["counters"] = dict(counters, **{"raster.bins": bin_overflow})
     return out
 
 
@@ -1285,8 +1366,17 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     reprojection), or None.
 
     Returns dict(image (height, width, 3) u8, luminance () f32, depth
-    and vis (padded H, W), bin_overflow () i32 of the main bins, and with
-    SSAO ao_prev: dict(ao (h, w, 2), view)), all on `device`.  On a CUDA
+    and vis (padded H, W), bin_overflow () i32 of the main bins, with
+    SSAO ao_prev: dict(ao (h, w, 2), view), and while the program's
+    tracing is on (debug.set_tracing) counters: {name: () i32} of the
+    entries dropped by the main bins ("raster.bins"), each shadow stack
+    ("shadows.sun.<i>", "shadows.spot.<i>"), the lit layer's bins
+    ("translucent.lit.0") and the WBOIT streams' ("translucent.wboit.0";
+    the deferred branch's particles "translucent.particles.0"), counted
+    on the device with no host sync), all on `device`.  While tracing is
+    on the call is a "frame" span of the debug ring, its stages (input,
+    shadows, raster, planes, translucent, shade, post) and their parts
+    spans inside it.  On a CUDA
     device the rasters (K1 or K6, K3, K4, K5, K7) and the shade (K2 and
     its epilogue) run the hand-written kernels (they raise if they cannot
     launch; nothing falls back).  Without use_pallas the deferred branch
@@ -1302,9 +1392,18 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise ValueError("render_frame: set torch.backends.cuda.matmul."
                          "allow_tf32 = False (the frame is f32)")
-    state = to_torch(state, device)
-    draws = to_torch(draws, device)
-    sceneset = to_torch(sceneset, device)
-    if prev is not None:
-        prev = to_torch(prev, device)
-    return _frame(cfg, state, draws, sceneset, prev)
+    with span("frame"):
+        with span("frame.input"):
+            with span("frame.input.upload"):
+                state = to_torch(state, device)
+                draws = to_torch(draws, device)
+                sceneset = to_torch(sceneset, device)
+                if prev is not None:
+                    prev = to_torch(prev, device)
+            # every stream below (the opaque draws, the lit layers, WBOIT,
+            # the deferred branch's translucents) reads the patched pool
+            with span("frame.input.dynamic"):
+                state = patch_dynamic(cfg, state, draws)
+            with span("frame.input.vertex"):
+                vtx = _vertex_stage(cfg, state, draws, sceneset)
+        return _frame(cfg, state, draws, sceneset, prev, vtx)

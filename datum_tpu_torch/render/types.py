@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 
+from ..debug.debug import traced
 from ..ops.common import MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS
 
 
@@ -95,6 +96,7 @@ class RenderParams:
         default_factory=lambda: np.array([0.0, 0.15, 0.0], np.float32))
 
 
+@traced("build.sceneset")
 def make_sceneset(camera, params: RenderParams, *, point_lights=(), spot_lights=(),
                   probes=(), environments=(), prevview=None, n_probe=8):
     """Pack camera + params + lights + SH probes into the fixed-shape

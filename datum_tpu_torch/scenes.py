@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .debug.debug import traced
 from .math import Transform
 
 from .ops.common import FrameConfig
@@ -145,6 +146,7 @@ def datumtest_scene(width=1920, height=1080, *, sphere_detail=24, grid=(7, 5),
     sh_probes = _local_environment(ctx, grid) if local_env else []
     vm = VertexModes(ctx, ocean_grid) if vertex_modes else None
 
+    @traced("build.renderlist")
     def make_renderlist(t=0.0):
         rl = RenderList()
         for pos in sh_probes:
@@ -394,6 +396,7 @@ def stress_scene(width=1920, height=1080, *, terrain_n=192, sphere_detail=36,
                             (n_point_lights, 3)).astype(np.float32)
     light_col = rng.uniform(0.5, 6.0, (n_point_lights, 3)).astype(np.float32)
 
+    @traced("build.renderlist")
     def make_renderlist(t=0.0):
         rl = RenderList()
         if cfg.enable_terrain_morph:
