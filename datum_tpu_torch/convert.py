@@ -11,7 +11,8 @@ tables `flatqs`: the JAX package bitcasts their f32 rows to u8 for the
 TPU's gathers, and to_torch views such a table as the f32 rows it holds,
 so one JAX state feeds both packages.  The port's own host side (render.context,
 render.types, renderlist.draw_arrays) produces the same numpy trees, so
-one function moves both onto the card.
+one function moves both onto the card.  `map_arrays` walks such a tree
+as to_torch does (the frame graph's input buffers use it).
 """
 
 from __future__ import annotations
@@ -25,20 +26,32 @@ def to_torch(tree, device):
 
     Tensors already in the tree are moved to `device`; other leaves
     (None, strings, Python numbers) pass through unchanged."""
+    return map_arrays(tree, lambda a: _to(a, device))
+
+
+def map_arrays(tree, fn):
+    """The tree with fn applied to each array leaf (numpy arrays and
+    scalars, tensors), in the order of its dicts and lists, after the
+    flat tables' view as f32 rows (module docstring); other leaves pass
+    through unchanged."""
     if isinstance(tree, dict):
-        return {k: to_torch(_f32_rows(v) if k in ("flatp", "flatq")
-                            else [_f32_rows(t) for t in v] if k == "flatqs" else v,
-                            device)
+        return {k: map_arrays(_f32_rows(v) if k in ("flatp", "flatq")
+                              else [_f32_rows(t) for t in v] if k == "flatqs" else v,
+                              fn)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_torch(v, device) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, (np.ndarray, np.generic)):
-        # np.array copies: a 0-d scalar stays 0-d, and the tensor never
-        # aliases (or warns about) a read-only numpy buffer
-        return torch.from_numpy(np.array(tree)).to(device)
+        return type(tree)(map_arrays(v, fn) for v in tree)
+    if isinstance(tree, (torch.Tensor, np.ndarray, np.generic)):
+        return fn(tree)
     return tree
+
+
+def _to(a, device):
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    # np.array copies: a 0-d scalar stays 0-d, and the tensor never
+    # aliases (or warns about) a read-only numpy buffer
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def _f32_rows(flatp):

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from .blur import downsample2, gaussian_blur, resize_up_dense
+from .common import constant
 from .composite import tonemap
 
 CUTOFF = 11.2
@@ -15,8 +16,7 @@ RADIUS = 16
 
 def bloom_seed(quarter):
     """Luma-thresholded, tonemapped bloom seed at reduced resolution."""
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=quarter.dtype,
-                     device=quarter.device)
+    w = constant((0.299, 0.587, 0.114), quarter.dtype, quarter.device)
     luma = quarter @ w
     t = torch.clamp(luma - CUTOFF, 0.0, 1.0)
     t = t * t * (3.0 - 2.0 * t)   # smoothstep(0,1, luma-cutoff)

@@ -9,10 +9,10 @@ card — see render.frame.render_frame)."""
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+
+from .common import device_cached
 
 
 def downsample_pool(img, p: int, reduce="mean"):
@@ -147,7 +147,7 @@ def _nearest_matrix(n_in: int, n_out: int):
     return _resample_matrix(n_in, n_out, nearest=True)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cached(maxsize=64)
 def _matrix(build, n_in, n_out, transpose, device, dtype):
     """A static resample matrix as a tensor, built once per shape and
     device: the eager frame would otherwise rebuild (and re-upload) the

@@ -7,6 +7,7 @@ the flags its slice does not implement at the top of `render_frame`.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 
@@ -174,7 +175,55 @@ def fma(a, b, c):
     return f
 
 
-@functools.lru_cache(maxsize=32)
+_capture = None    # the recorder of the frame graph being captured (render/framegraph.py)
+
+
+def capture_cached(recorder):
+    """While a frame graph is being captured, recorder is its recorder:
+    every tensor the device_cached functions hand out goes into
+    recorder.keep (the graphs read them by address, so the capture keeps
+    them alive past their eviction from the cache), and one missing from
+    its cache is built by recorder.outside(build, args), between two of
+    its graphs (a graph cannot hold the build's copy from the host).
+    None: stop."""
+    global _capture
+    _capture = recorder
+
+
+def device_cached(maxsize):
+    """A least-recently-used cache of static tensors built once per shape
+    and device, by their arguments (the eager frame would otherwise
+    rebuild and re-upload them, a host sync, every frame).  Callers only
+    read what it returns."""
+    def wrap(build):
+        cache = collections.OrderedDict()
+
+        @functools.wraps(build)
+        def get(*args):
+            if args in cache:
+                cache.move_to_end(args)
+            else:
+                cache[args] = build(*args) if _capture is None else _capture.outside(build,
+                                                                                     args)
+                if len(cache) > maxsize:
+                    cache.popitem(last=False)
+            out = cache[args]
+            if _capture is not None:
+                _capture.keep.append(out)
+            return out
+        get.cache_clear = cache.clear
+        return get
+    return wrap
+
+
+@device_cached(maxsize=64)
+def constant(values, dtype, device):
+    """torch.tensor(values, dtype=dtype, device=device) for static values
+    (a number or nested tuples of numbers), built once per device."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+@device_cached(maxsize=32)
 def shifted_taps(offsets, h: int, w: int, device):
     """For static (dy, dx) pixel offsets (a tuple of pairs): ((S, 2)
     int64 offsets, (S, h, w) bool mask of the pixels whose shifted tap

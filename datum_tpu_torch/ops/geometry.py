@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import fma
+from .common import constant, fma
 
 
 def quat_mul(a, b):
@@ -26,7 +26,7 @@ def quat_mul(a, b):
 
 
 def quat_conj(q):
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return q * constant((1.0, -1.0, -1.0, -1.0), q.dtype, q.device)
 
 
 def dq_rotate(q, v):

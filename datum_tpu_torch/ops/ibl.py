@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .common import constant
 from .sampling import cubemap_texel_dir, sample_cubemap
 
 PI = np.pi
@@ -114,10 +115,9 @@ def ggx_taps(n, roughness, samples):
     h_local = _ggx_sample_dirs(hammersley(samples), roughness * roughness)  # (N, 3)
 
     # tangent frame per texel
-    f32 = dict(dtype=torch.float32, device=n.device)
     up = torch.where(torch.abs(n[..., 2:3]) < 0.999,
-                     torch.tensor([0.0, 0.0, 1.0], **f32),
-                     torch.tensor([1.0, 0.0, 0.0], **f32))
+                     constant((0.0, 0.0, 1.0), torch.float32, n.device),
+                     constant((1.0, 0.0, 0.0), torch.float32, n.device))
     t = torch.linalg.cross(up, n)
     t = t / torch.clamp(torch.linalg.norm(t, dim=-1, keepdim=True), min=1e-9)
     b = torch.linalg.cross(n, t)
@@ -171,17 +171,19 @@ _K = np.float32(1.0 / np.sqrt(2.0))
 _SH2_DIRS = np.array([[1, 0, 0], [0, 0, 1], [_K, _K, 0],
                       [_K, 0, _K], [0, _K, _K]], np.float32)
 _SH2_INV = np.linalg.inv(_sh2_basis(_SH2_DIRS, xp=np)).astype(np.float32)
+# both as nested tuples of their f32 values, the keys of their device constants
+SH2_DIRS = tuple(map(tuple, _SH2_DIRS.tolist()))
+SH2_INV = tuple(map(tuple, _SH2_INV.tolist()))
 
 
 def rotate_sh9(sh, r_inv):
     """Rotate SH-9 coefficients (9, C) so that SH(out, n) == SH(sh,
     r_inv @ n); r_inv is the world->env rotation."""
-    f32 = dict(dtype=sh.dtype, device=sh.device)
     r = r_inv.T                                     # env -> world
     u2 = r @ torch.stack([sh[3], sh[1], sh[2]], 0)  # band 1 as (x, y, z)
     b1 = torch.stack([u2[1], u2[2], u2[0]], 0)      # back to (y, z, x)
-    nd = torch.as_tensor(_SH2_DIRS, **f32) @ r      # rows: r_inv @ N_i
-    b2 = torch.as_tensor(_SH2_INV, **f32) @ (_sh2_basis(nd) @ sh[4:9])
+    nd = constant(SH2_DIRS, sh.dtype, sh.device) @ r      # rows: r_inv @ N_i
+    b2 = constant(SH2_INV, sh.dtype, sh.device) @ (_sh2_basis(nd) @ sh[4:9])
     return torch.cat([sh[0:1], b1, b2], dim=0)
 
 

@@ -64,6 +64,7 @@ all the kernels need.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import numpy as np
 import torch
@@ -343,8 +344,9 @@ def raster_shade_2p_reference(rows, bins, counts, big_ids, tiles_x, width,
 
 
 def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height,
-                   peel, szb, tile0):
-    """Check the K1/K6 arguments, allocate the planes and launch fn."""
+                   peel, szb, tile0, out):
+    """Check the K1/K6 arguments, allocate the planes (unless out, their
+    preallocated tensor, is given) and launch fn."""
     dev = rows.device
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
@@ -359,8 +361,10 @@ def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height
         checks.append(("peel", peel, torch.float32, (out_h, out_w)))
     if szb is not None:
         checks.append(("szb", szb, torch.float32, (n_tiles, big_ids.shape[0] + cap)))
+    if out is None:
+        out = torch.empty((N_PLANES, out_h, out_w), dtype=torch.float32, device=dev)
+    checks.append(("out", out, torch.float32, (N_PLANES, out_h, out_w)))
     _kernels.check_tensors(f"{what}_cuda", dev, checks)
-    out = torch.empty((N_PLANES, out_h, out_w), dtype=torch.float32, device=dev)
     vp = ctypes.c_void_p
     code = fn(
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
@@ -374,12 +378,13 @@ def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height
 
 
 def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
-                      peel=None, szb=None, tile0=0):
+                      peel=None, szb=None, tile0=0, out=None):
     """K1 on the card: the same contract as raster_shade_reference; with
-    szb each thread ends its walk early (see the module docstring)."""
+    szb each thread ends its walk early (see the module docstring).  out:
+    the planes' preallocated tensor, written and returned."""
     out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_launch(*a),
                          "raster_shade", rows, bins, counts, big_ids, tiles_x,
-                         width, height, peel, szb, tile0)
+                         width, height, peel, szb, tile0, out)
     raster_shade_cuda.launches += 1
     return out
 
@@ -393,16 +398,16 @@ MAX_2P_DYN_SMEM = 180 * 1024
 
 
 def raster_shade_2p_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
-                         peel=None, szb=None, tile0=0):
+                         peel=None, szb=None, tile0=0, out=None):
     """K6 on the card: the same contract as raster_shade_2p_reference;
-    with szb its first phase ends early."""
+    with szb its first phase ends early.  out: as raster_shade_cuda's."""
     n_entries = big_ids.shape[0] + bins.shape[1]
     if 8 * n_entries > MAX_2P_DYN_SMEM:
         raise ValueError(f"raster_shade_2p_cuda: {n_entries} entries a tile need "
                          f"{8 * n_entries} B of shared memory (> {MAX_2P_DYN_SMEM})")
     out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_2p_launch(*a),
                          "raster_shade_2p", rows, bins, counts, big_ids, tiles_x,
-                         width, height, peel, szb, tile0)
+                         width, height, peel, szb, tile0, out)
     raster_shade_2p_cuda.launches += 1
     return out
 
@@ -449,7 +454,13 @@ def raster_shade(setup, bins, big_ids, counts, tris, uv, normal, tri_material,
                         tri_material, materials, tiles_x, width, height, tangent,
                         alpha_in_alb, peel_depth, early_z, tile0)
     if inp["rows"].is_cuda:
-        fn = raster_shade_2p_cuda if two_phase else raster_shade_cuda
+        n_tiles = inp["bins"].shape[0]
+        out = torch.empty((N_PLANES, (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W),
+                          dtype=torch.float32, device=inp["rows"].device)
+        planes = _kernels.launch_eager(
+            sys.modules[__name__], "raster_shade_2p_cuda" if two_phase else "raster_shade_cuda",
+            out=out, **inp)
     else:
         fn = raster_shade_2p_reference if two_phase else raster_shade_reference
-    return dict(zip(PLANE_NAMES, fn(**inp).unbind(0)))
+        planes = fn(**inp)
+    return dict(zip(PLANE_NAMES, planes.unbind(0)))

@@ -35,12 +35,13 @@ epilogue's refraction wraps inside 16-row bands, which a band of whole
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import numpy as np
 import torch
 
 from . import _kernels
-from .common import fma
+from .common import constant, fma
 
 PLANE_NAMES = ["depth", "visf", "nx", "ny", "nz", "dr", "dg", "db", "em",
                "sr", "sg", "sb", "rgh",
@@ -92,20 +93,15 @@ def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
     ml = sceneset["mainlight"]
     cam = sceneset["camera"]
     iv = invview
-    params = torch.zeros(64, **f32)
-    params[0] = 1.0 / proj[0, 0]
-    params[1] = 1.0 / proj[1, 1]
-    params[2] = proj[2, 2]
-    params[3] = proj[2, 3]
-    params[4:16] = iv[:3, :4].reshape(-1)
-    params[16:19] = -ml["direction"]
-    params[19:22] = ml["intensity"]
-    params[22] = ml["cutoff"]
-    params[23] = cam["ambientintensity"]
-    params[24] = cam["exposure"]
-    params[25] = cam["specularintensity"]
-    params[26] = float(y0)                # the band's first row of the frame
-    params[27:54] = sceneset["_sh"].reshape(-1)
+    # one concatenation of device values (an element set from a Python
+    # number would be a host-to-device copy)
+    params = torch.cat([
+        torch.stack([1.0 / proj[0, 0], 1.0 / proj[1, 1], proj[2, 2], proj[2, 3]]),   # 0-3
+        iv[:3, :4].reshape(-1), -ml["direction"], ml["intensity"],                   # 4-21
+        torch.stack([ml["cutoff"], cam["ambientintensity"], cam["exposure"],
+                     cam["specularintensity"]]),                                     # 22-25
+        torch.full((1,), float(y0), **f32),   # 26: the band's first row of the frame
+        sceneset["_sh"].reshape(-1), torch.zeros(10, **f32)])                       # 27-63
 
     pl_ = sceneset["pointlights"]
     L = pl_["position"].shape[0]
@@ -123,7 +119,7 @@ def shade_inputs(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
     i32 = lambda v: torch.as_tensor(v, dtype=torch.int32, device=dev).reshape(())
     counts = torch.stack([torch.clamp(i32(pl_["count"]), max=L),
                           torch.clamp(i32(sl["count"]), max=S),
-                          i32(0), i32(pr["count"])])
+                          constant(0, torch.int32, dev), i32(pr["count"])])
 
     trk = [trk_names(k) for k in range(2, MAX_TR_LAYERS + 1)
            if f"tr{k}_r" in gplanes]
@@ -477,8 +473,10 @@ def shade_epilogue_reference(bg, tr=None, refr=None, fog=None, oit=None):
 
 def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
                         lights, spots, probes, counts, n_trk=0, cl_lists=None,
-                        cl_counts=None, envd=False, full_height=None):
-    """K2 on the card: the same contract as shade_deferred_reference."""
+                        cl_counts=None, envd=False, full_height=None, out=None):
+    """K2 on the card: the same contract as shade_deferred_reference.
+    out: the (3, H, W) f32 result's preallocated tensor, written and
+    returned."""
     dev = f32_planes.device
     if dev.type != "cuda":
         raise ValueError(f"shade_deferred_cuda needs CUDA tensors, got {dev}")
@@ -492,6 +490,9 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
               ("spots", spots, torch.float32, (spots.shape[0], 16)),
               ("probes", probes, torch.float32, (probes.shape[0], 32)),
               ("counts", counts, torch.int32, (4,))]
+    if out is None:
+        out = torch.empty((3, H, W), dtype=torch.float32, device=dev)
+    checks.append(("out", out, torch.float32, (3, H, W)))
     if ao is not None:
         checks.append(("ao", ao, torch.bfloat16, (H, W)))
     if spotsf is not None:
@@ -513,7 +514,6 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
     if smem > 48 * 1024:
         raise ValueError(f"shade_deferred_cuda: tables need {smem} B of shared "
                          "memory (> 48 KB)")
-    out = torch.empty((3, H, W), dtype=torch.float32, device=dev)
     vp = ctypes.c_void_p
     ptr = lambda t: vp(None if t is None else t.data_ptr())
     code = kl.lib.shade_launch(
@@ -592,7 +592,11 @@ def shade_deferred(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,
                        full_height=full_height)
     epi = epilogue_inputs(gplanes)
     if inp["f32_planes"].is_cuda:
-        out = shade_deferred_cuda(**inp)
+        _, H, W = inp["f32_planes"].shape
+        out = _kernels.launch_eager(
+            sys.modules[__name__], "shade_deferred_cuda",
+            out=torch.empty((3, H, W), dtype=torch.float32, device=inp["f32_planes"].device),
+            **inp)
         if epi is not None:
             out = shade_epilogue_cuda(out, **epi)
     else:

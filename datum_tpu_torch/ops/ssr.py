@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from . import brdf
-from .common import texel_index
+from .common import constant, texel_index
 from .lighting_pass import _inv_proj
 
 MAX_DISTANCE = 24.0
@@ -54,7 +54,7 @@ def ssr(hdr_color, depth, gbuffer, proj, view, envbrdf_lut=None):
     specular = gbuffer["specular"][..., :3]
     normal = (gbuffer["normal"][..., :3] * 2.0 - 1.0) @ view[:3, :3].T
 
-    eyevec = brdf.normalize(-position + torch.tensor([0.0, 0.5, 0.0], device=dev))
+    eyevec = brdf.normalize(-position + constant((0.0, 0.5, 0.0), torch.float32, dev))
     refl = brdf.normalize(
         -eyevec - 2.0 * (-eyevec * normal).sum(-1, keepdim=True) * normal)
     direction = brdf.normalize(brdf.specular_dominant_direction(normal, refl, roughness))

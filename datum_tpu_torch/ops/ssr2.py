@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import brdf
-from .common import shifted_taps, texel_index
+from .common import constant, shifted_taps, texel_index
 from .lighting_pass import _inv_proj
 
 K_BINS = 8
@@ -77,7 +77,7 @@ def ssr_binned(hdr_color, depth, normal_enc, spec_rgb, roughness, mask,
     cp = torch.nn.functional.pad(hdr_color.permute(2, 0, 1), (M, M, M, M))
     ii = torch.arange(h, device=dev)[:, None]
     jj = torch.arange(w, device=dev)[None, :]
-    r_f = torch.tensor(STEPS, dtype=torch.float32, device=dev)[:, None, None]
+    r_f = constant(STEPS, torch.float32, dev)[:, None, None]
     # the ray's 1/z and the acceptance band at every step (S, h, w)
     ray_iz = iz0 + g * r_f
     band = THICKNESS * (torch.abs(g) * r_f + 2e-3)

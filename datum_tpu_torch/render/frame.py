@@ -47,7 +47,11 @@ card too: that is the reference's own algorithm for the flag, not a
 fallback.
 
 PyTorch runs eagerly, so there is no jit: each pass is a plain function
-on tensors, and the frame is one call of `render_frame`.
+on tensors, and the frame is one call of `render_frame`.  On a CUDA
+device the megakernel branch is captured as CUDA graphs after its first
+frame and replayed (render/framegraph.py), with K1 and K2 launched
+between the graphs; the frame's code is the same either way, and never
+reads a device value on the host.
 
 Band mode: the megakernel branch's stages from the raster to K2
 (`shade_band`) also run on a band of whole tile rows of the frame, for
@@ -73,7 +77,7 @@ import numpy as np
 import torch
 
 from ..convert import to_torch
-from ..debug.debug import span, traced, tracing
+from ..debug.debug import statistic_hit, traced, tracing
 from ..ops import blend as blend_ops
 from ..ops import brdf
 from ..ops import fog as fog_ops
@@ -84,7 +88,8 @@ from ..ops.blur import (downsample2, downsample_pool, gaussian_blur, resize_matm
                         resize_up_dense, resize_up_dense_batch)
 from ..ops.bloom import bloom_quarter
 from ..ops.cluster import bin_lights, tile_depth_bounds
-from ..ops.common import TILE_H, TILE_W, FrameConfig, round_up, texel_index
+from ..ops.common import (TILE_H, TILE_W, FrameConfig, constant, device_cached, round_up,
+                          texel_index)
 from ..ops.composite import composite, to_u8_image
 from ..ops.decal import apply_decals, apply_decals_planes
 from ..ops.envprobe import env_probe_fields
@@ -103,7 +108,21 @@ from ..ops.ssao import hbao, make_hbao_params
 from ..ops.ssr import ssr as ssr_dda
 from ..ops.sprite_pass import composite_sprites
 from ..ops.ssr2 import ssr_binned
+from . import framegraph
+from .framegraph import span
 from .renderlist import RenderList
+
+# the channels of the sampled material maps that the plane assembly
+# upsamples: albedo rgb, surface metalness, reflectivity and roughness,
+# normal map xyz
+MATMAP_PLANES = (0, 1, 2, 4, 5, 7, 8, 9, 10)
+LUMA_REC709 = (0.2126, 0.7152, 0.0722)
+
+
+@device_cached(maxsize=8)
+def quad_triangles(max_quads, device):
+    """RenderList.quad_triangles(max_quads) on device, built once."""
+    return torch.from_numpy(RenderList.quad_triangles(max_quads)).to(device)
 
 
 @traced("build.expand")
@@ -182,12 +201,12 @@ def patch_dynamic(cfg: FrameConfig, state, draws):
         raise ValueError(f"max_dynamic_vertices {md} exceeds the pool's {n_v} rows")
     dyn = draws["dyn"]
     k = torch.arange(md, device=dev)
-    start = torch.clamp(torch.as_tensor(dyn["offset"], device=dev).long(), 0, n_v - md)
+    start = torch.clamp(dyn["offset"].long(), 0, n_v - md)
     rows = start + k
     cur = a12[rows]
     new = torch.cat([dyn["positions"], dyn["texcoords"], dyn["normals"], cur[:, 8:12]],
                     -1)
-    mask = (k < torch.as_tensor(dyn["count"], device=dev))[:, None]
+    mask = (k < dyn["count"])[:, None]
     attr12 = a12.index_copy(0, rows, torch.where(mask, new, cur))
     return dict(state, geometry=dict(geom, attr12=attr12))
 
@@ -459,8 +478,9 @@ def _assemble_gplanes(cfg: FrameConfig, planes, state, sceneset, shadows, w, h,
         h2, w2 = h // p, w // p
         f32 = dict(dtype=torch.float32, device=mm12.device)
         spec_h = torch.zeros((3, h2, w2), **f32)
-        eb_h = torch.tensor([0.0, 0.0, 1.0], **f32)[:, None, None].expand(3, h2, w2)
-    sel = torch.tensor([0, 1, 2, 4, 5, 7, 8, 9, 10], device=mm12.device)
+        eb_h = constant((0.0, 0.0, 1.0), torch.float32, mm12.device)[:, None, None].expand(
+            3, h2, w2)
+    sel = constant(MATMAP_PLANES, torch.int64, mm12.device)
     half = torch.cat([mm12[sel], spec_h, eb_h], dim=0)   # (15, H/2, W/2)
     (alb_r, alb_g, alb_b, surf_m, surf_r, surf_rough,
      nm_x, nm_y, nm_z, es_r, es_g, es_b, eb0, eb1, eb2) = up_batch(half, h, w).unbind(0)
@@ -806,8 +826,7 @@ def oit_stream(cfg: FrameConfig, state, draws, sceneset, ts, lit_peel):
         fwd = draws["forward"]
         viewproj = sceneset["proj"] @ sceneset["view"]
         fclip = fwd["positions"] @ viewproj[:, :3].T + viewproj[:, 3]
-        ftris = torch.from_numpy(RenderList.quad_triangles(
-            cfg.max_particle_quads)).to(fclip.device)
+        ftris = quad_triangles(cfg.max_particle_quads, fclip.device)
         nf = ftris.shape[0]
         valid = torch.arange(nf, device=fclip.device) < fwd["quad_count"] * 2
         flag = torch.zeros(nf, device=fclip.device)
@@ -993,8 +1012,7 @@ def _post(cfg: FrameConfig, state, draws, sceneset, hdr, depth, ssr_in):
     """Log-average luminance and the post passes (post_rgb): (u8 image
     (height, width, 3), luminance)."""
     with span("frame.post.luminance"):
-        lum_w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=torch.float32,
-                             device=hdr.device)
+        lum_w = constant(LUMA_REC709, torch.float32, hdr.device)
         lum = torch.exp(torch.mean(torch.log(
             1e-4 + hdr[:cfg.height, :cfg.width] @ lum_w)))
     rgb = post_rgb(cfg, state, draws, sceneset, hdr, depth, ssr_in)
@@ -1251,8 +1269,7 @@ def _deferred_forward(cfg: FrameConfig, state, draws, sceneset, hdr, depth,
             fwd = draws["forward"]
             viewproj = sceneset["proj"] @ sceneset["view"]
             fclip = fwd["positions"] @ viewproj[:, :3].T + viewproj[:, 3]
-            ftris = torch.from_numpy(RenderList.quad_triangles(
-                cfg.max_particle_quads)).to(fclip.device)
+            ftris = quad_triangles(cfg.max_particle_quads, fclip.device)
             valid = torch.arange(ftris.shape[0], device=fclip.device) < fwd["quad_count"] * 2
             setup = raster_ops.triangle_setup(fclip, ftris, w, h, tx, ty, tri_valid=valid)
             bins, counts, big, *dropped = raster_ops.bin_triangles(
@@ -1381,7 +1398,10 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     its epilogue) run the hand-written kernels (they raise if they cannot
     launch; nothing falls back).  Without use_pallas the deferred branch
     runs the scan raster and the XLA blend as plain PyTorch on the
-    device, as the reference does for that flag.
+    device, as the reference does for that flag.  On a CUDA device the
+    megakernel branch replays CUDA graphs from a key's second frame on
+    (render/framegraph.py: what decides it, what it holds); the outputs
+    are then fresh copies, which the next frame leaves as they are.
 
     Contract on the card: f32 matmuls run in full f32.  The caller sets
     torch.backends.cuda.matmul.allow_tf32 = False and
@@ -1392,6 +1412,28 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise ValueError("render_frame: set torch.backends.cuda.matmul."
                          "allow_tf32 = False (the frame is f32)")
+    if device.type == "cuda" and use_shade_kernel(cfg, state):
+        return framegraph.render(cfg, state, draws, sceneset, prev, device, _eager_frame,
+                                 _uploaded_frame)
+    statistic_hit("frame.graph.eager")
+    return _eager_frame(cfg, state, draws, sceneset, prev, device)
+
+
+def _input_stage(cfg: FrameConfig, state, draws, sceneset):
+    """The input stage after the upload: (the state with the patched
+    pool, the vertex stage's streams)."""
+    # every stream below (the opaque draws, the lit layers, WBOIT, the
+    # deferred branch's translucents) reads the patched pool
+    with span("frame.input.dynamic"):
+        state = patch_dynamic(cfg, state, draws)
+    with span("frame.input.vertex"):
+        vtx = _vertex_stage(cfg, state, draws, sceneset)
+    return state, vtx
+
+
+def _eager_frame(cfg: FrameConfig, state, draws, sceneset, prev, device):
+    """The frame launched op by op: the trees moved onto device, then the
+    frame."""
     with span("frame"):
         with span("frame.input"):
             with span("frame.input.upload"):
@@ -1400,10 +1442,13 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
                 sceneset = to_torch(sceneset, device)
                 if prev is not None:
                     prev = to_torch(prev, device)
-            # every stream below (the opaque draws, the lit layers, WBOIT,
-            # the deferred branch's translucents) reads the patched pool
-            with span("frame.input.dynamic"):
-                state = patch_dynamic(cfg, state, draws)
-            with span("frame.input.vertex"):
-                vtx = _vertex_stage(cfg, state, draws, sceneset)
+            state, vtx = _input_stage(cfg, state, draws, sceneset)
         return _frame(cfg, state, draws, sceneset, prev, vtx)
+
+
+def _uploaded_frame(cfg: FrameConfig, state, draws, sceneset, prev):
+    """The frame on trees already on the device, as the frame graph
+    captures it (render/framegraph.py)."""
+    with span("frame.input"):
+        state, vtx = _input_stage(cfg, state, draws, sceneset)
+    return _frame(cfg, state, draws, sceneset, prev, vtx)

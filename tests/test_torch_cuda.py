@@ -35,7 +35,9 @@ DeviceUploader's payloads land bit-equal to their host bytes on its side
 stream and stay so while the default stream reads them behind a long
 kernel and the uploader evicts them and re-uploads (allocator reuse);
 the native LZ4 codec builds with the machine's g++ and agrees with the
-Python codec both ways."""
+Python codec both ways.  The frame graph: replayed megakernel frames
+bit-equal to eager frames on the same inputs, K1 and K2 launched between
+the graphs, the deferred branch left eager."""
 
 import dataclasses
 
@@ -1460,3 +1462,112 @@ def test_lz4_native_codec_builds_and_agrees(card):
     w = PackWriter()
     w.write_image(0, 128, 128, 3, 1, IMAGE_RGBA, img.tobytes(), compress=True)
     assert np.array_equal(PackReader(w.finish()).image(0)["mips"][0], img)
+
+
+def _graph_outputs(out):
+    keep = {k: out[k].clone() for k in ("image", "depth", "vis", "luminance")}
+    keep["ao"] = out["ao_prev"]["ao"].clone()
+    return keep
+
+
+def test_frame_graph_replays_bit_equal_to_eager(card):
+    """The megakernel frame through render_frame, 6 frames with t and the
+    camera moving (render/framegraph.py): frame 1 (no SSAO history) and
+    frame 2 (the first with it) eager, frame 3 captured (its cached
+    constants cleared first: built between its graphs), frames 4-6
+    replayed.  Each frame bit-equal in image, depth, vis, luminance and
+    ao_prev to the eager frame on the same inputs; each frame's outputs
+    unchanged once the next has run; K1 and K2 launched twice a replayed
+    frame (the opaque and the lit layer) from the wrappers; a profiled
+    replayed frame shows K1, K2 and the graphs' kernels, with only those
+    4 launch calls, and its stages' device time by correlation id."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from datum_tpu_torch.debug import g_debuglog
+    from datum_tpu_torch.debug.stages import profile_stages, tracing_on
+    from datum_tpu_torch.ops import blur
+    from datum_tpu_torch.ops.common import constant, shifted_taps
+    from datum_tpu_torch.render import framegraph
+
+    framegraph.clear()
+    ctx, camera, params, make_rl = datumtest_scene(**BENCH)
+    cfg, state = ctx.config, ctx.device_state(card)
+    prev, kept, kinds, k1k2 = None, [], [], []
+
+    def inputs(i):
+        camera.move((0.05, 0.0, -0.1))
+        rl = make_rl(0.4 + i / 60)
+        return ctx.frame_draws(rl, camera), make_sceneset(
+            camera, params, point_lights=rl.point_lights, spot_lights=rl.spot_lights)
+
+    for i in range(6):
+        draws, ss = inputs(i)
+        if i == 2:
+            # the capture finds the cached constants gone (evicted by other
+            # frames) and builds them between its graphs
+            for cached in (constant, shifted_taps, blur._matrix, frame_mod.quad_triangles):
+                cached.cache_clear()
+        stats = dict(g_debuglog.statistics)
+        n = raster_shade_cuda.launches, shade_deferred_cuda.launches
+        out = frame_mod.render_frame(cfg, state, draws, ss, device=card, prev=prev)
+        k1k2.append((raster_shade_cuda.launches - n[0], shade_deferred_cuda.launches - n[1]))
+        kinds += [k for k, v in g_debuglog.statistics.items() if v != stats.get(k, 0)]
+        eager = frame_mod._eager_frame(cfg, state, draws, ss, prev, card)
+        got, want = _graph_outputs(out), _graph_outputs(eager)
+        for k in got:
+            assert torch.equal(got[k], want[k]), (i, k)
+        assert got["image"].float().mean() > 10
+        kept.append((out, got))
+        prev = out["ao_prev"]
+    assert kinds == ["frame.graph.eager"] * 2 + ["frame.graph.capture"] + [
+        "frame.graph.replay"] * 3
+    assert k1k2 == [(2, 2)] * 6
+    for out, got in kept:
+        for k, v in _graph_outputs(out).items():
+            assert torch.equal(v, got[k]), k
+    draws, ss = inputs(6)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        frame_mod.render_frame(cfg, state, draws, ss, device=card, prev=prev)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = [e.name for e in events if e.name.startswith(("cudaLaunchKernel",
+                                                             "cuLaunchKernel"))]
+    k1 = sum("raster_shade_kernel" in k for k in kernels)
+    assert k1 == 2 and sum("shade_kernel" in k for k in kernels) - k1 == 2
+    assert sum("raster_depth_kernel" in k for k in kernels) == 3
+    assert len(kernels) > 500 and len(launches) == 4
+    # with the program's tracing on (another key: eager, captured, then
+    # replayed), debug/stages.py puts each graph's kernels down to its stage
+    with tracing_on():
+        for i in (7, 8):
+            draws, ss = inputs(i)
+            prev = frame_mod.render_frame(cfg, state, draws, ss, device=card,
+                                          prev=prev)["ao_prev"]
+    draws, ss = inputs(9)
+    st = profile_stages(lambda: frame_mod.render_frame(cfg, state, draws, ss, device=card,
+                                                       prev=prev), 1, card)
+    rows = dict(st.table())
+    assert st.linked == len(st.device_ops)
+    assert all(rows[s]["device_ms"] > 0 for s in framegraph.STAGES)
+    assert rows["frame.raster.k1"]["launches"] == 1
+    assert rows["frame.shade.k2"]["launches"] == 1
+    assert rows["frame.translucent.lit"]["launches"] == 2
+    framegraph.clear()
+
+
+def test_frame_graph_leaves_the_deferred_branch_eager(card):
+    """The deferred branch on device tensors runs eagerly every frame."""
+    from datum_tpu_torch.debug import g_debuglog
+    from datum_tpu_torch.render import framegraph
+
+    framegraph.clear()
+    ctx, state, draws, ss = _frame(card, scene=DEFERRED)
+    assert not frame_mod.use_shade_kernel(ctx.config, state)
+    before = dict(g_debuglog.statistics)
+    for _ in range(3):
+        frame_mod.render_frame(ctx.config, state, draws, ss, device=card)
+    delta = {k: v - before.get(k, 0) for k, v in g_debuglog.statistics.items()
+             if k.startswith("frame.graph.") and v != before.get(k, 0)}
+    assert delta == {"frame.graph.eager": 3}
