@@ -9,12 +9,16 @@ trilinear taps), the box environment probes' per-pixel override
 with the ESM factor or the PCF stack, dense or clustered point lights,
 shadowed and unshadowed spots, emissive and exposure.  Plain PyTorch on
 every device: the JAX package runs it in XLA, with no Pallas kernel.
+While the program's tracing is on, its terms are spans of their own:
+frame.shade.lighting.env (the environment taps, then the ambient and
+IBL sum), .probes, .sun, .points and .spots.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..debug.debug import span
 from . import brdf
 from .envprobe import env_probe_lookup
 
@@ -153,88 +157,97 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
     if ssao is not None:
         ambient = ambient * ssao
 
-    env_specular = env_diffuse = envbrdf = None
-    if ibl is not None:
-        env_specular, env_diffuse, envbrdf = _env_terms(
-            gbuffer, normal, eyevec, rough, ibl, cam["skyrot_inv"], h, w, env_scale,
-            worldpos, up)
+    with span("frame.shade.lighting.env"):
+        env_specular = env_diffuse = envbrdf = None
+        if ibl is not None:
+            env_specular, env_diffuse, envbrdf = _env_terms(
+                gbuffer, normal, eyevec, rough, ibl, cam["skyrot_inv"], h, w, env_scale,
+                worldpos, up)
 
     probes = sceneset.get("probes")
     if probes is not None and probes["position"].shape[0] > 0 and env_diffuse is not None:
-        total_w = torch.ones(worldpos.shape[:-1], dtype=torch.float32, device=depth.device)
-        acc = env_diffuse
-        for i in range(probes["position"].shape[0]):
-            on = (i < probes["count"]).to(torch.float32)
-            pd = torch.linalg.norm(probes["position"][i, :3] - worldpos, dim=-1)
-            dr = pd / torch.clamp(probes["position"][i, 3], min=1e-6)
-            dr2 = dr * dr
-            att = torch.clamp(1.0 - dr2 * dr2, 0.0, 1.0)
-            att = att * att * on
-            acc = acc + brdf.probe_irradiance(probes["sh"][i], normal) * att[..., None]
-            total_w = total_w + att
-        env_diffuse = acc / total_w[..., None]
+        with span("frame.shade.lighting.probes"):
+            total_w = torch.ones(worldpos.shape[:-1], dtype=torch.float32,
+                                 device=depth.device)
+            acc = env_diffuse
+            for i in range(probes["position"].shape[0]):
+                on = (i < probes["count"]).to(torch.float32)
+                pd = torch.linalg.norm(probes["position"][i, :3] - worldpos, dim=-1)
+                dr = pd / torch.clamp(probes["position"][i, 3], min=1e-6)
+                dr2 = dr * dr
+                att = torch.clamp(1.0 - dr2 * dr2, 0.0, 1.0)
+                att = att * att * on
+                acc = acc + brdf.probe_irradiance(probes["sh"][i], normal) * att[..., None]
+                total_w = total_w + att
+            env_diffuse = acc / total_w[..., None]
 
-    if env_diffuse is not None:
-        diffuse, specular = brdf.env_light(material, env_diffuse, env_specular, envbrdf,
-                                           torch.as_tensor(ambient).expand(h, w))
-        specular = specular * cam["specularintensity"]
-    else:
-        # the constant-ambient fallback without an environment
-        amb = torch.as_tensor(ambient * 0.2)
-        diffuse = torch.zeros((h, w, 3), dtype=torch.float32, device=depth.device) \
-            + (amb[..., None] if amb.ndim == 2 else amb)
-        specular = torch.zeros((h, w, 3), dtype=torch.float32, device=depth.device)
+    with span("frame.shade.lighting.env"):
+        if env_diffuse is not None:
+            diffuse, specular = brdf.env_light(material, env_diffuse, env_specular, envbrdf,
+                                               torch.as_tensor(ambient).expand(h, w))
+            specular = specular * cam["specularintensity"]
+        else:
+            # the constant-ambient fallback without an environment
+            amb = torch.as_tensor(ambient * 0.2)
+            diffuse = torch.zeros((h, w, 3), dtype=torch.float32, device=depth.device) \
+                + (amb[..., None] if amb.ndim == 2 else amb)
+            specular = torch.zeros((h, w, 3), dtype=torch.float32, device=depth.device)
 
-    ml = sceneset["mainlight"]
-    if isinstance(shadowmaps, tuple):
-        p = shadow_factor_scale
-        esm, zmx, zsc = shadowmaps[:3]
-        sf_h = shadow_factor_esm_fast(
-            downsample_pool(worldpos, p), esm, zmx, zsc, ml["splits"], ml["shadowview"],
-            downsample_pool(-viewpos[..., 2], p), normal=downsample_pool(normal, p),
-            slice_blend=shadow_slice_blend)
-        sf = up(sf_h, h, w)
-    elif shadowmaps is not None:
-        sf = shadow_factor(worldpos, shadowmaps, ml["splits"], ml["shadowview"],
-                           -viewpos[..., 2], normal=normal)
-    else:
-        sf = torch.ones((h, w), dtype=torch.float32, device=depth.device)
-    d, s = brdf.main_light(normal, eyevec, material, ml["direction"], ml["intensity"],
-                           ml["cutoff"], sf)
-    diffuse = diffuse + d
-    specular = specular + s
-
-    pl = sceneset["pointlights"]
-    nlights = pl["position"].shape[0]
-    if cluster is not None and nlights > 0:
-        from .cluster import clustered_point_lights
-        lists, _, ctx_, cty_ = cluster
-        d, s = clustered_point_lights(worldpos, normal, eyevec, material, pl, lists,
-                                      ctx_, cty_)
+    with span("frame.shade.lighting.sun"):
+        ml = sceneset["mainlight"]
+        if isinstance(shadowmaps, tuple):
+            p = shadow_factor_scale
+            esm, zmx, zsc = shadowmaps[:3]
+            sf_h = shadow_factor_esm_fast(
+                downsample_pool(worldpos, p), esm, zmx, zsc, ml["splits"], ml["shadowview"],
+                downsample_pool(-viewpos[..., 2], p), normal=downsample_pool(normal, p),
+                slice_blend=shadow_slice_blend)
+            sf = up(sf_h, h, w)
+        elif shadowmaps is not None:
+            sf = shadow_factor(worldpos, shadowmaps, ml["splits"], ml["shadowview"],
+                               -viewpos[..., 2], normal=normal)
+        else:
+            sf = torch.ones((h, w), dtype=torch.float32, device=depth.device)
+        d, s = brdf.main_light(normal, eyevec, material, ml["direction"], ml["intensity"],
+                               ml["cutoff"], sf)
         diffuse = diffuse + d
         specular = specular + s
-    elif nlights > 0:
-        # the reference's chunked loop adds 0 times the lights past count
-        for i in range(min(int(pl["count"]), nlights)):
-            d, s = brdf.point_light(worldpos, normal, eyevec, material, pl["position"][i],
-                                    pl["intensity"][i], pl["attenuation"][i])
-            diffuse = diffuse + d
-            specular = specular + s
 
-    sl = sceneset.get("spotlights")
-    if sl is not None and sl["position"].shape[0] > 0:
-        n_maps = spotmaps.shape[0] if spotmaps is not None else 0
-        scount = min(int(sl["count"]), sl["position"].shape[0])
-        # the first n_maps slots shadowed, the rest unshadowed; the
-        # reference adds 0 times the slots past count
-        for i in range(scount):
-            shadow = (spot_shadow_factor(worldpos, spotmaps[i], sl["shadowview"][i])
-                      if i < n_maps else 1.0)
-            d, s = brdf.spot_light(worldpos, normal, eyevec, material, sl["position"][i],
-                                   sl["intensity"][i], sl["attenuation"][i],
-                                   sl["direction"][i], sl["cutoff"][i], shadow)
+    with span("frame.shade.lighting.points"):
+        pl = sceneset["pointlights"]
+        nlights = pl["position"].shape[0]
+        if cluster is not None and nlights > 0:
+            from .cluster import clustered_point_lights
+            lists, _, ctx_, cty_ = cluster
+            d, s = clustered_point_lights(worldpos, normal, eyevec, material, pl, lists,
+                                          ctx_, cty_)
             diffuse = diffuse + d
             specular = specular + s
+        elif nlights > 0:
+            # the reference's chunked loop adds 0 times the lights past count
+            for i in range(min(int(pl["count"]), nlights)):
+                d, s = brdf.point_light(worldpos, normal, eyevec, material,
+                                        pl["position"][i], pl["intensity"][i],
+                                        pl["attenuation"][i])
+                diffuse = diffuse + d
+                specular = specular + s
+
+    with span("frame.shade.lighting.spots"):
+        sl = sceneset.get("spotlights")
+        if sl is not None and sl["position"].shape[0] > 0:
+            n_maps = spotmaps.shape[0] if spotmaps is not None else 0
+            scount = min(int(sl["count"]), sl["position"].shape[0])
+            # the first n_maps slots shadowed, the rest unshadowed; the
+            # reference adds 0 times the slots past count
+            for i in range(scount):
+                shadow = (spot_shadow_factor(worldpos, spotmaps[i], sl["shadowview"][i])
+                          if i < n_maps else 1.0)
+                d, s = brdf.spot_light(worldpos, normal, eyevec, material,
+                                       sl["position"][i], sl["intensity"][i],
+                                       sl["attenuation"][i], sl["direction"][i],
+                                       sl["cutoff"][i], shadow)
+                diffuse = diffuse + d
+                specular = specular + s
 
     color = (material["diffuse"] * diffuse + specular
              + material["emissive"][..., None] * material["diffuse"])

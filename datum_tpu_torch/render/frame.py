@@ -1166,29 +1166,36 @@ def _deferred_raster(cfg: FrameConfig, state, draws, ex, uv, clip, wnormal, wtan
     if cfg.use_pallas and (not cfg.enable_material_maps
                            or (mip and cfg.raster_kernel != "mxu")):
         if cfg.raster_kernel == "mxu":
-            planes = raster_shade_mxu(setup, bins, big_ids, counts, ex["tris"], uv,
-                                      wnormal, draws["tri_mat"], state["materials"],
-                                      tx, ty, w, h)
+            with span("frame.raster.k7"):
+                planes = raster_shade_mxu(setup, bins, big_ids, counts, ex["tris"], uv,
+                                          wnormal, draws["tri_mat"], state["materials"],
+                                          tx, ty, w, h)
         else:
-            planes = _k1_planes(raster_shade(
-                setup, bins, big_ids, counts, ex["tris"], uv, wnormal,
-                draws["tri_mat"], state["materials"], tx, ty, w, h, tangent=wtangent,
-                early_z=cfg.raster_early_z))
-        gbuffer = gbuffer_from_planes(planes, state["textures"],
-                                      texture_filter=cfg.texture_filter,
-                                      matmaps=state.get("matmaps"))
+            with span("frame.raster.k1"):
+                planes = _k1_planes(raster_shade(
+                    setup, bins, big_ids, counts, ex["tris"], uv, wnormal,
+                    draws["tri_mat"], state["materials"], tx, ty, w, h, tangent=wtangent,
+                    early_z=cfg.raster_early_z))
+        with span("frame.raster.resolve"):
+            gbuffer = gbuffer_from_planes(planes, state["textures"],
+                                          texture_filter=cfg.texture_filter,
+                                          matmaps=state.get("matmaps"))
         return planes["depth"], planes["vis"], gbuffer, bin_overflow
     if cfg.use_pallas:
-        depth, vis, l0, l1 = raster_v1(setup, bins, big_ids, counts, tx, ty, w, h)
-        lam = torch.stack([l0, l1, 1.0 - l0 - l1], -1)
+        with span("frame.raster.k5"):
+            depth, vis, l0, l1 = raster_v1(setup, bins, big_ids, counts, tx, ty, w, h)
+            lam = torch.stack([l0, l1, 1.0 - l0 - l1], -1)
     else:
-        depth, vis = raster_ops.raster(setup, bins, big_ids, tx, ty, w, h)
+        with span("frame.raster.scan"):
+            depth, vis = raster_ops.raster(setup, bins, big_ids, tx, ty, w, h)
         lam = None
-    gbuffer = resolve_gbuffer(
-        vis, setup, ex["tris"], ex["tri_draw"], dict(uv=uv, normal=wnormal, tangent=wtangent),
-        dict(material=draws["material"]), state["materials"], state["textures"], w, h,
-        material_maps=cfg.enable_material_maps, lam=lam,
-        matmaps=state.get("matmaps") if mip else None)
+    with span("frame.raster.resolve"):
+        gbuffer = resolve_gbuffer(
+            vis, setup, ex["tris"], ex["tri_draw"],
+            dict(uv=uv, normal=wnormal, tangent=wtangent), dict(material=draws["material"]),
+            state["materials"], state["textures"], w, h,
+            material_maps=cfg.enable_material_maps, lam=lam,
+            matmaps=state.get("matmaps") if mip else None)
     return depth, vis, gbuffer, bin_overflow
 
 
