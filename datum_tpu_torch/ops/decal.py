@@ -17,6 +17,14 @@ from . import brdf
 from .blur import downsample_pool, resize_up_dense
 
 
+def _tap(textures, tid, y, x):
+    """The pool's texels at rows y and columns x of texture tid (a 0-d
+    tensor; -1 taps texture 0), gathered on the device: a 0-d tensor
+    index would be read on the host."""
+    tid = torch.clamp(tid, min=0).long().reshape((1,) * y.dim())
+    return textures[tid, y, x]
+
+
 def apply_decals(gbuffer, worldpos, decals, textures=None):
     """Blend the decals into the gbuffer's diffuse, specular and normal
     (H, W, 4) planes, densely and in draw order.  worldpos (H, W, 3);
@@ -41,14 +49,12 @@ def apply_decals(gbuffer, worldpos, decals, textures=None):
             s = textures.shape[1]
             px = torch.clamp((uvd * s).to(torch.int32), 0, s - 1).long()
             aid = decals["albedomap"][i]
-            tex = (textures[torch.clamp(aid, min=0).long(), px[..., 1], px[..., 0]]
-                   .to(torch.float32) / 255.0)
+            tex = _tap(textures, aid, px[..., 1], px[..., 0]).to(torch.float32) / 255.0
             use = (aid >= 0).to(torch.float32)
             base_rgb = base_rgb * (1 - use) + base_rgb * tex[..., :3] * use
             a = a * (1 - use + tex[..., 3] * use)
             nid = decals["normalmap"][i]
-            ntex = (textures[torch.clamp(nid, min=0).long(), px[..., 1], px[..., 0]]
-                    .to(torch.float32) / 127.5 - 1.0)
+            ntex = _tap(textures, nid, px[..., 1], px[..., 0]).to(torch.float32) / 127.5 - 1.0
             # the decal's tangent frame: the rows of its world->decal rotation
             nworld = ntex[..., 0:1] * rot[0] + ntex[..., 1:2] * rot[1] + ntex[..., 2:3] * rot[2]
             usen = (((nid >= 0) & inside).to(torch.float32) * active)[..., None] \
@@ -120,8 +126,7 @@ def apply_decals_planes(gpl, worldp, decals, mask, textures=None,
             px = torch.clamp((u_q * s).to(torch.int64), 0, s - 1)
             py = torch.clamp((v_q * s).to(torch.int64), 0, s - 1)
             aid = decals["albedomap"][i]
-            tex_q = (textures[torch.clamp(aid, min=0).long(), py, px]
-                     .to(torch.float32) / 255.0)
+            tex_q = _tap(textures, aid, py, px).to(torch.float32) / 255.0
             use = (aid >= 0).to(torch.float32)
             tr, tg, tb, ta = (resize_up_dense(tex_q[..., c], h, w)
                               for c in range(4))
@@ -130,8 +135,7 @@ def apply_decals_planes(gpl, worldp, decals, mask, textures=None,
             a = a * (1 - use + ta * use)
 
             nid = decals["normalmap"][i]
-            ntex_q = (textures[torch.clamp(nid, min=0).long(), py, px]
-                      .to(torch.float32) / 127.5 - 1.0)
+            ntex_q = _tap(textures, nid, py, px).to(torch.float32) / 127.5 - 1.0
             nw = [resize_up_dense(ntex_q[..., 0] * rot[0, c]
                                   + ntex_q[..., 1] * rot[1, c]
                                   + ntex_q[..., 2] * rot[2, c], h, w)

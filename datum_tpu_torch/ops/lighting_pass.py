@@ -12,6 +12,12 @@ every device: the JAX package runs it in XLA, with no Pallas kernel.
 While the program's tracing is on, its terms are spans of their own:
 frame.shade.lighting.env (the environment taps, then the ambient and
 IBL sum), .probes, .sun, .points and .spots.
+
+The dense point loop and the spot loop run once a live light, so their
+trip counts are host values: `light_counts` from the host tree
+(render/frame.py::host_light_counts, which frame graphs key on), or,
+for a caller with the counts on the device only (the sharded frame), a
+readback of each count.
 """
 
 from __future__ import annotations
@@ -123,7 +129,7 @@ def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale,
 def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
                    shadowmaps=None, ibl=None, cluster=None, spotmaps=None,
                    shadow_factor_scale=2, env_scale=2, shadow_slice_blend=0.0,
-                   full_size=None, y0=0, up_to=None):
+                   full_size=None, y0=0, up_to=None, light_counts=None):
     """The deferred shade: hdr (H, W, 3) times the camera exposure, black
     on the background (the sky fills it later).
 
@@ -137,7 +143,10 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
     spots or None.  A band of rows (the tile-sharded frame's reduced
     path): full_size (H, W) of the frame, y0 the band's first row, and
     up_to(x, h, w) the upsampler of the reduced-res factor and env fields
-    (default resize_up_dense; a band passes its all-gather closure)."""
+    (default resize_up_dense; a band passes its all-gather closure).
+    light_counts: (point, spot) live light counts as Python ints, equal
+    to sceneset's count entries; None reads those entries on the host (a
+    sync on a device)."""
     from .blur import downsample_pool, resize_up_dense
     from .shadow import shadow_factor, shadow_factor_esm_fast, spot_shadow_factor
 
@@ -225,7 +234,8 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
             specular = specular + s
         elif nlights > 0:
             # the reference's chunked loop adds 0 times the lights past count
-            for i in range(min(int(pl["count"]), nlights)):
+            n_point = int(pl["count"]) if light_counts is None else light_counts[0]
+            for i in range(min(n_point, nlights)):
                 d, s = brdf.point_light(worldpos, normal, eyevec, material,
                                         pl["position"][i], pl["intensity"][i],
                                         pl["attenuation"][i])
@@ -236,7 +246,8 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
         sl = sceneset.get("spotlights")
         if sl is not None and sl["position"].shape[0] > 0:
             n_maps = spotmaps.shape[0] if spotmaps is not None else 0
-            scount = min(int(sl["count"]), sl["position"].shape[0])
+            n_spot = int(sl["count"]) if light_counts is None else light_counts[1]
+            scount = min(n_spot, sl["position"].shape[0])
             # the first n_maps slots shadowed, the rest unshadowed; the
             # reference adds 0 times the slots past count
             for i in range(scount):

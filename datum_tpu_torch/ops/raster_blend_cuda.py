@@ -48,6 +48,7 @@ planes the band's.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -177,8 +178,9 @@ def raster_blend_reference(rows, bins, counts, big_ids, opaque_depth, tiles_x,
 
 
 def raster_blend_cuda(rows, bins, counts, big_ids, opaque_depth, tiles_x,
-                      width, height, soft, peel=None, tile0=0):
-    """K4 on the card: the same contract as raster_blend_reference."""
+                      width, height, soft, peel=None, tile0=0, out=None):
+    """K4 on the card: the same contract as raster_blend_reference.  out:
+    the planes' preallocated tensor, written and returned."""
     dev = rows.device
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
@@ -192,8 +194,10 @@ def raster_blend_cuda(rows, bins, counts, big_ids, opaque_depth, tiles_x,
               ("opaque_depth", opaque_depth, torch.float32, (out_h, out_w))]
     if peel is not None:
         checks.append(("peel", peel, torch.float32, (out_h, out_w)))
+    if out is None:
+        out = torch.empty((5, out_h, out_w), dtype=torch.float32, device=dev)
+    checks.append(("out", out, torch.float32, (5, out_h, out_w)))
     _kernels.check_tensors("raster_blend_cuda", dev, checks)
-    out = torch.empty((5, out_h, out_w), dtype=torch.float32, device=dev)
     vp = ctypes.c_void_p
     code = _kernels.library().lib.raster_blend_launch(
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
@@ -231,11 +235,18 @@ def raster_blend(setup, bins, big_ids, counts, tris, uv, color, opaque_depth,
     f32 planes (ar, ag, ab, aw, reveal) of raster_blend_pallas(planes=
     True).  Band mode: bins, opaque_depth and peel_depth hold the tile rows
     from the frame tile tile0 on.  CUDA tensors run the K4 kernel (it
-    raises if it cannot launch); CPU tensors run the plain PyTorch
-    version."""
+    raises if it cannot launch), through _kernels.launch_eager into a
+    preallocated output (a frame graph launches it between two of its
+    graphs); CPU tensors run the plain PyTorch version."""
     check_band(bins.shape[0], tiles_x, tile0, tiles_y)
     inp = blend_inputs(setup, bins, big_ids, counts, tris, uv, color,
                        opaque_depth, tiles_x, width, height, soft, peel_depth,
                        soft_flag, peel_flag, tile0)
-    fn = raster_blend_cuda if inp["rows"].is_cuda else raster_blend_reference
-    return tuple(fn(**inp).unbind(0))
+    if inp["rows"].is_cuda:
+        out = torch.empty((5, (bins.shape[0] // tiles_x) * TILE_H, tiles_x * TILE_W),
+                          dtype=torch.float32, device=inp["rows"].device)
+        planes = _kernels.launch_eager(sys.modules[__name__], "raster_blend_cuda", out=out,
+                                       **inp)
+    else:
+        planes = raster_blend_reference(**inp)
+    return tuple(planes.unbind(0))

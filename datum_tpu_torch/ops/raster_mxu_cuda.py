@@ -52,7 +52,7 @@ import ctypes
 import torch
 
 from . import _kernels
-from .common import TILE_H, TILE_W, fma
+from .common import TILE_H, TILE_W, constant, fma
 from .raster import _untile, depth_plane_coefs
 from .raster_cuda import _entry_ids, _ndc_scale, _tile_ndc
 
@@ -75,7 +75,8 @@ def mxu_rows(setup, tris, uv, normal, tri_material, materials):
     return torch.cat([
         (adj * torch.sign(det)[:, None, None]).reshape(T, 9),
         depth_plane_coefs(setup),
-        torch.tensor(YLIM, **f32).expand(T, 2), torch.zeros((T, 2), **f32),
+        constant(YLIM, torch.float32, adj.device).expand(T, 2),
+        torch.zeros((T, 2), **f32),
         uv[t].reshape(T, 6), normal[t].reshape(T, 9), torch.zeros((T, 1), **f32),
         materials["color"][m][:, :3], col(materials["emissive"][m]),
         col(materials["metalness"][m]), col(materials["roughness"][m]),

@@ -37,6 +37,7 @@ reject).  Neither moves a value (csrc/raster_v1.cu).
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -104,11 +105,13 @@ def raster_v1_reference(rows, bins, counts, big_ids, tiles_x, width, height):
                         for p in v1_planes(rows, win, depth, xn, yn)])
 
 
-def raster_v1_cuda(rows, bins, counts, big_ids, tiles_x, width, height, split=None):
+def raster_v1_cuda(rows, bins, counts, big_ids, tiles_x, width, height, split=None,
+                   out=None):
     """K5 on the card: the same contract as raster_v1_reference.  split
     forces the blocks a tile (2, 4 or 8; None: the launcher's rule, 2 on
     at least two tiles an SM and n_big + bin_capacity <= 512, else 4):
-    the same planes."""
+    the same planes.  out: the planes' preallocated tensor, written and
+    returned."""
     dev = rows.device
     n_tiles, cap = bins.shape
     if dev.type != "cuda":
@@ -118,12 +121,14 @@ def raster_v1_cuda(rows, bins, counts, big_ids, tiles_x, width, height, split=No
     if n_tiles % tiles_x:
         raise ValueError(f"{n_tiles} tiles is not whole rows of {tiles_x}")
     out_h, out_w = (n_tiles // tiles_x) * TILE_H, tiles_x * TILE_W
+    if out is None:
+        out = torch.empty((4, out_h, out_w), dtype=torch.float32, device=dev)
     _kernels.check_tensors("raster_v1_cuda", dev, [
         ("rows", rows, torch.float32, (rows.shape[0], ROW)),
         ("bins", bins, torch.int32, (n_tiles, cap)),
         ("counts", counts, torch.int32, (n_tiles,)),
-        ("big_ids", big_ids, torch.int32, (big_ids.shape[0],))])
-    out = torch.empty((4, out_h, out_w), dtype=torch.float32, device=dev)
+        ("big_ids", big_ids, torch.int32, (big_ids.shape[0],)),
+        ("out", out, torch.float32, (4, out_h, out_w))])
     vp = ctypes.c_void_p
     code = _kernels.library().lib.raster_v1_launch(
         vp(rows.data_ptr()), vp(bins.data_ptr()), vp(counts.data_ptr()),
@@ -150,11 +155,19 @@ def raster_v1_inputs(setup, bins, big_ids, counts, tiles_x, width, height):
 def raster_v1(setup, bins, big_ids, counts, tiles_x, tiles_y, width, height):
     """The v1 raster, raster_pallas's contract: (depth, vis int32, l0,
     l1), each (tiles_y*32, tiles_x*128).  CUDA tensors run K5 (it raises
-    if it cannot launch); CPU tensors run its plain PyTorch version."""
+    if it cannot launch), through _kernels.launch_eager into a
+    preallocated output (a frame graph launches it between two of its
+    graphs); CPU tensors run its plain PyTorch version."""
     if bins.shape[0] != tiles_x * tiles_y:
         raise ValueError(f"bins has {bins.shape[0]} rows for "
                          f"{tiles_x}x{tiles_y} tiles")
     inp = raster_v1_inputs(setup, bins, big_ids, counts, tiles_x, width, height)
-    fn = raster_v1_cuda if inp["rows"].is_cuda else raster_v1_reference
-    depth, visf, l0, l1 = fn(**inp).unbind(0)
+    if inp["rows"].is_cuda:
+        out = torch.empty((4, tiles_y * TILE_H, tiles_x * TILE_W), dtype=torch.float32,
+                          device=inp["rows"].device)
+        planes = _kernels.launch_eager(sys.modules[__name__], "raster_v1_cuda", out=out,
+                                       **inp)
+    else:
+        planes = raster_v1_reference(**inp)
+    depth, visf, l0, l1 = planes.unbind(0)
     return depth, torch.round(visf).to(torch.int32), l0, l1

@@ -48,10 +48,15 @@ fallback.
 
 PyTorch runs eagerly, so there is no jit: each pass is a plain function
 on tensors, and the frame is one call of `render_frame`.  On a CUDA
-device the megakernel branch is captured as CUDA graphs after its first
-frame and replayed (render/framegraph.py), with K1 and K2 launched
-between the graphs; the frame's code is the same either way, and never
-reads a device value on the host.
+device every frame with `use_pallas` (the megakernel branch, and the
+deferred branch's K5, K1 and K7 routes) is captured as CUDA graphs
+after its first frame and replayed (render/framegraph.py).  K1, K2, K5
+and K4 launch between the graphs, through their wrappers, where the
+benchmark's roofline readers see their inputs.  The frame's code is the
+same either way and reads no device value on the host: the deferred
+branch's dense light loops take their trip counts from the host tree
+(`host_light_counts`).  Without `use_pallas` the frame stays eager: the
+scan raster reads device values on the host.
 
 Band mode: the megakernel branch's stages from the raster to K2
 (`shade_band`) also run on a band of whole tile rows of the frame, for
@@ -1289,10 +1294,12 @@ def _deferred_forward(cfg: FrameConfig, state, draws, sceneset, hdr, depth,
     return hdr
 
 
-def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx, counters=None):
+def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx, counters=None,
+                    lights=None):
     """Every branch of `_frame` off the megakernel: (hdr, depth, vis,
     bin_overflow, ao_state, SSR inputs).  counters: the frame's counter
-    dict or None."""
+    dict or None; lights: host_light_counts(sceneset) or None (the
+    lighting reads the counts on the host)."""
     ex, uv, clip, wnormal, wtangent, worldp = vtx
     w, h, tx, ty = cfg.padded_width, cfg.padded_height, cfg.tiles_x, cfg.tiles_y
     proj, invview = sceneset["proj"], sceneset["invview"]
@@ -1337,7 +1344,7 @@ def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx, counter
                 gbuffer, depth, sceneset, proj=proj, invview=invview, shadowmaps=sun,
                 ibl=ibl, cluster=cluster, ssao=ssao, spotmaps=spotmaps,
                 shadow_factor_scale=cfg.shadow_factor_scale,
-                shadow_slice_blend=cfg.shadow_slice_blend)
+                shadow_slice_blend=cfg.shadow_slice_blend, light_counts=lights)
         if ibl is not None:
             with span("frame.shade.sky"):
                 hdr = _sky_fill(ibl, sceneset, hdr, gbuffer["mask"], w, h)
@@ -1357,12 +1364,16 @@ def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx, counter
     return hdr, depth, vis, bin_overflow, ao_state, _ssr_inputs_gbuffer(gbuffer)
 
 
-def _frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx):
-    """The frame after its input stage: a branch, then the post passes."""
+def _frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx, lights=None):
+    """The frame after its input stage: a branch, then the post passes.
+    lights: as _deferred_frame's."""
     counters = {} if tracing() else None
-    branch = _megakernel_frame if use_shade_kernel(cfg, state) else _deferred_frame
-    hdr, depth, vis, bin_overflow, ao_state, ssr_in = branch(cfg, state, draws,
-                                                             sceneset, prev, vtx, counters)
+    if use_shade_kernel(cfg, state):
+        hdr, depth, vis, bin_overflow, ao_state, ssr_in = _megakernel_frame(
+            cfg, state, draws, sceneset, prev, vtx, counters)
+    else:
+        hdr, depth, vis, bin_overflow, ao_state, ssr_in = _deferred_frame(
+            cfg, state, draws, sceneset, prev, vtx, counters, lights)
     with span("frame.post"):
         image, lum = _post(cfg, state, draws, sceneset, hdr, depth, ssr_in)
     out = dict(image=image, luminance=lum, depth=depth, vis=vis,
@@ -1405,10 +1416,16 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     its epilogue) run the hand-written kernels (they raise if they cannot
     launch; nothing falls back).  Without use_pallas the deferred branch
     runs the scan raster and the XLA blend as plain PyTorch on the
-    device, as the reference does for that flag.  On a CUDA device the
-    megakernel branch replays CUDA graphs from a key's second frame on
-    (render/framegraph.py: what decides it, what it holds); the outputs
-    are then fresh copies, which the next frame leaves as they are.
+    device, as the reference does for that flag.  On a CUDA device every
+    frame with use_pallas, on either branch, replays CUDA graphs from a
+    key's second frame on (render/framegraph.py: what decides it, what
+    it holds), with K1, K2, K5 and K4 launched between the graphs so
+    that their wrappers see every launch; the outputs are then fresh
+    copies, which the next frame leaves as they are.  Without use_pallas
+    the frame runs eagerly (the scan raster reads device values on the
+    host).  The deferred branch's light loops take their counts from
+    sceneset's host arrays (host_light_counts); a sceneset with its
+    counts on the device is read once a loop and runs eagerly.
 
     Contract on the card: f32 matmuls run in full f32.  The caller sets
     torch.backends.cuda.matmul.allow_tf32 = False and
@@ -1419,11 +1436,26 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise ValueError("render_frame: set torch.backends.cuda.matmul."
                          "allow_tf32 = False (the frame is f32)")
-    if device.type == "cuda" and use_shade_kernel(cfg, state):
+    lights = () if use_shade_kernel(cfg, state) else host_light_counts(sceneset)
+    # the megakernel branch needs use_pallas too
+    if device.type == "cuda" and cfg.use_pallas:
         return framegraph.render(cfg, state, draws, sceneset, prev, device, _eager_frame,
-                                 _uploaded_frame)
+                                 _uploaded_frame, lights)
     statistic_hit("frame.graph.eager")
-    return _eager_frame(cfg, state, draws, sceneset, prev, device)
+    return _eager_frame(cfg, state, draws, sceneset, prev, device, lights)
+
+
+def host_light_counts(sceneset):
+    """(point, spot) live light counts of sceneset as Python ints, read
+    from its host arrays (0 for a kind it lacks); None when a count is
+    a tensor on a device, where reading it would wait for the card."""
+    counts = []
+    for kind in ("pointlights", "spotlights"):
+        c = (sceneset.get(kind) or {}).get("count", 0)
+        if isinstance(c, torch.Tensor) and c.device.type != "cpu":
+            return None
+        counts.append(int(c))
+    return tuple(counts)
 
 
 def _input_stage(cfg: FrameConfig, state, draws, sceneset):
@@ -1438,9 +1470,9 @@ def _input_stage(cfg: FrameConfig, state, draws, sceneset):
     return state, vtx
 
 
-def _eager_frame(cfg: FrameConfig, state, draws, sceneset, prev, device):
+def _eager_frame(cfg: FrameConfig, state, draws, sceneset, prev, device, lights=None):
     """The frame launched op by op: the trees moved onto device, then the
-    frame."""
+    frame.  lights: as _deferred_frame's."""
     with span("frame"):
         with span("frame.input"):
             with span("frame.input.upload"):
@@ -1450,12 +1482,12 @@ def _eager_frame(cfg: FrameConfig, state, draws, sceneset, prev, device):
                 if prev is not None:
                     prev = to_torch(prev, device)
             state, vtx = _input_stage(cfg, state, draws, sceneset)
-        return _frame(cfg, state, draws, sceneset, prev, vtx)
+        return _frame(cfg, state, draws, sceneset, prev, vtx, lights)
 
 
-def _uploaded_frame(cfg: FrameConfig, state, draws, sceneset, prev):
+def _uploaded_frame(cfg: FrameConfig, state, draws, sceneset, prev, lights=None):
     """The frame on trees already on the device, as the frame graph
-    captures it (render/framegraph.py)."""
+    captures it (render/framegraph.py).  lights: as _deferred_frame's."""
     with span("frame.input"):
         state, vtx = _input_stage(cfg, state, draws, sceneset)
-    return _frame(cfg, state, draws, sceneset, prev, vtx)
+    return _frame(cfg, state, draws, sceneset, prev, vtx, lights)

@@ -1,34 +1,47 @@
-"""The megakernel frame on a CUDA device, replayed as a chain of CUDA graphs.
+"""A frame of `render_frame` on a CUDA device, replayed as a chain of
+CUDA graphs.
 
-The megakernel branch of `render_frame` is static-shaped: every stream
-sits at a capacity FrameConfig fixes, so the same launches run every
-frame on tensors of the same shapes.  Eagerly the host enqueues several
-thousand small launches a frame and the card waits for it; here each
-stage of the frame (STAGES, the spans of render/frame.py) is captured
-once as CUDA graphs (`torch.cuda.CUDAGraph`, one memory pool a capture)
-and replayed.  K1 and K2 (and K6 with raster_two_phase) stay out of the
+With `use_pallas` every stream of the frame sits at a capacity
+FrameConfig fixes, so the same launches run every frame on tensors of
+the same shapes: on the megakernel branch, and on the deferred branch's
+K5, K1 and K7 routes.  Eagerly the host enqueues several thousand small
+launches a frame and the card waits for it; here each stage of the
+frame (STAGES, the spans of render/frame.py) is captured once as CUDA
+graphs (`torch.cuda.CUDAGraph`, one memory pool a capture) and
+replayed.  K1 (K6 with raster_two_phase), K2, K5 and K4 stay out of the
 graphs: their wrappers are called between two graphs through their
 module attributes every frame (ops/_kernels.py::launch_eager), on the
-graphs' own buffers, writing into preallocated outputs.
+graphs' own buffers, writing into preallocated outputs.  The
+benchmark's roofline readers find these kernels' inputs by wrapping
+those attributes, which a graph's replay never calls.  K3, K7 and K2's
+epilogue are captured inside the graphs.
 
 When it engages (`render`): only what the call shows decides.  The key
 of a frame is its device, `cfg`, whether the program's tracing is on,
 the tree structure, dtypes and shapes of draws, sceneset and prev (None
 or not), the non-array leaves (Python numbers and strings) of all four
-trees, and the address, shape and strides of each of state's tensors.
-A key seen once runs eagerly; its second frame is captured and then
-replayed, and every later one replays.  At most MAX_CAPTURES captures
-are held, the least recently used dropped first; each keeps alive what
-its graphs read by address (state's tensors, the cached constants of
+trees, the address, shape and strides of each of state's tensors, and
+`lights`: the deferred branch's live point and spot light counts, which
+its dense light loops run as Python loops (render/frame.py::
+host_light_counts reads them from a host sceneset).  A deferred frame
+whose counts are on the device only (None) cannot key.  A key seen once
+runs eagerly; its second frame is captured and then replayed, and every
+later one replays.  At most MAX_CAPTURES captures are held, the least
+recently used dropped first; each keeps alive what its graphs read by
+address (state's tensors, the cached constants of
 ops/common.py::device_cached).  A state with arrays that are not
 tensors on the device, or a non-array leaf that cannot key, runs
-eagerly.
+eagerly.  render_frame sends only frames with `use_pallas` here: the
+scan raster reads device values on the host (ops/common.py::fma).
 
 Inputs: each frame, every array of draws, sceneset and prev is packed
-into one pinned host buffer (two in turn, each reused only once the
-copy out of it has run) and copied to the capture's device buffer in
+into a pinned host buffer and copied to the capture's device buffer in
 one asynchronous copy; tensors already on a device are copied device to
-device.  The graphs read the buffer's views.
+device.  A host buffer is filled again only once the copy out of it has
+run, found by querying its event; while every buffer is still being
+read a new one is made, up to MAX_HOST_BUFFERS, so that the frame
+waits for the card only when the host runs that many frames ahead.  The
+graphs read the device buffer's views.
 
 Outputs: the capture's outputs are overwritten by the next replay, so a
 replay returns fresh copies of them (a device-to-device copy each).
@@ -38,9 +51,10 @@ made; a graph's replay adds those its capture recorded.
 
 Spans: while the program's tracing is on, a replayed frame is the span
 "frame", the first stage's "frame.input.upload" (the inputs' copy), one
-span a stage around its graphs' replays, and the K1/K2 calls under the
-spans they ran in when captured ("frame.raster.k1",
-"frame.translucent.lit", "frame.shade.k2"); the statistics
+span a stage around its graphs' replays, and the calls between the
+graphs under the spans they ran in when captured ("frame.raster.k1",
+"frame.raster.k5", "frame.translucent.lit", "frame.translucent.wboit",
+"frame.translucent.particles", "frame.shade.k2"); the statistics
 "frame.graph.eager", "frame.graph.capture" and "frame.graph.replay"
 count the frames of each kind."""
 
@@ -63,6 +77,7 @@ STAGES = ("frame.input", "frame.shadows", "frame.raster", "frame.planes",
           "frame.translucent", "frame.shade", "frame.post")
 MAX_CAPTURES = 2
 MAX_SEEN = 16            # keys remembered for their first sighting
+MAX_HOST_BUFFERS = 4     # pinned input buffers a capture fills in turn
 ALIGN = 256              # bytes: each input array's offset in the buffers
 
 _recording = None        # the _Recorder of the capture in progress
@@ -259,24 +274,34 @@ class _Inputs:
             statics[i] = self.device_buf[off:off + nb].view(dtype).view(a.shape)
         it = iter(statics)
         self.trees = [map_arrays(t, lambda _: next(it)) for t in trees]
-        self.host = [torch.empty(max(size, 1), dtype=torch.uint8, pin_memory=True)
-                     for _ in range(2)]
-        self.ready = [None, None]
-        self.turn = 0
+        self.size = max(size, 1)
+        self.host = collections.deque()           # (pinned buffer, its copy's event)
+
+    def _free_host(self):
+        """A pinned buffer no copy reads any more: the oldest once its
+        copy has run (a query, no wait), or once MAX_HOST_BUFFERS are out
+        (waited for); else a new one."""
+        if self.host:
+            buf, ev = self.host[0]
+            if len(self.host) >= MAX_HOST_BUFFERS:
+                ev.synchronize()
+            if ev.query():
+                self.host.popleft()
+                return buf
+        return torch.empty(self.size, dtype=torch.uint8, pin_memory=True)
 
     def upload(self, trees):
         """Copy this frame's trees (the capture's structure) into the
         static buffers, on the current stream."""
         leaves = _leaves(trees)
-        k, self.turn = self.turn, 1 - self.turn
-        if self.ready[k] is not None:
-            self.ready[k].synchronize()       # the copy out of host[k] has run
-        host = self.host[k].numpy()
+        buf = self._free_host()
+        host = buf.numpy()
         for i, off, nb in self.packed:
             host[off:off + nb] = _as_bytes(leaves[i])
-        self.device_buf.copy_(self.host[k], non_blocking=True)
-        self.ready[k] = torch.cuda.Event()
-        self.ready[k].record()
+        self.device_buf.copy_(buf, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self.host.append((buf, ev))
         for i, t in self.moved:
             t.copy_(leaves[i], non_blocking=True)
 
@@ -331,14 +356,15 @@ def _signature(tree, addresses=False):
     return ("=", type(tree), tree) if isinstance(tree, _KEYABLE) else None
 
 
-def frame_key(cfg, state, draws, sceneset, prev, device):
+def frame_key(cfg, state, draws, sceneset, prev, device, lights=()):
     """The key of a frame (module docstring), or None when it cannot be
-    keyed."""
+    keyed.  lights: the host light counts the frame runs with (a tuple
+    of ints; () where it reads none)."""
     sigs = (_signature(state, addresses=True), _signature(draws), _signature(sceneset),
             _signature(prev))
-    if any(s is None for s in sigs):
+    if lights is None or any(s is None for s in sigs):
         return None
-    return (torch.device(device), cfg, tracing()) + sigs
+    return (torch.device(device), cfg, tracing(), lights) + sigs
 
 
 def _on_device(state, device):
@@ -355,30 +381,32 @@ def _stream(device):
     return _streams[device]
 
 
-def _capture(cfg, state, trees, device, body):
-    """Capture body(cfg, state, draws, sceneset, prev) on the static
-    copies of trees; returns its _Capture."""
+def _capture(cfg, state, trees, device, body, lights):
+    """Capture body(cfg, state, draws, sceneset, prev, lights) on the
+    static copies of trees; returns its _Capture."""
     inputs = _Inputs(trees, device)
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()          # the eager frames' cached blocks, beside the pool
     rec = _Recorder(torch.cuda.graph_pool_handle(), device)
     with torch.cuda.device(device), torch.cuda.stream(_stream(device)), _Recording(rec):
-        out = body(cfg, state, *inputs.trees)
+        out = body(cfg, state, *inputs.trees, lights)
         rec.close()
     torch.cuda.current_stream(device).wait_stream(_stream(device))
     keep = rec.keep + [t for t in _leaves([state]) if isinstance(t, torch.Tensor)]
     return _Capture(inputs, rec.steps, out, keep)
 
 
-def render(cfg, state, draws, sceneset, prev, device, eager, body):
-    """The megakernel frame on a CUDA device: eager(cfg, state, draws,
-    sceneset, prev, device) (render_frame's eager path) for a key's
-    first frame, then body(cfg, state, draws, sceneset, prev) (the frame
-    after its inputs' upload, on device tensors) captured and replayed
-    (module docstring)."""
+def render(cfg, state, draws, sceneset, prev, device, eager, body, lights):
+    """A frame with use_pallas on a CUDA device: eager(cfg, state, draws,
+    sceneset, prev, device, lights) (render_frame's eager path) for a
+    key's first frame, then body(cfg, state, draws, sceneset, prev,
+    lights) (the frame after its inputs' upload, on device tensors)
+    captured and replayed (module docstring).  lights: as frame_key's;
+    None where the frame reads its light counts on the device, which
+    runs it eagerly."""
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = frame_key(cfg, state, draws, sceneset, prev, device) \
+    key = frame_key(cfg, state, draws, sceneset, prev, device, lights) \
         if _on_device(state, device) else None
     trees = (draws, sceneset, prev)
     if key is not None and key in _held:
@@ -392,11 +420,11 @@ def render(cfg, state, draws, sceneset, prev, device, eager, body):
             _seen.popitem(last=False)
     if seen < 2:
         statistic_hit("frame.graph.eager")
-        return eager(cfg, state, draws, sceneset, prev, device)
+        return eager(cfg, state, draws, sceneset, prev, device, lights)
     statistic_hit("frame.graph.capture")
     while len(_held) >= MAX_CAPTURES:
         _held.popitem(last=False)
-    _held[key] = _capture(cfg, state, trees, device, body)
+    _held[key] = _capture(cfg, state, trees, device, body, lights)
     return _held[key].replay(trees)
 
 

@@ -36,8 +36,10 @@ stream and stay so while the default stream reads them behind a long
 kernel and the uploader evicts them and re-uploads (allocator reuse);
 the native LZ4 codec builds with the machine's g++ and agrees with the
 Python codec both ways.  The frame graph: replayed megakernel frames
-bit-equal to eager frames on the same inputs, K1 and K2 launched between
-the graphs, the deferred branch left eager."""
+and deferred frames (the K5, K1 and K7 routes) bit-equal to eager frames
+on the same inputs, K1, K2, K5 and K4 launched between the graphs into
+preallocated outputs, no host sync in a replayed deferred frame, a new
+capture for a new light count, the scan raster left eager."""
 
 import dataclasses
 
@@ -1478,9 +1480,10 @@ def test_frame_graph_replays_bit_equal_to_eager(card):
     replayed.  Each frame bit-equal in image, depth, vis, luminance and
     ao_prev to the eager frame on the same inputs; each frame's outputs
     unchanged once the next has run; K1 and K2 launched twice a replayed
-    frame (the opaque and the lit layer) from the wrappers; a profiled
-    replayed frame shows K1, K2 and the graphs' kernels, with only those
-    4 launch calls, and its stages' device time by correlation id."""
+    frame (the opaque and the lit layer) and K4 once (the merged stream)
+    from the wrappers; a profiled replayed frame shows K1, K2, K4 and the
+    graphs' kernels, with only those 5 launch calls, and its stages'
+    device time by correlation id."""
     from torch.profiler import ProfilerActivity, profile
 
     from datum_tpu_torch.debug import g_debuglog
@@ -1508,9 +1511,11 @@ def test_frame_graph_replays_bit_equal_to_eager(card):
             for cached in (constant, shifted_taps, blur._matrix, frame_mod.quad_triangles):
                 cached.cache_clear()
         stats = dict(g_debuglog.statistics)
-        n = raster_shade_cuda.launches, shade_deferred_cuda.launches
+        n = (raster_shade_cuda.launches, shade_deferred_cuda.launches,
+             raster_blend_cuda.launches)
         out = frame_mod.render_frame(cfg, state, draws, ss, device=card, prev=prev)
-        k1k2.append((raster_shade_cuda.launches - n[0], shade_deferred_cuda.launches - n[1]))
+        k1k2.append((raster_shade_cuda.launches - n[0], shade_deferred_cuda.launches - n[1],
+                     raster_blend_cuda.launches - n[2]))
         kinds += [k for k, v in g_debuglog.statistics.items() if v != stats.get(k, 0)]
         eager = frame_mod._eager_frame(cfg, state, draws, ss, prev, card)
         got, want = _graph_outputs(out), _graph_outputs(eager)
@@ -1521,7 +1526,7 @@ def test_frame_graph_replays_bit_equal_to_eager(card):
         prev = out["ao_prev"]
     assert kinds == ["frame.graph.eager"] * 2 + ["frame.graph.capture"] + [
         "frame.graph.replay"] * 3
-    assert k1k2 == [(2, 2)] * 6
+    assert k1k2 == [(2, 2, 1)] * 6
     for out, got in kept:
         for k, v in _graph_outputs(out).items():
             assert torch.equal(v, got[k]), k
@@ -1537,7 +1542,8 @@ def test_frame_graph_replays_bit_equal_to_eager(card):
     k1 = sum("raster_shade_kernel" in k for k in kernels)
     assert k1 == 2 and sum("shade_kernel" in k for k in kernels) - k1 == 2
     assert sum("raster_depth_kernel" in k for k in kernels) == 3
-    assert len(kernels) > 500 and len(launches) == 4
+    assert sum("raster_blend_kernel" in k for k in kernels) == 1
+    assert len(kernels) > 500 and len(launches) == 5
     # with the program's tracing on (another key: eager, captured, then
     # replayed), debug/stages.py puts each graph's kernels down to its stage
     with tracing_on():
@@ -1554,20 +1560,161 @@ def test_frame_graph_replays_bit_equal_to_eager(card):
     assert rows["frame.raster.k1"]["launches"] == 1
     assert rows["frame.shade.k2"]["launches"] == 1
     assert rows["frame.translucent.lit"]["launches"] == 2
+    assert rows["frame.translucent.wboit"]["launches"] == 1
     framegraph.clear()
 
 
-def test_frame_graph_leaves_the_deferred_branch_eager(card):
-    """The deferred branch on device tensors runs eagerly every frame."""
+def _deferred_inputs(camera, params, make_rl, i, n_point=None):
+    """The deferred frames' draws-to-be renderlist and sceneset at frame i
+    (the camera moved, t + i/60), with the first n_point point lights."""
+    camera.move((0.05, 0.0, -0.1))
+    rl = make_rl(0.4 + i / 60)
+    return rl, make_sceneset(camera, params, point_lights=rl.point_lights[:n_point],
+                             spot_lights=rl.spot_lights)
+
+
+def test_frame_graph_replays_the_deferred_branch_bit_equal(card):
+    """The deferred branch's K5 route (K5_FRAME: bilinear, decals, SSAO,
+    fog, a spot map, translucents and particles) through render_frame, 6
+    frames with t and the camera moving: frames 1-2 eager, 3 captured,
+    4-6 replayed, each bit-equal in image, depth, vis, luminance and
+    ao_prev to the eager frame on the same inputs, which reads the light
+    counts back from the device; earlier outputs unchanged; K5 launched
+    once and K4 twice a frame from their wrappers.  A replayed frame,
+    profiled with the program's tracing on (debug/stages.py), makes no
+    host sync and only those 3 launch calls, K5 under frame.raster.k5
+    and K4 under frame.translucent.wboit and .particles.  One point
+    light fewer is another key: eager, then captured."""
+    from datum_tpu_torch.debug import g_debuglog
+    from datum_tpu_torch.debug.stages import profile_stages, tracing_on
+    from datum_tpu_torch.render import framegraph
+
+    framegraph.clear()
+    ctx, camera, params, make_rl = datumtest_scene(**K5_FRAME)
+    cfg, state = ctx.config, ctx.device_state(card)
+    assert not frame_mod.use_shade_kernel(cfg, state) and cfg.use_pallas
+
+    def frame(i, prev, n_point=None):
+        rl, ss = _deferred_inputs(camera, params, make_rl, i, n_point)
+        draws = ctx.frame_draws(rl, camera)
+        stats = dict(g_debuglog.statistics)
+        n = raster_v1_cuda.launches, raster_blend_cuda.launches
+        out = frame_mod.render_frame(cfg, state, draws, ss, device=card, prev=prev)
+        n = raster_v1_cuda.launches - n[0], raster_blend_cuda.launches - n[1]
+        kind = [k for k, v in g_debuglog.statistics.items() if v != stats.get(k, 0)]
+        eager = frame_mod._eager_frame(cfg, state, draws, ss, prev, card)
+        got, want = _graph_outputs(out), _graph_outputs(eager)
+        for k in got:
+            assert torch.equal(got[k], want[k]), (i, k)
+        assert got["image"].float().mean() > 10
+        return out, got, kind, n, frame_mod.host_light_counts(ss)
+
+    prev, kept, kinds = None, [], []
+    for i in range(6):
+        out, got, kind, n, lights = frame(i, prev)
+        assert n == (1, 2) and lights == (4, 1), i
+        kinds += kind
+        kept.append((out, got))
+        prev = out["ao_prev"]
+    assert kinds == ["frame.graph.eager"] * 2 + ["frame.graph.capture"] + [
+        "frame.graph.replay"] * 3
+    for out, got in kept:
+        for k, v in _graph_outputs(out).items():
+            assert torch.equal(v, got[k]), k
+    kinds = []
+    for i in (6, 7):
+        out, _, kind, n, lights = frame(i, prev, n_point=3)
+        assert n == (1, 2) and lights == (3, 1)
+        kinds += kind
+        prev = out["ao_prev"]
+    assert kinds == ["frame.graph.eager", "frame.graph.capture"]
+    with tracing_on():
+        for i in (8, 9):
+            rl, ss = _deferred_inputs(camera, params, make_rl, i)
+            prev = frame_mod.render_frame(cfg, state, ctx.frame_draws(rl, camera), ss,
+                                          device=card, prev=prev)["ao_prev"]
+    rl, ss = _deferred_inputs(camera, params, make_rl, 10)
+    draws = ctx.frame_draws(rl, camera)
+    before = g_debuglog.statistics.get("frame.graph.replay", 0)
+    st = profile_stages(lambda: frame_mod.render_frame(cfg, state, draws, ss, device=card,
+                                                       prev=prev), 1, card)
+    assert g_debuglog.statistics["frame.graph.replay"] == before + 1
+    rows = dict(st.table())
+    assert rows["frame"]["syncs"] == 0 and rows["frame"]["launches"] == 3
+    assert rows["frame.raster.k5"]["launches"] == 1
+    assert rows["frame.translucent.wboit"]["launches"] == 1
+    assert rows["frame.translucent.particles"]["launches"] == 1
+    assert all(rows[s]["device_ms"] > 0 for s in framegraph.STAGES)
+    framegraph.clear()
+
+
+@pytest.mark.parametrize("scene", [dict(K5_FRAME, enable_material_maps=False), K7_FRAME],
+                         ids=["K1", "K7"])
+def test_frame_graph_replays_the_deferred_k1_and_k7_routes_bit_equal(card, scene):
+    """The deferred branch's other use_pallas routes replay too: K1 with
+    gbuffer_from_planes (material maps off) and K7; 4 frames, each
+    bit-equal to the eager frame on the same inputs."""
+    from datum_tpu_torch.debug import g_debuglog
+    from datum_tpu_torch.render import framegraph
+
+    framegraph.clear()
+    ctx, camera, params, make_rl = datumtest_scene(**scene)
+    cfg, state = ctx.config, ctx.device_state(card)
+    assert not frame_mod.use_shade_kernel(cfg, state)
+    prev, kinds = None, []
+    for i in range(4):
+        rl, ss = _deferred_inputs(camera, params, make_rl, i)
+        draws = ctx.frame_draws(rl, camera)
+        stats = dict(g_debuglog.statistics)
+        out = frame_mod.render_frame(cfg, state, draws, ss, device=card, prev=prev)
+        kinds += [k for k, v in g_debuglog.statistics.items() if v != stats.get(k, 0)]
+        eager = frame_mod._eager_frame(cfg, state, draws, ss, prev, card)
+        for k in ("image", "depth", "vis", "luminance"):
+            assert torch.equal(out[k], eager[k]), (i, k)
+        prev = out.get("ao_prev")
+    assert kinds[-1] == "frame.graph.replay" and "frame.graph.capture" in kinds
+    framegraph.clear()
+
+
+def test_frame_graph_leaves_the_scan_raster_eager(card):
+    """The deferred branch without use_pallas (the scan raster, which
+    reads device values on the host) runs eagerly every frame."""
     from datum_tpu_torch.debug import g_debuglog
     from datum_tpu_torch.render import framegraph
 
     framegraph.clear()
     ctx, state, draws, ss = _frame(card, scene=DEFERRED)
     assert not frame_mod.use_shade_kernel(ctx.config, state)
+    assert not ctx.config.use_pallas
     before = dict(g_debuglog.statistics)
     for _ in range(3):
         frame_mod.render_frame(ctx.config, state, draws, ss, device=card)
     delta = {k: v - before.get(k, 0) for k, v in g_debuglog.statistics.items()
              if k.startswith("frame.graph.") and v != before.get(k, 0)}
     assert delta == {"frame.graph.eager": 3}
+
+
+def test_k5_and_k4_write_into_out(card):
+    """raster_v1_cuda and raster_blend_cuda with out= (the frame graph's
+    preallocated outputs) return out, bit-equal to their own
+    allocations; a wrong out is refused before any launch."""
+    inp, _ = _random_k5(card, 28, 4000, 1024, 544, 128, 16, size=0.1)
+    buf = torch.full((4, 544, 1024), float("nan"), device=card)
+    assert raster_v1_cuda(**inp, out=buf) is buf
+    assert torch.equal(buf, raster_v1_cuda(**inp))
+    cfg, state, d, s, ts = _translucent(card)
+    st = frame_mod.oit_stream(cfg, state, d, s, ts, None)
+    bins, counts, big = frame_mod.oit_bins(cfg, st)
+    opaque = torch.rand((cfg.padded_height, cfg.padded_width), device=card) * 0.05
+    binp = blend_inputs(st["setup"], bins, big, counts, st["tris"], st["uv"], st["color"],
+                        opaque, cfg.tiles_x, cfg.padded_width, cfg.padded_height,
+                        "per_tri", None, st["soft_flag"], st["peel_flag"])
+    bbuf = torch.full((5, cfg.padded_height, cfg.padded_width), float("nan"), device=card)
+    assert raster_blend_cuda(**binp, out=bbuf) is bbuf
+    assert _same_bits(bbuf, raster_blend_cuda(**binp))
+    n = raster_v1_cuda.launches, raster_blend_cuda.launches
+    with pytest.raises(ValueError):
+        raster_v1_cuda(**inp, out=buf[:, :32])
+    with pytest.raises(ValueError):
+        raster_blend_cuda(**binp, out=bbuf.double())
+    assert (raster_v1_cuda.launches, raster_blend_cuda.launches) == n

@@ -6,6 +6,7 @@ that replace the tensors the frame used to build from Python lists and
 numpy every frame (each equal to the tensor it replaces).  The capture
 and replay themselves run on the card: tests/test_torch_cuda.py."""
 
+import collections
 import dataclasses
 import types
 import warnings
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from datum_tpu_torch import debug
+from datum_tpu_torch.convert import to_torch
 from datum_tpu_torch.ops import _kernels, bloom, common, geometry, ibl, shade_cuda, ssr2
 from datum_tpu_torch.ops.common import FrameConfig, constant
 from datum_tpu_torch.render import frame as frame_mod
@@ -358,3 +360,302 @@ def test_quat_conj_and_bloom_seed_read_their_constants():
     t = torch.clamp(x @ w - bloom.CUTOFF, 0.0, 1.0)
     t = t * t * (3.0 - 2.0 * t)
     assert torch.equal(bloom.bloom_seed(x), bloom.tonemap(x * t[..., None]))
+
+
+# the deferred branch's K5 route at a small size: bilinear filter, decals,
+# SSAO, fog, a spot map, translucents and particles (two K4 passes)
+K5_SCENE = dict(width=128, height=64, sphere_detail=6, grid=(2, 2), n_point_lights=4,
+                skybox=True, skybox_size=16, device="cpu", max_vertices=1024,
+                max_triangles=1024, bin_capacity=64, big_capacity=16, use_pallas=True,
+                texture_filter="bilinear", enable_shadows=True, shadow_res=128,
+                shadow_bin_capacity=64, max_spot_shadows=1, spot_shadow_res=64,
+                max_translucent_draws=2, max_translucent_tris=256, max_particle_quads=16,
+                max_decals_active=2, enable_ssao=True, enable_fog=True, enable_ssr=True,
+                fog_sample_scale=8, forward_bin_capacity=64, forward_big_capacity=16)
+
+
+def _deferred_scene(scene=K5_SCENE, t=0.3, n_point=None):
+    """(cfg, state, draws, sceneset) of a deferred frame on the CPU, draws
+    as tensors, the sceneset as the host builds it (numpy), with the
+    first n_point point lights."""
+    from datum_tpu_torch.render.types import make_sceneset
+    from datum_tpu_torch.scenes import datumtest_scene
+
+    torch.set_num_threads(1)
+    ctx, camera, params, make_rl = datumtest_scene(**scene)
+    rl = make_rl(t)
+    ss = make_sceneset(camera, params, point_lights=rl.point_lights[:n_point],
+                       spot_lights=rl.spot_lights)
+    state = ctx.device_state("cpu")
+    assert not frame_mod.use_shade_kernel(ctx.config, state)
+    return ctx.config, state, to_torch(ctx.frame_draws(rl, camera), "cpu"), ss
+
+
+def _as_card(monkeypatch):
+    """The card's dispatch on CPU tensors: every tensor reads as a CUDA
+    one, so the wrappers launch their kernels, each replaced by a plain
+    version that counts its calls (K5 and K4 write into `out`).  Returns
+    the list of calls."""
+    from datum_tpu_torch.ops import raster_blend_cuda, raster_depth_cuda, raster_v1_cuda
+
+    calls = []
+
+    def k5(out, split=None, **inp):
+        calls.append("k5")
+        return out.copy_(raster_v1_cuda.raster_v1_reference(**inp))
+
+    def k4(out, **inp):
+        calls.append("k4")
+        return out.copy_(raster_blend_cuda.raster_blend_reference(**inp))
+
+    def k3(**inp):
+        return raster_depth_cuda.raster_depth_reference(**inp)
+
+    k5.launches = k4.launches = k3.launches = 0
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(raster_v1_cuda, "raster_v1_cuda", k5)
+    monkeypatch.setattr(raster_blend_cuda, "raster_blend_cuda", k4)
+    monkeypatch.setattr(raster_depth_cuda, "raster_depth_cuda", k3)
+    return calls
+
+
+def test_recorder_cuts_the_deferred_frame_with_k5_and_k4_between_graphs(monkeypatch):
+    """The deferred branch's K5 route under the recorder (graphs stood in
+    for, the wrappers' kernels by counting plain versions): one or more
+    graphs a stage in frame order, K5's call between two graphs of
+    frame.raster under frame.raster.k5, and the two K4 calls between
+    graphs of frame.translucent under .wboit and .particles.  The capture
+    launches nothing; each call, run as a replay runs it, fills its
+    preallocated output: K5's depth is the eager frame's."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    _FakeGraph.work = ["x"]          # every stand-in graph counts as work
+    monkeypatch.setattr(_FakeGraph, "capture_end", lambda self: setattr(self, "ops", []))
+    cfg, state, draws, ss = _deferred_scene()
+    lights = frame_mod.host_light_counts(ss)
+    ss = to_torch(ss, "cpu")
+    # the eager frame first: it builds the cached constants the capture reads
+    e = frame_mod._eager_frame(cfg, state, draws, ss, None, torch.device("cpu"), lights)
+    calls = _as_card(monkeypatch)
+    rec = framegraph._Recorder(pool=None, device=torch.device("cpu"))
+    with framegraph._Recording(rec):
+        frame_mod._uploaded_frame(cfg, state, draws, ss, None, lights)
+        rec.close()
+    assert calls == []
+    launch = lambda stage, part: ("_Launch", stage, (part,))
+    graph = lambda stage: ("_Replay", stage, None)
+    assert [(type(s).__name__, s.stage, getattr(s, "parts", None)) for s in rec.steps] == [
+        graph("frame.input"), graph("frame.shadows"), graph("frame.raster"),
+        launch("frame.raster", "frame.raster.k5"), graph("frame.raster"),
+        graph("frame.planes"), graph("frame.shade"), graph("frame.translucent"),
+        launch("frame.translucent", "frame.translucent.wboit"), graph("frame.translucent"),
+        launch("frame.translucent", "frame.translucent.particles"),
+        graph("frame.translucent"), graph("frame.post")]
+    k5, wboit, particles = [s for s in rec.steps if isinstance(s, framegraph._Launch)]
+    assert (k5.name, wboit.name, particles.name) == ("raster_v1_cuda", "raster_blend_cuda",
+                                                     "raster_blend_cuda")
+    h, w = cfg.padded_height, cfg.padded_width
+    assert k5.kw["out"].shape == (4, h, w) and wboit.kw["out"].shape == (5, h, w)
+    for step in (k5, wboit, particles):
+        step.run()
+    assert calls == ["k5", "k4", "k4"]
+    assert torch.equal(k5.kw["out"][0], e["depth"])
+    assert wboit.kw["soft"] is False and particles.kw["soft"] is True
+
+
+def test_raster_v1_and_raster_blend_with_out_equal_their_plain_versions(monkeypatch):
+    """raster_v1 and raster_blend on the card's route (launch_eager into
+    a preallocated output, kernels by plain versions) give the CPU route's
+    planes bit for bit."""
+    from datum_tpu_torch.ops import raster as raster_ops
+    from datum_tpu_torch.ops.raster_blend_cuda import raster_blend
+    from datum_tpu_torch.ops.raster_v1_cuda import raster_v1
+
+    cfg, state, draws, ss = _deferred_scene()
+    ss = to_torch(ss, "cpu")
+    ex, uv, clip, wn, wt, worldp = frame_mod._vertex_stage(cfg, state, draws, ss)
+    setup, bins, counts, big, _ = frame_mod._bin_stage(cfg, ex, clip)
+    tx, ty, w, h = cfg.tiles_x, cfg.tiles_y, cfg.padded_width, cfg.padded_height
+    plain_v1 = raster_v1(setup, bins, big, counts, tx, ty, w, h)
+    depth = plain_v1[0]
+    ts = frame_mod.translucent_stream(state, draws, ss)
+    d = ts["d"]
+    color = state["materials"]["color"][d["material"][d["vtx_draw"].long()].long()]
+    tsetup = raster_ops.triangle_setup(ts["clip"], d["tris"], w, h, tx, ty,
+                                       tri_valid=d["t_valid"])
+    tb, tc, tbig = raster_ops.bin_triangles(tsetup, cfg.max_translucent_tris, tx, ty,
+                                            cfg.forward_bin_capacity,
+                                            cfg.forward_big_capacity)
+    args = (tsetup, tb, tbig, tc, d["tris"], ts["uv"], color, depth, tx, ty, w, h)
+    plain_blend = raster_blend(*args, soft=False)
+    calls = _as_card(monkeypatch)
+    card_v1 = raster_v1(setup, bins, big, counts, tx, ty, w, h)
+    card_blend = raster_blend(*args, soft=False)
+    assert calls == ["k5", "k4"]
+    for a, b in zip(card_v1 + card_blend, plain_v1 + plain_blend):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert float(plain_blend[3].sum()) > 0
+
+
+def test_key_follows_the_light_counts_not_the_lights():
+    """A deferred frame's key holds its host light counts: one point or
+    spot light fewer is another key, lights moved (another t) are the
+    same key; counts on the device give no key."""
+    from datum_tpu_torch.render.types import make_sceneset
+    from datum_tpu_torch.scenes import datumtest_scene
+
+    ctx, camera, params, make_rl = datumtest_scene(
+        width=128, height=64, sphere_detail=4, grid=(2, 2), n_point_lights=4, skybox=False,
+        device="cpu", enable_shadows=False)
+    state = ctx.device_state("cpu")
+
+    def key(t, n_point=None, n_spot=None):
+        rl = make_rl(t)
+        ss = make_sceneset(camera, params, point_lights=rl.point_lights[:n_point],
+                           spot_lights=rl.spot_lights[:n_spot])
+        return framegraph.frame_key(ctx.config, state, {}, ss, None, "cpu",
+                                    frame_mod.host_light_counts(ss)), ss
+
+    k, ss = key(0.3)
+    assert frame_mod.host_light_counts(ss) == (4, 1)
+    assert key(0.9)[0] == k and not np.array_equal(
+        key(0.9)[1]["pointlights"]["position"], ss["pointlights"]["position"])
+    assert key(0.3, n_point=3)[0] != k and key(0.3, n_spot=0)[0] != k
+    dev = dict(ss, pointlights=dict(ss["pointlights"], count=torch.tensor(4)))
+    assert frame_mod.host_light_counts(dev) == (4, 1)          # a CPU tensor reads free
+    assert framegraph.frame_key(ctx.config, state, {}, ss, None, "cpu", None) is None
+
+
+@pytest.mark.parametrize("counts", [(0, 0), (3, 1), (8, 1)], ids=["0", "3", "8"])
+def test_shade_deferred_with_host_counts_equals_the_readback(counts):
+    """The lighting pass with the light counts given as host ints equals,
+    bit for bit, the pass that reads them from the sceneset's tensors;
+    the counts drive the dense point and spot loops."""
+    from datum_tpu_torch.ops.lighting_pass import shade_deferred
+    from datum_tpu_torch.render.types import make_sceneset
+    from datum_tpu_torch.scenes import datumtest_scene
+
+    torch.set_num_threads(1)
+    ctx, camera, params, make_rl = datumtest_scene(
+        width=128, height=64, sphere_detail=4, grid=(2, 2), n_point_lights=8, skybox=False,
+        device="cpu", enable_shadows=False)
+    rl = make_rl(0.3)
+    n_point, n_spot = counts
+    ss = make_sceneset(camera, params, point_lights=rl.point_lights[:n_point],
+                       spot_lights=rl.spot_lights[:n_spot])
+    lights = frame_mod.host_light_counts(ss)
+    assert lights == counts
+    ss = to_torch(ss, "cpu")
+    g = torch.Generator().manual_seed(sum(counts))
+    h, w = 64, 128
+    gbuffer = dict(normal=torch.rand((h, w, 4), generator=g),
+                   specular=torch.rand((h, w, 4), generator=g),
+                   diffuse=torch.rand((h, w, 4), generator=g),
+                   mask=torch.rand((h, w), generator=g) > 0.2)
+    depth = torch.rand((h, w), generator=g) * 0.5 + 0.1
+    kw = dict(proj=ss["proj"], invview=ss["invview"])
+    a = shade_deferred(gbuffer, depth, ss, light_counts=lights, **kw)
+    b = shade_deferred(gbuffer, depth, ss, **kw)
+    assert torch.equal(a, b)
+    dark = shade_deferred(gbuffer, depth, ss, light_counts=(0, 0), **kw)
+    assert torch.equal(a, dark) == (counts == (0, 0))
+
+
+def _host_reads(run):
+    """The places where run() reads a tensor value on the host (a
+    scalar out of a tensor, a boolean mask's or nonzero's data-dependent
+    shape, a tensor built from host data), outside the kernels' plain
+    versions, which the card does not run: [(what, file:line)]."""
+    import traceback
+
+    from torch.overrides import TorchFunctionMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    found = []
+    reads = {"_local_scalar_dense", "nonzero", "masked_select", "unique", "_unique2",
+             "unique_consecutive", "repeat_interleave", "equal", "is_nonzero",
+             "lift_fresh"}
+
+    def note(what):
+        stack = traceback.extract_stack()
+        if not any(f.name.endswith("_reference") for f in stack):
+            port = [f for f in stack if "datum_tpu_torch" in f.filename]
+            found.append((what, f"{port[-1].filename}:{port[-1].lineno}" if port else "?"))
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._schema.name.split("::")[-1]
+            if name in reads or (name.startswith("index") and any(
+                    isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                    for i in (args[1] if len(args) > 1 and isinstance(args[1], (list, tuple))
+                              else ()))):
+                note(name)
+            return func(*args, **(kwargs or {}))
+
+    class Builds(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in ("tensor", "as_tensor", "from_numpy") and (
+                    not args or not isinstance(args[0], torch.Tensor)):
+                note(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with Builds(), Ops():
+        run()
+    return found
+
+
+@pytest.mark.parametrize("route", ["K5", "K1", "K7"])
+def test_deferred_frame_reads_no_tensor_on_the_host(route):
+    """The body the frame graph captures, on the deferred branch's
+    use_pallas routes (K5; K1 with material maps off; K7), with the
+    host light counts: no tensor value is read on the host, which a
+    capture would refuse; on the K5 route the readback form reads the
+    two counts, which the scan finds."""
+    scene = dict(K5_SCENE, enable_material_maps=route != "K5",
+                 raster_kernel="mxu" if route == "K7" else "v2")
+    cfg, state, draws, ss = _deferred_scene(scene)
+    lights = frame_mod.host_light_counts(ss)
+    ss = to_torch(ss, "cpu")
+    prev = frame_mod._eager_frame(cfg, state, draws, ss, None, torch.device("cpu"),
+                                  lights)["ao_prev"]
+    run = lambda lights: frame_mod._uploaded_frame(cfg, state, draws, ss, prev, lights)
+    assert _host_reads(lambda: run(lights)) == []
+    if route == "K5":
+        assert [w for w, _ in _host_reads(lambda: run(None))] == ["_local_scalar_dense"] * 2
+
+
+class _Event:
+    """torch.cuda.Event's query and synchronize, with the copy's state."""
+
+    def __init__(self, done):
+        self.done, self.waited = done, False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.waited = self.done = True
+
+
+def test_inputs_reuse_a_host_buffer_only_once_its_copy_has_run(monkeypatch):
+    """The upload's pinned buffers: the oldest is filled again once its
+    copy has run (found by a query, no wait); while every buffer is
+    still being read a new one is made, up to MAX_HOST_BUFFERS, past
+    which the oldest is waited for."""
+    made = []
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k: made.append(
+        pin_memory) or np.zeros(4, np.uint8))
+    inp = framegraph._Inputs.__new__(framegraph._Inputs)
+    inp.size, inp.host = 4, collections.deque()
+    bufs = []
+    for _ in range(framegraph.MAX_HOST_BUFFERS):
+        bufs.append(inp._free_host())
+        inp.host.append((bufs[-1], _Event(False)))
+    assert made == [True] * framegraph.MAX_HOST_BUFFERS
+    first = inp.host[0][1]
+    assert inp._free_host() is bufs[0] and first.waited          # the host ran ahead
+    second = inp.host[0][1]
+    second.done = True
+    assert inp._free_host() is bufs[1] and not second.waited     # its copy ran: no wait
+    third = inp.host[0][1]
+    assert inp._free_host() is not bufs[2] and not third.waited  # still read: a new one
+    assert made == [True] * (framegraph.MAX_HOST_BUFFERS + 1)
