@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import functools
 import hashlib
 import json
 import os
@@ -226,20 +227,56 @@ def check_tensors(what: str, device, checks):
                              f"{tuple(t.shape)} on {t.device}")
 
 
-# set by render/framegraph.py while it captures a frame: takes (module,
-# name, kwargs) of each launch_eager call
-between_graphs = None
+# the enrolled launchers, in the order enrolled (render/framegraph.py
+# reads and adjusts their counts around its captures and replays)
+ENROLLED = []
+
+# the recorder of the frame graph being captured (render/framegraph.py),
+# or None: it takes launch_eager's calls and device_cached's constants
+recorder = None
+
+
+def enroll(fn):
+    """A hand-written kernel's launcher, enrolled: fn, counting in its
+    attribute `launches` each call that returns, and in ENROLLED."""
+    @functools.wraps(fn)
+    def launcher(*args, **kw):
+        out = fn(*args, **kw)
+        launcher.launches += 1
+        return out
+    launcher.launches = 0
+    ENROLLED.append(launcher)
+    return launcher
+
+
+def launch_counts():
+    """The launches of every enrolled launcher, in ENROLLED's order."""
+    return [fn.launches for fn in ENROLLED]
+
+
+def launches_since(before):
+    """Each enrolled launcher's launches since launch_counts() gave
+    before (one enrolled after it counts from 0)."""
+    return [n - (before[i] if i < len(before) else 0)
+            for i, n in enumerate(launch_counts())]
+
+
+def add_launches(counts):
+    """Add counts (as launches_since gives them) to the enrolled
+    launchers' counts."""
+    for fn, n in zip(ENROLLED, counts):
+        fn.launches += n
 
 
 def launch_eager(module, name, **kw):
     """module.<name>(**kw), looked up at the call: the launch of a kernel
-    that the frame graph keeps out of its CUDA graphs (K1 and K2, which
-    the benchmark's roofline readers find by wrapping their module
-    attributes).  kw carries the preallocated output, `out`.  While a
+    that the frame graph keeps out of its CUDA graphs (K1 or K6, K2, K5
+    and K4, which the benchmark's roofline readers find by wrapping their
+    module attributes).  kw carries the preallocated output, `out`.  While a
     frame graph is being captured its recorder takes the call instead,
     and each replay makes it between two of the graphs."""
-    if between_graphs is not None:
-        return between_graphs(module, name, kw)
+    if recorder is not None:
+        return recorder.between(module, name, kw)
     return getattr(module, name)(**kw)
 
 

@@ -13,6 +13,8 @@ import functools
 
 import torch
 
+from . import _kernels
+
 # Raster tile size: one CUDA block shades one 32 x 128 tile, the same
 # tiling the binning keys and the JAX package use.
 TILE_H = 32
@@ -175,41 +177,31 @@ def fma(a, b, c):
     return f
 
 
-_capture = None    # the recorder of the frame graph being captured (render/framegraph.py)
-
-
-def capture_cached(recorder):
-    """While a frame graph is being captured, recorder is its recorder:
-    every tensor the device_cached functions hand out goes into
-    recorder.keep (the graphs read them by address, so the capture keeps
-    them alive past their eviction from the cache), and one missing from
-    its cache is built by recorder.outside(build, args), between two of
-    its graphs (a graph cannot hold the build's copy from the host).
-    None: stop."""
-    global _capture
-    _capture = recorder
-
-
 def device_cached(maxsize):
     """A least-recently-used cache of static tensors built once per shape
     and device, by their arguments (the eager frame would otherwise
     rebuild and re-upload them, a host sync, every frame).  Callers only
-    read what it returns."""
+    read what it returns.  While a frame graph is being captured
+    (_kernels.recorder), every tensor handed out goes into the recorder's
+    keep (the graphs read them by address, so the capture keeps them
+    alive past their eviction from the cache), and one missing from its
+    cache is built by the recorder's outside(build, args), between two of
+    its graphs (a graph cannot hold the build's copy from the host)."""
     def wrap(build):
         cache = collections.OrderedDict()
 
         @functools.wraps(build)
         def get(*args):
+            rec = _kernels.recorder
             if args in cache:
                 cache.move_to_end(args)
             else:
-                cache[args] = build(*args) if _capture is None else _capture.outside(build,
-                                                                                     args)
+                cache[args] = build(*args) if rec is None else rec.outside(build, args)
                 if len(cache) > maxsize:
                     cache.popitem(last=False)
             out = cache[args]
-            if _capture is not None:
-                _capture.keep.append(out)
+            if rec is not None:
+                rec.keep.append(out)
             return out
         get.cache_clear = cache.clear
         return get

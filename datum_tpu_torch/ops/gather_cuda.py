@@ -26,6 +26,7 @@ def gather_rows_reference(tab, idx):
     return tab[idx.long()]
 
 
+@_kernels.enroll
 def gather_rows_cuda(tab, idx, check_bounds=False):
     """The CUDA kernel: the same contract as gather_rows_reference for a
     contiguous (rows, C) f32 table with C a multiple of 4 and (n,) int32
@@ -51,11 +52,7 @@ def gather_rows_cuda(tab, idx, check_bounds=False):
         vp(tab.data_ptr()), vp(idx.data_ptr()), idx.shape[0], cols // 4,
         vp(out.data_ptr()), vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "gather_rows")
-    gather_rows_cuda.launches += 1
     return out
-
-
-gather_rows_cuda.launches = 0
 
 
 def gather_rows(tab, idx):

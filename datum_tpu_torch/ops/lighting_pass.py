@@ -126,10 +126,10 @@ def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale,
     return env_specular, env_diffuse, lut[bi, bj]
 
 
-def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
+def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, light_counts, ssao=None,
                    shadowmaps=None, ibl=None, cluster=None, spotmaps=None,
                    shadow_factor_scale=2, env_scale=2, shadow_slice_blend=0.0,
-                   full_size=None, y0=0, up_to=None, light_counts=None):
+                   full_size=None, y0=0, up_to=None):
     """The deferred shade: hdr (H, W, 3) times the camera exposure, black
     on the background (the sky fills it later).
 
@@ -145,8 +145,7 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
     up_to(x, h, w) the upsampler of the reduced-res factor and env fields
     (default resize_up_dense; a band passes its all-gather closure).
     light_counts: (point, spot) live light counts as Python ints, equal
-    to sceneset's count entries; None reads those entries on the host (a
-    sync on a device)."""
+    to sceneset's count entries (render/frame.py::read_light_counts)."""
     from .blur import downsample_pool, resize_up_dense
     from .shadow import shadow_factor, shadow_factor_esm_fast, spot_shadow_factor
 
@@ -234,8 +233,7 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
             specular = specular + s
         elif nlights > 0:
             # the reference's chunked loop adds 0 times the lights past count
-            n_point = int(pl["count"]) if light_counts is None else light_counts[0]
-            for i in range(min(n_point, nlights)):
+            for i in range(min(light_counts[0], nlights)):
                 d, s = brdf.point_light(worldpos, normal, eyevec, material,
                                         pl["position"][i], pl["intensity"][i],
                                         pl["attenuation"][i])
@@ -246,8 +244,7 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, ssao=None,
         sl = sceneset.get("spotlights")
         if sl is not None and sl["position"].shape[0] > 0:
             n_maps = spotmaps.shape[0] if spotmaps is not None else 0
-            n_spot = int(sl["count"]) if light_counts is None else light_counts[1]
-            scount = min(n_spot, sl["position"].shape[0])
+            scount = min(light_counts[1], sl["position"].shape[0])
             # the first n_maps slots shadowed, the rest unshadowed; the
             # reference adds 0 times the slots past count
             for i in range(scount):

@@ -177,6 +177,7 @@ def raster_blend_reference(rows, bins, counts, big_ids, opaque_depth, tiles_x,
     return torch.stack([_untile(p, tiles_x, tiles_y) for p in (ar, ag, ab, aw, rv)])
 
 
+@_kernels.enroll
 def raster_blend_cuda(rows, bins, counts, big_ids, opaque_depth, tiles_x,
                       width, height, soft, peel=None, tile0=0, out=None):
     """K4 on the card: the same contract as raster_blend_reference.  out:
@@ -207,11 +208,7 @@ def raster_blend_cuda(rows, bins, counts, big_ids, opaque_depth, tiles_x,
         _ndc_scale(height), out_w, vp(out.data_ptr()),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "raster_blend")
-    raster_blend_cuda.launches += 1
     return out
-
-
-raster_blend_cuda.launches = 0
 
 
 def blend_inputs(setup, bins, big_ids, counts, tris, uv, color, opaque_depth,

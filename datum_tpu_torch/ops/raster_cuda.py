@@ -377,6 +377,7 @@ def _launch_raster(fn, what, rows, bins, counts, big_ids, tiles_x, width, height
     return out
 
 
+@_kernels.enroll
 def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
                       peel=None, szb=None, tile0=0, out=None):
     """K1 on the card: the same contract as raster_shade_reference; with
@@ -385,11 +386,8 @@ def raster_shade_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
     out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_launch(*a),
                          "raster_shade", rows, bins, counts, big_ids, tiles_x,
                          width, height, peel, szb, tile0, out)
-    raster_shade_cuda.launches += 1
     return out
 
-
-raster_shade_cuda.launches = 0
 
 # K6's shared memory above its ~45 KB of static staging: 8 bytes per entry
 # of n_big + bin_capacity (csrc/raster_shade_2p.cu), within the 227 KB a
@@ -397,6 +395,7 @@ raster_shade_cuda.launches = 0
 MAX_2P_DYN_SMEM = 180 * 1024
 
 
+@_kernels.enroll
 def raster_shade_2p_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
                          peel=None, szb=None, tile0=0, out=None):
     """K6 on the card: the same contract as raster_shade_2p_reference;
@@ -408,11 +407,7 @@ def raster_shade_2p_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
     out = _launch_raster(lambda *a: _kernels.library().lib.raster_shade_2p_launch(*a),
                          "raster_shade_2p", rows, bins, counts, big_ids, tiles_x,
                          width, height, peel, szb, tile0, out)
-    raster_shade_2p_cuda.launches += 1
     return out
-
-
-raster_shade_2p_cuda.launches = 0
 
 
 def raster_inputs(setup, bins, big_ids, counts, tris, uv, normal,

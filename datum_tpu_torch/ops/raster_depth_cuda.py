@@ -116,6 +116,7 @@ def warp_rect_reject(r, x0, x1, y0, y1, scissor=True, form="plane"):
     return out
 
 
+@_kernels.enroll
 def raster_depth_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
                       szb=None):
     """K3 on the card: the same contract as raster_depth_reference; with
@@ -143,11 +144,7 @@ def raster_depth_cuda(rows, bins, counts, big_ids, tiles_x, width, height,
         _ndc_scale(width), _ndc_scale(height), out_w, vp(out.data_ptr()),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "raster_depth")
-    raster_depth_cuda.launches += 1
     return out
-
-
-raster_depth_cuda.launches = 0
 
 
 def depth_inputs(setup, bins, big_ids, counts, tiles_x, width, height,

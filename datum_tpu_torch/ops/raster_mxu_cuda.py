@@ -157,6 +157,7 @@ def mxu_planes(rows, win, depth, xn, yn):
     return planes + [torch.where(has, v, zero) for v in vals[2:]]
 
 
+@_kernels.enroll
 def raster_mxu_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
     """K7 on the card: the same contract as raster_mxu_reference."""
     dev = rows.device
@@ -179,11 +180,7 @@ def raster_mxu_cuda(rows, bins, counts, big_ids, tiles_x, width, height):
         _ndc_scale(width), _ndc_scale(height), out_w, vp(out.data_ptr()),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "raster_mxu")
-    raster_mxu_cuda.launches += 1
     return out
-
-
-raster_mxu_cuda.launches = 0
 
 
 def raster_mxu_inputs(setup, bins, big_ids, counts, tris, uv, normal,

@@ -105,6 +105,7 @@ def raster_v1_reference(rows, bins, counts, big_ids, tiles_x, width, height):
                         for p in v1_planes(rows, win, depth, xn, yn)])
 
 
+@_kernels.enroll
 def raster_v1_cuda(rows, bins, counts, big_ids, tiles_x, width, height, split=None,
                    out=None):
     """K5 on the card: the same contract as raster_v1_reference.  split
@@ -136,11 +137,7 @@ def raster_v1_cuda(rows, bins, counts, big_ids, tiles_x, width, height, split=No
         _ndc_scale(width), _ndc_scale(height), out_w, split or 0, vp(out.data_ptr()),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "raster_v1")
-    raster_v1_cuda.launches += 1
     return out
-
-
-raster_v1_cuda.launches = 0
 
 
 def raster_v1_inputs(setup, bins, big_ids, counts, tiles_x, width, height):

@@ -471,6 +471,7 @@ def shade_epilogue_reference(bg, tr=None, refr=None, fog=None, oit=None):
     return col
 
 
+@_kernels.enroll
 def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
                         lights, spots, probes, counts, n_trk=0, cl_lists=None,
                         cl_counts=None, envd=False, full_height=None, out=None):
@@ -525,25 +526,18 @@ def shade_deferred_cuda(f32_planes, planes, has_sky, ao, spotsf, params,
         float(np.float32(2.0 / (full_height or H))), ptr(out),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "shade_deferred")
-    shade_deferred_cuda.launches += 1
     if envd:
-        shade_deferred_envd.launches += 1
+        shade_deferred_envd()
     return out
 
 
-shade_deferred_cuda.launches = 0
+@_kernels.enroll
+def shade_deferred_envd():
+    """Launches nothing: its count is that of K2's launches with
+    ENVD_NAMES, called after each."""
 
 
-class _GroupLaunches:
-    """A launch count of K2 with one of its optional plane groups."""
-
-    def __init__(self):
-        self.launches = 0
-
-
-shade_deferred_envd = _GroupLaunches()     # K2 launches with ENVD_NAMES
-
-
+@_kernels.enroll
 def shade_epilogue_cuda(bg, tr=None, refr=None, fog=None, oit=None):
     """The K2 epilogue on the card: the same contract as
     shade_epilogue_reference."""
@@ -567,11 +561,7 @@ def shade_epilogue_cuda(bg, tr=None, refr=None, fog=None, oit=None):
         ptr(bg), ptr(tr), ptr(refr), ptr(fog), ptr(oit), H, W, ptr(out),
         vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "shade_epilogue")
-    shade_epilogue_cuda.launches += 1
     return out
-
-
-shade_epilogue_cuda.launches = 0
 
 
 def shade_deferred(gplanes, sceneset, *, proj, invview, ao=None, spotsf=None,

@@ -24,6 +24,7 @@ _FIELDS = (("origin", 2), ("axis_x", 2), ("axis_y", 2), ("uv0", 2), ("uv1", 2),
            ("tint", 4))
 
 
+@_kernels.enroll
 def composite_sprites_cuda(rgb, inst, atlas, region=128):
     """The CUDA kernel: the contract of
     sprite_pass.composite_sprites_reference for a contiguous (H, W, 3) f32
@@ -56,8 +57,4 @@ def composite_sprites_cuda(rgb, inst, atlas, region=128):
         *(vp(inst[k].data_ptr()) for k, _ in _FIELDS), vp(inst["count"].data_ptr()), S,
         vp(atlas.data_ptr()), ah, aw, R, vp(_kernels.stream_ptr(dev)))
     _kernels.check(code, "sprite_pass")
-    composite_sprites_cuda.launches += 1
     return out
-
-
-composite_sprites_cuda.launches = 0

@@ -127,12 +127,15 @@ def render_frame_sharded(cfg: FrameConfig, bands: Bands, state, draws, sceneset,
     if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise ValueError("render_frame_sharded: set torch.backends.cuda.matmul."
                          "allow_tf32 = False (the frame is f32)")
+    full = F.use_shade_kernel(cfg, state)
+    # the reduced path's light loops run on host ints: read before the upload
+    lights = None if full else F.read_light_counts(sceneset)
     state, draws, sceneset = (to_torch(t, dev) for t in (state, draws, sceneset))
     if prev is not None:
         prev = to_torch(prev, dev)
-    if F.use_shade_kernel(cfg, state):
+    if full:
         return _render_sharded_full(cfg, bands, state, draws, sceneset, prev)
-    return _render_sharded_reduced(cfg, bands, state, draws, sceneset)
+    return _render_sharded_reduced(cfg, bands, state, draws, sceneset, lights)
 
 
 def _band_luminance(bands: Bands, hdr, y0, cfg: FrameConfig):
@@ -253,12 +256,15 @@ def _render_sharded_full(cfg: FrameConfig, bands: Bands, state, draws, sceneset,
     return out
 
 
-def _render_sharded_reduced(cfg: FrameConfig, bands: Bands, state, draws, sceneset):
+def _render_sharded_reduced(cfg: FrameConfig, bands: Bands, state, draws, sceneset,
+                            lights):
     """The reduced path over the bands (module docstring): the pool's own
     geometry (no dynamic slab, no vertex modes), sun cascades by the scan
     raster, the scan raster and resolve_gbuffer per band, the XLA
     lighting with an all-gather closure for its reduced-res fields, bloom
-    with a halo exchange, the graded composite."""
+    with a halo exchange, the graded composite.  lights: the (point,
+    spot) light counts as Python ints (render/frame.py::
+    read_light_counts)."""
     n, rank = bands.world, bands.rank
     w, h = cfg.padded_width, cfg.padded_height
     tx, ty = cfg.tiles_x, cfg.tiles_y
@@ -302,7 +308,7 @@ def _render_sharded_reduced(cfg: FrameConfig, bands: Bands, state, draws, scenes
         return _dslice(resize_up_dense(full, n * oh, ow), rank * oh, oh, 0)
 
     hdr = lighting_pass.shade_deferred(
-        gbuffer, depth, sceneset, proj=proj, invview=invview,
+        gbuffer, depth, sceneset, proj=proj, invview=invview, light_counts=lights,
         shadowmaps=shadowmaps if cfg.enable_shadows else None,
         full_size=(h, w), y0=y0, up_to=up_to)
     lum = _band_luminance(bands, hdr, y0, cfg)

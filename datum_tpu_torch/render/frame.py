@@ -1298,8 +1298,8 @@ def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx, counter
                     lights=None):
     """Every branch of `_frame` off the megakernel: (hdr, depth, vis,
     bin_overflow, ao_state, SSR inputs).  counters: the frame's counter
-    dict or None; lights: host_light_counts(sceneset) or None (the
-    lighting reads the counts on the host)."""
+    dict or None; lights: host_light_counts(sceneset), or None where the
+    counts are on the device (read back here once: read_light_counts)."""
     ex, uv, clip, wnormal, wtangent, worldp = vtx
     w, h, tx, ty = cfg.padded_width, cfg.padded_height, cfg.tiles_x, cfg.tiles_y
     proj, invview = sceneset["proj"], sceneset["invview"]
@@ -1344,7 +1344,8 @@ def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx, counter
                 gbuffer, depth, sceneset, proj=proj, invview=invview, shadowmaps=sun,
                 ibl=ibl, cluster=cluster, ssao=ssao, spotmaps=spotmaps,
                 shadow_factor_scale=cfg.shadow_factor_scale,
-                shadow_slice_blend=cfg.shadow_slice_blend, light_counts=lights)
+                shadow_slice_blend=cfg.shadow_slice_blend,
+                light_counts=read_light_counts(sceneset) if lights is None else lights)
         if ibl is not None:
             with span("frame.shade.sky"):
                 hdr = _sky_fill(ibl, sceneset, hdr, gbuffer["mask"], w, h)
@@ -1425,7 +1426,8 @@ def render_frame(cfg: FrameConfig, state, draws, sceneset, *, device, prev=None)
     the frame runs eagerly (the scan raster reads device values on the
     host).  The deferred branch's light loops take their counts from
     sceneset's host arrays (host_light_counts); a sceneset with its
-    counts on the device is read once a loop and runs eagerly.
+    counts on the device has them read back once a frame and runs
+    eagerly.
 
     Contract on the card: f32 matmuls run in full f32.  The caller sets
     torch.backends.cuda.matmul.allow_tf32 = False and
@@ -1456,6 +1458,15 @@ def host_light_counts(sceneset):
             return None
         counts.append(int(c))
     return tuple(counts)
+
+
+def read_light_counts(sceneset):
+    """(point, spot) live light counts of sceneset as Python ints: the
+    host arrays' (host_light_counts), or where a count is a tensor on a
+    device, that tensor read back (a host sync)."""
+    return host_light_counts(sceneset) or tuple(
+        int((sceneset.get(kind) or {}).get("count", 0))
+        for kind in ("pointlights", "spotlights"))
 
 
 def _input_stage(cfg: FrameConfig, state, draws, sceneset):

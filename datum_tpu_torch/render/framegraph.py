@@ -46,8 +46,10 @@ graphs read the device buffer's views.
 Outputs: the capture's outputs are overwritten by the next replay, so a
 replay returns fresh copies of them (a device-to-device copy each).
 
-Launch counts: a kernel wrapper's `launches` counts the launches it
-made; a graph's replay adds those its capture recorded.
+Launch counts: each enrolled kernel launcher's `launches`
+(ops/_kernels.py::enroll) counts the launches it made; a graph's replay
+adds those its capture recorded, whatever wraps the launcher's module
+attribute.
 
 Spans: while the program's tracing is on, a replayed frame is the span
 "frame", the first stage's "frame.input.upload" (the inputs' copy), one
@@ -71,7 +73,7 @@ import torch
 from ..convert import map_arrays
 from ..debug.debug import span as debug_span
 from ..debug.debug import statistic_hit, tracing
-from ..ops import _kernels, common
+from ..ops import _kernels
 
 STAGES = ("frame.input", "frame.shadows", "frame.raster", "frame.planes",
           "frame.translucent", "frame.shade", "frame.post")
@@ -80,7 +82,6 @@ MAX_SEEN = 16            # keys remembered for their first sighting
 MAX_HOST_BUFFERS = 4     # pinned input buffers a capture fills in turn
 ALIGN = 256              # bytes: each input array's offset in the buffers
 
-_recording = None        # the _Recorder of the capture in progress
 _held = collections.OrderedDict()     # key -> _Capture
 _seen = collections.OrderedDict()     # key -> frames seen
 _streams = {}                         # device -> its capture stream
@@ -90,37 +91,20 @@ def span(name):
     """debug.span(name) for the frame's own code; while a frame is being
     captured, the recorder's span instead, which starts a new graph at
     each stage of STAGES and notes the spans a K1/K2 call runs in."""
-    rec = _recording
+    rec = _kernels.recorder
     return debug_span(name) if rec is None else _Span(rec, name)
 
 
-def _counters():
-    """(module, name) of every kernel wrapper that counts its launches."""
-    from ..ops import (gather_cuda, raster_blend_cuda, raster_cuda, raster_depth_cuda,
-                       raster_mxu_cuda, raster_v1_cuda, shade_cuda, sprite_pass_cuda)
-    return ((raster_cuda, "raster_shade_cuda"), (raster_cuda, "raster_shade_2p_cuda"),
-            (raster_depth_cuda, "raster_depth_cuda"), (raster_blend_cuda, "raster_blend_cuda"),
-            (raster_v1_cuda, "raster_v1_cuda"), (raster_mxu_cuda, "raster_mxu_cuda"),
-            (shade_cuda, "shade_deferred_cuda"), (shade_cuda, "shade_deferred_envd"),
-            (shade_cuda, "shade_epilogue_cuda"), (gather_cuda, "gather_rows_cuda"),
-            (sprite_pass_cuda, "composite_sprites_cuda"))
-
-
-def _counts():
-    return [getattr(m, n).launches for m, n in _counters()]
-
-
 class _Replay:
-    """One captured graph of a stage, and the launches it counts."""
+    """One captured graph of a stage, and the launches it counts (one per
+    entry of _kernels.ENROLLED)."""
 
     def __init__(self, stage, graph, launches):
         self.stage, self.graph, self.launches = stage, graph, launches
 
     def run(self):
         self.graph.replay()
-        for (m, n), k in zip(_counters(), self.launches):
-            if k:
-                getattr(m, n).launches += k
+        _kernels.add_launches(self.launches)
 
 
 class _Launch:
@@ -158,12 +142,12 @@ class _Recorder:
     def __init__(self, pool, device):
         self.pool, self.device, self.steps, self.stack, self.keep = pool, device, [], [], []
         self.graph = self.stage = None
-        self.base = _counts()
+        self.base = _kernels.launch_counts()
 
     def open(self, stage):
         """End the graph being captured and start one of `stage`."""
         self.close()
-        self.stage, self.before = stage, _counts()
+        self.stage, self.before = stage, _kernels.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         self.graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
 
@@ -182,8 +166,7 @@ class _Recorder:
             else:
                 warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
         if not empty:
-            self.steps.append(_Replay(self.stage, g, [a - b for a, b in
-                                                      zip(_counts(), self.before)]))
+            self.steps.append(_Replay(self.stage, g, _kernels.launches_since(self.before)))
 
     def between(self, module, name, kw):
         """launch_eager's call while capturing: end the stage's graph,
@@ -211,30 +194,23 @@ class _Recorder:
 
 
 class _Recording:
-    """The recorder on while the frame's body is captured; the kernel
-    wrappers' launch counts put back after (the capture launched
-    nothing).  A body that raises leaves no capture open behind it: the
-    error propagates, and the capture stream stays usable."""
+    """The recorder on while the frame's body is captured
+    (_kernels.recorder); the enrolled launch counts put back after (the
+    capture launched nothing).  A body that raises leaves no capture open
+    behind it: the error propagates, and the capture stream stays usable."""
 
     def __init__(self, rec):
         self.rec = rec
 
     def __enter__(self):
-        global _recording
-        _recording = self.rec
-        _kernels.between_graphs = self.rec.between
-        common.capture_cached(self.rec)
+        _kernels.recorder = self.rec
 
     def __exit__(self, exc_type, *exc):
-        global _recording
         if exc_type is not None and self.rec.graph is not None:
             with contextlib.suppress(RuntimeError):
                 self.rec.graph.capture_end()
-        _recording = None
-        _kernels.between_graphs = None
-        common.capture_cached(None)
-        for (m, n), k in zip(_counters(), self.rec.base):
-            getattr(m, n).launches = k
+        _kernels.recorder = None
+        _kernels.add_launches([-n for n in _kernels.launches_since(self.rec.base)])
 
 
 def _leaves(trees):

@@ -26,6 +26,7 @@ from test_torch_deferred import TOL, H, W, _close, _gbuffer, _jx, _np, sc  # noq
 from test_torch_frame import one_torch_thread  # noqa: F401 (autouse)
 
 from datum_tpu_torch.ops import brdf, cluster, lighting_pass, shadow
+from datum_tpu_torch.render.frame import host_light_counts
 
 
 # ---------------------------------------------------------------- shadows
@@ -143,7 +144,8 @@ def test_shade_deferred_matches_jax(sc, variant):
     else:
         ibl = None
     b = lighting_pass.shade_deferred(gb, sc.depth, sc.s, proj=sc.s["proj"],
-                                     invview=sc.s["invview"], ibl=ibl, **kw)
+                                     invview=sc.s["invview"], ibl=ibl,
+                                     light_counts=host_light_counts(sc.ss), **kw)
     jkw = _jx(kw)
     jibl = None
     if ibl is not None:
