@@ -73,23 +73,28 @@ and exits non-zero:
    microbenchmark's one PyTorch call and the bounds;
 4d-6d. the deferred frame (FrameConfig's default path): K5 and K7
    against their plain versions on the bench frame's inputs (bit-equal,
-   vis identical) and K7's vis against K1's; the full-width K5 frame (the
+   vis identical) and K7's vis against K1's; the lighting kernel against
+   its plain version (atol 1e-4 / rtol 1e-3) on the arguments one eager
+   K5 frame gives it at 1920x1088; the full-width K5 frame (the
    bench config with the bilinear filter: K5 1, K4 2, K3 once per stack,
-   K1/K2/K6/K7 0) and K7 frame (raster_kernel='mxu', material maps off:
-   K7 1, K1/K2/K5 0) driven 3 times each, and entry()'s 1280x704
+   the lighting kernel 1, K1/K2/K6/K7 0) and K7 frame (raster_kernel='mxu',
+   material maps off: K7 1, the lighting kernel 1, K1/K2/K5 0) driven 3
+   times each, and entry()'s 1280x704
    use_pallas=False frame, where no kernel launches; the 256x128
    deferred frames (entry()'s config with ESM and with PCF, the K5 and
    the K7 frame) on the card against the CPU plain path; the stress
    golden config against tests/golden/stress.png (decoded with zlib;
-   RMSE printed); ms/frame, a profiler window, stages, K5's and K7's ms
-   and bounds;
+   RMSE printed); ms/frame, a profiler window, stages, K5's, K7's and the
+   lighting kernel's ms and bounds (the lighting kernel's from the
+   frame's covered pixels);
 4e-6e. the local-environment frame: the bench scene with a box
    environment probe (ctx.add_environment), 4 SH probes and a fog plane;
    K2 with the edm group against its plain version (edm coverage
    printed, nonzero) and the gather kernel against tab[idx] on
    profiling/prof_gather.py's shapes (bit-identical); the megakernel
    probe frame (every K2 launch carries the edm group), the deferred K5
-   probe frame (bilinear: the probes in the XLA lighting, K2 0), the
+   probe frame (bilinear: the lighting kernel 1 with the box probe's
+   diffuse plane and the SH probes, K2 0), the
    probe frame with the DDA SSR and RenderContext.render at params.scale
    0.5 (1920x1080 out) driven 3 times each with their launches checked;
    256x128 probe frames (megakernel, K5, DDA) on the card against the
@@ -187,13 +192,16 @@ and exits non-zero:
    replicated stage's outputs equal on both ranks, the RMSE at the
    bench's translucent_lit_scale 2 printed (the parity exception), the
    reduced path at 256x128 with bloom off and on within
-   tests/test_parallel.py's tolerances; dryrun_multichip(4) on the card
+   tests/test_parallel.py's tolerances, and with use_pallas (bloom off:
+   each rank's band through the lighting kernel, once a rank, held to
+   lighting_reference and the image to the single-device frame at the
+   same tolerances); dryrun_multichip(4) on the card
    with its gate; ms/frame of the world-1 sharded frame beside
    render_frame's in turns and the byte ledger at n = 2 (two ranks on one
    card are not timed);
 7. with --versions FILE, other versions of K1's, K6's, K2's, K3's, K4's,
    K5's and K7's sources built alone and timed beside this build's on the same
-   inputs (see versions_phase); then print the kernels' JSON line (10
+   inputs (see versions_phase); then print the kernels' JSON line (11
    rows), then the device JSON line last, after the script's wall time.
 
 Needs one card, torch with CUDA and nvcc; imports no jax and nothing of
@@ -308,6 +316,13 @@ K5_SMALL = dict(DEFERRED_SMALL, use_pallas=True, texture_filter="bilinear",
                 forward_bin_capacity=256, forward_big_capacity=16)
 K7_SMALL = dict(DEFERRED_SMALL, use_pallas=True, raster_kernel="mxu",
                 enable_material_maps=False, enable_shadows=False)
+# FP32 operations of the deferred lighting kernel (csrc/lighting.cu),
+# counted from its source: ~200 a covered pixel on the gbuffer decode, the
+# world position, the eye vector, the sky's SH-9 diffuse and the IBL
+# apply, ~80 a light (the sun, each point light and spot: the half
+# vector, four dot products, the Disney diffuse, GGX, Fresnel and the
+# attenuation) and OPS_K2_PROBE a live SH probe
+OPS_LIGHTING_PIXEL, OPS_LIGHTING_LIGHT = 200, 80
 # the local-environment frame: the bench frame's scene with a box
 # environment probe around the sphere grid (its cubemap the procedural sky
 # at 64^2 under a second sun, prefiltered at 5 levels), 4 SH probes of
@@ -452,6 +467,32 @@ def lit_bins(cfg, ts, **kw):
         cfg.forward_big_capacity, **kw))
 
 
+def record_lighting(cfg, state, draws, ss, dev):
+    """The lighting kernel's arguments (ops/lighting_cuda.py::
+    lighting_inputs') in one eager frame of cfg on (draws, ss), recorded
+    as the frame launches it."""
+    import torch
+
+    from datum_tpu_torch.ops import lighting_cuda as lc
+    from datum_tpu_torch.render import frame as F
+
+    seen, launch = [], lc.lighting_cuda
+
+    def record(**inp):
+        seen.append(inp)
+        return launch(**inp)
+
+    lc.lighting_cuda = record
+    try:
+        F._eager_frame(cfg, state, draws, ss, None, dev, F.host_light_counts(ss))
+        torch.cuda.synchronize()
+    finally:
+        lc.lighting_cuda = launch
+    if len(seen) != 1:
+        raise RuntimeError(f"the frame launched the lighting kernel {len(seen)} times")
+    return seen[0]
+
+
 def cuda_ms(fn, reps):
     """Mean device time of fn() over reps calls, after one warm-up."""
     import torch
@@ -562,6 +603,39 @@ def _walked(inp):
     n_tiles = inp["bins"].shape[0]
     return (int((inp["big_ids"] >= 0).sum()) * n_tiles
             + int(inp["counts"].sum()))
+
+
+def lighting_bound(inp):
+    """(ms, "bytes" | "operations", bytes, covered pixels) of the lighting
+    kernel on its arguments (ops/lighting_cuda.py::lighting_inputs'):
+    every pixel reads its mask and writes its 12 B of hdr; a covered pixel
+    also reads each of its per-pixel planes and walks its lights and live
+    SH probes (a background pixel stops at its mask); the tables and each
+    spot map's texels are read once."""
+    H, W = inp["depth"].shape
+    mask = inp["mask"]
+    covered = int(mask.sum())
+    planes = ("depth", "normal", "diffuse", "specular", "ssao", "env_spec", "env_brdf",
+              "env_diff", "sf")
+    per_pixel = sum(inp[k].numel() // (H * W) * inp[k].element_size() for k in planes
+                    if inp[k] is not None)
+    nbytes = (H * W * (mask.element_size() + 12) + covered * per_pixel
+              + _nbytes(*(inp[k] for k in ("spotmaps", "params", "lights", "spots",
+                                           "probes", "probe_count", "cl_lists",
+                                           "cl_counts"))))
+    if inp["cl_lists"] is None:
+        walks = covered * inp["n_point"]
+    else:
+        # each covered pixel walks its tile's list
+        from datum_tpu_torch.ops.common import TILE_H, TILE_W
+
+        per_tile = mask.reshape(H // TILE_H, TILE_H, inp["tiles_x"], TILE_W).sum((1, 3))
+        per_tile = per_tile.reshape(-1)
+        walks = int((per_tile * inp["cl_counts"].clamp(0, inp["cl_lists"].shape[1])).sum())
+    n_probe = min(int(inp["probe_count"][0]), inp["probes"].shape[0])
+    nops = (covered * (OPS_LIGHTING_PIXEL + (1 + inp["n_spot"]) * OPS_LIGHTING_LIGHT
+                       + n_probe * OPS_K2_PROBE) + walks * OPS_LIGHTING_LIGHT)
+    return bound(nbytes, nops) + (nbytes, covered)
 
 
 def bound(nbytes, nops):
@@ -1116,6 +1190,7 @@ def deferred_phases(dev, card, kernels, bench):
     rows."""
     import torch
 
+    from datum_tpu_torch.ops.lighting_cuda import lighting_cuda, lighting_reference
     from datum_tpu_torch.ops.raster_mxu_cuda import (
         PLANE_NAMES as MXU_NAMES, raster_mxu_cuda, raster_mxu_inputs,
         raster_mxu_reference)
@@ -1161,8 +1236,29 @@ def deferred_phases(dev, card, kernels, bench):
                 "the product's summation order, fma(b, yn, a*xn) + c, and takes no valid "
                 "flag: edge pixels may pick apart)")
 
-    # ---- 5d. drive the K5, K7 and entry() frames
+    # ---- 4d. the lighting kernel on the K5 frame's own arguments
     cfg5 = dataclasses.replace(cfg, texture_filter="bilinear")
+    lt_in = record_lighting(cfg5, state, *inputs[0], dev)
+    lt = lighting_cuda(**lt_in)
+    ltr = lighting_reference(**lt_in)
+    torch.cuda.synchronize()
+    d = (lt - ltr).abs()
+    lt_err, lt_off = d.max().item(), int((d > 1e-4 + 1e-3 * ltr.abs()).sum())
+    if not torch.isfinite(lt).all() or lt_off:
+        raise RuntimeError(f"lighting kernel vs plain: {lt_off} values outside atol 1e-4 / "
+                           f"rtol 1e-3, max abs err {lt_err}")
+    n_maps = 0 if lt_in["spotmaps"] is None else lt_in["spotmaps"].shape[0]
+    phase("4d", f"lighting kernel vs plain (lighting_reference: the plain pass's PyTorch "
+                f"operations on the card) on the K5 frame's arguments {W}x{H} "
+                f"({lt_in['n_point']} point lights, {lt_in['n_spot']} spot, {n_maps} spot "
+                f"map, {int(lt_in['probe_count'][0])} of {lt_in['probes'].shape[0]} SH probe "
+                f"slots live, the env diffuse "
+                f"{'as the sky SH-9' if lt_in['env_diff'] is None else 'a plane'}, covered "
+                f"{lt_in['mask'].float().mean().item():.4f}): max abs err {lt_err:.3g}, "
+                f"bit-identical on {(lt == ltr).float().mean().item():.6f} of values, 0 of "
+                f"{lt.numel()} outside atol 1e-4 / rtol 1e-3")
+
+    # ---- 5d. drive the K5, K7 and entry() frames
     cfg7 = dataclasses.replace(cfg, raster_kernel="mxu", enable_material_maps=False,
                                texture_filter="nearest")
     render5 = lambda d, s: F.render_frame(cfg5, state, d, s, device=dev)
@@ -1171,18 +1267,20 @@ def deferred_phases(dev, card, kernels, bench):
     n_stacks = 2 if cfg.shadow_far_res else 1
     no_shade = ("raster_shade", "raster_shade_2p", "shade_deferred", "shade_epilogue")
     pf5, _, img5, lum5 = drive(render5, inputs, kernels,
-                               dict(raster_v1=1, raster_blend=2, raster_depth=n_stacks + 1),
+                               dict(raster_v1=1, raster_blend=2, raster_depth=n_stacks + 1,
+                                    lighting=1),
                                forbid=no_shade + ("raster_mxu",))
-    if any(f["raster_v1"] != 1 or f["raster_blend"] != 2
+    if any(f["raster_v1"] != 1 or f["raster_blend"] != 2 or f["lighting"] != 1
            or f["raster_depth"] != n_stacks + 1 for f in pf5):
         raise RuntimeError(f"K5 frame launches {pf5}")
     phase("5d", f"3 K5 frames {W}x{H} (the bench config, bilinear filter, deferred "
                 f"branch): launches per frame {pf5} (K5 1, K4 2, K3 {n_stacks} sun "
-                f"stacks + 1 perspective spot map, K1/K2/K6/K7 0); image mean "
+                f"stacks + 1 perspective spot map, the lighting kernel 1, K1/K2/K6/K7 "
+                f"0); image mean "
                 f"{img5.float().mean().item():.2f}, luminance {lum5.item():.6g}")
-    pf7, _, img7, lum7 = drive(render7, inputs, kernels, dict(raster_mxu=1),
+    pf7, _, img7, lum7 = drive(render7, inputs, kernels, dict(raster_mxu=1, lighting=1),
                                forbid=no_shade + ("raster_v1",))
-    if any(f["raster_mxu"] != 1 for f in pf7):
+    if any(f["raster_mxu"] != 1 or f["lighting"] != 1 for f in pf7):
         raise RuntimeError(f"K7 frame launches {pf7}")
     phase("5d", f"3 K7 frames {W}x{H} (raster_kernel='mxu', material maps off, "
                 f"nearest): launches per frame {pf7}; image mean "
@@ -1279,6 +1377,16 @@ def deferred_phases(dev, card, kernels, bench):
     chunks = int(((k7_in["big_ids"].shape[0] + k7_in["counts"] + 127) // 128).sum())
     tpu_ops = chunks * 2 * 2 * 24 * 128 * 6 * 2048
     b7_tpu = tpu_ops / FP32_OPS_PER_S * 1e3
+    lt_out = torch.empty_like(lt)
+    t.update(lt=cuda_ms(lambda: lighting_cuda(**lt_in, out=lt_out), 20),
+             ltp=cuda_ms(lambda: lighting_reference(**lt_in), 1),
+             lt_dev=device_ms(lambda: lighting_cuda(**lt_in, out=lt_out)))
+    blt = lighting_bound(lt_in)
+    phase("6d", f"lighting kernel {t['lt']:.4f} ms (device time a call {t['lt_dev']:.4f} "
+                f"ms) vs plain {t['ltp']:.3f} ms, bound {blt[0]:.4f} ms ({blt[1]}: "
+                f"{blt[2] / 1e6:.1f} MB, {blt[3]} of {lt_in['mask'].numel()} pixels covered, "
+                f"a background pixel reading its mask and writing 12 B), "
+                f"{100 * blt[0] / t['lt_dev']:.1f}% of its bound by device time, on {card}")
     phase("6d", f"K5 {t['k5']:.3f} ms vs plain {t['k5p']:.3f} ms, bound {b5[0]:.4f} ms "
                 f"({b5[1]}); K7 {t['k7']:.3f} ms vs plain {t['k7p']:.3f} ms, bound "
                 f"{b7[0]:.4f} ms ({b7[1]}; operations counted as {walked} entries "
@@ -1288,9 +1396,11 @@ def deferred_phases(dev, card, kernels, bench):
                 f"work); bench inputs {W}x{H}, library call: none; device time a call "
                 f"(device_ms): K5 {t['k5_dev']:.4f} ms, K7 {t['k7_dev']:.4f} ms, on "
                 f"{card}")
-    launches = dict(raster_v1=pf5[0]["raster_v1"], raster_mxu=pf7[0]["raster_mxu"])
-    return dict(t=t, b5=b5, b7=b7, b7_tpu=b7_tpu, launches=launches,
-                errs=dict(k5=k5_err, k7=k7_err), ms=dict(k5=ms5, k7=ms7, entry=mse),
+    launches = dict(raster_v1=pf5[0]["raster_v1"], raster_mxu=pf7[0]["raster_mxu"],
+                    lighting=pf5[0]["lighting"])
+    return dict(t=t, b5=b5, b7=b7, b7_tpu=b7_tpu, blt=blt, launches=launches,
+                errs=dict(k5=k5_err, k7=k7_err, lighting=lt_err),
+                ms=dict(k5=ms5, k7=ms7, entry=mse),
                 golden_rmse=g_rmse, inputs=dict(k7=k7_in, k5=k5_in))
 
 
@@ -1393,7 +1503,7 @@ def env_phases(dev, card, kernels, bench_expect):
     render_5 = lambda d, s: F.render_frame(cfg5, state, d, s, device=dev)
     render_dda = lambda d, s: F.render_frame(cfg_dda, state, d, s, device=dev)
     n_stacks = 2 if cfg.shadow_far_res else 1
-    other = ("raster_shade_2p", "raster_v1", "raster_mxu", "gather_rows")
+    other = ("raster_shade_2p", "raster_v1", "raster_mxu", "gather_rows", "lighting")
     pfe, _, img, lum = drive(render_e, inputs, kernels,
                              dict(bench_expect, shade_deferred_envd=1), forbid=other)
     if any(f["shade_deferred_envd"] != f["shade_deferred"] for f in pfe):
@@ -1406,12 +1516,14 @@ def env_phases(dev, card, kernels, bench_expect):
     no_shade = ("raster_shade", "raster_shade_2p", "shade_deferred", "shade_epilogue",
                 "shade_deferred_envd", "raster_mxu", "gather_rows")
     pf5, _, img5, lum5 = drive(render_5, inputs, kernels,
-                               dict(raster_v1=1, raster_blend=2, raster_depth=n_stacks + 1),
+                               dict(raster_v1=1, raster_blend=2, raster_depth=n_stacks + 1,
+                                    lighting=1),
                                forbid=no_shade)
-    if any(f["raster_v1"] != 1 for f in pf5):
+    if any(f["raster_v1"] != 1 or f["lighting"] != 1 for f in pf5):
         raise RuntimeError(f"deferred probe frame launches {pf5}")
-    phase("5e", f"3 deferred K5 probe frames {W}x{H} (bilinear: env_probe_lookup in the "
-                f"XLA lighting): launches per frame {pf5}; image mean "
+    phase("5e", f"3 deferred K5 probe frames {W}x{H} (bilinear: env_probe_lookup's taps, "
+                f"then the lighting kernel with the probes' diffuse plane and the 4 SH "
+                f"probes): launches per frame {pf5}; image mean "
                 f"{img5.float().mean().item():.2f}, luminance {lum5.item():.6g}")
     pfd, _, imgd, _ = drive(render_dda, inputs, kernels,
                             dict(bench_expect, shade_deferred_envd=1), forbid=other)
@@ -3315,7 +3427,35 @@ def multi_rank(bands, size, scene, reduced):
         rcfg, rstate, rdraws, rss = reduced_inputs(bloom, dev, reduced)
         o = render_frame_sharded(rcfg, bands, rstate, rdraws, rss)
         out[f"reduced{int(bloom)}"] = o["image"].cpu().numpy()
+    out["reduced_kernel"], out["reduced_kernel_bands"] = reduced_with_kernel(bands, reduced)
     return out
+
+
+def reduced_with_kernel(bands, reduced):
+    """The reduced path's frame (bloom off) with use_pallas on this rank:
+    its band lit by the lighting kernel in band mode.  Returns (the u8
+    image, [(y0, max abs err, values outside atol 1e-4 / rtol 1e-3) of
+    each launch against lighting_reference on its arguments])."""
+    from datum_tpu_torch.ops import lighting_cuda as lc
+    from datum_tpu_torch.parallel import render_frame_sharded
+
+    rcfg, rstate, rdraws, rss = reduced_inputs(False, bands.device,
+                                               dict(reduced, use_pallas=True))
+    launch, seen = lc.lighting_cuda, []
+
+    def checked(**inp):
+        hdr = launch(**inp)
+        ref = lc.lighting_reference(**inp)
+        d = (hdr - ref).abs()
+        seen.append((inp["y0"], d.max().item(), int((d > 1e-4 + 1e-3 * ref.abs()).sum())))
+        return hdr
+
+    lc.lighting_cuda = checked
+    try:
+        o = render_frame_sharded(rcfg, bands, rstate, rdraws, rss)
+    finally:
+        lc.lighting_cuda = launch
+    return o["image"].cpu().numpy(), seen
 
 
 def multi_phases(dev, card, kernels):
@@ -3501,6 +3641,26 @@ def multi_phases(dev, card, kernels):
                     f" max |d| {mm.max()}, mean {mm.mean():.4f} levels, pixels off "
                     f"{(mm > 0).mean():.5f}, by > 12 {(mm > 12).mean():.5f} (tests/"
                     f"test_parallel.py's tolerances)")
+        if not bloom:
+            single0 = single
+    # the reduced path with use_pallas: each rank's band through the
+    # lighting kernel, held to the single-device plain frame as above
+    band_rows = MULTI_REDUCED["height"] // 2
+    for r, res in enumerate(ranks):
+        mm = np.abs(single0 - res["reduced_kernel"].astype(int)).max(-1)
+        bands_seen = res["reduced_kernel_bands"]
+        if (len(bands_seen) != 1 or bands_seen[0][0] != r * band_rows or bands_seen[0][2]
+                or not (mm.max() <= 1 and (mm > 0).mean() < 1e-3)):
+            raise RuntimeError(f"reduced path with the lighting kernel, rank {r}: launches "
+                               f"{bands_seen}, max |d| {mm.max()} against the single-device "
+                               f"frame")
+    phase("5m", f"reduced path with use_pallas, 2 ranks at 256x128, bloom off: one "
+                f"lighting kernel launch a rank in band mode (y0 "
+                f"{[res['reduced_kernel_bands'][0][0] for res in ranks]}), each within atol "
+                f"1e-4 / rtol 1e-3 of lighting_reference on its arguments (max abs err "
+                f"{max(res['reduced_kernel_bands'][0][1] for res in ranks):.3g}); the image "
+                f"against the single-device plain frame: max |d| {mm.max()}, pixels off "
+                f"{(mm > 0).mean():.5f} (the bloom-off tolerances)")
     t0 = time.perf_counter()
     dry = dryrun_multichip(4, device=str(dev), backend="gloo", verbose=False)
     phase("5m", f"dryrun_multichip(4) on the card (gloo, 4 processes on the one card; "
@@ -3524,7 +3684,9 @@ def multi_phases(dev, card, kernels):
     phase("6m", f"byte ledger at {W}x{H}, n = 2: {ledger['TOTAL']} B a frame a rank "
                 f"({per}); at the bench's lit scale 2: {ranks[0]['ledger2']['TOTAL']} B")
     phase("6m", f"phases 4m-6m took {time.perf_counter() - t_start:.1f} s")
+    errs["lighting"] = max(res["reduced_kernel_bands"][0][1] for res in ranks)
     return dict(errs=errs, launches=launches, launches_2p=per_2p[0],
+                reduced_kernel_launches=len(ranks[0]["reduced_kernel_bands"]),
                 ms=dict(sharded=min(t_s, t_s2),
                                                       single=min(t_r, t_r2)),
                 ledger=ledger, dry_rmse=dry["rmse"])
@@ -3677,6 +3839,7 @@ def main():
     from datum_tpu_torch.ops.raster_depth_cuda import (
         depth_inputs, raster_depth_cuda, raster_depth_reference)
     from datum_tpu_torch.ops.gather_cuda import gather_rows_cuda
+    from datum_tpu_torch.ops.lighting_cuda import lighting_cuda
     from datum_tpu_torch.ops.sprite_pass_cuda import composite_sprites_cuda
     from datum_tpu_torch.ops.shade_cuda import (
         epilogue_inputs, shade_deferred_cuda, shade_deferred_envd,
@@ -3692,7 +3855,8 @@ def main():
                    raster_blend=raster_blend_cuda,
                    shade_epilogue=shade_epilogue_cuda,
                    gather_rows=gather_rows_cuda,
-                   sprite_pass=composite_sprites_cuda)
+                   sprite_pass=composite_sprites_cuda,
+                   lighting=lighting_cuda)
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -3948,14 +4112,14 @@ def main():
     bench_expect = dict(raster_shade=2, shade_deferred=2, shade_epilogue=1,
                         raster_depth=3, raster_blend=1)
     pf, launches, img, lum = drive(render_b, inputs, kernels, bench_expect,
-                                   forbid=("raster_shade_2p", "sprite_pass"))
+                                   forbid=("raster_shade_2p", "sprite_pass", "lighting"))
     phase(5, f"3 bench frames {W}x{H} (K1): image {tuple(img.shape)} u8 mean "
              f"{img.float().mean().item():.2f}, luminance {lum.item():.6g}, "
              f"bin_overflow 0, launches per frame {pf}")
     pf, launches6, _, _ = drive(
         render_6, inputs[:2], kernels,
         dict(bench_expect, raster_shade=0, raster_shade_2p=2),
-        forbid=("raster_shade",))
+        forbid=("raster_shade", "lighting"))
     phase(5, f"2 bench frames with raster_two_phase (K6): launches per frame {pf}")
     img_k1 = render_b(*inputs[0])["image"]
     img_k6 = render_6(*inputs[0])["image"]
@@ -3963,7 +4127,7 @@ def main():
         raise RuntimeError("the bench frame with K6 differs from the frame with K1")
     phase(5, "bench frame t=0: the K6 image equals the K1 image (u8, every pixel)")
     pf, _, imgd, _ = drive(render_d, dof_inputs[:1], kernels, bench_expect,
-                           forbid=("raster_shade_2p",))
+                           forbid=("raster_shade_2p", "lighting"))
     moved = (imgd.float() - img_k1.float()).abs().mean().item()
     if moved < 0.5:
         raise RuntimeError(f"the DoF frame barely differs from the bench frame: {moved}")
@@ -4240,6 +4404,18 @@ def main():
              bound_ms=op["bound"][0], bound_by=op["bound"][1], library_ms=None,
              device_ms=op["t"]["sp_dev"], plain_launches=op["plain_launches"],
              instances=op["n_live"], **ptxas("sprite_pass.cu")),
+        # launches: per K5 frame of the deferred branch; no Pallas
+        # counterpart (the JAX package runs the pass in XLA); the bound
+        # counts the frame's covered pixels (lighting_bound); band_*,
+        # sharded_launches: a rank of the reduced sharded path
+        dict(name="lighting", route="cuda", source="datum_tpu_torch/csrc/lighting.cu",
+             replaces="datum_tpu/ops/lighting_pass.py:60",
+             launches=dp["launches"]["lighting"], max_abs_err=dp["errs"]["lighting"],
+             ms=dp["t"]["lt"], plain_ms=dp["t"]["ltp"], bound_ms=dp["blt"][0],
+             bound_by=dp["blt"][1], library_ms=None, device_ms=dp["t"]["lt_dev"],
+             bound_bytes=dp["blt"][2], covered_pixels=dp["blt"][3], **ptxas("lighting.cu"),
+             band_max_abs_err=mp["errs"]["lighting"],
+             sharded_launches=mp["reduced_kernel_launches"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,7 +19,9 @@ are held to their plain versions bit for bit and keep it.  K2 (shade.cu) is held
 atol 1e-4 / rtol 1e-3 and takes -fmad=true: nvcc fuses its shading
 terms' multiply-adds, while its view and light geometry, whose rounding
 the GGX highlight of a smooth surface magnifies, is written with
-__fmul_rn / __fadd_rn, which nvcc never contracts.
+__fmul_rn / __fadd_rn, which nvcc never contracts.  The deferred lighting
+pass (lighting.cu) is held within K2's tolerance but keeps -fmad=false:
+it is bound by bytes, so every operation rounds as its plain version's.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster_shade.cu", "raster_shade_2p.cu", "shade.cu", "raster_depth.cu",
            "raster_blend.cu", "shade_epilogue.cu", "raster_v1.cu", "raster_mxu.cu",
-           "gather_rows.cu", "sprite_pass.cu")
+           "gather_rows.cu", "sprite_pass.cu", "lighting.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # the flags of every source but those of FMAD_SOURCES
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -88,6 +90,8 @@ _SIGNATURES = dict(
     raster_mxu_launch="ppppiiiiffipp",
     gather_rows_launch="ppLipp",
     sprite_pass_launch="ppiipppppppipiiip",
+    lighting_smem_bytes="iiii",
+    lighting_launch="pppppppppppiippiipipipppiiiiiiipp",
 )
 
 

@@ -7,11 +7,17 @@ quad-packed fast path at half resolution, or the flat / per-mip
 trilinear taps), the box environment probes' per-pixel override
 (ops/envprobe.py; with probes the fast path is off), SH probes, the sun
 with the ESM factor or the PCF stack, dense or clustered point lights,
-shadowed and unshadowed spots, emissive and exposure.  Plain PyTorch on
-every device: the JAX package runs it in XLA, with no Pallas kernel.
-While the program's tracing is on, its terms are spans of their own:
+shadowed and unshadowed spots, emissive and exposure.  The JAX package
+runs it in XLA, with no Pallas kernel.  With `use_kernel` (the frame's
+`use_pallas`) and CUDA tensors, the environment and sun taps stay
+PyTorch operations and every per-pixel term runs in one hand-written
+kernel (ops/lighting_cuda.py, csrc/lighting.cu); CPU tensors, or
+`use_kernel` False, take the plain PyTorch version.  While the
+program's tracing is on, its terms are spans of their own:
 frame.shade.lighting.env (the environment taps, then the ambient and
-IBL sum), .probes, .sun, .points and .spots.
+IBL sum), .probes, .sun, .points and .spots; on the kernel's route
+.env (the taps), .sun (the sun's factor) and .kernel (the launch and
+its packing), the probes, points and spots running inside the launch.
 
 The dense point loop and the spot loop run once a live light, so their
 trip counts are host values: `light_counts` from the host tree
@@ -72,26 +78,30 @@ def _inv_proj(proj):
 
 
 def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale,
-               worldpos, up):
+               worldpos, up, sky_diffuse=True):
     """(env_specular, env_diffuse, envbrdf) of the environment, (..., 3)
     each: the skybox's terms, with the box probes' pixels replaced.  The
     SH + quad-packed fast path at 1/env_scale runs only without probes;
     with them every term is tapped per pixel.  up(x, h, w) upsamples the
-    fast path's fields (resize_up_dense, or a band's closure)."""
+    fast path's fields (resize_up_dense, or a band's closure).  Without
+    sky_diffuse the fast path leaves its SH-9 diffuse to the lighting
+    kernel: env_diffuse is None."""
     from .blur import downsample_pool, resize_up_dense
     from .sampling import (sample_cubemap, sample_cubemap_lod, sample_cubemap_lod_flat,
                            sample_cubemap_lod_quad)
 
     mips = ibl["mips"]
+    envs = ibl.get("envprobes")
+    fast = ("sh" in ibl and "flatq" in ibl and envs is None and env_scale > 1
+            and h % env_scale == 0 and w % env_scale == 0)
     r = 2.0 * (normal * eyevec).sum(-1, keepdim=True) * normal - eyevec
     sdir = brdf.specular_dominant_direction(normal, r, rough)
-    ddir = brdf.diffuse_dominant_direction(normal, eyevec, rough)
+    ddir = (brdf.diffuse_dominant_direction(normal, eyevec, rough)
+            if sky_diffuse or not fast else None)
     lut = ibl["envbrdf"]
     s = lut.shape[0]
     ndv = torch.clamp((normal * eyevec).sum(-1), 0.0, 1.0)
-    envs = ibl.get("envprobes")
-    if ("sh" in ibl and "flatq" in ibl and envs is None and env_scale > 1
-            and h % env_scale == 0 and w % env_scale == 0):
+    if fast:
         # radiance at 1/env_scale, mask-weighted (background lanes hold
         # far clamped positions), upsampled; diffuse from the SH-9
         p = env_scale
@@ -107,7 +117,8 @@ def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale,
         eb_h = lut.reshape(-1, lut.shape[-1])[(bi * s + bj).long()]
         # the deepest specular mip is ~E(d)/pi and probe_irradiance gives
         # E(d); ddir is not unit length, the SH basis needs it normalised
-        env_diffuse = brdf.probe_irradiance(ibl["sh"], brdf.normalize(ddir) @ skyrot.T) / brdf.PI
+        env_diffuse = (brdf.probe_irradiance(ibl["sh"], brdf.normalize(ddir) @ skyrot.T)
+                       / brdf.PI if sky_diffuse else None)
         return up(spec_h, h, w), env_diffuse, up(eb_h, h, w)
     lod = rough * (len(mips) - 1)
     sdir_e, ddir_e = sdir @ skyrot.T, ddir @ skyrot.T
@@ -126,10 +137,38 @@ def _env_terms(gbuffer, normal, eyevec, rough, ibl, skyrot, h, w, env_scale,
     return env_specular, env_diffuse, lut[bi, bj]
 
 
+def _material(gbuffer, rough):
+    """The gbuffer's material: diffuse and specular (H, W, 3), roughness,
+    alpha and emissive (H, W)."""
+    return dict(diffuse=gbuffer["diffuse"][..., :3], specular=gbuffer["specular"][..., :3],
+                roughness=rough, alpha=rough ** 2,
+                emissive=128.0 * gbuffer["diffuse"][..., 3] ** 3)
+
+
+def _sun_factor(shadowmaps, worldpos, viewpos, normal, ml, scale, slice_blend, up, h, w):
+    """The sun's shadow factor (H, W): the ESM factor of build_esm's tuple
+    at 1/scale, upsampled by up; the PCF factor of raw cascades; None
+    without shadow maps (a factor of 1)."""
+    from .blur import downsample_pool
+    from .shadow import shadow_factor, shadow_factor_esm_fast
+
+    if isinstance(shadowmaps, tuple):
+        esm, zmx, zsc = shadowmaps[:3]
+        sf_h = shadow_factor_esm_fast(
+            downsample_pool(worldpos, scale), esm, zmx, zsc, ml["splits"], ml["shadowview"],
+            downsample_pool(-viewpos[..., 2], scale), normal=downsample_pool(normal, scale),
+            slice_blend=slice_blend)
+        return up(sf_h, h, w)
+    if shadowmaps is not None:
+        return shadow_factor(worldpos, shadowmaps, ml["splits"], ml["shadowview"],
+                             -viewpos[..., 2], normal=normal)
+    return None
+
+
 def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, light_counts, ssao=None,
                    shadowmaps=None, ibl=None, cluster=None, spotmaps=None,
                    shadow_factor_scale=2, env_scale=2, shadow_slice_blend=0.0,
-                   full_size=None, y0=0, up_to=None):
+                   full_size=None, y0=0, up_to=None, use_kernel=False):
     """The deferred shade: hdr (H, W, 3) times the camera exposure, black
     on the background (the sky fills it later).
 
@@ -145,38 +184,67 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, light_counts, ssa
     up_to(x, h, w) the upsampler of the reduced-res factor and env fields
     (default resize_up_dense; a band passes its all-gather closure).
     light_counts: (point, spot) live light counts as Python ints, equal
-    to sceneset's count entries (render/frame.py::read_light_counts)."""
-    from .blur import downsample_pool, resize_up_dense
-    from .shadow import shadow_factor, shadow_factor_esm_fast, spot_shadow_factor
+    to sceneset's count entries (render/frame.py::read_light_counts).
+    use_kernel (the frame's use_pallas) with CUDA tensors: the per-pixel
+    terms run in one launch of csrc/lighting.cu (ops/lighting_cuda.py),
+    after the environment and sun taps; otherwise as PyTorch operations."""
+    from .blur import resize_up_dense
 
     h, w = depth.shape
     fh, fw = full_size if full_size is not None else (h, w)
     up = up_to if up_to is not None else resize_up_dense
+    kernel = use_kernel and depth.is_cuda
     viewpos, worldpos = reconstruct_positions(depth, proj, invview, fw, fh, y0=y0)
     campos = invview[:3, 3]
     cam = sceneset["camera"]
     normal = gbuffer["normal"][..., :3] * 2.0 - 1.0
     rough = gbuffer["specular"][..., 3]
-    material = dict(diffuse=gbuffer["diffuse"][..., :3], specular=gbuffer["specular"][..., :3],
-                    roughness=rough, alpha=rough ** 2,
-                    emissive=128.0 * gbuffer["diffuse"][..., 3] ** 3)
+    material = None if kernel else _material(gbuffer, rough)
     eyevec = brdf.normalize(campos - worldpos)
     ambient = cam["ambientintensity"]
-    if ssao is not None:
+    if ssao is not None and not kernel:
         ambient = ambient * ssao
 
     with span("frame.shade.lighting.env"):
-        env_specular = env_diffuse = envbrdf = None
+        env = None
         if ibl is not None:
-            env_specular, env_diffuse, envbrdf = _env_terms(
-                gbuffer, normal, eyevec, rough, ibl, cam["skyrot_inv"], h, w, env_scale,
-                worldpos, up)
+            env = _env_terms(gbuffer, normal, eyevec, rough, ibl, cam["skyrot_inv"], h, w,
+                             env_scale, worldpos, up, sky_diffuse=not kernel)
 
+    def sun():
+        return _sun_factor(shadowmaps, worldpos, viewpos, normal, sceneset["mainlight"],
+                           shadow_factor_scale, shadow_slice_blend, up, h, w)
+
+    if kernel:
+        from . import lighting_cuda
+        with span("frame.shade.lighting.sun"):
+            sf = sun()
+        with span("frame.shade.lighting.kernel"):
+            inp = lighting_cuda.lighting_inputs(
+                gbuffer, depth, sceneset, proj=proj, invview=invview,
+                light_counts=light_counts, ssao=ssao, env=env,
+                sky_sh=None if ibl is None else ibl.get("sh"), sf=sf,
+                spotmaps=spotmaps, cluster=cluster, y0=y0, full_size=(fh, fw))
+            return lighting_cuda.lighting_cuda(**inp)
+    return _lit(normal, material, gbuffer["mask"], worldpos, eyevec, ambient, env, sceneset,
+                sun, cluster, spotmaps, light_counts, h, w, depth.device)
+
+
+def _lit(normal, material, mask, worldpos, eyevec, ambient, env, sceneset, sun, cluster,
+         spotmaps, light_counts, h, w, device):
+    """The plain pass's per-pixel terms: hdr (H, W, 3) from the surface,
+    the environment's (env_specular, env_diffuse, envbrdf) or None, the
+    sceneset's camera, lights and probes, sun() the sun's factor or None
+    (called inside its span), the clusters or the dense counts, the spot
+    maps."""
+    from .shadow import spot_shadow_factor
+
+    cam = sceneset["camera"]
+    env_specular, env_diffuse, envbrdf = env if env is not None else (None, None, None)
     probes = sceneset.get("probes")
     if probes is not None and probes["position"].shape[0] > 0 and env_diffuse is not None:
         with span("frame.shade.lighting.probes"):
-            total_w = torch.ones(worldpos.shape[:-1], dtype=torch.float32,
-                                 device=depth.device)
+            total_w = torch.ones(worldpos.shape[:-1], dtype=torch.float32, device=device)
             acc = env_diffuse
             for i in range(probes["position"].shape[0]):
                 on = (i < probes["count"]).to(torch.float32)
@@ -197,25 +265,15 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, light_counts, ssa
         else:
             # the constant-ambient fallback without an environment
             amb = torch.as_tensor(ambient * 0.2)
-            diffuse = torch.zeros((h, w, 3), dtype=torch.float32, device=depth.device) \
+            diffuse = torch.zeros((h, w, 3), dtype=torch.float32, device=device) \
                 + (amb[..., None] if amb.ndim == 2 else amb)
-            specular = torch.zeros((h, w, 3), dtype=torch.float32, device=depth.device)
+            specular = torch.zeros((h, w, 3), dtype=torch.float32, device=device)
 
     with span("frame.shade.lighting.sun"):
         ml = sceneset["mainlight"]
-        if isinstance(shadowmaps, tuple):
-            p = shadow_factor_scale
-            esm, zmx, zsc = shadowmaps[:3]
-            sf_h = shadow_factor_esm_fast(
-                downsample_pool(worldpos, p), esm, zmx, zsc, ml["splits"], ml["shadowview"],
-                downsample_pool(-viewpos[..., 2], p), normal=downsample_pool(normal, p),
-                slice_blend=shadow_slice_blend)
-            sf = up(sf_h, h, w)
-        elif shadowmaps is not None:
-            sf = shadow_factor(worldpos, shadowmaps, ml["splits"], ml["shadowview"],
-                               -viewpos[..., 2], normal=normal)
-        else:
-            sf = torch.ones((h, w), dtype=torch.float32, device=depth.device)
+        sf = sun()
+        if sf is None:
+            sf = torch.ones((h, w), dtype=torch.float32, device=device)
         d, s = brdf.main_light(normal, eyevec, material, ml["direction"], ml["intensity"],
                                ml["cutoff"], sf)
         diffuse = diffuse + d
@@ -260,4 +318,4 @@ def shade_deferred(gbuffer, depth, sceneset, *, proj, invview, light_counts, ssa
     color = (material["diffuse"] * diffuse + specular
              + material["emissive"][..., None] * material["diffuse"])
     color = color * cam["exposure"]
-    return torch.where(gbuffer["mask"][..., None], color, torch.zeros_like(color))
+    return torch.where(mask[..., None], color, torch.zeros_like(color))

@@ -310,7 +310,7 @@ def _render_sharded_reduced(cfg: FrameConfig, bands: Bands, state, draws, scenes
     hdr = lighting_pass.shade_deferred(
         gbuffer, depth, sceneset, proj=proj, invview=invview, light_counts=lights,
         shadowmaps=shadowmaps if cfg.enable_shadows else None,
-        full_size=(h, w), y0=y0, up_to=up_to)
+        full_size=(h, w), y0=y0, up_to=up_to, use_kernel=cfg.use_pallas)
     lum = _band_luminance(bands, hdr, y0, cfg)
 
     bloom_img = None

@@ -37,9 +37,10 @@ with `use_pallas`, else the scan raster -> the visibility raster: K1
 (no material maps) or K7 (`raster_kernel="mxu"`, ops/raster_mxu_cuda.py)
 with `gbuffer_from_planes`, or K5 (ops/raster_v1_cuda.py) or the scan
 raster (ops/raster.py::raster, without `use_pallas`) with
-`resolve_gbuffer` -> gbuffer decals, SSAO -> the XLA lighting
+`resolve_gbuffer` -> gbuffer decals, SSAO -> the lighting pass
 (ops/lighting_pass.py::shade_deferred, with the box probes' per-pixel
-lookup) -> sky fill, fog apply, fog planes -> two separate
+lookup: its taps as PyTorch operations, its per-pixel terms in
+csrc/lighting.cu with `use_pallas`, else as PyTorch operations) -> sky fill, fog apply, fog planes -> two separate
 weighted-blend passes, translucents then particles (K4 with
 `use_pallas`, else ops/blend.py::raster_blend) -> the same post.
 Without `use_pallas` the rasters and the blend are plain PyTorch on the
@@ -1345,7 +1346,8 @@ def _deferred_frame(cfg: FrameConfig, state, draws, sceneset, prev, vtx, counter
                 ibl=ibl, cluster=cluster, ssao=ssao, spotmaps=spotmaps,
                 shadow_factor_scale=cfg.shadow_factor_scale,
                 shadow_slice_blend=cfg.shadow_slice_blend,
-                light_counts=read_light_counts(sceneset) if lights is None else lights)
+                light_counts=read_light_counts(sceneset) if lights is None else lights,
+                use_kernel=cfg.use_pallas)
         if ibl is not None:
             with span("frame.shade.sky"):
                 hdr = _sky_fill(ibl, sceneset, hdr, gbuffer["mask"], w, h)

@@ -39,7 +39,11 @@ Python codec both ways.  The frame graph: replayed megakernel frames
 and deferred frames (the K5, K1 and K7 routes) bit-equal to eager frames
 on the same inputs, K1, K2, K5 and K4 launched between the graphs into
 preallocated outputs, no host sync in a replayed deferred frame, a new
-capture for a new light count, the scan raster left eager."""
+capture for a new light count, the scan raster left eager.  The deferred
+lighting kernel (csrc/lighting.cu) within atol 1e-4 / rtol 1e-3 of the
+plain lighting pass on tests/test_torch_lighting_kernel.py's cases, one
+launch a deferred frame with use_pallas (inside the graphs once
+replayed); ptxas at most 128 registers and no spill."""
 
 import dataclasses
 
@@ -62,6 +66,8 @@ from datum_tpu_torch.ops.raster_depth_cuda import (depth_inputs,
                                                    raster_depth_cuda,
                                                    raster_depth_reference)
 from datum_tpu_torch.ops.gather_cuda import gather_rows_cuda, gather_rows_reference
+from datum_tpu_torch.ops import lighting_pass
+from datum_tpu_torch.ops.lighting_cuda import lighting_cuda
 from datum_tpu_torch.ops.shade_cuda import (shade_deferred_cuda,
                                             shade_deferred_envd,
                                             shade_deferred_reference,
@@ -78,6 +84,8 @@ from datum_tpu_torch.ops.sprite_pass_cuda import composite_sprites_cuda
 from datum_tpu_torch.render import frame as frame_mod
 from datum_tpu_torch.render.types import make_sceneset
 from datum_tpu_torch.scenes import datumtest_scene, stress_scene
+from test_torch_lighting_kernel import CASES as LIGHTING_CASES
+from test_torch_lighting_kernel import lighting_case
 
 pytestmark = pytest.mark.cuda
 
@@ -658,6 +666,36 @@ def test_k5_ptxas_no_spill(card):
     assert not rep["spill_bytes"], rep
 
 
+@pytest.mark.parametrize("name", sorted(LIGHTING_CASES))
+def test_lighting_kernel_matches_plain(card, name):
+    """The deferred lighting pass through csrc/lighting.cu against its
+    plain PyTorch version on the card, on tests/test_torch_lighting_
+    kernel.py's seeded cases (SH probe counts 0, 3 and 8; 0, 5 and 8 dense
+    point lights and a clustered case; a spot with and without its map;
+    the ESM and PCF sun factors; the SH fast, per-pixel and box-probe
+    environments and none; a band with y0 > 0): one launch, hdr within
+    atol 1e-4 / rtol 1e-3 (torch's reductions and BLAS calls sum in
+    orders of their own)."""
+    args, kw = lighting_case(name, card)
+    n = lighting_cuda.launches
+    a = lighting_pass.shade_deferred(*args, **kw, use_kernel=True)
+    torch.cuda.synchronize()
+    assert lighting_cuda.launches == n + 1
+    b = lighting_pass.shade_deferred(*args, **kw, use_kernel=False)
+    assert torch.isfinite(b).all() and float(b.mean()) > 0.01
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+def test_lighting_ptxas_no_spill(card):
+    """ptxas: no spill, and at most 128 registers (two blocks of 256
+    threads an SM)."""
+    from datum_tpu_torch.ops import _kernels
+
+    rep = _kernels.library().ptxas("lighting.cu")
+    assert rep["registers"] is not None and rep["registers"] <= 128, rep
+    assert not rep["spill_bytes"], rep
+
+
 def test_k7_kernel_matches_plain(card):
     """256x32, over 128 entries a tile, duplicated triangles (ties)."""
     w, h, tx, ty = 256, 32, 2, 1
@@ -728,11 +766,12 @@ def test_deferred_frame_on_card_matches_cpu_plain(card, scene):
     cfg = ctx.config
     if cfg.enable_fog:
         ss["camera"]["fogdensity"] = np.float32(FOG_DENSITY)
-    n = raster_v1_cuda.launches, raster_mxu_cuda.launches
+    n = raster_v1_cuda.launches, raster_mxu_cuda.launches, lighting_cuda.launches
     a = frame_mod.render_frame(cfg, state, draws, ss, device=card)
     torch.cuda.synchronize()
-    n = raster_v1_cuda.launches - n[0], raster_mxu_cuda.launches - n[1]
-    assert n == (int(scene is K5_FRAME), int(scene is K7_FRAME))
+    n = (raster_v1_cuda.launches - n[0], raster_mxu_cuda.launches - n[1],
+         lighting_cuda.launches - n[2])
+    assert n == (int(scene is K5_FRAME), int(scene is K7_FRAME), int(cfg.use_pallas))
     b = frame_mod.render_frame(cfg, ctx.host_state(), draws, ss, device="cpu")
     ia = a["image"].cpu().numpy().astype(np.float32)
     ib = b["image"].numpy().astype(np.float32)
@@ -1580,7 +1619,8 @@ def test_frame_graph_replays_the_deferred_branch_bit_equal(card):
     4-6 replayed, each bit-equal in image, depth, vis, luminance and
     ao_prev to the eager frame on the same inputs, which reads the light
     counts back from the device; earlier outputs unchanged; K5 launched
-    once and K4 twice a frame from their wrappers.  A replayed frame,
+    once and K4 twice a frame from their wrappers, the lighting kernel
+    once, inside the graphs on a replayed frame.  A replayed frame,
     profiled with the program's tracing on (debug/stages.py), makes no
     host sync and only those 3 launch calls, K5 under frame.raster.k5
     and K4 under frame.translucent.wboit and .particles.  One point
@@ -1598,9 +1638,10 @@ def test_frame_graph_replays_the_deferred_branch_bit_equal(card):
         rl, ss = _deferred_inputs(camera, params, make_rl, i, n_point)
         draws = ctx.frame_draws(rl, camera)
         stats = dict(g_debuglog.statistics)
-        n = raster_v1_cuda.launches, raster_blend_cuda.launches
+        n = raster_v1_cuda.launches, raster_blend_cuda.launches, lighting_cuda.launches
         out = frame_mod.render_frame(cfg, state, draws, ss, device=card, prev=prev)
-        n = raster_v1_cuda.launches - n[0], raster_blend_cuda.launches - n[1]
+        n = (raster_v1_cuda.launches - n[0], raster_blend_cuda.launches - n[1],
+             lighting_cuda.launches - n[2])
         kind = [k for k, v in g_debuglog.statistics.items() if v != stats.get(k, 0)]
         eager = frame_mod._eager_frame(cfg, state, draws, ss, prev, card)
         got, want = _graph_outputs(out), _graph_outputs(eager)
@@ -1612,7 +1653,7 @@ def test_frame_graph_replays_the_deferred_branch_bit_equal(card):
     prev, kept, kinds = None, [], []
     for i in range(6):
         out, got, kind, n, lights = frame(i, prev)
-        assert n == (1, 2) and lights == (4, 1), i
+        assert n == (1, 2, 1) and lights == (4, 1), i
         kinds += kind
         kept.append((out, got))
         prev = out["ao_prev"]
@@ -1624,7 +1665,7 @@ def test_frame_graph_replays_the_deferred_branch_bit_equal(card):
     kinds = []
     for i in (6, 7):
         out, _, kind, n, lights = frame(i, prev, n_point=3)
-        assert n == (1, 2) and lights == (3, 1)
+        assert n == (1, 2, 1) and lights == (3, 1)
         kinds += kind
         prev = out["ao_prev"]
     assert kinds == ["frame.graph.eager", "frame.graph.capture"]

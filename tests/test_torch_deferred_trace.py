@@ -163,9 +163,10 @@ def test_tracing_off_runs_what_the_plain_copy_runs(scene, monkeypatch, part):
     a, k = args[0]
     ops_program, res_program = _ops(lambda: orig(*a, **k))
     # the plain copy reads the light counts back from the sceneset's
-    # tensors, which the frame now gives shade_deferred as host ints
+    # tensors, which the frame now gives shade_deferred as host ints, and
+    # has no kernel route (use_kernel: CPU tensors take the plain one)
     readback = ("aten::item", "aten::_local_scalar_dense")
-    plain_k = {n: v for n, v in k.items() if n != "light_counts"}
+    plain_k = {n: v for n, v in k.items() if n not in ("light_counts", "use_kernel")}
     ops_plain, res_plain = _ops(lambda: getattr(plain, part)(*a, **plain_k))
     if part == "shade_deferred":
         assert k["light_counts"] == F.host_light_counts(scene[3])

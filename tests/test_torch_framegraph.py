@@ -460,9 +460,11 @@ def _deferred_scene(scene=K5_SCENE, t=0.3, n_point=None):
 def _as_card(monkeypatch):
     """The card's dispatch on CPU tensors: every tensor reads as a CUDA
     one, so the wrappers launch their kernels, each replaced by a plain
-    version that counts its calls (K5 and K4 write into `out`).  Returns
-    the list of calls."""
-    from datum_tpu_torch.ops import raster_blend_cuda, raster_depth_cuda, raster_v1_cuda
+    version that counts its calls (K5 and K4 write into `out`; the
+    lighting kernel, which runs inside the graphs, is not counted).
+    Returns the list of calls."""
+    from datum_tpu_torch.ops import (lighting_cuda, raster_blend_cuda, raster_depth_cuda,
+                                     raster_v1_cuda)
 
     calls = []
 
@@ -482,6 +484,7 @@ def _as_card(monkeypatch):
     monkeypatch.setattr(raster_v1_cuda, "raster_v1_cuda", k5)
     monkeypatch.setattr(raster_blend_cuda, "raster_blend_cuda", k4)
     monkeypatch.setattr(raster_depth_cuda, "raster_depth_cuda", k3)
+    monkeypatch.setattr(lighting_cuda, "lighting_cuda", lighting_cuda.lighting_reference)
     return calls
 
 
